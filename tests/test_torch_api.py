@@ -1,0 +1,201 @@
+"""The port's ``value_and_grad_offloaded`` against the JAX package's, on the
+CPU with a pinned schedule.
+
+``runner="fused"`` (the port's plain versions of the fused kernels off the
+card) is held against JAX's ``runner="pallas"`` in interpret mode, and
+``runner="compiled"`` against JAX's compiled runner: the loss within 1e-5,
+gradients within 1e-4 of each leaf's scale, and the plan and the executor
+counters *equal*.  Segments and in-segment chunks have uneven tails, and
+one case has a length-1 chunk tail.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import api as j_api
+from repro.models import lstm as j_lstm
+from repro_torch import api
+from repro_torch.api import frontend as fe
+from repro_torch.convert import init_lstm_numpy, params_from_numpy
+from repro_torch.models import lstm
+
+V, DX, DH, B = 17, 8, 12, 3
+COUNTERS = ("advances", "backwards", "l2_stores", "host_dispatches",
+            "fused_segments", "fused_boundary_copies", "l2_peak_bytes")
+
+
+def _inputs(T, seed):
+    ref = init_lstm_numpy(seed, V, DX, DH)
+    tok = np.random.default_rng(seed).integers(0, V, (B, T + 1)).astype(
+        np.int32)
+    return ref, tok
+
+
+def _jax_run(ref, tok, runner, interval, slots, monkeypatch):
+    monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
+    vg = j_api.value_and_grad_offloaded(
+        j_lstm.train_chain(), interval=interval, slots=slots, runner=runner)
+    loss, grads = vg({k: jnp.asarray(v) for k, v in ref.items()},
+                     {"tokens": jnp.asarray(tok)})
+    return (float(loss), jax.tree_util.tree_map(np.asarray, grads),
+            j_api.last_plan().plan_id, j_api.last_stats())
+
+
+def _port_run(ref, tok, runner, interval, slots):
+    vg = api.value_and_grad_offloaded(
+        lstm.train_chain(), interval=interval, slots=slots, runner=runner,
+        device="cpu")
+    loss, grads = vg(params_from_numpy(ref, device="cpu"),
+                     {"tokens": torch.as_tensor(tok)})
+    return (float(loss), {k: g.numpy() for k, g in grads.items()},
+            api.last_plan().plan_id, api.last_stats())
+
+
+def _assert_same(port, ref):
+    loss, grads, plan_id, stats = port
+    j_loss, j_grads, j_plan_id, j_stats = ref
+    np.testing.assert_allclose(loss, j_loss, rtol=1e-5)
+    assert set(grads) == set(j_grads)
+    for k, g in j_grads.items():
+        np.testing.assert_allclose(grads[k], g, rtol=1e-4,
+                                   atol=1e-4 * max(np.abs(g).max(), 1e-6),
+                                   err_msg=k)
+    assert plan_id == j_plan_id
+    for name in COUNTERS:
+        assert getattr(stats, name) == getattr(j_stats, name), name
+
+
+@pytest.mark.parametrize("T,interval,slots", [
+    (37, 8, 4),     # uneven segment tail (5) + uneven chunk tails
+    (24, 24, 5),    # single segment, chunked with a short tail
+    (30, 13, 4),    # chunks 4,4,4,1: a length-1 tail
+])
+def test_fused_runner_matches_jax_pallas(T, interval, slots, monkeypatch):
+    ref, tok = _inputs(T, seed=T)
+    j = _jax_run(ref, tok, "pallas", interval, slots, monkeypatch)
+    assert j[3].fused_segments > 0   # interpret-mode kernels really ran
+    _assert_same(_port_run(ref, tok, "fused", interval, slots), j)
+
+
+def test_compiled_runner_matches_jax_compiled(monkeypatch):
+    ref, tok = _inputs(37, seed=3)
+    j = _jax_run(ref, tok, "compiled", 8, 4, monkeypatch)
+    _assert_same(_port_run(ref, tok, "compiled", 8, 4), j)
+
+
+def test_runners_agree_with_dense_autograd():
+    ref, tok = _inputs(29, seed=9)
+    p = params_from_numpy(ref, device="cpu")
+    leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    loss = lstm.forward_loss(leaves, torch.as_tensor(tok))
+    dense = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    for runner in ("compiled", "fused"):
+        v, g = api.value_and_grad_offloaded(
+            lstm.train_chain(), interval=7, slots=3, runner=runner,
+            device="cpu")(p, {"tokens": torch.as_tensor(tok)})
+        torch.testing.assert_close(v, loss.detach(), rtol=1e-5, atol=0)
+        for k in dense:
+            torch.testing.assert_close(
+                g[k], dense[k], rtol=1e-4,
+                atol=1e-4 * float(dense[k].abs().max()))
+
+
+@pytest.mark.parametrize("kw", [
+    {"strategy": "nope"},
+    {"engine": "nope"},
+    {"runner": "nope"},
+    {"runner": "PALLAS", "engine": "interpreted"},
+    {"runner": "PALLAS", "engine": "scan"},
+    {"engine": "scan", "strategy": "revolve"},
+    {"engine": "scan", "storage": "disk"},
+])
+def test_offload_config_raises_the_same_value_errors(kw):
+    from repro.api.frontend import OffloadConfig as JConfig
+
+    j_kw = {k: ("pallas" if v == "PALLAS" else v) for k, v in kw.items()}
+    t_kw = {k: ("fused" if v == "PALLAS" else v) for k, v in kw.items()}
+    with pytest.raises(ValueError) as j_err:
+        JConfig(**j_kw)
+    with pytest.raises(ValueError) as t_err:
+        fe.OffloadConfig(**t_kw)
+    # the same knob is named in both messages
+    knob = next(iter(kw)) if kw.get("runner") != "PALLAS" else "runner"
+    assert knob in str(j_err.value) and knob in str(t_err.value)
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"strategy": "revolve"}, "item 4"),
+    ({"engine": "interpreted"}, "item 4"),
+    ({"engine": "scan"}, "item 13"),
+    ({"storage": "disk"}, "item 9"),
+])
+def test_left_out_knobs_name_their_roadmap_item(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        fe.OffloadConfig(**kw)
+
+
+def test_autotuned_interval_follows_section_3():
+    """I == snap_interval(n, ceil(T_T / T_A)) from the run's own
+    measurements."""
+    ref, tok = _inputs(40, seed=4)
+    tuner = api.AutoTuner()
+    vg = api.value_and_grad_offloaded(lstm.train_chain(), runner="fused",
+                                      tuner=tuner, device="cpu")
+    vg(params_from_numpy(ref, device="cpu"),
+       {"tokens": torch.as_tensor(tok)})
+    tune = api.last_tune()
+    assert tune.source == "measured" and tune.t_a > 0 and tune.t_t > 0
+    n = api.last_plan().n
+    assert tune.interval == api.snap_interval(
+        n, max(1, math.ceil(tune.t_t / tune.t_a)))
+    assert api.last_plan().interval == tune.interval
+
+
+def test_plain_loss_falls_back_with_warning():
+    def loss_fn(p, b):
+        return (p["w"] * b["x"]).sum()
+
+    with pytest.warns(UserWarning, match="no chain decomposition"):
+        vg = api.value_and_grad_offloaded(loss_fn, device="cpu")
+    v, g = vg({"w": torch.tensor(2.0)}, {"x": torch.arange(3.0)})
+    assert float(v) == 6.0 and float(g["w"]) == 3.0
+
+
+def test_run_multistage_single_shot_matches_the_front_end():
+    """The executor's single-shot form (forward sweep, adjoint seeded from
+    x_n by a hook, reverse sweep) gives the front-end's gradients."""
+    from repro_torch.api.chain import diff_mask
+    from repro_torch.core.compiled_ops import (CompiledChainOps,
+                                               FusedSegmentRunner)
+    from repro_torch.core.executor import CheckpointExecutor
+
+    ref, tok = _inputs(26, seed=11)
+    params = params_from_numpy(ref, device="cpu")
+    batch = {"tokens": torch.as_tensor(tok)}
+    spec = lstm.train_chain()
+    carry0, xs = spec.prelude(params, batch)
+    treespec, mask = diff_mask(xs)
+    runner = FusedSegmentRunner(CompiledChainOps(spec.body, treespec, mask),
+                                params, xs, batch, s_l1=3)
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+
+    def seed(x_n):   # d loss / d carry_n for loss = acc
+        h, c, acc = x_n
+        return ((torch.zeros_like(h), torch.zeros_like(c),
+                 torch.ones_like(acc)), zeros)
+
+    (dcarry0, grads), stats = CheckpointExecutor().run_multistage(
+        carry0, len(tok[0]) - 1, None, interval=7, s_l1=3, runner=runner,
+        final_hook=seed)
+    _, ref_grads = api.value_and_grad_offloaded(
+        spec, interval=7, slots=3, runner="fused", device="cpu")(params,
+                                                                 batch)
+    assert stats.l2_stores == 4 and stats.fused_segments == 8
+    for k in ref_grads:
+        torch.testing.assert_close(grads[k], ref_grads[k], rtol=1e-6,
+                                   atol=0)
