@@ -6,35 +6,59 @@
 Phases, each printing its own lines:
 
 1. device   — ``nvidia-smi`` name and power limit; TF32 off for the plain
-              references (the kernels are fp32).
+              references (the kernels are fp32 inside).
 2. build    — every CUDA source compiled with ``nvcc`` for sm_90a into
               ``build/repro_torch_kernels/`` (one ``nvcc`` per source, all
               started together), with the build seconds.
-3. kernels  — each kernel against its plain PyTorch version on the card at
-              full width: ``lstm_cell`` (B=256, Dx=64, Dh=256; fp32 at 1e-5,
-              bf16 at 3e-2) and the fused advance/reverse over one segment
-              with an uneven chunk tail and one with a length-1 tail.
+3. kernels  — each kernel against its plain PyTorch version on the card:
+              ``lstm_cell`` (B=256, Dx=64, Dh=256; fp32 at 1e-5, bf16 at
+              3e-2), the fused advance/reverse over one segment with an
+              uneven chunk tail and one with a length-1 tail,
+              ``flash_attention`` (gemma2-2b's layer shape in bf16 and
+              fp32, D=64 and 256, GQA, window < S, softcap, Sq < Sk,
+              ragged edges, rows that see no key; its logsumexp at 1e-5 of
+              the plain forward's) and ``ssd_scan`` (mamba2-370m's layer
+              shape in bf16 and fp32, a ragged batch*heads and chunk tail
+              with an entry state).  Outputs are held per element at
+              ``TOL``: rtol times |ref| plus atol times an RMS of the
+              reference (attention's row, the SSD head's sequence); at the
+              bf16 layer shapes the script also shows
+              that an output one kv tile short, or one that drops a chunk's
+              carried state, fails that check.
 4. main     — ``value_and_grad_offloaded(get_model(lstm-paper).train_loss,
               runner="fused")`` on ``make_batch(lstm-paper, train_4k)``
               (B=256, S=4096), once autotuned and once with a pinned
               interval that leaves a tail segment, each held against dense
               ``torch.autograd`` of ``forward_loss`` (loss at 1e-5
-              relative, each gradient leaf at 1e-4 of its max |g|); every
-              kernel's launch count is read from this phase alone.
-5. timing   — each kernel, its plain version and the nearest library call
-              timed with CUDA events at the main path's segment shape.
-6. train    — three RMSProp steps through the offloaded gradient; the
+              relative, each gradient leaf at 1e-4 of its max |g|); the LSTM
+              kernels' launch counts are read from this phase alone.
+5. dense    — ``value_and_grad_offloaded(get_model(gemma2-2b).train_loss)``
+              (``runner="compiled"``, autotuned) at full width and depth (26
+              layers, 13 chain steps), ``train_4k`` with the global batch
+              cut from 256 to 2, weights from a seeded CUDA generator; held
+              against dense autograd of ``train_loss`` (loss 1e-5 relative,
+              each gradient leaf 1e-3 of its max |g|).  ``flash_attention``
+              launches are read from the first offloaded call alone (the
+              main path, autotune probe included); a second call, with the
+              schedule cached, is timed against a second (warm) dense call.
+6. ssm      — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
+              and ``ssd_scan``.
+7. timing   — each kernel, its plain version and the nearest library call
+              timed with CUDA events at the main path's shapes.
+8. train    — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over one main-path
-call per schedule (device kernel time by name and the device's busy share).
+call per LSTM schedule and one offloaded call in each decoder phase (device
+kernel time by name and the device's busy share).
 It is not part of the default run.  Logs too long for the output (the
 ptxas report, the profile tables) go to ``--out-dir`` (default
 ``build/chip_smoke/`` in the checkout).
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (per
-kernel: launches in the main phase, error against the plain version, times
-and the least time the card could take for the same work); the last line
+kernel: launches in the phase whose path runs it, error against the plain
+version at the main path's shapes, times and the least time the card could
+take for the same work); the last line
 is ``{"ok": true, "device": {...}}``.  A failure in any phase exits non-zero
 without that line.  Without a CUDA device the script exits non-zero at once.
 """
@@ -52,10 +76,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 DEFAULT_OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
-PHASES = ("device", "build", "kernels", "main", "timing", "train")
+PHASES = ("device", "build", "kernels", "main", "dense", "ssm", "timing",
+          "train")
 OPTIONAL = ("profile",)   # run only when named in --phases
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 bandwidth (data sheet)
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores (data sheet)
+BF16_TC_FLOPS = 989e12      # bf16 tensor cores, dense (data sheet)
 
 
 def log(msg: str) -> None:
@@ -90,9 +116,9 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOPS
+    t_ops = flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -105,6 +131,34 @@ def cell_flops(B: int, Dx: int, Dh: int) -> float:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def excess(a, ref, rtol: float, dims=(-1,)) -> float:
+    """Per element, the part of |a - ref| beyond ``rtol * |ref|``, over the
+    RMS of ``ref`` across ``dims`` (by default the element's row: one
+    head's output at one position); the largest over the tensor.  ``a``
+    passes at ``(rtol, atol)`` when this is at most ``atol``: the tolerance
+    follows the size of each element and of its neighbours, so small
+    outputs are held as tightly as large ones."""
+    a, r = a.float(), ref.float()
+    rms = r.pow(2).mean(dims, keepdim=True).sqrt().clamp_min(1e-30)
+    return float(((a - r).abs() - rtol * r.abs()).clamp_min(0).div(rms).max())
+
+
+# (rtol, atol) of the kernels' outputs against their plain versions, atol in
+# units of an RMS of the reference: attention's per row (one head at one
+# position; along a causal sequence rows differ in size by orders of
+# magnitude), the SSD scan's per head over the whole sequence (y_l is an
+# intra-chunk and an inter-chunk sum that may nearly cancel, so a row can be
+# far smaller than the sums that make it).  fp32: sums in other orders.
+# bf16: one rounding of the output (1 ulp is at most 2^-7 of |ref|) and, in
+# attention only, p rounded to bf16 at another point of the softmax
+# (unnormalised, against the running max, where the plain version rounds the
+# normalised p): up to 2^-9 of each |p_j v_j|, which the row's RMS does not
+# follow where the terms cancel.
+TOL = {"flash_attention": {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 2e-2)},
+       "ssd_scan": {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-3)}}
+SSD_Y_DIMS, SSD_H_DIMS = (1, 3), (2, 3)   # y (B, T, H, P), h (B, H, P, N)
 
 
 def scaled_err(a, b) -> float:
@@ -239,6 +293,157 @@ def check_segment(torch, cfg, T, chunk, seed, label):
     return adv, rev_abs
 
 
+def _randn(torch, rng, shape, dtype, scale=1.0):
+    import numpy as np
+
+    a = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return torch.tensor(a, device="cuda").to(dtype)
+
+
+# label, (B, Sq, Sk, H, G, D), dtype name, keyword arguments; the first
+# two are every gemma2-2b layer at the dense phase's shape
+GEMMA_KW = {"softcap": 50.0, "scale": 256 ** -0.5}
+FLASH_CASES = (
+    ("gemma2-2b layer", (2, 4096, 4096, 8, 4, 256), "bfloat16", GEMMA_KW),
+    ("gemma2-2b layer fp32", (2, 4096, 4096, 8, 4, 256), "float32",
+     GEMMA_KW),
+    ("fp32 D=64 window<S ragged", (2, 1000, 1000, 4, 1, 64), "float32",
+     {"window": 100, "softcap": 30.0}),
+    ("bf16 D=64 Sq<Sk ragged", (1, 300, 777, 4, 2, 64), "bfloat16",
+     {"window": 200}),
+    ("fp32 D=64 non-causal", (2, 129, 129, 4, 4, 64), "float32",
+     {"causal": False}),
+)
+
+
+def check_flash(torch, label, dims, dtype, kw, seed):
+    """The flash kernel against its plain version (per element, ``TOL``),
+    and its logsumexp against the plain chunked forward's; returns the max
+    abs error."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import _chunked_fwd
+
+    B, Sq, Sk, H, G, D = dims
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    q = _randn(torch, rng, (B, Sq, H, D), dt)
+    k = _randn(torch, rng, (B, Sk, G, D), dt)
+    v = _randn(torch, rng, (B, Sk, G, D), dt)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    _, ref_lse = _chunked_fwd(q, k, v, kw.get("causal", True),
+                              kw.get("window"), kw.get("softcap"), 1024,
+                              kw.get("scale"))
+    torch.cuda.synchronize()
+    rtol, atol = TOL["flash_attention"][dtype]
+    err, ex = max_err(out, ref), excess(out, ref, rtol)
+    lse_err = max_err(lse, ref_lse)
+    lse_tol = 1e-5 * max(1.0, float(ref_lse.abs().max()))
+    require(bool(torch.isfinite(out.float()).all()) and ex <= atol,
+            f"flash_attention {label}: scaled excess {ex} over {atol} "
+            f"(rtol {rtol}; max abs err {err})")
+    require(lse_err <= lse_tol, f"flash_attention {label}: lse err "
+            f"{lse_err} over {lse_tol}")
+    log(f"[kernels] flash_attention {label} {dims} {dtype}: max abs err "
+        f"{err:.3g}, scaled excess {ex:.3g} (rtol {rtol}, atol {atol} x "
+        f"row RMS), lse err {lse_err:.3g}")
+    if label == "gemma2-2b layer":
+        # the check rejects a kernel that skips one kv tile: the plain
+        # version with keys 0..31 masked (K/V cut, queries kept at the end)
+        bad = fa.flash_attention_plain(q, k[:, 32:].contiguous(),
+                                       v[:, 32:].contiguous(), **kw)
+        ex_bad = excess(bad, ref, rtol)
+        require(ex_bad > atol, f"flash_attention {label}: an output that "
+                f"skips one kv tile passes the check ({ex_bad})")
+        log(f"[kernels] flash_attention {label}: one kv tile skipped would "
+            f"give a scaled excess of {ex_bad:.3g}")
+    return err
+
+
+def check_flash_unseen_rows(torch):
+    """Rows that see no key (Sq > Sk, causal) give 0, never NaN; the rest
+    match the plain version."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(11)
+    q = _randn(torch, rng, (1, 100, 2, 64), torch.float32)
+    k = _randn(torch, rng, (1, 50, 2, 64), torch.float32)
+    v = _randn(torch, rng, (1, 50, 2, 64), torch.float32)
+    out, _ = fa.flash_attention_fwd(q, k, v)
+    ref = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out).all())
+            and float(out[:, :50].abs().max()) == 0.0
+            and max_err(out[:, 50:], ref[:, 50:]) <= 2e-4,
+            "flash_attention: rows that see no key are not 0, or the rest "
+            "are off the plain version")
+    log("[kernels] flash_attention Sq > Sk: unseen rows 0, the rest max "
+        f"err {max_err(out[:, 50:], ref[:, 50:]):.3g}")
+
+
+# label, (B, T, H, G, P, N, chunk), dtype name, with an entry state; the
+# first two are every mamba2-370m layer at the ssm phase's shape
+SSD_CASES = (
+    ("mamba2-370m layer", (4, 4096, 32, 1, 64, 128, 128), "bfloat16",
+     False),
+    ("mamba2-370m layer fp32", (4, 4096, 32, 1, 64, 128, 128), "float32",
+     False),
+    ("ragged B*H and chunk tail", (3, 1000, 5, 1, 64, 128, 128), "float32",
+     True),
+    ("groups, fp32", (2, 512, 8, 2, 32, 64, 64), "float32", False),
+)
+
+
+def check_ssd(torch, label, dims, dtype, with_h0, seed):
+    """The SSD-scan kernel against its plain version (``ssd_scan_ref``
+    over the flattened heads), per element (``TOL``; the fp32 state at the
+    fp32 limits); returns the max abs error of y."""
+    import numpy as np
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    B, T, H, G, P, N, chunk = dims
+    rng = np.random.default_rng(seed)
+    dt_ = getattr(torch, dtype)
+    f32 = torch.float32
+    x = _randn(torch, rng, (B, T, H, P), dt_, 0.5)
+    dt = torch.nn.functional.softplus(_randn(torch, rng, (B, T, H), f32))
+    A = -torch.exp(_randn(torch, rng, (H,), f32, 0.3))
+    b = _randn(torch, rng, (B, T, G, N), dt_, 0.5)
+    c = _randn(torch, rng, (B, T, G, N), dt_, 0.5)
+    h0 = _randn(torch, rng, (B, H, P, N), f32, 0.5) if with_h0 else None
+    y, h = ssd.ssd_scan(x, dt, A, b, c, chunk=chunk, h0=h0)
+    y_ref, h_ref = ssd.ssd_scan_plain(x, dt, A, b, c, h0)
+    torch.cuda.synchronize()
+    rtol, atol = TOL["ssd_scan"][dtype]
+    ey = excess(y, y_ref, rtol, SSD_Y_DIMS)
+    eh = excess(h, h_ref, 2e-4, SSD_H_DIMS)
+    err = max_err(y, y_ref)
+    require(bool(torch.isfinite(y.float()).all()) and ey <= atol
+            and eh <= 2e-4, f"ssd_scan {label}: scaled excess y {ey} "
+            f"(rtol {rtol}, atol {atol}), h {eh} (2e-4, 2e-4)")
+    log(f"[kernels] ssd_scan {label} {dims} {dtype}: y max abs err "
+        f"{err:.3g}, scaled excess y {ey:.3g} (rtol {rtol}, atol {atol} x "
+        f"the head's RMS), h {eh:.3g} (2e-4, 2e-4)")
+    if label == "mamba2-370m layer":
+        # the check rejects a kernel that drops the state carried into the
+        # second chunk: the plain version restarted from zero there
+        y_bad = y_ref.clone()
+        y_bad[:, chunk:] = ssd.ssd_scan_plain(
+            *(t[:, chunk:].contiguous() for t in (x, dt)), A,
+            *(t[:, chunk:].contiguous() for t in (b, c)))[0]
+        ex_bad = excess(y_bad, y_ref, rtol, SSD_Y_DIMS)
+        require(ex_bad > atol, f"ssd_scan {label}: an output that drops "
+                f"one chunk's carried state passes the check ({ex_bad})")
+        log(f"[kernels] ssd_scan {label}: one carried state dropped would "
+            f"give a scaled excess of {ex_bad:.3g}")
+    return err
+
+
 def phase_kernels(state) -> None:
     import torch
 
@@ -271,9 +476,16 @@ def phase_kernels(state) -> None:
                              label="uneven chunk tail")
     adv1, rev1 = check_segment(torch, cfg, T=99, chunk=7, seed=3,
                                label="length-1 tail")
+    # the new kernels; the error kept is that of the main path's shapes
+    flash = [check_flash(torch, *case, seed=20 + i)
+             for i, case in enumerate(FLASH_CASES)]
+    check_flash_unseen_rows(torch)
+    ssd = [check_ssd(torch, *case, seed=30 + i)
+           for i, case in enumerate(SSD_CASES)]
     state["err"] = {"lstm_cell": errs["torch.float32"],
                     "fused_advance_segment": max(adv, adv1),
-                    "fused_reverse_segment": max(rev, rev1)}
+                    "fused_reverse_segment": max(rev, rev1),
+                    "flash_attention": flash[0], "ssd_scan": ssd[0]}
 
 
 def _dense_reference(torch, params, batch):
@@ -345,9 +557,8 @@ def phase_main(state) -> None:
         rel, gerr = _check_against(label, loss, grads, ref_loss, ref_grads)
         grew = {k: fn.launches - before[k] for k, fn in kernels.items()}
         segs = plan.num_segments
-        # the autotune probe runs the fused advance 1 + repeats times
-        probe = (1 + api.GLOBAL_TUNER.repeats) \
-            if tune.source == "measured" else 0
+        # the autotune probe's calls are one fused advance each
+        probe = tune.probe_calls
         require(grew["fused_advance_segment"] == segs + probe
                 and grew["fused_reverse_segment"] == segs,
                 f"{label}: fused launches {grew} for {segs} segments "
@@ -372,10 +583,152 @@ def phase_main(state) -> None:
                      "slots": tune.slots, "t_a": tune.t_a, "t_t": tune.t_t,
                      "wall_s": wall, "l2_peak_bytes": stats.l2_peak_bytes,
                      "l1_peak_device_bytes": l1_peak})
-    state["launches"] = {k: fn.launches for k, fn in kernels.items()}
-    for k, n in state["launches"].items():
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    for k, n in launches.items():
         require(n > 0, f"{k} was not launched on the main path")
+    state.setdefault("launches", {}).update(launches)
     state["runs"] = runs
+
+
+def _tree_value_and_grad(torch, loss_fn, params, batch):
+    """Dense ``torch.autograd`` of ``loss_fn`` over every parameter leaf."""
+    from torch.utils import _pytree as pytree
+
+    leaves, spec = pytree.tree_flatten(params)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    loss = loss_fn(pytree.tree_unflatten(leaves, spec), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), list(grads)
+
+
+def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
+                  per_step) -> None:
+    """The offloaded gradient of a decoder (``runner="compiled"``,
+    autotuned) at full width and depth, ``train_4k`` with the global batch
+    cut to ``batch_size``, held against dense autograd of ``train_loss``.
+    ``kernels``: name -> wrapper; ``per_step``: launches of each per chain
+    step advanced (forward sweep, autotune probe and the reverse's
+    recompute alike)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import api
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config
+    from repro_torch.configs.shapes import make_batch
+    from repro_torch.models.model_factory import get_model
+
+    cfg = get_config(arch)
+    full = SHAPES["train_4k"]
+    shape = ShapeSpec(full.name, full.seq_len, batch_size, full.kind)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    batch = make_batch(cfg, shape, seed=0)
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def dense():
+        return _tree_value_and_grad(torch, model.train_loss, params, batch)
+
+    # the first call pays for the allocator's growth and library set-up;
+    # the second is the reference and its time
+    first, dense_cold = timed(dense)
+    del first
+    torch.cuda.reset_peak_memory_stats()
+    (ref_loss, ref_grads), dense_wall = timed(dense)
+    dense_peak = torch.cuda.max_memory_allocated()
+    log(f"[{key}] {arch}: {cfg.n_layers} layers, {n_params:,} parameters, "
+        f"B={batch_size} S={shape.seq_len}; dense autograd reference: loss "
+        f"{float(ref_loss):.6f} in {dense_wall:.3f}s (first call "
+        f"{dense_cold:.3f}s), device peak {dense_peak:,} B")
+
+    vg = api.value_and_grad_offloaded(model.train_loss, device="cuda")
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    (loss, grads), wall = timed(lambda: vg(params, batch))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    l1_peak = torch.cuda.max_memory_allocated()
+    tune, stats, plan = api.last_tune(), api.last_stats(), api.last_plan()
+
+    grads = pytree.tree_leaves(grads)
+    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    require(math.isfinite(float(loss))
+            and all(bool(g.isfinite().all()) for g in grads),
+            f"{key}: non-finite loss or gradients")
+    require([g.shape for g in grads] == [g.shape for g in ref_grads],
+            f"{key}: gradient shapes differ from the parameters'")
+    gerr = max(scaled_err(a, b) for a, b in zip(grads, ref_grads))
+    require(rel <= 1e-5, f"{key}: loss rel err {rel} > 1e-5")
+    require(gerr <= 1e-3, f"{key}: gradient scaled err {gerr} > 1e-3")
+    probe = tune.probe_calls * tune.probe_len   # chain steps the probe ran
+    for name, n in launches.items():
+        want = per_step[name] * (stats.advances + probe)
+        require(n == want and n > 0,
+                f"{key}: {name} launched {n} times, expected {want} "
+                f"({per_step[name]} per step x ({stats.advances} advances "
+                f"+ {probe} probe steps))")
+    log(f"[{key}] tune I={tune.interval} s={tune.slots} "
+        f"T_A={tune.t_a:.6e}s T_T={tune.t_t:.6e}s ({tune.source}); plan "
+        f"{plan.plan_id} ({plan.num_segments} segments of n={plan.n})")
+    log(f"[{key}] offloaded: loss {float(loss):.6f} (rel err {rel:.3g}), "
+        f"grad scaled err {gerr:.3g}; wall {wall:.3f}s; launches "
+        f"{launches} (forward, probe and the reverse's recompute)")
+    del grads, loss
+    # a second call: the schedule is cached (no probe), buffers are warm
+    for fn in kernels.values():
+        fn.launches = 0
+    (loss, grads), warm = timed(lambda: vg(params, batch))
+    per_grad = {k: fn.launches for k, fn in kernels.items()}
+    for name, n in per_grad.items():
+        require(api.last_tune().probe_calls == 0
+                and n == per_step[name] * api.last_stats().advances,
+                f"{key}: {name} launched {n} times in the second call")
+    log(f"[{key}] offloaded, second call: wall {warm:.3f}s "
+        f"({warm / dense_wall:.3f}x dense autograd); launches {per_grad} "
+        "per gradient")
+    log(f"[{key}] stats advances={stats.advances} "
+        f"backwards={stats.backwards} l2_stores={stats.l2_stores} "
+        f"host_dispatches={stats.host_dispatches} "
+        f"l2_peak_bytes={stats.l2_peak_bytes} "
+        f"l1_peak_device_bytes={l1_peak} "
+        f"store_stall_s={stats.store_stall_s:.4f} "
+        f"prefetch_stall_s={stats.prefetch_stall_s:.4f}")
+    state.setdefault("launches", {}).update(launches)
+    if state.get("profile"):   # the schedule is cached: no probe
+        profile_call(state, key, f"{arch} I={tune.interval}",
+                     lambda: vg(params, batch))
+    state[key] = {"arch": arch, "B": batch_size, "S": shape.seq_len,
+                  "interval": tune.interval, "slots": tune.slots,
+                  "segments": plan.num_segments, "wall_s": wall,
+                  "warm_wall_s": warm, "dense_wall_s": dense_wall,
+                  "dense_peak": dense_peak,
+                  "l1_peak": l1_peak, "l2_peak": stats.l2_peak_bytes,
+                  "loss_rel": rel, "grad_err": gerr, "cfg": cfg}
+    del params, ref_grads, grads, loss, vg
+    torch.cuda.empty_cache()
+
+
+def phase_dense(state) -> None:
+    from repro_torch.kernels import flash_attention as fa
+
+    # every layer of gemma2-2b's (local, global) period is attention
+    decoder_phase(state, "dense", "gemma2-2b", 2,
+                  {"flash_attention": fa.flash_attention},
+                  {"flash_attention": 2})
+
+
+def phase_ssm(state) -> None:
+    from repro_torch.kernels import ssd_scan as ssd
+
+    decoder_phase(state, "ssm", "mamba2-370m", 4, {"ssd_scan": ssd.ssd_scan},
+                  {"ssd_scan": 1})
 
 
 def _time_segment_kernels(torch, cfg, T, slots):
@@ -424,6 +777,77 @@ def _time_segment_kernels(torch, cfg, T, slots):
     out["fused_reverse_segment"] = (ms_k, ms_p) + bound_ms(
         nbytes, recompute * cell_flops(B, Dx, Dh) + T * back)
     return out
+
+
+def _time_flash(torch, run):
+    """Kernel 4 at the dense phase's attention shape (every gemma2-2b layer:
+    the local layers' window of 4096 spans the whole sequence), its plain
+    version, and ``scaled_dot_product_attention`` without the softcap (no
+    library call computes it) as the library yardstick."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = run["cfg"]
+    B, S, H, G, D = run["B"], run["S"], cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rng = np.random.default_rng(40)
+    bf16 = torch.bfloat16
+    q = _randn(torch, rng, (B, S, H, D), bf16)
+    k = _randn(torch, rng, (B, S, G, D), bf16)
+    v = _randn(torch, rng, (B, S, G, D), bf16)
+    kw = {"softcap": cfg.attn_softcap, "scale": cfg.query_scale}
+    ms_k = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), 5)
+    ms_p = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 3)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous()
+    ms_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=cfg.query_scale), 5)
+    # causal: S (S + 1) / 2 (query, key) pairs per head, 2 products each
+    flops = 4.0 * B * H * D * S * (S + 1) / 2
+    nbytes = 2.0 * (2 * B * S * H * D + 2 * B * S * G * D) + 4.0 * B * H * S
+    b_ms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
+    log(f"[timing] flash_attention at B={B} S={S} H={H} G={G} D={D} bf16 "
+        f"(softcap {cfg.attn_softcap}); library: scaled_dot_product_attention"
+        " on K/V repeated per group, no softcap")
+    return ("flash_attention", "src/repro_torch/kernels/csrc/"
+            "flash_attention.cu", "src/repro/kernels/flash_attention.py:86",
+            ms_k, ms_p, b_ms, by, ms_l)
+
+
+def _time_ssd(torch, run):
+    """Kernel 5 at the ssm phase's shape (every mamba2-370m layer) and its
+    plain version; no library call computes the SSD scan."""
+    import numpy as np
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    cfg = run["cfg"]
+    s = cfg.ssm
+    B, T = run["B"], run["S"]
+    H, G, P, N, L = (s.expand * cfg.d_model // s.headdim, s.ngroups,
+                     s.headdim, s.d_state, s.chunk)
+    rng = np.random.default_rng(41)
+    bf16, f32 = torch.bfloat16, torch.float32
+    x = _randn(torch, rng, (B, T, H, P), bf16, 0.5)
+    dt = torch.nn.functional.softplus(_randn(torch, rng, (B, T, H), f32))
+    A = -torch.exp(_randn(torch, rng, (H,), f32, 0.3))
+    b = _randn(torch, rng, (B, T, G, N), bf16, 0.5)
+    c = _randn(torch, rng, (B, T, G, N), bf16, 0.5)
+    ms_k = cuda_ms(lambda: ssd.ssd_scan(x, dt, A, b, c, chunk=L), 10)
+    ms_p = cuda_ms(lambda: ssd.ssd_scan_plain(x, dt, A, b, c), 1)
+    # per (batch*head, chunk of L): C B^T and M xbar over the causal
+    # L (L + 1) / 2 pairs, C h^T and the state update over L x P x N
+    n_chunks = B * H * (T // L)
+    flops = n_chunks * (L * (L + 1) * (N + P) + 4.0 * L * P * N)
+    nbytes = (2.0 * (2 * B * T * H * P + 2 * B * T * G * N)
+              + 4.0 * (B * T * H + H + B * H * P * N))
+    b_ms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
+    log(f"[timing] ssd_scan at B={B} T={T} H={H} G={G} P={P} N={N} "
+        f"chunk={L} bf16")
+    return ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "src/repro/kernels/ssd_scan.py:69", ms_k, ms_p, b_ms, by, None)
 
 
 def phase_timing(state) -> None:
@@ -480,6 +904,9 @@ def phase_timing(state) -> None:
             f"{long_seg['chunk']}: {k_ms:.4f} ms (plain {p_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms by {by})")
 
+    rows.append(_time_flash(torch, state["dense"]))
+    rows.append(_time_ssd(torch, state["ssm"]))
+
     out = []
     for name, src, rep, k_ms, p_ms, b_ms, by, l_ms in rows:
         out.append({"name": name, "route": "cuda", "source": src,
@@ -491,8 +918,10 @@ def phase_timing(state) -> None:
             f"{b_ms:.4f} ms by {by}, library "
             f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}); launches "
             f"{state['launches'][name]}")
-    log(f"[timing] segment shape: T={seg['T']} chunk={seg['chunk']} B={B} "
-        f"({state['card']})")
+    log(f"[timing] LSTM segment shape: T={seg['T']} chunk={seg['chunk']} "
+        f"B={B}; bounds: LSTM kernels at the fp32 peak (67 TFLOP/s), "
+        f"flash_attention and ssd_scan at the bf16 tensor-core peak "
+        f"(989 TFLOP/s), bytes at 3.35 TB/s ({state['card']})")
     state["kernels_json"] = out
 
 
@@ -515,57 +944,65 @@ def phase_train(state) -> None:
             f"RMSProp losses did not fall: {losses}")
 
 
-def phase_profile(state) -> None:
-    """Where one offloaded gradient's time goes, per schedule of the main
-    phase: device time by kernel (``torch.profiler``) against the wall."""
+def profile_call(state, label: str, note: str, call) -> None:
+    """Run ``call()`` (one warmed-up offloaded gradient) under
+    ``torch.profiler``: device time by kernel against the wall, the table
+    to ``<out-dir>/profile_<label>.txt``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    os.makedirs(state["out_dir"], exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    path = os.path.join(state["out_dir"], f"profile_{label}.txt")
+    with open(path, "w") as f:
+        f.write(f"# {state['card']}; one offloaded gradient, {note}; wall "
+                f"{wall:.6f} s\n")
+        f.write("# device_us\tcount\tname\n")
+        for us, count, key in rows:
+            f.write(f"{us:.1f}\t{count}\t{key}\n")
+    if not rows:
+        log(f"[profile] {label}: the profiler saw no device time (device "
+            "busy share not measured)")
+        return
+    log(f"[profile] {label} ({note}): wall {wall:.4f}s, device busy "
+        f"{busy_s:.4f}s ({100 * busy_s / wall:.1f}% of the wall); table "
+        f"{path}")
+    for us, count, key in rows[:6]:
+        log(f"[profile]   {us / 1e3:10.3f} ms  x{count:<6d} {key[:70]}")
+
+
+def phase_profile(state) -> None:
+    """Where one offloaded LSTM gradient's time goes, per schedule of the
+    main phase (the decoder phases profile themselves when ``profile`` is
+    among the phases)."""
     from repro_torch import api
 
     model, params, batch = state["model"], state["params"], state["batch"]
-    os.makedirs(state["out_dir"], exist_ok=True)
     for run in state["runs"]:
         kw = {"interval": run["interval"]} if run["label"] == "pinned" \
             else {}
         vg = api.value_and_grad_offloaded(model.train_loss, runner="fused",
                                           device="cuda", **kw)
         vg(params, batch)   # warm: the schedule is cached, kernels loaded
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            vg(params, batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = []
-        for e in prof.key_averages():
-            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            if us > 0:
-                rows.append((us, e.count, e.key))
-        rows.sort(reverse=True)
-        busy_s = sum(r[0] for r in rows) / 1e6
-        path = os.path.join(state["out_dir"], f"profile_{run['label']}.txt")
-        with open(path, "w") as f:
-            f.write(f"# {state['card']}; one offloaded gradient, "
-                    f"I={run['interval']}; wall {wall:.6f} s\n")
-            f.write("# device_us\tcount\tname\n")
-            for us, count, key in rows:
-                f.write(f"{us:.1f}\t{count}\t{key}\n")
-        if not rows:
-            log(f"[profile] {run['label']}: the profiler saw no device time "
-                "(device busy share not measured)")
-            continue
-        log(f"[profile] {run['label']} (I={run['interval']}): wall "
-            f"{wall:.4f}s, device busy {busy_s:.4f}s "
-            f"({100 * busy_s / wall:.1f}% of the wall); table "
-            f"{path}")
-        for us, count, key in rows[:6]:
-            log(f"[profile]   {us / 1e3:10.3f} ms  x{count:<6d} {key[:70]}")
+        profile_call(state, run["label"], f"I={run['interval']}",
+                     lambda: vg(params, batch))
 
 
 def main(argv=None) -> int:
@@ -588,9 +1025,11 @@ def main(argv=None) -> int:
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
-    state = {"out_dir": os.path.abspath(args.out_dir)}
+    state = {"out_dir": os.path.abspath(args.out_dir),
+             "profile": "profile" in phases}
     steps = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "main": phase_main,
+             "dense": phase_dense, "ssm": phase_ssm,
              "timing": phase_timing, "train": phase_train,
              "profile": phase_profile}
     for name in PHASES + OPTIONAL:

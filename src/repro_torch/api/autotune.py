@@ -41,6 +41,10 @@ class TuneResult:
     state_bytes: int
     n: int
     source: str           # "measured" | "manual"
+    # the T_A probe of this call: forward_segment calls made, each over
+    # probe_len chain steps (0 for a manual or cached schedule)
+    probe_calls: int = 0
+    probe_len: int = 0
 
 
 def snap_interval(n: int, target: int) -> int:
@@ -134,7 +138,7 @@ class AutoTuner:
                _device_kind(state0))
         cached = self.lookup(key)
         if cached is not None:
-            return cached
+            return dataclasses.replace(cached, probe_calls=0)
 
         def one_probe():
             _synchronize(forward_segment(state0))
@@ -152,7 +156,8 @@ class AutoTuner:
         slots = default_slots(interval, self.l1_budget_states)
         return self.store(key, TuneResult(
             interval=interval, slots=slots, t_a=t_a, t_t=t_t,
-            state_bytes=state_bytes, n=n, source="measured"))
+            state_bytes=state_bytes, n=n, source="measured",
+            probe_calls=1 + self.repeats, probe_len=segment_len))
 
     def manual(self, name: str, *, n: int, interval: int,
                slots: Optional[int] = None,

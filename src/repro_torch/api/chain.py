@@ -122,7 +122,8 @@ def steps_vjp(body: BodyFn, params: Params, carry: Carry, xs: Any,
     leading axis) started from ``carry``, at the cotangent ``dcarry`` of
     the final carry.  Returns ``(dparams, dcarry_in, dxd)``: parameter and
     entry-carry cotangents with the structures of ``params``/``carry``,
-    and one stacked cotangent per inexact ``xs`` leaf.
+    and one stacked cotangent per inexact ``xs`` leaf.  A parameter the
+    steps do not read gets a broadcast (read-only) zero.
 
     ``chunk`` (the counterpart of the JAX engines' ``jax.checkpoint``
     regions) recomputes the steps under ``torch.utils.checkpoint`` in
@@ -167,11 +168,16 @@ def steps_vjp(body: BodyFn, params: Params, carry: Carry, xs: Any,
         grads = iter(torch.autograd.grad(
             [o for o, _ in pairs], wanted, grad_outputs=[g for _, g in pairs],
             allow_unused=True) if pairs else [None] * len(wanted))
-    full = []
-    for t in inputs:
-        g = next(grads) if t.requires_grad else None
-        full.append(torch.zeros_like(t) if g is None else g)
     n_p, n_c = len(p_in), len(c_in)
+    full = []
+    for i, t in enumerate(inputs):
+        g = next(grads) if t.requires_grad else None
+        if g is None:
+            # a parameter the steps do not read (a depth chain reads its
+            # weights from xs) gets a broadcast zero: no memory
+            g = t.new_zeros(()).expand_as(t) if i < n_p \
+                else torch.zeros_like(t)
+        full.append(g)
     return (pytree.tree_unflatten(full[:n_p], p_spec),
             pytree.tree_unflatten(full[n_p:n_p + n_c], c_spec),
             full[n_p + n_c:])

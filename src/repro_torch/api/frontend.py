@@ -52,7 +52,8 @@ from repro_torch.core.compiled_ops import (CompiledChainOps,
                                            CompiledSegmentRunner,
                                            FusedSegmentRunner)
 from repro_torch.core.executor import CheckpointExecutor, ExecutionStats
-from repro_torch.core.storage import AsyncTransferEngine, RAMStorage
+from repro_torch.core.storage import (AsyncTransferEngine, RAMStorage,
+                                      _to_host)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import segment_fused
 
@@ -214,8 +215,7 @@ def _resolve_schedule(static: _Static, ops: CompiledChainOps, params, carry0,
                 ops.body, params, state, xs_probe, batch,
                 chunk=probe_len).carry
 
-        store_state0 = pytree.tree_map(
-            lambda t: t.detach().cpu().numpy().copy(), carry0)
+        store_state0 = _to_host(carry0)
     else:
         def forward_segment(state):
             return ops.advance_segment(params, state, xs_probe, batch)

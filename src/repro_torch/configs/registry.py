@@ -1,9 +1,10 @@
-# Port of repro/configs/registry.py: the lstm family only.
+# Port of repro/configs/registry.py: the ported families' architectures.
 """Architecture registry: ``--arch <id>`` resolution.
 
-Only the paper's LSTM is ported; every other architecture of the JAX
-package's registry raises ``NotImplementedError`` until its model family
-is ported (ROADMAP queue 1, item 10)."""
+Ported: the paper's LSTM, ``gemma2-2b`` (dense) and ``mamba2-370m`` (ssm).
+Every other architecture of the JAX package's registry raises
+``NotImplementedError`` until its model family is ported (ROADMAP queue 1,
+item 10)."""
 from __future__ import annotations
 
 import importlib
@@ -12,13 +13,15 @@ from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
     "lstm-paper": "lstm_paper",
+    "gemma2-2b": "gemma2_2b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 # The JAX package's other architectures (repro/configs/registry.py).
 _NOT_PORTED = (
-    "qwen1.5-4b", "gemma2-2b", "yi-6b", "granite-3-2b", "internvl2-1b",
+    "qwen1.5-4b", "yi-6b", "granite-3-2b", "internvl2-1b",
     "jamba-v0.1-52b", "whisper-tiny", "llama4-scout-17b-16e",
-    "phi3.5-moe-42b", "mamba2-370m",
+    "phi3.5-moe-42b",
 )
 
 

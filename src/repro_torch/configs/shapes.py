@@ -1,4 +1,5 @@
-# Port of repro/configs/shapes.py: make_batch for the lstm family.
+# Port of repro/configs/shapes.py: make_batch for the lstm, dense and ssm
+# families' train shapes.
 """Concrete input batches per (architecture x shape) cell.
 
 ``make_batch`` draws from the same ``numpy.random.default_rng(seed)``
@@ -20,9 +21,10 @@ def make_batch(cfg: ArchConfig, shape: ShapeSpec, seed: int = 0, *,
     """Deterministic batch for ``cfg`` at ``shape`` on ``device`` (the card
     unless ``device="cpu"``)."""
     dev = resolve_device(device)
-    if cfg.family != "lstm" or shape.kind != "train":
+    if cfg.family not in ("lstm", "dense", "ssm") or shape.kind != "train":
         raise NotImplementedError(
-            f"make_batch covers the lstm family's train shapes only "
+            f"make_batch covers the lstm, dense and ssm families' train "
+            f"shapes only "
             f"(got family={cfg.family!r}, kind={shape.kind!r}); other "
             "families come with their models (ROADMAP queue 1, item 10)")
     rng = np.random.default_rng(seed)

@@ -2,9 +2,11 @@
 
 ``params_from_numpy`` takes a parameter tree of numpy arrays — for the JAX
 package's parameters, ``jax.tree_util.tree_map(np.asarray, params)`` — and
-returns the port's dict with the same keys, shapes and layout (the LSTM's
-``w`` stays ``(Dx+Dh, 4Dh)``, gate-major ``i, f, o, g``).
-``params_to_numpy`` is its inverse.
+returns the port's dict with the same keys, shapes and layout: the LSTM's
+``w`` stays ``(Dx+Dh, 4Dh)``, gate-major ``i, f, o, g``; a decoder's
+``init_lm`` tree keeps ``params["layers"]["pos{j}"]`` stacked over periods
+(leading axis ``n_periods``), dense weights ``(d_in, d_out)`` and norm scales
+stored as ``scale - 1``.  ``params_to_numpy`` is its inverse.
 """
 from __future__ import annotations
 

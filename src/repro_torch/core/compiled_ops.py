@@ -68,7 +68,11 @@ class CompiledChainOps:
         dp, dc, dxd = steps_vjp(self.body, params, carry_b, xs_seg, batch,
                                 self.xs_mask, dcarry,
                                 chunk=chunk_length(seg_len, s_l1))
-        return dc, tree_map(torch.add, gacc, dp), dxd
+        # in place: the accumulator is the executor's own (a model's
+        # parameters can be gigabytes)
+        for acc, g in zip(pytree.tree_leaves(gacc), pytree.tree_leaves(dp)):
+            acc.add_(g)
+        return dc, gacc, dxd
 
 
 class CompiledSegmentRunner:

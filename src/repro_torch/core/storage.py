@@ -4,9 +4,10 @@
 
 Background threads move state pytrees between the compute level (Level 1:
 tensors on the card, or on the CPU) and a Level-2 store (host RAM).  Stored
-pytrees are frozen to read-only numpy arrays: ``get`` hands back the
-canonical copy without a defensive deep-copy, and a caller that tries to
-mutate a checkpoint in place gets a ``ValueError``.
+pytrees are frozen to read-only numpy arrays (a bf16 leaf as its raw bits,
+:class:`Bits`): ``get`` hands back the canonical copy without a defensive
+deep-copy, and a caller that tries to mutate a checkpoint in place gets a
+``ValueError``.
 
 On the card the engine never makes the compute stream wait for a host
 thread:
@@ -65,41 +66,88 @@ class HostTree:
         return self.tree
 
 
-def _leaf_numpy(x: Any) -> np.ndarray:
+# dtypes numpy has no type for, stored as their raw bits in an integer type
+# of the same width (the JAX package stores bf16 through ml_dtypes)
+_BITS = {torch.bfloat16: torch.int16}
+
+
+class Bits:
+    """A host Level-2 leaf of a dtype numpy cannot hold (bf16): its raw
+    bits as a numpy integer array of the same width, and the torch dtype
+    they encode.  ``nbytes`` counts the bits, so a bf16 state weighs 2
+    bytes per element, as in the JAX package."""
+
+    __slots__ = ("array", "dtype")
+
+    def __init__(self, array: np.ndarray, dtype: torch.dtype):
+        self.array = array
+        self.dtype = dtype
+
+    @property
+    def nbytes(self) -> int:
+        return self.array.nbytes
+
+    @property
+    def shape(self):
+        return self.array.shape
+
+
+def _leaf_numpy(x: Any) -> Any:
+    """A host view of a leaf: numpy, or :class:`Bits` for a dtype numpy
+    has no type for."""
+    if isinstance(x, Bits):
+        return x
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype in _BITS:
+            return Bits(x.view(_BITS[x.dtype]).numpy(), x.dtype)
+        return x.numpy()
     return np.asarray(x)
 
 
+def _copy(a: Any, writeable: bool = True) -> Any:
+    """A deep copy of a host leaf (numpy or :class:`Bits`)."""
+    if isinstance(a, Bits):
+        return Bits(_copy(a.array, writeable), a.dtype)
+    c = np.array(a, copy=True)
+    c.setflags(write=writeable)
+    return c
+
+
 def _to_host(tree: Any) -> Any:
-    """Deep-copy a pytree of arrays to plain numpy (detaches from Level 1)."""
-    return pytree.tree_map(lambda x: np.array(_leaf_numpy(x), copy=True), tree)
+    """Deep-copy a pytree of arrays to host leaves (numpy, or :class:`Bits`
+    for bf16) — detaches from Level 1."""
+    return pytree.tree_map(lambda x: _copy(_leaf_numpy(x)), tree)
+
+
+def _frozen(a: Any) -> bool:
+    arr = a.array if isinstance(a, Bits) else a
+    return isinstance(arr, np.ndarray) and not arr.flags.writeable
 
 
 def _freeze(tree: Any) -> Any:
-    """A *read-only* numpy copy of a pytree — the backend's canonical
-    checkpoint.  Leaves that already are read-only numpy arrays are the
-    engine's own frozen views of a Level-2 buffer (see
-    :func:`_frozen_views`) and are kept by reference; everything else is
-    deep-copied."""
+    """A *read-only* host copy of a pytree — the backend's canonical
+    checkpoint.  Leaves that already are read-only (numpy arrays or
+    :class:`Bits`) are the engine's own frozen views of a Level-2 buffer
+    (see :func:`_frozen_views`) and are kept by reference; everything else
+    is deep-copied."""
     def f(x):
-        if isinstance(x, np.ndarray) and not x.flags.writeable:
+        if _frozen(x):
             return x
-        a = np.array(_leaf_numpy(x), copy=True)
-        a.setflags(write=False)
-        return a
+        return _copy(_leaf_numpy(x), writeable=False)
 
     return pytree.tree_map(f, tree)
 
 
 def _frozen_views(tree: Any) -> Any:
-    """Read-only numpy views of host tensors (no copy): the tensors become
-    the Level-2 copy.  Each view's ``base`` is the writable array that
-    shares the tensor's memory (:func:`_host_tensor` relies on it)."""
+    """Read-only views of host tensors (no copy): the tensors become the
+    Level-2 copy.  Each view's ``base`` is the writable array that shares
+    the tensor's memory (:func:`_host_tensor` relies on it)."""
     def f(t):
-        v = t.numpy().view()
+        bits = _BITS.get(t.dtype)
+        v = (t.view(bits) if bits else t).numpy().view()
         v.setflags(write=False)
-        return v
+        return Bits(v, t.dtype) if bits else v
 
     return pytree.tree_map(f, tree)
 
@@ -107,7 +155,10 @@ def _frozen_views(tree: Any) -> Any:
 def _host_tensor(a: Any) -> torch.Tensor:
     """A CPU tensor holding a Level-2 leaf.  A frozen view of a pinned
     Level-2 buffer maps back onto that buffer without a copy (so the
-    host-to-device copy stays asynchronous); anything else is copied."""
+    host-to-device copy stays asynchronous); anything else is copied.
+    :class:`Bits` come back as their torch dtype, bit for bit."""
+    if isinstance(a, Bits):
+        return _host_tensor(a.array).view(a.dtype)
     a = np.asarray(a)
     base = a.base
     if (not a.flags.writeable and isinstance(base, np.ndarray)
@@ -122,6 +173,8 @@ def tree_bytes(tree: Any) -> int:
     for x in pytree.tree_leaves(tree):
         if isinstance(x, torch.Tensor):
             total += x.numel() * x.element_size()
+        elif isinstance(x, Bits):
+            total += x.nbytes
         else:
             total += np.asarray(x).nbytes
     return total

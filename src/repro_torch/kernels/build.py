@@ -27,6 +27,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "lstm_cell": "lstm_cell.cu",
     "segment_fused": "segment_fused.cu",
+    "flash_attention": "flash_attention.cu",
+    "ssd_scan": "ssd_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,6 +1,6 @@
-// The LSTM chain step shared by every kernel of the port: the gate
-// nonlinearities and state update of one (batch row, hidden unit) point, its
-// vector-Jacobian product, and the C-interface plumbing.
+// The LSTM chain step shared by the LSTM kernels of the port: the gate
+// nonlinearities and state update of one (batch row, hidden unit) point and
+// its vector-Jacobian product.
 //
 // Gate order is the JAX package's: z = [x, h] @ W + b splits into i, f, o, g
 // (W is (Dx+Dh, 4Dh), gate-major), with the +1.0 forget bias:
@@ -8,10 +8,7 @@
 // All arithmetic is fp32 (no fast-math intrinsics, no TF32).
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace repro {
 
@@ -59,45 +56,4 @@ __device__ __forceinline__ void lstm_point_vjp(const GateActs& a, float c,
   dz[3] = dtg * (1.0f - a.tg * a.tg);
 }
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
 }  // namespace repro
-
-// Every library exports its own copy (each source is its own library).
-extern "C" const char* repro_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

@@ -1,0 +1,137 @@
+"""Kernel 4: blocked causal GQA flash attention, forward
+(``csrc/flash_attention.cu``).
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention`` (wrapper
+``repro/kernels/ops.py::flash_attention``): online fp32 softmax over kv
+tiles, causal mask with queries at the end of the keys (offset
+``Sk - Sq``), optional sliding window and ``softcap * tanh(s / softcap)``
+logit cap, GQA through the kv head index, kv tiles outside the causal range
+or the window skipped.  What bounds it on the H100 and how the kernel is
+laid out is noted in the source.
+
+:func:`flash_attention` takes the model layout ``q (B, Sq, H, D)``,
+``k, v (B, Sk, G, D)`` and returns ``(B, Sq, H, D)``; for CPU tensors it is
+the plain version :func:`flash_attention_plain`
+(:func:`repro_torch.kernels.ref.flash_attention_ref` over the heads
+flattened as ``ops.py`` flattens them).  :func:`flash_attention_fwd`
+is the launch itself (CUDA only) and also returns ``lse`` (fp32,
+``(B, G, H/G, Sq)``), which the TPU kernel does not produce and the
+attention backward needs.  Launches count into ``flash_attention.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import flash_attention_ref
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FNS = {torch.float32: "flash_attention_fwd_f32",
+        torch.bfloat16: "flash_attention_fwd_bf16"}
+MAX_HEAD_DIM = 256
+
+
+def _lib():
+    lib = build.load("flash_attention")
+    for name in _FNS.values():
+        fn = getattr(lib, name)
+        fn.restype = _I
+        fn.argtypes = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _F, _P]
+    return lib
+
+
+def _check(q, k, v, window, softcap) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention: q{tuple(q.shape)} k{tuple(k.shape)} "
+            f"v{tuple(v.shape)} do not fit q (B, Sq, H, D), k/v (B, Sk, G, D)")
+    B, _, H, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2] != 0:
+        raise ValueError(
+            f"flash_attention: q{tuple(q.shape)} and k{tuple(k.shape)} need "
+            "the same batch and head dim, and H a multiple of G")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"flash_attention: softcap {softcap} <= 0")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel (CUDA tensors only): ``(out, lse)``."""
+    _check(q, k, v, window, softcap)
+    if not q.is_cuda:
+        raise ValueError("flash_attention_fwd runs on the card only")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {name} is {t.dtype} on "
+                             f"{t.device}, expected {q.dtype} on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    if q.dtype not in _FNS:
+        raise ValueError(f"flash_attention: dtype {q.dtype} is not "
+                         f"supported (one of {list(_FNS)})")
+    if q.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {q.shape[3]} > "
+                         f"{MAX_HEAD_DIM}")
+    return _launch(q, k, v, causal, window, softcap, scale)
+
+
+def _launch(q, k, v, causal, window, softcap, scale):
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    sc = (D ** -0.5) if scale is None else scale
+    out = torch.empty_like(q)
+    lse = torch.empty((B, G, H // G, Sq), dtype=torch.float32,
+                      device=q.device)
+    lib = _lib()
+    err = getattr(lib, _FNS[q.dtype])(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+        build.ptr(lse), B, Sq, Sk, H, G, D, float(sc), int(bool(causal)),
+        0 if window is None else int(window),
+        0.0 if softcap is None else float(softcap),
+        build.stream_ptr(q.device))
+    build.check(lib, err, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, G, D).  Returns (B, Sq, H, D)."""
+    _check(q, k, v, window, softcap)
+    if q.is_cuda:
+        return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)[0]
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, scale=scale)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The plain version, on any device: ``flash_attention_ref`` over the
+    heads flattened as ``ops.py`` flattens them, K/V repeated per group."""
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    qf = q.permute(0, 2, 1, 3).reshape(B * H, Sq, D)
+    kf = k.repeat_interleave(H // G, dim=2).permute(0, 2, 1, 3).reshape(
+        B * H, Sk, D)
+    vf = v.repeat_interleave(H // G, dim=2).permute(0, 2, 1, 3).reshape(
+        B * H, Sk, D)
+    of = flash_attention_ref(qf, kf, vf, causal=causal, window=window,
+                             softcap=softcap, scale=scale)
+    return of.reshape(B, H, Sq, D).permute(0, 2, 1, 3)
+
+
+flash_attention.launches = 0

@@ -1,13 +1,15 @@
-# Port of repro/models/model_factory.py: the lstm branch.
+# Port of repro/models/model_factory.py: the lstm, dense and ssm branches.
 """Uniform model API.
 
-``get_model(cfg)`` returns a ``ModelAPI``; for the paper's LSTM:
+``get_model(cfg)`` returns a ``ModelAPI`` with
 
     init(generator, device=None)   -> params
     train_loss(params, batch)      -> scalar loss (tagged with chain_spec)
 
-Serving entry points (``prefill``/``decode``/``init_cache``) and the other
-families come later (ROADMAP queue 1, items 10 and 14).
+for the paper's LSTM and the dense and SSM decoder families.  Serving entry
+points (``prefill``/``decode``/``init_cache``) raise ``NotImplementedError``
+for the decoders (ROADMAP queue 1, item 14); the MoE, hybrid, VLM and
+encoder-decoder families come later (item 10).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lstm
+from repro_torch.models import lstm, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +40,28 @@ def _attach_chain(loss_fn: Callable, chain_spec) -> Callable:
     return loss_fn
 
 
+def _not_ported(what: str) -> Callable:
+    def raise_(*args, **kwargs):
+        raise NotImplementedError(
+            f"{what} is not ported yet (ROADMAP queue 1, item 14)")
+
+    return raise_
+
+
 def get_model(cfg: ArchConfig) -> ModelAPI:
+    if cfg.family in ("dense", "ssm"):
+        chain = transformer.train_chain(cfg)
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda generator, device=None: transformer.init_lm(
+                generator, cfg, device=device),
+            train_loss=_attach_chain(
+                lambda p, b: transformer.train_loss(p, b, cfg), chain),
+            prefill=_not_ported("prefill"),
+            decode=_not_ported("decode"),
+            init_cache=_not_ported("init_cache"),
+            train_chain=chain,
+        )
     if cfg.family == "lstm":
         def _loss(p, b):
             return lstm.forward_loss(p, b["tokens"])

@@ -154,6 +154,12 @@ def test_autotuned_interval_follows_section_3():
     assert tune.interval == api.snap_interval(
         n, max(1, math.ceil(tune.t_t / tune.t_a)))
     assert api.last_plan().interval == tune.interval
+    # the probe's fused advances are recorded; a cached schedule runs none
+    assert tune.probe_calls == 1 + tuner.repeats and tune.probe_len > 0
+    vg(params_from_numpy(ref, device="cpu"),
+       {"tokens": torch.as_tensor(tok)})
+    assert api.last_tune().probe_calls == 0
+    assert api.last_tune().interval == tune.interval
 
 
 def test_plain_loss_falls_back_with_warning():

@@ -10,7 +10,16 @@ Kernels are held against their plain versions run on the same card with
 TF32 off.  Tolerances: the LSTM cell 1e-5 in fp32 and 3e-2 in bf16; fused
 advance carries and boundaries 1e-5; fused reverse cotangents 1e-5 and
 parameter gradients 1e-4 of each leaf's scale (fp32, different summation
-orders).  The front-end cases compare the card with the CPU.
+orders).  The front-end cases compare the card with the CPU.  Flash
+attention and the SSD scan are held per element (:func:`_assert_close_to`:
+rtol times |ref| plus atol times an RMS of ref: attention's per row, the
+SSD scan's per head), at (2e-4, 2e-4) in fp32; in bf16 the SSD scan's y at
+(1e-2, 1e-3) and attention at (1e-2, 2e-2), since it also rounds p at
+another point of the softmax; the SSD state at (2e-4, 2e-4) and the
+attention logsumexp at 1e-5 of the plain chunked forward's.  The
+decoder chains on the card: the
+offloaded gradient against dense autograd on the card, loss 1e-5 relative
+and each leaf 1e-4 of its max |g|.
 """
 import numpy as np
 import pytest
@@ -18,10 +27,16 @@ import torch
 
 from repro_torch import api
 from repro_torch.convert import init_lstm_numpy, params_from_numpy
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.configs.shapes import make_batch
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lstm_cell as lc
 from repro_torch.kernels import segment_fused as sf
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ref import lstm_cell_ref
 from repro_torch.models import lstm
+from repro_torch.models.attention import _chunked_fwd, chunked_attention
+from repro_torch.models.model_factory import get_model
 
 V, DX, DH, B = 17, 8, 12, 3
 T_BODY = lstm.train_chain().body
@@ -52,6 +67,20 @@ def _segment_operands(T, seed):
     dcarry = (torch.tensor(_np(rng, (B, DH), 0.1)),
               torch.tensor(_np(rng, (B, DH), 0.1)), torch.tensor(0.7))
     return params, carry, xs, dcarry
+
+
+def _assert_close_to(a, ref, rtol, atol, dims=(-1,)):
+    """|a - ref| <= rtol |ref| + atol RMS(ref over dims), per element."""
+    a, r = a.float(), ref.float()
+    rms = r.pow(2).mean(dims, keepdim=True).sqrt()
+    bad = (a - r).abs() > rtol * r.abs() + atol * rms
+    assert not bool(bad.any()), \
+        f"{int(bad.sum())} elements off; max abs err {(a - r).abs().max()}"
+
+
+TOL = {"flash_attention": {"float32": (2e-4, 2e-4),
+                                "bfloat16": (1e-2, 2e-2)},
+           "ssd_scan": {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-3)}}
 
 
 def _dev(tree, device):
@@ -177,3 +206,108 @@ def test_compiled_runner_on_card_matches_cpu(cuda_device):
                                    atol=1e-4 * float(g.abs().max()))
     assert out["cuda"][2].l2_stores == out["cpu"][2].l2_stores == 5
     assert out["cuda"][2].l2_peak_bytes == out["cpu"][2].l2_peak_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,dtype,kw", [
+    ((2, 512, 512, 8, 4, 256), "bfloat16", {"softcap": 50.0,
+                                            "scale": 0.0625}),
+    ((1, 300, 300, 4, 4, 256), "float32", {"window": 64}),
+    ((2, 200, 333, 4, 2, 64), "float32", {"softcap": 20.0}),   # Sq < Sk
+    ((1, 129, 129, 2, 1, 64), "bfloat16", {"causal": False}),
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, dims, dtype, kw):
+    B, Sq, Sk, H, G, D = dims
+    rng = np.random.default_rng(Sq + D)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(_np(rng, shape)).to(tdt).to(cuda_device)
+               for shape in ((B, Sq, H, D), (B, Sk, G, D), (B, Sk, G, D)))
+    before = fa.flash_attention.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    _, want_lse = _chunked_fwd(q, k, v, kw.get("causal", True),
+                               kw.get("window"), kw.get("softcap"), 128,
+                               kw.get("scale"))
+    _assert_close_to(out, want, *TOL["flash_attention"][dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,dtype,with_h0", [
+    ((2, 1024, 32, 1, 64, 128, 128), "bfloat16", False),
+    ((3, 300, 5, 1, 64, 128, 128), "float32", True),   # ragged chunk tail
+    ((2, 256, 8, 2, 32, 64, 64), "float32", False),
+])
+def test_ssd_scan_kernel_matches_plain(cuda_device, dims, dtype, with_h0):
+    B, T, H, G, P, N, chunk = dims
+    rng = np.random.default_rng(T + H)
+    tdt = getattr(torch, dtype)
+
+    def t(shape, scale, dt=torch.float32):
+        return torch.tensor(_np(rng, shape, scale)).to(dt).to(cuda_device)
+
+    x = t((B, T, H, P), 0.5, tdt)
+    dt = torch.nn.functional.softplus(t((B, T, H), 1.0))
+    A = -torch.exp(t((H,), 0.3))
+    b, c = t((B, T, G, N), 0.5, tdt), t((B, T, G, N), 0.5, tdt)
+    h0 = t((B, H, P, N), 0.5) if with_h0 else None
+    before = ssd.ssd_scan.launches
+    y, h = ssd.ssd_scan(x, dt, A, b, c, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 1
+    y_ref, h_ref = ssd.ssd_scan_plain(x, dt, A, b, c, h0)
+    # per head: y (B, T, H, P) over T and P, h (B, H, P, N) over P and N
+    _assert_close_to(y, y_ref, *TOL["ssd_scan"][dtype], dims=(1, 3))
+    _assert_close_to(h, h_ref, 2e-4, 2e-4, dims=(2, 3))
+
+
+@pytest.mark.cuda
+def test_chunked_attention_grads_on_card_match_cpu(cuda_device):
+    """The card's forward (the kernel, with its logsumexp) feeds the same
+    flash-style backward as the CPU's plain forward."""
+    rng = np.random.default_rng(3)
+    arrs = [_np(rng, s) for s in ((2, 96, 4, 32), (2, 96, 2, 32),
+                                  (2, 96, 2, 32))]
+    dout = torch.tensor(_np(rng, (2, 96, 4, 32)))
+    out = {}
+    for device in ("cpu", "cuda"):
+        q, k, v = (torch.tensor(a, device=device).requires_grad_(True)
+                   for a in arrs)
+        o = chunked_attention(q, k, v, True, 40, 30.0, 32, None)
+        grads = torch.autograd.grad((o * dout.to(device)).sum(), (q, k, v))
+        out[device] = [o.detach().cpu()] + [g.cpu() for g in grads]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,seq,n_layers,kernel", [
+    ("gemma2-2b", 2064, 4, fa.flash_attention),   # S > 2048: the kernel
+    ("mamba2-370m", 64, 5, ssd.ssd_scan),
+])
+def test_offloaded_decoder_on_card_matches_dense(cuda_device, arch, seq,
+                                                 n_layers, kernel):
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config(arch, smoke=True).replace(n_layers=n_layers)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    batch = make_batch(cfg, ShapeSpec("t", seq, 1, "train"), 0)
+    leaves, spec = pytree.tree_flatten(params)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    loss = model.train_loss(pytree.tree_unflatten(leaves, spec), batch)
+    dense = torch.autograd.grad(loss, leaves)
+    kernel.launches = 0
+    v, g = api.value_and_grad_offloaded(model.train_loss, interval=2,
+                                        slots=2, device="cuda")(params,
+                                                                batch)
+    stats = api.last_stats()
+    per_step = 2 if arch == "gemma2-2b" else 1
+    # forward sweep and the reverse's recompute: one launch per layer each
+    assert kernel.launches == per_step * stats.advances > 0
+    torch.testing.assert_close(v, loss.detach(), rtol=1e-5, atol=0)
+    for a, b in zip(pytree.tree_leaves(g), dense):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))

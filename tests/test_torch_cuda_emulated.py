@@ -25,10 +25,13 @@ import torch
 from repro_torch import api
 from repro_torch.convert import init_lstm_numpy, params_from_numpy
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lstm_cell as lc
 from repro_torch.kernels import segment_fused as sf
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ref import lstm_cell_ref
 from repro_torch.models import lstm
+from repro_torch.models.attention import _chunked_fwd
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EMU = ROOT / "tests" / "cuda_emu"
@@ -235,3 +238,51 @@ def test_offloaded_gradient_through_the_kernel_sources(card_paths):
     for k in dense:
         torch.testing.assert_close(g[k], dense[k], rtol=1e-4,
                                    atol=1e-4 * float(dense[k].abs().max()))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,G,D,dtype,kw", [
+    # two query tiles with a ragged edge, a ragged last kv tile
+    (1, 70, 70, 2, 1, 16, torch.float32, {}),
+    # Sq < Sk, GQA, sliding window and softcap, bf16
+    (1, 40, 75, 4, 2, 64, torch.bfloat16, {"window": 20, "softcap": 30.0}),
+    # non-causal, a head dim that leaves lanes idle, two batch rows
+    (2, 33, 33, 2, 2, 40, torch.float32, {"causal": False, "scale": 0.3}),
+])
+def test_flash_attention_kernel_source(card_paths, B, Sq, Sk, H, G, D,
+                                       dtype, kw):
+    rng = np.random.default_rng(Sq + D)
+    q, k, v = (torch.tensor(_np(rng, shape)).to(dtype) for shape in (
+        (B, Sq, H, D), (B, Sk, G, D), (B, Sk, G, D)))
+    before = fa.flash_attention.launches
+    out, lse = fa._launch(q, k, v, kw.get("causal", True), kw.get("window"),
+                          kw.get("softcap"), kw.get("scale"))
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention(q, k, v, **kw)   # the plain version (CPU)
+    _, want_lse = _chunked_fwd(q, k, v, kw.get("causal", True),
+                               kw.get("window"), kw.get("softcap"), 16,
+                               kw.get("scale"))
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,T,H,G,P,N,chunk,dtype,with_h0", [
+    (1, 40, 2, 1, 8, 8, 16, torch.float32, True),    # ragged last chunk
+    (2, 32, 4, 2, 16, 12, 8, torch.bfloat16, False),  # groups, bf16
+])
+def test_ssd_scan_kernel_source(card_paths, B, T, H, G, P, N, chunk, dtype,
+                                with_h0):
+    rng = np.random.default_rng(T + P)
+    x = torch.tensor(_np(rng, (B, T, H, P), 0.5)).to(dtype)
+    dt = torch.nn.functional.softplus(torch.tensor(_np(rng, (B, T, H))))
+    A = -torch.exp(torch.tensor(_np(rng, (H,), 0.3)))
+    b = torch.tensor(_np(rng, (B, T, G, N), 0.5)).to(dtype)
+    c = torch.tensor(_np(rng, (B, T, G, N), 0.5)).to(dtype)
+    h0 = torch.tensor(_np(rng, (B, H, P, N), 0.5)) if with_h0 else None
+    before = ssd.ssd_scan.launches
+    y, h = ssd._launch(x, dt, A, b, c, h0, chunk)
+    assert ssd.ssd_scan.launches == before + 1
+    y_ref, h_ref = ssd.ssd_scan(x, dt, A, b, c, chunk=chunk, h0=h0)  # plain
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_ref, rtol=2e-4, atol=2e-4)

@@ -55,7 +55,7 @@ def test_lstm_config_fields_equal(smoke):
 
 def test_other_archs_not_ported_yet():
     with pytest.raises(NotImplementedError, match="item 10"):
-        get_config("mamba2-370m")
+        get_config("jamba-v0.1-52b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

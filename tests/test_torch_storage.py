@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import storage
 from repro_torch.core.storage import (AsyncTransferEngine, HostTree,
                                       RAMStorage, WriterCrashError,
                                       tree_bytes)
@@ -271,4 +272,55 @@ def test_delete_async_rides_the_writer_queue():
     assert 0 not in eng._prefetched and eng.staged_bytes == 0
     eng.wait_stores()
     assert 0 not in eng.backend and 1 in eng.backend
+    eng.close()
+
+
+def _bf16_state(seed=0):
+    rng = np.random.default_rng(seed)
+    h = torch.tensor(rng.standard_normal((2, 5, 8)).astype(np.float32))
+    return h.to(torch.bfloat16), torch.tensor(1.25)
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int16),
+                                              b.view(torch.int16))
+
+
+@pytest.mark.parametrize("handover", ["snapshot", "host_tree"])
+def test_bf16_state_round_trips_bit_exactly(handover):
+    """A bf16 carry (the transformer chain's hidden state) stored,
+    prefetched and read back is bit-identical, and Level 2 counts 2 bytes
+    per element — the JAX package's ``l2_peak_bytes`` for the same plan."""
+    h, acc = _bf16_state()
+    nbytes = h.numel() * 2 + 4
+    assert tree_bytes((h, acc)) == nbytes
+    eng = AsyncTransferEngine(RAMStorage(), device="cpu")
+    if handover == "snapshot":
+        eng.store_async(0, (h, acc))
+    else:   # a kernel's page-locked buffers, handed over without a copy
+        eng.store_async(0, HostTree((h.clone(), acc.clone())))
+    eng.wait_stores()
+    assert eng.backend.live_bytes == eng.backend.peak_bytes == nbytes
+    stored = eng.backend.get(0)
+    assert isinstance(stored[0], storage.Bits)
+    assert stored[0].dtype == torch.bfloat16
+    with pytest.raises(ValueError):
+        stored[0].array[0, 0, 0] = 0    # the checkpoint stays read-only
+    eng.prefetch_async(0)
+    got = eng.wait_prefetch(0)
+    assert _same_bits(got[0], h) and float(got[1]) == 1.25
+    eng.delete(0)
+    assert eng.backend.live_bytes == 0
+    eng.close()
+
+
+def test_bf16_put_get_and_demand_fetch():
+    h, acc = _bf16_state(1)
+    store = RAMStorage()
+    store.put("k", {"h": h, "acc": acc})
+    assert store.bytes_written == h.numel() * 2 + 4
+    h[0, 0, 0] = 7.0   # the store took a copy
+    eng = AsyncTransferEngine(store, device="cpu")
+    got = eng.wait_prefetch("k")   # never prefetched: demand path
+    assert _same_bits(got["h"], _bf16_state(1)[0])
     eng.close()
