@@ -24,7 +24,11 @@ Phases, each printing its own lines:
               reference (attention's row, the SSD head's sequence); at the
               bf16 layer shapes the script also shows
               that an output one kv tile short, or one that drops a chunk's
-              carried state, fails that check.
+              carried state, fails that check.  The fused reverse is also
+              held at the pinned run's segment shape (T=1000, its chunk),
+              and it and the bf16 flash kernel must give the same bits on
+              two calls; a bf16 head dim outside {16, 32, 64, 128, 256}
+              must be refused.
 4. main     — ``value_and_grad_offloaded(get_model(lstm-paper).train_loss,
               runner="fused")`` on ``make_batch(lstm-paper, train_4k)``
               (B=256, S=4096), once autotuned and once with a pinned
@@ -44,7 +48,11 @@ Phases, each printing its own lines:
 6. ssm      — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
               and ``ssd_scan``.
 7. timing   — each kernel, its plain version and the nearest library call
-              timed with CUDA events at the main path's shapes.
+              timed with CUDA events at the main path's shapes, with the
+              achieved TFLOP/s where the bound is operations; the fused
+              reverse at T=1000 also by part (recompute, hoisted products,
+              walk, gradient reductions: device time of its kernels under
+              ``torch.profiler``).
 8. train    — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
@@ -293,6 +301,47 @@ def check_segment(torch, cfg, T, chunk, seed, label):
     return adv, rev_abs
 
 
+def pinned_chunk(T: int = 1000) -> int:
+    """The chunk of the pinned main-path run's segments (interval T, the
+    default slots): what phase ``main`` runs at ``interval=1000``."""
+    from repro_torch.api.autotune import default_slots
+    from repro_torch.core.schedule import chunk_length
+
+    return chunk_length(T, default_slots(T)) or T
+
+
+def check_reverse_pinned(torch, cfg, T=1000, seed=5):
+    """The fused reverse at the pinned run's segment shape (T=1000, its
+    chunk) against its plain version, and two calls bit for bit equal (the
+    kernels sum in a fixed order, no float atomics); returns the max abs
+    error."""
+    from repro_torch.kernels import segment_fused as sf
+    from repro_torch.models import lstm
+
+    body = lstm.train_chain(cfg).body
+    chunk = pinned_chunk(T)
+    params, carry, xs, dcarry = _segment_case(torch, cfg, T, seed)
+    args = (body, (False, False), params, carry, xs, None, dcarry)
+    dc, dp, _ = sf.fused_reverse_segment(*args, chunk=chunk)
+    dc2, dp2, _ = sf.fused_reverse_segment(*args, chunk=chunk)
+    rdc, rdp, _ = sf.reverse_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(dc, dc2)) and all(
+        torch.equal(dp[k], dp2[k]) for k in dp)
+    require(same, f"fused reverse T={T}: two calls differ")
+    pairs = [(dp[k], rdp[k]) for k in rdp] + list(zip(dc, rdc))
+    rev = max(scaled_err(a, b) for a, b in pairs)
+    rev_abs = max(max_err(a, b) for a, b in pairs)
+    st = max(max_err(a, b) for a, b in zip(dc, rdc))
+    require(rev <= 1e-4 and st <= 1e-5,
+            f"fused reverse T={T} chunk={chunk}: scaled err {rev} (1e-4), "
+            f"state err {st} (1e-5)")
+    log(f"[kernels] fused reverse at the pinned shape T={T} chunk={chunk}: "
+        f"err {rev_abs:.3g} (scaled {rev:.3g}, states {st:.3g}); two calls "
+        "bit for bit equal")
+    return rev_abs
+
+
 def _randn(torch, rng, shape, dtype, scale=1.0):
     import numpy as np
 
@@ -312,6 +361,10 @@ FLASH_CASES = (
     ("bf16 D=64 Sq<Sk ragged", (1, 300, 777, 4, 2, 64), "bfloat16",
      {"window": 200}),
     ("fp32 D=64 non-causal", (2, 129, 129, 4, 4, 64), "float32",
+     {"causal": False}),
+    ("bf16 D=128 window<S softcap ragged", (2, 1000, 1000, 8, 2, 128),
+     "bfloat16", {"window": 300, "softcap": 30.0}),
+    ("bf16 D=64 non-causal", (2, 129, 129, 4, 4, 64), "bfloat16",
      {"causal": False}),
 )
 
@@ -350,6 +403,11 @@ def check_flash(torch, label, dims, dtype, kw, seed):
         f"{err:.3g}, scaled excess {ex:.3g} (rtol {rtol}, atol {atol} x "
         f"row RMS), lse err {lse_err:.3g}")
     if label == "gemma2-2b layer":
+        out2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
+        require(torch.equal(out, out2) and torch.equal(lse, lse2),
+                f"flash_attention {label}: two calls differ")
+        log(f"[kernels] flash_attention {label}: two calls bit for bit "
+            "equal")
         # the check rejects a kernel that skips one kv tile: the plain
         # version with keys 0..31 masked (K/V cut, queries kept at the end)
         bad = fa.flash_attention_plain(q, k[:, 32:].contiguous(),
@@ -363,26 +421,39 @@ def check_flash(torch, label, dims, dtype, kw, seed):
 
 
 def check_flash_unseen_rows(torch):
-    """Rows that see no key (Sq > Sk, causal) give 0, never NaN; the rest
-    match the plain version."""
+    """Rows that see no key (Sq > Sk, causal) give 0, never NaN, in fp32 and
+    bf16; the rest match the plain version.  A bf16 head dim outside the
+    tensor-core kernel's {16, 32, 64, 128, 256} is refused."""
     import numpy as np
 
     from repro_torch.kernels import flash_attention as fa
 
     rng = np.random.default_rng(11)
-    q = _randn(torch, rng, (1, 100, 2, 64), torch.float32)
-    k = _randn(torch, rng, (1, 50, 2, 64), torch.float32)
-    v = _randn(torch, rng, (1, 50, 2, 64), torch.float32)
-    out, _ = fa.flash_attention_fwd(q, k, v)
-    ref = fa.flash_attention_plain(q, k, v)
-    torch.cuda.synchronize()
-    require(bool(torch.isfinite(out).all())
-            and float(out[:, :50].abs().max()) == 0.0
-            and max_err(out[:, 50:], ref[:, 50:]) <= 2e-4,
-            "flash_attention: rows that see no key are not 0, or the rest "
-            "are off the plain version")
-    log("[kernels] flash_attention Sq > Sk: unseen rows 0, the rest max "
-        f"err {max_err(out[:, 50:], ref[:, 50:]):.3g}")
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q = _randn(torch, rng, (1, 100, 2, 64), dt)
+        k = _randn(torch, rng, (1, 50, 2, 64), dt)
+        v = _randn(torch, rng, (1, 50, 2, 64), dt)
+        out, _ = fa.flash_attention_fwd(q, k, v)
+        ref = fa.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        rtol, atol = TOL["flash_attention"][dtype]
+        ex = excess(out[:, 50:], ref[:, 50:], rtol)
+        require(bool(torch.isfinite(out.float()).all())
+                and float(out[:, :50].float().abs().max()) == 0.0
+                and ex <= atol,
+                f"flash_attention {dtype}: rows that see no key are not 0, "
+                f"or the rest are off the plain version ({ex})")
+        log(f"[kernels] flash_attention Sq > Sk {dtype}: unseen rows 0, the "
+            f"rest scaled excess {ex:.3g}")
+    # the tensor-core kernel takes D in {16, 32, 64, 128, 256}, refuses others
+    q = _randn(torch, rng, (1, 64, 2, 96), torch.bfloat16)
+    try:
+        fa.flash_attention_fwd(q, q, q)
+    except ValueError:
+        log("[kernels] flash_attention bf16 D=96: refused (ValueError)")
+    else:
+        raise SmokeFailure("flash_attention bf16 D=96 was not refused")
 
 
 # label, (B, T, H, G, P, N, chunk), dtype name, with an entry state; the
@@ -476,6 +547,7 @@ def phase_kernels(state) -> None:
                              label="uneven chunk tail")
     adv1, rev1 = check_segment(torch, cfg, T=99, chunk=7, seed=3,
                                label="length-1 tail")
+    rev_pinned = check_reverse_pinned(torch, cfg)
     # the new kernels; the error kept is that of the main path's shapes
     flash = [check_flash(torch, *case, seed=20 + i)
              for i, case in enumerate(FLASH_CASES)]
@@ -484,7 +556,7 @@ def phase_kernels(state) -> None:
            for i, case in enumerate(SSD_CASES)]
     state["err"] = {"lstm_cell": errs["torch.float32"],
                     "fused_advance_segment": max(adv, adv1),
-                    "fused_reverse_segment": max(rev, rev1),
+                    "fused_reverse_segment": max(rev, rev1, rev_pinned),
                     "flash_attention": flash[0], "ssd_scan": ssd[0]}
 
 
@@ -757,6 +829,7 @@ def _time_segment_kernels(torch, cfg, T, slots):
                                             + nc * (2 * B * Dh + 1))
     out["fused_advance_segment"] = (ms_k, ms_p) + bound_ms(nbytes,
                                                            T * step_flops)
+    out["flops"] = {"fused_advance_segment": T * step_flops}
     iters = max(1, min(50, 1000 // T))
     ms_k = cuda_ms(lambda: sf.fused_reverse_segment(
         body, (False, False), params, carry, xs, None, dcarry, chunk=chunk),
@@ -774,9 +847,48 @@ def _time_segment_kernels(torch, cfg, T, slots):
             + 2.0 * B * (Dh + 1) * V            # dw_out, db_out
             + B * Dx)                           # demb
     nbytes = 2 * pbytes + 8.0 * T * B + 4.0 * 3 * (2 * B * Dh + 1)
-    out["fused_reverse_segment"] = (ms_k, ms_p) + bound_ms(
-        nbytes, recompute * cell_flops(B, Dx, Dh) + T * back)
+    flops = recompute * cell_flops(B, Dx, Dh) + T * back
+    out["fused_reverse_segment"] = (ms_k, ms_p) + bound_ms(nbytes, flops)
+    out["flops"]["fused_reverse_segment"] = flops
+    out["parts"] = _reverse_parts(torch, lambda: sf.fused_reverse_segment(
+        body, (False, False), params, carry, xs, None, dcarry, chunk=chunk))
     return out
+
+
+# The fused reverse's parts by kernel name; a reduce_kernel adds the slices
+# of the product launched just before it, so it joins that product's part.
+REVERSE_PARTS = (("lstm_cell_kernel", "recompute"),
+                 ("dlogits_kernel", "hoisted"),
+                 ("gemm_kernel<false", "hoisted"),
+                 ("walk_kernel", "walk"),
+                 ("gemm_kernel<true", "reductions"),
+                 ("embed_grad_kernel", "reductions"),
+                 ("add_kernel", "reductions"))
+
+
+def _reverse_parts(torch, call):
+    """Device milliseconds of one ``call()`` of the fused reverse by part
+    (``REVERSE_PARTS``; copies and anything unnamed under "other"), from
+    ``torch.profiler``'s kernel events in launch order; None if the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
+                    for e in prof.events()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    parts, last = {}, "other"
+    for _, us, name in events:
+        part = next((p for key, p in REVERSE_PARTS if key in name), None)
+        if part is None:
+            part = last if "reduce_kernel" in name else "other"
+        parts[part] = parts.get(part, 0.0) + us / 1e3
+        last = part
+    return parts or None
 
 
 def _time_flash(torch, run):
@@ -809,11 +921,13 @@ def _time_flash(torch, run):
     nbytes = 2.0 * (2 * B * S * H * D + 2 * B * S * G * D) + 4.0 * B * H * S
     b_ms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
     log(f"[timing] flash_attention at B={B} S={S} H={H} G={G} D={D} bf16 "
-        f"(softcap {cfg.attn_softcap}); library: scaled_dot_product_attention"
-        " on K/V repeated per group, no softcap")
+        f"(softcap {cfg.attn_softcap}): {flops / ms_k / 1e9:.1f} TFLOP/s "
+        f"(library {flops / ms_l / 1e9:.1f}); library: "
+        "scaled_dot_product_attention on K/V repeated per group, which lacks "
+        "the softcap")
     return ("flash_attention", "src/repro_torch/kernels/csrc/"
             "flash_attention.cu", "src/repro/kernels/flash_attention.py:86",
-            ms_k, ms_p, b_ms, by, ms_l)
+            ms_k, ms_p, b_ms, by, ms_l, flops)
 
 
 def _time_ssd(torch, run):
@@ -847,7 +961,8 @@ def _time_ssd(torch, run):
     log(f"[timing] ssd_scan at B={B} T={T} H={H} G={G} P={P} N={N} "
         f"chunk={L} bf16")
     return ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
-            "src/repro/kernels/ssd_scan.py:69", ms_k, ms_p, b_ms, by, None)
+            "src/repro/kernels/ssd_scan.py:69", ms_k, ms_p, b_ms, by, None,
+            flops)
 
 
 def phase_timing(state) -> None:
@@ -883,7 +998,7 @@ def phase_timing(state) -> None:
     bms, by = bound_ms(nbytes, cell_flops(B, Dx, Dh))
     rows.append(("lstm_cell", "src/repro_torch/kernels/csrc/lstm_cell.cu",
                  "src/repro/kernels/lstm_cell.py:38", ms_k, ms_p, bms, by,
-                 ms_l))
+                 ms_l, cell_flops(B, Dx, Dh)))
 
     # kernels 2 and 3 at the autotuned main path's segment shape
     run = state["runs"][0]
@@ -893,22 +1008,29 @@ def phase_timing(state) -> None:
         k_ms, p_ms, b_ms, by = seg[name]
         rows.append((name, "src/repro_torch/kernels/csrc/segment_fused.cu",
                      f"src/repro/kernels/segment_pallas.py:{line}", k_ms,
-                     p_ms, b_ms, by, None))
+                     p_ms, b_ms, by, None, seg["flops"][name]))
     # and at the pinned run's segment shape (long segments, 16 chunks)
     pinned = state["runs"][1]
     long_seg = _time_segment_kernels(torch, cfg, pinned["interval"],
                                      pinned["slots"])
     for name in ("fused_advance_segment", "fused_reverse_segment"):
         k_ms, p_ms, b_ms, by = long_seg[name]
+        tflops = long_seg["flops"][name] / k_ms / 1e9
         log(f"[timing] {name} at T={long_seg['T']} chunk="
             f"{long_seg['chunk']}: {k_ms:.4f} ms (plain {p_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms by {by})")
+            f"bound {b_ms:.4f} ms by {by}; {tflops:.2f} TFLOP/s fp32)")
+    parts = long_seg["parts"]
+    log("[timing] fused_reverse_segment at T={} by part (one call, device "
+        "time of its kernels, torch.profiler): {}".format(
+            long_seg["T"], "not measured (the profiler saw no device time)"
+            if parts is None else ", ".join(f"{k} {v:.3f} ms"
+                                             for k, v in parts.items())))
 
     rows.append(_time_flash(torch, state["dense"]))
     rows.append(_time_ssd(torch, state["ssm"]))
 
     out = []
-    for name, src, rep, k_ms, p_ms, b_ms, by, l_ms in rows:
+    for name, src, rep, k_ms, p_ms, b_ms, by, l_ms, flops in rows:
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": rep, "launches": state["launches"][name],
                     "max_abs_err": state["err"][name], "ms": k_ms,
@@ -916,7 +1038,8 @@ def phase_timing(state) -> None:
                     "library_ms": l_ms})
         log(f"[timing] {name}: {k_ms:.4f} ms (plain {p_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms by {by}, library "
-            f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}); launches "
+            f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}; "
+            f"{flops / k_ms / 1e9:.2f} TFLOP/s); launches "
             f"{state['launches'][name]}")
     log(f"[timing] LSTM segment shape: T={seg['T']} chunk={seg['chunk']} "
         f"B={B}; bounds: LSTM kernels at the fp32 peak (67 TFLOP/s), "

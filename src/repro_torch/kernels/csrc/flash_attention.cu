@@ -6,12 +6,8 @@
 // kv axis, kv blocks outside the causal range or the window skipped with
 // pl.when).  On Hopper blocks run in parallel and carry nothing between
 // them, so the kv axis is a loop inside the block: one block per (batch *
-// head, BQ-row query tile) walks the kv tiles of its causal/window range
-// only, with the fp32 accumulator in registers.  A warp owns BQ/8 query rows
-// through every phase (scores, online softmax, p.V), so the row max and
-// denominator live in its registers and the p tile it writes to shared
-// memory is read back by the same warp.  GQA reads K/V of head h / (H/G)
-// directly: K/V are never repeated.
+// head, query tile) walks the kv tiles of its causal/window range only.
+// GQA reads K/V of head h / (H/G) directly: K/V are never repeated.
 //
 // Layouts are the model's: q, out (B, Sq, H, D) and k, v (B, Sk, G, D),
 // contiguous.  Beyond the TPU kernel it writes lse = m + log(l), fp32,
@@ -21,19 +17,45 @@
 // Numerics follow the plain forward it replaces on the model path
 // (models/attention.py::_chunked_fwd): q * scale rounded to the input type,
 // scores, softcap (cap * tanh(s / cap)) and softmax in fp32, p rounded to
-// the input type before p.V, fp32 accumulation; products are fp32 FMA on
-// the CUDA cores (no TF32).  Keys a row may not see get p = 0; a row that
-// sees no key (only when Sq > Sk) gives 0, never NaN: l is clamped at 1e-30
-// and lse is then about NEG_INF.  Ragged Sq and Sk edges are masked (the TPU
-// kernel asserts that its blocks divide them).
+// the input type before p.V, fp32 accumulation; only the order of the fp32
+// sums differs.  Keys a row may not see get p = 0; a row that sees no key
+// (only when Sq > Sk) gives 0, never NaN: l is clamped at 1e-30 and lse is
+// then about NEG_INF.  Ragged Sq and Sk edges are masked (the TPU kernel
+// asserts that its blocks divide them).
 //
 // Bound: at gemma2-2b's training shape (B*H = 16, S = 4096, D = 256,
 // causal) one call does ~137 GFLOP of products against ~0.1 GB of bytes, so
-// it is bound by operations.  This first version runs the products from
-// shared memory on the CUDA cores; the tensor cores (wgmma, TMA tiles) are
-// later work.  Shared memory: q tile BQ x (D+1), K tile BK x (D+1), V tile
-// BK x D and p tile BQ x (BK+1) floats — 137 KB at D = 256, above the 48 KB
-// static limit, so the launch raises the dynamic limit first.
+// it is bound by the bf16 tensor cores (0.14 ms at 989 TFLOP/s).
+//
+// bf16 inputs (flash_fwd_bf16_kernel, D in {16, 32, 64, 128, 256}: the
+// head dims of the repo's configs and tests; the fragment loops take any
+// multiple of 16, each an instantiation of its own): the products
+// run on the tensor cores.  A block of 4 warps owns 64 query rows, a warp
+// 16 of them.  Q, K and V stay bf16 in shared memory, rows padded by 16
+// bytes so that the 8 row addresses of an ldmatrix fall in distinct banks.
+// S = Q.K^T and O += P.V are mma.sync m16n8k16 (bf16 in, fp32 accumulate);
+// K tiles are read with ldmatrix, V tiles with ldmatrix.trans.  The row max
+// and sum of a warp's rows live in the 4 lanes that share a row of the
+// accumulator fragment (reduced with two shuffles); softcap, the online
+// softmax and the causal/window/ragged masks run on those fragments in
+// registers, the masks only on tiles that cross the diagonal, the window
+// edge or the ragged edge.  P is rounded to bf16 in registers and is the A
+// operand of P.V as it stands (the S accumulator's layout is the A
+// fragment's), so it never goes through shared memory.  K/V tiles are
+// double-buffered with 16-byte cp.async: tile t+1 loads while tile t
+// computes.  The softcap divides by cap as a multiply by 1/cap (within an
+// ulp, and without an IEEE division per score).  Registers at D = 256: the
+// O accumulator is 16 x 256 fp32 per warp, 128 a thread, so the kv tile is
+// 32 keys there (S is 16 a thread) and 64 at D <= 128; shared memory is 101 KB at D = 256 (two blocks per
+// SM), 87 KB at D = 128.  Query tiles run heaviest first (the causal range
+// grows with the tile index), so the last wave is short.  The next step is
+// the Hopper form (TMA loads by a producer warp, wgmma consumer warpgroups).
+//
+// fp32 inputs (flash_fwd_kernel, D <= 256) keep the first design: products
+// as fp32 FMA on the CUDA cores from shared memory (no TF32), one block per
+// (batch * head, 64 query rows), a warp owning 8 rows through scores,
+// online softmax and p.V; fp32 tiles need 137 KB of shared memory at
+// D = 256, one block of 8 warps per SM.
 #include "common.cuh"
 
 using repro::from_f32;
@@ -232,6 +254,268 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
                          causal, window, cap, stream);
 }
 
+// ------------------------------------------------ bf16, tensor cores
+
+using bf16 = __nv_bfloat16;
+constexpr int TC_BQ = 64;                  // query rows per block
+constexpr int TC_NT = 128;                 // 4 warps, 16 rows each
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct TcShape {
+  static constexpr int BK = D == 256 ? 32 : 64;  // keys per kv tile
+  static constexpr int LDS = D + 8;  // row stride (elements): +16 bytes
+  static constexpr size_t smem =
+      sizeof(bf16) * static_cast<size_t>(TC_BQ + 4 * BK) * LDS;
+};
+
+// rows [0, n) of a (rows x D) tile from global rows of stride `stride`
+// elements; rows [valid, n) are zero-filled.
+template <int D, int LDS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long stride, int valid, int n) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < n * CPR; e += TC_NT) {
+    const int r = e / CPR, c = e % CPR;
+    const bool ok = r < valid;
+    repro::cp_async16(dst + r * LDS + c * 8, ok ? src + r * stride + c * 8 : src,
+                      ok ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_NT)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out,
+                      float* __restrict__ lse, int Sq, int Sk, int H, int G,
+                      float scale, int causal, int window, float cap) {
+  using S = TcShape<D>;
+  constexpr int BK = S::BK, LDS = S::LDS;
+  constexpr int NS = BK / 8;   // score n-tiles (8 keys each) per kv tile
+  constexpr int NO = D / 8;    // output n-tiles (8 columns each)
+  extern __shared__ float smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // TC_BQ x LDS
+  bf16* kbuf = qs + TC_BQ * LDS;             // 2 x BK x LDS
+  bf16* vbuf = kbuf + 2 * BK * LDS;          // 2 x BK x LDS
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int grp = h / (H / G);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_BQ;  // heaviest first
+  const int nq = min(TC_BQ, Sq - q0);
+  const int q_off = Sk - Sq;
+  const long qstride = static_cast<long>(H) * D;
+  const long kstride = static_cast<long>(G) * D;
+  const bf16* qb = q + (static_cast<long>(b) * Sq * H + h) * D;
+  const bf16* kb = k + (static_cast<long>(b) * Sk * G + grp) * D;
+  const bf16* vb = v + (static_cast<long>(b) * Sk * G + grp) * D;
+
+  const int q_first = q0 + q_off, q_last = q0 + nq - 1 + q_off;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  const int t_begin = k_begin / BK;
+  const int t_end = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+
+  load_tile<D, LDS>(qs, qb + q0 * qstride, qstride, nq, TC_BQ);
+  if (t_begin < t_end) {
+    const int k0 = t_begin * BK;
+    load_tile<D, LDS>(kbuf, kb + k0 * kstride, kstride, Sk - k0, BK);
+    load_tile<D, LDS>(vbuf, vb + k0 * kstride, kstride, Sk - k0, BK);
+  }
+  repro::cp_async_commit();
+  repro::cp_async_wait<0>();
+  __syncthreads();
+  // q * scale in the input type, as the plain forward
+  for (int e = tid; e < TC_BQ * D; e += TC_NT) {
+    bf16* p = qs + (e / D) * LDS + e % D;
+    *p = __float2bfloat16(__bfloat162float(*p) * scale);
+  }
+  __syncthreads();
+
+  const int wrow = warp * 16;                 // the warp's rows of the tile
+  const int w_first = q0 + wrow + q_off;      // its first query position
+  const int qp[2] = {w_first + g, w_first + g + 8};
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  // s / cap as s * (1 / cap): within an ulp, without a division per score
+  const float inv_cap = cap > 0.0f ? 1.0f / cap : 0.0f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    if (t > t_begin) {
+      repro::cp_async_wait<0>();   // tile t has landed ...
+      __syncthreads();             // ... for all, and tile t-1 is consumed
+    }
+    if (t + 1 < t_end) {           // tile t+1 loads while tile t computes
+      const int k1 = (t + 1) * BK;
+      load_tile<D, LDS>(kbuf + (buf ^ 1) * BK * LDS, kb + k1 * kstride,
+                        kstride, Sk - k1, BK);
+      load_tile<D, LDS>(vbuf + (buf ^ 1) * BK * LDS, vb + k1 * kstride,
+                        kstride, Sk - k1, BK);
+    }
+    repro::cp_async_commit();
+    const bf16* ks = kbuf + buf * BK * LDS;
+    const bf16* vs = vbuf + buf * BK * LDS;
+    const int k0 = t * BK;
+
+    // S = Q K^T: 16 rows x BK keys per warp
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      repro::ldmatrix_x4(a, qs + (wrow + (lane & 15)) * LDS + kk * 16 +
+                                (lane >> 4) * 8);
+#pragma unroll
+      for (int j2 = 0; j2 < NS / 2; ++j2) {
+        uint32_t bb[4];
+        repro::ldmatrix_x4(bb, ks + (j2 * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                       LDS +
+                                   kk * 16 + ((lane >> 3) & 1) * 8);
+        repro::mma_bf16_16816(s[2 * j2], a, bb);
+        repro::mma_bf16_16816(s[2 * j2 + 1], a, bb + 2);
+      }
+    }
+
+    // softcap, masks, online softmax on the fragments
+    const bool need_mask =
+        k0 + BK > Sk || (causal && k0 + BK - 1 > w_first) ||
+        (window > 0 && w_first + 15 - k0 >= window);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sv = s[j][e];
+        if (cap > 0.0f) sv = cap * tanhf(sv * inv_cap);
+        if (need_mask) {
+          const int kp = k0 + 8 * j + 2 * tq + (e & 1);
+          const int qpos = qp[e >> 1];
+          bool valid = kp < Sk;
+          if (causal) valid = valid && kp <= qpos;
+          if (window > 0) valid = valid && qpos - kp < window;
+          if (!valid) sv = -INFINITY;
+        }
+        s[j][e] = sv;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+      }
+    float corr[2], ml2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2f((m[r] - m_new) * LOG2E);
+      m[r] = m_new;
+      ml2[r] = m_new * LOG2E;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // masked scores are -inf: p = 0 (m stays finite)
+        const float p = exp2f(fmaf(s[j][e], LOG2E, -ml2[e >> 1]));
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][0] *= corr[0];
+      o[j][1] *= corr[0];
+      o[j][2] *= corr[1];
+      o[j][3] *= corr[1];
+    }
+
+    // O += P V: P (bf16) is the A fragment in the S accumulator's layout
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = repro::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = repro::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = repro::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = repro::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int d2 = 0; d2 < NO / 2; ++d2) {
+        uint32_t bb[4];
+        repro::ldmatrix_x4_trans(
+            bb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+                    d2 * 16 + (lane >> 4) * 8);
+        repro::mma_bf16_16816(o[2 * d2], a, bb);
+        repro::mma_bf16_16816(o[2 * d2 + 1], a, bb + 2);
+      }
+    }
+  }
+  repro::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int i = wrow + g + 8 * r;
+    if (i >= nq) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    bf16* orow = out + ((static_cast<long>(b) * Sq + q0 + i) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
+          repro::pack_bf16x2(o[j][2 * r] / lc, o[j][2 * r + 1] / lc);
+    if (tq == 0) lse[static_cast<long>(bh) * Sq + q0 + i] = m[r] + logf(lc);
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int Sq, int Sk, int H, int G, float scale,
+              int causal, int window, float cap, void* stream) {
+  auto kern = flash_fwd_bf16_kernel<D>;
+  const size_t smem = TcShape<D>::smem;
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kern),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + TC_BQ - 1) / TC_BQ, B * H);
+  kern<<<grid, TC_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Sq, Sk, H,
+      G, scale, causal, window, cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int Sq, int Sk, int H, int G, int D,
+                float scale, int causal, int window, float cap,
+                void* stream) {
+  if (B <= 0 || Sq <= 0 || H <= 0) return 0;
+  if (G <= 0 || H % G != 0 || Sk < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 16)
+    return launch_tc<16>(q, k, v, out, lse, B, Sq, Sk, H, G, scale, causal,
+                         window, cap, stream);
+  if (D == 32)
+    return launch_tc<32>(q, k, v, out, lse, B, Sq, Sk, H, G, scale, causal,
+                         window, cap, stream);
+  if (D == 64)
+    return launch_tc<64>(q, k, v, out, lse, B, Sq, Sk, H, G, scale, causal,
+                         window, cap, stream);
+  if (D == 128)
+    return launch_tc<128>(q, k, v, out, lse, B, Sq, Sk, H, G, scale, causal,
+                          window, cap, stream);
+  if (D == 256)
+    return launch_tc<256>(q, k, v, out, lse, B, Sq, Sk, H, G, scale, causal,
+                          window, cap, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // window <= 0: no sliding window; cap <= 0: no softcap.
@@ -244,11 +528,12 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                        window, cap, stream);
 }
 
+// D must be 16, 32, 64, 128 or 256 (cudaErrorInvalidValue otherwise).
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* out, float* lse,
                                         int B, int Sq, int Sk, int H, int G,
                                         int D, float scale, int causal,
                                         int window, float cap, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H, G, D, scale,
-                               causal, window, cap, stream);
+  return launch_bf16(q, k, v, out, lse, B, Sq, Sk, H, G, D, scale, causal,
+                     window, cap, stream);
 }

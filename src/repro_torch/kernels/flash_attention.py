@@ -14,7 +14,8 @@ laid out is noted in the source.
 the plain version :func:`flash_attention_plain`
 (:func:`repro_torch.kernels.ref.flash_attention_ref` over the heads
 flattened as ``ops.py`` flattens them).  :func:`flash_attention_fwd`
-is the launch itself (CUDA only) and also returns ``lse`` (fp32,
+is the launch itself (CUDA only; bf16 takes the tensor-core kernel and
+head dims 16, 32, 64, 128 and 256 only) and also returns ``lse`` (fp32,
 ``(B, G, H/G, Sq)``), which the TPU kernel does not produce and the
 attention backward needs.  Launches count into ``flash_attention.launches``.
 """
@@ -32,6 +33,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FNS = {torch.float32: "flash_attention_fwd_f32",
         torch.bfloat16: "flash_attention_fwd_bf16"}
 MAX_HEAD_DIM = 256
+BF16_HEAD_DIMS = (16, 32, 64, 128, 256)   # the tensor-core kernel's
 
 
 def _lib():
@@ -80,6 +82,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.shape[3] > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {q.shape[3]} > "
                          f"{MAX_HEAD_DIM}")
+    if q.dtype == torch.bfloat16 and q.shape[3] not in BF16_HEAD_DIMS:
+        raise ValueError(f"flash_attention: bf16 head dim {q.shape[3]} is "
+                         f"not one of {BF16_HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             "aligned")
     return _launch(q, k, v, causal, window, softcap, scale)
 
 

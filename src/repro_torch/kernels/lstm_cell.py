@@ -8,10 +8,11 @@ it on the H100 and how the kernel is laid out is noted in the source.
 
 :func:`lstm_cell` is the standalone kernel: its plain version is
 :func:`repro_torch.kernels.ref.lstm_cell_ref`, taken for CPU tensors only.
-:func:`lstm_cell_tokens` is the same kernel with the input rows gathered
-from an embedding table, writing the ``[x, h]`` rows and gate activations
-the fused reverse needs (CUDA only: its plain counterpart is the fused
-reverse's plain version).  Both count into ``lstm_cell.launches``.
+:func:`lstm_cell_token_steps` runs the same kernel over a run of steps,
+one launch per step, with the input rows gathered from an embedding table,
+writing the ``[x, h]`` rows and gate activations the fused reverse needs
+(CUDA only: its plain counterpart is the fused reverse's plain version).
+Both count into ``lstm_cell.launches``.
 """
 from __future__ import annotations
 
@@ -97,19 +98,52 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 lstm_cell.launches = 0
 
 
-def lstm_cell_tokens(tok: torch.Tensor, emb: torch.Tensor, h: torch.Tensor,
-                     c: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
-                     h_out: torch.Tensor, c_out: torch.Tensor,
-                     xh_out: Optional[torch.Tensor] = None,
-                     acts_out: Optional[torch.Tensor] = None) -> None:
-    """One cell step over the batch with ``x = emb[tok]`` (fp32, CUDA).
-    Writes ``h_out``/``c_out`` and, when given, ``xh_out (B, Dx+Dh)`` and
-    ``acts_out (B, 4Dh)`` (σ(i), σ(f+1), σ(o), tanh(g))."""
+def lstm_cell_token_steps(tok: torch.Tensor, emb: torch.Tensor,
+                          hs: torch.Tensor, cs: torch.Tensor, w: torch.Tensor,
+                          b: torch.Tensor, *,
+                          xh: Optional[torch.Tensor] = None,
+                          acts: Optional[torch.Tensor] = None) -> None:
+    """``L = len(tok)`` cell steps over the batch with ``x = emb[tok[t]]``
+    (fp32, CUDA), one launch each: step ``t`` reads ``(hs[t], cs[t])`` and
+    writes ``(hs[t+1], cs[t+1])`` and, when given, ``xh[t] = [x, h]`` and
+    ``acts[t]`` (σ(i), σ(f+1), σ(o), tanh(g)).  ``tok (L, B)`` int32;
+    ``hs, cs (>= L+1, B, Dh)``, ``xh (>= L, B, Dx+Dh)``, ``acts (>= L, B,
+    4Dh)`` contiguous fp32 on the card.  The operands are checked once, so
+    a step costs the host one call of the C entry point."""
     if not tok.is_cuda:
-        raise ValueError("lstm_cell_tokens runs on the card only")
+        raise ValueError("lstm_cell_token_steps runs on the card only")
+    _token_steps(tok, emb, hs, cs, w, b, xh, acts)
+
+
+def _token_steps(tok, emb, hs, cs, w, b, xh, acts) -> None:
+    L, B = tok.shape
+    Dx, Dh = emb.shape[1], hs.shape[-1]
     f32 = torch.float32
-    _check_cuda(f32, tok.device, emb=emb, h=h, c=c, w=w, b=b, h_out=h_out,
-                c_out=c_out, xh_out=xh_out, acts_out=acts_out)
+    _check_cuda(f32, tok.device, emb=emb, hs=hs, cs=cs, w=w, b=b, xh=xh,
+                acts=acts)
     _check_cuda(torch.int32, tok.device, tok=tok)
-    _launch("lstm_cell_f32", emb, tok, h, c, w, b, h_out, c_out, xh_out,
-            acts_out)
+    if hs.shape[0] < L + 1 or hs.shape[1:] != (B, Dh) \
+            or cs.shape != hs.shape or w.shape != (Dx + Dh, 4 * Dh) \
+            or (xh is not None and (xh.shape[0] < L
+                                    or xh.shape[1:] != (B, Dx + Dh))) \
+            or (acts is not None and (acts.shape[0] < L
+                                      or acts.shape[1:] != (B, 4 * Dh))):
+        raise ValueError("lstm_cell_token_steps: operand shapes do not fit "
+                         f"{L} steps of a ({B}, {Dh}) state")
+    lib = _lib()
+    fn = lib.lstm_cell_f32
+    stream = build.stream_ptr(tok.device)
+    emb_p, w_p, b_p = emb.data_ptr(), w.data_ptr(), b.data_ptr()
+    tok_p, hs_p, cs_p = tok.data_ptr(), hs.data_ptr(), cs.data_ptr()
+    xh_p = None if xh is None else xh.data_ptr()
+    acts_p = None if acts is None else acts.data_ptr()
+    st, sk, sa = 4 * B * Dh, 4 * B * (Dx + Dh), 4 * B * 4 * Dh   # bytes
+    for t in range(L):
+        err = fn(emb_p, tok_p + 4 * B * t, hs_p + st * t, cs_p + st * t, w_p,
+                 b_p, hs_p + st * (t + 1), cs_p + st * (t + 1),
+                 None if xh_p is None else xh_p + sk * t,
+                 None if acts_p is None else acts_p + sa * t, B, Dx, Dh,
+                 stream)
+        if err:
+            build.check(lib, err, "lstm_cell")
+        lstm_cell.launches += 1

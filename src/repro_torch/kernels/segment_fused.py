@@ -11,8 +11,11 @@
   ``segment_pallas.py::fused_reverse_segment``: Echo-style recompute — phase
   A recomputes the chunk-entry boundaries from the Level-2 boundary, then the
   chunks are walked in reverse, each one's states recomputed into scratch
-  (kernel 1, ``lstm_cell_tokens``) and transposed step by step, with the
-  parameter gradients reduced in a fixed order.
+  (kernel 1, ``lstm_cell_token_steps``); the products that do not carry the
+  recurrence (logits, dlogits, their pull-back through ``w_out``, ``dx``)
+  run over all rows of the chunk at once, the walk carries only
+  ``dh_t = dz_t W_h^T`` and the cell's vjp (one cooperative launch per
+  chunk), and the parameter gradients are reduced in a fixed order.
 
 The JAX kernels trace any chain body; the CUDA kernels are written for the
 LSTM chain step only, which ``repro_torch.models.lstm`` registers here.  On
@@ -189,13 +192,25 @@ def _seg_lib():
         lib.fused_advance_lstm.restype = _I
         lib.fused_advance_lstm.argtypes = (
             [_P] * 5 + [_I] * 3 + [_P] * 13 + [_I] * 4 + [_P])
-        lib.chunk_backward_lstm.restype = _I
-        lib.chunk_backward_lstm.argtypes = (
-            [_P] * 5 + [_I] * 3 + [_P] * 10 + [_I] * 2 + [_P])
-        lib.grad_gemm.restype = _I
-        lib.grad_gemm.argtypes = [_P, _I, _P, _I, _I, _I, _I, _P, _I, _P]
+        lib.lstm_rev_scratch.restype = ctypes.c_long
+        lib.lstm_rev_scratch.argtypes = [_I] * 4
+        lib.lstm_rev_hoisted.restype = _I
+        lib.lstm_rev_hoisted.argtypes = [_P, _P, _I, _I] + [_P] * 5 + [
+            _I, _I, _P, _P]
+        lib.lstm_rev_walk.restype = _I
+        lib.lstm_rev_walk.argtypes = [_P, _I, _I] + [_P] * 6 + [
+            _I, _I, _P, _P]
+        lib.lstm_rev_walk_max_dh.restype = _I
+        lib.lstm_rev_walk_max_dh.argtypes = []
+        lib.lstm_rev_dx.restype = _I
+        lib.lstm_rev_dx.argtypes = [_P, _I, _I, _P, _P, _I, _P, _P]
+        lib.grad_reduce_slices.restype = _I
+        lib.grad_reduce_slices.argtypes = [_I, _I, _I]
+        lib.grad_reduce.restype = _I
+        lib.grad_reduce.argtypes = [_P, _I, _P, _I, _I, _I, _I, _P, _I, _P,
+                                    _P]
         lib.embed_grad.restype = _I
-        lib.embed_grad.argtypes = [_P, _P, _I, _I, _I, _P, _I, _P]
+        lib.embed_grad.argtypes = [_P, _P, _I, _I, _I, _P, _I, _P, _P]
         lib.add_inplace.restype = _I
         lib.add_inplace.argtypes = [_P, _P, ctypes.c_long, _P]
         lib._repro_typed = True
@@ -264,35 +279,41 @@ def _advance_lstm_cuda(params, carry, xs_seg, chunk: int) -> FusedAdvance:
 
 
 def _reverse_lstm_cuda(params, carry_b, xs_seg, dcarry, chunk: int):
-    from repro_torch.kernels.lstm_cell import lstm_cell_tokens
+    from repro_torch.kernels.lstm_cell import lstm_cell_token_steps
 
     lib = _seg_lib()
     p, (h_b, c_b, _), (tok, tgt), (V, Dx, Dh, B) = _lstm_operands(
         params, carry_b, xs_seg)
     emb, w, b, w_out, b_out = p
+    if w.data_ptr() % 16:
+        raise ValueError("fused LSTM reverse: w must be 16-byte aligned")
+    max_dh = lib.lstm_rev_walk_max_dh()
+    if Dh > max_dh:
+        raise ValueError(
+            f"fused LSTM reverse: hidden width {Dh} is above {max_dh}, the "
+            f"widest whose walk tile (32 units of W_h) fits this device's "
+            f"shared memory per block")
     dh_in, dc_in, dacc = dcarry
     T = tok.shape[0]
     chunk, nc, rem = reverse_layout(T, chunk)
     f32, dev = torch.float32, h_b.device
     K, N4 = Dx + Dh, 4 * Dh
     ptr, stream = build.ptr, build.stream_ptr(dev)
-
+    # a chunk's recomputed states (index t = the input of step t)
+    hs = torch.empty((chunk + 1, B, Dh), dtype=f32, device=dev)
+    cs = torch.empty_like(hs)
     # phase A: every chunk-entry (h, c), recomputed from the Level-2 boundary
     ent_h = torch.empty((nc, B, Dh), dtype=f32, device=dev)
     ent_c = torch.empty_like(ent_h)
     ent_h[0].copy_(h_b)
     ent_c[0].copy_(c_b)
-    tmp_h = torch.empty((2, B, Dh), dtype=f32, device=dev)
-    tmp_c = torch.empty_like(tmp_h)
     for kk in range(1, nc):
-        src_h, src_c = ent_h[kk - 1], ent_c[kk - 1]
-        for t in range(chunk):
-            last = t == chunk - 1
-            dst_h = ent_h[kk] if last else tmp_h[t % 2]
-            dst_c = ent_c[kk] if last else tmp_c[t % 2]
-            lstm_cell_tokens(tok[(kk - 1) * chunk + t], emb, src_h, src_c, w,
-                             b, h_out=dst_h, c_out=dst_c)
-            src_h, src_c = dst_h, dst_c
+        hs[0].copy_(ent_h[kk - 1])
+        cs[0].copy_(ent_c[kk - 1])
+        lstm_cell_token_steps(tok[(kk - 1) * chunk:kk * chunk], emb, hs, cs,
+                              w, b)
+        ent_h[kk].copy_(hs[chunk])
+        ent_c[kk].copy_(cs[chunk])
 
     # gradients in one flat buffer: [emb | w ; b | w_out ; b_out], so each
     # fixed-order reduction writes its (rows + bias row) block in place
@@ -302,13 +323,18 @@ def _reverse_lstm_cuda(params, carry_b, xs_seg, dcarry, chunk: int):
     gacc = torch.zeros((total,), dtype=f32, device=dev)
     tail = torch.empty_like(gacc) if rem != chunk else None
 
-    hs = torch.empty((chunk + 1, B, Dh), dtype=f32, device=dev)
-    cs = torch.empty_like(hs)
     acts = torch.empty((chunk, B, N4), dtype=f32, device=dev)
     xh = torch.empty((chunk, B, K), dtype=f32, device=dev)
     dz = torch.empty((chunk, B, N4), dtype=f32, device=dev)
     dl = torch.empty((chunk, B, V), dtype=f32, device=dev)
+    dh_extra = torch.empty((chunk, B, Dh), dtype=f32, device=dev)
     dx = torch.empty((chunk, B, Dx), dtype=f32, device=dev)
+    # the slices' partial sums of the split products and reductions, and
+    # the walk's grid-barrier counter
+    part = torch.empty((max(1, *(lib.lstm_rev_scratch(V, Dx, Dh, n * B)
+                                 for n in {chunk, rem})),),
+                       dtype=f32, device=dev)
+    barrier = torch.empty((1,), dtype=torch.int32, device=dev)
     dh = dh_in.to(f32).contiguous().clone()
     dc = dc_in.to(f32).contiguous().clone()
     dacc = dacc.to(dtype=f32, device=dev).contiguous()
@@ -317,27 +343,35 @@ def _reverse_lstm_cuda(params, carry_b, xs_seg, dcarry, chunk: int):
         L, M = hi - lo, (hi - lo) * B
         hs[0].copy_(ent_h[kk])
         cs[0].copy_(ent_c[kk])
-        for t in range(L):   # the chunk's states, into scratch
-            lstm_cell_tokens(tok[lo + t], emb, hs[t], cs[t], w, b,
-                             h_out=hs[t + 1], c_out=cs[t + 1],
-                             xh_out=xh[t], acts_out=acts[t])
-        err = lib.chunk_backward_lstm(
-            *[ptr(t) for t in p], V, Dx, Dh, ptr(tgt[lo]), ptr(hs), ptr(cs),
-            ptr(acts), ptr(dacc), ptr(dh), ptr(dc), ptr(dz), ptr(dl),
-            ptr(dx), L, B, stream)
-        build.check(lib, err, "fused_reverse_segment (chunk backward)")
+        lstm_cell_token_steps(tok[lo:hi], emb, hs, cs, w, b, xh=xh,
+                              acts=acts)   # the chunk's states
+        err = lib.lstm_rev_hoisted(ptr(w_out), ptr(b_out), V, Dh,
+                                   ptr(tgt[lo]), ptr(hs[1]), ptr(dacc),
+                                   ptr(dl), ptr(dh_extra), M, B, ptr(part),
+                                   stream)
+        build.check(lib, err, "fused_reverse_segment (hoisted products)")
+        err = lib.lstm_rev_walk(ptr(w), Dx, Dh, ptr(cs), ptr(acts),
+                                ptr(dh_extra), ptr(dh), ptr(dc), ptr(dz), L,
+                                B, ptr(barrier), stream)
+        build.check(lib, err, "fused_reverse_segment (walk)")
+        err = lib.lstm_rev_dx(ptr(w), Dx, Dh, ptr(dz), ptr(dx), M, ptr(part),
+                              stream)
+        build.check(lib, err, "fused_reverse_segment (dx)")
         short_tail = kk == nc - 1 and rem != chunk
         dst, acc = (tail, 0) if short_tail else (gacc, 1)
         base = dst.data_ptr()
         fbytes = dst.element_size()
-        err = lib.grad_gemm(ptr(xh), K, ptr(dz), N4, M, K, N4,
-                            _P(base + offs[1] * fbytes), acc, stream)
+        err = lib.grad_reduce(ptr(xh), K, ptr(dz), N4, M, K, N4,
+                              _P(base + offs[1] * fbytes), acc, ptr(part),
+                              stream)
         build.check(lib, err, "fused_reverse_segment (dW)")
-        err = lib.grad_gemm(ptr(hs[1]), Dh, ptr(dl), V, M, Dh, V,
-                            _P(base + offs[3] * fbytes), acc, stream)
+        err = lib.grad_reduce(ptr(hs[1]), Dh, ptr(dl), V, M, Dh, V,
+                              _P(base + offs[3] * fbytes), acc, ptr(part),
+                              stream)
         build.check(lib, err, "fused_reverse_segment (dw_out)")
         err = lib.embed_grad(ptr(tok[lo]), ptr(dx), M, V, Dx,
-                             _P(base + offs[0] * fbytes), acc, stream)
+                             _P(base + offs[0] * fbytes), acc, ptr(part),
+                             stream)
         build.check(lib, err, "fused_reverse_segment (demb)")
     if tail is not None:
         err = lib.add_inplace(ptr(gacc), ptr(tail), total, stream)

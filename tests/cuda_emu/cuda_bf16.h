@@ -21,3 +21,9 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   b.x = static_cast<uint16_t>((u + round) >> 16);
   return b;
 }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 v) { return v.x; }
+inline __nv_bfloat16 __ushort_as_bfloat16(unsigned short u) {
+  __nv_bfloat16 b;
+  b.x = u;
+  return b;
+}

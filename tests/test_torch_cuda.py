@@ -17,7 +17,8 @@ SSD scan's per head), at (2e-4, 2e-4) in fp32; in bf16 the SSD scan's y at
 (1e-2, 1e-3) and attention at (1e-2, 2e-2), since it also rounds p at
 another point of the softmax; the SSD state at (2e-4, 2e-4) and the
 attention logsumexp at 1e-5 of the plain chunked forward's.  The
-decoder chains on the card: the
+redesigned kernels (bf16 flash attention on the tensor cores, the fused
+reverse) give the same bits on two calls.  The decoder chains on the card: the
 offloaded gradient against dense autograd on the card, loss 1e-5 relative
 and each leaf 1e-4 of its max |g|.
 """
@@ -210,11 +211,19 @@ def test_compiled_runner_on_card_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims,dtype,kw", [
+    # gemma2-2b's layer at the dense phase's shape (the tensor-core kernel)
+    ((2, 4096, 4096, 8, 4, 256), "bfloat16", {"softcap": 50.0,
+                                              "scale": 0.0625}),
     ((2, 512, 512, 8, 4, 256), "bfloat16", {"softcap": 50.0,
                                             "scale": 0.0625}),
+    ((1, 700, 900, 4, 2, 128), "bfloat16", {"window": 256}),   # Sq < Sk
     ((1, 300, 300, 4, 4, 256), "float32", {"window": 64}),
     ((2, 200, 333, 4, 2, 64), "float32", {"softcap": 20.0}),   # Sq < Sk
     ((1, 129, 129, 2, 1, 64), "bfloat16", {"causal": False}),
+    # gemma2-2b SMOKE's head dim 16 (window, softcap), and 32
+    ((2, 300, 300, 4, 2, 16), "bfloat16", {"window": 8, "softcap": 50.0,
+                                           "scale": 0.25}),
+    ((1, 200, 260, 4, 1, 32), "bfloat16", {}),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, dims, dtype, kw):
     B, Sq, Sk, H, G, D = dims
@@ -232,6 +241,75 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dims, dtype, kw):
                                kw.get("scale"))
     _assert_close_to(out, want, *TOL["flash_attention"][dtype])
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_twice_bit_identical(cuda_device):
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.tensor(_np(rng, s)).to(torch.bfloat16).cuda()
+               for s in ((2, 1000, 8, 256), (2, 1000, 4, 256),
+                         (2, 1000, 4, 256)))
+    a = fa.flash_attention_fwd(q, k, v, softcap=50.0)
+    b = fa.flash_attention_fwd(q, k, v, softcap=50.0)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 48, 96, 192])
+def test_flash_attention_bf16_other_head_dims_raise(cuda_device, D):
+    q = torch.zeros((1, 64, 2, D), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fwd(q, q, q)
+
+
+def _reverse_against_plain(T, Bn, chunk, seed):
+    """The fused reverse on lstm-paper at full width against its plain
+    version on the card; two calls give the same bits."""
+    cfg = get_config("lstm-paper")
+    Dh = cfg.d_ff
+    rng = np.random.default_rng(seed)
+    params = params_from_numpy(init_lstm_numpy(seed, cfg.vocab, cfg.d_model,
+                                               Dh), device="cuda")
+    carry = tuple(torch.tensor(_np(rng, (Bn, Dh), 0.5)).cuda()
+                  for _ in range(2)) + (torch.tensor(3.0).cuda(),)
+    xs = tuple(torch.tensor(rng.integers(0, cfg.vocab, (T, Bn)),
+                            dtype=torch.int32).cuda() for _ in range(2))
+    dcarry = tuple(torch.tensor(_np(rng, (Bn, Dh), 0.1)).cuda()
+                   for _ in range(2)) + (torch.tensor(1.0).cuda(),)
+    body = lstm.train_chain(cfg).body
+    args = (body, (False, False), params, carry, xs, None, dcarry)
+    dc, dp, _ = sf.fused_reverse_segment(*args, chunk=chunk)
+    dc2, dp2, _ = sf.fused_reverse_segment(*args, chunk=chunk)
+    pdc, pdp, _ = sf.reverse_plain(*args, chunk=chunk)
+    for a, b in zip(dc, dc2):
+        assert torch.equal(a, b)
+    for k in dp:
+        assert torch.equal(dp[k], dp2[k])
+    for a, b in zip(dc, pdc):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for k in pdp:
+        scale = float(pdp[k].abs().max())
+        torch.testing.assert_close(dp[k], pdp[k], rtol=1e-4,
+                                   atol=1e-4 * max(scale, 1e-6))
+
+
+@pytest.mark.cuda
+def test_fused_reverse_pinned_shape_matches_plain(cuda_device):
+    """The fused reverse at the pinned main path's segment shape (lstm-paper
+    at full width, B=256, T=1000, its chunk)."""
+    from repro_torch.api.autotune import default_slots
+    from repro_torch.core.schedule import chunk_length
+
+    T = 1000
+    _reverse_against_plain(T, 256, chunk_length(T, default_slots(T)), 12)
+
+
+@pytest.mark.cuda
+def test_fused_reverse_wide_batch_matches_plain(cuda_device):
+    """At B=600 the walk's 38 row tiles by 8 unit tiles outnumber the
+    blocks that can be resident at once, so each block of the cooperative
+    launch loops over its row tiles within a step."""
+    _reverse_against_plain(6, 600, 4, 13)
 
 
 @pytest.mark.cuda

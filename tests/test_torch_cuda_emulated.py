@@ -60,7 +60,7 @@ def _to_cpp(source: str) -> str:
         return (f"emu_launch(dim3({grid}), dim3({block}), [&]() "
                 f"{{ {m.group(1)}({m.group(3)}); }});")
 
-    return re.sub(r"([\w:]+(?:<[\w:]+>)?)<<<(.*?)>>>\((.*?)\);", launch,
+    return re.sub(r"([\w:]+(?:<[\w:, ]+>)?)<<<(.*?)>>>\((.*?)\);", launch,
                   source, flags=re.S)
 
 
@@ -119,13 +119,10 @@ def card_paths(emulated_libs, monkeypatch):
                         lambda device=None: ctypes.c_void_p(0))
     monkeypatch.setattr(sf, "torch", _TorchOnHost())
     monkeypatch.setattr(sf, "_on_cpu", lambda tree: False)
-
-    def tokens(tok, emb, h, c, w, b, *, h_out, c_out, xh_out=None,
-               acts_out=None):
-        lc._launch("lstm_cell_f32", emb, tok, h, c, w, b, h_out, c_out,
-                   xh_out, acts_out)
-
-    monkeypatch.setattr(lc, "lstm_cell_tokens", tokens)
+    monkeypatch.setattr(lc, "lstm_cell_token_steps",
+                        lambda tok, emb, hs, cs, w, b, *, xh=None,
+                        acts=None: lc._token_steps(tok, emb, hs, cs, w, b,
+                                                   xh, acts))
 
 
 def _np(rng, shape, scale=1.0):
@@ -154,26 +151,33 @@ def test_lstm_cell_kernel_source(card_paths, Bn, Dx, Dh, dtype):
 
 
 def test_lstm_cell_gather_variant_writes_its_side_outputs(card_paths):
+    """Two steps of the gather variant (the fused reverse's recompute):
+    each step's states, [x, h] rows and gate activations."""
     rng = np.random.default_rng(3)
-    Bn, Dx, Dh, Vn = 9, 8, 36, 11
+    Bn, Dx, Dh, Vn, L = 9, 8, 36, 11, 2
     emb, h, c, w, b = [torch.tensor(a) for a in (
         _np(rng, (Vn, Dx)), _np(rng, (Bn, Dh)), _np(rng, (Bn, Dh)),
         _np(rng, (Dx + Dh, 4 * Dh), 0.1), _np(rng, (4 * Dh,), 0.1))]
-    tok = torch.tensor(rng.integers(0, Vn, Bn), dtype=torch.int32)
-    h_out, c_out = torch.empty_like(h), torch.empty_like(c)
-    xh, acts = torch.full((Bn, Dx + Dh), -7.0), torch.full((Bn, 4 * Dh), -7.0)
-    lc.lstm_cell_tokens(tok, emb, h, c, w, b, h_out=h_out, c_out=c_out,
-                        xh_out=xh, acts_out=acts)
-    x = emb[tok.long()]
-    hr, cr = lstm_cell_ref(x, h, c, w, b)
-    torch.testing.assert_close(h_out, hr, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(c_out, cr, rtol=1e-5, atol=1e-5)
-    assert torch.equal(xh, torch.cat([x, h], 1))
-    i, f, o, g = (torch.cat([x, h], 1) @ w + b).chunk(4, 1)
-    torch.testing.assert_close(
-        acts, torch.cat([torch.sigmoid(i), torch.sigmoid(f + 1),
-                         torch.sigmoid(o), torch.tanh(g)], 1),
-        rtol=1e-5, atol=1e-5)
+    tok = torch.tensor(rng.integers(0, Vn, (L, Bn)), dtype=torch.int32)
+    hs, cs = torch.full((L + 1, Bn, Dh), -7.0), torch.full((L + 1, Bn, Dh),
+                                                            -7.0)
+    hs[0], cs[0] = h, c
+    xh = torch.full((L, Bn, Dx + Dh), -7.0)
+    acts = torch.full((L, Bn, 4 * Dh), -7.0)
+    before = lc.lstm_cell.launches
+    lc.lstm_cell_token_steps(tok, emb, hs, cs, w, b, xh=xh, acts=acts)
+    assert lc.lstm_cell.launches == before + L
+    for t in range(L):
+        x = emb[tok[t].long()]
+        hr, cr = lstm_cell_ref(x, hs[t], cs[t], w, b)
+        torch.testing.assert_close(hs[t + 1], hr, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(cs[t + 1], cr, rtol=1e-5, atol=1e-5)
+        assert torch.equal(xh[t], torch.cat([x, hs[t]], 1))
+        i, f, o, g = (torch.cat([x, hs[t]], 1) @ w + b).chunk(4, 1)
+        torch.testing.assert_close(
+            acts[t], torch.cat([torch.sigmoid(i), torch.sigmoid(f + 1),
+                                torch.sigmoid(o), torch.tanh(g)], 1),
+            rtol=1e-5, atol=1e-5)
 
 
 def _segment(T, Bn, seed):
@@ -247,6 +251,17 @@ def test_offloaded_gradient_through_the_kernel_sources(card_paths):
     (1, 40, 75, 4, 2, 64, torch.bfloat16, {"window": 20, "softcap": 30.0}),
     # non-causal, a head dim that leaves lanes idle, two batch rows
     (2, 33, 33, 2, 2, 40, torch.float32, {"causal": False, "scale": 0.3}),
+    # the tensor-core kernel at D=256 (32-key tiles): two query tiles, a
+    # ragged query and kv edge, softcap
+    (1, 70, 70, 2, 1, 256, torch.bfloat16, {"softcap": 50.0,
+                                            "scale": 0.0625}),
+    # D=128, Sq > Sk: rows that see no key give 0; non-causal GQA
+    (1, 80, 50, 2, 1, 128, torch.bfloat16, {}),
+    (1, 20, 150, 4, 1, 128, torch.bfloat16, {"causal": False}),
+    # D=16 (gemma2-2b SMOKE's head dim): window and softcap, GQA; D=32
+    (1, 70, 70, 4, 2, 16, torch.bfloat16, {"window": 8, "softcap": 50.0,
+                                           "scale": 0.25}),
+    (2, 33, 40, 2, 1, 32, torch.bfloat16, {"causal": False}),
 ])
 def test_flash_attention_kernel_source(card_paths, B, Sq, Sk, H, G, D,
                                        dtype, kw):
@@ -262,8 +277,23 @@ def test_flash_attention_kernel_source(card_paths, B, Sq, Sk, H, G, D,
                                kw.get("window"), kw.get("softcap"), 16,
                                kw.get("scale"))
     tol = 2e-4 if dtype == torch.float32 else 3e-2
-    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    seen = Sq - max(Sq - Sk, 0) if kw.get("causal", True) else Sq
+    unseen = Sq - seen   # rows before the first key: 0 from the kernel
+    assert not bool(out[:, :unseen].float().abs().gt(0).any())
+    torch.testing.assert_close(out[:, unseen:].float(),
+                               want[:, unseen:].float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse[..., unseen:], want_lse[..., unseen:],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_bf16_rejects_other_head_dims(card_paths):
+    """The tensor-core kernel takes D in {16, 32, 64, 128, 256}; any other
+    bf16 head dim is refused by the C entry point (and by the wrapper on the
+    card), never routed elsewhere."""
+    q = torch.zeros((1, 8, 2, 48), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 2, 48), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fa._launch(q, k, k, True, None, None, None)
 
 
 @pytest.mark.parametrize("B,T,H,G,P,N,chunk,dtype,with_h0", [
@@ -286,3 +316,160 @@ def test_ssd_scan_kernel_source(card_paths, B, T, H, G, P, N, chunk, dtype,
     tol = 2e-4 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(h, h_ref, rtol=2e-4, atol=2e-4)
+
+
+# --- the fused reverse's kernels one by one (csrc/segment_fused.cu) -------
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+@pytest.mark.parametrize("M,Ka,N,accumulate,slices", [
+    (700, 70, 130, 0, 5),   # ragged 64 x 128 output tiles
+    (300, 7, 10, 1, 2),     # accumulated onto C
+    (300, 300, 20, 0, 2),   # 128-row tiles (8 x 8 a thread), ragged
+    (40, 12, 17, 0, 1),
+])
+def test_grad_reduce_split_m(card_paths, M, Ka, N, accumulate, slices):
+    """[A, 1]^T B over M rows, split into slices summed in a fixed order:
+    the parameter-gradient reduction of the fused reverse."""
+    lib = sf._seg_lib()
+    rng = np.random.default_rng(M + Ka)
+    A = torch.tensor(_np(rng, (M, Ka)))
+    Bm = torch.tensor(_np(rng, (M, N)))
+    C0 = torch.tensor(_np(rng, (Ka + 1, N)))
+    C = C0.clone()
+    S = lib.grad_reduce_slices(Ka, N, M)
+    assert S == slices
+    part = torch.full((S * (Ka + 1) * N,), float("nan"))
+    err = lib.grad_reduce(_ptr(A), Ka, _ptr(Bm), N, M, Ka, N, _ptr(C),
+                          accumulate, _ptr(part), None)
+    assert err == 0
+    want = torch.cat([A, torch.ones(M, 1)], 1).double().t() @ Bm.double()
+    if accumulate:
+        want = want + C0.double()
+    torch.testing.assert_close(C.double(), want, rtol=1e-5, atol=1e-4)
+    # two calls give the same bits
+    C2 = C0.clone()
+    lib.grad_reduce(_ptr(A), Ka, _ptr(Bm), N, M, Ka, N, _ptr(C2),
+                    accumulate, _ptr(part), None)
+    assert torch.equal(C, C2)
+
+
+@pytest.mark.parametrize("Bn,L,Dh_,V_", [
+    (5, 7, 12, 17),
+    (8, 8, 256, 17),   # the logits product split in two slices of Dh
+    (40, 8, 12, 17),   # M = 320 rows: 128-row tiles, a ragged one
+])
+def test_reverse_hoisted_products(card_paths, Bn, L, Dh_, V_):
+    """Logits, dlogits and dlogits w_out^T for all rows of a chunk at
+    once, against plain PyTorch."""
+    lib = sf._seg_lib()
+    rng = np.random.default_rng(8)
+    M = L * Bn
+    w_out = torch.tensor(_np(rng, (Dh_, V_), 0.3))
+    b_out = torch.tensor(_np(rng, (V_,), 0.1))
+    hs1 = torch.tensor(_np(rng, (M, Dh_)))
+    tgt = torch.tensor(rng.integers(0, V_, M), dtype=torch.int32)
+    dacc = torch.tensor(0.7)
+    dl = torch.empty((M, V_))
+    dh_extra = torch.empty((M, Dh_))
+    part = torch.full((max(1, lib.lstm_rev_scratch(V_, 8, Dh_, M)),),
+                      float("nan"))
+    assert lib.lstm_rev_hoisted(_ptr(w_out), _ptr(b_out), V_, Dh_, _ptr(tgt),
+                                _ptr(hs1), _ptr(dacc), _ptr(dl),
+                                _ptr(dh_extra), M, Bn, _ptr(part), None) == 0
+    g = 0.7 / Bn
+    want = g * (torch.softmax(hs1 @ w_out + b_out, 1)
+                - torch.nn.functional.one_hot(tgt.long(), V_))
+    torch.testing.assert_close(dl, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dh_extra, want @ w_out.t(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def _cell(z, c):
+    i, f, o, g = z.chunk(4, 1)
+    c_new = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+@pytest.mark.parametrize("Bn,Dh_,L", [(20, 40, 3), (3, 12, 1), (70, 40, 2)])
+def test_reverse_walk(card_paths, Bn, Dh_, L):
+    """The walk: one launch per step carrying dh_t = dz_t W_h^T, with the
+    cell's vjp in its epilogue, against autograd of the cell step by step
+    (ragged row and unit tiles at B=20, Dh=40; at B=70 the emulated card's
+    4 resident blocks hold 2 column tiles by 2 of the 5 row tiles, so a
+    block loops over its row tiles within a step)."""
+    lib = sf._seg_lib()
+    rng = np.random.default_rng(Bn)
+    Dx_ = 8
+    N4 = 4 * Dh_
+    w = torch.tensor(_np(rng, (Dx_ + Dh_, N4), 0.2))
+    z = torch.tensor(_np(rng, (L, Bn, N4)))
+    cs = [torch.tensor(_np(rng, (Bn, Dh_), 0.5))]
+    acts = []
+    for t in range(L):
+        i, f, o, g = z[t].chunk(4, 1)
+        acts.append(torch.cat([torch.sigmoid(i), torch.sigmoid(f + 1.0),
+                               torch.sigmoid(o), torch.tanh(g)], 1))
+        cs.append(_cell(z[t], cs[t])[1].detach())
+    cs_t, acts_t = torch.stack(cs).contiguous(), torch.stack(acts)
+    dh_extra = torch.tensor(_np(rng, (L, Bn, Dh_), 0.1))
+    dh0 = torch.tensor(_np(rng, (Bn, Dh_), 0.1))
+    dc0 = torch.tensor(_np(rng, (Bn, Dh_), 0.1))
+    dh, dc = dh0.clone(), dc0.clone()
+    dz = torch.empty((L, Bn, N4))
+    bar = torch.zeros(1, dtype=torch.int32)
+    assert lib.lstm_rev_walk(_ptr(w), Dx_, Dh_, _ptr(cs_t), _ptr(acts_t),
+                             _ptr(dh_extra), _ptr(dh), _ptr(dc), _ptr(dz),
+                             L, Bn, _ptr(bar), None) == 0
+    rdh, rdc = dh0, dc0
+    for t in range(L - 1, -1, -1):
+        zt = z[t].clone().requires_grad_(True)
+        ct = cs[t].clone().requires_grad_(True)
+        dzt, rdc = torch.autograd.grad(_cell(zt, ct), (zt, ct),
+                                       (rdh + dh_extra[t], rdc))
+        torch.testing.assert_close(dz[t], dzt, rtol=1e-5, atol=1e-6)
+        rdh = dzt @ w[Dx_:].t()
+    torch.testing.assert_close(dh, rdh, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dc, rdc, rtol=1e-5, atol=1e-6)
+
+
+def test_fused_reverse_refuses_a_hidden_width_the_walk_cannot_hold(
+        card_paths):
+    """The walk keeps 32 rows of W_h per block in shared memory: at the
+    H100's 227 KB a block, Dh up to 280 fits, and a wider LSTM is refused
+    with the limit named before any launch."""
+    assert sf._seg_lib().lstm_rev_walk_max_dh() == 280
+    Dh_, Bn = 288, 2
+    params = {"emb": torch.zeros(V, 4), "w": torch.zeros(4 + Dh_, 4 * Dh_),
+              "b": torch.zeros(4 * Dh_), "w_out": torch.zeros(Dh_, V),
+              "b_out": torch.zeros(V)}
+    carry = (torch.zeros(Bn, Dh_), torch.zeros(Bn, Dh_), torch.zeros(()))
+    xs = (torch.zeros((3, Bn), dtype=torch.int32),) * 2
+    with pytest.raises(ValueError, match="hidden width 288 is above 280"):
+        sf.fused_reverse_segment(T_BODY, (False, False), params, carry, xs,
+                                 None, carry, chunk=2)
+
+
+@pytest.mark.parametrize("M,accumulate", [(600, 1), (100, 0)])
+def test_embed_grad_split_m(card_paths, M, accumulate):
+    """demb from dx by token id, M split into slices (two at M=600) added
+    in order."""
+    lib = sf._seg_lib()
+    rng = np.random.default_rng(M)
+    V_, Dx_ = 11, 8
+    tok = torch.tensor(rng.integers(0, V_, M), dtype=torch.int32)
+    dx = torch.tensor(_np(rng, (M, Dx_)))
+    d0 = torch.tensor(_np(rng, (V_, Dx_)))
+    demb = d0.clone()
+    part = torch.full((max(1, lib.lstm_rev_scratch(V_, Dx_, 4, M)),),
+                      float("nan"))
+    assert lib.embed_grad(_ptr(tok), _ptr(dx), M, V_, Dx_, _ptr(demb),
+                          accumulate, _ptr(part), None) == 0
+    want = torch.zeros(V_, Dx_, dtype=torch.float64).index_add_(
+        0, tok.long(), dx.double())
+    if accumulate:
+        want += d0.double()
+    torch.testing.assert_close(demb.double(), want, rtol=1e-5, atol=1e-5)
