@@ -9,10 +9,14 @@ Phases, each printing its own lines:
               references (the kernels are fp32 inside).
 2. build    — every CUDA source compiled with ``nvcc`` for sm_90a into
               ``build/repro_torch_kernels/`` (one ``nvcc`` per source, all
-              started together), with the build seconds.
+              started together), with the build seconds; ``cuobjdump
+              -sass`` counts the tensor-core (HMMA) instructions of the
+              bf16 flash and SSD kernels, which must issue them.
 3. kernels  — each kernel against its plain PyTorch version on the card:
               ``lstm_cell`` (B=256, Dx=64, Dh=256; fp32 at 1e-5, bf16 at
-              3e-2), the fused advance/reverse over one segment with an
+              3e-2; its step loop over a recompute chunk of the pinned
+              run, step by step, and bit for bit on two calls), the fused
+              advance/reverse over one segment with an
               uneven chunk tail and one with a length-1 tail,
               ``flash_attention`` (gemma2-2b's layer shape in bf16 and
               fp32, D=64 and 256, GQA, window < S, softcap, Sq < Sk,
@@ -52,7 +56,9 @@ Phases, each printing its own lines:
               achieved TFLOP/s where the bound is operations; the fused
               reverse at T=1000 also by part (recompute, hoisted products,
               walk, gradient reductions: device time of its kernels under
-              ``torch.profiler``).
+              ``torch.profiler``); ``ssd_scan`` by pass (the same); the
+              step loop over a recompute chunk per launch and per step,
+              beside cuDNN's multi-step LSTM on the same chunk.
 8. train    — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
@@ -108,12 +114,22 @@ def require(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------- helpers
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean milliseconds of ``fn`` over ``iters`` calls, by CUDA events."""
+    """Mean milliseconds of ``fn`` over ``iters`` calls, by CUDA events.
+    The calls are queued behind a busy wait on the card as long as the host
+    takes to issue them, so the events time the device's work and not the
+    host's Python between launches (a wrapper that synchronises is timed
+    as it runs)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # cycles at up to 2 GHz: at least the host's issue time, at most ~1 s
+    torch.cuda._sleep(int(min(1.2 * host_s * iters, 1.0) * 2e9))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -212,6 +228,40 @@ def phase_build(state) -> None:
     log("[build] " + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
         + f"; wall {total:.1f}s (ptxas report: "
         f"{os.path.join(out_dir, 'chip_smoke_build.log')})")
+    # the bf16 kernels that must run on the tensor cores
+    for lib, kernels in (("flash_attention", ("flash_fwd_bf16_kernel",)),
+                         ("ssd_scan", ("ssd_state_bf16_kernel",
+                                       "ssd_out_bf16_kernel"))):
+        counts = hmma_counts(build.library_path(lib))
+        if counts is None:
+            log(f"[build] {lib}: cuobjdump not found, HMMA not counted")
+            continue
+        for kern in kernels:
+            n = sum(v for k, v in counts.items() if kern in k)
+            require(n > 0, f"{lib}: {kern} issues no HMMA instruction")
+            log(f"[build] {lib}: {kern} has {n} HMMA instructions "
+                "(cuobjdump -sass)")
+
+
+def hmma_counts(lib_path):
+    """HMMA instructions per kernel in ``cuobjdump -sass`` of a built
+    library, keyed by the mangled name; None without cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    require(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def _lstm_inputs(torch, dtype, B=256, Dx=64, Dh=256, seed=1):
@@ -340,6 +390,54 @@ def check_reverse_pinned(torch, cfg, T=1000, seed=5):
         f"err {rev_abs:.3g} (scaled {rev:.3g}, states {st:.3g}); two calls "
         "bit for bit equal")
     return rev_abs
+
+
+def check_step_loop(torch, cfg, seed=6):
+    """The step loop (``lstm_cell_token_steps``, one cooperative launch)
+    over one recompute chunk of the pinned run at full width (B=256),
+    step by step against ``lstm_cell_ref`` (fp32, 1e-5) with its [x, h]
+    rows and gate activations, and bit for bit on two calls; returns the
+    max abs error."""
+    from repro_torch.kernels import lstm_cell as lc
+    from repro_torch.kernels.ref import lstm_cell_ref
+
+    L = pinned_chunk()
+    params, (h0, c0, _), (tok, _), _ = _segment_case(torch, cfg, L, seed)
+    emb, w, b = params["emb"], params["w"], params["b"]
+    B, Dh = h0.shape
+    K = emb.shape[1] + Dh
+    outs = []
+    for _ in range(2):
+        hs = torch.empty((L + 1, B, Dh), device="cuda")
+        cs = torch.empty_like(hs)
+        hs[0], cs[0] = h0, c0
+        xh = torch.empty((L, B, K), device="cuda")
+        acts = torch.empty((L, B, 4 * Dh), device="cuda")
+        before = lc.lstm_cell.launches
+        lc.lstm_cell_token_steps(tok, emb, hs, cs, w, b, xh=xh, acts=acts)
+        require(lc.lstm_cell.launches == before + 1,
+                "lstm_cell step loop: not one launch for the run")
+        outs.append((hs, cs, xh, acts))
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(*outs)),
+            "lstm_cell step loop: two calls differ")
+    hs, cs, xh, acts = outs[0]
+    err = 0.0
+    for t in range(L):
+        x = emb[tok[t].long()]
+        xr = torch.cat([x, hs[t]], 1)
+        hr, cr = lstm_cell_ref(x, hs[t], cs[t], w, b)
+        i, f, o, g = (xr @ w + b).chunk(4, 1)
+        ar = torch.cat([torch.sigmoid(i), torch.sigmoid(f + 1.0),
+                        torch.sigmoid(o), torch.tanh(g)], 1)
+        require(torch.equal(xh[t], xr), f"step loop: xh[{t}] differs")
+        err = max(err, max_err(hs[t + 1], hr), max_err(cs[t + 1], cr),
+                  max_err(acts[t], ar))
+    require(err <= 1e-5, f"lstm_cell step loop: max err {err} over 1e-5")
+    log(f"[kernels] lstm_cell step loop: L={L} B={B} Dh={Dh} in one launch:"
+        f" max err {err:.3g} (tol 1e-5) step by step; two calls bit for bit"
+        " equal")
+    return err
 
 
 def _randn(torch, rng, shape, dtype, scale=1.0):
@@ -548,13 +646,14 @@ def phase_kernels(state) -> None:
     adv1, rev1 = check_segment(torch, cfg, T=99, chunk=7, seed=3,
                                label="length-1 tail")
     rev_pinned = check_reverse_pinned(torch, cfg)
+    loop = check_step_loop(torch, cfg)
     # the new kernels; the error kept is that of the main path's shapes
     flash = [check_flash(torch, *case, seed=20 + i)
              for i, case in enumerate(FLASH_CASES)]
     check_flash_unseen_rows(torch)
     ssd = [check_ssd(torch, *case, seed=30 + i)
            for i, case in enumerate(SSD_CASES)]
-    state["err"] = {"lstm_cell": errs["torch.float32"],
+    state["err"] = {"lstm_cell": max(errs["torch.float32"], loop),
                     "fused_advance_segment": max(adv, adv1),
                     "fused_reverse_segment": max(rev, rev1, rev_pinned),
                     "flash_attention": flash[0], "ssd_scan": ssd[0]}
@@ -613,6 +712,7 @@ def phase_main(state) -> None:
                "fused_reverse_segment": sf.fused_reverse_segment}
     for fn in kernels.values():
         fn.launches = 0
+    lc.lstm_cell.steps = 0
     runs = []
     for label, kw in (("autotuned", {}), ("pinned", {"interval": 1000})):
         before = {k: fn.launches for k, fn in kernels.items()}
@@ -658,7 +758,10 @@ def phase_main(state) -> None:
     launches = {k: fn.launches for k, fn in kernels.items()}
     for k, n in launches.items():
         require(n > 0, f"{k} was not launched on the main path")
+    log(f"[main] lstm_cell: {launches['lstm_cell']} launches ran "
+        f"{lc.lstm_cell.steps} cell steps")
     state.setdefault("launches", {}).update(launches)
+    state["lstm_steps"] = lc.lstm_cell.steps
     state["runs"] = runs
 
 
@@ -801,6 +904,55 @@ def phase_ssm(state) -> None:
 
     decoder_phase(state, "ssm", "mamba2-370m", 4, {"ssd_scan": ssd.ssd_scan},
                   {"ssd_scan": 1})
+
+
+def _time_step_loop(torch, cfg, single_ms, single_bound_ms):
+    """The step loop over one recompute chunk of the pinned run (B=256, L =
+    its chunk), per launch and per step, against cuDNN's multi-step LSTM
+    (``torch.nn.LSTM``, i.e. ``torch._VF.lstm`` on its flattened weights:
+    gates re-laid out i, f, g, o, the +1 forget bias folded into b_ih; TF32
+    off as phase ``device`` sets it) on the same inputs, x = emb[tok]
+    gathered beforehand."""
+    from repro_torch.kernels import lstm_cell as lc
+
+    L = pinned_chunk()
+    params, (h0, c0, _), (tok, _), _ = _segment_case(torch, cfg, L, seed=7)
+    emb, w, b = params["emb"], params["w"], params["b"]
+    B, Dh = h0.shape
+    Dx = emb.shape[1]
+    hs = torch.empty((L + 1, B, Dh), device="cuda")
+    cs = torch.empty_like(hs)
+    hs[0], cs[0] = h0, c0
+    xh = torch.empty((L, B, Dx + Dh), device="cuda")
+    acts = torch.empty((L, B, 4 * Dh), device="cuda")
+    bar = torch.empty((-(-B // 16),), dtype=torch.int32, device="cuda")
+    ms_loop = cuda_ms(lambda: lc.lstm_cell_token_steps(
+        tok, emb, hs, cs, w, b, xh=xh, acts=acts, barrier=bar), 20)
+    perm = torch.cat([torch.arange(0, 2 * Dh), torch.arange(3 * Dh, 4 * Dh),
+                      torch.arange(2 * Dh, 3 * Dh)]).cuda()   # i, f, g, o
+    rnn = torch.nn.LSTM(Dx, Dh).cuda()
+    with torch.no_grad():
+        rnn.weight_ih_l0.copy_(w[:Dx, perm].t())
+        rnn.weight_hh_l0.copy_(w[Dx:, perm].t())
+        bias = b[perm].clone()
+        bias[Dh:2 * Dh] += 1.0
+        rnn.bias_ih_l0.copy_(bias)
+        rnn.bias_hh_l0.zero_()
+    rnn.flatten_parameters()
+    xin = emb[tok.long()]
+    with torch.no_grad():
+        out, _ = rnn(xin, (h0[None], c0[None]))
+        torch.cuda.synchronize()
+        err = max_err(out, hs[1:])
+        require(err <= 1e-4, f"cuDNN LSTM yardstick off the step loop: {err}")
+        ms_lib = cuda_ms(lambda: rnn(xin, (h0[None], c0[None])), 20)
+    log(f"[timing] lstm_cell step loop over a recompute chunk (L={L}, B={B}"
+        f", one launch): {ms_loop:.4f} ms per launch, "
+        f"{1e3 * ms_loop / L:.3f} us per step (single step "
+        f"{1e3 * single_ms:.3f} us; bound {1e3 * single_bound_ms:.3f} us a "
+        f"step); cuDNN multi-step LSTM (nn.LSTM) {ms_lib:.4f} ms, "
+        f"{1e3 * ms_lib / L:.3f} us per step (max abs diff of the states "
+        f"{err:.3g})")
 
 
 def _time_segment_kernels(torch, cfg, T, slots):
@@ -951,6 +1103,26 @@ def _time_ssd(torch, run):
     c = _randn(torch, rng, (B, T, G, N), bf16, 0.5)
     ms_k = cuda_ms(lambda: ssd.ssd_scan(x, dt, A, b, c, chunk=L), 10)
     ms_p = cuda_ms(lambda: ssd.ssd_scan_plain(x, dt, A, b, c), 1)
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ssd.ssd_scan(x, dt, A, b, c, chunk=L)
+        torch.cuda.synchronize()
+    passes = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        key = next((k for k in ("ssd_decay", "ssd_state", "ssd_pass",
+                                "ssd_out") if k in e.key), None)
+        if key is not None and us:
+            passes[key] = passes.get(key, 0.0) + us / 1e3 / calls
+    log("[timing] ssd_scan by pass (device ms per call, torch.profiler over "
+        f"{calls} calls): "
+        + (", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+           or "not measured (the profiler saw no device time)"))
     # per (batch*head, chunk of L): C B^T and M xbar over the causal
     # L (L + 1) / 2 pairs, C h^T and the state update over L x P x N
     n_chunks = B * H * (T // L)
@@ -999,6 +1171,7 @@ def phase_timing(state) -> None:
     rows.append(("lstm_cell", "src/repro_torch/kernels/csrc/lstm_cell.cu",
                  "src/repro/kernels/lstm_cell.py:38", ms_k, ms_p, bms, by,
                  ms_l, cell_flops(B, Dx, Dh)))
+    _time_step_loop(torch, cfg, ms_k, bms)
 
     # kernels 2 and 3 at the autotuned main path's segment shape
     run = state["runs"][0]

@@ -166,6 +166,52 @@ __device__ __forceinline__ void cp_async_wait() {
 #endif
 }
 
+// cp_async_wait<n> for a count known only at run time (0..15; a larger n
+// waits for every group, which is never too early).
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+#define REPRO_WAIT_CASE(k) \
+  case k:                  \
+    cp_async_wait<k>();    \
+    break;
+    REPRO_WAIT_CASE(1) REPRO_WAIT_CASE(2) REPRO_WAIT_CASE(3)
+    REPRO_WAIT_CASE(4) REPRO_WAIT_CASE(5) REPRO_WAIT_CASE(6)
+    REPRO_WAIT_CASE(7) REPRO_WAIT_CASE(8) REPRO_WAIT_CASE(9)
+    REPRO_WAIT_CASE(10) REPRO_WAIT_CASE(11) REPRO_WAIT_CASE(12)
+    REPRO_WAIT_CASE(13) REPRO_WAIT_CASE(14) REPRO_WAIT_CASE(15)
+#undef REPRO_WAIT_CASE
+    default:
+      cp_async_wait<0>();
+  }
+}
+
+// A barrier across the blocks of a cooperative launch (all resident) that
+// share `count`: every such block arrives once per barrier, and `target`
+// is (barriers so far) x (blocks sharing the counter); the counter is
+// zeroed before the launch.  Arrival is a release add after the block's
+// writes, the wait an acquire load (the pattern of CUTLASS's semaphore).
+// Under the CPU emulation, which runs blocks one at a time, kernels that use
+// it are launched once per step instead, so it only synchronises the block.
+__device__ __forceinline__ void grid_barrier(unsigned* count,
+                                             unsigned target) {
+  __syncthreads();
+#if defined(__CUDA_ARCH__)
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(count),
+                 "r"(1u)
+                 : "memory");
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(v)
+                   : "l"(count)
+                   : "memory");
+    } while (v < target);
+  }
+#endif
+  __syncthreads();
+}
+
 }  // namespace repro
 
 // Every library exports its own copy (each source is its own library).

@@ -22,21 +22,22 @@
 //
 // Kernel 3, the fused reverse (driven from repro_torch/kernels/
 // segment_fused.py), replaces segment_pallas.py::fused_reverse_segment
-// (_fused_ops.reverse).  Its recompute steps run kernel 1 (lstm_cell.cu)
-// over the whole batch.  Bound: at the paper's width a chunk step is ~190
-// MFLOP of fp32 work, but only dh_t = dz_t W_h^T (134 MFLOP) and the
-// pointwise vjp are sequential; the logits, their softmax, dlogits w_out^T,
-// dx = dz W_x^T and the parameter gradients depend only on the recomputed
-// states.  So those are hoisted out of the step loop into products over all
-// L * B rows of a chunk, each spread over the whole card (tiled fp32 FMA
-// from double-buffered shared memory; the reductions over rows split into
-// slices added in a fixed order), and the step loop (the walk) carries the
-// recurrence alone: 128 blocks, each holding its units' rows of W_h in
-// shared memory for the whole chunk and reading only its batch rows of
-// dz_t per step.  No float atomics: every sum has a fixed order, so two
-// calls give the same bits.  Full chunks fold into the gradient in
-// descending order from zero; a short tail chunk is kept apart and added
-// once at the end (add_kernel) — the association of the JAX kernel.
+// (_fused_ops.reverse).  Its recompute steps run kernel 1's step loop
+// (lstm_cell.cu), one launch per run of steps.  Bound: at the paper's
+// width a chunk step is ~190 MFLOP of fp32 work, but only dh_t = dz_t
+// W_h^T (134 MFLOP) and the pointwise vjp are sequential; the logits, their
+// softmax, dlogits w_out^T, dx = dz W_x^T and the parameter gradients
+// depend only on the recomputed states.  So those are hoisted out of the
+// step loop into products over all L * B rows of a chunk, each spread over
+// the whole card (tiled fp32 FMA from double-buffered shared memory; the
+// reductions over rows split into slices added in a fixed order), and the
+// step loop (the walk) carries the recurrence alone: 128 blocks, each
+// holding its units' rows of W_h in shared memory for the whole chunk and
+// reading only its batch rows of dz_t per step.  No float atomics: every
+// sum has a fixed order, so two calls give the same bits.  Full chunks
+// fold into the gradient in descending order from zero; a short tail chunk
+// is kept apart and added once at the end (add_kernel) — the association
+// of the JAX kernel.
 #include "lstm_step.cuh"
 
 namespace {
@@ -422,28 +423,6 @@ size_t walk_smem_bytes(int Dh) {
   return sizeof(float) * (WR + WC) * (4 * static_cast<size_t>(Dh) + 4);
 }
 
-// Every block arrives once per barrier; `target` = (barriers so far) x
-// blocks.  The counter is zeroed before the launch.
-__device__ __forceinline__ void grid_barrier(unsigned* count,
-                                             unsigned target) {
-  __syncthreads();
-#if defined(__CUDA_ARCH__)
-  if (threadIdx.x == 0) {
-    __threadfence();   // this block's dz writes before its arrival
-    atomicAdd(count, 1u);
-    unsigned v;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(v)
-                   : "l"(count)
-                   : "memory");
-    } while (v < target);
-    __threadfence();
-  }
-#endif
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(NT)
 walk_kernel(const float* __restrict__ w_h, float* __restrict__ dz,
             const float* __restrict__ acts, const float* __restrict__ cs,
@@ -583,7 +562,7 @@ walk_kernel(const float* __restrict__ w_h, float* __restrict__ dz,
     }
     if (t > t_lo) {   // dz[t] complete in every block before step t-1
       arrived += nblk;
-      grid_barrier(barrier, arrived);
+      repro::grid_barrier(barrier, arrived);
     }
   }
   repro::cp_async_wait<0>();

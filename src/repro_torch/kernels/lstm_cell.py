@@ -4,15 +4,17 @@ Replaces ``repro/kernels/lstm_cell.py::lstm_cell`` (wrapper
 ``repro/kernels/ops.py::lstm_cell``).  ``z = x@W[:Dx] + h@W[Dx:] + b``,
 gates ``i, f, o, g``, ``c' = σ(f+1)c + σ(i)tanh(g)``, ``h' = σ(o)tanh(c')``,
 all in fp32; fp32 or bf16 in, out in ``h.dtype``/``c.dtype``.  What bounds
-it on the H100 and how the kernel is laid out is noted in the source.
+it on the H100 and how the kernels are laid out is noted in the source.
 
-:func:`lstm_cell` is the standalone kernel: its plain version is
+:func:`lstm_cell` is the standalone kernel, one step: its plain version is
 :func:`repro_torch.kernels.ref.lstm_cell_ref`, taken for CPU tensors only.
-:func:`lstm_cell_token_steps` runs the same kernel over a run of steps,
-one launch per step, with the input rows gathered from an embedding table,
-writing the ``[x, h]`` rows and gate activations the fused reverse needs
-(CUDA only: its plain counterpart is the fused reverse's plain version).
-Both count into ``lstm_cell.launches``.
+:func:`lstm_cell_token_steps` runs a run of steps as one cooperative
+launch with each block's columns of ``W`` resident on chip, the input rows
+gathered from an embedding table, writing the ``[x, h]`` rows and gate
+activations the fused reverse needs (CUDA only: its plain counterpart is
+the fused reverse's plain version).  Both count their launches into
+``lstm_cell.launches`` and the cell steps those launches ran into
+``lstm_cell.steps``.
 """
 from __future__ import annotations
 
@@ -35,7 +37,21 @@ def _lib():
         fn = getattr(lib, name)
         fn.restype = _I
         fn.argtypes = [_P] * 10 + [_I, _I, _I, _P]
+    lib.lstm_cell_steps.restype = _I
+    lib.lstm_cell_steps.argtypes = [_P] * 8 + [_I] * 5 + [_P, _P]
+    lib.lstm_cell_max_k.restype = _I
+    lib.lstm_cell_max_k.argtypes = []
     return lib
+
+
+def _check_k(lib, Dx: int, Dh: int, what: str) -> None:
+    """Both kernels keep a block's columns of W in shared memory."""
+    max_k = lib.lstm_cell_max_k()
+    if Dx + Dh > max_k:
+        raise ValueError(
+            f"{what}: Dx + Dh = {Dx + Dh} is above {max_k}, the widest whose "
+            "columns of W (128 a block) fit this device's shared memory per "
+            "block")
 
 
 def _launch(fn_name: str, x, tok, h, c, w, b, h_out, c_out, xh_out,
@@ -43,6 +59,7 @@ def _launch(fn_name: str, x, tok, h, c, w, b, h_out, c_out, xh_out,
     lib = _lib()
     B, Dh = h.shape
     Dx = x.shape[1]
+    _check_k(lib, Dx, Dh, "lstm_cell")
     err = getattr(lib, fn_name)(
         build.ptr(x), build.ptr(tok), build.ptr(h), build.ptr(c),
         build.ptr(w), build.ptr(b), build.ptr(h_out), build.ptr(c_out),
@@ -50,6 +67,7 @@ def _launch(fn_name: str, x, tok, h, c, w, b, h_out, c_out, xh_out,
         build.stream_ptr(h.device))
     build.check(lib, err, "lstm_cell")
     lstm_cell.launches += 1
+    lstm_cell.steps += 1
 
 
 def _check_cuda(dtype, device, **tensors) -> None:
@@ -96,32 +114,38 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 
 
 lstm_cell.launches = 0
+lstm_cell.steps = 0
 
 
 def lstm_cell_token_steps(tok: torch.Tensor, emb: torch.Tensor,
                           hs: torch.Tensor, cs: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor, *,
                           xh: Optional[torch.Tensor] = None,
-                          acts: Optional[torch.Tensor] = None) -> None:
+                          acts: Optional[torch.Tensor] = None,
+                          barrier: Optional[torch.Tensor] = None) -> None:
     """``L = len(tok)`` cell steps over the batch with ``x = emb[tok[t]]``
-    (fp32, CUDA), one launch each: step ``t`` reads ``(hs[t], cs[t])`` and
+    (fp32, CUDA) in one launch: step ``t`` reads ``(hs[t], cs[t])`` and
     writes ``(hs[t+1], cs[t+1])`` and, when given, ``xh[t] = [x, h]`` and
     ``acts[t]`` (σ(i), σ(f+1), σ(o), tanh(g)).  ``tok (L, B)`` int32;
     ``hs, cs (>= L+1, B, Dh)``, ``xh (>= L, B, Dx+Dh)``, ``acts (>= L, B,
-    4Dh)`` contiguous fp32 on the card.  The operands are checked once, so
-    a step costs the host one call of the C entry point."""
+    4Dh)`` contiguous fp32 on the card; ``barrier``: int32 device scratch
+    for the barriers, ``ceil(B / 16)`` counters (allocated when not
+    given)."""
     if not tok.is_cuda:
         raise ValueError("lstm_cell_token_steps runs on the card only")
-    _token_steps(tok, emb, hs, cs, w, b, xh, acts)
+    _token_steps(tok, emb, hs, cs, w, b, xh, acts, barrier)
 
 
-def _token_steps(tok, emb, hs, cs, w, b, xh, acts) -> None:
+def _token_steps(tok, emb, hs, cs, w, b, xh, acts, barrier=None, *,
+                 blocks_y: int = 0) -> None:
+    """The launch behind :func:`lstm_cell_token_steps`; ``blocks_y`` > 0
+    forces the grid's row-tile blocks (0: as many as can be resident)."""
     L, B = tok.shape
     Dx, Dh = emb.shape[1], hs.shape[-1]
     f32 = torch.float32
     _check_cuda(f32, tok.device, emb=emb, hs=hs, cs=cs, w=w, b=b, xh=xh,
                 acts=acts)
-    _check_cuda(torch.int32, tok.device, tok=tok)
+    _check_cuda(torch.int32, tok.device, tok=tok, barrier=barrier)
     if hs.shape[0] < L + 1 or hs.shape[1:] != (B, Dh) \
             or cs.shape != hs.shape or w.shape != (Dx + Dh, 4 * Dh) \
             or (xh is not None and (xh.shape[0] < L
@@ -131,19 +155,19 @@ def _token_steps(tok, emb, hs, cs, w, b, xh, acts) -> None:
         raise ValueError("lstm_cell_token_steps: operand shapes do not fit "
                          f"{L} steps of a ({B}, {Dh}) state")
     lib = _lib()
-    fn = lib.lstm_cell_f32
-    stream = build.stream_ptr(tok.device)
-    emb_p, w_p, b_p = emb.data_ptr(), w.data_ptr(), b.data_ptr()
-    tok_p, hs_p, cs_p = tok.data_ptr(), hs.data_ptr(), cs.data_ptr()
-    xh_p = None if xh is None else xh.data_ptr()
-    acts_p = None if acts is None else acts.data_ptr()
-    st, sk, sa = 4 * B * Dh, 4 * B * (Dx + Dh), 4 * B * 4 * Dh   # bytes
-    for t in range(L):
-        err = fn(emb_p, tok_p + 4 * B * t, hs_p + st * t, cs_p + st * t, w_p,
-                 b_p, hs_p + st * (t + 1), cs_p + st * (t + 1),
-                 None if xh_p is None else xh_p + sk * t,
-                 None if acts_p is None else acts_p + sa * t, B, Dx, Dh,
-                 stream)
-        if err:
-            build.check(lib, err, "lstm_cell")
-        lstm_cell.launches += 1
+    _check_k(lib, Dx, Dh, "lstm_cell_token_steps")
+    counters = max(-(-B // 16), int(blocks_y))
+    if barrier is None:
+        barrier = torch.empty((counters,), dtype=torch.int32,
+                              device=tok.device)
+    if barrier.numel() < counters:
+        raise ValueError(f"lstm_cell_token_steps: barrier has "
+                         f"{barrier.numel()} counters, {counters} needed")
+    ptr = build.ptr
+    err = lib.lstm_cell_steps(
+        ptr(emb), ptr(tok), ptr(hs), ptr(cs), ptr(w), ptr(b), ptr(xh),
+        ptr(acts), L, B, Dx, Dh, int(blocks_y), ptr(barrier),
+        build.stream_ptr(tok.device))
+    build.check(lib, err, "lstm_cell_token_steps")
+    lstm_cell.launches += 1
+    lstm_cell.steps += L

@@ -11,7 +11,8 @@
   ``segment_pallas.py::fused_reverse_segment``: Echo-style recompute — phase
   A recomputes the chunk-entry boundaries from the Level-2 boundary, then the
   chunks are walked in reverse, each one's states recomputed into scratch
-  (kernel 1, ``lstm_cell_token_steps``); the products that do not carry the
+  (kernel 1's step loop, ``lstm_cell_token_steps``: one launch per run of
+  steps); the products that do not carry the
   recurrence (logits, dlogits, their pull-back through ``w_out``, ``dx``)
   run over all rows of the chunk at once, the walk carries only
   ``dh_t = dz_t W_h^T`` and the cell's vjp (one cooperative launch per
@@ -307,11 +308,14 @@ def _reverse_lstm_cuda(params, carry_b, xs_seg, dcarry, chunk: int):
     ent_c = torch.empty_like(ent_h)
     ent_h[0].copy_(h_b)
     ent_c[0].copy_(c_b)
+    # the barrier counters of the cooperative launches (the step loop's, one
+    # per row tile of 16; the walk's, the first)
+    barrier = torch.empty((-(-B // 16),), dtype=torch.int32, device=dev)
     for kk in range(1, nc):
         hs[0].copy_(ent_h[kk - 1])
         cs[0].copy_(ent_c[kk - 1])
         lstm_cell_token_steps(tok[(kk - 1) * chunk:kk * chunk], emb, hs, cs,
-                              w, b)
+                              w, b, barrier=barrier)
         ent_h[kk].copy_(hs[chunk])
         ent_c[kk].copy_(cs[chunk])
 
@@ -329,12 +333,10 @@ def _reverse_lstm_cuda(params, carry_b, xs_seg, dcarry, chunk: int):
     dl = torch.empty((chunk, B, V), dtype=f32, device=dev)
     dh_extra = torch.empty((chunk, B, Dh), dtype=f32, device=dev)
     dx = torch.empty((chunk, B, Dx), dtype=f32, device=dev)
-    # the slices' partial sums of the split products and reductions, and
-    # the walk's grid-barrier counter
+    # the slices' partial sums of the split products and reductions
     part = torch.empty((max(1, *(lib.lstm_rev_scratch(V, Dx, Dh, n * B)
                                  for n in {chunk, rem})),),
                        dtype=f32, device=dev)
-    barrier = torch.empty((1,), dtype=torch.int32, device=dev)
     dh = dh_in.to(f32).contiguous().clone()
     dc = dc_in.to(f32).contiguous().clone()
     dacc = dacc.to(dtype=f32, device=dev).contiguous()
@@ -344,7 +346,7 @@ def _reverse_lstm_cuda(params, carry_b, xs_seg, dcarry, chunk: int):
         hs[0].copy_(ent_h[kk])
         cs[0].copy_(ent_c[kk])
         lstm_cell_token_steps(tok[lo:hi], emb, hs, cs, w, b, xh=xh,
-                              acts=acts)   # the chunk's states
+                              acts=acts, barrier=barrier)  # chunk's states
         err = lib.lstm_rev_hoisted(ptr(w_out), ptr(b_out), V, Dh,
                                    ptr(tgt[lo]), ptr(hs[1]), ptr(dacc),
                                    ptr(dl), ptr(dh_extra), M, B, ptr(part),

@@ -3,8 +3,11 @@
 Replaces ``repro/kernels/ssd_scan.py::ssd_scan`` (wrapper
 ``repro/kernels/ops.py::ssd_scan``): per chunk the intra-chunk masked
 ``C Bᵀ`` decay form, the inter-chunk term from the carried ``(P, N)`` fp32
-state, and the state update; returns ``y`` and the final state.  What
-bounds it on the H100 and how the kernel is laid out is noted in the source.
+state, and the state update; returns ``y`` and the final state.  On the
+card one call runs four passes (every chunk's decay, every chunk's own
+state contribution, the state passed over the chunks, every chunk's
+output), bf16 on the tensor cores; what bounds it on the H100 and how it
+is laid out is noted in the source.
 
 :func:`ssd_scan` takes the head-structured layout of ``ops.ssd_scan`` —
 ``x (B, T, H, P)``, ``dt (B, T, H)``, ``A (H,)``, ``b, c (B, T, G, N)`` —
@@ -13,7 +16,8 @@ and an optional entry state ``h0 (B, H, P, N)``; it returns
 the plain version :func:`ssd_scan_plain`
 (:func:`repro_torch.kernels.ref.ssd_scan_ref` over the heads flattened as
 ``ops.py`` flattens them); for CUDA tensors it launches the kernel or
-raises.  Launches count into ``ssd_scan.launches``.
+raises.  Launches count into ``ssd_scan.launches``, one a call (its four
+passes).
 """
 from __future__ import annotations
 
@@ -34,8 +38,19 @@ def _lib():
     for name in _FNS.values():
         fn = getattr(lib, name)
         fn.restype = _I
-        fn.argtypes = [_P] * 8 + [_I] * 7 + [_P]
+        fn.argtypes = [_P] * 9 + [_I] * 7 + [_P]
+    lib.ssd_scan_scratch.restype = ctypes.c_long
+    lib.ssd_scan_scratch.argtypes = [_I] * 7
     return lib
+
+
+def bf16_limits() -> Tuple[int, int, int]:
+    """The largest chunk, head dim P and state size N the bf16 kernels
+    take (their tiles are padded to multiples of 16 up to these)."""
+    lib = _lib()
+    vals = [ctypes.c_int() for _ in range(3)]
+    lib.ssd_scan_bf16_limits(*[ctypes.byref(v) for v in vals])
+    return tuple(v.value for v in vals)
 
 
 def ssd_scan_plain(x, dt, A, b, c, h0=None):
@@ -94,6 +109,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.dtype not in _FNS:
         raise ValueError(f"ssd_scan: dtype {x.dtype} is not supported (one "
                          f"of {list(_FNS)})")
+    if x.dtype == torch.bfloat16:
+        lim = bf16_limits()
+        if min(chunk, T) > lim[0] or P > lim[1] or N > lim[2]:
+            raise ValueError(
+                f"ssd_scan: the bf16 kernel takes chunk <= {lim[0]}, P <= "
+                f"{lim[1]}, N <= {lim[2]}; got chunk {chunk}, P {P}, N {N}")
     return _launch(x, dt, A, b, c, h0, chunk)
 
 
@@ -103,10 +124,16 @@ def _launch(x, dt, A, b, c, h0, chunk):
     y = torch.empty_like(x)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     lib = _lib()
+    # the passes' per-chunk decays and states
+    scratch = torch.empty(
+        (max(1, lib.ssd_scan_scratch(B, T, H, P, N, int(chunk),
+                                     int(x.dtype == torch.bfloat16))),),
+        dtype=torch.float32, device=x.device)
     err = getattr(lib, _FNS[x.dtype])(
         build.ptr(x), build.ptr(dt), build.ptr(A), build.ptr(b),
-        build.ptr(c), build.ptr(h0), build.ptr(y), build.ptr(h), B, T, H, G,
-        P, N, int(chunk), build.stream_ptr(x.device))
+        build.ptr(c), build.ptr(h0), build.ptr(y), build.ptr(h),
+        build.ptr(scratch), B, T, H, G, P, N, int(chunk),
+        build.stream_ptr(x.device))
     build.check(lib, err, "ssd_scan")
     ssd_scan.launches += 1
     return y, h

@@ -17,10 +17,11 @@ SSD scan's per head), at (2e-4, 2e-4) in fp32; in bf16 the SSD scan's y at
 (1e-2, 1e-3) and attention at (1e-2, 2e-2), since it also rounds p at
 another point of the softmax; the SSD state at (2e-4, 2e-4) and the
 attention logsumexp at 1e-5 of the plain chunked forward's.  The
-redesigned kernels (bf16 flash attention on the tensor cores, the fused
-reverse) give the same bits on two calls.  The decoder chains on the card: the
-offloaded gradient against dense autograd on the card, loss 1e-5 relative
-and each leaf 1e-4 of its max |g|.
+redesigned kernels (bf16 flash attention and the SSD scan on the tensor
+cores, the fused reverse, the LSTM cell's step loop) give the same bits on
+two calls; a cooperative grid that cannot be resident is refused.  The
+decoder chains on the card: the offloaded gradient against dense autograd
+on the card, loss 1e-5 relative and each leaf 1e-4 of its max |g|.
 """
 import numpy as np
 import pytest
@@ -339,6 +340,94 @@ def test_ssd_scan_kernel_matches_plain(cuda_device, dims, dtype, with_h0):
     # per head: y (B, T, H, P) over T and P, h (B, H, P, N) over P and N
     _assert_close_to(y, y_ref, *TOL["ssd_scan"][dtype], dims=(1, 3))
     _assert_close_to(h, h_ref, 2e-4, 2e-4, dims=(2, 3))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bf16_mamba2_layer_at_the_gates(cuda_device):
+    """The tensor-core SSD scan at mamba2-370m's layer shape (B=4 of the
+    ssm phase, T=4096, H=32, P=64, N=128, chunk 128): y at the bf16 gates
+    and the fp32 state at (2e-4, 2e-4), per head; two calls give the same
+    bits."""
+    B, T, H, G, P, N, chunk = 4, 4096, 32, 1, 64, 128, 128
+    rng = np.random.default_rng(14)
+
+    def t(shape, scale, dt=torch.float32):
+        return torch.tensor(_np(rng, shape, scale)).to(dt).to(cuda_device)
+
+    bf16 = torch.bfloat16
+    x = t((B, T, H, P), 0.5, bf16)
+    dt = torch.nn.functional.softplus(t((B, T, H), 1.0))
+    A = -torch.exp(t((H,), 0.3))
+    b, c = t((B, T, G, N), 0.5, bf16), t((B, T, G, N), 0.5, bf16)
+    y, h = ssd.ssd_scan(x, dt, A, b, c, chunk=chunk)
+    y2, h2 = ssd.ssd_scan(x, dt, A, b, c, chunk=chunk)
+    y_ref, h_ref = ssd.ssd_scan_plain(x, dt, A, b, c)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    _assert_close_to(y, y_ref, *TOL["ssd_scan"]["bfloat16"], dims=(1, 3))
+    _assert_close_to(h, h_ref, 2e-4, 2e-4, dims=(2, 3))
+
+
+def _step_loop_operands(Bn, L, seed):
+    cfg = get_config("lstm-paper")
+    Dh = cfg.d_ff
+    rng = np.random.default_rng(seed)
+    params = params_from_numpy(init_lstm_numpy(seed, cfg.vocab, cfg.d_model,
+                                               Dh), device="cuda")
+    tok = torch.tensor(rng.integers(0, cfg.vocab, (L, Bn)),
+                       dtype=torch.int32).cuda()
+    hs = torch.empty((L + 1, Bn, Dh), device="cuda")
+    cs = torch.empty_like(hs)
+    hs[0] = torch.tensor(_np(rng, (Bn, Dh), 0.5)).cuda()
+    cs[0] = torch.tensor(_np(rng, (Bn, Dh), 0.5)).cuda()
+    return params, tok, hs, cs
+
+
+@pytest.mark.cuda
+def test_lstm_cell_step_loop_pinned_shape(cuda_device):
+    """The step loop over one recompute chunk of the pinned main path
+    (lstm-paper at full width, B=256, the chunk of T=1000) in one launch:
+    each step against lstm_cell_ref (1e-5), and the same bits on two
+    calls."""
+    from repro_torch.api.autotune import default_slots
+    from repro_torch.core.schedule import chunk_length
+
+    L = chunk_length(1000, default_slots(1000))
+    params, tok, hs, cs = _step_loop_operands(256, L, 15)
+    emb, w, b = params["emb"], params["w"], params["b"]
+    runs = []
+    for _ in range(2):
+        h2, c2 = hs.clone(), cs.clone()
+        before = (lc.lstm_cell.launches, lc.lstm_cell.steps)
+        lc.lstm_cell_token_steps(tok, emb, h2, c2, w, b)
+        assert (lc.lstm_cell.launches, lc.lstm_cell.steps) == (
+            before[0] + 1, before[1] + L)
+        runs.append((h2, c2))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    h2, c2 = runs[0]
+    for t in range(L):
+        hr, cr = lstm_cell_ref(emb[tok[t].long()], h2[t], c2[t], w, b)
+        torch.testing.assert_close(h2[t + 1], hr, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(c2[t + 1], cr, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_lstm_cell_step_loop_refuses_a_grid_that_cannot_be_resident(
+        cuda_device):
+    """A cooperative grid larger than the card can hold at once (38 row
+    tiles x 8 unit tiles at B=600, one block of 160 KB a SM) is refused by
+    the launch with an error, never hung on the grid barrier."""
+    params, tok, hs, cs = _step_loop_operands(600, 3, 16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        lc._token_steps(tok, params["emb"], hs, cs, params["w"],
+                        params["b"], None, None, blocks_y=38)
+    torch.cuda.synchronize()
+    # the default grid runs the same steps
+    lc.lstm_cell_token_steps(tok, params["emb"], hs, cs, params["w"],
+                             params["b"])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(hs).all())
 
 
 @pytest.mark.cuda

@@ -64,29 +64,33 @@ def _to_cpp(source: str) -> str:
                   source, flags=re.S)
 
 
-@pytest.fixture(scope="module")
-def emulated_libs(tmp_path_factory):
+def _compile(source: str, out: pathlib.Path, name: str):
+    """A kernel source compiled with g++ against the emulated runtime and
+    loaded; skips the test where g++ or C++20's <barrier> is missing."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the emulated kernels")
+    cpp = out / f"{name}.cpp"
+    cpp.write_text(_to_cpp(source))
+    so = out / f"lib{name}.so"
+    res = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+         "-Wno-unknown-pragmas", f"-I{EMU}", f"-I{build.CSRC}", str(cpp),
+         "-o", str(so)], capture_output=True, text=True, timeout=300)
+    if res.returncode != 0 and "barrier" in res.stderr:
+        pytest.skip("g++ lacks C++20 <barrier>")
+    assert res.returncode == 0, res.stderr
+    lib = ctypes.CDLL(str(so))
+    lib.repro_error_string.restype = ctypes.c_char_p
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def emulated_libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("cuda_emu")
-    libs = {}
-    for name, src in build.SOURCES.items():
-        cpp = out / f"{name}.cpp"
-        cpp.write_text(_to_cpp((build.CSRC / src).read_text()))
-        so = out / f"lib{name}.so"
-        res = subprocess.run(
-            [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-             "-Wno-unknown-pragmas", f"-I{EMU}", f"-I{build.CSRC}", str(cpp),
-             "-o", str(so)], capture_output=True, text=True, timeout=300)
-        if res.returncode != 0 and "barrier" in res.stderr:
-            pytest.skip("g++ lacks C++20 <barrier>")
-        assert res.returncode == 0, res.stderr
-        lib = ctypes.CDLL(str(so))
-        lib.repro_error_string.restype = ctypes.c_char_p
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        libs[name] = lib
-    return libs
+    return {name: _compile((build.CSRC / src).read_text(), out, name)
+            for name, src in build.SOURCES.items()}
 
 
 class _Event:
@@ -121,8 +125,8 @@ def card_paths(emulated_libs, monkeypatch):
     monkeypatch.setattr(sf, "_on_cpu", lambda tree: False)
     monkeypatch.setattr(lc, "lstm_cell_token_steps",
                         lambda tok, emb, hs, cs, w, b, *, xh=None,
-                        acts=None: lc._token_steps(tok, emb, hs, cs, w, b,
-                                                   xh, acts))
+                        acts=None, barrier=None: lc._token_steps(
+                            tok, emb, hs, cs, w, b, xh, acts, barrier))
 
 
 def _np(rng, shape, scale=1.0):
@@ -150,11 +154,11 @@ def test_lstm_cell_kernel_source(card_paths, Bn, Dx, Dh, dtype):
     torch.testing.assert_close(c_out.float(), cp.float(), rtol=tol, atol=tol)
 
 
-def test_lstm_cell_gather_variant_writes_its_side_outputs(card_paths):
-    """Two steps of the gather variant (the fused reverse's recompute):
-    each step's states, [x, h] rows and gate activations."""
-    rng = np.random.default_rng(3)
-    Bn, Dx, Dh, Vn, L = 9, 8, 36, 11, 2
+def _check_token_steps(Bn, Dx, Dh, Vn, L, seed, **kw):
+    """``L`` steps of the step loop (the fused reverse's recompute) as one
+    call, against ``lstm_cell_ref`` step by step: each step's states, [x, h]
+    rows and gate activations."""
+    rng = np.random.default_rng(seed)
     emb, h, c, w, b = [torch.tensor(a) for a in (
         _np(rng, (Vn, Dx)), _np(rng, (Bn, Dh)), _np(rng, (Bn, Dh)),
         _np(rng, (Dx + Dh, 4 * Dh), 0.1), _np(rng, (4 * Dh,), 0.1))]
@@ -164,9 +168,10 @@ def test_lstm_cell_gather_variant_writes_its_side_outputs(card_paths):
     hs[0], cs[0] = h, c
     xh = torch.full((L, Bn, Dx + Dh), -7.0)
     acts = torch.full((L, Bn, 4 * Dh), -7.0)
-    before = lc.lstm_cell.launches
-    lc.lstm_cell_token_steps(tok, emb, hs, cs, w, b, xh=xh, acts=acts)
-    assert lc.lstm_cell.launches == before + L
+    before = (lc.lstm_cell.launches, lc.lstm_cell.steps)
+    lc._token_steps(tok, emb, hs, cs, w, b, xh, acts, **kw)
+    assert (lc.lstm_cell.launches, lc.lstm_cell.steps) == (
+        before[0] + 1, before[1] + L)
     for t in range(L):
         x = emb[tok[t].long()]
         hr, cr = lstm_cell_ref(x, hs[t], cs[t], w, b)
@@ -178,6 +183,42 @@ def test_lstm_cell_gather_variant_writes_its_side_outputs(card_paths):
             acts[t], torch.cat([torch.sigmoid(i), torch.sigmoid(f + 1),
                                 torch.sigmoid(o), torch.tanh(g)], 1),
             rtol=1e-5, atol=1e-5)
+
+
+def test_lstm_cell_gather_variant_writes_its_side_outputs(card_paths):
+    """Three steps of the step loop in one call, a ragged batch and unit
+    tile (B=9, Dh=36)."""
+    _check_token_steps(9, 8, 36, 11, 3, seed=3)
+
+
+@pytest.mark.parametrize("Bn,Dx,Dh,L,blocks_y", [
+    (70, 8, 40, 4, 0),   # 5 row tiles on 2 resident row blocks: each loops
+    (37, 6, 20, 3, 0),   # Dx, Dh not multiples of 4: the 4-byte copies
+    (20, 8, 12, 3, 5),   # more row blocks than row tiles: idle blocks
+])
+def test_lstm_cell_step_loop(card_paths, Bn, Dx, Dh, L, blocks_y):
+    _check_token_steps(Bn, Dx, Dh, 13, L, seed=Bn, blocks_y=blocks_y)
+
+
+def test_lstm_cell_step_loop_equals_single_steps(card_paths):
+    """A step of the loop and the single-step kernel take a slice's rows
+    in the same order: the same bits."""
+    rng = np.random.default_rng(4)
+    Bn, Dx, Dh, Vn, L = 21, 8, 40, 9, 2
+    emb, w, b = [torch.tensor(a) for a in (
+        _np(rng, (Vn, Dx)), _np(rng, (Dx + Dh, 4 * Dh), 0.1),
+        _np(rng, (4 * Dh,), 0.1))]
+    tok = torch.tensor(rng.integers(0, Vn, (L, Bn)), dtype=torch.int32)
+    hs = torch.tensor(_np(rng, (L + 1, Bn, Dh)))
+    cs = torch.tensor(_np(rng, (L + 1, Bn, Dh)))
+    lc._token_steps(tok, emb, hs, cs, w, b, None, None)
+    h, c = hs[0].clone(), cs[0].clone()
+    for t in range(L):
+        h_out, c_out = torch.empty_like(h), torch.empty_like(c)
+        lc._launch("lstm_cell_f32", emb[tok[t].long()].contiguous(), None,
+                   h, c, w, b, h_out, c_out, None, None)
+        assert torch.equal(h_out, hs[t + 1]) and torch.equal(c_out, cs[t + 1])
+        h, c = h_out, c_out
 
 
 def _segment(T, Bn, seed):
@@ -296,19 +337,43 @@ def test_flash_attention_bf16_rejects_other_head_dims(card_paths):
         fa._launch(q, k, k, True, None, None, None)
 
 
-@pytest.mark.parametrize("B,T,H,G,P,N,chunk,dtype,with_h0", [
-    (1, 40, 2, 1, 8, 8, 16, torch.float32, True),    # ragged last chunk
-    (2, 32, 4, 2, 16, 12, 8, torch.bfloat16, False),  # groups, bf16
-])
-def test_ssd_scan_kernel_source(card_paths, B, T, H, G, P, N, chunk, dtype,
-                                with_h0):
-    rng = np.random.default_rng(T + P)
+def _excess(a, ref, rtol, dims):
+    """Per element, |a - ref| beyond rtol |ref|, over the RMS of ref across
+    ``dims``; the largest (``chip_smoke.excess``)."""
+    a, r = a.float(), ref.float()
+    rms = r.pow(2).mean(dims, keepdim=True).sqrt().clamp_min(1e-30)
+    return float(((a - r).abs() - rtol * r.abs()).clamp_min(0).div(rms).max())
+
+
+# the per-element gates of the SSD scan on the card (chip_smoke.TOL): y per
+# head over (T, P), the state per head over (P, N)
+SSD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-3)}
+
+
+def _ssd_operands(B, T, H, G, P, N, dtype, with_h0, seed):
+    rng = np.random.default_rng(seed)
     x = torch.tensor(_np(rng, (B, T, H, P), 0.5)).to(dtype)
     dt = torch.nn.functional.softplus(torch.tensor(_np(rng, (B, T, H))))
     A = -torch.exp(torch.tensor(_np(rng, (H,), 0.3)))
     b = torch.tensor(_np(rng, (B, T, G, N), 0.5)).to(dtype)
     c = torch.tensor(_np(rng, (B, T, G, N), 0.5)).to(dtype)
     h0 = torch.tensor(_np(rng, (B, H, P, N), 0.5)) if with_h0 else None
+    return x, dt, A, b, c, h0
+
+
+@pytest.mark.parametrize("B,T,H,G,P,N,chunk,dtype,with_h0", [
+    (1, 40, 2, 1, 8, 8, 16, torch.float32, True),    # ragged last chunk
+    (2, 32, 4, 2, 16, 12, 8, torch.bfloat16, False),  # groups, bf16
+    # several chunks, h0, G < H and a ragged last chunk; the 16-byte copies
+    (2, 50, 4, 2, 16, 24, 16, torch.bfloat16, True),
+    (2, 50, 4, 2, 16, 24, 16, torch.float32, True),
+    # the full tiles of the bf16 kernels (L = 128, P = 64, N = 128)
+    (1, 300, 1, 1, 64, 128, 128, torch.bfloat16, True),
+])
+def test_ssd_scan_kernel_source(card_paths, B, T, H, G, P, N, chunk, dtype,
+                                with_h0):
+    x, dt, A, b, c, h0 = _ssd_operands(B, T, H, G, P, N, dtype, with_h0,
+                                       seed=T + P)
     before = ssd.ssd_scan.launches
     y, h = ssd._launch(x, dt, A, b, c, h0, chunk)
     assert ssd.ssd_scan.launches == before + 1
@@ -316,6 +381,37 @@ def test_ssd_scan_kernel_source(card_paths, B, T, H, G, P, N, chunk, dtype,
     tol = 2e-4 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(h, h_ref, rtol=2e-4, atol=2e-4)
+    rtol, atol = SSD_TOL[dtype]
+    assert _excess(y, y_ref, rtol, (1, 3)) <= atol
+    assert _excess(h, h_ref, 2e-4, (2, 3)) <= 2e-4
+
+
+# the state pass of csrc/ssd_scan.cu, and the same with the state carried
+# into chunk 1 dropped (zero, as if the scan restarted there)
+SSD_STATE_STORE = "const long k = k0 + u;"
+SSD_STATE_DROPPED = ("const long k = k0 + u; if (k == 1) for (int v = 0; "
+                     "v < V; ++v) s[v] = 0.0f;")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_check_rejects_a_dropped_chunk_state(card_paths, tmp_path,
+                                                      monkeypatch, dtype):
+    """A kernel that drops one chunk's S_k fails the per-element gates that
+    the unchanged kernel passes (the source mutated here, under the
+    emulation)."""
+    source = (build.CSRC / build.SOURCES["ssd_scan"]).read_text()
+    assert source.count(SSD_STATE_STORE) == 1
+    bad = _compile(source.replace(SSD_STATE_STORE, SSD_STATE_DROPPED),
+                   tmp_path, "ssd_scan_dropped")
+    args = _ssd_operands(2, 50, 4, 2, 16, 24, dtype, False, seed=5)
+    chunk = 16
+    y_ref, _ = ssd.ssd_scan(*args[:5], chunk=chunk, h0=args[5])
+    rtol, atol = SSD_TOL[dtype]
+    y, _ = ssd._launch(*args, chunk)
+    assert _excess(y, y_ref, rtol, (1, 3)) <= atol
+    monkeypatch.setattr(build, "load", lambda name: bad)
+    y_bad, _ = ssd._launch(*args, chunk)
+    assert _excess(y_bad, y_ref, rtol, (1, 3)) > atol
 
 
 # --- the fused reverse's kernels one by one (csrc/segment_fused.cu) -------
