@@ -17,7 +17,10 @@ Phases, each printing its own lines:
               3e-2; its step loop over a recompute chunk of the pinned
               run, step by step, and bit for bit on two calls), the fused
               advance/reverse over one segment with an
-              uneven chunk tail and one with a length-1 tail,
+              uneven chunk tail and one with a length-1 tail, the fused
+              advance at the pinned run's segment shape (its boundaries
+              and exit state bit for bit those of one run of the step
+              loop from the same entry; two calls bit for bit equal),
               ``flash_attention`` (gemma2-2b's layer shape in bf16 and
               fp32, D=64 and 256, GQA, window < S, softcap, Sq < Sk,
               ragged edges, rows that see no key; its logsumexp at 1e-5 of
@@ -39,7 +42,9 @@ Phases, each printing its own lines:
               interval that leaves a tail segment, each held against dense
               ``torch.autograd`` of ``forward_loss`` (loss at 1e-5
               relative, each gradient leaf at 1e-4 of its max |g|); the LSTM
-              kernels' launch counts are read from this phase alone.
+              kernels' launch counts are read from this phase alone, kernel
+              1's launches and steps also by caller (the advance's chunks,
+              the reverse's recompute), each held to what the plan implies.
 5. dense    — ``value_and_grad_offloaded(get_model(gemma2-2b).train_loss)``
               (``runner="compiled"``, autotuned) at full width and depth (26
               layers, 13 chain steps), ``train_4k`` with the global batch
@@ -56,15 +61,22 @@ Phases, each printing its own lines:
               achieved TFLOP/s where the bound is operations; the fused
               reverse at T=1000 also by part (recompute, hoisted products,
               walk, gradient reductions: device time of its kernels under
-              ``torch.profiler``); ``ssd_scan`` by pass (the same); the
-              step loop over a recompute chunk per launch and per step,
-              beside cuDNN's multi-step LSTM on the same chunk.
+              ``torch.profiler``), and the fused advance (step loop,
+              readout, loss and boundaries, finalize), its chunk's readout
+              and loss with the boundary written to page-locked host
+              memory and to device memory, and a composite of library
+              calls computing the same (cuDNN's multi-step LSTM,
+              ``F.linear``, ``F.cross_entropy``); ``ssd_scan`` by pass
+              (the same); the step loop over a recompute chunk per launch
+              and per step, beside cuDNN's multi-step LSTM on the same
+              chunk.
 8. train    — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over one main-path
 call per LSTM schedule and one offloaded call in each decoder phase (device
-kernel time by name and the device's busy share).
+kernel time by name and the device's busy share; for the LSTM, the device
+time under each fused segment wrapper, kernel 1's by caller).
 It is not part of the default run.  Logs too long for the output (the
 ptxas report, the profile tables) go to ``--out-dir`` (default
 ``build/chip_smoke/`` in the checkout).
@@ -392,6 +404,67 @@ def check_reverse_pinned(torch, cfg, T=1000, seed=5):
     return rev_abs
 
 
+def check_advance_pinned(torch, cfg, T=1000, seed=8):
+    """The fused advance at the pinned run's segment shape (T=1000, its
+    chunk): its chunk-entry boundaries and exit (h, c) bit for bit those of
+    one run of the step loop (``lstm_cell_token_steps``) over the segment
+    from the same entry, one step-loop launch a forward chunk; two calls
+    bit for bit equal, the loss accumulator and its boundaries included;
+    and against its plain version at ``check_segment``'s gates.  Returns
+    the max abs error of the states."""
+    from repro_torch.kernels import lstm_cell as lc
+    from repro_torch.kernels import segment_fused as sf
+    from repro_torch.models import lstm
+
+    body = lstm.train_chain(cfg).body
+    chunk = pinned_chunk(T)
+    params, carry, xs, _ = _segment_case(torch, cfg, T, seed)
+    adv = sf.fused_advance_segment
+    n0 = adv.cell_launches
+    outs = [adv(body, params, carry, xs, None, chunk=chunk)
+            for _ in range(2)]
+    for out in outs:
+        out.ready.synchronize()
+    starts = sf.forward_bounds(T, chunk)[:-1]
+    require(adv.cell_launches - n0 == 2 * len(starts),
+            f"fused advance T={T}: {adv.cell_launches - n0} step-loop "
+            f"launches in two calls of {len(starts)} chunks")
+    a, b = [list(o.carry) + list(o.boundaries) for o in outs]
+    require(all(torch.equal(x, y) for x, y in zip(a, b)),
+            f"fused advance T={T}: two calls differ")
+    h0, c0, _ = carry
+    hs = torch.empty((T + 1,) + tuple(h0.shape), device="cuda")
+    cs = torch.empty_like(hs)
+    hs[0], cs[0] = h0, c0
+    lc.lstm_cell_token_steps(xs[0], params["emb"], hs, cs, params["w"],
+                             params["b"])
+    torch.cuda.synchronize()
+    out = outs[0]
+    require(torch.equal(out.boundaries[0], hs[starts].cpu())
+            and torch.equal(out.boundaries[1], cs[starts].cpu())
+            and torch.equal(out.carry[0], hs[T])
+            and torch.equal(out.carry[1], cs[T]),
+            f"fused advance T={T}: states differ from the step loop's")
+    ref = sf.advance_plain(body, params, carry, xs, None, chunk=chunk)
+    torch.cuda.synchronize()
+    err = max(max_err(out.carry[0], ref.carry[0]),
+              max_err(out.carry[1], ref.carry[1]),
+              max_err(out.boundaries[0].cuda(), ref.boundaries[0]),
+              max_err(out.boundaries[1].cuda(), ref.boundaries[1]))
+    acc_rel = max(abs(float(out.carry[2]) - float(ref.carry[2])),
+                  max_err(out.boundaries[2].cuda(), ref.boundaries[2])) \
+        / max(1.0, abs(float(ref.carry[2])))
+    require(err <= 1e-4 and acc_rel <= 1e-5,
+            f"fused advance T={T}: off its plain version: state err {err}, "
+            f"acc rel err {acc_rel}")
+    log(f"[kernels] fused advance at the pinned shape T={T} chunk={chunk} "
+        f"({len(starts)} chunks, one step-loop launch each): err {err:.3g} "
+        f"(acc rel {acc_rel:.3g}); boundaries and exit state bit for bit "
+        "those of one run of the step loop from the same entry; two calls "
+        "bit for bit equal")
+    return err
+
+
 def check_step_loop(torch, cfg, seed=6):
     """The step loop (``lstm_cell_token_steps``, one cooperative launch)
     over one recompute chunk of the pinned run at full width (B=256),
@@ -646,6 +719,7 @@ def phase_kernels(state) -> None:
     adv1, rev1 = check_segment(torch, cfg, T=99, chunk=7, seed=3,
                                label="length-1 tail")
     rev_pinned = check_reverse_pinned(torch, cfg)
+    adv_pinned = check_advance_pinned(torch, cfg)
     loop = check_step_loop(torch, cfg)
     # the new kernels; the error kept is that of the main path's shapes
     flash = [check_flash(torch, *case, seed=20 + i)
@@ -654,7 +728,7 @@ def phase_kernels(state) -> None:
     ssd = [check_ssd(torch, *case, seed=30 + i)
            for i, case in enumerate(SSD_CASES)]
     state["err"] = {"lstm_cell": max(errs["torch.float32"], loop),
-                    "fused_advance_segment": max(adv, adv1),
+                    "fused_advance_segment": max(adv, adv1, adv_pinned),
                     "fused_reverse_segment": max(rev, rev1, rev_pinned),
                     "flash_attention": flash[0], "ssd_scan": ssd[0]}
 
@@ -710,12 +784,18 @@ def phase_main(state) -> None:
     kernels = {"lstm_cell": lc.lstm_cell,
                "fused_advance_segment": sf.fused_advance_segment,
                "fused_reverse_segment": sf.fused_reverse_segment}
+    callers = {"advance": sf.fused_advance_segment,
+               "reverse": sf.fused_reverse_segment}
     for fn in kernels.values():
         fn.launches = 0
     lc.lstm_cell.steps = 0
+    for fn in callers.values():
+        fn.cell_launches = fn.cell_steps = 0
     runs = []
     for label, kw in (("autotuned", {}), ("pinned", {"interval": 1000})):
         before = {k: fn.launches for k, fn in kernels.items()}
+        cells0 = {k: (fn.cell_launches, fn.cell_steps)
+                  for k, fn in callers.items()}
         vg = api.value_and_grad_offloaded(model.train_loss, runner="fused",
                                           device="cuda", **kw)
         torch.cuda.reset_peak_memory_stats()
@@ -737,11 +817,20 @@ def phase_main(state) -> None:
                 f"(+{probe} probe launches)")
         require(stats.fused_segments == 2 * segs,
                 f"{label}: stats.fused_segments {stats.fused_segments}")
+        cells = {k: (fn.cell_launches - cells0[k][0],
+                     fn.cell_steps - cells0[k][1])
+                 for k, fn in callers.items()}
+        want = expected_cell_work(plan, tune)
+        require(cells == want, f"{label}: kernel 1's launches and steps by "
+                f"caller {cells}, the plan implies {want}")
         log(f"[main] {label}: tune I={tune.interval} s={tune.slots} "
             f"T_A={tune.t_a:.6e}s T_T={tune.t_t:.6e}s ({tune.source}); "
             f"plan {plan.plan_id} ({segs} segments)")
         log(f"[main] {label}: loss {float(loss):.6f} (rel err {rel:.3g}), "
             f"grad scaled err {gerr:.3g}; wall {wall:.3f}s; launches {grew}")
+        log(f"[main] {label}: lstm_cell step loop by caller (launches, cell "
+            f"steps): advance {cells['advance']}, reverse recompute "
+            f"{cells['reverse']}")
         log(f"[main] {label}: stats advances={stats.advances} "
             f"backwards={stats.backwards} l2_stores={stats.l2_stores} "
             f"host_dispatches={stats.host_dispatches} "
@@ -759,10 +848,34 @@ def phase_main(state) -> None:
     for k, n in launches.items():
         require(n > 0, f"{k} was not launched on the main path")
     log(f"[main] lstm_cell: {launches['lstm_cell']} launches ran "
-        f"{lc.lstm_cell.steps} cell steps")
+        f"{lc.lstm_cell.steps} cell steps (advance "
+        f"{sf.fused_advance_segment.cell_launches} launches, "
+        f"{sf.fused_advance_segment.cell_steps} steps; reverse recompute "
+        f"{sf.fused_reverse_segment.cell_launches} launches, "
+        f"{sf.fused_reverse_segment.cell_steps} steps)")
     state.setdefault("launches", {}).update(launches)
     state["lstm_steps"] = lc.lstm_cell.steps
     state["runs"] = runs
+
+
+def expected_cell_work(plan, tune):
+    """Kernel 1's step-loop (launches, steps) by caller that one offloaded
+    LSTM gradient implies: per segment what ``segment_fused.cell_work``
+    counts at the runner's chunk, and one advance of ``probe_len`` steps
+    (one chunk) per autotune probe call."""
+    from repro_torch.core.schedule import chunk_length
+    from repro_torch.kernels import segment_fused as sf
+
+    want = {"advance": [0, 0], "reverse": [0, 0]}
+    work = [sf.cell_work(seg.length,
+                         chunk_length(seg.length, plan.s_l1) or seg.length)
+            for seg in plan.segments]
+    work += [{"advance": (1, tune.probe_len)}] * tune.probe_calls
+    for w in work:
+        for k, (n, steps) in w.items():
+            want[k][0] += n
+            want[k][1] += steps
+    return {k: tuple(v) for k, v in want.items()}
 
 
 def _tree_value_and_grad(torch, loss_fn, params, batch):
@@ -906,13 +1019,31 @@ def phase_ssm(state) -> None:
                   {"ssd_scan": 1})
 
 
+def _cudnn_lstm(torch, w, b, Dx):
+    """cuDNN's multi-step LSTM (``torch.nn.LSTM``, i.e. ``torch._VF.lstm``
+    on its flattened weights) computing the chain's cell: gates re-laid out
+    i, f, g, o, the +1 forget bias folded into b_ih; TF32 off as phase
+    ``device`` sets it."""
+    Dh = w.shape[1] // 4
+    perm = torch.cat([torch.arange(0, 2 * Dh), torch.arange(3 * Dh, 4 * Dh),
+                      torch.arange(2 * Dh, 3 * Dh)]).cuda()   # i, f, g, o
+    rnn = torch.nn.LSTM(Dx, Dh).cuda()
+    with torch.no_grad():
+        rnn.weight_ih_l0.copy_(w[:Dx, perm].t())
+        rnn.weight_hh_l0.copy_(w[Dx:, perm].t())
+        bias = b[perm].clone()
+        bias[Dh:2 * Dh] += 1.0
+        rnn.bias_ih_l0.copy_(bias)
+        rnn.bias_hh_l0.zero_()
+    rnn.flatten_parameters()
+    return rnn
+
+
 def _time_step_loop(torch, cfg, single_ms, single_bound_ms):
     """The step loop over one recompute chunk of the pinned run (B=256, L =
     its chunk), per launch and per step, against cuDNN's multi-step LSTM
-    (``torch.nn.LSTM``, i.e. ``torch._VF.lstm`` on its flattened weights:
-    gates re-laid out i, f, g, o, the +1 forget bias folded into b_ih; TF32
-    off as phase ``device`` sets it) on the same inputs, x = emb[tok]
-    gathered beforehand."""
+    (``_cudnn_lstm``) on the same inputs, x = emb[tok] gathered
+    beforehand."""
     from repro_torch.kernels import lstm_cell as lc
 
     L = pinned_chunk()
@@ -928,17 +1059,7 @@ def _time_step_loop(torch, cfg, single_ms, single_bound_ms):
     bar = torch.empty((-(-B // 16),), dtype=torch.int32, device="cuda")
     ms_loop = cuda_ms(lambda: lc.lstm_cell_token_steps(
         tok, emb, hs, cs, w, b, xh=xh, acts=acts, barrier=bar), 20)
-    perm = torch.cat([torch.arange(0, 2 * Dh), torch.arange(3 * Dh, 4 * Dh),
-                      torch.arange(2 * Dh, 3 * Dh)]).cuda()   # i, f, g, o
-    rnn = torch.nn.LSTM(Dx, Dh).cuda()
-    with torch.no_grad():
-        rnn.weight_ih_l0.copy_(w[:Dx, perm].t())
-        rnn.weight_hh_l0.copy_(w[Dx:, perm].t())
-        bias = b[perm].clone()
-        bias[Dh:2 * Dh] += 1.0
-        rnn.bias_ih_l0.copy_(bias)
-        rnn.bias_hh_l0.zero_()
-    rnn.flatten_parameters()
+    rnn = _cudnn_lstm(torch, w, b, Dx)
     xin = emb[tok.long()]
     with torch.no_grad():
         out, _ = rnn(xin, (h0[None], c0[None]))
@@ -955,10 +1076,12 @@ def _time_step_loop(torch, cfg, single_ms, single_bound_ms):
         f"{err:.3g})")
 
 
-def _time_segment_kernels(torch, cfg, T, slots):
+def _time_segment_kernels(torch, cfg, T, slots, detail=False):
     """Fused advance/reverse and their plain versions timed over one
     full-width segment of T steps chunked as the runner chunks it, with the
-    least time the card could take for the same work."""
+    least time the card could take for the same work; both by part, and
+    with ``detail`` also the advance's boundary writes and its library
+    composite."""
     from repro_torch.core.schedule import chunk_length
     from repro_torch.kernels import segment_fused as sf
     from repro_torch.models import lstm
@@ -1002,12 +1125,100 @@ def _time_segment_kernels(torch, cfg, T, slots):
     flops = recompute * cell_flops(B, Dx, Dh) + T * back
     out["fused_reverse_segment"] = (ms_k, ms_p) + bound_ms(nbytes, flops)
     out["flops"]["fused_reverse_segment"] = flops
-    out["parts"] = _reverse_parts(torch, lambda: sf.fused_reverse_segment(
-        body, (False, False), params, carry, xs, None, dcarry, chunk=chunk))
+    out["parts"] = _parts(torch, lambda: sf.fused_reverse_segment(
+        body, (False, False), params, carry, xs, None, dcarry, chunk=chunk),
+        REVERSE_PARTS)
+    out["advance_parts"] = _parts(torch, lambda: sf.fused_advance_segment(
+        body, params, carry, xs, None, chunk=chunk), ADVANCE_PARTS)
+    if detail:
+        out["writes"] = _time_boundary_writes(torch, params, carry, xs, chunk)
+        _time_advance_composite(torch, body, params, carry, xs, chunk)
     return out
 
 
-# The fused reverse's parts by kernel name; a reduce_kernel adds the slices
+def _time_boundary_writes(torch, params, carry, xs, chunk):
+    """Milliseconds of one forward chunk's readout and loss kernels
+    (``lstm_adv_chunk``, after its step loop), with the chunk-entry
+    boundary written into page-locked host memory through its device
+    mapping, as the advance does, and into device memory instead: what the
+    writes across the bus cost.  Timed in turns: host, device, device,
+    host."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import lstm_cell as lc
+    from repro_torch.kernels import segment_fused as sf
+
+    lib = sf._seg_lib()
+    (h0, c0, _), (tok, tgt) = carry, xs
+    B, Dh = h0.shape
+    V, L = params["w_out"].shape[1], chunk
+    hs = torch.empty((L + 1, B, Dh), device="cuda")
+    cs = torch.empty_like(hs)
+    lc.lstm_cell_token_steps(tok[:L], params["emb"], hs, cs, params["w"],
+                             params["b"], entry=(h0, c0))
+    lg = torch.empty((L * B, V), device="cuda")
+    msum = torch.empty((L,), device="cuda")
+    nxt = (torch.empty_like(h0), torch.empty_like(c0))
+    dests = {"host": [torch.empty((B, Dh), pin_memory=True)
+                      for _ in range(2)],
+             "device": [torch.empty((B, Dh), device="cuda")
+                        for _ in range(2)]}
+    ptr, stream = build.ptr, build.stream_ptr()
+
+    def call(bh, bc):
+        err = lib.lstm_adv_chunk(
+            ptr(params["w_out"]), ptr(params["b_out"]), V, Dh, ptr(tgt),
+            ptr(hs), ptr(cs), L, B, ptr(lg), ptr(msum), ptr(h0), ptr(c0),
+            ptr(bh), ptr(bc), ptr(nxt[0]), ptr(nxt[1]), stream)
+        build.check(lib, err, "lstm_adv_chunk")
+
+    ms = {"host": [], "device": []}
+    for where in ("host", "device", "device", "host"):
+        ms[where].append(cuda_ms(lambda: call(*dests[where]), 50))
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+def _time_advance_composite(torch, body, params, carry, xs, chunk):
+    """A composite of three library calls computing what the fused advance
+    computes over the segment (without its boundary copies): cuDNN's
+    multi-step LSTM (``_cudnn_lstm``), then ``F.linear`` and
+    ``F.cross_entropy`` over its T B rows; x = emb[tok] gathered and the
+    targets widened beforehand.  Checked against the advance (final h 1e-4,
+    the loss sum 1e-4 relative), then timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import segment_fused as sf
+
+    emb, w_out, b_out = params["emb"], params["w_out"], params["b_out"]
+    (h0, c0, acc0), (tok, tgt) = carry, xs
+    T, V = tok.shape[0], w_out.shape[1]
+    rnn = _cudnn_lstm(torch, params["w"], params["b"], emb.shape[1])
+    xin, gold = emb[tok.long()], tgt.reshape(-1).long()
+
+    def composite():
+        out, (hn, _) = rnn(xin, (h0[None], c0[None]))
+        logits = F.linear(out, w_out.t(), b_out)
+        return hn[0], F.cross_entropy(logits.reshape(-1, V), gold)
+
+    with torch.no_grad():
+        hn, loss = composite()
+        adv = sf.fused_advance_segment(body, params, carry, xs, None,
+                                       chunk=chunk)
+        torch.cuda.synchronize()
+        herr = max_err(hn, adv.carry[0])
+        # the advance adds the T step means: T times the mean over all rows
+        ref = float(adv.carry[2]) - float(acc0)
+        lrel = abs(T * float(loss) - ref) / abs(ref)
+        require(herr <= 1e-4 and lrel <= 1e-4,
+                f"library composite off the fused advance: h {herr}, loss "
+                f"sum rel {lrel}")
+        ms = cuda_ms(composite, 3)
+    log(f"[timing] fused_advance_segment yardstick, a composite of library "
+        f"calls (not one call): cuDNN nn.LSTM over T={T} + F.linear + "
+        f"F.cross_entropy: {ms:.4f} ms (against the advance: h {herr:.3g}, "
+        f"loss sum rel {lrel:.3g})")
+
+
+# A segment kernel's parts by kernel name; a reduce_kernel adds the slices
 # of the product launched just before it, so it joins that product's part.
 REVERSE_PARTS = (("lstm_cell_kernel", "recompute"),
                  ("dlogits_kernel", "hoisted"),
@@ -1016,11 +1227,15 @@ REVERSE_PARTS = (("lstm_cell_kernel", "recompute"),
                  ("gemm_kernel<true", "reductions"),
                  ("embed_grad_kernel", "reductions"),
                  ("add_kernel", "reductions"))
+ADVANCE_PARTS = (("lstm_cell_kernel", "step loop"),
+                 ("gemm_kernel", "readout"),
+                 ("advance_loss_kernel", "loss and boundaries"),
+                 ("acc_finalize_kernel", "finalize"))
 
 
-def _reverse_parts(torch, call):
-    """Device milliseconds of one ``call()`` of the fused reverse by part
-    (``REVERSE_PARTS``; copies and anything unnamed under "other"), from
+def _parts(torch, call, table):
+    """Device milliseconds of one ``call()`` of a fused segment kernel by
+    part (``table``; copies and anything unnamed under "other"), from
     ``torch.profiler``'s kernel events in launch order; None if the
     profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1031,11 +1246,10 @@ def _reverse_parts(torch, call):
         call()
         torch.cuda.synchronize()
     events = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
-                    for e in prof.events()
-                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+                    for e in _device_events(prof) if e.name not in CALLERS)
     parts, last = {}, "other"
     for _, us, name in events:
-        part = next((p for key, p in REVERSE_PARTS if key in name), None)
+        part = next((p for key, p in table if key in name), None)
         if part is None:
             part = last if "reduce_kernel" in name else "other"
         parts[part] = parts.get(part, 0.0) + us / 1e3
@@ -1137,6 +1351,14 @@ def _time_ssd(torch, run):
             flops)
 
 
+def log_parts(name, T, parts) -> None:
+    log("[timing] {} at T={} by part (one call, device time of its kernels, "
+        "torch.profiler): {}".format(
+            name, T, "not measured (the profiler saw no device time)"
+            if parts is None else ", ".join(f"{k} {v:.4f} ms"
+                                             for k, v in parts.items())))
+
+
 def phase_timing(state) -> None:
     import torch
 
@@ -1182,22 +1404,32 @@ def phase_timing(state) -> None:
         rows.append((name, "src/repro_torch/kernels/csrc/segment_fused.cu",
                      f"src/repro/kernels/segment_pallas.py:{line}", k_ms,
                      p_ms, b_ms, by, None, seg["flops"][name]))
+    # at T=2, the shortest segment the autotuner picks (its pick before the
+    # advance was redesigned), when it picked another
+    if seg["T"] != 2:
+        short = _time_segment_kernels(torch, cfg, 2, run["slots"])
+        for name in ("fused_advance_segment", "fused_reverse_segment"):
+            log(f"[timing] {name} at T=2: {short[name][0]:.4f} ms (bound "
+                f"{short[name][2]:.4f} ms)")
+        log_parts("fused_advance_segment", 2, short["advance_parts"])
     # and at the pinned run's segment shape (long segments, 16 chunks)
     pinned = state["runs"][1]
     long_seg = _time_segment_kernels(torch, cfg, pinned["interval"],
-                                     pinned["slots"])
+                                     pinned["slots"], detail=True)
     for name in ("fused_advance_segment", "fused_reverse_segment"):
         k_ms, p_ms, b_ms, by = long_seg[name]
         tflops = long_seg["flops"][name] / k_ms / 1e9
         log(f"[timing] {name} at T={long_seg['T']} chunk="
             f"{long_seg['chunk']}: {k_ms:.4f} ms (plain {p_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms by {by}; {tflops:.2f} TFLOP/s fp32)")
-    parts = long_seg["parts"]
-    log("[timing] fused_reverse_segment at T={} by part (one call, device "
-        "time of its kernels, torch.profiler): {}".format(
-            long_seg["T"], "not measured (the profiler saw no device time)"
-            if parts is None else ", ".join(f"{k} {v:.3f} ms"
-                                             for k, v in parts.items())))
+    for name, key in (("fused_reverse_segment", "parts"),
+                      ("fused_advance_segment", "advance_parts")):
+        log_parts(name, long_seg["T"], long_seg[key])
+    writes = long_seg["writes"]
+    log(f"[timing] fused_advance_segment: one chunk's readout and loss "
+        f"kernels (L={long_seg['chunk']}) with the chunk-entry boundary "
+        f"written to page-locked host memory {writes['host']:.4f} ms, to "
+        f"device memory {writes['device']:.4f} ms")
 
     rows.append(_time_flash(torch, state["dense"]))
     rows.append(_time_ssd(torch, state["ssm"]))
@@ -1257,7 +1489,8 @@ def profile_call(state, label: str, note: str, call) -> None:
         wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") \
+                or e.key in CALLERS:   # a range's device span, not a kernel
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1266,10 +1499,15 @@ def profile_call(state, label: str, note: str, call) -> None:
             rows.append((us, e.count, e.key))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    callers = by_caller(prof)
     path = os.path.join(state["out_dir"], f"profile_{label}.txt")
     with open(path, "w") as f:
         f.write(f"# {state['card']}; one offloaded gradient, {note}; wall "
                 f"{wall:.6f} s\n")
+        for name, (n, span_ms, cell_ms, all_ms) in callers.items():
+            f.write(f"# {name} ({n} calls): device span {span_ms:.3f} ms, "
+                    f"kernels in it {all_ms:.3f} ms, lstm_cell_kernel "
+                    f"{cell_ms:.3f} ms\n")
         f.write("# device_us\tcount\tname\n")
         for us, count, key in rows:
             f.write(f"{us:.1f}\t{count}\t{key}\n")
@@ -1282,6 +1520,52 @@ def profile_call(state, label: str, note: str, call) -> None:
         f"{path}")
     for us, count, key in rows[:6]:
         log(f"[profile]   {us / 1e3:10.3f} ms  x{count:<6d} {key[:70]}")
+    for name, (n, span_ms, cell_ms, all_ms) in callers.items():
+        log(f"[profile]   {name} ({n} calls): device span {span_ms:.3f} ms,"
+            f" kernels in it {all_ms:.3f} ms, lstm_cell_kernel "
+            f"{cell_ms:.3f} ms")
+
+
+# the fused segment wrappers' profiler ranges (segment_fused._card_call)
+CALLERS = ("fused_advance_segment", "fused_reverse_segment")
+
+
+def _device_events(prof):
+    return [e for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
+def by_caller(prof):
+    """Per fused segment wrapper: its calls, the device span of its profiler
+    range (the profiler records a range on the device too, from the start of
+    the first kernel launched in it to the end of the last), and the device
+    milliseconds of the kernels that start within those spans, all and
+    kernel 1's (``lstm_cell_kernel``); copies (on their own streams) are
+    left out.  The segment kernels run in order on one stream, so the spans
+    do not overlap."""
+    import bisect
+
+    dev = _device_events(prof)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in dev if e.name in CALLERS)
+    starts = [sp[0] for sp in spans]
+    acc = {}
+    for lo, hi, name in spans:
+        n, span, cell, total = acc.get(name, (0, 0.0, 0.0, 0.0))
+        acc[name] = (n + 1, span + (hi - lo) / 1e3, cell, total)
+    for e in dev:
+        if e.name in CALLERS or e.name.startswith(("Memcpy", "Memset")):
+            continue
+        t = e.time_range.start
+        i = bisect.bisect_right(starts, t) - 1
+        if i < 0 or t >= spans[i][1]:
+            continue
+        name = spans[i][2]
+        ms = e.time_range.elapsed_us() / 1e3
+        n, span, cell, total = acc[name]
+        acc[name] = (n, span, cell + (ms if "lstm_cell_kernel" in e.name
+                                      else 0.0), total + ms)
+    return acc
 
 
 def phase_profile(state) -> None:

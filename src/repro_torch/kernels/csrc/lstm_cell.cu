@@ -18,16 +18,17 @@
 // order), so two 16-byte shared-memory loads feed 16 FMAs.  Products
 // are fp32 FMA on the CUDA cores (no TF32).  The ragged batch and unit
 // edges are masked (the TPU kernel asserted B % block_b == 0).  W's columns
-// must fit a block's shared memory: Dx + Dh up to 384 on the H100
+// must fit a block's shared memory: Dx + Dh up to 352 on the H100
 // (lstm_cell_max_k), as W had to fit the TPU kernel's VMEM.
 //
 // Bound on the H100 SXM (data sheet: 67 TFLOP/s fp32, 3.35 TB/s): one step
 // at B = 256 does ~168 MFLOP against ~1.9 MB (W dominates), so it is bound
 // by operations (2.5 us).
 //
-// A run of steps (the fused reverse's recompute, x = emb[tok]) is one
-// launch: W is the same matrix at every step, so its columns stay in shared
-// memory for the whole run and a step stages only the tile's [x, h] rows.
+// A run of steps (the fused advance's forward chunks, the fused reverse's
+// recompute; x = emb[tok]) is one launch: W is the same matrix at every
+// step, so its columns stay in shared memory for the whole run and a step
+// stages only the tile's [x, h] rows.
 // h_{t+1} of a row tile is read only by the blocks that own that row tile,
 // so after each step's writes those blocks (one grid row) meet at a barrier
 // of their own, not the whole grid's.  The next step's x rows are fetched
@@ -40,7 +41,9 @@
 // at a time, the same kernel runs one launch per step.  A step writes the
 // [x, h] rows (spread over the row tile's blocks) and the gate activations
 // the reverse's products read; no float atomics, so two calls give the same
-// bits, and a step gives the same bits in a run as alone.
+// bits, and a step gives the same bits in a run as alone.  Step 0 may read
+// its (h, c) from an entry state elsewhere (the advance's segment entry)
+// instead of hs[0], cs[0]: the same values, the same bits.
 #include <type_traits>
 
 #include "lstm_step.cuh"
@@ -67,9 +70,10 @@ size_t smem_floats(int K) {
          static_cast<size_t>(kpad(K)) * NC;
 }
 
-// One launch's operands.  Step t reads h + t step, c + t step and writes
-// h_out + t step, c_out + t step, xh[t], acts[t]; the x row of batch row b
-// is x[tok[t B + b]] when tok is given, else x[b].
+// One launch's operands.  Step t reads h + t step, c + t step (step 0:
+// h_entry, c_entry when given) and writes h_out + t step, c_out + t step,
+// xh[t], acts[t]; the x row of batch row b is x[tok[t B + b]] when tok is
+// given, else x[b].
 template <typename T>
 struct Cell {
   const T* x;
@@ -85,6 +89,15 @@ struct Cell {
   int B, Dx, Dh;
   long step;     // elements between steps of h, c
   int vec;       // fp32 rows 16-byte aligned, Dx and Dh multiples of 4
+  const T* h_entry = nullptr;   // step 0's h and c, when not h and c
+  const T* c_entry = nullptr;
+
+  __device__ const T* h_at(int t) const {
+    return t == 0 && h_entry != nullptr ? h_entry : h + t * step;
+  }
+  __device__ const T* c_at(int t) const {
+    return t == 0 && c_entry != nullptr ? c_entry : c + t * step;
+  }
 };
 
 template <typename T>
@@ -268,7 +281,7 @@ lstm_cell_kernel(Cell<T> p, int t_lo, int t_hi, unsigned* barrier) {
     repro::cp_async_commit();
   };
   auto stage_h = [&](int t, int rt) {
-    stage_cols(at, p, tok_of(t), p.h + t * p.step, rt * BM, xe, kpad(K));
+    stage_cols(at, p, tok_of(t), p.h_at(t), rt * BM, xe, kpad(K));
     repro::cp_async_commit();
   };
 
@@ -326,7 +339,7 @@ lstm_cell_kernel(Cell<T> p, int t_lo, int t_hi, unsigned* barrier) {
       } else if (t < t_hi) {
         stage_x(t + 1, rt0);   // its h rows follow the barrier
       }
-      cell_epilogue(acc, red, bs, p.c + t * p.step, p.h_out + t * p.step,
+      cell_epilogue(acc, red, bs, p.c_at(t), p.h_out + t * p.step,
                     p.c_out + t * p.step,
                     p.acts == nullptr ? nullptr : p.acts + 4 * t * p.step,
                     row0, j0, B, p.Dh);
@@ -347,7 +360,8 @@ bool aligned16(const void* p) {
 template <typename T>
 int vec_of(const Cell<T>& p) {
   return std::is_same<T, float>::value && p.Dx % 4 == 0 && p.Dh % 4 == 0 &&
-         aligned16(p.x) && aligned16(p.h) && aligned16(p.w);
+         aligned16(p.x) && aligned16(p.h) && aligned16(p.w) &&
+         aligned16(p.h_entry);
 }
 
 // The kernel's shared memory, set as its limit; cudaErrorInvalidValue when
@@ -425,19 +439,21 @@ extern "C" int lstm_cell_max_k() {
 
 // L steps over hs, cs (L + 1, B, Dh) with x = emb[tok[t]] (tok (L, B)),
 // fp32, as one cooperative launch (on the card); xh (L, B, Dx + Dh) and
-// acts (L, B, 4 Dh) may be NULL.  blocks_y: the grid's rows of blocks (0:
-// as many as can be resident beside the unit tiles, at most one per row
-// tile of 16).  barrier: blocks_y unsigned counters of device scratch (the
-// default needs ceil(B / 16)).
+// acts (L, B, 4 Dh) may be NULL.  h_entry, c_entry (B, Dh): step 0's state
+// in place of hs[0], cs[0] (NULL: hs[0], cs[0]).  blocks_y: the grid's rows
+// of blocks (0: as many as can be resident beside the unit tiles, at most
+// one per row tile of 16).  barrier: blocks_y unsigned counters of device
+// scratch (the default needs ceil(B / 16)).
 extern "C" int lstm_cell_steps(const float* emb, const int32_t* tok,
                                float* hs, float* cs, const float* w,
-                               const float* b, float* xh, float* acts, int L,
-                               int B, int Dx, int Dh, int blocks_y,
+                               const float* b, float* xh, float* acts,
+                               const float* h_entry, const float* c_entry,
+                               int L, int B, int Dx, int Dh, int blocks_y,
                                unsigned* barrier, void* stream) {
   if (L <= 0 || B <= 0 || Dh <= 0) return 0;
   const long BDh = static_cast<long>(B) * Dh;
   Cell<float> p{emb, tok, hs, cs, hs + BDh, cs + BDh, w, b, xh, acts,
-                B, Dx, Dh, BDh, 0};
+                B, Dx, Dh, BDh, 0, h_entry, c_entry};
   p.vec = vec_of(p);
   size_t smem;
   cudaError_t e;

@@ -2,23 +2,34 @@
 // the LSTM chain step (embedding gather -> cell -> h @ w_out + b_out ->
 // log-sum-exp - gold -> acc += mean over the batch).
 //
-// Kernel 2, fused_advance_lstm, replaces the TPU kernel
-// src/repro/kernels/segment_pallas.py::fused_advance_segment (built in
-// _fused_ops.advance).  Batch rows are independent through (h, c), so one
-// block owns BT rows and loops over every step of the segment in a single
-// launch, its rows' [x, h] and c resident in shared memory; W, emb and
-// w_out (1.3 MB + 25 KB + 98 KB at the paper's width) are read through L2
-// every step.  Each chunk-entry (h, c) is written straight into page-locked
-// host memory through its device mapping (the analogue of the TPU's async
-// copy into ANY space), so the Level-2 copy of boundary 0 overlaps the
-// segment's compute and needs no device-to-host transfer afterwards.  The
-// loss accumulator couples every row: each block writes its rows' summed
-// NLL per step, and a second tiny launch (acc_finalize_kernel) adds the
-// partials and carries acc_{t+1} = acc_t + mean_t in a fixed order — no
-// float atomics, so the result is the same on every run.  Bound: every
-// block streams all of W once per step, so a step costs
-// ceil(B/BT) x 1.3 MB of L2 reads (L2 bandwidth), against ~180 MFLOP of
-// fp32 work; the design trades that traffic for a launch-free recurrence.
+// Kernel 2, the fused advance (driven from repro_torch/kernels/
+// segment_fused.py), replaces the TPU kernel src/repro/kernels/
+// segment_pallas.py::fused_advance_segment (built in _fused_ops.advance).
+// Only (h, c) carry the recurrence: the logits and the loss of step t read
+// h_{t+1} and feed nothing back.  So each forward chunk of L steps runs the
+// recurrence alone, on kernel 1's step loop (lstm_cell.cu: one cooperative
+// launch, each block's 128 columns of W resident in shared memory, a
+// barrier per row of blocks after each step), into device scratch hs, cs
+// (L + 1, B, Dh); and the readout and loss are hoisted out of the step loop
+// into work over all L * B rows of the chunk: logits = hs[1:] w_out + b_out
+// (gemm_kernel, one pass over the card) and the rows' lse - gold with each
+// step's batch mean (advance_loss_kernel, one block a step).  The same
+// kernel writes the chunk-entry (h, c) straight into page-locked host memory
+// through its device mapping (the analogue of the TPU's async copy into ANY
+// space), so the Level-2 copy of boundary 0 needs no device-to-host transfer
+// after the segment, and moves the chunk's exit state to the next chunk's
+// entry (or to the segment's carry).  The loss accumulator couples every
+// step: one launch a segment (acc_finalize_kernel) carries acc_{t+1} = acc_t
+// + mean_t in step order and writes the acc boundaries.  No float atomics:
+// two calls give the same bits, and the states are those of kernel 1 run
+// from the same entry, as the fused reverse's recompute runs it.  Bound on
+// the H100 SXM (67 TFLOP/s fp32): a step is ~181 MFLOP (the cell 168, the
+// readout 12.6), so operations bound it (2.7 ms at T = 1000); what holds it
+// is the step loop's latency per step (its barrier and the staging of the
+// [x, h] rows), since the step loop does 93% of the work and the readout
+// runs at the rate of a large product.  The kernel this replaces (one block
+// per 4 batch rows, the readout inside the step loop) streamed all of W
+// from L2 in every block at every step.
 //
 // Kernel 3, the fused reverse (driven from repro_torch/kernels/
 // segment_fused.py), replaces segment_pallas.py::fused_reverse_segment
@@ -42,167 +53,75 @@
 
 namespace {
 
-constexpr int BT = 4;    // batch rows per block (the recurrence is row-local)
 constexpr int NT = 256;  // threads per block
 constexpr int NW = NT / 32;
 
-struct Lstm {
-  const float* emb;    // (V, Dx)
-  const float* w;      // (Dx + Dh, 4 Dh)
-  const float* b;      // (4 Dh)
-  const float* w_out;  // (Dh, V)
-  const float* b_out;  // (V)
-  int V, Dx, Dh;
-};
-
 // ---------------------------------------------------------------- kernel 2
+//
+// After a chunk's step loop, over its L steps (grid.x >= L; blocks past L
+// only copy):
+//   msum[t] = (sum over the batch rows b of lse(lg[t B + b]) -
+//   lg[t B + b][tgt[t B + b]]) / B: warp w sums the rows w, w + LW, ... in
+//   order, and the warps' sums are added in warp order.  A row is a chain of
+//   dependent warp reductions, so a step's rows are spread over 32 warps;
+// and over the whole grid, per element e of a (B, Dh) state: the chunk's
+// entry into the boundary (bh, bc; skipped when bh is NULL), then the exit
+// into next (the next chunk's entry, or the segment's carry).  entry_h may
+// alias next_h: each element is read before it is written, by the same
+// thread.
+constexpr int LT = 1024;   // threads of advance_loss_kernel
+constexpr int LW = LT / 32;
 
-__global__ void __launch_bounds__(NT)
-fused_advance_kernel(Lstm p, const int32_t* __restrict__ tok,
-                     const int32_t* __restrict__ tgt,
-                     const float* __restrict__ h0,
-                     const float* __restrict__ c0, float* __restrict__ h_out,
-                     float* __restrict__ c_out, float* __restrict__ bnd_h,
-                     float* __restrict__ bnd_c, float* __restrict__ nll_part,
-                     int T, int B, int chunk, int nc) {
-  extern __shared__ float smem[];
-  const int Dx = p.Dx, Dh = p.Dh, V = p.V, K = Dx + Dh;
-  const long N4 = 4L * Dh;
-  float* xh = smem;             // BT x K: [x_t, h_t]
-  float* cs = xh + BT * K;      // BT x Dh: c_t
-  float* hn = cs + BT * Dh;     // BT x Dh: h_{t+1}
-  float* lg = hn + BT * Dh;     // BT x V: logits
-  float* nll = lg + BT * V;     // BT
+__global__ void __launch_bounds__(LT)
+advance_loss_kernel(const float* __restrict__ lg,
+                    const int32_t* __restrict__ tgt, int L, int B, int V,
+                    float* __restrict__ msum, const float* entry_h,
+                    const float* entry_c, float* bh, float* bc,
+                    const float* __restrict__ exit_h,
+                    const float* __restrict__ exit_c, float* next_h,
+                    float* next_c, long n) {
+  __shared__ float wsum[LW];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int row0 = blockIdx.x * BT;
-  const int nrows = min(BT, B - row0);
-
-  for (int e = tid; e < BT * Dh; e += NT) {
-    const int r = e / Dh, j = e % Dh;
-    const long o = static_cast<long>(row0 + r) * Dh + j;
-    xh[r * K + Dx + j] = r < nrows ? h0[o] : 0.0f;
-    cs[r * Dh + j] = r < nrows ? c0[o] : 0.0f;
-  }
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    // chunk-entry snapshot, streamed to the host buffer while we compute
-    if (t % chunk == 0 && t / chunk < nc) {
-      const long base = static_cast<long>(t / chunk) * B;
-      for (int e = tid; e < nrows * Dh; e += NT) {
-        const int r = e / Dh, j = e % Dh;
-        const long o = (base + row0 + r) * Dh + j;
-        bnd_h[o] = xh[r * K + Dx + j];
-        bnd_c[o] = cs[r * Dh + j];
-      }
-    }
-    const int32_t* tok_t = tok + static_cast<long>(t) * B + row0;
-    for (int e = tid; e < BT * Dx; e += NT) {
-      const int r = e / Dx, d = e % Dx;
-      xh[r * K + d] =
-          r < nrows ? p.emb[static_cast<long>(tok_t[r]) * Dx + d] : 0.0f;
-    }
-    __syncthreads();
-
-    // gates: one thread per hidden unit, all rows of the tile
-    for (int j = tid; j < Dh; j += NT) {
-      float a[4][BT];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float bg = p.b[g * Dh + j];
-#pragma unroll
-        for (int r = 0; r < BT; ++r) a[g][r] = bg;
-      }
-      const float* wc = p.w + j;
-#pragma unroll 4
-      for (int k = 0; k < K; ++k) {
-        const float* wr = wc + k * N4;
-        const float w0 = __ldg(wr), w1 = __ldg(wr + Dh);
-        const float w2 = __ldg(wr + 2 * Dh), w3 = __ldg(wr + 3 * Dh);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float v = xh[r * K + k];
-          a[0][r] = fmaf(v, w0, a[0][r]);
-          a[1][r] = fmaf(v, w1, a[1][r]);
-          a[2][r] = fmaf(v, w2, a[2][r]);
-          a[3][r] = fmaf(v, w3, a[3][r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        float cn, hh;
-        repro::lstm_point(a[0][r], a[1][r], a[2][r], a[3][r], cs[r * Dh + j],
-                          &cn, &hh);
-        cs[r * Dh + j] = cn;
-        hn[r * Dh + j] = hh;
-      }
-    }
-    __syncthreads();
-
-    for (int e = tid; e < BT * Dh; e += NT) {
-      const int r = e / Dh, j = e % Dh;
-      xh[r * K + Dx + j] = hn[e];
-    }
-    // logits = h' @ w_out + b_out
-    for (int v = tid; v < V; v += NT) {
-      float a[BT];
-      const float bo = p.b_out[v];
-#pragma unroll
-      for (int r = 0; r < BT; ++r) a[r] = bo;
-      for (int j = 0; j < Dh; ++j) {
-        const float wv = __ldg(p.w_out + static_cast<long>(j) * V + v);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) a[r] = fmaf(hn[r * Dh + j], wv, a[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < BT; ++r) lg[r * V + v] = a[r];
-    }
-    __syncthreads();
-
-    // per-row NLL = logsumexp(logits) - logits[target]: one warp per row
-    for (int r = warp; r < nrows; r += NW) {
-      const float* l = lg + r * V;
+  const int t = blockIdx.x;
+  if (t < L) {
+    float acc = 0.0f;
+    for (int r = warp; r < B; r += LW) {
+      const long row = static_cast<long>(t) * B + r;
+      const float* l = lg + row * V;
       float m = -INFINITY;
       for (int v = lane; v < V; v += 32) m = fmaxf(m, l[v]);
       m = repro::warp_max(m);
       float s = 0.0f;
       for (int v = lane; v < V; v += 32) s += expf(l[v] - m);
       s = repro::warp_sum(s);
-      if (lane == 0) {
-        const int gold = tgt[static_cast<long>(t) * B + row0 + r];
-        nll[r] = (m + logf(s)) - l[gold];
-      }
+      if (lane == 0) acc += (m + logf(s)) - l[tgt[row]];
     }
+    if (lane == 0) wsum[warp] = acc;
     __syncthreads();
     if (tid == 0) {
       float s = 0.0f;
-      for (int r = 0; r < nrows; ++r) s += nll[r];
-      nll_part[static_cast<long>(t) * gridDim.x + blockIdx.x] = s;
+      for (int w = 0; w < LW; ++w) s += wsum[w];
+      msum[t] = s / static_cast<float>(B);
     }
   }
-
-  for (int e = tid; e < nrows * Dh; e += NT) {
-    const int r = e / Dh, j = e % Dh;
-    const long o = static_cast<long>(row0 + r) * Dh + j;
-    h_out[o] = xh[r * K + Dx + j];
-    c_out[o] = cs[r * Dh + j];
+  for (long e = static_cast<long>(blockIdx.x) * LT + tid; e < n;
+       e += static_cast<long>(gridDim.x) * LT) {
+    if (bh != nullptr) {
+      bh[e] = entry_h[e];
+      bc[e] = entry_c[e];
+    }
+    next_h[e] = exit_h[e];
+    next_c[e] = exit_c[e];
   }
 }
 
-// acc_{t+1} = acc_t + (sum of the blocks' row NLLs at step t) / B, in order.
-__global__ void acc_finalize_kernel(const float* __restrict__ nll_part,
-                                    float* __restrict__ msum, int T, int nblk,
-                                    int B, const float* __restrict__ acc0,
+// acc_{t+1} = acc_t + msum[t] over the segment's T steps in order, from
+// *acc0; bnd_acc[k] = acc at the start of chunk k.  One thread.
+__global__ void acc_finalize_kernel(const float* __restrict__ msum, int T,
+                                    const float* __restrict__ acc0,
                                     float* __restrict__ acc_out,
                                     float* __restrict__ bnd_acc, int chunk,
                                     int nc) {
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    float s = 0.0f;
-    for (int k = 0; k < nblk; ++k) s += nll_part[static_cast<long>(t) * nblk + k];
-    msum[t] = s / static_cast<float>(B);
-  }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
   float a = *acc0;
   for (int t = 0; t < T; ++t) {
     if (t % chunk == 0 && t / chunk < nc) bnd_acc[t / chunk] = a;
@@ -657,8 +576,6 @@ __global__ void add_kernel(float* __restrict__ dst,
   if (i < n) dst[i] = dst[i] + src[i];
 }
 
-int num_row_blocks(int B) { return (B + BT - 1) / BT; }
-
 cudaError_t prepare_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
@@ -666,48 +583,79 @@ cudaError_t prepare_smem(const void* kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// The device address of page-locked host memory (UVA mapping).
-cudaError_t device_view(void* host, float** dev) {
+// The device address of page-locked host memory (its UVA mapping), or of
+// device memory (itself).
+cudaError_t device_view(void* p, float** dev) {
   cudaPointerAttributes attr;
-  cudaError_t e = cudaPointerGetAttributes(&attr, host);
+  cudaError_t e = cudaPointerGetAttributes(&attr, p);
   if (e != cudaSuccess) return e;
-  if (attr.type != cudaMemoryTypeHost || attr.devicePointer == nullptr)
+  if ((attr.type != cudaMemoryTypeHost && attr.type != cudaMemoryTypeDevice)
+      || attr.devicePointer == nullptr)
     return cudaErrorInvalidHostPointer;
   *dev = static_cast<float*>(attr.devicePointer);
   return cudaSuccess;
 }
 
+// Kernel 2's readout: lg (M x V) = hs1 (M x Dh) w_out + b_out in one pass
+// of gemm_kernel (no split of Dh, so no partial sums to add): 128-row tiles
+// where they fill the SMs, else 64-row ones.
+cudaError_t readout(const float* hs1, const float* w_out, const float* b_out,
+                    int M, int V, int Dh, float* lg, cudaStream_t s) {
+  const int cols = (V + GN - 1) / GN;
+  if ((M + 127) / 128 * cols >= SMS)
+    gemm_kernel<false, false, 2><<<dim3(cols, (M + 127) / 128), NT, 0, s>>>(
+        hs1, Dh, w_out, V, M, V, Dh, Dh, lg, b_out, nullptr, M);
+  else
+    gemm_kernel<false, false, 1><<<dim3(cols, (M + 63) / 64), NT, 0, s>>>(
+        hs1, Dh, w_out, V, M, V, Dh, Dh, lg, b_out, nullptr, M);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int segment_fused_rows_per_block() { return BT; }
-
-extern "C" int fused_advance_lstm(
-    const float* emb, const float* w, const float* b, const float* w_out,
-    const float* b_out, int V, int Dx, int Dh, const int32_t* tok,
-    const int32_t* tgt, const float* h0, const float* c0, const float* acc0,
-    float* h_out, float* c_out, float* acc_out, float* bnd_h_host,
-    float* bnd_c_host, float* bnd_acc_host, float* nll_part, float* msum,
-    int T, int B, int chunk, int nc, void* stream) {
-  if (T <= 0 || B <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  float *bnd_h, *bnd_c, *bnd_acc;
+// Kernel 2, after the step loop of a forward chunk of L steps (hs, cs: (L +
+// 1, B, Dh) of device scratch): the logits of its M = L B rows into lg (M x
+// V), each step's mean loss into msum[0 .. L), the chunk's entry (entry_h,
+// entry_c) into the boundary (bh, bc: page-locked host memory, written
+// through its device mapping, or device memory; NULL: not written), and the
+// exit (hs[L], cs[L]) into (next_h, next_c).  tgt: the chunk's (L, B)
+// targets.  Two launches.
+extern "C" int lstm_adv_chunk(const float* w_out, const float* b_out, int V,
+                              int Dh, const int32_t* tgt, const float* hs,
+                              const float* cs, int L, int B, float* lg,
+                              float* msum, const float* entry_h,
+                              const float* entry_c, float* bh, float* bc,
+                              float* next_h, float* next_c, void* stream) {
+  if (L <= 0 || B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  float *bhd = nullptr, *bcd = nullptr;
   cudaError_t e;
-  if ((e = device_view(bnd_h_host, &bnd_h)) != cudaSuccess) return e;
-  if ((e = device_view(bnd_c_host, &bnd_c)) != cudaSuccess) return e;
-  if ((e = device_view(bnd_acc_host, &bnd_acc)) != cudaSuccess) return e;
-  const Lstm p{emb, w, b, w_out, b_out, V, Dx, Dh};
-  const size_t smem =
-      sizeof(float) * (BT * (Dx + Dh) + 2 * BT * Dh + BT * V + BT);
-  if ((e = prepare_smem(reinterpret_cast<const void*>(fused_advance_kernel),
-                        smem)) != cudaSuccess)
+  if (bh != nullptr && ((e = device_view(bh, &bhd)) != cudaSuccess ||
+                        (e = device_view(bc, &bcd)) != cudaSuccess))
     return e;
-  const int nblk = num_row_blocks(B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fused_advance_kernel<<<nblk, NT, smem, s>>>(p, tok, tgt, h0, c0, h_out,
-                                              c_out, bnd_h, bnd_c, nll_part,
-                                              T, B, chunk, nc);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  acc_finalize_kernel<<<1, NT, 0, s>>>(nll_part, msum, T, nblk, B, acc0,
-                                       acc_out, bnd_acc, chunk, nc);
+  const long n = static_cast<long>(B) * Dh;
+  if ((e = readout(hs + n, w_out, b_out, L * B, V, Dh, lg, s)) !=
+      cudaSuccess)
+    return e;
+  const int blocks = max(L, static_cast<int>((n + 4 * LT - 1) / (4 * LT)));
+  advance_loss_kernel<<<blocks, LT, 0, s>>>(
+      lg, tgt, L, B, V, msum, entry_h, entry_c, bhd, bcd, hs + L * n,
+      cs + L * n, next_h, next_c, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 2, once a segment of T steps: the acc chain over msum (T) from
+// *acc0 into *acc_out, and its chunk boundaries into bnd_acc (page-locked
+// host memory, or device memory).
+extern "C" int lstm_adv_finalize(const float* msum, int T, const float* acc0,
+                                 float* acc_out, float* bnd_acc, int chunk,
+                                 int nc, void* stream) {
+  if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  float* bnd;
+  cudaError_t e;
+  if ((e = device_view(bnd_acc, &bnd)) != cudaSuccess) return e;
+  acc_finalize_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      msum, T, acc0, acc_out, bnd, chunk, nc);
   return static_cast<int>(cudaGetLastError());
 }
 

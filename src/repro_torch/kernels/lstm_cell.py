@@ -10,9 +10,10 @@ it on the H100 and how the kernels are laid out is noted in the source.
 :func:`repro_torch.kernels.ref.lstm_cell_ref`, taken for CPU tensors only.
 :func:`lstm_cell_token_steps` runs a run of steps as one cooperative
 launch with each block's columns of ``W`` resident on chip, the input rows
-gathered from an embedding table, writing the ``[x, h]`` rows and gate
-activations the fused reverse needs (CUDA only: its plain counterpart is
-the fused reverse's plain version).  Both count their launches into
+gathered from an embedding table: the fused advance's forward chunks, and
+the fused reverse's recompute with the ``[x, h]`` rows and gate activations
+its products need (CUDA only: its plain counterparts are the fused
+kernels' plain versions).  Both count their launches into
 ``lstm_cell.launches`` and the cell steps those launches ran into
 ``lstm_cell.steps``.
 """
@@ -38,7 +39,7 @@ def _lib():
         fn.restype = _I
         fn.argtypes = [_P] * 10 + [_I, _I, _I, _P]
     lib.lstm_cell_steps.restype = _I
-    lib.lstm_cell_steps.argtypes = [_P] * 8 + [_I] * 5 + [_P, _P]
+    lib.lstm_cell_steps.argtypes = [_P] * 10 + [_I] * 5 + [_P, _P]
     lib.lstm_cell_max_k.restype = _I
     lib.lstm_cell_max_k.argtypes = []
     return lib
@@ -122,32 +123,38 @@ def lstm_cell_token_steps(tok: torch.Tensor, emb: torch.Tensor,
                           b: torch.Tensor, *,
                           xh: Optional[torch.Tensor] = None,
                           acts: Optional[torch.Tensor] = None,
-                          barrier: Optional[torch.Tensor] = None) -> None:
+                          barrier: Optional[torch.Tensor] = None,
+                          entry: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                          = None) -> None:
     """``L = len(tok)`` cell steps over the batch with ``x = emb[tok[t]]``
     (fp32, CUDA) in one launch: step ``t`` reads ``(hs[t], cs[t])`` and
     writes ``(hs[t+1], cs[t+1])`` and, when given, ``xh[t] = [x, h]`` and
     ``acts[t]`` (σ(i), σ(f+1), σ(o), tanh(g)).  ``tok (L, B)`` int32;
     ``hs, cs (>= L+1, B, Dh)``, ``xh (>= L, B, Dx+Dh)``, ``acts (>= L, B,
-    4Dh)`` contiguous fp32 on the card; ``barrier``: int32 device scratch
-    for the barriers, ``ceil(B / 16)`` counters (allocated when not
-    given)."""
+    4Dh)`` contiguous fp32 on the card; ``entry``: ``(h, c)``, each ``(B,
+    Dh)``, read by step 0 in place of ``(hs[0], cs[0])`` (which are then
+    not read); ``barrier``: int32 device scratch for the barriers,
+    ``ceil(B / 16)`` counters (allocated when not given)."""
     if not tok.is_cuda:
         raise ValueError("lstm_cell_token_steps runs on the card only")
-    _token_steps(tok, emb, hs, cs, w, b, xh, acts, barrier)
+    _token_steps(tok, emb, hs, cs, w, b, xh, acts, barrier, entry)
 
 
-def _token_steps(tok, emb, hs, cs, w, b, xh, acts, barrier=None, *,
-                 blocks_y: int = 0) -> None:
+def _token_steps(tok, emb, hs, cs, w, b, xh, acts, barrier=None, entry=None,
+                 *, blocks_y: int = 0) -> None:
     """The launch behind :func:`lstm_cell_token_steps`; ``blocks_y`` > 0
     forces the grid's row-tile blocks (0: as many as can be resident)."""
     L, B = tok.shape
     Dx, Dh = emb.shape[1], hs.shape[-1]
     f32 = torch.float32
+    h_in, c_in = entry if entry is not None else (None, None)
     _check_cuda(f32, tok.device, emb=emb, hs=hs, cs=cs, w=w, b=b, xh=xh,
-                acts=acts)
+                acts=acts, h_entry=h_in, c_entry=c_in)
     _check_cuda(torch.int32, tok.device, tok=tok, barrier=barrier)
     if hs.shape[0] < L + 1 or hs.shape[1:] != (B, Dh) \
             or cs.shape != hs.shape or w.shape != (Dx + Dh, 4 * Dh) \
+            or (entry is not None and (h_in.shape != (B, Dh)
+                                       or c_in.shape != (B, Dh))) \
             or (xh is not None and (xh.shape[0] < L
                                     or xh.shape[1:] != (B, Dx + Dh))) \
             or (acts is not None and (acts.shape[0] < L
@@ -166,8 +173,8 @@ def _token_steps(tok, emb, hs, cs, w, b, xh, acts, barrier=None, *,
     ptr = build.ptr
     err = lib.lstm_cell_steps(
         ptr(emb), ptr(tok), ptr(hs), ptr(cs), ptr(w), ptr(b), ptr(xh),
-        ptr(acts), L, B, Dx, Dh, int(blocks_y), ptr(barrier),
-        build.stream_ptr(tok.device))
+        ptr(acts), ptr(h_in), ptr(c_in), L, B, Dx, Dh, int(blocks_y),
+        ptr(barrier), build.stream_ptr(tok.device))
     build.check(lib, err, "lstm_cell_token_steps")
     lstm_cell.launches += 1
     lstm_cell.steps += L

@@ -2,11 +2,14 @@
 (``csrc/segment_fused.cu``; the JAX package's ``runner="pallas"``).
 
 * :func:`fused_advance_segment` replaces
-  ``repro/kernels/segment_pallas.py::fused_advance_segment``: one launch
-  advances the carry over a whole segment, and every chunk-entry carry is
-  written by the kernel straight into page-locked host memory while the
-  segment computes.  ``boundaries[0]`` is the segment-entry state the
-  executor hands to Level 2, fenced by the returned CUDA event.
+  ``repro/kernels/segment_pallas.py::fused_advance_segment``: each forward
+  chunk runs the recurrence alone on kernel 1's step loop
+  (``lstm_cell_token_steps``: one cooperative launch per chunk), then the
+  readout and the loss over all rows of the chunk at once, in a kernel that
+  also writes the chunk-entry carry straight into page-locked host memory;
+  one launch a segment carries the loss accumulator in step order.
+  ``boundaries[0]`` is the segment-entry state the executor hands to Level
+  2, fenced by the returned CUDA event.
 * :func:`fused_reverse_segment` replaces
   ``segment_pallas.py::fused_reverse_segment``: Echo-style recompute — phase
   A recomputes the chunk-entry boundaries from the Level-2 boundary, then the
@@ -30,6 +33,7 @@ noted in the CUDA source.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Any, Dict, List, NamedTuple, Tuple
 
@@ -102,6 +106,17 @@ def reverse_layout(T: int, chunk: int) -> Tuple[int, int, int]:
     chunk = min(int(chunk), T)
     nc = -(-T // chunk)
     return chunk, nc, T - (nc - 1) * chunk
+
+
+def cell_work(T: int, chunk: int) -> Dict[str, Tuple[int, int]]:
+    """Kernel 1's step-loop launches and cell steps on the card for one
+    segment of ``T`` steps, by caller: ``{"advance": (launches, steps),
+    "reverse": (launches, steps)}``.  The advance runs one launch a forward
+    chunk; the reverse one a chunk for phase A (all but the last) and one a
+    chunk for its recompute."""
+    chunk_r, nc_r, _ = reverse_layout(T, chunk)
+    return {"advance": (len(forward_bounds(T, chunk)) - 1, T),
+            "reverse": (2 * nc_r - 1, (nc_r - 1) * chunk_r + T)}
 
 
 class FusedAdvance(NamedTuple):
@@ -189,10 +204,11 @@ def reverse_plain(body, xs_mask, params, carry_b, xs_seg, batch, dcarry, *,
 def _seg_lib():
     lib = build.load("segment_fused")
     if not getattr(lib, "_repro_typed", False):
-        lib.segment_fused_rows_per_block.restype = _I
-        lib.fused_advance_lstm.restype = _I
-        lib.fused_advance_lstm.argtypes = (
-            [_P] * 5 + [_I] * 3 + [_P] * 13 + [_I] * 4 + [_P])
+        lib.lstm_adv_chunk.restype = _I
+        lib.lstm_adv_chunk.argtypes = [_P, _P, _I, _I] + [_P] * 3 + [
+            _I, _I] + [_P] * 9
+        lib.lstm_adv_finalize.restype = _I
+        lib.lstm_adv_finalize.argtypes = [_P, _I, _P, _P, _P, _I, _I, _P]
         lib.lstm_rev_scratch.restype = ctypes.c_long
         lib.lstm_rev_scratch.argtypes = [_I] * 4
         lib.lstm_rev_hoisted.restype = _I
@@ -250,29 +266,48 @@ def _lstm_operands(params, carry, xs_seg):
 
 
 def _advance_lstm_cuda(params, carry, xs_seg, chunk: int) -> FusedAdvance:
+    from repro_torch.kernels.lstm_cell import lstm_cell_token_steps
+
     lib = _seg_lib()
     p, (h0, c0, acc0), (tok, tgt), (V, Dx, Dh, B) = _lstm_operands(
         params, carry, xs_seg)
+    emb, w, b, w_out, b_out = p
     T = tok.shape[0]
     bounds = forward_bounds(T, chunk)
-    nc = len(bounds) - 1
+    spans = list(zip(bounds[:-1], bounds[1:]))
+    nc, L_max = len(spans), max(hi - lo for lo, hi in spans)
     chunk = min(int(chunk), T)
     f32, dev = torch.float32, h0.device
+    ptr, stream = build.ptr, build.stream_ptr(dev)
     # the Level-2 copies: page-locked, written by the kernel through UVA
     bnd = (torch.empty((nc, B, Dh), dtype=f32, pin_memory=True),
            torch.empty((nc, B, Dh), dtype=f32, pin_memory=True),
            torch.empty((nc,), dtype=f32, pin_memory=True))
     out = (torch.empty_like(h0), torch.empty_like(c0),
            torch.empty((), dtype=f32, device=dev))
-    nblk = -(-B // lib.segment_fused_rows_per_block())
-    nll_part = torch.empty((T, nblk), dtype=f32, device=dev)
+    # one chunk's states (index t = the input of step t) and logits; each
+    # step's mean loss over the segment
+    hs = torch.empty((L_max + 1, B, Dh), dtype=f32, device=dev)
+    cs = torch.empty_like(hs)
+    lg = torch.empty((L_max * B, V), dtype=f32, device=dev)
     msum = torch.empty((T,), dtype=f32, device=dev)
-    ptr = build.ptr
-    err = lib.fused_advance_lstm(
-        *[ptr(t) for t in p], V, Dx, Dh, ptr(tok), ptr(tgt), ptr(h0),
-        ptr(c0), ptr(acc0), *[ptr(t) for t in out], *[ptr(t) for t in bnd],
-        ptr(nll_part), ptr(msum), T, B, chunk, nc, build.stream_ptr(dev))
-    build.check(lib, err, "fused_advance_segment")
+    barrier = torch.empty((-(-B // 16),), dtype=torch.int32, device=dev)
+    for k, (lo, hi) in enumerate(spans):
+        # chunk 0 steps from the segment's entry; each later one from hs[0],
+        # cs[0], where the previous chunk's loss kernel put its exit
+        entry = (h0, c0) if k == 0 else (hs[0], cs[0])
+        lstm_cell_token_steps(tok[lo:hi], emb, hs, cs, w, b, barrier=barrier,
+                              entry=entry)
+        nxt = out[:2] if k == nc - 1 else (hs[0], cs[0])
+        err = lib.lstm_adv_chunk(
+            ptr(w_out), ptr(b_out), V, Dh, ptr(tgt[lo]), ptr(hs), ptr(cs),
+            hi - lo, B, ptr(lg), ptr(msum[lo]), ptr(entry[0]),
+            ptr(entry[1]), ptr(bnd[0][k]), ptr(bnd[1][k]), ptr(nxt[0]),
+            ptr(nxt[1]), stream)
+        build.check(lib, err, "fused_advance_segment (readout and loss)")
+    err = lib.lstm_adv_finalize(ptr(msum), T, ptr(acc0), ptr(out[2]),
+                                ptr(bnd[2]), chunk, nc, stream)
+    build.check(lib, err, "fused_advance_segment (acc)")
     ready = torch.cuda.Event()
     ready.record(torch.cuda.current_stream(dev))
     fused_advance_segment.launches += 1
@@ -390,9 +425,24 @@ def _reverse_lstm_cuda(params, carry_b, xs_seg, dcarry, chunk: int):
 # --------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def _card_call(wrapper):
+    """A profiler range named after ``wrapper`` around its card path, and
+    the kernel-1 launches and cell steps made inside it added to
+    ``wrapper.cell_launches`` and ``wrapper.cell_steps``: kernel 1's work
+    by caller (the advance's chunks, the reverse's recompute)."""
+    from repro_torch.kernels.lstm_cell import lstm_cell
+
+    n0, s0 = lstm_cell.launches, lstm_cell.steps
+    with torch.profiler.record_function(wrapper.__name__):
+        yield
+    wrapper.cell_launches += lstm_cell.launches - n0
+    wrapper.cell_steps += lstm_cell.steps - s0
+
+
 def fused_advance_segment(body, params, carry, xs_seg, batch, *,
                           chunk: int) -> FusedAdvance:
-    """Advance the carry over one segment with the fused forward kernel.
+    """Advance the carry over one segment with the fused forward kernels.
 
     Returns ``FusedAdvance(carry_out, boundaries, ready)``: ``boundaries``
     mirrors the carry with a leading ``num_chunks`` axis of chunk-entry
@@ -402,10 +452,13 @@ def fused_advance_segment(body, params, carry, xs_seg, batch, *,
     if _on_cpu(carry):
         return advance_plain(body, params, carry, xs_seg, batch, chunk=chunk)
     body_kind(body)
-    return _advance_lstm_cuda(params, carry, xs_seg, chunk)
+    with _card_call(fused_advance_segment):
+        return _advance_lstm_cuda(params, carry, xs_seg, chunk)
 
 
 fused_advance_segment.launches = 0
+fused_advance_segment.cell_launches = 0
+fused_advance_segment.cell_steps = 0
 
 
 def fused_reverse_segment(body, xs_mask, params, carry_b, xs_seg, batch,
@@ -420,7 +473,10 @@ def fused_reverse_segment(body, xs_mask, params, carry_b, xs_seg, batch,
         return reverse_plain(body, xs_mask, params, carry_b, xs_seg, batch,
                              dcarry, chunk=chunk)
     body_kind(body)
-    return _reverse_lstm_cuda(params, carry_b, xs_seg, dcarry, chunk)
+    with _card_call(fused_reverse_segment):
+        return _reverse_lstm_cuda(params, carry_b, xs_seg, dcarry, chunk)
 
 
 fused_reverse_segment.launches = 0
+fused_reverse_segment.cell_launches = 0
+fused_reverse_segment.cell_steps = 0

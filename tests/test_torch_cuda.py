@@ -19,7 +19,9 @@ another point of the softmax; the SSD state at (2e-4, 2e-4) and the
 attention logsumexp at 1e-5 of the plain chunked forward's.  The
 redesigned kernels (bf16 flash attention and the SSD scan on the tensor
 cores, the fused reverse, the LSTM cell's step loop) give the same bits on
-two calls; a cooperative grid that cannot be resident is refused.  The
+two calls; a cooperative grid that cannot be resident is refused; the
+fused advance's states are, bit for bit, those of one run of the step
+loop over the segment.  The
 decoder chains on the card: the offloaded gradient against dense autograd
 on the card, loss 1e-5 relative and each leaf 1e-4 of its max |g|.
 """
@@ -114,7 +116,8 @@ def test_lstm_cell_kernel_matches_plain(cuda_device, Bn, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,chunk", [(23, 5), (21, 5), (6, 6)])
+@pytest.mark.parametrize("T,chunk", [(23, 5), (21, 5), (6, 6), (1, 4),
+                                     (4, 9), (9, 4)])
 def test_fused_kernels_match_plain(cuda_device, T, chunk):
     params, carry, xs, dcarry = _segment_operands(T, seed=200 + T)
     p_dev = _dev(params, cuda_device)
@@ -365,6 +368,50 @@ def test_ssd_scan_bf16_mamba2_layer_at_the_gates(cuda_device):
     assert torch.equal(y, y2) and torch.equal(h, h2)
     _assert_close_to(y, y_ref, *TOL["ssd_scan"]["bfloat16"], dims=(1, 3))
     _assert_close_to(h, h_ref, 2e-4, 2e-4, dims=(2, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,chunk", [
+    (1000, None),   # the pinned main path's segment (its chunk)
+    (196, 13),      # a merged length-1 tail: a chunk of 14 steps
+])
+def test_fused_advance_equals_the_step_loop_on_card(cuda_device, T, chunk):
+    """The fused advance on lstm-paper at full width (B=256): its
+    chunk-entry boundaries and exit (h, c) are, bit for bit, the states of
+    one run of the step loop over the segment from the same entry, one
+    step loop launch a forward chunk; two calls give the same bits, the
+    loss accumulator and its boundaries included."""
+    from repro_torch.api.autotune import default_slots
+    from repro_torch.core.schedule import chunk_length
+
+    if chunk is None:
+        chunk = chunk_length(T, default_slots(T))
+    params, tok, hs, cs = _step_loop_operands(256, T, 16)
+    cfg = get_config("lstm-paper")
+    rng = np.random.default_rng(17)
+    tgt = torch.tensor(rng.integers(0, cfg.vocab, tok.shape),
+                       dtype=torch.int32).cuda()
+    carry = (hs[0].clone(), cs[0].clone(), torch.tensor(3.0).cuda())
+    body = lstm.train_chain(cfg).body
+    adv = sf.fused_advance_segment
+    before = (adv.cell_launches, adv.cell_steps)
+    outs = [adv(body, params, carry, (tok, tgt), None, chunk=chunk)
+            for _ in range(2)]
+    for out in outs:
+        out.ready.synchronize()
+    starts = sf.forward_bounds(T, chunk)[:-1]
+    assert (adv.cell_launches, adv.cell_steps) == (
+        before[0] + 2 * len(starts), before[1] + 2 * T)
+    a, b = [list(o.carry) + list(o.boundaries) for o in outs]
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    lc.lstm_cell_token_steps(tok, params["emb"], hs, cs, params["w"],
+                             params["b"])
+    torch.cuda.synchronize()
+    out = outs[0]
+    assert torch.equal(out.boundaries[0], hs[starts].cpu())
+    assert torch.equal(out.boundaries[1], cs[starts].cpu())
+    assert torch.equal(out.carry[0], hs[T]) and torch.equal(out.carry[1],
+                                                            cs[T])
 
 
 def _step_loop_operands(Bn, L, seed):

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import api
 from repro_torch.convert import init_lstm_numpy, params_from_numpy
+from repro_torch.core.schedule import chunk_length
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lstm_cell as lc
@@ -125,8 +126,8 @@ def card_paths(emulated_libs, monkeypatch):
     monkeypatch.setattr(sf, "_on_cpu", lambda tree: False)
     monkeypatch.setattr(lc, "lstm_cell_token_steps",
                         lambda tok, emb, hs, cs, w, b, *, xh=None,
-                        acts=None, barrier=None: lc._token_steps(
-                            tok, emb, hs, cs, w, b, xh, acts, barrier))
+                        acts=None, barrier=None, entry=None: lc._token_steps(
+                            tok, emb, hs, cs, w, b, xh, acts, barrier, entry))
 
 
 def _np(rng, shape, scale=1.0):
@@ -238,6 +239,9 @@ def _segment(T, Bn, seed):
     (23, 5, 5),    # uneven chunk tail; a ragged second row block
     (21, 5, 3),    # length-1 tail (merged forward, its own chunk reversed)
     (6, 6, 4),     # one chunk
+    (1, 4, 3),     # one step
+    (4, 9, 2),     # chunk > T: one chunk of T steps
+    (9, 4, 2),     # two chunks, the second of chunk + 1 steps (merged tail)
 ])
 def test_fused_segment_kernel_sources(card_paths, T, chunk, Bn):
     params, carry, xs, dcarry = _segment(T, Bn, seed=T)
@@ -260,10 +264,52 @@ def test_fused_segment_kernel_sources(card_paths, T, chunk, Bn):
             atol=1e-4 * max(float(rdp[k].abs().max()), 1e-6))
 
 
+def _advance_against_step_loop(T, chunk, Bn, seed, token_steps):
+    """The fused advance's chunk-entry boundaries and exit (h, c) are, bit
+    for bit, the states of one run of the step loop (``token_steps``) over
+    the whole segment from the same entry; two calls give the same bits,
+    the loss accumulator and its boundaries included."""
+    params, carry, (tok, tgt), _ = _segment(T, Bn, seed)
+    adv = sf.fused_advance_segment
+    before = (lc.lstm_cell.launches, adv.cell_launches, adv.cell_steps)
+    outs = [adv(T_BODY, params, carry, (tok, tgt), None, chunk=chunk)
+            for _ in range(2)]
+    nc = len(sf.forward_bounds(T, chunk)) - 1   # one step loop a chunk
+    assert (lc.lstm_cell.launches, adv.cell_launches, adv.cell_steps) == (
+        before[0] + 2 * nc, before[1] + 2 * nc, before[2] + 2 * T)
+    for out in outs:
+        out.ready.synchronize()
+    a, b = [list(o.carry) + list(o.boundaries) for o in outs]
+    assert all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+    h0, c0, _ = carry
+    hs = torch.empty((T + 1,) + tuple(h0.shape), device=h0.device)
+    cs = torch.empty_like(hs)
+    hs[0], cs[0] = h0, c0
+    token_steps(tok, params["emb"], hs, cs, params["w"], params["b"])
+    starts = sf.forward_bounds(T, chunk)[:-1]
+    out = outs[0]
+    assert torch.equal(out.boundaries[0], hs[starts].cpu())
+    assert torch.equal(out.boundaries[1], cs[starts].cpu())
+    assert torch.equal(out.carry[0], hs[T]) and torch.equal(out.carry[1],
+                                                            cs[T])
+
+
+@pytest.mark.parametrize("T,chunk,Bn", [
+    (23, 5, 5),    # uneven chunk tail
+    (21, 5, 3),    # a merged length-1 tail: a chunk of chunk + 1 steps
+])
+def test_fused_advance_equals_the_step_loop(card_paths, T, chunk, Bn):
+    _advance_against_step_loop(
+        T, chunk, Bn, seed=40 + T,
+        token_steps=lambda tok, emb, hs, cs, w, b: lc._token_steps(
+            tok, emb, hs, cs, w, b, None, None))
+
+
 def test_offloaded_gradient_through_the_kernel_sources(card_paths):
     """The front-end's fused runner on the emulated kernels: the dense
-    autograd loss and gradients, and one launch of each segment kernel per
-    segment and direction."""
+    autograd loss and gradients, one launch of each segment kernel per
+    segment and direction, and kernel 1's step-loop launches and steps by
+    caller as ``segment_fused.cell_work`` counts them from the plan."""
     params, _, _, _ = _segment(1, 1, seed=9)
     tok = torch.tensor(np.random.default_rng(1).integers(0, V, (5, 30)),
                        dtype=torch.int32)
@@ -271,14 +317,23 @@ def test_offloaded_gradient_through_the_kernel_sources(card_paths):
     loss = lstm.forward_loss(leaves, tok)
     dense = dict(zip(leaves, torch.autograd.grad(loss,
                                                  list(leaves.values()))))
-    before = (sf.fused_advance_segment.launches,
-              sf.fused_reverse_segment.launches)
+    wrappers = {"advance": sf.fused_advance_segment,
+                "reverse": sf.fused_reverse_segment}
+    before = {k: (f.launches, f.cell_launches, f.cell_steps)
+              for k, f in wrappers.items()}
     v, g = api.value_and_grad_offloaded(
         lstm.train_chain(), interval=13, slots=4, runner="fused",
         device="cpu")(params, {"tokens": tok})
-    segs = api.last_plan().num_segments
-    assert (sf.fused_advance_segment.launches - before[0],
-            sf.fused_reverse_segment.launches - before[1]) == (segs, segs)
+    plan = api.last_plan()
+    want = {k: [plan.num_segments, 0, 0] for k in wrappers}
+    for seg in plan.segments:
+        chunk = chunk_length(seg.length, plan.s_l1) or seg.length
+        for k, (n, steps) in sf.cell_work(seg.length, chunk).items():
+            want[k][1] += n
+            want[k][2] += steps
+    for k, f in wrappers.items():
+        got = (f.launches, f.cell_launches, f.cell_steps)
+        assert [a - b for a, b in zip(got, before[k])] == want[k], k
     torch.testing.assert_close(v, loss.detach(), rtol=1e-5, atol=0)
     for k in dense:
         torch.testing.assert_close(g[k], dense[k], rtol=1e-4,
