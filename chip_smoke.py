@@ -45,7 +45,20 @@ Phases, each printing its own lines:
               kernels' launch counts are read from this phase alone, kernel
               1's launches and steps also by caller (the advance's chunks,
               the reverse's recompute), each held to what the plan implies.
-5. dense    — ``value_and_grad_offloaded(get_model(gemma2-2b).train_loss)``
+5. strategies — the paper's baselines and its step-granular interpreter on
+              ``lstm-paper`` at the same width, B=256, over the first 2048
+              steps of ``train_4k`` (``STRATEGIES_T``): through
+              ``value_and_grad_offloaded(device="cuda")``, the interpreted
+              multistage engine pinned (I=256) and autotuned, Revolve with
+              the pinned run's Level-1 slots, and store-all; each held to
+              phase ``main``'s gates against dense autograd, its advances to
+              the port's own plan (``plan.total_advances()``,
+              ``count_advances(revolve_schedule(n, s))``, ``n``), and the
+              ``lstm_cell`` kernel's launches (counted from zero for each
+              run) to one a chain step: the baselines' forward sweep, each
+              advance, each backward's recompute and each autotune probe
+              step.
+6. dense    — ``value_and_grad_offloaded(get_model(gemma2-2b).train_loss)``
               (``runner="compiled"``, autotuned) at full width and depth (26
               layers, 13 chain steps), ``train_4k`` with the global batch
               cut from 256 to 2, weights from a seeded CUDA generator; held
@@ -54,9 +67,11 @@ Phases, each printing its own lines:
               launches are read from the first offloaded call alone (the
               main path, autotune probe included); a second call, with the
               schedule cached, is timed against a second (warm) dense call.
-6. ssm      — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
+              Then one ``strategy="revolve"`` run (4 slots) under the same
+              gates, ``flash_attention`` launched twice a step as above.
+7. ssm      — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
               and ``ssd_scan``.
-7. timing   — each kernel, its plain version and the nearest library call
+8. timing   — each kernel, its plain version and the nearest library call
               timed with CUDA events at the main path's shapes, with the
               achieved TFLOP/s where the bound is operations; the fused
               reverse at T=1000 also by part (recompute, hoisted products,
@@ -70,7 +85,7 @@ Phases, each printing its own lines:
               (the same); the step loop over a recompute chunk per launch
               and per step, beside cuDNN's multi-step LSTM on the same
               chunk.
-8. train    — three RMSProp steps through the offloaded LSTM gradient; the
+9. train    — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over one main-path
@@ -102,8 +117,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 DEFAULT_OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
-PHASES = ("device", "build", "kernels", "main", "dense", "ssm", "timing",
-          "train")
+PHASES = ("device", "build", "kernels", "main", "strategies", "dense", "ssm",
+          "timing", "train")
 OPTIONAL = ("profile",)   # run only when named in --phases
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 bandwidth (data sheet)
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores (data sheet)
@@ -327,7 +342,8 @@ def check_segment(torch, cfg, T, chunk, seed, label):
     out = sf.fused_advance_segment(body, params, carry, xs, None,
                                    chunk=chunk)
     out.ready.synchronize()
-    ref = sf.advance_plain(body, params, carry, xs, None, chunk=chunk)
+    ref = sf.advance_plain(lstm.plain_body, params, carry, xs, None,
+                           chunk=chunk)
     torch.cuda.synchronize()
     nc = len(sf.forward_bounds(T, chunk)) - 1
     require(out.boundaries[0].shape[0] == nc == ref.boundaries[0].shape[0],
@@ -347,8 +363,8 @@ def check_segment(torch, cfg, T, chunk, seed, label):
     dc, dp, dxd = sf.fused_reverse_segment(body, (False, False), params,
                                            carry, xs, None, dcarry,
                                            chunk=chunk)
-    rdc, rdp, _ = sf.reverse_plain(body, (False, False), params, carry, xs,
-                                   None, dcarry, chunk=chunk)
+    rdc, rdp, _ = sf.reverse_plain(lstm.plain_body, (False, False), params,
+                                   carry, xs, None, dcarry, chunk=chunk)
     torch.cuda.synchronize()
     require(dxd == [], f"{label}: unexpected dxs from the fused reverse")
     pairs = [(dp[k], rdp[k]) for k in rdp] + list(zip(dc, rdc))
@@ -386,7 +402,7 @@ def check_reverse_pinned(torch, cfg, T=1000, seed=5):
     args = (body, (False, False), params, carry, xs, None, dcarry)
     dc, dp, _ = sf.fused_reverse_segment(*args, chunk=chunk)
     dc2, dp2, _ = sf.fused_reverse_segment(*args, chunk=chunk)
-    rdc, rdp, _ = sf.reverse_plain(*args, chunk=chunk)
+    rdc, rdp, _ = sf.reverse_plain(lstm.plain_body, *args[1:], chunk=chunk)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(dc, dc2)) and all(
         torch.equal(dp[k], dp2[k]) for k in dp)
@@ -445,7 +461,8 @@ def check_advance_pinned(torch, cfg, T=1000, seed=8):
             and torch.equal(out.carry[0], hs[T])
             and torch.equal(out.carry[1], cs[T]),
             f"fused advance T={T}: states differ from the step loop's")
-    ref = sf.advance_plain(body, params, carry, xs, None, chunk=chunk)
+    ref = sf.advance_plain(lstm.plain_body, params, carry, xs, None,
+                           chunk=chunk)
     torch.cuda.synchronize()
     err = max(max_err(out.carry[0], ref.carry[0]),
               max_err(out.carry[1], ref.carry[1]),
@@ -761,25 +778,12 @@ def phase_main(state) -> None:
     import torch
 
     from repro_torch import api
-    from repro_torch.configs import SHAPES, get_config
-    from repro_torch.configs.shapes import make_batch
-    from repro_torch.convert import init_lstm_numpy, params_from_numpy
     from repro_torch.kernels import lstm_cell as lc
     from repro_torch.kernels import segment_fused as sf
-    from repro_torch.models.model_factory import get_model
 
-    cfg = get_config("lstm-paper")
-    shape = SHAPES["train_4k"]
-    model = get_model(cfg)
-    batch = make_batch(cfg, shape, seed=0)
-    params = params_from_numpy(
-        init_lstm_numpy(0, cfg.vocab, cfg.d_model, cfg.d_ff))
-    t0 = time.perf_counter()
-    ref_loss, ref_grads = _dense_reference(torch, params, batch)
-    torch.cuda.synchronize()
-    log(f"[main] dense autograd reference: loss {float(ref_loss):.6f} "
-        f"in {time.perf_counter() - t0:.2f}s")
-    state.update(cfg=cfg, model=model, batch=batch, params=params)
+    lstm_inputs(state)
+    model, params, batch = state["model"], state["params"], state["batch"]
+    ref_loss, ref_grads = lstm_reference(params, batch, "main")
 
     kernels = {"lstm_cell": lc.lstm_cell,
                "fused_advance_segment": sf.fused_advance_segment,
@@ -858,6 +862,117 @@ def phase_main(state) -> None:
     state["runs"] = runs
 
 
+# chain length of phase strategies: train_4k's first half (at S=4096 the
+# phase took 118-126 s on the card, over its ~90 s budget)
+STRATEGIES_T = 2048
+
+
+def phase_strategies(state) -> None:
+    """Revolve, store-all and the interpreted multistage engine on
+    ``lstm-paper`` at full width, each through the front door with the
+    ``lstm_cell`` kernel once a chain step (see the module docstring)."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import revolve as rv
+    from repro_torch.kernels import lstm_cell as lc
+
+    lstm_inputs(state)
+    model, params = state["model"], state["params"]
+    n = STRATEGIES_T
+    batch = {"tokens": state["batch"]["tokens"][:, :n + 1].contiguous()}
+    ref_loss, ref_grads = lstm_reference(params, batch, "strategies")
+    slots = None
+    for label, kw in (
+            ("multistage, interpreted, I=256",
+             {"engine": "interpreted", "interval": 256}),
+            ("multistage, interpreted, autotuned", {"engine": "interpreted"}),
+            ("revolve", {"strategy": "revolve"}),
+            ("conventional", {"strategy": "conventional"})):
+        if label == "revolve":
+            kw["slots"] = slots   # one Level-1 budget, as Fig. 5 compares
+        vg = api.value_and_grad_offloaded(model.train_loss, device="cuda",
+                                          **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lc.lstm_cell.launches = 0
+        t0 = time.perf_counter()
+        loss, grads = vg(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lc.lstm_cell.launches
+        l1_peak = torch.cuda.max_memory_allocated()
+        tune, stats, plan = api.last_tune(), api.last_stats(), \
+            api.last_plan()
+        rel, gerr = _check_against(label, loss, grads, ref_loss, ref_grads)
+        del loss, grads
+        strategy = kw.get("strategy", "multistage_async")
+        if strategy == "multistage_async":
+            planned, fwd_steps = plan.total_advances(), 0
+            if slots is None:   # the pinned run's
+                slots = tune.slots
+        elif strategy == "revolve":
+            planned = rv.count_advances(rv.revolve_schedule(n, tune.slots))
+            fwd_steps = n
+        else:
+            planned, fwd_steps = n, n
+        probe = tune.probe_calls * tune.probe_len
+        want = fwd_steps + stats.advances + stats.backwards + probe
+        require(stats.advances == planned and stats.backwards == n,
+                f"{label}: advances {stats.advances}, backwards "
+                f"{stats.backwards}; the plan implies {planned} and {n}")
+        require(launches == want and launches > 0,
+                f"{label}: lstm_cell launched {launches} times, the stats "
+                f"imply {want} ({fwd_steps} forward + {stats.advances} "
+                f"advances + {stats.backwards} backwards + {probe} probe "
+                "steps)")
+        log(f"[strategies] {label}: tune I={tune.interval} s={tune.slots} "
+            f"T_A={tune.t_a:.6e}s T_T={tune.t_t:.6e}s ({tune.source}); "
+            f"loss rel err {rel:.3g}, grad scaled err {gerr:.3g}")
+        log(f"[strategies] {label}: advances={stats.advances} "
+            f"backwards={stats.backwards} "
+            f"recompute_factor={stats.recompute_factor:.4f} "
+            f"peak_l1_states={stats.peak_l1_states} "
+            f"host_dispatches={stats.host_dispatches} "
+            f"l2_stores={stats.l2_stores} "
+            f"l2_peak_bytes={stats.l2_peak_bytes} "
+            f"wall_s={stats.wall_s:.3f} (call {wall:.3f}s) "
+            f"l1_peak_device_bytes={l1_peak} "
+            f"store_stall_s={stats.store_stall_s:.4f} "
+            f"prefetch_stall_s={stats.prefetch_stall_s:.4f} "
+            f"lstm_cell.launches={launches}")
+
+
+def lstm_inputs(state) -> None:
+    """``lstm-paper`` at ``train_4k`` with seeded weights, into ``state``
+    (once)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.shapes import make_batch
+    from repro_torch.convert import init_lstm_numpy, params_from_numpy
+    from repro_torch.models.model_factory import get_model
+
+    if "params" in state:
+        return
+    cfg = get_config("lstm-paper")
+    state.update(cfg=cfg, model=get_model(cfg),
+                 batch=make_batch(cfg, SHAPES["train_4k"], seed=0),
+                 params=params_from_numpy(init_lstm_numpy(
+                     0, cfg.vocab, cfg.d_model, cfg.d_ff)))
+
+
+def lstm_reference(params, batch, phase: str):
+    """Dense autograd of ``forward_loss`` (the plain cell), timed."""
+    import torch
+
+    t0 = time.perf_counter()
+    ref_loss, ref_grads = _dense_reference(torch, params, batch)
+    torch.cuda.synchronize()
+    log(f"[{phase}] dense autograd reference over "
+        f"{batch['tokens'].shape[1] - 1} steps: loss {float(ref_loss):.6f} "
+        f"in {time.perf_counter() - t0:.2f}s")
+    return ref_loss, ref_grads
+
+
 def expected_cell_work(plan, tune):
     """Kernel 1's step-loop (launches, steps) by caller that one offloaded
     LSTM gradient implies: per segment what ``segment_fused.cell_work``
@@ -890,13 +1005,14 @@ def _tree_value_and_grad(torch, loss_fn, params, batch):
 
 
 def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
-                  per_step) -> None:
+                  per_step, revolve_slots=None) -> None:
     """The offloaded gradient of a decoder (``runner="compiled"``,
     autotuned) at full width and depth, ``train_4k`` with the global batch
     cut to ``batch_size``, held against dense autograd of ``train_loss``.
     ``kernels``: name -> wrapper; ``per_step``: launches of each per chain
     step advanced (forward sweep, autotune probe and the reverse's
-    recompute alike)."""
+    recompute alike).  With ``revolve_slots``, also one
+    ``strategy="revolve"`` gradient with that many Level-1 slots."""
     import torch
     from torch.utils import _pytree as pytree
 
@@ -992,6 +1108,10 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     if state.get("profile"):   # the schedule is cached: no probe
         profile_call(state, key, f"{arch} I={tune.interval}",
                      lambda: vg(params, batch))
+    del grads, loss
+    if revolve_slots is not None:
+        decoder_revolve(key, model, params, batch, ref_loss, ref_grads,
+                        kernels, per_step, revolve_slots)
     state[key] = {"arch": arch, "B": batch_size, "S": shape.seq_len,
                   "interval": tune.interval, "slots": tune.slots,
                   "segments": plan.num_segments, "wall_s": wall,
@@ -999,8 +1119,61 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
                   "dense_peak": dense_peak,
                   "l1_peak": l1_peak, "l2_peak": stats.l2_peak_bytes,
                   "loss_rel": rel, "grad_err": gerr, "cfg": cfg}
-    del params, ref_grads, grads, loss, vg
+    del params, ref_grads, vg
     torch.cuda.empty_cache()
+
+
+def decoder_revolve(key, model, params, batch, ref_loss, ref_grads, kernels,
+                    per_step, slots) -> None:
+    """One ``strategy="revolve"`` gradient of a decoder under its phase's
+    gates; each kernel launched ``per_step`` times a chain step run: the
+    forward sweep to ``x_n``, each advance and each backward's recompute."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import api
+    from repro_torch.core import revolve as rv
+
+    vg = api.value_and_grad_offloaded(model.train_loss, strategy="revolve",
+                                      slots=slots, device="cuda")
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = vg(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    l1_peak = torch.cuda.max_memory_allocated()
+    stats = api.last_stats()
+    n = stats.n
+    grads = pytree.tree_leaves(grads)
+    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    require(math.isfinite(float(loss))
+            and all(bool(g.isfinite().all()) for g in grads),
+            f"{key} revolve: non-finite loss or gradients")
+    gerr = max(scaled_err(a, b) for a, b in zip(grads, ref_grads))
+    require(rel <= 1e-5, f"{key} revolve: loss rel err {rel} > 1e-5")
+    require(gerr <= 1e-3, f"{key} revolve: gradient scaled err {gerr} > 1e-3")
+    planned = rv.count_advances(rv.revolve_schedule(n, slots))
+    require(stats.advances == planned and stats.backwards == n
+            and stats.peak_l1_states <= slots,
+            f"{key} revolve: advances {stats.advances} (plan {planned}), "
+            f"backwards {stats.backwards}, peak_l1_states "
+            f"{stats.peak_l1_states}")
+    for name, got in launches.items():
+        want = per_step[name] * (n + stats.advances + stats.backwards)
+        require(got == want and got > 0,
+                f"{key} revolve: {name} launched {got} times, expected "
+                f"{want}")
+    log(f"[{key}] revolve s={slots}: loss rel err {rel:.3g}, grad scaled "
+        f"err {gerr:.3g}; wall {wall:.3f}s; advances={stats.advances} "
+        f"backwards={stats.backwards} "
+        f"recompute_factor={stats.recompute_factor:.4f} "
+        f"peak_l1_states={stats.peak_l1_states} "
+        f"host_dispatches={stats.host_dispatches} "
+        f"l1_peak_device_bytes={l1_peak}; launches {launches}")
 
 
 def phase_dense(state) -> None:
@@ -1009,7 +1182,7 @@ def phase_dense(state) -> None:
     # every layer of gemma2-2b's (local, global) period is attention
     decoder_phase(state, "dense", "gemma2-2b", 2,
                   {"flash_attention": fa.flash_attention},
-                  {"flash_attention": 2})
+                  {"flash_attention": 2}, revolve_slots=4)
 
 
 def phase_ssm(state) -> None:
@@ -1095,8 +1268,8 @@ def _time_segment_kernels(torch, cfg, T, slots, detail=False):
     iters = max(2, min(100, 2000 // T))
     ms_k = cuda_ms(lambda: sf.fused_advance_segment(
         body, params, carry, xs, None, chunk=chunk), iters)
-    ms_p = cuda_ms(lambda: sf.advance_plain(body, params, carry, xs, None,
-                                            chunk=chunk), iters)
+    ms_p = cuda_ms(lambda: sf.advance_plain(lstm.plain_body, params, carry,
+                                            xs, None, chunk=chunk), iters)
     nc = len(sf.forward_bounds(T, chunk)) - 1
     pbytes = 4.0 * (V * Dx + K * 4 * Dh + 4 * Dh + Dh * V + V)
     step_flops = cell_flops(B, Dx, Dh) + 2.0 * B * Dh * V + 4.0 * B * V
@@ -1110,8 +1283,8 @@ def _time_segment_kernels(torch, cfg, T, slots, detail=False):
         body, (False, False), params, carry, xs, None, dcarry, chunk=chunk),
         iters)
     ms_p = cuda_ms(lambda: sf.reverse_plain(
-        body, (False, False), params, carry, xs, None, dcarry, chunk=chunk),
-        iters)
+        lstm.plain_body, (False, False), params, carry, xs, None, dcarry,
+        chunk=chunk), iters)
     _, nc_r, _ = sf.reverse_layout(T, chunk)
     recompute = (nc_r - 1) * chunk + T
     back = (2.0 * B * Dh * V + 4.0 * B * V      # logits, softmax
@@ -1609,7 +1782,7 @@ def main(argv=None) -> int:
              "profile": "profile" in phases}
     steps = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "main": phase_main,
-             "dense": phase_dense, "ssm": phase_ssm,
+             "strategies": phase_strategies, "dense": phase_dense, "ssm": phase_ssm,
              "timing": phase_timing, "train": phase_train,
              "profile": phase_profile}
     for name in PHASES + OPTIONAL:

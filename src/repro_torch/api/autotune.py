@@ -1,5 +1,6 @@
 # Port of repro/api/autotune.py: TuneResult, snap_interval, default_slots,
-# AutoTuner.measure (one Level-2 stream) and AutoTuner.manual.
+# AutoTuner.measure (one Level-2 stream; the per-step and per-segment
+# probes) and AutoTuner.manual.
 """Schedule auto-tuning from the paper's §3 performance model.
 
 The multistage strategy has two knobs: the Level-2 store interval ``I`` and
@@ -7,12 +8,14 @@ the Level-1 slot count ``s``.  §3 gives the optimum directly:
 ``I = ceil(T_T / T_A)`` — the smallest interval at which the asynchronous
 Level-2 transfers keep up with compute.
 
-``AutoTuner.measure`` times one segment probe of the runner the run will use
-(``T_A`` = its time over its length) and one Level-2 ``put`` of the boundary
-state (``T_T``), on the device the run uses — on the card these are the
-card's own numbers; nothing is taken from a data sheet or another chip.
-The interval is snapped with :func:`snap_interval` and cached per
-``(model, seq-len, state size, Level-2 kind, device)``.  Scan-engine,
+``AutoTuner.measure`` times the forward compute the run will use (``T_A``:
+one interpreted step, or one segment probe of the runner over its length)
+and one Level-2 store of a boundary made through the engine's own store
+path (``T_T``: the snapshot and the writer's put the run makes), on the
+device the run uses — on the card these are the card's own numbers; nothing
+is taken from a data sheet or another chip.  The interval is snapped with
+:func:`snap_interval` and cached per ``(model and engine, seq-len, state
+size, Level-2 kind, device)``.  Scan-engine,
 roofline, 2D, tiered and sharded tuning come later (ROADMAP queue 1,
 items 9, 11, 13 and 15).
 """
@@ -86,9 +89,11 @@ def _device_kind(tree: Any) -> str:
 class AutoTuner:
     """Measures (T_A, T_T) once and caches the chosen schedule.
 
-    Cache key: ``(name, n, state_bytes, level2-kind, device)``.  ``hw`` is
-    the hardware the tuner plans for (default: the H100); its numbers are
-    not used by :meth:`measure`, which times the device in hand.
+    Cache key: ``(name, n, state_bytes, level2-kind, device)``; the
+    front-end's ``name`` carries the engine and runner, whose probes
+    differ.  ``hw`` is the hardware the tuner plans for (default: the
+    H100); its numbers are not used by :meth:`measure`, which times the
+    device in hand.
     """
 
     def __init__(self, l1_budget_states: int = 16, repeats: int = 3,
@@ -117,41 +122,63 @@ class AutoTuner:
             fn()
         return (time.perf_counter() - t0) / self.repeats
 
-    def measure(self, name: str, *,
-                forward_segment: Callable[[Any], Any],
-                segment_len: int, state0: Any, n: int, backend: Any,
-                store_state0: Any = None) -> TuneResult:
+    def measure(self, name: str, *, state0: Any, n: int, engine: Any,
+                forward_step: Optional[Callable[[Any, int], Any]] = None,
+                forward_segment: Optional[Callable[[Any], Any]] = None,
+                segment_len: int = 1,
+                store_tree: Optional[Callable[[], Any]] = None
+                ) -> TuneResult:
         """Time the forward compute and one Level-2 store; derive ``I``
         per §3.
 
-        ``forward_segment(state) -> state`` advances ``segment_len`` steps;
-        ``T_A`` is its time over its length, i.e. the *amortised* per-step
-        time the segment runner achieves (the probe synchronises the device
-        before the clock stops).  ``T_T`` is one ``backend.put`` of the
-        boundary state.  ``store_state0`` substitutes the value fed to the
-        store probe: the fused runner passes a host copy, because its kernel
-        has already written the boundary to host memory by the time the
-        store is issued.
+        Two compute probes, one per engine:
+
+        * ``forward_step(state, k) -> state`` — the interpreted engine's
+          per-step op; one call gives ``T_A`` (host dispatch included);
+        * ``forward_segment(state) -> state`` over ``segment_len`` steps —
+          a segment runner's advance; ``T_A`` is its time over its length,
+          the *amortised* per-step time that runner achieves.
+
+        The probe synchronises the device before the clock stops.  ``T_T``
+        is one store through ``engine.store_now``: the same snapshot and
+        writer-side put that ``store_async`` makes in the run.
+        ``store_tree()`` (optional) gives what the run hands the store in
+        place of ``state0``: for the fused runner, a chunk entry that the
+        last probe's fused advance wrote (its in-kernel copy is inside
+        ``T_A``; the store pays only the rest).
         """
         state_bytes = tree_bytes(state0)
-        key = (name, n, state_bytes, type(backend).__name__,
+        key = (name, n, state_bytes, type(engine.backend).__name__,
                _device_kind(state0))
         cached = self.lookup(key)
         if cached is not None:
             return dataclasses.replace(cached, probe_calls=0)
 
-        def one_probe():
-            _synchronize(forward_segment(state0))
+        if forward_segment is not None:
+            def one_probe():
+                _synchronize(forward_segment(state0))
+        elif forward_step is not None:
+            segment_len = 1
+
+            def one_probe():
+                _synchronize(forward_step(state0, 0))
+        else:
+            raise TypeError("measure() needs forward_step or "
+                            "forward_segment")
 
         t_a = self._time(one_probe) / max(1, segment_len)
         tune_key = ("__autotune__", name)
-        store_val = state0 if store_state0 is None else store_state0
+        tree = state0 if store_tree is None else store_tree()
 
         def one_store():
-            backend.put(tune_key, store_val)
+            # the previous probe's entry goes first, so its page-locked
+            # buffer is reused, as each call after a run's first reuses
+            # the buffers the previous call freed
+            engine.backend.delete(tune_key)
+            engine.store_now(tune_key, tree)
 
         t_t = self._time(one_store)
-        backend.delete(tune_key)
+        engine.backend.delete(tune_key)
         interval = snap_interval(n, optimal_interval(t_t, t_a))
         slots = default_slots(interval, self.l1_budget_states)
         return self.store(key, TuneResult(

@@ -1,5 +1,6 @@
 # Port of repro/api/frontend.py: OffloadConfig, value_and_grad_offloaded
-# (engine="compiled", strategy="multistage_async", storage="ram") and
+# (strategies multistage_async, revolve and conventional; engines compiled
+# and interpreted; storage="ram"), checkpointed_bptt and
 # last_stats/last_tune/last_plan.
 """Drop-in autodiff front-end for asynchronous multistage checkpointing.
 
@@ -13,7 +14,13 @@ a ``value_and_grad`` is: hand it a loss, get back a function returning
 * the backward pass replays segments from Level 2 with double-buffered
   prefetch, each reversed by one runner call — peak Level-1 memory is
   ``O(I + s)``, independent of chain length, at a constant recompute
-  factor and O(n/I) host dispatches.
+  factor and O(n/I) host dispatches (``engine="interpreted"`` walks the
+  same plan one step per dispatch, the paper-faithful interpreter).
+
+``strategy="revolve"`` and ``strategy="conventional"`` are the paper's
+baselines: the forward computes ``x_n`` without storing anything, and the
+backward pass runs classic Revolve with ``s`` Level-1 slots, or stores every
+state, over per-step operators.
 
 Mechanically this is a ``torch.autograd.Function``: its forward runs the
 executor's forward sweep and keeps the in-flight run on the context, its
@@ -26,11 +33,10 @@ as XLA's is in JAX.  The schedule ``(I, s)`` is measured on the first call
 (``I = ceil(T_T/T_A)``, §3) unless ``interval=`` pins it.
 
 Everything runs on the card unless ``device="cpu"`` is passed.  Not ported
-yet, and raising ``NotImplementedError`` when asked for: the Revolve and
-conventional strategies and the interpreted engine (ROADMAP queue 1,
-item 4), storage kinds other than ``"ram"`` (item 9), journaling (item 8),
-meshes (item 15), 2D plans (item 11), parameter streaming (item 12) and the
-scan engine (item 13).
+yet, and raising ``NotImplementedError`` when asked for: storage kinds
+other than ``"ram"`` (ROADMAP queue 1, item 9), journaling (item 8), meshes
+(item 15), 2D plans (item 11), parameter streaming (item 12) and the scan
+engine (item 13).
 """
 from __future__ import annotations
 
@@ -46,14 +52,14 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.api import autotune as at
 from repro_torch.api.chain import (ChainSpec, chain_length, combine,
-                                   diff_mask, is_inexact, partition)
+                                   diff_mask, index_xs, is_inexact,
+                                   partition, steps_vjp)
 from repro_torch.core import schedule as ms
 from repro_torch.core.compiled_ops import (CompiledChainOps,
                                            CompiledSegmentRunner,
                                            FusedSegmentRunner)
 from repro_torch.core.executor import CheckpointExecutor, ExecutionStats
-from repro_torch.core.storage import (AsyncTransferEngine, RAMStorage,
-                                      _to_host)
+from repro_torch.core.storage import AsyncTransferEngine, HostTree, RAMStorage
 from repro_torch.device import resolve_device
 from repro_torch.kernels import segment_fused
 
@@ -109,14 +115,6 @@ class OffloadConfig:
                 f"unknown Level-2 backend {self.storage!r}; known: "
                 f"{STORAGE_KINDS}")
         # valid, but not ported yet
-        if self.strategy != "multistage_async":
-            raise NotImplementedError(
-                f"strategy={self.strategy!r} is not ported yet (ROADMAP "
-                "queue 1, item 4)")
-        if self.engine == "interpreted":
-            raise NotImplementedError(
-                "engine='interpreted' is not ported yet (ROADMAP queue 1, "
-                "item 4)")
         if self.engine == "scan":
             raise NotImplementedError(
                 "engine='scan' is not ported yet (ROADMAP queue 1, item 13)")
@@ -185,55 +183,106 @@ def choose_interval(n: int, target: int) -> int:
     return target
 
 
-def _resolve_schedule(static: _Static, ops: CompiledChainOps, params, carry0,
-                      xs, batch, n: int, backend) -> at.TuneResult:
+class _Ops:
+    """The chain's operators: per-step forward/backward for the interpreted
+    engine and the Revolve/conventional strategies, plus the per-segment
+    ops (``CompiledChainOps``) of the compiled engine."""
+
+    def __init__(self, spec: ChainSpec, xs_treespec, xs_mask):
+        self.spec = spec
+        self.xs_mask = xs_mask
+        self.cops = CompiledChainOps(spec.body, xs_treespec, xs_mask)
+
+    def fwd(self, params, state, x, batch):
+        with torch.no_grad():
+            return self.spec.body(params, state, x, batch)
+
+    def bwd(self, params, state, xs, k: int, batch, dcarry, gacc):
+        """The vjp of step ``k`` from its input ``state``: ``(dc, gacc +
+        dparams, dxd)``, ``dxd`` the cotangents of step ``k``'s inexact
+        ``xs`` leaves.  ``gacc`` is added to in place."""
+        x_k = pytree.tree_map(lambda leaf: leaf[k:k + 1], xs)
+        dp, dc, dxd = steps_vjp(self.spec.body, params, state, x_k, batch,
+                                self.xs_mask, dcarry)
+        for acc, g in zip(pytree.tree_leaves(gacc), pytree.tree_leaves(dp)):
+            acc.add_(g)
+        return dc, gacc, [d[0] for d in dxd]
+
+    @staticmethod
+    def zero_grads(params):
+        return pytree.tree_map(torch.zeros_like, params)
+
+
+def _resolve_schedule(static: _Static, ops: _Ops, params, carry0, xs, batch,
+                      n: int, engine) -> at.TuneResult:
     cfg = static.cfg
     tuner = _TUNERS.get(cfg.tuner_id, at.GLOBAL_TUNER)
     if cfg.interval is not None:
         return tuner.manual(static.spec.name, n=n, interval=cfg.interval,
                             slots=cfg.slots)
-    if not cfg.autotune:
+    if cfg.strategy != "multistage_async" or not cfg.autotune \
+            or engine is None:
         return tuner.manual(static.spec.name, n=n,
                             interval=max(1, min(n, 32)), slots=cfg.slots)
-    # T_A depends on the segment runner: it is part of the cache identity
+    # T_A depends on the engine (per-step dispatch vs a segment runner's
+    # amortised step) and on the runner: both are part of the cache identity
     tune_name = f"{static.spec.name}:{cfg.engine}"
     if cfg.runner == "fused":
         tune_name += ":fused"
-    # T_A is the amortised per-step time of a segment: probe one advance
-    # over a short prefix whose length is a snap candidate of n
-    cap = max(1, min(n, 32))
-    cand = choose_interval(n, cap)
-    probe_len = cand if cand >= min(cap, 8) else cap
-    xs_probe = pytree.tree_map(lambda leaf: leaf[:probe_len].contiguous(), xs)
-    store_state0 = None
-    if cfg.runner == "fused":
-        # probe the fused path: T_A includes the in-kernel boundary copy,
-        # and T_T is a store of a host-resident state, because the kernel
-        # has already written the boundary to host memory
-        def forward_segment(state):
-            return segment_fused.fused_advance_segment(
-                ops.body, params, state, xs_probe, batch,
-                chunk=probe_len).carry
+    if cfg.engine == "interpreted":
+        def forward_step(state, k):
+            return ops.fwd(params, state, index_xs(xs, k), batch)
 
-        store_state0 = _to_host(carry0)
+        tune = tuner.measure(tune_name, forward_step=forward_step,
+                             state0=carry0, n=n, engine=engine)
     else:
-        def forward_segment(state):
-            return ops.advance_segment(params, state, xs_probe, batch)
+        # T_A is the amortised per-step time of a segment: probe one
+        # advance over a short prefix whose length is a snap candidate of n
+        cap = max(1, min(n, 32))
+        cand = choose_interval(n, cap)
+        probe_len = cand if cand >= min(cap, 8) else cap
+        xs_probe = pytree.tree_map(
+            lambda leaf: leaf[:probe_len].contiguous(), xs)
+        store_tree = None
+        if cfg.runner == "fused":
+            # probe the fused path: T_A includes the in-kernel boundary
+            # copy, and T_T stores what a fused advance hands the store —
+            # the chunk entry the kernel already wrote to host memory
+            last = None
 
-    tune = tuner.measure(tune_name, forward_segment=forward_segment,
-                         segment_len=probe_len, state0=carry0, n=n,
-                         backend=backend, store_state0=store_state0)
+            def forward_segment(state):
+                nonlocal last
+                last = segment_fused.fused_advance_segment(
+                    ops.cops.body, params, state, xs_probe, batch,
+                    chunk=probe_len)
+                return last.carry
+
+            def store_tree():
+                return HostTree(last.entries[0], last.ready)
+        else:
+            def forward_segment(state):
+                return ops.cops.advance_segment(params, state, xs_probe,
+                                                batch)
+
+        tune = tuner.measure(tune_name, forward_segment=forward_segment,
+                             segment_len=probe_len, state0=carry0, n=n,
+                             engine=engine, store_tree=store_tree)
     if cfg.slots is not None:
         tune = dataclasses.replace(tune, slots=cfg.slots)
     return tune
 
 
 class _RunRecord:
-    """The in-flight run between the two sweeps; closes it if the backward
-    pass never comes."""
+    """What the backward pass needs from the forward: the strategy's
+    in-flight run (multistage; closed if the backward pass never comes),
+    the schedule, the operators and the chain inputs."""
 
-    def __init__(self, run):
-        self.run = run
+    def __init__(self, strategy: str, ops: _Ops, inputs):
+        self.strategy = strategy
+        self.ops = ops
+        self.inputs = inputs   # (params, carry0, xs, batch)
+        self.tune: Optional[at.TuneResult] = None
+        self.run = None
 
     def dispose(self) -> None:
         if self.run is not None:
@@ -250,49 +299,95 @@ class _RunRecord:
 def _fwd(static: _Static, params, carry0, xs, batch):
     spec, cfg = static.spec, static.cfg
     n = chain_length(xs)
-    ops = CompiledChainOps(spec.body, static.xs_treespec, static.xs_mask)
-    backend = RAMStorage()
-    device = pytree.tree_leaves(carry0)[0].device
-    engine = None
-    if cfg.runner == "fused":
-        segment_fused.check_token_range(spec.body, params, xs)
-    try:
-        tune = _resolve_schedule(static, ops, params, carry0, xs, batch, n,
-                                 backend)
-        engine = AsyncTransferEngine(backend, device=device)
-        runner_cls = FusedSegmentRunner if cfg.runner == "fused" \
-            else CompiledSegmentRunner
-        runner = runner_cls(ops, params, xs, batch, s_l1=tune.slots)
-        x_n, run = CheckpointExecutor().multistage_forward(
-            carry0, n, interval=tune.interval, s_l1=tune.slots,
-            engine=engine, runner=runner)
-    except BaseException:
-        if engine is not None:
+    ops = _Ops(spec, static.xs_treespec, static.xs_mask)
+    rec = _RunRecord(cfg.strategy, ops, (params, carry0, xs, batch))
+    if cfg.strategy == "multistage_async":
+        device = pytree.tree_leaves(carry0)[0].device
+        engine = AsyncTransferEngine(RAMStorage(), device=device)
+        try:
+            if cfg.runner == "fused":
+                segment_fused.check_token_range(spec.body, params, xs)
+            tune = _resolve_schedule(static, ops, params, carry0, xs, batch,
+                                     n, engine)
+            runner = None   # the interpreted engine: per-step operators
+            if cfg.engine == "compiled":
+                runner_cls = FusedSegmentRunner if cfg.runner == "fused" \
+                    else CompiledSegmentRunner
+                runner = runner_cls(ops.cops, params, xs, batch,
+                                    s_l1=tune.slots)
+
+            def fwd_op(state, k):
+                return ops.fwd(params, state, index_xs(xs, k), batch)
+
+            x_n, run = CheckpointExecutor(fwd_op, None).multistage_forward(
+                carry0, n, interval=tune.interval, s_l1=tune.slots,
+                engine=engine, runner=runner)
+        except BaseException:
             try:
                 engine.close()
             except Exception:
                 pass
-        raise
-    run.own_engine = True
-    _LAST["plan"] = run.plan
+            raise
+        run.own_engine = True
+        rec.run = run
+        _LAST["plan"] = run.plan
+    else:
+        # the baselines keep nothing from the forward: the backward pass
+        # recomputes from carry_0 under the strategy's schedule
+        tune = _resolve_schedule(static, ops, params, carry0, xs, batch, n,
+                                 None)
+        x_n = ops.cops.advance_segment(params, carry0, xs, batch)
+        _LAST["plan"] = None
+    rec.tune = tune
     _LAST["tune"] = tune
-    return x_n, _RunRecord(run)
+    return x_n, rec
 
 
-def _bwd(static: _Static, rec: _RunRecord, params, dcarry):
+def _bwd(static: _Static, rec: _RunRecord, dcarry):
     run = rec.run
-    if run is None:
+    if rec.ops is None or (rec.strategy == "multistage_async"
+                           and run is None):
         raise RuntimeError("offloaded-chain run is no longer live (backward "
                            "called twice?); re-run the forward pass")
-    adjoint0 = (dcarry, pytree.tree_map(torch.zeros_like, params))
+    ops, (params, carry0, xs, batch) = rec.ops, rec.inputs
+    rec.ops = None
+    n = chain_length(xs)
+    collect_dx = any(static.xs_mask)
+    dx_slices: Dict[int, Any] = {}
+
+    def fwd_op(state, k):
+        return ops.fwd(params, state, index_xs(xs, k), batch)
+
+    def bwd_op(state, adjoint, k):
+        dc, gacc = adjoint
+        dc, gacc, dxd = ops.bwd(params, state, xs, k, batch, dc, gacc)
+        if collect_dx:
+            dx_slices[k] = dxd
+        return dc, gacc
+
+    ex = CheckpointExecutor(fwd_op, bwd_op)
+    adjoint0 = (dcarry, ops.zero_grads(params))
     try:
-        adjoint, stats = CheckpointExecutor().multistage_reverse(run,
-                                                                 adjoint0)
+        if rec.strategy == "multistage_async":
+            adjoint, stats = ex.multistage_reverse(run, adjoint0)
+        elif rec.strategy == "revolve":
+            adjoint, stats = ex.run_revolve(carry0, n, adjoint0,
+                                            s=rec.tune.slots)
+        else:  # conventional
+            adjoint, stats = ex.run_conventional(carry0, n, adjoint0)
     finally:
         rec.dispose()   # idempotent: the reverse already closed the run
     _LAST["stats"] = stats
     dcarry0, gparams = adjoint
-    dxs_diff = run.runner.collect_dx(run.plan) if any(static.xs_mask) else []
+    runner = run.runner if run is not None else None
+    if not collect_dx:
+        dxs_diff = []
+    elif runner is not None:
+        # per-segment stacked cotangents, stitched back into full arrays
+        dxs_diff = runner.collect_dx(run.plan)
+    else:
+        dxs_diff = [torch.stack([dx_slices[k][i] for k in range(n)])
+                    for i in range(sum(static.xs_mask))]
     return gparams, dcarry0, dxs_diff
 
 
@@ -308,15 +403,13 @@ class _Chain(torch.autograd.Function):
         xs = combine(list(leaves[n_p + n_c:]), xnd, static.xs_treespec,
                      static.xs_mask)
         x_n, rec = _fwd(static, params, carry0, xs, batch)
-        ctx.static, ctx.rec, ctx.params, ctx.c_spec = static, rec, params, \
-            c_spec
+        ctx.static, ctx.rec, ctx.c_spec = static, rec, c_spec
         return tuple(pytree.tree_leaves(x_n))
 
     @staticmethod
     def backward(ctx, *dcarry_leaves):
         dcarry = pytree.tree_unflatten(list(dcarry_leaves), ctx.c_spec)
-        gparams, dcarry0, dxs_diff = _bwd(ctx.static, ctx.rec, ctx.params,
-                                          dcarry)
+        gparams, dcarry0, dxs_diff = _bwd(ctx.static, ctx.rec, dcarry)
         return (None, None, *pytree.tree_leaves(gparams),
                 *pytree.tree_leaves(dcarry0), *dxs_diff)
 
@@ -404,7 +497,10 @@ def value_and_grad_offloaded(
     (the card unless ``device="cpu"``; without a card and without
     ``device="cpu"`` this raises).  ``interval``/``slots`` pin the schedule,
     otherwise the first call measures ``T_A``/``T_T`` and applies §3's
-    ``I = ceil(T_T/T_A)``.  ``runner="fused"`` (the JAX package's
+    ``I = ceil(T_T/T_A)``.  ``strategy="revolve"`` (with ``slots`` Level-1
+    slots) and ``strategy="conventional"`` run the paper's baselines over
+    per-step operators; ``engine="interpreted"`` runs the multistage plan one
+    step per dispatch.  ``runner="fused"`` (the JAX package's
     ``runner="pallas"``) runs the hand-written CUDA segment kernels on the
     card — the LSTM chain step only; other chains raise ``ValueError`` there
     — and their plain PyTorch versions on the CPU.
@@ -442,3 +538,56 @@ def value_and_grad_offloaded(
     vg.tuner = tuner  # keeps the weak registry entry alive
     vg.device = dev
     return vg
+
+
+def checkpointed_bptt(body: Callable[[Any, Any, Any], Tuple[Any, Any]],
+                      **opts) -> Callable[[Any, Any, Any], Tuple[Any, Any]]:
+    """BPTT through a scan-style chain with offloaded checkpointing.
+
+    ``body(params, carry, x) -> (carry, loss_k)`` is one chain step (an RNN
+    time step, a transformer layer, ...).  Returns ``bptt(params, carry0,
+    xs) -> (total_loss, grads)``, ``total_loss`` the sum of the per-step
+    losses and ``grads`` shaped like ``params``.  Keyword options are those
+    of :func:`value_and_grad_offloaded`.
+
+    >>> import torch
+    >>> from repro_torch import api
+    >>> def body(p, c, x):
+    ...     c = torch.tanh(c + p * x)
+    ...     return c, c ** 2
+    >>> bptt = api.checkpointed_bptt(body, interval=4, slots=2, device="cpu")
+    >>> xs = torch.linspace(0.0, 1.0, 8)
+    >>> loss, grad = bptt(torch.tensor(0.3), torch.tensor(0.0), xs)
+    >>> p = torch.tensor(0.3, requires_grad=True)
+    >>> c, ref = torch.tensor(0.0), 0.0
+    >>> for x in xs:
+    ...     c, l_k = body(p, c, x)
+    ...     ref = ref + l_k
+    >>> (ref_grad,) = torch.autograd.grad(ref, p)
+    >>> bool(torch.allclose(loss, ref)), bool(torch.allclose(grad, ref_grad))
+    (True, True)
+    """
+
+    def prelude(params, batch):
+        carry0, xs = batch
+        return (carry0, torch.zeros((), dtype=torch.float32,
+                                    device=pytree.tree_leaves(xs)[0].device)
+                ), xs
+
+    def chain_body(params, c, x, batch):
+        carry, acc = c
+        carry, loss_k = body(params, carry, x)
+        return carry, acc + loss_k.sum().to(torch.float32)
+
+    def readout(params, c, batch):
+        return c[1]
+
+    spec = ChainSpec(prelude, chain_body, readout,
+                     name=getattr(body, "__name__", "bptt"))
+    vg = value_and_grad_offloaded(spec, **opts)
+
+    def bptt(params, carry0, xs):
+        return vg(params, (carry0, xs))
+
+    bptt.chain_spec = spec
+    return bptt

@@ -160,8 +160,7 @@ class FusedSegmentRunner(CompiledSegmentRunner):
         stats.advances += seg.length
         stats.host_dispatches += 1
         stats.fused_segments += 1
-        stats.fused_boundary_copies += int(
-            pytree.tree_leaves(out.boundaries)[0].shape[0])
+        stats.fused_boundary_copies += len(out.entries)
         return out
 
     def advance(self, state, seg: SegmentSpec, stats):
@@ -169,11 +168,11 @@ class FusedSegmentRunner(CompiledSegmentRunner):
 
     def advance_with_store(self, state, seg: SegmentSpec, stats):
         """Advance one segment and return ``(new_state, entry_boundary)``:
-        the kernel's ``boundaries[0]`` as a :class:`HostTree` fenced by the
-        kernel's event — the Level-2 store takes those buffers as they are."""
+        the kernel's ``entries[0]`` as a :class:`HostTree` fenced by the
+        kernel's event — the Level-2 store takes those buffers as they are
+        (each owns its storage)."""
         out = self._advance_fused(state, seg, stats)
-        bnd0 = tree_map(lambda leaf: leaf[0], out.boundaries)
-        return out.carry, HostTree(bnd0, out.ready)
+        return out.carry, HostTree(out.entries[0], out.ready)
 
     def reverse(self, x_b, adjoint, seg: SegmentSpec, slots, stats):
         dcarry, gacc = adjoint

@@ -18,7 +18,8 @@ thread:
 * a fused segment kernel may hand over boundaries it already wrote into
   page-locked memory (a :class:`HostTree` carrying the kernel's event);
   those buffers become the Level-2 copy itself — no second copy — and
-  belong to Level 2 until the key is deleted;
+  belong to Level 2 until the key is deleted.  Each must own its storage,
+  so Level 2 holds exactly the bytes it counts;
 * a prefetch reads the host copy and moves it host-to-device on a side
   stream from the prefetch thread; the thread waits for that copy before
   it publishes the value, so ``wait_prefetch`` returns tensors that are
@@ -142,8 +143,18 @@ def _freeze(tree: Any) -> Any:
 def _frozen_views(tree: Any) -> Any:
     """Read-only views of host tensors (no copy): the tensors become the
     Level-2 copy.  Each view's ``base`` is the writable array that shares
-    the tensor's memory (:func:`_host_tensor` relies on it)."""
+    the tensor's memory (:func:`_host_tensor` relies on it).
+
+    A tensor kept this way must own its storage: a slice of a larger buffer
+    would keep the whole buffer alive while Level 2 counts only the slice,
+    so it raises ``ValueError``."""
     def f(t):
+        held = t.untyped_storage().nbytes()
+        if held > t.numel() * t.element_size():
+            raise ValueError(
+                f"a Level-2 leaf of {t.numel() * t.element_size()} bytes "
+                f"would keep a storage of {held} bytes alive; hand over "
+                "buffers that own their storage")
         bits = _BITS.get(t.dtype)
         v = (t.view(bits) if bits else t).numpy().view()
         v.setflags(write=False)
@@ -289,10 +300,7 @@ class AsyncTransferEngine:
                 return
             try:
                 if kind == "put":
-                    _, key, payload = item
-                    if isinstance(payload, HostTree):
-                        payload = _frozen_views(payload.wait())
-                    self.backend.put(key, payload)
+                    self._put(item[1], item[2])
                 else:  # "delete"
                     self.backend.delete(item[1])
             except Exception as e:  # surfaced on wait_stores
@@ -322,13 +330,37 @@ class AsyncTransferEngine:
             ready.record(stream)
         return HostTree(pytree.tree_unflatten(host, spec), ready)
 
+    def _payload(self, tree: Any) -> Any:
+        """The caller's half of a store: ``tree`` detached from Level 1
+        (:meth:`_snapshot`), or a :class:`HostTree` handed over as it is,
+        its buffers frozen into the Level-2 copy at once (so a buffer that
+        does not own its storage is refused on the caller's thread)."""
+        if not isinstance(tree, HostTree):
+            tree = self._snapshot(tree)
+            if not isinstance(tree, HostTree):
+                return tree   # host leaves, already deep-copied
+        return HostTree(_frozen_views(tree.tree), tree.ready)
+
+    def _put(self, key: Any, payload: Any) -> None:
+        """The writer's half of a store: wait for the payload's event, then
+        hand it to the backend."""
+        if isinstance(payload, HostTree):
+            payload = payload.wait()
+        self.backend.put(key, payload)
+
     def store_async(self, key: Any, tree: Any) -> None:
         """Enqueue a Level-2 store of ``tree`` (a :class:`HostTree` is
         handed over as it is: its buffers become the Level-2 copy)."""
-        payload = tree if isinstance(tree, HostTree) else self._snapshot(tree)
+        payload = self._payload(tree)
         self._store_q.put(("put", key, payload))
         with self._lock:
             self.num_stores += 1
+
+    def store_now(self, key: Any, tree: Any) -> None:
+        """A store made on the caller's thread through the same two halves
+        as :meth:`store_async` (the autotuner's ``T_T`` probe).  Not
+        counted in ``num_stores``."""
+        self._put(key, self._payload(tree))
 
     def delete_async(self, key: Any) -> None:
         """Like :meth:`delete`, but the backend delete rides the writer

@@ -8,6 +8,10 @@ it on the H100 and how the kernels are laid out is noted in the source.
 
 :func:`lstm_cell` is the standalone kernel, one step: its plain version is
 :func:`repro_torch.kernels.ref.lstm_cell_ref`, taken for CPU tensors only.
+:func:`lstm_cell_autograd` is the same step under ``torch.autograd``: the
+kernel forward, and as backward the vjp of the plain cell recomputed from
+the saved inputs (the Pallas cell has no vjp either); the LSTM chain's
+per-step body runs the cell through it.
 :func:`lstm_cell_token_steps` runs a run of steps as one cooperative
 launch with each block's columns of ``W`` resident on chip, the input rows
 gathered from an embedding table: the fused advance's forward chunks, and
@@ -116,6 +120,30 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 
 lstm_cell.launches = 0
 lstm_cell.steps = 0
+
+
+class _Cell(torch.autograd.Function):
+    """:func:`lstm_cell` forward; the backward recomputes the plain cell
+    from ``(x, h, c, w, b)`` and takes its vjp."""
+
+    @staticmethod
+    def forward(ctx, x, h, c, w, b):
+        ctx.save_for_backward(x, h, c, w, b)
+        return lstm_cell(x, h, c, w, b)
+
+    @staticmethod
+    def backward(ctx, dh, dc):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = lstm_cell_ref(*inputs)
+        return torch.autograd.grad(out, inputs, (dh, dc))
+
+
+def lstm_cell_autograd(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                       w: torch.Tensor, b: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lstm_cell`, differentiable: (h_new, c_new)."""
+    return _Cell.apply(x, h, c, w, b)
 
 
 def lstm_cell_token_steps(tok: torch.Tensor, emb: torch.Tensor,

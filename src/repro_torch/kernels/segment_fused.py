@@ -6,10 +6,10 @@
   chunk runs the recurrence alone on kernel 1's step loop
   (``lstm_cell_token_steps``: one cooperative launch per chunk), then the
   readout and the loss over all rows of the chunk at once, in a kernel that
-  also writes the chunk-entry carry straight into page-locked host memory;
-  one launch a segment carries the loss accumulator in step order.
-  ``boundaries[0]`` is the segment-entry state the executor hands to Level
-  2, fenced by the returned CUDA event.
+  also writes the chunk-entry carry straight into page-locked host memory
+  (each chunk entry its own allocation); one launch a segment carries the
+  loss accumulator in step order.  ``entries[0]`` is the segment-entry
+  state the executor hands to Level 2, fenced by the returned CUDA event.
 * :func:`fused_reverse_segment` replaces
   ``segment_pallas.py::fused_reverse_segment``: Echo-style recompute — phase
   A recomputes the chunk-entry boundaries from the Level-2 boundary, then the
@@ -121,9 +121,20 @@ def cell_work(T: int, chunk: int) -> Dict[str, Tuple[int, int]]:
 
 class FusedAdvance(NamedTuple):
     carry: Any        # the carry after the segment
-    boundaries: Any   # the carry's structure, each leaf stacked (nc, ...)
-    ready: Any        # CUDA event after which the boundaries are final
+    entries: List[Any]  # one carry per chunk entry, each leaf its own
+    #                     allocation (on the card: page-locked host memory)
+    ready: Any        # CUDA event after which the entries are final
     #                   (None: they already are)
+
+    @property
+    def boundaries(self) -> Any:
+        """The chunk entries as the carry's structure with each leaf
+        stacked ``(nc, ...)`` (a copy, for checks)."""
+        spec = pytree.tree_structure(self.entries[0])
+        leaves = [pytree.tree_leaves(e) for e in self.entries]
+        return pytree.tree_unflatten(
+            [torch.stack([e[i] for e in leaves])
+             for i in range(len(leaves[0]))], spec)
 
 
 def _slice(xs, lo, hi):
@@ -142,21 +153,18 @@ def _on_cpu(tree) -> bool:
 
 def advance_plain(body, params, carry, xs_seg, batch, *,
                   chunk: int) -> FusedAdvance:
-    """The plain version of kernel 2: the carry over the segment plus every
-    chunk-entry carry, stacked."""
+    """The plain version of kernel 2: the carry over the segment plus a
+    copy of every chunk-entry carry."""
     T = pytree.tree_leaves(xs_seg)[0].shape[0]
     bounds = forward_bounds(T, chunk)
-    snaps = []
+    entries = []
     with torch.no_grad():
         for lo, hi in zip(bounds[:-1], bounds[1:]):
-            snaps.append(pytree.tree_leaves(carry))
+            entries.append(pytree.tree_map(torch.clone, carry))
             for k in range(lo, hi):
                 x = pytree.tree_map(lambda leaf: leaf[k], xs_seg)
                 carry = body(params, carry, x, batch)
-    spec = pytree.tree_structure(carry)
-    stacked = [torch.stack([s[i] for s in snaps])
-               for i in range(len(snaps[0]))]
-    return FusedAdvance(carry, pytree.tree_unflatten(stacked, spec), None)
+    return FusedAdvance(carry, entries, None)
 
 
 def reverse_plain(body, xs_mask, params, carry_b, xs_seg, batch, dcarry, *,
@@ -279,10 +287,13 @@ def _advance_lstm_cuda(params, carry, xs_seg, chunk: int) -> FusedAdvance:
     chunk = min(int(chunk), T)
     f32, dev = torch.float32, h0.device
     ptr, stream = build.ptr, build.stream_ptr(dev)
-    # the Level-2 copies: page-locked, written by the kernel through UVA
-    bnd = (torch.empty((nc, B, Dh), dtype=f32, pin_memory=True),
-           torch.empty((nc, B, Dh), dtype=f32, pin_memory=True),
-           torch.empty((nc,), dtype=f32, pin_memory=True))
+    # the Level-2 copies: page-locked, written by the kernel through UVA;
+    # each chunk entry's leaves are allocations of their own, so Level 2
+    # keeps exactly the entry it stores
+    entries = [(torch.empty((B, Dh), dtype=f32, pin_memory=True),
+                torch.empty((B, Dh), dtype=f32, pin_memory=True),
+                torch.empty((), dtype=f32, pin_memory=True))
+               for _ in range(nc)]
     out = (torch.empty_like(h0), torch.empty_like(c0),
            torch.empty((), dtype=f32, device=dev))
     # one chunk's states (index t = the input of step t) and logits; each
@@ -291,6 +302,7 @@ def _advance_lstm_cuda(params, carry, xs_seg, chunk: int) -> FusedAdvance:
     cs = torch.empty_like(hs)
     lg = torch.empty((L_max * B, V), dtype=f32, device=dev)
     msum = torch.empty((T,), dtype=f32, device=dev)
+    acc_entries = torch.empty((nc,), dtype=f32, device=dev)
     barrier = torch.empty((-(-B // 16),), dtype=torch.int32, device=dev)
     for k, (lo, hi) in enumerate(spans):
         # chunk 0 steps from the segment's entry; each later one from hs[0],
@@ -302,16 +314,18 @@ def _advance_lstm_cuda(params, carry, xs_seg, chunk: int) -> FusedAdvance:
         err = lib.lstm_adv_chunk(
             ptr(w_out), ptr(b_out), V, Dh, ptr(tgt[lo]), ptr(hs), ptr(cs),
             hi - lo, B, ptr(lg), ptr(msum[lo]), ptr(entry[0]),
-            ptr(entry[1]), ptr(bnd[0][k]), ptr(bnd[1][k]), ptr(nxt[0]),
-            ptr(nxt[1]), stream)
+            ptr(entry[1]), ptr(entries[k][0]), ptr(entries[k][1]),
+            ptr(nxt[0]), ptr(nxt[1]), stream)
         build.check(lib, err, "fused_advance_segment (readout and loss)")
     err = lib.lstm_adv_finalize(ptr(msum), T, ptr(acc0), ptr(out[2]),
-                                ptr(bnd[2]), chunk, nc, stream)
+                                ptr(acc_entries), chunk, nc, stream)
     build.check(lib, err, "fused_advance_segment (acc)")
+    for k in range(nc):   # each entry's acc into its own page-locked word
+        entries[k][2].copy_(acc_entries[k], non_blocking=True)
     ready = torch.cuda.Event()
     ready.record(torch.cuda.current_stream(dev))
     fused_advance_segment.launches += 1
-    return FusedAdvance(out, bnd, ready)
+    return FusedAdvance(out, entries, ready)
 
 
 def _reverse_lstm_cuda(params, carry_b, xs_seg, dcarry, chunk: int):
@@ -444,11 +458,11 @@ def fused_advance_segment(body, params, carry, xs_seg, batch, *,
                           chunk: int) -> FusedAdvance:
     """Advance the carry over one segment with the fused forward kernels.
 
-    Returns ``FusedAdvance(carry_out, boundaries, ready)``: ``boundaries``
-    mirrors the carry with a leading ``num_chunks`` axis of chunk-entry
-    states (on the card: page-locked host tensors written by the kernel,
-    final once ``ready`` has completed); ``boundaries[...][0]`` is the
-    segment-entry state the executor stores to Level 2."""
+    Returns ``FusedAdvance(carry_out, entries, ready)``: ``entries`` holds
+    one carry per chunk entry (on the card: page-locked host tensors written
+    by the kernels, each leaf its own allocation, final once ``ready`` has
+    completed); ``entries[0]`` is the segment-entry state the executor
+    stores to Level 2."""
     if _on_cpu(carry):
         return advance_plain(body, params, carry, xs_seg, batch, chunk=chunk)
     body_kind(body)

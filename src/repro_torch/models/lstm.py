@@ -9,8 +9,12 @@ seed ``(0, 0, 1)``.
 
 Parameters are a plain dict with the JAX package's keys and layouts
 (``emb (V, Dx)``, ``w (Dx+Dh, 4Dh)`` gate-major ``i, f, o, g``, ``b``,
-``w_out (Dh, V)``, ``b_out``).  ``make_operators`` and
-``bptt_loss_and_grad`` need the scan engine (ROADMAP queue 1, item 13).
+``w_out (Dh, V)``, ``b_out``).  The executor's per-step operators
+(:func:`make_operators`) and the chain body run the cell through the
+``lstm_cell`` kernel (its plain version on CPU tensors);
+:func:`forward_loss`, the reference the offloaded paths are held to, keeps
+the plain cell.  ``bptt_loss_and_grad`` needs the scan engine (ROADMAP
+queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import segment_fused
+from repro_torch.kernels.lstm_cell import lstm_cell_autograd
 
 Params = Any
 
@@ -55,12 +60,19 @@ def lstm_cell(params: Params, h: torch.Tensor, c: torch.Tensor,
     return h_new, c_new
 
 
+def kernel_cell(params: Params, h: torch.Tensor, c: torch.Tensor,
+                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lstm_cell` through the ``lstm_cell`` kernel (its plain version
+    on CPU tensors), differentiable."""
+    return lstm_cell_autograd(x, h, c, params["w"], params["b"])
+
+
 def step_loss(params: Params, h: torch.Tensor, c: torch.Tensor,
-              tok: torch.Tensor, target: torch.Tensor):
+              tok: torch.Tensor, target: torch.Tensor, cell=lstm_cell):
     """One chain step: consume token ``tok``, predict ``target``.
     Returns (h', c', nll)."""
     x = params["emb"][tok.long()]
-    h, c = lstm_cell(params, h, c, x)
+    h, c = cell(params, h, c, x)
     logits = h @ params["w_out"] + params["b_out"]
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, target.long()[:, None])[:, 0]
@@ -89,6 +101,48 @@ def forward_loss(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Executor path (paper-faithful)
+# ---------------------------------------------------------------------------
+
+
+def make_operators(params: Params, tokens: torch.Tensor):
+    """``(forward_op, backward_op, adjoint_seed, T)`` for the checkpoint
+    executor.  ``tokens``: (B, T+1) — step k consumes tokens[:, k],
+    predicts tokens[:, k+1].  The adjoint is ``(dstate, grads_accum)``."""
+    T = tokens.shape[1] - 1
+
+    def _step(p, state, k):
+        h, c, acc = state
+        h, c, nll = step_loss(p, h, c, tokens[:, k], tokens[:, k + 1],
+                              cell=kernel_cell)
+        return (h, c, acc + nll)
+
+    def fwd(state, k):
+        with torch.no_grad():
+            return _step(params, state, k)
+
+    def bwd(state, adjoint, k):
+        dstate, gacc = adjoint
+        with torch.enable_grad():
+            p = {n: v.detach().requires_grad_(True)
+                 for n, v in params.items()}
+            s = tuple(t.detach().requires_grad_(True) for t in state)
+            grads = torch.autograd.grad(_step(p, s, k),
+                                        [*p.values(), *s], dstate)
+        gacc = {n: gacc[n] + g for n, g in zip(p, grads)}
+        return (tuple(grads[len(p):]), gacc)
+
+    def adjoint_seed():
+        zero_g = {n: torch.zeros_like(v) for n, v in params.items()}
+        # dstate mirrors (h, c, acc): zeros for h/c, 1.0 for the loss accum.
+        h0, c0, acc0 = init_state(tokens.shape[0], params["w"].shape[1] // 4,
+                                  params["w"].dtype, device=tokens.device)
+        return ((h0, c0, torch.ones_like(acc0)), zero_g)
+
+    return fwd, bwd, adjoint_seed, T
+
+
+# ---------------------------------------------------------------------------
 # Chain decomposition (repro_torch.api): time is the checkpoint chain
 # ---------------------------------------------------------------------------
 
@@ -101,11 +155,22 @@ def _prelude(params, batch):
     return carry0, xs
 
 
-def _body(params, carry, x, batch):
+def _chain_step(params, carry, x, cell):
     h, c, acc = carry
     tok, tgt = x
-    h, c, nll = step_loss(params, h, c, tok, tgt)
+    h, c, nll = step_loss(params, h, c, tok, tgt, cell=cell)
     return (h, c, acc + nll)
+
+
+def _body(params, carry, x, batch):
+    return _chain_step(params, carry, x, kernel_cell)
+
+
+def plain_body(params, carry, x, batch):
+    """The chain step with the plain cell: what the fused kernels' plain
+    versions run as their yardstick on the card (``_body`` there launches
+    the ``lstm_cell`` kernel)."""
+    return _chain_step(params, carry, x, lstm_cell)
 
 
 def _readout(params, carry, batch):

@@ -6,7 +6,10 @@ card) is held against JAX's ``runner="pallas"`` in interpret mode, and
 ``runner="compiled"`` against JAX's compiled runner: the loss within 1e-5,
 gradients within 1e-4 of each leaf's scale, and the plan and the executor
 counters *equal*.  Segments and in-segment chunks have uneven tails, and
-one case has a length-1 chunk tail.
+one case has a length-1 chunk tail.  The paper's baselines (Revolve,
+store-all) and the interpreted engine are held the same way against JAX's
+front door, and ``checkpointed_bptt`` against JAX's on a synthetic chain.
+The ``T_T`` probe is shown to go through the engine's own store path.
 """
 import math
 
@@ -129,14 +132,189 @@ def test_offload_config_raises_the_same_value_errors(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"strategy": "revolve"}, "item 4"),
-    ({"engine": "interpreted"}, "item 4"),
     ({"engine": "scan"}, "item 13"),
     ({"storage": "disk"}, "item 9"),
 ])
 def test_left_out_knobs_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         fe.OffloadConfig(**kw)
+
+
+def _strategy_runs(ref, tok, kw):
+    j_vg = j_api.value_and_grad_offloaded(j_lstm.train_chain(), **kw)
+    j_loss, j_grads = j_vg({k: jnp.asarray(v) for k, v in ref.items()},
+                           {"tokens": jnp.asarray(tok)})
+    j_plan = j_api.last_plan()
+    j = (float(j_loss), jax.tree_util.tree_map(np.asarray, j_grads),
+         None if j_plan is None else j_plan.plan_id, j_api.last_stats())
+    vg = api.value_and_grad_offloaded(lstm.train_chain(), device="cpu",
+                                      **kw)
+    loss, grads = vg(params_from_numpy(ref, device="cpu"),
+                     {"tokens": torch.as_tensor(tok)})
+    plan = api.last_plan()
+    t = (float(loss), {k: g.numpy() for k, g in grads.items()},
+         None if plan is None else plan.plan_id, api.last_stats())
+    return t, j
+
+
+STRATEGY_COUNTERS = ("advances", "backwards", "host_dispatches",
+                     "peak_l1_states", "recompute_factor", "l2_stores",
+                     "l2_prefetches", "l2_peak_bytes")
+
+
+@pytest.mark.parametrize("T,kw", [
+    (29, {"strategy": "conventional"}),
+    (29, {"strategy": "revolve", "slots": 6}),
+    (37, {"strategy": "revolve", "slots": 3}),
+    (29, {"engine": "interpreted", "interval": 8, "slots": 6}),
+    (37, {"engine": "interpreted", "interval": 13, "slots": 4}),
+])
+def test_strategies_and_interpreted_engine_match_jax(T, kw):
+    """Revolve (``s = slots``), store-all and the interpreted multistage
+    engine through the front door: the loss within 1e-5 and gradients
+    within 1e-4 of JAX's, the executor counters and the plan equal."""
+    ref, tok = _inputs(T, seed=100 + T)
+    (loss, grads, plan_id, stats), (j_loss, j_grads, j_plan_id, j_stats) = \
+        _strategy_runs(ref, tok, kw)
+    np.testing.assert_allclose(loss, j_loss, rtol=1e-5)
+    for k, g in j_grads.items():
+        np.testing.assert_allclose(grads[k], g, rtol=1e-4,
+                                   atol=1e-4 * max(np.abs(g).max(), 1e-6),
+                                   err_msg=k)
+    assert plan_id == j_plan_id
+    for name in STRATEGY_COUNTERS:
+        assert getattr(stats, name) == getattr(j_stats, name), name
+    assert api.last_tune().slots == j_api.last_tune().slots
+
+
+def test_revolve_and_store_all_counters_follow_their_plans():
+    """Revolve's advances are ``count_advances(revolve_schedule(n, s))``
+    within ``s`` slots; store-all advances ``n`` times and keeps all ``n``
+    states; the interpreted engine's advances are the plan's total."""
+    from repro_torch.core import revolve as rv
+
+    ref, tok = _inputs(41, seed=7)
+    params = params_from_numpy(ref, device="cpu")
+    batch = {"tokens": torch.as_tensor(tok)}
+    n = 41
+    for kw, advances, peak in (
+            ({"strategy": "revolve", "slots": 5},
+             rv.count_advances(rv.revolve_schedule(n, 5)), 5),
+            ({"strategy": "conventional"}, n, n)):
+        api.value_and_grad_offloaded(lstm.train_chain(), device="cpu",
+                                     **kw)(params, batch)
+        stats = api.last_stats()
+        assert (stats.advances, stats.backwards, stats.peak_l1_states) == (
+            advances, n, peak), kw
+        assert api.last_plan() is None
+    api.value_and_grad_offloaded(lstm.train_chain(), engine="interpreted",
+                                 interval=10, slots=3, device="cpu")(params,
+                                                                     batch)
+    stats, plan = api.last_stats(), api.last_plan()
+    assert stats.advances == plan.total_advances()
+    assert stats.backwards == n and stats.peak_l1_states <= 3
+
+
+@pytest.fixture(scope="module")
+def rnn_chain():
+    """The synthetic chain of the JAX package's ``checkpointed_bptt`` tests,
+    inputs drawn with numpy."""
+    T, Bn, D = 37, 4, 8
+    rng = np.random.default_rng(0)
+    params = {"W": (rng.standard_normal((D, D)) * 0.4).astype(np.float32),
+              "U": (rng.standard_normal((D, D)) * 0.2).astype(np.float32)}
+    xs = (rng.standard_normal((T, Bn, D)) * 0.1).astype(np.float32)
+    return params, np.zeros((Bn, D), np.float32), xs
+
+
+@pytest.mark.parametrize("kw", [
+    {"strategy": "conventional"},
+    {"strategy": "revolve", "slots": 6},
+    {"strategy": "multistage_async", "interval": 8, "slots": 6},
+    {"strategy": "multistage_async", "interval": 8, "slots": 6,
+     "engine": "interpreted"},
+])
+def test_checkpointed_bptt_matches_jax(rnn_chain, kw):
+    params, c0, xs = rnn_chain
+
+    def j_body(p, c, x):
+        c = jnp.tanh(c @ p["W"] + x @ p["U"])
+        return c, jnp.sum(c ** 2)
+
+    def t_body(p, c, x):
+        c = torch.tanh(c @ p["W"] + x @ p["U"])
+        return c, torch.sum(c ** 2)
+
+    j_loss, j_grads = j_api.checkpointed_bptt(j_body, **kw)(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(c0),
+        jnp.asarray(xs))
+    j_stats = j_api.last_stats()
+    loss, grads = api.checkpointed_bptt(t_body, device="cpu", **kw)(
+        {k: torch.as_tensor(v) for k, v in params.items()},
+        torch.as_tensor(c0), torch.as_tensor(xs))
+    stats = api.last_stats()
+    np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5)
+    for k in params:
+        g = np.asarray(j_grads[k])
+        np.testing.assert_allclose(grads[k].numpy(), g, rtol=1e-4,
+                                   atol=1e-4 * np.abs(g).max(), err_msg=k)
+    for name in STRATEGY_COUNTERS:
+        assert getattr(stats, name) == getattr(j_stats, name), name
+
+
+@pytest.mark.parametrize("engine,runner", [
+    ("compiled", "compiled"), ("compiled", "fused"),
+    ("interpreted", "compiled"),
+])
+def test_tt_probe_goes_through_the_engines_store_path(engine, runner,
+                                                      monkeypatch):
+    """``T_T`` is timed on the store the run makes: the engine's own
+    snapshot (a CPU or device carry) or hand-over (the chunk entry a fused
+    advance wrote), then the writer's put — each probe call goes through
+    ``AsyncTransferEngine._payload`` and ``_put``, as every store of the run
+    does."""
+    from repro_torch.core import storage
+
+    calls = {"payload": [], "put": [], "snapshot": 0}
+    real = {n: getattr(storage.AsyncTransferEngine, n)
+            for n in ("_payload", "_put", "_snapshot")}
+
+    def payload(self, tree):
+        out = real["_payload"](self, tree)
+        calls["payload"].append(type(out).__name__)
+        return out
+
+    def put(self, key, payload_):
+        calls["put"].append(key)
+        return real["_put"](self, key, payload_)
+
+    def snapshot(self, tree):
+        calls["snapshot"] += 1
+        return real["_snapshot"](self, tree)
+
+    monkeypatch.setattr(storage.AsyncTransferEngine, "_payload", payload)
+    monkeypatch.setattr(storage.AsyncTransferEngine, "_put", put)
+    monkeypatch.setattr(storage.AsyncTransferEngine, "_snapshot", snapshot)
+    ref, tok = _inputs(40, seed=5)
+    tuner = api.AutoTuner()
+    api.value_and_grad_offloaded(
+        lstm.train_chain(), engine=engine, runner=runner, tuner=tuner,
+        device="cpu")(params_from_numpy(ref, device="cpu"),
+                      {"tokens": torch.as_tensor(tok)})
+    tune, stats = api.last_tune(), api.last_stats()
+    probes = 1 + tuner.repeats
+    assert tune.source == "measured" and tune.t_t > 0
+    probe_puts = [k for k in calls["put"]
+                  if isinstance(k, tuple) and k[0] == "__autotune__"]
+    assert len(probe_puts) == probes
+    assert len(calls["put"]) == probes + stats.l2_stores
+    assert len(calls["payload"]) == probes + stats.l2_stores
+    if runner == "fused":
+        # the kernel's own buffers are handed over: no snapshot at all
+        assert calls["snapshot"] == 0
+        assert set(calls["payload"]) == {"HostTree"}
+    else:
+        assert calls["snapshot"] == probes + stats.l2_stores
 
 
 def test_autotuned_interval_follows_section_3():

@@ -21,7 +21,11 @@ redesigned kernels (bf16 flash attention and the SSD scan on the tensor
 cores, the fused reverse, the LSTM cell's step loop) give the same bits on
 two calls; a cooperative grid that cannot be resident is refused; the
 fused advance's states are, bit for bit, those of one run of the step
-loop over the segment.  The
+loop over the segment, and each of its chunk entries is a page-locked
+allocation of its own.  The cell kernel under autograd (the per-step
+strategies' path) matches plain autograd through ``lstm_cell_ref`` at
+1e-5, and the Revolve, store-all and interpreted strategies on the card
+match the CPU run.  The
 decoder chains on the card: the offloaded gradient against dense autograd
 on the card, loss 1e-5 relative and each leaf 1e-4 of its max |g|.
 """
@@ -126,10 +130,17 @@ def test_fused_kernels_match_plain(cuda_device, T, chunk):
                                    _dev(xs, cuda_device), None, chunk=chunk)
     out.ready.synchronize()
     assert sf.fused_advance_segment.launches == adv0 + 1
-    assert all(b.is_pinned() for b in out.boundaries)
+    # each chunk entry is page-locked and owns its storage (Level 2 keeps
+    # entries[0] by reference and counts its tree_bytes)
+    for entry in out.entries:
+        assert all(t.is_pinned() for t in entry)
+        assert sum(t.untyped_storage().nbytes() for t in entry) == sum(
+            t.numel() * t.element_size() for t in entry)
     # the plain versions, run on the same card with TF32 off
-    plain = sf.advance_plain(T_BODY, p_dev, _dev(carry, cuda_device),
-                             _dev(xs, cuda_device), None, chunk=chunk)
+    # (the plain chain step: on the card T_BODY launches the cell kernel)
+    plain = sf.advance_plain(lstm.plain_body, p_dev,
+                             _dev(carry, cuda_device), _dev(xs, cuda_device),
+                             None, chunk=chunk)
     for a, b in zip(out.boundaries, plain.boundaries):
         torch.testing.assert_close(a, b.cpu(), rtol=1e-5, atol=1e-5)
     for a, b in zip(out.carry, plain.carry):
@@ -138,7 +149,7 @@ def test_fused_kernels_match_plain(cuda_device, T, chunk):
         T_BODY, (False, False), p_dev, _dev(carry, cuda_device),
         _dev(xs, cuda_device), None, _dev(dcarry, cuda_device), chunk=chunk)
     pdc, pdp, _ = sf.reverse_plain(
-        T_BODY, (False, False), p_dev, _dev(carry, cuda_device),
+        lstm.plain_body, (False, False), p_dev, _dev(carry, cuda_device),
         _dev(xs, cuda_device), None, _dev(dcarry, cuda_device), chunk=chunk)
     assert dxd == []
     for a, b in zip(dc, pdc):
@@ -185,6 +196,73 @@ def test_offloaded_fused_on_card_matches_cpu(cuda_device):
     for name in ("advances", "backwards", "l2_stores", "host_dispatches",
                  "fused_segments", "fused_boundary_copies", "l2_peak_bytes"):
         assert getattr(out["cuda"][2], name) == getattr(out["cpu"][2], name)
+
+
+@pytest.mark.cuda
+def test_lstm_cell_under_autograd_on_card(cuda_device):
+    """The cell kernel inside its autograd Function at the paper's width:
+    one launch forward, none backward (the plain cell's vjp, recomputed),
+    gradients of every input within 1e-5 of plain autograd through
+    ``lstm_cell_ref`` on the card."""
+    rng = np.random.default_rng(31)
+    Bn, Dx, Dh = 256, 64, 256
+    ins = [torch.tensor(a, device=cuda_device) for a in (
+        _np(rng, (Bn, Dx)), _np(rng, (Bn, Dh)), _np(rng, (Bn, Dh)),
+        _np(rng, (Dx + Dh, 4 * Dh), (Dx + Dh) ** -0.5),
+        _np(rng, (4 * Dh,), 0.1))]
+    gh, gc = (torch.tensor(_np(rng, (Bn, Dh)), device=cuda_device)
+              for _ in range(2))
+
+    def grads(cell):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        h, c = cell(*leaves)
+        return [h, c], list(torch.autograd.grad(
+            (h * gh).sum() + (c * gc).sum(), leaves))
+
+    before = lc.lstm_cell.launches
+    out, g = grads(lc.lstm_cell_autograd)
+    torch.cuda.synchronize()
+    assert lc.lstm_cell.launches == before + 1
+    ref_out, ref_g = grads(lstm_cell_ref)
+    for a, b in zip(out + g, ref_out + ref_g):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,forward_steps", [
+    ({"strategy": "conventional"}, 29),
+    ({"strategy": "revolve", "slots": 4}, 29),
+    ({"engine": "interpreted", "interval": 7, "slots": 3}, 0),
+])
+def test_strategies_on_card_match_cpu(cuda_device, kw, forward_steps):
+    """The paper's baselines and the interpreted engine on the card: loss,
+    gradients and counters equal the CPU run, and the cell kernel runs once
+    a chain step (the baselines' forward sweep, each advance, each
+    backward's recompute)."""
+    T = 29
+    rng = np.random.default_rng(8)
+    ref = init_lstm_numpy(8, V, DX, DH)
+    tok = torch.tensor(rng.integers(0, V, (B, T + 1)), dtype=torch.int32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        vg = api.value_and_grad_offloaded(lstm.train_chain(), device=device,
+                                          **kw)
+        before = lc.lstm_cell.launches
+        loss, grads = vg(params_from_numpy(ref, device=device),
+                         {"tokens": tok.to(device)})
+        out[device] = (loss.cpu(), {k: g.cpu() for k, g in grads.items()},
+                       api.last_stats(), lc.lstm_cell.launches - before)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for k, g in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], g, rtol=1e-4,
+                                   atol=1e-4 * float(g.abs().max()))
+    stats = out["cuda"][2]
+    for name in ("advances", "backwards", "host_dispatches",
+                 "peak_l1_states", "l2_stores", "l2_peak_bytes"):
+        assert getattr(stats, name) == getattr(out["cpu"][2], name), name
+    assert out["cpu"][3] == 0
+    assert out["cuda"][3] == forward_steps + stats.advances + stats.backwards
 
 
 @pytest.mark.cuda
@@ -284,7 +362,7 @@ def _reverse_against_plain(T, Bn, chunk, seed):
     args = (body, (False, False), params, carry, xs, None, dcarry)
     dc, dp, _ = sf.fused_reverse_segment(*args, chunk=chunk)
     dc2, dp2, _ = sf.fused_reverse_segment(*args, chunk=chunk)
-    pdc, pdp, _ = sf.reverse_plain(*args, chunk=chunk)
+    pdc, pdp, _ = sf.reverse_plain(lstm.plain_body, *args[1:], chunk=chunk)
     for a, b in zip(dc, dc2):
         assert torch.equal(a, b)
     for k in dp:

@@ -340,6 +340,141 @@ def test_offloaded_gradient_through_the_kernel_sources(card_paths):
                                    atol=1e-4 * float(dense[k].abs().max()))
 
 
+def test_fused_advance_level2_entries_own_their_storage(card_paths,
+                                                      monkeypatch):
+    """Level 2 holds what it counts: every chunk entry of a fused advance
+    is an allocation of its own, and each entry the executor stores (the
+    kernel's ``entries[0]``, kept without a copy) has storage bytes equal to
+    its ``tree_bytes`` — so the store's live bytes are the bytes held."""
+    from repro_torch.api.chain import diff_mask
+    from repro_torch.core import storage
+    from repro_torch.core.compiled_ops import (CompiledChainOps,
+                                               FusedSegmentRunner)
+    from repro_torch.core.executor import CheckpointExecutor
+
+    params, carry, xs, _ = _segment(31, 4, seed=12)
+    out = sf.fused_advance_segment(T_BODY, params, carry, xs, None, chunk=4)
+    assert len(out.entries) == len(sf.forward_bounds(31, 4)) - 1 == 8
+    for entry in out.entries:
+        held = sum(t.untyped_storage().nbytes() for t in entry)
+        assert held == storage.tree_bytes(entry)
+    handed = []
+    real_views = storage._frozen_views
+
+    def views(tree):
+        handed.append(tree)
+        return real_views(tree)
+
+    monkeypatch.setattr(storage, "_frozen_views", views)
+    runner = FusedSegmentRunner(CompiledChainOps(T_BODY, *diff_mask(xs)),
+                                params, xs, None, s_l1=4)
+    _, run = CheckpointExecutor().multistage_forward(
+        carry, 31, interval=12, s_l1=4, runner=runner)
+    run.engine.wait_stores()
+    assert len(handed) == run.plan.num_segments == 3
+    held = [sum(t.untyped_storage().nbytes() for t in tree)
+            for tree in handed]
+    assert held == [storage.tree_bytes(tree) for tree in handed]
+    assert run.engine.backend.live_bytes == sum(held)
+    for seg, tree in zip(run.plan.segments, handed):
+        stored = run.engine.backend.get(seg.begin)
+        assert all(np.shares_memory(a, t.numpy())
+                   for a, t in zip(stored, tree))
+    run.close()
+
+
+def test_fused_advance_slice_handover_is_refused(card_paths):
+    """The hand-over the Level-2 guard exists for: ``leaf[0]`` of a
+    segment's stacked ``(nc, ...)`` boundary buffer would keep all ``nc``
+    chunk entries alive; the store refuses it on the caller's thread."""
+    from repro_torch.core.storage import (AsyncTransferEngine, HostTree,
+                                          RAMStorage)
+
+    params, carry, xs, _ = _segment(13, 3, seed=13)
+    out = sf.fused_advance_segment(T_BODY, params, carry, xs, None, chunk=4)
+    stacked = out.boundaries
+    eng = AsyncTransferEngine(RAMStorage(), device="cpu")
+    with pytest.raises(ValueError, match="own their storage"):
+        eng.store_async(0, HostTree(tuple(leaf[0] for leaf in stacked)))
+    eng.store_async(0, HostTree(out.entries[0]))   # the repaired hand-over
+    eng.wait_stores()
+    assert eng.backend.live_bytes == sum(
+        t.untyped_storage().nbytes() for t in out.entries[0])
+    eng.close()
+
+
+@pytest.fixture
+def cell_on_card(card_paths, monkeypatch):
+    """``lstm_cell`` taking its card path on CPU tensors: one launch of the
+    emulated single-step kernel."""
+    def on_card(x, h, c, w, b):
+        h_out, c_out = torch.empty_like(h), torch.empty_like(c)
+        lc._launch("lstm_cell_f32", x, None, h, c, w, b, h_out, c_out, None,
+                   None)
+        return h_out, c_out
+
+    on_card.launches = on_card.steps = 0
+    monkeypatch.setattr(lc, "lstm_cell", on_card)
+    return on_card
+
+
+def test_lstm_cell_kernel_under_autograd(cell_on_card):
+    """``lstm_cell_autograd``: the kernel forward (one launch), and as
+    backward the vjp of the plain cell recomputed from the saved inputs (no
+    launch); gradients of every input within 1e-5 of plain autograd through
+    ``lstm_cell_ref``."""
+    rng = np.random.default_rng(21)
+    Bn, Dx, Dh = 9, 8, 20
+    ins = [torch.tensor(a) for a in (
+        _np(rng, (Bn, Dx)), _np(rng, (Bn, Dh)), _np(rng, (Bn, Dh)),
+        _np(rng, (Dx + Dh, 4 * Dh), 0.2), _np(rng, (4 * Dh,), 0.1))]
+    gh, gc = (torch.tensor(_np(rng, (Bn, Dh))) for _ in range(2))
+
+    def grads(cell):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        h, c = cell(*leaves)
+        return (h, c), torch.autograd.grad(
+            (h * gh).sum() + (c * gc).sum(), leaves)
+
+    (h, c), g = grads(lc.lstm_cell_autograd)
+    assert cell_on_card.launches == 1
+    (hr, cr), gr = grads(lstm_cell_ref)
+    torch.testing.assert_close(h, hr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(c, cr, rtol=1e-5, atol=1e-5)
+    for a, b in zip(g, gr):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kw,forward_steps", [
+    ({"strategy": "conventional"}, 19),
+    ({"strategy": "revolve", "slots": 4}, 19),
+    ({"engine": "interpreted", "interval": 7, "slots": 3}, 0),
+])
+def test_strategies_run_the_cell_kernel_once_a_step(cell_on_card, kw,
+                                                    forward_steps):
+    """Through the front door, every chain step of the per-step strategies
+    runs the cell kernel once: the forward sweep that computes ``x_n`` (the
+    baselines'; the multistage forward is the executor's own), each
+    advance, and each backward's recompute.  Loss and gradients agree with
+    dense autograd of the plain cell."""
+    params, _, _, _ = _segment(1, 1, seed=14)
+    tok = torch.tensor(np.random.default_rng(2).integers(0, V, (4, 20)),
+                       dtype=torch.int32)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    loss = lstm.forward_loss(leaves, tok)
+    dense = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    v, g = api.value_and_grad_offloaded(lstm.train_chain(), device="cpu",
+                                        **kw)(params, {"tokens": tok})
+    stats = api.last_stats()
+    assert cell_on_card.launches == (forward_steps + stats.advances
+                                     + stats.backwards)
+    torch.testing.assert_close(v, loss.detach(), rtol=1e-5, atol=0)
+    for k in dense:
+        torch.testing.assert_close(g[k], dense[k], rtol=1e-4,
+                                   atol=1e-4 * float(dense[k].abs().max()))
+
+
 @pytest.mark.parametrize("B,Sq,Sk,H,G,D,dtype,kw", [
     # two query tiles with a ragged edge, a ragged last kv tile
     (1, 70, 70, 2, 1, 16, torch.float32, {}),

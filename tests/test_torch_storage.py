@@ -244,9 +244,9 @@ def test_tensor_store_is_a_snapshot():
 def test_host_tree_buffers_become_the_level2_copy():
     """A kernel-written HostTree is stored without a copy, read-only, and
     read back intact."""
-    buf = torch.arange(6.0).reshape(2, 3)
+    buf, acc = torch.arange(3.0), torch.tensor(3.0)
     eng = AsyncTransferEngine(RAMStorage(), device="cpu")
-    eng.store_async(7, HostTree((buf[0], buf[1, 0])))
+    eng.store_async(7, HostTree((buf, acc)))
     eng.wait_stores()
     stored = eng.backend.get(7)
     assert not stored[0].flags.writeable
@@ -256,6 +256,26 @@ def test_host_tree_buffers_become_the_level2_copy():
     got = eng.wait_prefetch(7)
     torch.testing.assert_close(got[0], torch.tensor([0.0, 1.0, 2.0]))
     assert float(got[1]) == 3.0
+    eng.close()
+
+
+@pytest.mark.parametrize("leaf", [
+    lambda buf: buf[0],        # one chunk of a (chunks, ...) buffer
+    lambda buf: buf[1, :2],    # a strided piece of it
+    lambda buf: buf.view(-1)[:3],
+])
+def test_host_tree_slice_of_a_larger_storage_is_refused(leaf):
+    """Level 2 keeps a handed-over buffer by reference, so a leaf that is
+    a slice of a larger storage would keep the whole storage alive while
+    Level 2 counts the slice: the store is refused on the caller's thread
+    and nothing is stored."""
+    buf = torch.arange(6.0).reshape(2, 3)
+    eng = AsyncTransferEngine(RAMStorage(), device="cpu")
+    with pytest.raises(ValueError, match="own their storage"):
+        eng.store_async(0, HostTree((leaf(buf), torch.tensor(1.0))))
+    eng.wait_stores()
+    assert 0 not in eng.backend and eng.num_stores == 0
+    assert eng.backend.peak_bytes == 0
     eng.close()
 
 
