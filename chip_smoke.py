@@ -58,7 +58,21 @@ Phases, each printing its own lines:
               run) to one a chain step: the baselines' forward sweep, each
               advance, each backward's recompute and each autotune probe
               step.
-6. dense    — ``value_and_grad_offloaded(get_model(gemma2-2b).train_loss)``
+6. level2   — the other Level-2 backends through the front door on
+              ``lstm-paper`` at ``train_4k``, ``runner="fused"``, each under
+              phase ``main``'s gates and launch counts: ``storage="disk"``
+              autotuned (no checkpoint left, live bytes 0 after);
+              ``"tiered"`` pinned at I=256 (16 boundaries; host RAM at
+              the same I first) with fast tiers of 16, 8 and 1 states (fast
+              peak equal to
+              ``fast_peak_bytes_model``, evictions to the plan's spills,
+              prefetch depth to its distance) and autotuned with 64 states
+              (``T_T_slow`` > 0, the reference's interval rule);
+              ``"compressed"`` autotuned (each leaf within 5e-2 of its
+              scale, the reference's bound; under half the raw bytes
+              written).  The slow tier is a directory under the out-dir
+              (its filesystem printed, removed afterwards).
+7. dense    — ``value_and_grad_offloaded(get_model(gemma2-2b).train_loss)``
               (``runner="compiled"``, autotuned) at full width and depth (26
               layers, 13 chain steps), ``train_4k`` with the global batch
               cut from 256 to 2, weights from a seeded CUDA generator; held
@@ -68,10 +82,14 @@ Phases, each printing its own lines:
               main path, autotune probe included); a second call, with the
               schedule cached, is timed against a second (warm) dense call.
               Then one ``strategy="revolve"`` run (4 slots) under the same
-              gates, ``flash_attention`` launched twice a step as above.
-7. ssm      — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
+              gates, ``flash_attention`` launched twice a step as above, and
+              one ``storage="tiered"`` run at I=1 with a fast tier of 4
+              boundary states over disk (fast peak and evictions as the
+              model and plan say; a bf16 boundary spilled and promoted
+              back bit for bit).
+8. ssm      — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
               and ``ssd_scan``.
-8. timing   — each kernel, its plain version and the nearest library call
+9. timing   — each kernel, its plain version and the nearest library call
               timed with CUDA events at the main path's shapes, with the
               achieved TFLOP/s where the bound is operations; the fused
               reverse at T=1000 also by part (recompute, hoisted products,
@@ -85,7 +103,7 @@ Phases, each printing its own lines:
               (the same); the step loop over a recompute chunk per launch
               and per step, beside cuDNN's multi-step LSTM on the same
               chunk.
-9. train    — three RMSProp steps through the offloaded LSTM gradient; the
+10. train   — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over one main-path
@@ -117,8 +135,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 DEFAULT_OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
-PHASES = ("device", "build", "kernels", "main", "strategies", "dense", "ssm",
-          "timing", "train")
+PHASES = ("device", "build", "kernels", "main", "strategies", "level2",
+          "dense", "ssm", "timing", "train")
 OPTIONAL = ("profile",)   # run only when named in --phases
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 bandwidth (data sheet)
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores (data sheet)
@@ -760,7 +778,8 @@ def _dense_reference(torch, params, batch):
     return loss.detach(), dict(zip(leaves, grads))
 
 
-def _check_against(label, loss, grads, ref_loss, ref_grads):
+def _check_against(label, loss, grads, ref_loss, ref_grads,
+                   grad_limit=1e-4):
     rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
     gerr = {k: scaled_err(grads[k], ref_grads[k]) for k in ref_grads}
     finite = all(bool(g.isfinite().all()) for g in grads.values())
@@ -770,8 +789,48 @@ def _check_against(label, loss, grads, ref_loss, ref_grads):
             f"{label}: gradient shapes differ from the parameters'")
     require(rel <= 1e-5, f"{label}: loss rel err {rel} > 1e-5")
     worst = max(gerr.values())
-    require(worst <= 1e-4, f"{label}: gradient scaled err {gerr} > 1e-4")
+    require(worst <= grad_limit,
+            f"{label}: gradient scaled err {gerr} > {grad_limit}")
     return rel, worst
+
+
+def _fused_counts():
+    """The LSTM kernels' launch counters and kernel 1's step-loop counters
+    by caller, now."""
+    from repro_torch.kernels import lstm_cell as lc
+    from repro_torch.kernels import segment_fused as sf
+
+    launches = {"lstm_cell": lc.lstm_cell.launches,
+                "fused_advance_segment": sf.fused_advance_segment.launches,
+                "fused_reverse_segment": sf.fused_reverse_segment.launches}
+    cells = {"advance": (sf.fused_advance_segment.cell_launches,
+                         sf.fused_advance_segment.cell_steps),
+             "reverse": (sf.fused_reverse_segment.cell_launches,
+                         sf.fused_reverse_segment.cell_steps)}
+    return launches, cells
+
+
+def _check_fused_launches(label, before, plan, tune, stats):
+    """Phase ``main``'s launch gates for one fused gradient: the fused
+    advance once a segment and once a probe call, the reverse once a
+    segment, and kernel 1's launches and steps by caller as the plan
+    implies.  ``before``: :func:`_fused_counts` before the run."""
+    now, cells_now = _fused_counts()
+    grew = {k: now[k] - before[0][k] for k in now}
+    cells = {k: (cells_now[k][0] - before[1][k][0],
+                 cells_now[k][1] - before[1][k][1]) for k in cells_now}
+    segs = plan.num_segments
+    probe = tune.probe_calls   # one fused advance each
+    require(grew["fused_advance_segment"] == segs + probe
+            and grew["fused_reverse_segment"] == segs,
+            f"{label}: fused launches {grew} for {segs} segments "
+            f"(+{probe} probe launches)")
+    require(stats.fused_segments == 2 * segs,
+            f"{label}: stats.fused_segments {stats.fused_segments}")
+    want = expected_cell_work(plan, tune)
+    require(cells == want, f"{label}: kernel 1's launches and steps by "
+            f"caller {cells}, the plan implies {want}")
+    return grew, cells
 
 
 def phase_main(state) -> None:
@@ -784,22 +843,17 @@ def phase_main(state) -> None:
     lstm_inputs(state)
     model, params, batch = state["model"], state["params"], state["batch"]
     ref_loss, ref_grads = lstm_reference(params, batch, "main")
+    state["lstm_ref"] = (ref_loss, ref_grads)
 
-    kernels = {"lstm_cell": lc.lstm_cell,
-               "fused_advance_segment": sf.fused_advance_segment,
-               "fused_reverse_segment": sf.fused_reverse_segment}
-    callers = {"advance": sf.fused_advance_segment,
-               "reverse": sf.fused_reverse_segment}
-    for fn in kernels.values():
+    for fn in (lc.lstm_cell, sf.fused_advance_segment,
+               sf.fused_reverse_segment):
         fn.launches = 0
     lc.lstm_cell.steps = 0
-    for fn in callers.values():
+    for fn in (sf.fused_advance_segment, sf.fused_reverse_segment):
         fn.cell_launches = fn.cell_steps = 0
     runs = []
     for label, kw in (("autotuned", {}), ("pinned", {"interval": 1000})):
-        before = {k: fn.launches for k, fn in kernels.items()}
-        cells0 = {k: (fn.cell_launches, fn.cell_steps)
-                  for k, fn in callers.items()}
+        before = _fused_counts()
         vg = api.value_and_grad_offloaded(model.train_loss, runner="fused",
                                           device="cuda", **kw)
         torch.cuda.reset_peak_memory_stats()
@@ -811,22 +865,8 @@ def phase_main(state) -> None:
             api.last_plan()
         l1_peak = torch.cuda.max_memory_allocated()
         rel, gerr = _check_against(label, loss, grads, ref_loss, ref_grads)
-        grew = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        grew, cells = _check_fused_launches(label, before, plan, tune, stats)
         segs = plan.num_segments
-        # the autotune probe's calls are one fused advance each
-        probe = tune.probe_calls
-        require(grew["fused_advance_segment"] == segs + probe
-                and grew["fused_reverse_segment"] == segs,
-                f"{label}: fused launches {grew} for {segs} segments "
-                f"(+{probe} probe launches)")
-        require(stats.fused_segments == 2 * segs,
-                f"{label}: stats.fused_segments {stats.fused_segments}")
-        cells = {k: (fn.cell_launches - cells0[k][0],
-                     fn.cell_steps - cells0[k][1])
-                 for k, fn in callers.items()}
-        want = expected_cell_work(plan, tune)
-        require(cells == want, f"{label}: kernel 1's launches and steps by "
-                f"caller {cells}, the plan implies {want}")
         log(f"[main] {label}: tune I={tune.interval} s={tune.slots} "
             f"T_A={tune.t_a:.6e}s T_T={tune.t_t:.6e}s ({tune.source}); "
             f"plan {plan.plan_id} ({segs} segments)")
@@ -848,7 +888,7 @@ def phase_main(state) -> None:
                      "slots": tune.slots, "t_a": tune.t_a, "t_t": tune.t_t,
                      "wall_s": wall, "l2_peak_bytes": stats.l2_peak_bytes,
                      "l1_peak_device_bytes": l1_peak})
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = _fused_counts()[0]
     for k, n in launches.items():
         require(n > 0, f"{k} was not launched on the main path")
     log(f"[main] lstm_cell: {launches['lstm_cell']} launches ran "
@@ -943,6 +983,200 @@ def phase_strategies(state) -> None:
             f"lstm_cell.launches={launches}")
 
 
+class _SpyBackends:
+    """Records the Level-2 backends the front door builds in its scope,
+    so their counters can be read after a run (the run itself is not
+    changed)."""
+
+    def __enter__(self):
+        from repro_torch.api import frontend as fe
+
+        self._fe, self._real, self.made = fe, fe.make_backend, []
+
+        def spy(kind, **kw):
+            self.made.append(self._real(kind, **kw))
+            return self.made[-1]
+
+        fe.make_backend = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._fe.make_backend = self._real
+
+
+def fs_type(path: str) -> str:
+    """The filesystem type of ``path``: the longest mount point in
+    ``/proc/mounts`` that contains it."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 3:
+                continue
+            mnt = parts[1].replace("\\040", " ")
+            inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) > len(best):
+                best, kind = mnt, parts[2]
+    return f"{kind} (mounted at {best})"
+
+
+def _host_allocator_stats(torch) -> str:
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return "not exposed by this PyTorch"
+    s = stats()
+    keys = [k for k in ("allocated_bytes.current", "active_bytes.current",
+                        "allocations.current", "active_requests.current",
+                        "num_host_alloc", "num_host_free") if k in s]
+    if not keys:
+        keys = sorted(s)[:8]
+    return ", ".join(f"{k}={s[k]}" for k in keys) or "no statistics"
+
+
+# pinned interval and budgets (in boundary states) of phase level2's tiered
+# runs: 16 boundaries of 524,292 B at train_4k
+LEVEL2_I = 256
+LEVEL2_BUDGETS = (16, 8, 1)
+LEVEL2_AUTOTUNED_BUDGET = 64
+
+
+def phase_level2(state) -> None:
+    """The other Level-2 backends through the front door on ``lstm-paper``
+    at ``train_4k`` (B=256, S=4096), ``runner="fused"``: (a) disk,
+    autotuned; (b) tiered at I=256 with budgets of 16, 8 and 1 boundary
+    states, after host RAM at the same I; (c) tiered, autotuned, 64
+    states; (d) int8-compressed, autotuned.  Each under phase ``main``'s gates (compressed: each leaf
+    within the reference's 5e-2 of its scale) and launch counts; the slow
+    tier lives in a directory under the out-dir, removed afterwards."""
+    import shutil
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import perfmodel
+    from repro_torch.core.storage import tree_bytes
+
+    lstm_inputs(state)
+    model, params, batch = state["model"], state["params"], state["batch"]
+    if "lstm_ref" not in state:
+        state["lstm_ref"] = lstm_reference(params, batch, "level2")
+    ref_loss, ref_grads = state["lstm_ref"]
+    n = batch["tokens"].shape[1] - 1
+    carry0, _ = model.train_loss.chain_spec.prelude(params, batch)
+    sb = tree_bytes(carry0)
+    directory = os.path.join(state["out_dir"], "level2")
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    ram = state.get("runs")
+    log(f"[level2] slow tier in {directory}: filesystem "
+        f"{fs_type(directory)}; no fsync, so a disk figure is the page "
+        f"cache's; boundary state {sb} B"
+        + (f"; the RAM run (phase main, autotuned): wall "
+           f"{ram[0]['wall_s']:.3f}s, I={ram[0]['interval']}" if ram
+           else ""))
+
+    before_path = _fused_counts()
+    runs = []
+    cases = [("disk, autotuned", {"storage": "disk"}),
+             (f"ram I={LEVEL2_I} (the tiered runs' baseline)",
+              {"storage": "ram", "interval": LEVEL2_I})]
+    cases += [(f"tiered I={LEVEL2_I}, {k} states",
+               {"storage": "tiered", "interval": LEVEL2_I,
+                "l2_capacity_bytes": k * sb}) for k in LEVEL2_BUDGETS]
+    cases += [(f"tiered, autotuned, {LEVEL2_AUTOTUNED_BUDGET} states",
+               {"storage": "tiered",
+                "l2_capacity_bytes": LEVEL2_AUTOTUNED_BUDGET * sb}),
+              ("compressed, autotuned", {"storage": "compressed"})]
+    for label, kw in cases:
+        storage = kw["storage"]
+        vg = api.value_and_grad_offloaded(
+            model.train_loss, runner="fused", device="cuda",
+            storage_dir=directory if storage in ("disk", "tiered")
+            else None,
+            **kw)
+        before = _fused_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _SpyBackends() as spy:
+            t0 = time.perf_counter()
+            loss, grads = vg(params, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        l1_peak = torch.cuda.max_memory_allocated()
+        tune, stats, plan = api.last_tune(), api.last_stats(), \
+            api.last_plan()
+        require(len(spy.made) == 1, f"{label}: {len(spy.made)} backends")
+        backend = spy.made[0]
+        limit = 5e-2 if storage == "compressed" else 1e-4
+        rel, gerr = _check_against(label, loss, grads, ref_loss, ref_grads,
+                                   grad_limit=limit)
+        grew, _ = _check_fused_launches(label, before, plan, tune, stats)
+        segs = plan.num_segments
+        leftover = [f for f in os.listdir(directory) if f.startswith("ckpt_")]
+        require(not leftover and backend.live_bytes == 0,
+                f"{label}: {leftover} left in {directory}, live bytes "
+                f"{backend.live_bytes}")
+        if storage == "tiered":
+            cap = kw["l2_capacity_bytes"]
+            tier = plan.tier_plan(cap, sb)
+            model_peak = perfmodel.fast_peak_bytes_model(
+                n, plan.interval, sb, cap)
+            require(stats.l2_fast_peak_bytes == model_peak <= cap
+                    and stats.l2_evictions == tier.spilled
+                    and stats.prefetch_depth == tier.prefetch_distance,
+                    f"{label}: fast peak {stats.l2_fast_peak_bytes} (model "
+                    f"{model_peak}, cap {cap}), evictions "
+                    f"{stats.l2_evictions} (plan {tier.spilled}), prefetch "
+                    f"depth {stats.prefetch_depth} (plan "
+                    f"{tier.prefetch_distance})")
+            if tune.source == "measured":
+                require(tune.t_t_slow > 0 and tune.capacity_bytes == cap,
+                        f"{label}: t_t_slow {tune.t_t_slow}, capacity "
+                        f"{tune.capacity_bytes}")
+                if math.ceil(n / tune.interval) * sb > cap:
+                    require(tune.interval * tune.t_a
+                            >= min(tune.t_t, tune.t_t_slow),
+                            f"{label}: I={tune.interval} does not hide "
+                            "the cheaper tier's transfer")
+        if storage == "compressed":
+            ratio = backend.bytes_written / backend.raw_bytes
+            require(ratio < 0.5, f"{label}: bytes written {ratio:.3f} of "
+                    "the raw bytes")
+            errs = {k: f"{scaled_err(grads[k], ref_grads[k]):.3g}"
+                    for k in ref_grads}
+            log(f"[level2] {label}: per-leaf grad scaled err {errs} (limit "
+                f"5e-2, the reference's); bytes written "
+                f"{backend.bytes_written} of raw {backend.raw_bytes} "
+                f"({ratio:.4f})")
+        log(f"[level2] {label}: T_A={tune.t_a:.6e}s T_T={tune.t_t:.6e}s "
+            f"T_T_slow={tune.t_t_slow:.6e}s I={tune.interval} "
+            f"({tune.source}); {segs} segments; wall {wall:.3f}s; loss rel "
+            f"err {rel:.3g}, grad scaled err {gerr:.3g}; launches {grew}")
+        log(f"[level2] {label}: l1_peak_device_bytes={l1_peak} "
+            f"l2_peak_bytes={stats.l2_peak_bytes} "
+            f"l2_fast_peak_bytes={stats.l2_fast_peak_bytes} "
+            f"evictions={stats.l2_evictions} "
+            f"promotions={stats.l2_promotions} "
+            f"prefetch_depth={stats.prefetch_depth} "
+            f"l2_staged_peak_bytes={stats.l2_staged_peak_bytes} "
+            f"store_stall_s={stats.store_stall_s:.4f} "
+            f"prefetch_stall_s={stats.prefetch_stall_s:.4f}")
+        if storage == "tiered":
+            log(f"[level2] {label}: page-locked host allocator "
+                f"{_host_allocator_stats(torch)}")
+        runs.append({"label": label, "interval": tune.interval,
+                     "segments": segs, "wall_s": wall, "l1_peak": l1_peak})
+        del loss, grads, vg
+    shutil.rmtree(directory)
+    launches = {k: v - before_path[0][k]
+                for k, v in _fused_counts()[0].items()}
+    for k, c in launches.items():
+        require(c > 0, f"{k} was not launched in phase level2")
+    log(f"[level2] launches in this phase: {launches}")
+    state["level2"] = runs
+
+
 def lstm_inputs(state) -> None:
     """``lstm-paper`` at ``train_4k`` with seeded weights, into ``state``
     (once)."""
@@ -1005,14 +1239,16 @@ def _tree_value_and_grad(torch, loss_fn, params, batch):
 
 
 def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
-                  per_step, revolve_slots=None) -> None:
+                  per_step, revolve_slots=None, tiered_states=None) -> None:
     """The offloaded gradient of a decoder (``runner="compiled"``,
     autotuned) at full width and depth, ``train_4k`` with the global batch
     cut to ``batch_size``, held against dense autograd of ``train_loss``.
     ``kernels``: name -> wrapper; ``per_step``: launches of each per chain
     step advanced (forward sweep, autotune probe and the reverse's
     recompute alike).  With ``revolve_slots``, also one
-    ``strategy="revolve"`` gradient with that many Level-1 slots."""
+    ``strategy="revolve"`` gradient with that many Level-1 slots; with
+    ``tiered_states``, one ``storage="tiered"`` gradient at I=1 whose fast
+    tier holds that many boundary states."""
     import torch
     from torch.utils import _pytree as pytree
 
@@ -1112,6 +1348,9 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     if revolve_slots is not None:
         decoder_revolve(key, model, params, batch, ref_loss, ref_grads,
                         kernels, per_step, revolve_slots)
+    if tiered_states is not None:
+        decoder_tiered(state, key, model, params, batch, ref_loss, ref_grads,
+                       kernels, per_step, tiered_states)
     state[key] = {"arch": arch, "B": batch_size, "S": shape.seq_len,
                   "interval": tune.interval, "slots": tune.slots,
                   "segments": plan.num_segments, "wall_s": wall,
@@ -1176,13 +1415,113 @@ def decoder_revolve(key, model, params, batch, ref_loss, ref_grads, kernels,
         f"l1_peak_device_bytes={l1_peak}; launches {launches}")
 
 
+def decoder_tiered(state, key, model, params, batch, ref_loss, ref_grads,
+                   kernels, per_step, states) -> None:
+    """One ``storage="tiered"`` gradient of a decoder at I=1 with a fast
+    tier of ``states`` boundary states over a disk slow tier under the
+    out-dir, under its phase's gates: the fast peak equals
+    ``fast_peak_bytes_model``, the evictions the plan's spills, each
+    kernel ``per_step`` launches a step advanced.  First, the boundary
+    itself (bf16) goes through a one-state tier and back to the card: the
+    spilled copy, read from disk, is bit for bit the stored one."""
+    import shutil
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import api
+    from repro_torch.core import perfmodel
+    from repro_torch.core.storage import (AsyncTransferEngine, TieredStorage,
+                                          tree_bytes)
+
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    directory = os.path.join(state["out_dir"], f"{key}_level2")
+    shutil.rmtree(directory, ignore_errors=True)
+    with torch.no_grad():
+        carry0, _ = model.train_loss.chain_spec.prelude(params, batch)
+    sb = tree_bytes(carry0)
+    eng = AsyncTransferEngine(TieredStorage(sb, directory=directory),
+                              device="cuda")
+    eng.store_async(0, carry0)
+    eng.store_async(1, carry0)   # spills key 0 to disk
+    eng.wait_stores()
+    require(eng.backend.evictions == 1, f"{key}: the one-state tier did not "
+            "spill")
+    for k in (0, 1):
+        eng.prefetch_async(k)
+        got = eng.wait_prefetch(k)
+        for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(carry0)):
+            require(a.dtype == b.dtype and torch.equal(
+                a.view(bits[a.dtype]), b.view(bits[b.dtype])),
+                f"{key}: boundary {k} ({a.dtype}) did not round-trip bit "
+                "for bit")
+        eng.delete(k)
+    eng.close()
+    del carry0, got
+    log(f"[{key}] tiered: a {sb} B boundary (bf16 hidden state and f32 "
+        f"aux) spilled to disk ({fs_type(directory)}) and promoted back to "
+        "the card bit for bit")
+
+    cap = states * sb
+    vg = api.value_and_grad_offloaded(model.train_loss, storage="tiered",
+                                      l2_capacity_bytes=cap,
+                                      storage_dir=directory, interval=1,
+                                      device="cuda")
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = vg(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    l1_peak = torch.cuda.max_memory_allocated()
+    stats, plan = api.last_stats(), api.last_plan()
+    grads = pytree.tree_leaves(grads)
+    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    require(math.isfinite(float(loss))
+            and all(bool(g.isfinite().all()) for g in grads),
+            f"{key} tiered: non-finite loss or gradients")
+    gerr = max(scaled_err(a, b) for a, b in zip(grads, ref_grads))
+    require(rel <= 1e-5, f"{key} tiered: loss rel err {rel} > 1e-5")
+    require(gerr <= 1e-3, f"{key} tiered: gradient scaled err {gerr} > 1e-3")
+    tier = plan.tier_plan(cap, sb)
+    model_peak = perfmodel.fast_peak_bytes_model(stats.n, 1, sb, cap)
+    require(stats.l2_fast_peak_bytes == model_peak <= cap
+            and stats.l2_evictions == tier.spilled
+            and stats.prefetch_depth == tier.prefetch_distance,
+            f"{key} tiered: fast peak {stats.l2_fast_peak_bytes} (model "
+            f"{model_peak}), evictions {stats.l2_evictions} (plan "
+            f"{tier.spilled}), prefetch depth {stats.prefetch_depth}")
+    for name, got in launches.items():
+        want = per_step[name] * stats.advances
+        require(got == want and got > 0,
+                f"{key} tiered: {name} launched {got} times, expected "
+                f"{want}")
+    require(not os.listdir(directory), f"{key} tiered: files left in "
+            f"{directory}")
+    shutil.rmtree(directory)
+    log(f"[{key}] tiered I=1, {states} states ({cap} B): loss rel err "
+        f"{rel:.3g}, grad scaled err {gerr:.3g}; wall {wall:.3f}s; "
+        f"{plan.num_segments} segments; l1_peak_device_bytes={l1_peak} "
+        f"l2_peak_bytes={stats.l2_peak_bytes} "
+        f"l2_fast_peak_bytes={stats.l2_fast_peak_bytes} "
+        f"evictions={stats.l2_evictions} promotions={stats.l2_promotions} "
+        f"prefetch_depth={stats.prefetch_depth} "
+        f"store_stall_s={stats.store_stall_s:.4f} "
+        f"prefetch_stall_s={stats.prefetch_stall_s:.4f}; launches "
+        f"{launches}; page-locked host allocator "
+        f"{_host_allocator_stats(torch)}")
+
+
 def phase_dense(state) -> None:
     from repro_torch.kernels import flash_attention as fa
 
     # every layer of gemma2-2b's (local, global) period is attention
     decoder_phase(state, "dense", "gemma2-2b", 2,
                   {"flash_attention": fa.flash_attention},
-                  {"flash_attention": 2}, revolve_slots=4)
+                  {"flash_attention": 2}, revolve_slots=4, tiered_states=4)
 
 
 def phase_ssm(state) -> None:
@@ -1782,7 +2121,8 @@ def main(argv=None) -> int:
              "profile": "profile" in phases}
     steps = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "main": phase_main,
-             "strategies": phase_strategies, "dense": phase_dense, "ssm": phase_ssm,
+             "strategies": phase_strategies, "level2": phase_level2,
+             "dense": phase_dense, "ssm": phase_ssm,
              "timing": phase_timing, "train": phase_train,
              "profile": phase_profile}
     for name in PHASES + OPTIONAL:

@@ -1,6 +1,6 @@
 # Port of repro/api/autotune.py: TuneResult, snap_interval, default_slots,
 # AutoTuner.measure (one Level-2 stream; the per-step and per-segment
-# probes) and AutoTuner.manual.
+# probes; the tiered backend's slow-tier probe) and AutoTuner.manual.
 """Schedule auto-tuning from the paper's §3 performance model.
 
 The multistage strategy has two knobs: the Level-2 store interval ``I`` and
@@ -13,11 +13,13 @@ one interpreted step, or one segment probe of the runner over its length)
 and one Level-2 store of a boundary made through the engine's own store
 path (``T_T``: the snapshot and the writer's put the run makes), on the
 device the run uses — on the card these are the card's own numbers; nothing
-is taken from a data sheet or another chip.  The interval is snapped with
+is taken from a data sheet or another chip.  A capacity-bounded
+(``TieredStorage``) backend gets a second store probe through its slow tier
+(``T_T_slow``), and ``I`` comes from the capacity-aware effective transfer
+time (``perfmodel.choose_tiered_interval``).  The interval is snapped with
 :func:`snap_interval` and cached per ``(model and engine, seq-len, state
-size, Level-2 kind, device)``.  Scan-engine,
-roofline, 2D, tiered and sharded tuning come later (ROADMAP queue 1,
-items 9, 11, 13 and 15).
+size, Level-2 kind and budget, device)``.  Scan-engine, roofline, 2D and
+sharded tuning come later (ROADMAP queue 1, items 11, 13 and 15).
 """
 from __future__ import annotations
 
@@ -29,8 +31,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.perfmodel import H100, HardwareSpec, optimal_interval
-from repro_torch.core.storage import tree_bytes
+from repro_torch.core.perfmodel import (H100, HardwareSpec,
+                                        choose_tiered_interval,
+                                        effective_transfer_time,
+                                        optimal_interval)
+from repro_torch.core.storage import TieredStorage, tree_bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +53,10 @@ class TuneResult:
     # probe_len chain steps (0 for a manual or cached schedule)
     probe_calls: int = 0
     probe_len: int = 0
+    # tiered backend: slow-tier transfer time of one boundary state (s) and
+    # the fast-tier budget the interval was chosen for
+    t_t_slow: float = 0.0
+    capacity_bytes: Optional[int] = None
 
 
 def snap_interval(n: int, target: int) -> int:
@@ -89,9 +98,9 @@ def _device_kind(tree: Any) -> str:
 class AutoTuner:
     """Measures (T_A, T_T) once and caches the chosen schedule.
 
-    Cache key: ``(name, n, state_bytes, level2-kind, device)``; the
-    front-end's ``name`` carries the engine and runner, whose probes
-    differ.  ``hw`` is the hardware the tuner plans for (default: the
+    Cache key: ``(name, n, state_bytes, level2-kind, device)``, the kind
+    of a tiered backend with its budget; the front-end's ``name`` carries
+    the engine and runner, whose probes differ.  ``hw`` is the hardware the tuner plans for (default: the
     H100); its numbers are not used by :meth:`measure`, which times the
     device in hand.
     """
@@ -146,10 +155,22 @@ class AutoTuner:
         place of ``state0``: for the fused runner, a chunk entry that the
         last probe's fused advance wrote (its in-kernel copy is inside
         ``T_A``; the store pays only the rest).
+
+        A :class:`TieredStorage` backend is probed once more through its
+        slow tier with the same payload (``T_T_slow``).  When one state
+        overflows the budget the fast probe itself went to the slow tier,
+        so ``T_T`` is the cheaper of the two; ``I`` is
+        ``perfmodel.choose_tiered_interval``'s, and a snap below it is
+        kept only while the effective transfer time still hides behind a
+        segment's compute.
         """
+        backend = engine.backend
         state_bytes = tree_bytes(state0)
-        key = (name, n, state_bytes, type(engine.backend).__name__,
-               _device_kind(state0))
+        level2 = type(backend).__name__
+        if isinstance(backend, TieredStorage):
+            # the optimum depends on the budget: key it into the cache
+            level2 = f"{level2}[{backend.capacity_bytes}]"
+        key = (name, n, state_bytes, level2, _device_kind(state0))
         cached = self.lookup(key)
         if cached is not None:
             return dataclasses.replace(cached, probe_calls=0)
@@ -174,17 +195,44 @@ class AutoTuner:
             # the previous probe's entry goes first, so its page-locked
             # buffer is reused, as each call after a run's first reuses
             # the buffers the previous call freed
-            engine.backend.delete(tune_key)
+            backend.delete(tune_key)
             engine.store_now(tune_key, tree)
 
         t_t = self._time(one_store)
-        engine.backend.delete(tune_key)
-        interval = snap_interval(n, optimal_interval(t_t, t_a))
+        backend.delete(tune_key)
+        t_t_slow = 0.0
+        capacity = None
+        if isinstance(backend, TieredStorage):
+            capacity = backend.capacity_bytes
+
+            def one_slow_store():
+                backend.slow.delete(tune_key)
+                engine.store_now(tune_key, tree, backend=backend.slow)
+
+            t_t_slow = self._time(one_slow_store)
+            backend.slow.delete(tune_key)
+            if state_bytes > capacity:
+                # the fast probe bypassed to the slow tier: the cheaper of
+                # the two is the fast tier's own time
+                t_t = min(t_t, t_t_slow)
+            target = choose_tiered_interval(n, state_bytes, capacity, t_a,
+                                            t_t, t_t_slow)
+        else:
+            target = optimal_interval(t_t, t_a)
+        interval = snap_interval(n, target)
+        if capacity is not None and interval < target:
+            # the tiered target is a minimum viable interval: a snap onto a
+            # smaller divisor stays only while the transfers still hide
+            t_t_eff = effective_transfer_time(n, interval, state_bytes,
+                                              capacity, t_t, t_t_slow)
+            if t_t_eff > interval * t_a:
+                interval = target
         slots = default_slots(interval, self.l1_budget_states)
         return self.store(key, TuneResult(
             interval=interval, slots=slots, t_a=t_a, t_t=t_t,
             state_bytes=state_bytes, n=n, source="measured",
-            probe_calls=1 + self.repeats, probe_len=segment_len))
+            probe_calls=1 + self.repeats, probe_len=segment_len,
+            t_t_slow=t_t_slow, capacity_bytes=capacity))
 
     def manual(self, name: str, *, n: int, interval: int,
                slots: Optional[int] = None,

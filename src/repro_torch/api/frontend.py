@@ -1,7 +1,7 @@
 # Port of repro/api/frontend.py: OffloadConfig, value_and_grad_offloaded
 # (strategies multistage_async, revolve and conventional; engines compiled
-# and interpreted; storage="ram"), checkpointed_bptt and
-# last_stats/last_tune/last_plan.
+# and interpreted; the storage kinds of the backend registry and backend=),
+# _make_backend, checkpointed_bptt and last_stats/last_tune/last_plan.
 """Drop-in autodiff front-end for asynchronous multistage checkpointing.
 
 ``value_and_grad_offloaded(loss)`` is the paper's technique packaged the way
@@ -9,8 +9,9 @@ a ``value_and_grad`` is: hand it a loss, get back a function returning
 ``(loss, grads)``.  The difference is *how* the backward pass runs:
 
 * the forward chain executes one segment runner call per interval while
-  the ``AsyncTransferEngine`` streams every ``I``-th carry to Level-2 host
-  RAM on a background thread;
+  the ``AsyncTransferEngine`` streams every ``I``-th carry to Level 2 (host
+  RAM, disk, int8-compressed or a capacity-bounded tier over disk) on a
+  background thread;
 * the backward pass replays segments from Level 2 with double-buffered
   prefetch, each reversed by one runner call — peak Level-1 memory is
   ``O(I + s)``, independent of chain length, at a constant recompute
@@ -33,15 +34,16 @@ as XLA's is in JAX.  The schedule ``(I, s)`` is measured on the first call
 (``I = ceil(T_T/T_A)``, §3) unless ``interval=`` pins it.
 
 Everything runs on the card unless ``device="cpu"`` is passed.  Not ported
-yet, and raising ``NotImplementedError`` when asked for: storage kinds
-other than ``"ram"`` (ROADMAP queue 1, item 9), journaling (item 8), meshes
-(item 15), 2D plans (item 11), parameter streaming (item 12) and the scan
-engine (item 13).
+yet, and raising ``NotImplementedError`` when asked for: journaling (ROADMAP
+queue 1, item 8), meshes (item 15), 2D plans (item 11), parameter streaming
+(item 12) and the scan engine (item 13).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import shutil
+import tempfile
 import warnings
 import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -59,7 +61,8 @@ from repro_torch.core.compiled_ops import (CompiledChainOps,
                                            CompiledSegmentRunner,
                                            FusedSegmentRunner)
 from repro_torch.core.executor import CheckpointExecutor, ExecutionStats
-from repro_torch.core.storage import AsyncTransferEngine, HostTree, RAMStorage
+from repro_torch.core.storage import (AsyncTransferEngine, HostTree,
+                                      make_backend)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import segment_fused
 
@@ -76,12 +79,25 @@ class OffloadConfig:
     strategy: str = "multistage_async"
     interval: Optional[int] = None    # None -> autotune (I = ceil(T_T/T_A))
     slots: Optional[int] = None       # Level-1 slots; None -> budget
-    storage: str = "ram"
+    storage: str = "ram"              # a kind of the backend registry:
+    #                                   "ram" | "disk" | "compressed" |
+    #                                   "tiered" | any register_backend()'d
+    storage_dir: Optional[str] = None
+    l2_capacity_bytes: Optional[int] = None  # fast-tier budget ("tiered")
     autotune: bool = True
     tuner_id: int = 0                 # key into the tuner registry
+    backend_id: int = 0               # key into the shared-backend registry
+    #                                   (0: build one from ``storage``;
+    #                                   else the caller's backend=)
     engine: str = "compiled"
     runner: str = "compiled"          # "compiled" (plain PyTorch per
     #                                   segment) | "fused" (CUDA kernels)
+    # knobs of the JAX package that are not ported yet (each raises)
+    journal_dir: Optional[str] = None
+    mesh: Optional[Any] = None
+    step_memory_budget: Optional[int] = None
+    plan_2d: Optional[Tuple[int, int]] = None
+    offload_params: Optional[str] = None
 
     def __post_init__(self):
         # the JAX package's ValueErrors for these knobs, in its order
@@ -99,6 +115,20 @@ class OffloadConfig:
                 "runner='fused' fuses the compiled engine's per-segment "
                 f"steps into CUDA kernels; engine={self.engine!r} does not "
                 "use segment runners")
+        if self.storage == "tiered" and self.l2_capacity_bytes is None:
+            raise ValueError(
+                "storage='tiered' needs l2_capacity_bytes= (the fast-tier "
+                "budget the Level-2 store must stay under)")
+        if self.l2_capacity_bytes is not None and self.storage != "tiered":
+            raise ValueError(
+                "l2_capacity_bytes only applies to storage='tiered' "
+                f"(got storage={self.storage!r}); the unbounded backends "
+                "have no budget to enforce")
+        if self.backend_id and self.mesh is not None:
+            raise ValueError(
+                "backend= hands the transform one already-built Level-2 "
+                "store; sharded per-device streams (mesh=) must be built "
+                "from a storage kind instead")
         if self.engine == "scan":
             if self.strategy != "multistage_async":
                 raise ValueError(
@@ -110,18 +140,20 @@ class OffloadConfig:
                     f"own; the pluggable storage backends "
                     f"({STORAGE_KINDS[1:]}) apply to the executor engines "
                     "only")
-        if self.storage not in STORAGE_KINDS:
-            raise ValueError(
-                f"unknown Level-2 backend {self.storage!r}; known: "
-                f"{STORAGE_KINDS}")
-        # valid, but not ported yet
-        if self.engine == "scan":
-            raise NotImplementedError(
-                "engine='scan' is not ported yet (ROADMAP queue 1, item 13)")
-        if self.storage != "ram":
-            raise NotImplementedError(
-                f"storage={self.storage!r} is not ported yet (ROADMAP "
-                "queue 1, item 9)")
+        # valid, but not ported yet; an unknown storage kind raises at the
+        # first call, from the backend registry (as in the JAX package)
+        for given, what, item in (
+                (self.engine == "scan", "engine='scan'", 13),
+                (self.journal_dir is not None, "journal_dir=", 8),
+                (self.mesh is not None, "mesh=", 15),
+                (self.step_memory_budget is not None
+                 or self.plan_2d is not None,
+                 "2D plans (step_memory_budget=/plan_2d=)", 11),
+                (self.offload_params is not None, "offload_params=", 12)):
+            if given:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP queue 1, item "
+                    f"{item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +181,57 @@ def _register_tuner(tuner: Optional[at.AutoTuner]) -> int:
     tid = next(_TUNER_IDS)
     _TUNERS[tid] = tuner
     return tid
+
+
+# The same weak registry for caller-supplied Level-2 backends: the config
+# stays a hashable frozen dataclass carrying only the id, and the transform
+# keeps the backend alive (``vg.backend``) for as long as it can be called.
+_SHARED_BACKENDS: "weakref.WeakValueDictionary[int, Any]" = \
+    weakref.WeakValueDictionary()
+_SHARED_BACKEND_IDS = itertools.count(1)
+
+
+def _register_shared_backend(backend: Optional[Any]) -> int:
+    if backend is None:
+        return 0
+    bid = next(_SHARED_BACKEND_IDS)
+    _SHARED_BACKENDS[bid] = backend
+    return bid
+
+
+def _make_backend(cfg: OffloadConfig):
+    """The run's Level-2 backend, from the registry
+    (:func:`~repro_torch.core.storage.make_backend`: an unknown kind raises
+    there, and kinds added with ``register_backend`` work here), or the
+    caller's ``backend=``.  Returns ``(backend, tmpdir)``: ``tmpdir`` is a
+    directory made here for the slow tier, removed when the run is
+    disposed of."""
+    if cfg.backend_id:
+        backend = _SHARED_BACKENDS.get(cfg.backend_id)
+        if backend is None:
+            raise ValueError(
+                "the backend= object this transform was built over is no "
+                "longer alive; hold a reference to the transform (or the "
+                "backend) for as long as it is called")
+        return backend, None
+    tmpdir = None
+    kwargs = {}
+    if cfg.storage in ("disk", "tiered") or (
+            cfg.storage == "compressed" and cfg.storage_dir is not None):
+        # a tiered store's slow tier is the disk unless the caller pinned
+        # a directory
+        directory = cfg.storage_dir
+        if directory is None:
+            directory = tmpdir = tempfile.mkdtemp(prefix="repro_l2_")
+        kwargs["directory"] = directory
+    if cfg.storage == "tiered":
+        kwargs["capacity_bytes"] = cfg.l2_capacity_bytes
+    try:
+        return make_backend(cfg.storage, **kwargs), tmpdir
+    except BaseException:
+        if tmpdir is not None:
+            shutil.rmtree(tmpdir, ignore_errors=True)
+        raise
 
 
 _LAST: Dict[str, Any] = {"stats": None, "tune": None, "plan": None}
@@ -283,6 +366,7 @@ class _RunRecord:
         self.inputs = inputs   # (params, carry0, xs, batch)
         self.tune: Optional[at.TuneResult] = None
         self.run = None
+        self.tmpdir: Optional[str] = None   # Level-2 directory made here
 
     def dispose(self) -> None:
         if self.run is not None:
@@ -291,6 +375,9 @@ class _RunRecord:
                 run.close()
             except Exception:
                 pass
+        if self.tmpdir is not None:
+            shutil.rmtree(self.tmpdir, ignore_errors=True)
+            self.tmpdir = None
 
     def __del__(self):
         self.dispose()
@@ -303,7 +390,8 @@ def _fwd(static: _Static, params, carry0, xs, batch):
     rec = _RunRecord(cfg.strategy, ops, (params, carry0, xs, batch))
     if cfg.strategy == "multistage_async":
         device = pytree.tree_leaves(carry0)[0].device
-        engine = AsyncTransferEngine(RAMStorage(), device=device)
+        backend, rec.tmpdir = _make_backend(cfg)
+        engine = AsyncTransferEngine(backend, device=device)
         try:
             if cfg.runner == "fused":
                 segment_fused.check_token_range(spec.body, params, xs)
@@ -327,6 +415,7 @@ def _fwd(static: _Static, params, carry0, xs, batch):
                 engine.close()
             except Exception:
                 pass
+            rec.dispose()
             raise
         run.own_engine = True
         rec.run = run
@@ -479,12 +568,20 @@ def value_and_grad_offloaded(
     interval: Optional[int] = None,
     slots: Optional[int] = None,
     storage: str = "ram",
+    storage_dir: Optional[str] = None,
+    l2_capacity_bytes: Optional[int] = None,
+    backend: Optional[Any] = None,
     autotune: bool = True,
     tuner: Optional[at.AutoTuner] = None,
     fallback: bool = True,
     engine: str = "compiled",
     runner: str = "compiled",
     device=None,
+    journal_dir: Optional[str] = None,
+    mesh: Optional[Any] = None,
+    step_memory_budget: Optional[int] = None,
+    plan_2d: Optional[Tuple[int, int]] = None,
+    offload_params: Optional[str] = None,
 ) -> Callable[[Any, Any], Tuple[Any, Any]]:
     """Drop-in ``value_and_grad`` with multistage-offloaded backprop.
 
@@ -497,13 +594,27 @@ def value_and_grad_offloaded(
     (the card unless ``device="cpu"``; without a card and without
     ``device="cpu"`` this raises).  ``interval``/``slots`` pin the schedule,
     otherwise the first call measures ``T_A``/``T_T`` and applies §3's
-    ``I = ceil(T_T/T_A)``.  ``strategy="revolve"`` (with ``slots`` Level-1
+    ``I = ceil(T_T/T_A)``.  ``storage`` picks the Level-2 backend from the
+    registry (``"ram"``, ``"disk"``, ``"compressed"`` — int8-quantised
+    float states, ~4x smaller at a bounded precision cost — ``"tiered"``,
+    or a kind added with ``register_backend``); ``storage_dir`` is the
+    directory of a disk store (a temporary one, removed with the run, when
+    None).  ``l2_capacity_bytes`` (required with ``"tiered"``) is the
+    fast-tier budget: cold boundaries spill to disk in plan-aware (Belady)
+    order and are promoted back ahead of need, and the autotuner probes
+    both tiers.  ``backend=`` hands the transform a live Level-2 store
+    instead (e.g. a ``NamespacedStorage`` view of one shared
+    ``TieredStorage``), never closed by the run; it excludes the storage
+    knobs.  ``strategy="revolve"`` (with ``slots`` Level-1
     slots) and ``strategy="conventional"`` run the paper's baselines over
     per-step operators; ``engine="interpreted"`` runs the multistage plan one
     step per dispatch.  ``runner="fused"`` (the JAX package's
     ``runner="pallas"``) runs the hand-written CUDA segment kernels on the
     card — the LSTM chain step only; other chains raise ``ValueError`` there
-    — and their plain PyTorch versions on the CPU.
+    — and their plain PyTorch versions on the CPU.  ``journal_dir``,
+    ``mesh``, ``step_memory_budget``, ``plan_2d`` and ``offload_params``
+    are the JAX package's knobs that are not ported yet: each raises
+    ``NotImplementedError`` naming its ROADMAP item.
 
     >>> import torch
     >>> from repro_torch.api import ChainSpec, value_and_grad_offloaded
@@ -517,6 +628,14 @@ def value_and_grad_offloaded(
     >>> tuple(grads["w"].shape)
     ()
     """
+    if backend is not None:
+        if storage != "ram" or storage_dir is not None or \
+                l2_capacity_bytes is not None:
+            raise ValueError(
+                "pass either backend= (an already-built Level-2 store) or "
+                "the storage=/storage_dir=/l2_capacity_bytes= kind knobs, "
+                "not both")
+        storage = "shared"
     dev = resolve_device(device)
     spec = _as_chain_spec(loss_fn)
     if spec is None:
@@ -529,13 +648,22 @@ def value_and_grad_offloaded(
             "falling back to plain autograd (no offloading)", stacklevel=2)
         return _value_and_grad(loss_fn, dev)
     cfg = OffloadConfig(strategy=strategy, interval=interval, slots=slots,
-                        storage=storage, autotune=autotune,
-                        tuner_id=_register_tuner(tuner), engine=engine,
-                        runner=runner)
+                        storage=storage, storage_dir=storage_dir,
+                        l2_capacity_bytes=l2_capacity_bytes,
+                        autotune=autotune, tuner_id=_register_tuner(tuner),
+                        backend_id=_register_shared_backend(backend),
+                        engine=engine, runner=runner,
+                        journal_dir=journal_dir, mesh=mesh,
+                        step_memory_budget=step_memory_budget,
+                        plan_2d=tuple(plan_2d) if plan_2d is not None
+                        else None,
+                        offload_params=offload_params)
     vg = _value_and_grad(offloaded_loss(spec, cfg), dev)
     vg.chain_spec = spec
     vg.offload_config = cfg
-    vg.tuner = tuner  # keeps the weak registry entry alive
+    # keep the weak registry entries alive for as long as the transform is
+    vg.tuner = tuner
+    vg.backend = backend
     vg.device = dev
     return vg
 

@@ -38,8 +38,10 @@ delegated to a pluggable **segment runner**:
   page-locked host memory (``advance_with_store``), and the reverse fuses
   recompute and transpose Echo-style.
 
-Journal/resume (ROADMAP queue 1, item 8), ``ParamStream`` (item 12) and
-tiered ``set_plan`` (item 9) are not ported yet.
+A plan-aware Level-2 backend (``TieredStorage``) gets the plan before the
+forward sweep (``set_plan``: Belady eviction) and sets the reverse's
+prefetch depth (``plan_prefetch_distance``).  Journal/resume (ROADMAP queue
+1, item 8) and ``ParamStream`` (item 12) are not ported yet.
 """
 from __future__ import annotations
 
@@ -71,6 +73,9 @@ class ExecutionStats:
     l2_stores: int = 0
     l2_prefetches: int = 0
     l2_peak_bytes: int = 0       # high-water Level-2 (host) footprint
+    l2_fast_peak_bytes: int = 0  # tiered backend: fast-tier high-water mark
+    l2_evictions: int = 0        # tiered backend: fast -> slow spills
+    l2_promotions: int = 0       # tiered backend: slow -> fast promotions
     l2_staged_peak_bytes: int = 0  # engine prefetch staging high-water mark
     prefetch_depth: int = 1      # segments of prefetch lead in the reverse
     fused_segments: int = 0      # fused runner: segments run as fused kernels
@@ -331,6 +336,11 @@ class CheckpointExecutor:
                             runner=runner, own_engine=own_engine)
         fwd_runner = runner if runner is not None else \
             InterpretedSegmentRunner(self.forward_op, self.backward_op)
+        # a capacity-bounded backend evicts by the plan's reverse access
+        # order: the victim is the boundary needed farthest ahead (Belady)
+        set_plan = getattr(engine.backend, "set_plan", None)
+        if set_plan is not None:
+            set_plan(plan)
         t0 = time.perf_counter()
         try:
             current = state0
@@ -371,7 +381,12 @@ class CheckpointExecutor:
         try:
             adjoint = adjoint0
             engine.wait_stores()
+            # prefetch lead: 1 (double-buffer) unless the backend derives a
+            # plan-aware distance (the stores above have all landed)
             depth = 1
+            hint = getattr(engine.backend, "plan_prefetch_distance", None)
+            if hint is not None:
+                depth = max(1, int(hint(run.plan)))
             stats.prefetch_depth = depth
             j_start = len(segs) - 1
             for idx in range(j_start, max(j_start - depth, -1), -1):
@@ -386,7 +401,11 @@ class CheckpointExecutor:
                 engine.delete(seg.begin)
             stats.l2_stores = engine.num_stores
             stats.l2_prefetches = engine.num_prefetches
-            stats.l2_peak_bytes = getattr(engine.backend, "peak_bytes", 0)
+            backend = engine.backend
+            stats.l2_peak_bytes = getattr(backend, "peak_bytes", 0)
+            stats.l2_fast_peak_bytes = getattr(backend, "fast_peak_bytes", 0)
+            stats.l2_evictions = getattr(backend, "evictions", 0)
+            stats.l2_promotions = getattr(backend, "promotions", 0)
             stats.l2_staged_peak_bytes = engine.staged_peak_bytes
             stats.store_stall_s = engine.store_stall_s
             stats.prefetch_stall_s = engine.prefetch_stall_s

@@ -1,13 +1,29 @@
-# Port of repro/core/storage.py: tree_bytes, _freeze, RAMStorage and
-# AsyncTransferEngine (the RAM Level-2 path).
+# Port of repro/core/storage.py: tree_bytes, _freeze, _freeze_in_place,
+# RAMStorage, DiskStorage, CompressedStorage, TieredStorage,
+# NamespacedStorage, register_backend/make_backend and AsyncTransferEngine.
 """Level-2 storage with asynchronous store / prefetch threads.
 
 Background threads move state pytrees between the compute level (Level 1:
-tensors on the card, or on the CPU) and a Level-2 store (host RAM).  Stored
-pytrees are frozen to read-only numpy arrays (a bf16 leaf as its raw bits,
+tensors on the card, or on the CPU) and a Level-2 store.  Stored pytrees
+are frozen to read-only numpy arrays (a bf16 leaf as its raw bits,
 :class:`Bits`): ``get`` hands back the canonical copy without a defensive
 deep-copy, and a caller that tries to mutate a checkpoint in place gets a
 ``ValueError``.
+
+Backends speak one protocol (``put``, ``get``, ``delete``, ``__contains__``,
+``keys``) and are built by name with ``make_backend("ram" | "disk" |
+"compressed" | "tiered", ...)`` (``register_backend`` adds kinds):
+
+* :class:`RAMStorage` — host RAM;
+* :class:`DiskStorage` — one pickle file per key, published with
+  ``os.replace`` (no fsync: the page cache may hold it);
+* :class:`CompressedStorage` — int8 absmax quantisation of float leaves
+  (:mod:`repro_torch.distributed.compression`) over an inner store; bf16
+  and integer leaves stay raw, bit for bit;
+* :class:`TieredStorage` — a fast tier under a byte budget that
+  write-behind spills to a slow tier, with plan-aware (Belady) eviction,
+  demand promotion, tenant quotas and namespaces
+  (:class:`NamespacedStorage`).
 
 On the card the engine never makes the compute stream wait for a host
 thread:
@@ -18,28 +34,36 @@ thread:
 * a fused segment kernel may hand over boundaries it already wrote into
   page-locked memory (a :class:`HostTree` carrying the kernel's event);
   those buffers become the Level-2 copy itself — no second copy — and
-  belong to Level 2 until the key is deleted.  Each must own its storage,
-  so Level 2 holds exactly the bytes it counts;
+  belong to Level 2 until the key is deleted (a tiered fast tier keeps
+  them by reference; an eviction drops them once the slow tier holds its
+  own copy).  Each must own its storage, so Level 2 holds exactly the
+  bytes it counts;
 * a prefetch reads the host copy and moves it host-to-device on a side
-  stream from the prefetch thread; the thread waits for that copy before
-  it publishes the value, so ``wait_prefetch`` returns tensors that are
-  ready to use.
+  stream from the prefetch thread (a leaf that is not a view of a
+  page-locked Level-2 buffer — a disk read, a decoded or promoted state —
+  is first copied into page-locked memory there); the thread waits for
+  that copy before it publishes the value, so ``wait_prefetch`` returns
+  tensors that are ready to use.
 
 ``delete`` invalidates any staged prefetch of the key, and staged-prefetch
-bytes are counted (``staged_bytes`` / ``staged_peak_bytes``).  The disk,
-compressed, tiered, journaled and sharded backends, the parameter lane and
-the fault hooks come later (ROADMAP queue 1, items 8, 9, 12 and 15).
+bytes are counted (``staged_bytes`` / ``staged_peak_bytes``).  The
+journaled and sharded backends, the parameter lane and the fault hooks come
+later (ROADMAP queue 1, items 8, 12 and 15).
 """
 from __future__ import annotations
 
+import os
+import pickle
 import queue
 import threading
 import time
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch.distributed.compression import dequantize_np, quantize_np
 
 
 # Copy of the base classes of repro/core/faults.py's typed taxonomy.
@@ -163,19 +187,44 @@ def _frozen_views(tree: Any) -> Any:
     return pytree.tree_map(f, tree)
 
 
-def _host_tensor(a: Any) -> torch.Tensor:
-    """A CPU tensor holding a Level-2 leaf.  A frozen view of a pinned
-    Level-2 buffer maps back onto that buffer without a copy (so the
-    host-to-device copy stays asynchronous); anything else is copied.
+def _freeze_in_place(tree: Any) -> Any:
+    """Mark a *freshly materialised* pytree read-only without copying
+    (pickle or decode output, or leaves already frozen): copying would
+    only add to the transfer the caller is hiding."""
+    def f(x):
+        a = x.array if isinstance(x, Bits) else x
+        if a.flags.writeable:
+            a.setflags(write=False)
+        return x
+
+    return pytree.tree_map(f, tree)
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def _host_tensor(a: Any, pin: bool = False) -> torch.Tensor:
+    """A CPU tensor holding a Level-2 leaf.  A frozen view of a Level-2
+    buffer maps back onto that buffer without a copy (a page-locked one
+    keeps the host-to-device copy asynchronous); anything else is copied,
+    into page-locked memory when ``pin`` (the upload to the card).
     :class:`Bits` come back as their torch dtype, bit for bit."""
     if isinstance(a, Bits):
-        return _host_tensor(a.array).view(a.dtype)
+        return _host_tensor(a.array, pin).view(a.dtype)
     a = np.asarray(a)
     base = a.base
     if (not a.flags.writeable and isinstance(base, np.ndarray)
             and base.flags.writeable and base.shape == a.shape
             and base.dtype == a.dtype and base.strides == a.strides):
-        return torch.from_numpy(base)
+        t = torch.from_numpy(base)
+        if not pin or t.is_pinned():
+            return t
+    if pin:
+        t = torch.empty(a.shape, dtype=_torch_dtype(a.dtype),
+                        pin_memory=True)
+        t.numpy()[...] = a
+        return t
     return torch.from_numpy(np.array(a, copy=True))
 
 
@@ -247,6 +296,841 @@ class RAMStorage:
     def keys(self) -> Iterable[Any]:
         with self._lock:
             return list(self._data)
+
+
+class DiskStorage:
+    """Level-2 store on disk (the paper's DRAM->SSD platform): one pickle
+    file per key, written and read by the background threads through the
+    filesystem API and published with ``os.replace``.  There is no fsync
+    (as in the JAX package): a put may live in the page cache.  ``get``
+    returns fresh arrays."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+        self._lock = threading.Lock()
+        self._keys: Dict[Any, str] = {}
+        self._sizes: Dict[Any, int] = {}
+        self.bytes_written = 0
+        self.bytes_read = 0
+        self.live_bytes = 0
+        self.peak_bytes = 0   # high-water Level-2 footprint across the run
+
+    def _path(self, key: Any) -> str:
+        return os.path.join(self.directory, f"ckpt_{key}.pkl")
+
+    def put(self, key: Any, tree: Any) -> None:
+        # host views, no copy: pickling copies the bytes into the file
+        host = pytree.tree_map(_leaf_numpy, tree)
+        path = self._path(key)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(host, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, path)  # atomic publish
+        nb = tree_bytes(host)
+        with self._lock:
+            self._keys[key] = path
+            self.bytes_written += nb
+            self.live_bytes += nb - self._sizes.get(key, 0)
+            self._sizes[key] = nb
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def get(self, key: Any) -> Any:
+        with self._lock:
+            path = self._keys[key]
+        with open(path, "rb") as f:
+            host = pickle.load(f)
+        with self._lock:
+            self.bytes_read += tree_bytes(host)
+        return host
+
+    def delete(self, key: Any) -> None:
+        with self._lock:
+            path = self._keys.pop(key, None)
+            self.live_bytes -= self._sizes.pop(key, 0)
+        if path and os.path.exists(path):
+            os.remove(path)
+
+    def __contains__(self, key: Any) -> bool:
+        with self._lock:
+            return key in self._keys
+
+    def keys(self) -> Iterable[Any]:
+        with self._lock:
+            return list(self._keys)
+
+
+class CompressedStorage:
+    """Level-2 wrapper that int8-quantises float leaves before handing the
+    tree to an inner backend (host RAM by default, disk when ``directory``
+    is given).
+
+    Each float array of at least ``min_bytes`` becomes an int8 payload, one
+    f32 scale and a 0-d exemplar of its dtype (~4x smaller); integer leaves,
+    small arrays and bf16 (:class:`Bits`, whose numpy dtype is an integer
+    type, as ``ml_dtypes.bfloat16``'s kind ``'V'`` keeps the JAX package's
+    bf16 raw) are stored raw.  Decoding restores the original dtype; the
+    error per leaf is bounded by ``compression.quantization_error_bound``.
+    Checkpoint states are replay starting points, so this trades a bounded
+    precision loss for ~4x Level-2 capacity.
+    """
+
+    def __init__(self, inner: Any = None, directory: Optional[str] = None,
+                 min_bytes: int = 256):
+        if inner is None:
+            inner = DiskStorage(directory) if directory else RAMStorage()
+        self.inner = inner
+        self.min_bytes = min_bytes
+        # guards this wrapper's fields (the inner backend has its own):
+        # put runs on the writer thread while callers read the counters
+        self._lock = threading.Lock()
+        self._raw_bytes = 0         # pre-compression payload
+        self._treedefs: Dict[Any, Any] = {}   # key -> original structure
+
+    # -- per-leaf codec -------------------------------------------------------
+    # A quantised leaf is the tuple (q_int8, scale_f32, dtype_exemplar);
+    # every other leaf is an array (or Bits), so the tuple tag is
+    # unambiguous.
+    def _encode_leaf(self, x: Any) -> Any:
+        arr = _leaf_numpy(x)
+        if isinstance(arr, Bits):
+            return arr
+        if arr.dtype.kind == "f" and arr.nbytes >= self.min_bytes:
+            q, scale = quantize_np(arr)
+            return (q, scale, np.zeros((), arr.dtype))
+        return arr
+
+    @staticmethod
+    def _decode_leaf(enc: Any) -> Any:
+        if not isinstance(enc, tuple):
+            return enc
+        q, scale, exemplar = enc
+        return np.asarray(dequantize_np(q, scale), dtype=exemplar.dtype)
+
+    # -- backend protocol -----------------------------------------------------
+    def put(self, key: Any, tree: Any) -> None:
+        leaves, treedef = pytree.tree_flatten(tree)
+        nb = tree_bytes(leaves)
+        with self._lock:
+            self._raw_bytes += nb
+            self._treedefs[key] = treedef
+        payload = [self._encode_leaf(x) for x in leaves]
+        # the pickled structure rides along as a trailing uint8 leaf, so a
+        # store re-read without this instance's map can still unflatten
+        payload.append(np.frombuffer(
+            pickle.dumps(treedef, protocol=pickle.HIGHEST_PROTOCOL),
+            dtype=np.uint8))
+        self.inner.put(key, payload)
+
+    def get(self, key: Any) -> Any:
+        encs = self.inner.get(key)
+        encs, td_arr = encs[:-1], encs[-1]
+        with self._lock:
+            treedef = self._treedefs.get(key)
+        if treedef is None:
+            treedef = pickle.loads(np.asarray(td_arr).tobytes())
+            with self._lock:
+                self._treedefs[key] = treedef
+        return pytree.tree_unflatten(
+            [self._decode_leaf(x) for x in encs], treedef)
+
+    def delete(self, key: Any) -> None:
+        self.inner.delete(key)
+        with self._lock:
+            self._treedefs.pop(key, None)
+
+    def __contains__(self, key: Any) -> bool:
+        return key in self.inner
+
+    def keys(self) -> Iterable[Any]:
+        return self.inner.keys()
+
+    @property
+    def raw_bytes(self) -> int:
+        """Pre-compression payload bytes."""
+        with self._lock:
+            return self._raw_bytes
+
+    @property
+    def bytes_written(self) -> int:  # compressed (on-the-wire) accounting
+        return self.inner.bytes_written
+
+    @property
+    def bytes_read(self) -> int:
+        return self.inner.bytes_read
+
+    @property
+    def live_bytes(self) -> int:
+        return self.inner.live_bytes
+
+    @property
+    def peak_bytes(self) -> int:
+        return self.inner.peak_bytes
+
+
+class TieredStorage:
+    """Capacity-bounded two-tier Level-2 store: a fast tier (host RAM,
+    ``capacity_bytes``) over a slow tier (disk when ``directory`` is given,
+    else a RAM stand-in; ``compress=True`` int8-quantises the slow copies).
+
+    ``put`` lands in the fast tier and, when the budget would overflow,
+    write-behind evicts the coldest resident to the slow tier.  Cold is
+    plan-aware: :meth:`set_plan` records the plan's future access order,
+    so the victim is always the key whose next use is farthest away
+    (Belady's rule; for a ``SegmentPlan``, the smallest begin).  Keys
+    outside the plan (autotune probes) evict first; with no plan, eviction
+    is FIFO.
+
+    ``get`` serves fast-tier hits by reference (frozen read-only arrays)
+    and *promotes* slow-tier hits back into the fast tier (the executor
+    also promotes ahead of need, :meth:`plan_prefetch_distance`).  Promoted
+    entries are clean: evicting them again drops the fast copy without a
+    second slow-tier write.  ``peek`` reads without promoting.
+
+    ``fast_live_bytes <= capacity_bytes`` at every instant outside the
+    lock: a state larger than the whole budget bypasses the fast tier.
+    Tenant quotas (:meth:`set_quota`) and namespaces
+    (:meth:`register_namespace`, keys ``(namespace, key)``) bound a
+    tenant's or a run's share of the fast tier the same way.
+    """
+
+    def __init__(self, capacity_bytes: int, slow: Any = None,
+                 directory: Optional[str] = None, compress: bool = False,
+                 bandwidth: Optional[float] = None):
+        if capacity_bytes <= 0:
+            raise ValueError(
+                f"need capacity_bytes > 0, got {capacity_bytes}")
+        if slow is None:
+            slow = DiskStorage(directory) if directory else RAMStorage()
+        if compress:
+            slow = CompressedStorage(inner=slow)
+        self.slow = slow
+        self.capacity_bytes = int(capacity_bytes)
+        self.bandwidth = bandwidth          # fast-tier throttle (bytes/s)
+        self._lock = threading.Lock()
+        self._fast: Dict[Any, Any] = {}
+        self._sizes: Dict[Any, int] = {}    # sizes of fast-resident entries
+        self._clean: set = set()            # fast entries also valid in slow
+        # Write-behind: _writing holds the latest pending payload per key;
+        # _wb_active the keys some thread is draining (one drainer per key
+        # keeps a key's slow-tier writes ordered, so an old eviction never
+        # lands on top of a newer one); _wb_deleted tombstones keys deleted
+        # while their writeback was in flight.
+        self._writing: Dict[Any, Any] = {}
+        self._wb_active: set = set()
+        self._wb_deleted: set = set()
+        self._seq: Dict[Any, int] = {}      # insertion order (FIFO fallback)
+        self._next_seq = 0
+        self._distance: Dict[Any, int] = {}  # plan key -> reverse-use distance
+        # tenant quotas and namespace caps on the fast tier
+        self._quota: Dict[Any, int] = {}        # tenant -> fast byte quota
+        self._ns_tenant: Dict[Any, Any] = {}    # namespace -> tenant
+        self._ns_cap: Dict[Any, int] = {}       # namespace -> fast byte cap
+        self.tenant_fast_bytes: Dict[Any, int] = {}
+        self.tenant_fast_peak: Dict[Any, int] = {}
+        self.ns_fast_bytes: Dict[Any, int] = {}
+        self.ns_fast_peak: Dict[Any, int] = {}
+        # -- instrumentation ---------------------------------------------------
+        self.fast_live_bytes = 0
+        self.fast_peak_bytes = 0   # high-water fast tier: obeys capacity
+        self.evictions = 0         # fast -> slow write-behind spills
+        self.promotions = 0        # slow -> fast promotions
+        self.fast_hits = 0
+        self.slow_hits = 0
+        self.bytes_written = 0     # total put payload (fast + direct-to-slow)
+        self.bytes_read = 0
+        self.untracked_keys = 0    # resident keys the last set_plan() missed
+        self._peak_total = 0
+
+    def _throttle(self, nbytes: int) -> None:
+        if self.bandwidth:
+            time.sleep(nbytes / self.bandwidth)
+
+    # -- plan awareness -------------------------------------------------------
+    def set_plan(self, plan: Any) -> None:
+        """Record the future access order of an offload plan:
+        ``distance[key]`` = accesses until ``key`` is needed (0 = first);
+        the eviction victim maximises it.  Takes anything with
+        ``distances() -> {key: rank}`` (a ``ResourceAccessPlan``) or a
+        ``SegmentPlan`` (``reverse_access_order()``).  Resident keys the
+        new plan does not mention fall back to FIFO and evict first; each
+        call counts them into ``untracked_keys``."""
+        dist_fn = getattr(plan, "distances", None)
+        if dist_fn is not None:
+            dist = dict(dist_fn())
+        else:
+            dist = {key: d
+                    for d, key in enumerate(plan.reverse_access_order())}
+        with self._lock:
+            self._distance = dist
+            held = set(self._fast) | set(self._writing)
+        held |= set(self.slow.keys())
+        with self._lock:
+            self.untracked_keys += sum(1 for k in held if k not in dist)
+
+    def plan_prefetch_distance(self, plan: Any) -> int:
+        """Segments of lead the reverse sweep should promote boundaries
+        with (the executor's prefetch depth): ``SegmentPlan.tier_plan`` at
+        the observed boundary-state size; with nothing resident to size
+        from, spill is assumed."""
+        if not hasattr(plan, "boundaries"):
+            # a ResourceAccessPlan: no segments; no spill -> 1, else 2
+            resident, spilled, _ = plan.tier_residency(self.capacity_bytes)
+            n_keys = len(plan.keys())
+            return 1 if spilled == 0 else min(max(n_keys, 1), 2)
+        m = len(plan.boundaries())
+        with self._lock:
+            sizes = [self._sizes.get(k) for k in plan.boundaries()]
+            state = max((s for s in sizes if s is not None), default=0)
+        if state == 0:
+            return min(m, 2) if m else 1
+        return plan.tier_plan(self.capacity_bytes,
+                              state).prefetch_distance
+
+    # -- multi-tenant quotas --------------------------------------------------
+    def set_quota(self, tenant: Any, max_fast_bytes: int) -> None:
+        """Cap ``tenant``'s fast-tier residency at ``max_fast_bytes`` (a
+        state larger than the quota bypasses the fast tier)."""
+        if max_fast_bytes <= 0:
+            raise ValueError(
+                f"need max_fast_bytes > 0, got {max_fast_bytes}")
+        with self._lock:
+            self._quota[tenant] = int(max_fast_bytes)
+            self.tenant_fast_bytes.setdefault(tenant, 0)
+            self.tenant_fast_peak.setdefault(tenant, 0)
+
+    def register_namespace(self, namespace: Any, tenant: Any,
+                           max_fast_bytes: Optional[int] = None) -> None:
+        """Charge keys ``(namespace, *)`` to ``tenant``'s quota;
+        ``max_fast_bytes`` also caps this namespace's own residency."""
+        with self._lock:
+            if tenant not in self._quota:
+                raise KeyError(f"unknown tenant {tenant!r}: set_quota first")
+            self._ns_tenant[namespace] = tenant
+            if max_fast_bytes is not None:
+                if max_fast_bytes <= 0:
+                    raise ValueError(
+                        f"need max_fast_bytes > 0, got {max_fast_bytes}")
+                self._ns_cap[namespace] = int(max_fast_bytes)
+            self.ns_fast_bytes.setdefault(namespace, 0)
+            self.ns_fast_peak.setdefault(namespace, 0)
+
+    def _owner_locked(self, key: Any):
+        """(namespace, tenant) charged for ``key``; (None, None) for keys
+        of no registered namespace."""
+        if isinstance(key, tuple) and len(key) >= 2:
+            tenant = self._ns_tenant.get(key[0])
+            if tenant is not None:
+                return key[0], tenant
+        return None, None
+
+    def _account_fast_add_locked(self, key: Any, nb: int) -> None:
+        ns, t = self._owner_locked(key)
+        if t is None:
+            return
+        self.tenant_fast_bytes[t] += nb
+        self.ns_fast_bytes[ns] += nb
+
+    def _note_fast_peaks_locked(self) -> None:
+        # peaks observe the state after eviction, as the outside world can
+        # read it (a put is over budget only inside the lock)
+        self.fast_peak_bytes = max(self.fast_peak_bytes,
+                                   self.fast_live_bytes)
+        for t, b in self.tenant_fast_bytes.items():
+            self.tenant_fast_peak[t] = max(self.tenant_fast_peak[t], b)
+        for ns, b in self.ns_fast_bytes.items():
+            self.ns_fast_peak[ns] = max(self.ns_fast_peak[ns], b)
+
+    def _account_fast_drop_locked(self, key: Any, nb: int) -> None:
+        ns, t = self._owner_locked(key)
+        if t is None:
+            return
+        self.tenant_fast_bytes[t] -= nb
+        self.ns_fast_bytes[ns] -= nb
+
+    def update_plan(self, namespace: Any, distances: Dict[Any, int]) -> None:
+        """Replace one namespace's Belady distances in the shared order,
+        leaving the other namespaces' keys plan-aware."""
+        def _ours(k):
+            return isinstance(k, tuple) and len(k) >= 2 and k[0] == namespace
+        with self._lock:
+            self._distance = {k: v for k, v in self._distance.items()
+                              if not _ours(k)}
+            self._distance.update(distances)
+
+    def drop_namespace(self, namespace: Any) -> int:
+        """Delete every key of ``namespace`` from both tiers; returns how
+        many."""
+        dropped = 0
+        for k in list(self.keys()):
+            if isinstance(k, tuple) and len(k) >= 2 and k[0] == namespace:
+                self.delete(k)
+                dropped += 1
+        with self._lock:
+            self._distance = {
+                k: v for k, v in self._distance.items()
+                if not (isinstance(k, tuple) and len(k) >= 2
+                        and k[0] == namespace)}
+        return dropped
+
+    def demote_namespace(self, namespace: Any) -> int:
+        """Push every fast-resident key of ``namespace`` down to the slow
+        tier now (they stay readable); returns how many."""
+        with self._lock:
+            mine = [k for k in self._fast
+                    if isinstance(k, tuple) and len(k) >= 2
+                    and k[0] == namespace]
+            to_drain = []
+            for k in mine:
+                d = self._evict_one_locked(k)
+                if d is not None:
+                    to_drain.append(d)
+        self._write_behind(to_drain)
+        return len(mine)
+
+    def _evict_rank(self, key: Any):
+        """Victim order, largest first: keys of no plan (oldest first)
+        above plan keys, plan keys by reverse-use distance."""
+        d = self._distance.get(key)
+        if d is None:
+            return (1, -self._seq.get(key, 0))
+        return (0, d)
+
+    def _evict_one_locked(self, victim: Any) -> Optional[Any]:
+        """Move one fast resident to the write-behind map.  Returns the key
+        if this thread must start its drain loop, else None."""
+        tree = self._fast.pop(victim)
+        nb = self._sizes.pop(victim)
+        self.fast_live_bytes -= nb
+        self._account_fast_drop_locked(victim, nb)
+        self._seq.pop(victim, None)
+        if victim in self._clean:     # slow copy already valid: drop
+            self._clean.discard(victim)
+            return None
+        self._writing[victim] = tree
+        if victim not in self._wb_active:
+            self._wb_active.add(victim)
+            return victim
+        return None
+
+    def _pick_victims_locked(self) -> list:
+        """Evict residents, coldest first, until the budget, every tenant's
+        quota and every namespace's cap hold (a tenant or namespace spills
+        only its own keys).  Returns the keys whose drain loop this thread
+        must run."""
+        to_drain = []
+        while self.fast_live_bytes > self.capacity_bytes and self._fast:
+            victim = max(self._fast, key=self._evict_rank)
+            d = self._evict_one_locked(victim)
+            if d is not None:
+                to_drain.append(d)
+        for tenant, quota in self._quota.items():
+            while self.tenant_fast_bytes.get(tenant, 0) > quota:
+                mine = [k for k in self._fast
+                        if self._owner_locked(k)[1] == tenant]
+                if not mine:
+                    break
+                victim = max(mine, key=self._evict_rank)
+                d = self._evict_one_locked(victim)
+                if d is not None:
+                    to_drain.append(d)
+        for ns, cap in self._ns_cap.items():
+            while self.ns_fast_bytes.get(ns, 0) > cap:
+                mine = [k for k in self._fast
+                        if self._owner_locked(k)[0] == ns]
+                if not mine:
+                    break
+                victim = max(mine, key=self._evict_rank)
+                d = self._evict_one_locked(victim)
+                if d is not None:
+                    to_drain.append(d)
+        return to_drain
+
+    def _write_behind(self, keys: list) -> None:
+        """Drain each key's pending payload(s) to the slow tier.  One
+        drainer per key (``_wb_active``): a re-eviction while a writeback
+        is in flight replaces the pending payload, and this loop writes it
+        afterwards, so a stale payload never lands on top of a newer one."""
+        for key in keys:
+            while True:
+                with self._lock:
+                    tree = self._writing.get(key)   # peek: stays readable
+                    deleted = False
+                    if tree is None:
+                        deleted = key in self._wb_deleted
+                        self._wb_deleted.discard(key)
+                        if not deleted:         # drained: retire this drainer
+                            self._wb_active.discard(key)
+                            self._note_total_peak_locked()
+                            break
+                if tree is None:
+                    # deleted while its writeback was in flight: remove the
+                    # slow copy while still the key's drainer, so a
+                    # re-store's writeback queues behind this delete
+                    self.slow.delete(key)
+                    continue
+                self.slow.put(key, tree)
+                with self._lock:
+                    self.evictions += 1
+                    if self._writing.get(key) is tree:   # not replaced/deleted
+                        self._writing.pop(key)
+
+    def _note_total_peak_locked(self) -> None:
+        # fast lock -> slow lock is safe: the slow tier never calls back
+        total = (self.fast_live_bytes
+                 + sum(tree_bytes(t) for t in self._writing.values())
+                 + self.slow.live_bytes)
+        self._peak_total = max(self._peak_total, total)
+
+    # -- backend protocol -----------------------------------------------------
+    def put(self, key: Any, tree: Any) -> None:
+        host = _freeze(tree)
+        nb = tree_bytes(host)
+        self._throttle(nb)
+        with self._lock:
+            ns, tenant = self._owner_locked(key)
+            quota = self._quota.get(tenant) if tenant is not None else None
+            ns_cap = self._ns_cap.get(ns) if ns is not None else None
+        if nb > self.capacity_bytes or (quota is not None and nb > quota) \
+                or (ns_cap is not None and nb > ns_cap):
+            # one state alone overflows the budget (global, its tenant's
+            # quota or its namespace's cap): bypass the fast tier
+            with self._lock:
+                self.bytes_written += nb
+                self._drop_fast_locked(key)
+                self._wb_deleted.discard(key)   # re-store revokes a tombstone
+                if key in self._wb_active:
+                    # an older writeback of this key is in flight: queue the
+                    # new value behind it (per-key order)
+                    self._writing[key] = host
+                    self._note_total_peak_locked()
+                    return
+            self.slow.put(key, host)
+            with self._lock:
+                self._note_total_peak_locked()
+            return
+        with self._lock:
+            self.bytes_written += nb
+            self._drop_fast_locked(key)
+            self._wb_deleted.discard(key)   # re-store revokes the tombstone
+            self._fast[key] = host
+            self._sizes[key] = nb
+            self.fast_live_bytes += nb
+            self._account_fast_add_locked(key, nb)
+            self._seq[key] = self._next_seq
+            self._next_seq += 1
+            to_drain = self._pick_victims_locked()
+            self._note_fast_peaks_locked()
+            self._note_total_peak_locked()
+        self._write_behind(to_drain)
+
+    def _drop_fast_locked(self, key: Any) -> None:
+        """Remove any fast-resident copy of ``key`` (re-store/overwrite)."""
+        if key in self._fast:
+            self._fast.pop(key)
+            nb = self._sizes.pop(key)
+            self.fast_live_bytes -= nb
+            self._account_fast_drop_locked(key, nb)
+            self._seq.pop(key, None)
+        self._clean.discard(key)
+
+    def _fast_read(self, key: Any) -> Any:
+        """The fast-tier (or pending-writeback) copy of ``key``, counted as
+        a fast hit, or None."""
+        with self._lock:
+            host = self._fast.get(key)
+            if host is None:
+                host = self._writing.get(key)
+            if host is not None:
+                nb = tree_bytes(host)
+                self.fast_hits += 1
+                self.bytes_read += nb
+        if host is not None:
+            self._throttle(nb)
+        return host
+
+    def get(self, key: Any) -> Any:
+        host = self._fast_read(key)
+        if host is not None:
+            return host
+        # slow-tier hit: fetch outside the lock, then promote (a disk or
+        # compressed slow tier returns fresh arrays: freezing them in place
+        # costs no copy)
+        host = _freeze_in_place(self.slow.get(key))
+        nb = tree_bytes(host)
+        with self._lock:
+            self.slow_hits += 1
+            self.bytes_read += nb
+            to_drain = []
+            ns, tenant = self._owner_locked(key)
+            quota = self._quota.get(tenant) if tenant is not None else None
+            ns_cap = self._ns_cap.get(ns) if ns is not None else None
+            if nb <= self.capacity_bytes and \
+                    (quota is None or nb <= quota) and \
+                    (ns_cap is None or nb <= ns_cap) and \
+                    key not in self._fast:
+                self.promotions += 1
+                self._fast[key] = host
+                self._sizes[key] = nb
+                self.fast_live_bytes += nb
+                self._account_fast_add_locked(key, nb)
+                self._seq[key] = self._next_seq
+                self._next_seq += 1
+                self._clean.add(key)   # slow copy stays valid
+                to_drain = self._pick_victims_locked()
+                self._note_fast_peaks_locked()
+            self._note_total_peak_locked()
+        self._write_behind(to_drain)
+        return host
+
+    def peek(self, key: Any) -> Any:
+        """Read ``key`` without promotion: a slow-tier hit is returned and
+        never enters the fast tier, so ``peek`` evicts nothing.  Hit and
+        byte counters are kept as for :meth:`get`."""
+        host = self._fast_read(key)
+        if host is not None:
+            return host
+        host = _freeze_in_place(self.slow.get(key))
+        with self._lock:
+            self.slow_hits += 1
+            self.bytes_read += tree_bytes(host)
+        return host
+
+    def delete(self, key: Any) -> None:
+        with self._lock:
+            self._drop_fast_locked(key)
+            self._writing.pop(key, None)    # cancel any pending writeback
+            if key in self._wb_active:
+                # a writeback is in flight: tombstone the key so its
+                # drainer removes the slow copy once it lands
+                self._wb_deleted.add(key)
+            self._distance.pop(key, None)
+        self.slow.delete(key)
+
+    def __contains__(self, key: Any) -> bool:
+        with self._lock:
+            if key in self._fast or key in self._writing:
+                return True
+        return key in self.slow
+
+    def keys(self) -> Iterable[Any]:
+        with self._lock:
+            fast = set(self._fast) | set(self._writing)
+        return list(fast | set(self.slow.keys()))
+
+    # -- accounting (live/peak span both tiers) -------------------------------
+    @property
+    def live_bytes(self) -> int:
+        with self._lock:
+            writing = sum(tree_bytes(t) for t in self._writing.values())
+            fast = self.fast_live_bytes
+        return fast + writing + self.slow.live_bytes
+
+    @property
+    def peak_bytes(self) -> int:
+        """High-water mark of both tiers together (clean fast copies
+        duplicate slow bytes, so an upper bound); the budgeted quantity
+        is ``fast_peak_bytes``."""
+        with self._lock:
+            return max(self._peak_total, self.fast_peak_bytes,
+                       self.slow.peak_bytes)
+
+
+class _NamespacedPlan:
+    """An offload plan with every key it names rewritten to ``(namespace,
+    key)``.  Which verbs exist mirrors the wrapped plan (a missing one
+    raises ``AttributeError``): :meth:`TieredStorage.set_plan` and
+    :meth:`TieredStorage.plan_prefetch_distance` duck-type on them."""
+
+    def __init__(self, plan: Any, namespace: Any):
+        self._plan = plan
+        self._ns = namespace
+
+    def _t(self, key: Any):
+        return (self._ns, key)
+
+    @property
+    def distances(self):
+        f = getattr(self._plan, "distances", None)
+        if f is None:
+            raise AttributeError("distances")
+        return lambda: {self._t(k): v for k, v in dict(f()).items()}
+
+    @property
+    def reverse_access_order(self):
+        f = getattr(self._plan, "reverse_access_order", None)
+        if f is None:
+            raise AttributeError("reverse_access_order")
+        return lambda: [self._t(k) for k in f()]
+
+    @property
+    def boundaries(self):
+        f = getattr(self._plan, "boundaries", None)
+        if f is None:
+            raise AttributeError("boundaries")
+        return lambda: [self._t(k) for k in f()]
+
+    def __getattr__(self, name: str):
+        return getattr(self.__dict__["_plan"], name)
+
+
+class NamespacedStorage:
+    """A shared backend seen through a key prefix: every key becomes
+    ``(namespace, key)`` on the inner store, so several runs (whose
+    boundary keys are the same segment begins) share one
+    :class:`TieredStorage` and its budget, the namespace being the unit
+    its quotas charge (:meth:`TieredStorage.register_namespace`).
+
+    Every key-taking verb translates explicitly; ``set_plan`` merges into
+    the shared Belady order (:meth:`TieredStorage.update_plan`) when the
+    inner store has it.  :meth:`close` does nothing: disposing of one run
+    must never close the tier its neighbours use.
+    """
+
+    def __init__(self, inner: Any, namespace: Any):
+        self.inner = inner
+        self.namespace = namespace
+
+    def _k(self, key: Any):
+        return (self.namespace, key)
+
+    # -- backend protocol -----------------------------------------------------
+    def put(self, key: Any, tree: Any) -> None:
+        self.inner.put(self._k(key), tree)
+
+    def get(self, key: Any) -> Any:
+        return self.inner.get(self._k(key))
+
+    def peek(self, key: Any) -> Any:
+        f = getattr(self.inner, "peek", None)
+        if f is None:
+            return self.inner.get(self._k(key))
+        return f(self._k(key))
+
+    def delete(self, key: Any) -> None:
+        self.inner.delete(self._k(key))
+
+    def __contains__(self, key: Any) -> bool:
+        return self._k(key) in self.inner
+
+    def keys(self) -> Iterable[Any]:
+        return [k[1] for k in self.inner.keys()
+                if isinstance(k, tuple) and len(k) == 2
+                and k[0] == self.namespace]
+
+    # -- plan awareness -------------------------------------------------------
+    def set_plan(self, plan: Any) -> None:
+        wrapped = _NamespacedPlan(plan, self.namespace)
+        update = getattr(self.inner, "update_plan", None)
+        if update is not None:
+            update(self.namespace, wrapped.distances()
+                   if hasattr(wrapped, "distances")
+                   else {k: d for d, k in
+                         enumerate(wrapped.reverse_access_order())})
+            return
+        self.inner.set_plan(wrapped)
+
+    def plan_prefetch_distance(self, plan: Any) -> int:
+        f = getattr(self.inner, "plan_prefetch_distance", None)
+        if f is None:
+            return 1
+        return f(_NamespacedPlan(plan, self.namespace))
+
+    def drop(self) -> int:
+        """Release this namespace's keys from both tiers."""
+        f = getattr(self.inner, "drop_namespace", None)
+        if f is not None:
+            return f(self.namespace)
+        n = 0
+        for k in list(self.keys()):
+            self.delete(k)
+            n += 1
+        return n
+
+    def demote(self) -> int:
+        """Push this namespace's fast-resident keys to the slow tier."""
+        f = getattr(self.inner, "demote_namespace", None)
+        if f is not None:
+            return f(self.namespace)
+        return 0
+
+    def close(self) -> None:
+        """No-op: the shared inner store outlives any one run."""
+
+    # -- instrumentation: this namespace's slice of the shared tier -----------
+    @property
+    def fast_live_bytes(self) -> int:
+        ns = getattr(self.inner, "ns_fast_bytes", None)
+        if ns is not None and self.namespace in ns:
+            return ns[self.namespace]
+        return getattr(self.inner, "fast_live_bytes", 0)
+
+    @property
+    def fast_peak_bytes(self) -> int:
+        ns = getattr(self.inner, "ns_fast_peak", None)
+        if ns is not None and self.namespace in ns:
+            return ns[self.namespace]
+        return getattr(self.inner, "fast_peak_bytes", 0)
+
+    def __getattr__(self, name: str):
+        inner = self.__dict__.get("inner")
+        if inner is None:
+            raise AttributeError(name)
+        return getattr(inner, name)
+
+
+# ---------------------------------------------------------------------------
+# backend registry
+# ---------------------------------------------------------------------------
+
+_BACKENDS: Dict[str, Callable[..., Any]] = {}
+
+
+def register_backend(name: str, factory: Callable[..., Any]) -> None:
+    """Register a Level-2 backend factory under ``name`` (overwrites)."""
+    _BACKENDS[name] = factory
+
+
+def make_backend(kind: str, *, journal: Optional[str] = None,
+                 shards: Optional[int] = None, **kwargs: Any) -> Any:
+    """Build a Level-2 backend by name.
+
+    Built-ins: ``"ram"`` (``bandwidth=`` optional throttle), ``"disk"``
+    (``directory=`` required), ``"compressed"`` (int8 wrapper;
+    ``directory=`` puts its inner store on disk), ``"tiered"``
+    (``capacity_bytes=`` required fast-tier budget; ``directory=`` puts the
+    slow tier on disk, ``compress=True`` int8-quantises spilled copies).
+    ``journal=`` and ``shards=`` raise ``NotImplementedError``.
+    """
+    try:
+        factory = _BACKENDS[kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown Level-2 backend {kind!r}; known: "
+            f"{sorted(_BACKENDS)}") from None
+    if shards is not None:
+        raise NotImplementedError(
+            "make_backend(shards=...) is not ported yet (ROADMAP queue 1, "
+            "item 15)")
+    if journal is not None:
+        raise NotImplementedError(
+            "make_backend(journal=...) is not ported yet (ROADMAP queue 1, "
+            "item 8)")
+    return factory(**kwargs)
+
+
+register_backend("ram", lambda bandwidth=None: RAMStorage(bandwidth))
+register_backend("disk", lambda directory: DiskStorage(directory))
+register_backend(
+    "compressed",
+    lambda directory=None, min_bytes=256, inner=None: CompressedStorage(
+        inner=inner, directory=directory, min_bytes=min_bytes))
+register_backend(
+    "tiered",
+    lambda capacity_bytes, directory=None, slow=None, compress=False,
+    bandwidth=None: TieredStorage(
+        capacity_bytes, slow=slow, directory=directory, compress=compress,
+        bandwidth=bandwidth))
 
 
 class AsyncTransferEngine:
@@ -356,11 +1240,17 @@ class AsyncTransferEngine:
         with self._lock:
             self.num_stores += 1
 
-    def store_now(self, key: Any, tree: Any) -> None:
+    def store_now(self, key: Any, tree: Any, backend: Any = None) -> None:
         """A store made on the caller's thread through the same two halves
-        as :meth:`store_async` (the autotuner's ``T_T`` probe).  Not
-        counted in ``num_stores``."""
-        self._put(key, self._payload(tree))
+        as :meth:`store_async` (the autotuner's ``T_T`` probe), into
+        ``backend`` (default: the engine's; the tiered probe passes the
+        slow tier).  Not counted in ``num_stores``."""
+        payload = self._payload(tree)
+        if backend is None:
+            self._put(key, payload)
+        else:
+            backend.put(key, payload.wait()
+                        if isinstance(payload, HostTree) else payload)
 
     def delete_async(self, key: Any) -> None:
         """Like :meth:`delete`, but the backend delete rides the writer
@@ -419,9 +1309,12 @@ class AsyncTransferEngine:
             raise
         if self.device is None:
             return val
-        host = pytree.tree_map(_host_tensor, val)
         if self.device.type != "cuda":
+            host = pytree.tree_map(_host_tensor, val)
             return pytree.tree_map(lambda t: t.to(self.device), host)
+        # staged through page-locked memory on this thread, so the upload
+        # below is asynchronous whatever tier the value came from
+        host = pytree.tree_map(lambda a: _host_tensor(a, pin=True), val)
         if self._h2d_stream is None:
             self._h2d_stream = torch.cuda.Stream(self.device)
         with torch.cuda.stream(self._h2d_stream):

@@ -133,7 +133,11 @@ def test_offload_config_raises_the_same_value_errors(kw):
 
 @pytest.mark.parametrize("kw,item", [
     ({"engine": "scan"}, "item 13"),
-    ({"storage": "disk"}, "item 9"),
+    ({"journal_dir": "wal"}, "item 8"),
+    ({"mesh": "MESH"}, "item 15"),
+    ({"step_memory_budget": 1 << 20}, "item 11"),
+    ({"plan_2d": (2, 1)}, "item 11"),
+    ({"offload_params": "moe_experts"}, "item 12"),
 ])
 def test_left_out_knobs_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -25,10 +25,13 @@ loop over the segment, and each of its chunk entries is a page-locked
 allocation of its own.  The cell kernel under autograd (the per-step
 strategies' path) matches plain autograd through ``lstm_cell_ref`` at
 1e-5, and the Revolve, store-all and interpreted strategies on the card
-match the CPU run.  The
+match the CPU run, as does the fused runner over the disk and tiered
+Level-2 backends (counters equal).  The
 decoder chains on the card: the offloaded gradient against dense autograd
 on the card, loss 1e-5 relative and each leaf 1e-4 of its max |g|.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -263,6 +266,49 @@ def test_strategies_on_card_match_cpu(cuda_device, kw, forward_steps):
         assert getattr(stats, name) == getattr(out["cpu"][2], name), name
     assert out["cpu"][3] == 0
     assert out["cuda"][3] == forward_steps + stats.advances + stats.backwards
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {"storage": "tiered", "budget": 1},
+    {"storage": "tiered", "budget": 2},
+    {"storage": "disk"},
+])
+def test_fused_runner_level2_backends_on_card_match_cpu(cuda_device, kw,
+                                                         tmp_path):
+    """The fused runner's page-locked chunk entries through the other
+    Level-2 backends on the card: a tiered fast tier keeps them by
+    reference, spills pickle them to disk, promotions come back pageable
+    and are staged through page-locked memory for the upload.  Loss,
+    gradients and the Level-2 counters equal the CPU run's."""
+    T = 29
+    rng = np.random.default_rng(9)
+    ref = init_lstm_numpy(9, V, DX, DH)
+    tok = torch.tensor(rng.integers(0, V, (B, T + 1)), dtype=torch.int32)
+    store = {"storage": kw["storage"], "storage_dir": str(tmp_path)}
+    if "budget" in kw:
+        store["l2_capacity_bytes"] = kw["budget"] * (2 * B * DH * 4 + 4)
+    out = {}
+    for device in ("cpu", "cuda"):
+        vg = api.value_and_grad_offloaded(lstm.train_chain(), interval=6,
+                                          slots=3, runner="fused",
+                                          device=device, **store)
+        loss, grads = vg(params_from_numpy(ref, device=device),
+                         {"tokens": tok.to(device)})
+        out[device] = (loss.cpu(), {k: g.cpu() for k, g in grads.items()},
+                       api.last_stats())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for k, g in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], g, rtol=1e-4,
+                                   atol=1e-4 * float(g.abs().max()))
+    for name in ("l2_stores", "l2_fast_peak_bytes", "l2_evictions",
+                 "l2_promotions", "prefetch_depth", "fused_segments"):
+        assert getattr(out["cuda"][2], name) == \
+            getattr(out["cpu"][2], name), name
+    if "budget" in kw:
+        assert out["cuda"][2].l2_evictions == 5 - kw["budget"]
+    assert os.listdir(tmp_path) == []
 
 
 @pytest.mark.cuda
