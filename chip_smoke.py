@@ -72,7 +72,25 @@ Phases, each printing its own lines:
               scale, the reference's bound; under half the raw bytes
               written).  The slow tier is a directory under the out-dir
               (its filesystem printed, removed afterwards).
-7. dense    — ``value_and_grad_offloaded(get_model(gemma2-2b).train_loss)``
+7. resume   — crash consistency on ``lstm-paper`` at ``train_4k``,
+              ``runner="fused"``, I=256 (16 segments), the write-ahead
+              journal in a directory under the out-dir (its filesystem and
+              the cost of one commit barrier printed), deterministic
+              algorithms on: the unjournaled and the journaled fault-free
+              gradient in turns (phase ``main``'s gates and launch counts,
+              the journaled bit for bit the unjournaled; walls, journal
+              bytes and barriers); a writer kill at every forward store
+              (0-16) and a failed fetch at every reverse fetch (0-15), each
+              resumed with ``resume_offloaded`` (bit for bit the fault-free
+              run, ``replayed_advances`` <= I as the journal implies, the
+              fused kernels' launches and kernel 1's steps by caller as
+              the resume's segments imply; the first, middle and last of
+              each if the loops are estimated over 90 s); a torn STORE
+              record; a flipped byte (``ChecksumError`` on open, then
+              ``journal_repair=True``); a journaled tiered run at 8 states
+              (counters equal to the plan); one autotuned journaled
+              gradient (wall, I, journal bytes, barriers).
+8. dense    — ``value_and_grad_offloaded(get_model(gemma2-2b).train_loss)``
               (``runner="compiled"``, autotuned) at full width and depth (26
               layers, 13 chain steps), ``train_4k`` with the global batch
               cut from 256 to 2, weights from a seeded CUDA generator; held
@@ -87,9 +105,9 @@ Phases, each printing its own lines:
               boundary states over disk (fast peak and evictions as the
               model and plan say; a bf16 boundary spilled and promoted
               back bit for bit).
-8. ssm      — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
+9. ssm      — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
               and ``ssd_scan``.
-9. timing   — each kernel, its plain version and the nearest library call
+10. timing  — each kernel, its plain version and the nearest library call
               timed with CUDA events at the main path's shapes, with the
               achieved TFLOP/s where the bound is operations; the fused
               reverse at T=1000 also by part (recompute, hoisted products,
@@ -103,7 +121,7 @@ Phases, each printing its own lines:
               (the same); the step loop over a recompute chunk per launch
               and per step, beside cuDNN's multi-step LSTM on the same
               chunk.
-10. train   — three RMSProp steps through the offloaded LSTM gradient; the
+11. train   — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over one main-path
@@ -136,7 +154,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 DEFAULT_OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
 PHASES = ("device", "build", "kernels", "main", "strategies", "level2",
-          "dense", "ssm", "timing", "train")
+          "resume", "dense", "ssm", "timing", "train")
 OPTIONAL = ("profile",)   # run only when named in --phases
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 bandwidth (data sheet)
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores (data sheet)
@@ -1177,6 +1195,463 @@ def phase_level2(state) -> None:
     state["level2"] = runs
 
 
+# pinned interval of phase resume (16 segments of train_4k) and its tiered
+# run's fast-tier budget in boundary states
+RESUME_I = 256
+RESUME_TIER_STATES = 8
+RESUME_BUDGET_S = 90.0   # the crash loops' time budget
+
+
+class _JournalMeter:
+    """Reads each journaled run's WAL size and commit barriers
+    (``fdatasync`` calls) just before ``end_run`` compacts the file — the
+    bytes the run wrote and the barriers it paid — and the barriers after
+    the compaction.  The run itself is not changed."""
+
+    def __enter__(self):
+        from repro_torch.core.storage import JournaledStorage
+
+        self._cls, self._real = JournaledStorage, JournaledStorage.end_run
+        self.runs = []
+        real = self._real
+
+        def end_run(js):
+            before = (js.journal_bytes, js.fsync_count)
+            real(js)
+            self.runs.append({"bytes": before[0], "barriers": before[1],
+                              "barriers_after_compaction": js.fsync_count})
+
+        JournaledStorage.end_run = end_run
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.end_run = self._real
+
+
+def _barrier_costs(directory):
+    """Milliseconds of one commit barrier (``fdatasync``) on the WAL's
+    filesystem after appending a boundary-sized record (524,292 B) and
+    after a 64-byte one, each the mean of 20."""
+    from repro_torch.core import journal
+
+    path = os.path.join(directory, "barrier.log")
+    out = {}
+    for label, size in (("524292 B", 524292), ("64 B", 64)):
+        jf = journal.JournalFile(path)
+        payload = os.urandom(size)
+        total = 0.0
+        for _ in range(20):
+            jf.append(journal.OP_STORE, b"k", payload, sync=False)
+            t0 = time.perf_counter()
+            jf.flush()
+            total += time.perf_counter() - t0
+        jf.close()
+        os.remove(path)
+        out[label] = 1e3 * total / 20
+    return out
+
+
+def _read_journal(jd):
+    """The last epoch of the WAL in ``jd`` read without opening it as a
+    store (which would truncate a torn tail): its surviving keys, last
+    cursor and whether the file ends in damage."""
+    import pickle
+
+    from repro_torch.core import journal
+
+    jf = journal.JournalFile(os.path.join(jd, "wal.log"))
+    try:
+        scan = jf.scan()
+    finally:
+        jf.close()
+    keys, cursor = {}, None
+    for rec in journal.iter_epoch(scan.records):
+        if rec.op == journal.OP_BEGIN:
+            keys, cursor = {}, None
+        elif rec.op == journal.OP_STORE:
+            keys[rec.key] = None
+        elif rec.op == journal.OP_DELETE:
+            keys.pop(rec.key, None)
+        elif rec.op == journal.OP_CURSOR:
+            cursor = pickle.loads(rec.payload)
+    return tuple(keys), cursor, scan.damage
+
+
+class _RecoverMeter:
+    """Keeps what each ``JournaledStorage.recover()`` returns while it is
+    entered: the resume's own view of the journal it opened."""
+
+    def __enter__(self):
+        from repro_torch.core.storage import JournaledStorage
+
+        self._cls, self._real = JournaledStorage, JournaledStorage.recover
+        self.runs = []
+        real = self._real
+
+        def recover(js):
+            rec = real(js)
+            self.runs.append(rec)
+            return rec
+
+        JournaledStorage.recover = recover
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.recover = self._real
+
+
+def _resume_expectation(plan, jd):
+    """What resuming the journal in ``jd`` must do under ``plan``: the
+    segments it advances (from the end of the contiguous durable prefix;
+    none after a reverse-phase crash), those it reverses, the
+    ``replayed_advances`` the cursor attests, and kernel 1's (launches,
+    steps) by caller.  The WAL is read as it lies, damage included."""
+    from repro_torch.core.schedule import chunk_length
+    from repro_torch.kernels import segment_fused as sf
+
+    keys, cur, damage = _read_journal(jd)
+    segs = plan.segments
+    if cur is not None and cur.phase == "reverse":
+        advanced, reversed_, replayed = [], segs[:cur.segment_index + 1], 0
+    else:
+        start = -1
+        for seg in segs:
+            if seg.begin in keys:
+                start = seg.sid
+            else:
+                break
+        b_star = segs[start].begin if start >= 0 else 0
+        replayed = 0
+        if start >= 0 and cur is not None:
+            replayed = max(0, plan.cursor_position(cur) - b_star)
+        advanced, reversed_ = segs[max(start, 0):], segs
+    cells = {"advance": [0, 0], "reverse": [0, 0]}
+    for group, caller in ((advanced, "advance"), (reversed_, "reverse")):
+        for seg in group:
+            w = sf.cell_work(seg.length, chunk_length(seg.length, plan.s_l1)
+                             or seg.length)[caller]
+            cells[caller][0] += w[0]
+            cells[caller][1] += w[1]
+    return {"advanced": len(advanced), "reversed": len(reversed_),
+            "replayed": replayed,
+            "torn": damage is not None and damage.kind == "torn",
+            "cursor": None if cur is None else (cur.phase,
+                                                cur.segment_index),
+            "cells": {k: tuple(v) for k, v in cells.items()}}
+
+
+def _pick(indices, all_fit: bool):
+    return list(indices) if all_fit else sorted(
+        {indices[0], indices[len(indices) // 2], indices[-1]})
+
+
+def phase_resume(state) -> None:
+    """Crash consistency on ``lstm-paper`` at ``train_4k`` (B=256, S=4096),
+    ``runner="fused"``, I=256, with the write-ahead journal in a directory
+    under the out-dir: a fault-free journaled gradient (phase ``main``'s
+    gates, launch counts, and bit for bit the unjournaled run at the same
+    I); a writer kill at every forward store and a failed fetch at every
+    reverse fetch, each resumed with ``resume_offloaded`` (bit for bit the
+    fault-free run, ``replayed_advances <= I``, launches as the journal
+    implies); a torn record; a flipped byte (``ChecksumError``, then
+    ``journal_repair=True``); a journaled tiered run at 8 states;
+    autotuned gradients, unjournaled and journaled, with deterministic
+    algorithms off and on.  Deterministic algorithms are on for the rest of
+    the phase (``CUBLAS_WORKSPACE_CONFIG`` is set at start-up)."""
+    import itertools
+    import shutil
+
+    import torch
+    import torch.utils.deterministic as det_fill
+
+    from repro_torch import api
+    from repro_torch.core import faults, perfmodel
+    from repro_torch.core.faults import ChecksumError, FaultPlan
+    from repro_torch.core.storage import tree_bytes
+    from repro_torch.kernels import lstm_cell as lc
+    from repro_torch.kernels import segment_fused as sf
+
+    lstm_inputs(state)
+    model, params, batch = state["model"], state["params"], state["batch"]
+    if "lstm_ref" not in state:
+        state["lstm_ref"] = lstm_reference(params, batch, "resume")
+    ref_loss, ref_grads = state["lstm_ref"]
+    n = batch["tokens"].shape[1] - 1
+    carry0, _ = model.train_loss.chain_spec.prelude(params, batch)
+    sb = tree_bytes(carry0)
+    directory = os.path.join(state["out_dir"], "resume")
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    barrier = _barrier_costs(directory)
+    log(f"[resume] WAL in {directory}: filesystem {fs_type(directory)}; "
+        f"boundary state {sb} B; one commit barrier (fdatasync) after a "
+        + ", after a ".join(f"{k} append: {v:.3f} ms"
+                            for k, v in barrier.items()))
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    kw = {"runner": "fused", "device": "cuda", "interval": RESUME_I}
+    counter = itertools.count()
+
+    def run(vg_kw, plan=None, repair=None):
+        """One gradient (a resume when ``repair`` is not None), under the
+        fault ``plan`` if one is given, with its wall; raises what the run
+        raises."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if repair is None:
+            vg = api.value_and_grad_offloaded(model.train_loss, **vg_kw)
+            if plan is None:
+                out = vg(params, batch)
+            else:
+                with faults.inject(plan):
+                    out = vg(params, batch)
+        else:
+            out = api.resume_offloaded(model.train_loss, params, batch,
+                                       repair=repair, **vg_kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def bit_equal(a, b):
+        return torch.equal(a[0], b[0]) and all(
+            torch.equal(a[1][k], b[1][k]) for k in b[1])
+
+    def fresh_dir():
+        return os.path.join(directory, f"wal{next(counter)}")
+
+    try:
+        # this phase's path: every count from 0 here, read at its end
+        for fn in (lc.lstm_cell, sf.fused_advance_segment,
+                   sf.fused_reverse_segment):
+            fn.launches = 0
+        lc.lstm_cell.steps = 0
+        for fn in (sf.fused_advance_segment, sf.fused_reverse_segment):
+            fn.cell_launches = fn.cell_steps = 0
+        # (a) unjournaled and journaled, fault-free, in turns
+        walls = {"plain": [], "journaled": []}
+        meters = []
+        ref_out = None   # the first unjournaled run's loss and gradients
+        for label in ("plain", "journaled", "journaled", "plain"):
+            vg_kw = dict(kw)
+            before = _fused_counts()
+            if label == "journaled":
+                vg_kw["journal_dir"] = fresh_dir()
+                with _JournalMeter() as meter:
+                    out, wall = run(vg_kw)
+                require(len(meter.runs) == 1,
+                        f"{len(meter.runs)} journaled runs ended")
+                meters.append(meter.runs[0])
+            else:
+                out, wall = run(vg_kw)
+            tune, stats, plan = api.last_tune(), api.last_stats(), \
+                api.last_plan()
+            _check_against(f"resume {label}", out[0], out[1], ref_loss,
+                           ref_grads)
+            _check_fused_launches(f"resume {label}", before, plan, tune,
+                                  stats)
+            walls[label].append(wall)
+            if ref_out is None:
+                ref_out = out
+            require(bit_equal(out, ref_out),
+                    f"resume {label}: not bit for bit the unjournaled run")
+            require(stats.replayed_advances == 0
+                    and stats.l2_stores == plan.num_segments
+                    + (label == "journaled"),
+                    f"resume {label}: stores {stats.l2_stores}, replayed "
+                    f"{stats.replayed_advances}")
+        segs = plan.num_segments
+        log(f"[resume] I={RESUME_I}, {segs} segments: wall unjournaled "
+            f"{walls['plain'][0]:.3f}, {walls['plain'][1]:.3f} s; journaled "
+            f"{walls['journaled'][0]:.3f}, {walls['journaled'][1]:.3f} s; "
+            f"journal bytes {meters[0]['bytes']}, {meters[1]['bytes']}; "
+            f"barriers {meters[0]['barriers']}, {meters[1]['barriers']} "
+            f"({meters[0]['barriers_after_compaction']} after the "
+            "end-of-run compaction); bit for bit the unjournaled run")
+        # (b) a writer kill at every forward store, a failed fetch at every
+        # reverse fetch, each resumed
+        kills, gets = list(range(segs + 1)), list(range(segs))
+        estimate = 2 * (len(kills) + len(gets)) * max(walls["journaled"])
+        all_fit = estimate <= RESUME_BUDGET_S
+        picked = [("kill", k) for k in _pick(kills, all_fit)] + \
+            [("get", j) for j in _pick(gets, all_fit)]
+        log(f"[resume] crash loops: {len(picked)} crashes "
+            + ("(every forward store and reverse fetch)" if all_fit else
+               f"(first, middle and last of each: the whole loop was "
+               f"estimated at {estimate:.0f} s, over {RESUME_BUDGET_S:.0f})"))
+        results = []
+        for what, at in picked:
+            plan_f = FaultPlan(kill_writer_at_store=at) if what == "kill" \
+                else FaultPlan(fail_get_at=at)
+            jd = fresh_dir()
+            vg_kw = dict(kw, journal_dir=jd)
+            try:
+                run(vg_kw, plan=plan_f)
+                raise SmokeFailure(f"resume {what} {at}: the run completed")
+            except SmokeFailure:
+                raise
+            except Exception as e:
+                require(faults.is_storage_fault(e),
+                        f"resume {what} {at}: untyped failure {e!r}")
+            want = _resume_expectation(plan, jd)
+            before = _fused_counts()
+            out, wall = run(vg_kw, repair=False)
+            stats = api.last_stats()
+            now, cells_now = _fused_counts()
+            grew = {k: now[k] - before[0][k] for k in now}
+            cells = {k: (cells_now[k][0] - before[1][k][0],
+                         cells_now[k][1] - before[1][k][1])
+                     for k in cells_now}
+            require(bit_equal(out, ref_out),
+                    f"resume {what} {at}: not bit for bit the fault-free run")
+            require(stats.replayed_advances == want["replayed"] <= RESUME_I,
+                    f"resume {what} {at}: replayed {stats.replayed_advances}"
+                    f", the journal implies {want['replayed']}")
+            require(grew["fused_advance_segment"] == want["advanced"]
+                    and grew["fused_reverse_segment"] == want["reversed"]
+                    and cells == want["cells"],
+                    f"resume {what} {at}: launches {grew}, cells {cells}; "
+                    f"the journal implies {want}")
+            results.append(f"{what}{at}: cursor {want['cursor']}, advanced "
+                           f"{want['advanced']}, reversed {want['reversed']},"
+                           f" replayed {stats.replayed_advances}, resume "
+                           f"{wall:.3f}s")
+            shutil.rmtree(jd)
+        log("[resume] every resume bit for bit the fault-free run: "
+            + "; ".join(results))
+        # (c) a torn STORE record, then a flipped byte
+        mid = segs // 2
+        jd = fresh_dir()
+        vg_kw = dict(kw, journal_dir=jd)
+        try:
+            run(vg_kw, plan=FaultPlan(truncate_journal_at_store=mid))
+            raise SmokeFailure("resume torn: the run completed")
+        except SmokeFailure:
+            raise
+        except Exception as e:
+            require(faults.is_storage_fault(e), f"resume torn: {e!r}")
+        want = _resume_expectation(plan, jd)
+        with _RecoverMeter() as seen:
+            out, wall = run(vg_kw, repair=False)
+        stats = api.last_stats()
+        require(want["torn"] and len(seen.runs) == 1 and seen.runs[0].torn
+                and bit_equal(out, ref_out)
+                and stats.replayed_advances == want["replayed"] <= RESUME_I,
+                f"resume torn: {want}, the resume's recovery "
+                f"{[r.torn for r in seen.runs]}, replayed "
+                f"{stats.replayed_advances}")
+        log(f"[resume] torn STORE record {mid}: the resume discarded the "
+            "tail on open, "
+            f"cursor {want['cursor']}, replayed {stats.replayed_advances}, "
+            f"resume {wall:.3f}s, bit for bit")
+        shutil.rmtree(jd)
+        jd = fresh_dir()
+        vg_kw = dict(kw, journal_dir=jd)
+        try:
+            run(vg_kw, plan=FaultPlan(flip_byte_at_store=mid,
+                                              kill_writer_at_store=mid + 1))
+            raise SmokeFailure("resume flip: the run completed")
+        except SmokeFailure:
+            raise
+        except Exception as e:
+            require(faults.is_storage_fault(e), f"resume flip: {e!r}")
+        try:
+            run(vg_kw, repair=False)
+            raise SmokeFailure("resume flip: no ChecksumError on open")
+        except ChecksumError:
+            pass
+        out, wall = run(vg_kw, repair=True)
+        stats = api.last_stats()
+        require(bit_equal(out, ref_out)
+                and stats.replayed_advances <= RESUME_I,
+                f"resume flip: replayed {stats.replayed_advances}")
+        log(f"[resume] flipped byte in STORE record {mid}: ChecksumError on "
+            f"open; journal_repair=True replayed {stats.replayed_advances}, "
+            f"resume {wall:.3f}s, bit for bit")
+        shutil.rmtree(jd)
+        # (d) journaled over a tiered store at 8 states
+        cap = RESUME_TIER_STATES * sb
+        vg_kw = dict(kw, journal_dir=fresh_dir(), storage="tiered",
+                     storage_dir=os.path.join(directory, "slow"),
+                     l2_capacity_bytes=cap)
+        before = _fused_counts()
+        out, wall = run(vg_kw)
+        tune, stats, plan = api.last_tune(), api.last_stats(), \
+            api.last_plan()
+        _check_fused_launches("resume tiered", before, plan, tune, stats)
+        tier = plan.tier_plan(cap, sb)
+        model_peak = perfmodel.fast_peak_bytes_model(n, plan.interval, sb,
+                                                     cap)
+        # the journaled final state, a key outside the plan, is evicted
+        # once more (as in the JAX package)
+        require(bit_equal(out, ref_out)
+                and stats.l2_fast_peak_bytes == model_peak <= cap
+                and stats.l2_evictions == tier.spilled + 1
+                and stats.l2_promotions == tier.spilled
+                and stats.prefetch_depth == tier.prefetch_distance,
+                f"resume tiered: fast peak {stats.l2_fast_peak_bytes} "
+                f"(model {model_peak}), evictions {stats.l2_evictions} / "
+                f"promotions {stats.l2_promotions} (plan {tier.spilled}), "
+                f"depth {stats.prefetch_depth} "
+                f"(plan {tier.prefetch_distance})")
+        log(f"[resume] journaled tiered, {RESUME_TIER_STATES} states: wall "
+            f"{wall:.3f}s; fast peak {stats.l2_fast_peak_bytes}, evictions "
+            f"{stats.l2_evictions} (the plan's {tier.spilled} + the final "
+            f"state), promotions {stats.l2_promotions}, depth "
+            f"{stats.prefetch_depth} (= the plan); bit for bit")
+        # (e) autotuned gradients, each with a tuner of its own (a fresh
+        # probe): unjournaled and journaled in turns with deterministic
+        # algorithms off, then journaled with them on, and on without
+        # filling new allocations; held to phase main's gates, not bits
+        modes = [("plain", False, True), ("journaled", False, True),
+                 ("journaled", False, True), ("plain", False, True),
+                 ("journaled", True, True), ("journaled", True, False)]
+        autotuned = []
+        for label, det, fill in modes:
+            vg_kw = {"runner": "fused", "device": "cuda",
+                     "tuner": api.AutoTuner()}
+            if label == "journaled":
+                vg_kw["journal_dir"] = fresh_dir()
+            torch.use_deterministic_algorithms(det, warn_only=True)
+            det_fill.fill_uninitialized_memory = fill
+            before = _fused_counts()
+            try:
+                with _JournalMeter() as meter:
+                    out, wall = run(vg_kw)
+            finally:
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                det_fill.fill_uninitialized_memory = True
+            tune, stats, plan = api.last_tune(), api.last_stats(), \
+                api.last_plan()
+            mode = (f"{label}, deterministic "
+                    + ("off" if not det else "on" if fill
+                       else "on without filling new allocations"))
+            rel, gerr = _check_against(f"resume autotuned {mode}", out[0],
+                                       out[1], ref_loss, ref_grads)
+            _check_fused_launches(f"resume autotuned {mode}", before, plan,
+                                  tune, stats)
+            wal = meter.runs[0] if meter.runs else {"bytes": 0,
+                                                    "barriers": 0}
+            autotuned.append({"mode": mode, "t_a": tune.t_a,
+                              "t_t": tune.t_t, "interval": tune.interval,
+                              "segments": plan.num_segments, "wall": wall,
+                              **wal})
+            log(f"[resume] autotuned, {mode}: T_A={tune.t_a:.6e}s "
+                f"T_T={tune.t_t:.6e}s I={tune.interval} ({tune.source}), "
+                f"{plan.num_segments} segments; wall {wall:.3f}s; journal "
+                f"bytes {wal['bytes']}, barriers {wal['barriers']}; loss "
+                f"rel err {rel:.3g}, grad scaled err {gerr:.3g}; "
+                f"store_stall_s {stats.store_stall_s:.4f} prefetch_stall_s "
+                f"{stats.prefetch_stall_s:.4f}")
+        state["resume"] = {"walls": walls, "meters": meters,
+                           "autotuned": autotuned}
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(directory, ignore_errors=True)
+    launches = _fused_counts()[0]
+    for k, c in launches.items():
+        require(c > 0, f"{k} was not launched in phase resume")
+    log(f"[resume] launches in this phase: {launches}")
+
+
 def lstm_inputs(state) -> None:
     """``lstm-paper`` at ``train_4k`` with seeded weights, into ``state``
     (once)."""
@@ -2110,6 +2585,11 @@ def main(argv=None) -> int:
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
+    if "resume" in phases:
+        # bit-identical resume on the card: cuBLAS reads this when its
+        # first handle is made (phase resume turns on deterministic
+        # algorithms for itself)
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2122,6 +2602,7 @@ def main(argv=None) -> int:
     steps = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "main": phase_main,
              "strategies": phase_strategies, "level2": phase_level2,
+             "resume": phase_resume,
              "dense": phase_dense, "ssm": phase_ssm,
              "timing": phase_timing, "train": phase_train,
              "profile": phase_profile}

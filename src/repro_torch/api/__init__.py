@@ -7,17 +7,21 @@ path: the paper's asynchronous multistage checkpointing over a
 ``strategy="revolve"``/``"conventional"`` and ``engine="interpreted"`` are
 the paper's baselines and its step-granular interpreter;
 ``checkpointed_bptt`` wraps a ``body(params, carry, x) -> (carry, loss_k)``
-scan.
+scan.  ``journal_dir=`` makes a run crash-consistent and
+``resume_offloaded`` finishes a crashed one from its journal.
 """
 from repro_torch.api.autotune import (GLOBAL_TUNER, AutoTuner, TuneResult,
                                       snap_interval)
 from repro_torch.api.chain import ChainSpec, chain_length
 from repro_torch.api.frontend import (OffloadConfig, checkpointed_bptt,
                                       last_plan, last_stats, last_tune,
+                                      resume_offloaded,
                                       value_and_grad_offloaded)
+from repro_torch.core.faults import StorageFault  # typed Level-2 failure root
 
 __all__ = [
-    "AutoTuner", "ChainSpec", "GLOBAL_TUNER", "OffloadConfig", "TuneResult",
-    "chain_length", "checkpointed_bptt", "last_plan", "last_stats",
-    "last_tune", "snap_interval", "value_and_grad_offloaded",
+    "AutoTuner", "ChainSpec", "GLOBAL_TUNER", "OffloadConfig",
+    "StorageFault", "TuneResult", "chain_length", "checkpointed_bptt",
+    "last_plan", "last_stats", "last_tune", "resume_offloaded",
+    "snap_interval", "value_and_grad_offloaded",
 ]

@@ -154,7 +154,9 @@ class AutoTuner:
         ``store_tree()`` (optional) gives what the run hands the store in
         place of ``state0``: for the fused runner, a chunk entry that the
         last probe's fused advance wrote (its in-kernel copy is inside
-        ``T_A``; the store pays only the rest).
+        ``T_A``; the store pays only the rest).  Over a journaled backend
+        the put is the journal's (a STORE record, then the inner store's
+        put), as in the run, and the cache keys the schedule on it.
 
         A :class:`TieredStorage` backend is probed once more through its
         slow tier with the same payload (``T_T_slow``).  When one state

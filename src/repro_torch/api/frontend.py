@@ -1,7 +1,8 @@
 # Port of repro/api/frontend.py: OffloadConfig, value_and_grad_offloaded
 # (strategies multistage_async, revolve and conventional; engines compiled
-# and interpreted; the storage kinds of the backend registry and backend=),
-# _make_backend, checkpointed_bptt and last_stats/last_tune/last_plan.
+# and interpreted; the storage kinds of the backend registry and backend=;
+# journal_dir=/resume=/journal_repair=), _make_backend, _input_fingerprint,
+# resume_offloaded, checkpointed_bptt and last_stats/last_tune/last_plan.
 """Drop-in autodiff front-end for asynchronous multistage checkpointing.
 
 ``value_and_grad_offloaded(loss)`` is the paper's technique packaged the way
@@ -33,10 +34,15 @@ hand-written CUDA segment kernels; ``runner="compiled"`` is plain PyTorch,
 as XLA's is in JAX.  The schedule ``(I, s)`` is measured on the first call
 (``I = ceil(T_T/T_A)``, §3) unless ``interval=`` pins it.
 
+``journal_dir=`` makes a multistage run crash-consistent (a write-ahead
+journal of every Level-2 store, delete and segment cursor), and
+``resume_offloaded`` finishes a crashed gradient from that journal, bit for
+bit, replaying at most one interval.
+
 Everything runs on the card unless ``device="cpu"`` is passed.  Not ported
-yet, and raising ``NotImplementedError`` when asked for: journaling (ROADMAP
-queue 1, item 8), meshes (item 15), 2D plans (item 11), parameter streaming
-(item 12) and the scan engine (item 13).
+yet, and raising ``NotImplementedError`` when asked for: meshes (ROADMAP
+queue 1, item 15), 2D plans (item 11), parameter streaming (item 12) and
+the scan engine (item 13).
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import shutil
 import tempfile
 import warnings
 import weakref
+import zlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -60,9 +67,10 @@ from repro_torch.core import schedule as ms
 from repro_torch.core.compiled_ops import (CompiledChainOps,
                                            CompiledSegmentRunner,
                                            FusedSegmentRunner)
-from repro_torch.core.executor import CheckpointExecutor, ExecutionStats
+from repro_torch.core.executor import (CheckpointExecutor, ExecutionStats,
+                                       placed)
 from repro_torch.core.storage import (AsyncTransferEngine, HostTree,
-                                      make_backend)
+                                      JournaledStorage, make_backend)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import segment_fused
 
@@ -84,6 +92,9 @@ class OffloadConfig:
     #                                   "tiered" | any register_backend()'d
     storage_dir: Optional[str] = None
     l2_capacity_bytes: Optional[int] = None  # fast-tier budget ("tiered")
+    journal_dir: Optional[str] = None  # crash-consistency WAL directory
+    resume: bool = False              # resume a crashed run from the journal
+    journal_repair: bool = False      # truncate a CRC-damaged journal on open
     autotune: bool = True
     tuner_id: int = 0                 # key into the tuner registry
     backend_id: int = 0               # key into the shared-backend registry
@@ -93,7 +104,6 @@ class OffloadConfig:
     runner: str = "compiled"          # "compiled" (plain PyTorch per
     #                                   segment) | "fused" (CUDA kernels)
     # knobs of the JAX package that are not ported yet (each raises)
-    journal_dir: Optional[str] = None
     mesh: Optional[Any] = None
     step_memory_budget: Optional[int] = None
     plan_2d: Optional[Tuple[int, int]] = None
@@ -129,6 +139,16 @@ class OffloadConfig:
                 "backend= hands the transform one already-built Level-2 "
                 "store; sharded per-device streams (mesh=) must be built "
                 "from a storage kind instead")
+        if self.resume and self.journal_dir is None:
+            raise ValueError(
+                "resume=True needs journal_dir= (there is nothing to "
+                "recover without a write-ahead journal)")
+        if self.journal_dir is not None and \
+                self.strategy != "multistage_async":
+            raise ValueError(
+                "journal_dir= journals the Level-2 boundary stores of the "
+                "multistage_async strategy; strategy="
+                f"{self.strategy!r} keeps no Level-2 state to journal")
         if self.engine == "scan":
             if self.strategy != "multistage_async":
                 raise ValueError(
@@ -140,11 +160,15 @@ class OffloadConfig:
                     f"own; the pluggable storage backends "
                     f"({STORAGE_KINDS[1:]}) apply to the executor engines "
                     "only")
+            if self.journal_dir is not None:
+                raise ValueError(
+                    "engine='scan' runs as one traced program — its Level-2 "
+                    "state cannot be journaled; use the executor engines "
+                    "('compiled'/'interpreted') for crash consistency")
         # valid, but not ported yet; an unknown storage kind raises at the
         # first call, from the backend registry (as in the JAX package)
         for given, what, item in (
                 (self.engine == "scan", "engine='scan'", 13),
-                (self.journal_dir is not None, "journal_dir=", 8),
                 (self.mesh is not None, "mesh=", 15),
                 (self.step_memory_budget is not None
                  or self.plan_2d is not None,
@@ -203,9 +227,10 @@ def _make_backend(cfg: OffloadConfig):
     """The run's Level-2 backend, from the registry
     (:func:`~repro_torch.core.storage.make_backend`: an unknown kind raises
     there, and kinds added with ``register_backend`` work here), or the
-    caller's ``backend=``.  Returns ``(backend, tmpdir)``: ``tmpdir`` is a
-    directory made here for the slow tier, removed when the run is
-    disposed of."""
+    caller's ``backend=``; with ``journal_dir`` a
+    :class:`~repro_torch.core.storage.JournaledStorage` over it.  Returns
+    ``(backend, tmpdir)``: ``tmpdir`` is a directory made here for the slow
+    tier, removed when the run is disposed of."""
     if cfg.backend_id:
         backend = _SHARED_BACKENDS.get(cfg.backend_id)
         if backend is None:
@@ -213,6 +238,12 @@ def _make_backend(cfg: OffloadConfig):
                 "the backend= object this transform was built over is no "
                 "longer alive; hold a reference to the transform (or the "
                 "backend) for as long as it is called")
+        if cfg.journal_dir is not None:
+            # Journal composes OUTSIDE the shared store: the WAL records the
+            # run's raw (un-namespaced) keys, so a resume replays into
+            # whatever namespace the new backend view carries.
+            backend = JournaledStorage(backend, cfg.journal_dir,
+                                       repair=cfg.journal_repair)
         return backend, None
     tmpdir = None
     kwargs = {}
@@ -226,9 +257,14 @@ def _make_backend(cfg: OffloadConfig):
         kwargs["directory"] = directory
     if cfg.storage == "tiered":
         kwargs["capacity_bytes"] = cfg.l2_capacity_bytes
+    if cfg.journal_dir is not None:
+        kwargs["journal"] = cfg.journal_dir
+        kwargs["journal_repair"] = cfg.journal_repair
     try:
         return make_backend(cfg.storage, **kwargs), tmpdir
     except BaseException:
+        # construction can raise after the tempdir exists (e.g. a
+        # ChecksumError from a corrupt journal): don't orphan it
         if tmpdir is not None:
             shutil.rmtree(tmpdir, ignore_errors=True)
         raise
@@ -355,6 +391,63 @@ def _resolve_schedule(static: _Static, ops: _Ops, params, carry0, xs, batch,
     return tune
 
 
+def _fingerprint_leaves(tree):
+    """The leaves of ``tree`` in the JAX package's order (a dict's by
+    sorted key, where torch's pytree keeps insertion order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _fingerprint_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            yield from _fingerprint_leaves(x)
+    elif tree is not None:
+        yield tree
+
+
+def _input_fingerprint(*trees) -> str:
+    """Sampled identity of the gradient call's inputs
+    (params/carry0/xs/batch): per-leaf shape+dtype+nbytes plus a CRC of
+    bounded prefix/middle/suffix slices.  Written into the journal's
+    BEGIN record and checked before a resume — resuming a crashed sweep
+    under *different* inputs (e.g. a restart from an older model
+    checkpoint with a stale journal) would silently mix two parameter
+    sets into one gradient, so a mismatch falls back to a fresh,
+    journaled run.
+
+    The check is probabilistic by design: hashing every byte of a
+    multi-GB pytree per gradient call is not affordable, so O(KB) per
+    leaf is sampled from three spread-out slices, cut on the device
+    before they are copied to the host.  The digest is the JAX package's
+    for the same values (a bf16 leaf hashes its raw bits under the name
+    ``bfloat16``, as ``ml_dtypes`` names it there)."""
+    crc = 0
+    for tree in trees:
+        for leaf in _fingerprint_leaves(tree):
+            if isinstance(leaf, torch.Tensor):
+                t = leaf.detach()
+                if t.dtype == torch.bfloat16:
+                    name, t = "bfloat16", t.view(torch.int16)
+                else:
+                    name = str(torch.empty(0, dtype=t.dtype).numpy().dtype)
+                shape, nbytes = tuple(t.shape), t.numel() * t.element_size()
+                flat, item = t.reshape(-1), t.element_size()
+            else:
+                a = np.asarray(leaf)
+                name, shape, nbytes = a.dtype, a.shape, a.nbytes
+                if not a.flags.c_contiguous:
+                    a = np.ascontiguousarray(a)
+                flat, item = a.reshape(-1), a.itemsize
+            crc = zlib.crc32(f"{shape}{name}{nbytes}".encode(), crc)
+            n = flat.shape[0]
+            k = max(1, 2048 // max(1, item))
+            for sl in (flat[:k], flat[max(0, n // 2 - k // 2):
+                                      n // 2 + k // 2 + 1], flat[-k:]):
+                if isinstance(sl, torch.Tensor):
+                    sl = sl.cpu().numpy()
+                crc = zlib.crc32(np.ascontiguousarray(sl).tobytes(), crc)
+    return f"{crc:08x}"
+
+
 class _RunRecord:
     """What the backward pass needs from the forward: the strategy's
     in-flight run (multistage; closed if the backward pass never comes),
@@ -391,12 +484,38 @@ def _fwd(static: _Static, params, carry0, xs, batch):
     if cfg.strategy == "multistage_async":
         device = pytree.tree_leaves(carry0)[0].device
         backend, rec.tmpdir = _make_backend(cfg)
-        engine = AsyncTransferEngine(backend, device=device)
+        engine = None
         try:
+            engine = AsyncTransferEngine(backend, device=device)
             if cfg.runner == "fused":
                 segment_fused.check_token_range(spec.body, params, xs)
-            tune = _resolve_schedule(static, ops, params, carry0, xs, batch,
-                                     n, engine)
+            recovered = None
+            fingerprint = None
+            if cfg.journal_dir is not None:
+                fingerprint = _input_fingerprint(params, carry0, xs, batch)
+            if cfg.resume:
+                # what survived the crash: durable boundary keys + the last
+                # plan cursor.  Unusable recoveries (no cursor, a cleanly
+                # finished run, a different chain length, or inputs that
+                # do not match the crashed run's fingerprint) fall back to
+                # a fresh — still journaled — run.
+                recovered = backend.recover()
+                cur = recovered.cursor
+                old_fp = recovered.meta.get("fingerprint")
+                if cur is None or cur.phase == "done" or cur.n != n or \
+                        (old_fp is not None and old_fp != fingerprint):
+                    recovered = None
+            if recovered is not None:
+                # the journal cursor pins the schedule: resuming under a
+                # different (I, s) than the crashed run would orphan its
+                # durable boundaries
+                tuner = _TUNERS.get(cfg.tuner_id, at.GLOBAL_TUNER)
+                tune = tuner.manual(spec.name, n=n,
+                                    interval=recovered.cursor.interval,
+                                    slots=recovered.cursor.s_l1)
+            else:
+                tune = _resolve_schedule(static, ops, params, carry0, xs,
+                                         batch, n, engine)
             runner = None   # the interpreted engine: per-step operators
             if cfg.engine == "compiled":
                 runner_cls = FusedSegmentRunner if cfg.runner == "fused" \
@@ -409,12 +528,25 @@ def _fwd(static: _Static, params, carry0, xs, batch):
 
             x_n, run = CheckpointExecutor(fwd_op, None).multistage_forward(
                 carry0, n, interval=tune.interval, s_l1=tune.slots,
-                engine=engine, runner=runner)
+                engine=engine, runner=runner, resume_from=recovered,
+                run_meta={"fingerprint": fingerprint}
+                if fingerprint is not None else None)
         except BaseException:
-            try:
-                engine.close()
-            except Exception:
-                pass
+            # multistage_forward treats a passed-in engine as borrowed and
+            # won't close it on error — engine and backend are ours, so
+            # close both here (a journaled backend holds an open WAL fd;
+            # leaking it across an in-process retry loop piles up fds)
+            if engine is not None:
+                try:
+                    engine.close()
+                except Exception:
+                    pass
+            bclose = getattr(backend, "close", None)
+            if bclose is not None:
+                try:
+                    bclose()
+                except Exception:
+                    pass
             rec.dispose()
             raise
         run.own_engine = True
@@ -456,9 +588,33 @@ def _bwd(static: _Static, rec: _RunRecord, dcarry):
 
     ex = CheckpointExecutor(fwd_op, bwd_op)
     adjoint0 = (dcarry, ops.zero_grads(params))
+    runner = run.runner if run is not None else None
+
+    # Journaled runs checkpoint each reversed segment's per-step input
+    # cotangents alongside the adjoint cursor, so a mid-sweep resume can
+    # still stitch the full-chain dxs without re-reversing anything.
+    def artifact_fn(seg):
+        if isinstance(runner, CompiledSegmentRunner):
+            return runner.dx_segments.get(seg.begin)
+        if collect_dx:
+            return {k: dx_slices[k]
+                    for k in range(seg.begin, seg.end) if k in dx_slices}
+        return None
+
+    def restore_artifact_fn(begin, artifact):
+        if artifact is None:
+            return
+        artifact = placed(artifact, dcarry)   # host arrays from the journal
+        if isinstance(runner, CompiledSegmentRunner):
+            runner.dx_segments[begin] = artifact
+        else:
+            dx_slices.update(artifact)
+
     try:
         if rec.strategy == "multistage_async":
-            adjoint, stats = ex.multistage_reverse(run, adjoint0)
+            adjoint, stats = ex.multistage_reverse(
+                run, adjoint0, artifact_fn=artifact_fn,
+                restore_artifact_fn=restore_artifact_fn)
         elif rec.strategy == "revolve":
             adjoint, stats = ex.run_revolve(carry0, n, adjoint0,
                                             s=rec.tune.slots)
@@ -468,7 +624,6 @@ def _bwd(static: _Static, rec: _RunRecord, dcarry):
         rec.dispose()   # idempotent: the reverse already closed the run
     _LAST["stats"] = stats
     dcarry0, gparams = adjoint
-    runner = run.runner if run is not None else None
     if not collect_dx:
         dxs_diff = []
     elif runner is not None:
@@ -571,13 +726,15 @@ def value_and_grad_offloaded(
     storage_dir: Optional[str] = None,
     l2_capacity_bytes: Optional[int] = None,
     backend: Optional[Any] = None,
+    journal_dir: Optional[str] = None,
+    resume: bool = False,
+    journal_repair: bool = False,
     autotune: bool = True,
     tuner: Optional[at.AutoTuner] = None,
     fallback: bool = True,
     engine: str = "compiled",
     runner: str = "compiled",
     device=None,
-    journal_dir: Optional[str] = None,
     mesh: Optional[Any] = None,
     step_memory_budget: Optional[int] = None,
     plan_2d: Optional[Tuple[int, int]] = None,
@@ -605,15 +762,20 @@ def value_and_grad_offloaded(
     both tiers.  ``backend=`` hands the transform a live Level-2 store
     instead (e.g. a ``NamespacedStorage`` view of one shared
     ``TieredStorage``), never closed by the run; it excludes the storage
-    knobs.  ``strategy="revolve"`` (with ``slots`` Level-1
+    knobs.  ``journal_dir`` write-ahead-logs the run's Level-2 stores,
+    deletes and segment cursors there (CRC'd records, one fsync a segment),
+    so a crashed run can be finished with :func:`resume_offloaded` (or
+    ``resume=True``); ``journal_repair=True`` truncates a CRC-damaged
+    journal back to its last good record instead of raising
+    ``ChecksumError``.  ``strategy="revolve"`` (with ``slots`` Level-1
     slots) and ``strategy="conventional"`` run the paper's baselines over
     per-step operators; ``engine="interpreted"`` runs the multistage plan one
     step per dispatch.  ``runner="fused"`` (the JAX package's
     ``runner="pallas"``) runs the hand-written CUDA segment kernels on the
     card — the LSTM chain step only; other chains raise ``ValueError`` there
-    — and their plain PyTorch versions on the CPU.  ``journal_dir``,
-    ``mesh``, ``step_memory_budget``, ``plan_2d`` and ``offload_params``
-    are the JAX package's knobs that are not ported yet: each raises
+    — and their plain PyTorch versions on the CPU.  ``mesh``,
+    ``step_memory_budget``, ``plan_2d`` and ``offload_params`` are the JAX
+    package's knobs that are not ported yet: each raises
     ``NotImplementedError`` naming its ROADMAP item.
 
     >>> import torch
@@ -650,10 +812,11 @@ def value_and_grad_offloaded(
     cfg = OffloadConfig(strategy=strategy, interval=interval, slots=slots,
                         storage=storage, storage_dir=storage_dir,
                         l2_capacity_bytes=l2_capacity_bytes,
+                        journal_dir=journal_dir, resume=resume,
+                        journal_repair=journal_repair,
                         autotune=autotune, tuner_id=_register_tuner(tuner),
                         backend_id=_register_shared_backend(backend),
-                        engine=engine, runner=runner,
-                        journal_dir=journal_dir, mesh=mesh,
+                        engine=engine, runner=runner, mesh=mesh,
                         step_memory_budget=step_memory_budget,
                         plan_2d=tuple(plan_2d) if plan_2d is not None
                         else None,
@@ -666,6 +829,47 @@ def value_and_grad_offloaded(
     vg.backend = backend
     vg.device = dev
     return vg
+
+
+def resume_offloaded(
+    loss_fn,
+    params,
+    batch,
+    *,
+    journal_dir: str,
+    repair: bool = False,
+    **opts,
+) -> Tuple[Any, Any]:
+    """Resume a crashed offloaded gradient from its write-ahead journal.
+
+    Recovers the journal in ``journal_dir`` (written by a
+    ``value_and_grad_offloaded(..., journal_dir=...)`` transform that was
+    killed mid-run) and finishes the gradient step-exactly: a
+    forward-phase crash replays from the last durable boundary (at most
+    one interval of steps — ``last_stats().replayed_advances``), a
+    reverse-phase crash restarts mid-sweep from the journaled adjoint
+    cursor without re-reversing any completed segment.  ``params`` and
+    ``batch`` must be the ones the crashed run used — determinism is what
+    makes the resumed gradient bit-identical to the fault-free one (on the
+    card, with ``torch.use_deterministic_algorithms(True)`` set by the
+    caller wherever a library call could pick a nondeterministic kernel).
+
+    Returns ``(loss, grads)`` exactly like the transform would have.  If
+    the journal holds nothing resumable (no cursor, or a run that already
+    completed), the gradient is simply recomputed from scratch — still
+    journaled, so the call is safe to use as the generic retry path.
+
+    ``repair=True`` truncates a CRC-damaged journal back to its last good
+    record instead of raising
+    :class:`~repro_torch.core.faults.ChecksumError` (resume then replays
+    from whatever precedes the damage).  Remaining keyword options are
+    those of :func:`value_and_grad_offloaded` — pass the same
+    ``storage``/``engine``/``runner`` configuration the crashed run used.
+    """
+    vg = value_and_grad_offloaded(loss_fn, journal_dir=journal_dir,
+                                  resume=True, journal_repair=repair,
+                                  **opts)
+    return vg(params, batch)
 
 
 def checkpointed_bptt(body: Callable[[Any, Any, Any], Tuple[Any, Any]],

@@ -1,6 +1,8 @@
 # Port of repro/core/executor.py: ExecutionStats, _L1Slots, _exec_revolve,
 # InterpretedSegmentRunner, MultistageRun and CheckpointExecutor's
-# conventional, Revolve and multistage strategies.
+# conventional, Revolve and multistage strategies, with the journaled
+# forward/reverse sweeps and their resume (FINAL_STATE_KEY,
+# _journal_backend, _exact_get).
 """Checkpoint execution engine (the paper's §4) — the *execute* stage of the
 plan -> compile -> execute pipeline.
 
@@ -40,8 +42,10 @@ delegated to a pluggable **segment runner**:
 
 A plan-aware Level-2 backend (``TieredStorage``) gets the plan before the
 forward sweep (``set_plan``: Belady eviction) and sets the reverse's
-prefetch depth (``plan_prefetch_distance``).  Journal/resume (ROADMAP queue
-1, item 8) and ``ParamStream`` (item 12) are not ported yet.
+prefetch depth (``plan_prefetch_distance``).  Over a journaled backend
+(``JournaledStorage``) both sweeps are crash-consistent and resumable
+(``resume_from=``).  ``ParamStream`` (ROADMAP queue 1, item 12) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -49,16 +53,50 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import revolve as rv
 from repro_torch.core import schedule as ms
+from repro_torch.core.faults import StorageFault
+from repro_torch.core.journal import RecoveredRun
 from repro_torch.core.revolve import Op
 from repro_torch.core.schedule import SegmentPlan, SegmentSpec
-from repro_torch.core.storage import AsyncTransferEngine, RAMStorage, tree_bytes
+from repro_torch.core.storage import (AsyncTransferEngine, RAMStorage,
+                                      _host_tensor, tree_bytes)
 
 ForwardOp = Callable[[Any, int], Any]
 BackwardOp = Callable[[Any, Any, int], Any]
+
+# Journal key of the end-of-chain state x_n: stored by journaled forward
+# passes so a crash during the *reverse* sweep can resume without redoing
+# the O(n) forward (the loss/readout is recomputed from x_n on resume).
+FINAL_STATE_KEY = "__final__"
+
+
+def _journal_backend(engine: AsyncTransferEngine):
+    """The engine's backend if it speaks the journal protocol, else None
+    (duck-typed: ``put_cursor`` is the discriminating verb; wrappers like
+    ``CompressedStorage`` delegate it to a journaled inner store)."""
+    backend = engine.backend
+    return backend if hasattr(backend, "put_cursor") else None
+
+
+def _exact_get(backend, key):
+    """Resume state load: prefer the backend's exact (raw-journal) read
+    over the normal get, which may round-trip a lossy codec."""
+    exact = getattr(backend, "get_exact", None)
+    return exact(key) if exact is not None else backend.get(key)
+
+
+def placed(tree: Any, like: Any) -> Any:
+    """A tree read back from Level 2 or the journal (host numpy leaves, a
+    bf16 leaf as ``Bits``) as tensors on the device of ``like``'s leaves,
+    bit for bit.  A resumed run's restart state, its ``x_n`` and its
+    cursor's adjoint come back this way before the runner or the loss
+    reads them."""
+    dev = pytree.tree_leaves(like)[0].device
+    return pytree.tree_map(lambda a: _host_tensor(a).to(dev), tree)
 
 
 @dataclass
@@ -234,23 +272,41 @@ class MultistageRun:
     runner: Any = None
     own_engine: bool = True
     closed: bool = False
+    resume: Optional[RecoveredRun] = None   # set when this run is a resume
 
     def close(self) -> None:
-        """Release this run's Level-2 state (idempotent): purge its
-        boundary keys and close the engine when this run owns it.
-        ``engine.close()`` re-raises pending transfer errors."""
+        """Release this run's Level-2 state (idempotent).
+
+        Boundary keys created by this run are purged from the backend —
+        except when the backend is journaled: there the boundaries ARE the
+        crash recovery state, and purging them on an error path would
+        destroy exactly what ``resume_from=`` needs; a journaled run's keys
+        are retired by the reverse sweep's ordered deletes (or superseded
+        by the next ``begin_run``).  The engine and the backend are closed
+        only when this run owns the engine.  ``engine.close()`` re-raises
+        pending transfer errors."""
         if self.closed:
             return
         self.closed = True
+        journaled = _journal_backend(self.engine) is not None
         try:
-            for seg in self.plan.segments:
-                try:
-                    self.engine.delete(seg.begin)
-                except Exception:
-                    pass
+            if not journaled:
+                for seg in self.plan.segments:
+                    try:
+                        self.engine.delete(seg.begin)
+                    except Exception:
+                        pass
         finally:
             if self.own_engine:
-                self.engine.close()
+                try:
+                    self.engine.close()
+                finally:
+                    bclose = getattr(self.engine.backend, "close", None)
+                    if bclose is not None:
+                        try:
+                            bclose()
+                        except Exception:
+                            pass
 
 
 class CheckpointExecutor:
@@ -316,13 +372,31 @@ class CheckpointExecutor:
     def multistage_forward(self, state0: Any, n: int, *, interval: int,
                            s_l1: int, runner: Any = None,
                            engine: "AsyncTransferEngine | None" = None,
+                           resume_from: Optional[RecoveredRun] = None,
+                           run_meta: Optional[Dict[str, Any]] = None,
                            ) -> "tuple[Any, MultistageRun]":
         """Phase 1: advance the chain to ``x_n`` while the engine
         asynchronously streams every ``interval``-th state to Level 2.
         Returns ``(x_n, run)``; hand ``run`` to :meth:`multistage_reverse`
         (or call ``run.close()`` to abandon it).  ``runner=None`` walks the
         segments with an :class:`InterpretedSegmentRunner` over this
-        executor's operators (the reversing executor builds its own)."""
+        executor's operators (the reversing executor builds its own).
+
+        With a journaled backend (``make_backend(..., journal=...)``) the
+        forward pass is crash-consistent: a ``RunCursor`` rides the writer
+        queue after each segment (FIFO => a durable cursor implies durable
+        boundaries), and ``x_n`` is journaled under ``FINAL_STATE_KEY``.
+        ``resume_from=`` (a :class:`~repro_torch.core.journal.RecoveredRun`
+        from ``backend.recover()``) restarts a crashed run: a forward-phase
+        crash replays from the largest durable boundary — at most one
+        interval of re-executed steps, counted in
+        ``ExecutionStats.replayed_advances`` — and a reverse-phase crash
+        skips the forward entirely (``x_n`` comes back from the journal;
+        :meth:`multistage_reverse` then restarts mid-sweep from the
+        cursor's adjoint).  Host state read back from the journal is placed
+        where ``state0`` lives before anything reads it.
+        ``run_meta`` rides the journal's BEGIN record (the front-end's
+        input fingerprint)."""
         own_engine = engine is None
         if engine is None:
             # prefetched boundaries come back where the chain runs
@@ -331,6 +405,7 @@ class CheckpointExecutor:
         stats = ExecutionStats(n=n)
         slots = _L1Slots(stats)
         plan = ms.segment_plan(n, interval, s_l1)
+        jb = _journal_backend(engine)
         run = MultistageRun(n=n, interval=interval, s_l1=s_l1, engine=engine,
                             stats=stats, slots=slots, plan=plan,
                             runner=runner, own_engine=own_engine)
@@ -341,22 +416,99 @@ class CheckpointExecutor:
         set_plan = getattr(engine.backend, "set_plan", None)
         if set_plan is not None:
             set_plan(plan)
+        cursor0 = None
+        if resume_from is not None:
+            if jb is None:
+                raise ValueError(
+                    "resume_from= requires a journaled Level-2 backend "
+                    "(make_backend(..., journal=directory))")
+            cursor0 = resume_from.cursor
+            if cursor0 is not None and cursor0.phase == "done":
+                # previous run completed cleanly: nothing to resume
+                cursor0, resume_from = None, None
+            if cursor0 is not None and not cursor0.matches(plan):
+                raise StorageFault(
+                    f"journal cursor is for {cursor0.plan_id}, cannot "
+                    f"resume it under {plan.plan_id}")
         t0 = time.perf_counter()
         try:
+            if cursor0 is not None and cursor0.phase == "reverse":
+                # Forward completed before the crash: everything the sweep
+                # needs is durable.  Validate, re-hydrate x_n, and let
+                # multistage_reverse restart mid-sweep from the cursor.
+                needed = [seg.begin for seg in
+                          plan.segments[:cursor0.segment_index + 1]]
+                missing = [b for b in needed if b not in engine.backend]
+                if missing or FINAL_STATE_KEY not in engine.backend:
+                    raise StorageFault(
+                        f"cannot resume reverse sweep: journal is missing "
+                        f"boundaries {missing or [FINAL_STATE_KEY]}")
+                # exact raw record, not a lossy-codec round-trip: x_n
+                # seeds the (recomputed) loss/readout and must match the
+                # crashed run's in-memory state bit for bit
+                current = placed(_exact_get(engine.backend, FINAL_STATE_KEY),
+                                 state0)
+                run.resume = resume_from
+                stats.l2_stores = engine.num_stores
+                stats.wall_s += time.perf_counter() - t0
+                return current, run
+            durable = set()
+            start_idx = 0
             current = state0
+            if resume_from is not None:
+                run.resume = resume_from
+                durable = {k for k in resume_from.keys
+                           if isinstance(k, (int, np.integer))}
+                # restart boundary: end of the *contiguous* durable prefix
+                # (everything below it must be fetchable in the reverse)
+                prefix_end = -1
+                for seg in plan.segments:
+                    if seg.begin in durable:
+                        prefix_end = seg.sid
+                    else:
+                        break
+                if prefix_end >= 0:
+                    start_idx = prefix_end
+                    b_star = plan.segments[start_idx].begin
+                    # the crashed run advanced from the *exact* running
+                    # state at b_star (lossy encodings only affect what
+                    # the reverse sweep reads back), so a bit-identical
+                    # replay must start from the raw journal record
+                    current = placed(_exact_get(engine.backend, b_star),
+                                     state0)
+                    if cursor0 is not None:
+                        # steps the pre-crash run provably completed and we
+                        # now re-execute: last durable boundary up to the
+                        # cursor's attested position — at most one interval
+                        stats.replayed_advances = max(
+                            0, plan.cursor_position(cursor0) - b_star)
+            elif jb is not None:
+                # run_meta rides the BEGIN record (e.g. the front-end's
+                # input fingerprint, checked before a later resume)
+                jb.begin_run({"plan_id": plan.plan_id, "n": n,
+                              "interval": interval, "s_l1": s_l1,
+                              **(run_meta or {})})
             # Fused runners produce the segment-entry boundary *from the
             # kernel* (already in page-locked host memory), so the store is
             # enqueued after the advance with the kernel's boundary instead
-            # of snapshotting `current` before it.
+            # of snapshotting `current` before it.  The writer-queue FIFO
+            # still orders the store before the segment's cursor, so journal
+            # durability semantics are unchanged.
             aws = getattr(fwd_runner, "advance_with_store", None)
-            for seg in plan.segments:
-                if aws is not None:
+            for seg in plan.segments[start_idx:]:
+                if seg.begin in durable:
+                    current = fwd_runner.advance(current, seg, stats)
+                elif aws is not None:
                     current, boundary = aws(current, seg, stats)
                     engine.store_async(seg.begin, boundary)
                 else:
                     engine.store_async(seg.begin, current)
                     current = fwd_runner.advance(current, seg, stats)
                 slots.note_extra(tree_bytes(current))
+                if jb is not None:
+                    engine.cursor_async(plan.cursor("forward", seg.sid + 1))
+            if jb is not None:
+                engine.store_async(FINAL_STATE_KEY, current)
         except BaseException:
             try:  # don't leak the writer thread / Level-2 states; don't
                 run.close()  # let cleanup errors mask the original one
@@ -367,20 +519,58 @@ class CheckpointExecutor:
         stats.wall_s += time.perf_counter() - t0
         return current, run
 
-    def multistage_reverse(self, run: "MultistageRun", adjoint0: Any):
+    def multistage_reverse(self, run: "MultistageRun", adjoint0: Any, *,
+                           resume_from: Optional[RecoveredRun] = None,
+                           artifact_fn: Optional[Callable[
+                               [SegmentSpec], Any]] = None,
+                           restore_artifact_fn: Optional[Callable[
+                               [int, Any], None]] = None):
         """Phase 2: join outstanding stores, then reverse the chain segment
         by segment with Level-2 boundaries prefetched one segment ahead
-        (double-buffering, the paper's schedule) and per-segment work
-        delegated to the run's segment runner.  Returns ``(adjoint,
-        stats)`` and closes the engine if this run owns it."""
+        (double-buffering, the paper's schedule; a plan-aware backend may
+        ask for more) and per-segment work delegated to the run's segment
+        runner.  Returns ``(adjoint, stats)`` and closes the engine if this
+        run owns it.
+
+        With a journaled backend the sweep is crash-consistent: after each
+        segment a ``RunCursor`` carrying the adjoint (snapshotted when it
+        is enqueued) plus the runner's per-segment artifact from
+        ``artifact_fn`` (e.g. per-step input cotangents) is enqueued
+        *before* the boundary's delete — writer-queue FIFO keeps the
+        journal's cursor/delete order honest.  ``resume_from=`` (or a
+        resume recorded on the run by :meth:`multistage_forward`) restarts
+        mid-sweep: already-reversed segments are never re-run (their
+        contribution lives in the cursor's adjoint, placed where
+        ``adjoint0`` lives; their artifacts are replayed through
+        ``restore_artifact_fn``), so the resume cost is bounded by one
+        segment regardless of chain length."""
         engine, stats, slots = run.engine, run.stats, run.slots
         runner = run.runner if run.runner is not None else \
             InterpretedSegmentRunner(self.forward_op, self.backward_op)
         segs = run.plan.segments
+        jb = _journal_backend(engine)
+        rec = resume_from if resume_from is not None else run.resume
         t0 = time.perf_counter()
         try:
             adjoint = adjoint0
             engine.wait_stores()
+            j_start = len(segs) - 1
+            cursor = rec.cursor if rec is not None else None
+            if cursor is not None and cursor.phase == "reverse":
+                # restart mid-sweep: the cursor's adjoint already folds in
+                # every segment above segment_index
+                j_start = cursor.segment_index
+                payload = cursor.payload or {}
+                if payload.get("adjoint") is not None:
+                    adjoint = placed(payload["adjoint"], adjoint0)
+                if restore_artifact_fn is not None:
+                    for b, art in rec.artifacts.items():
+                        restore_artifact_fn(b, art)
+            elif jb is not None:
+                # durable mark: the sweep has begun with this seed adjoint
+                # (a crash before the first segment completes resumes here)
+                engine.cursor_async(run.plan.cursor(
+                    "reverse", j_start, payload={"adjoint": adjoint}))
             # prefetch lead: 1 (double-buffer) unless the backend derives a
             # plan-aware distance (the stores above have all landed)
             depth = 1
@@ -388,7 +578,6 @@ class CheckpointExecutor:
             if hint is not None:
                 depth = max(1, int(hint(run.plan)))
             stats.prefetch_depth = depth
-            j_start = len(segs) - 1
             for idx in range(j_start, max(j_start - depth, -1), -1):
                 engine.prefetch_async(segs[idx].begin)
             for j in range(j_start, -1, -1):
@@ -398,7 +587,27 @@ class CheckpointExecutor:
                 x_b = engine.wait_prefetch(seg.begin)
                 slots.note_extra(tree_bytes(x_b))
                 adjoint = runner.reverse(x_b, adjoint, seg, slots, stats)
-                engine.delete(seg.begin)
+                if jb is not None:
+                    artifact = artifact_fn(seg) if artifact_fn is not None \
+                        else None
+                    engine.cursor_async(run.plan.cursor(
+                        "reverse", j - 1,
+                        payload={"adjoint": adjoint,
+                                 "artifact": artifact,
+                                 "artifact_key": seg.begin}))
+                    engine.delete_async(seg.begin)
+                else:
+                    engine.delete(seg.begin)
+            if jb is not None:
+                # done-cursor strictly BEFORE the final-state delete: a
+                # crash between them recovers as phase=="done" (clean
+                # fresh run); the reverse order would leave a journal
+                # whose reverse cursor needs a FINAL_STATE_KEY that is
+                # already gone — permanently unresumable
+                engine.cursor_async(run.plan.cursor("done", -1))
+                engine.delete_async(FINAL_STATE_KEY)
+                engine.wait_stores()
+                jb.end_run()
             stats.l2_stores = engine.num_stores
             stats.l2_prefetches = engine.num_prefetches
             backend = engine.backend

@@ -1,6 +1,7 @@
 # Port of repro/core/storage.py: tree_bytes, _freeze, _freeze_in_place,
 # RAMStorage, DiskStorage, CompressedStorage, TieredStorage,
-# NamespacedStorage, register_backend/make_backend and AsyncTransferEngine.
+# NamespacedStorage, JournaledStorage, register_backend/make_backend and
+# AsyncTransferEngine (with its fault hooks and cursor_async).
 """Level-2 storage with asynchronous store / prefetch threads.
 
 Background threads move state pytrees between the compute level (Level 1:
@@ -23,7 +24,12 @@ Backends speak one protocol (``put``, ``get``, ``delete``, ``__contains__``,
 * :class:`TieredStorage` — a fast tier under a byte budget that
   write-behind spills to a slow tier, with plan-aware (Belady) eviction,
   demand promotion, tenant quotas and namespaces
-  (:class:`NamespacedStorage`).
+  (:class:`NamespacedStorage`);
+* :class:`JournaledStorage` — a write-ahead journal
+  (:mod:`repro_torch.core.journal`) over any of them
+  (``make_backend(kind, journal=directory)``): every store, delete and
+  plan cursor is a CRC'd record, forced to disk once per segment, so a
+  crashed run resumes from its last durable boundary.
 
 On the card the engine never makes the compute stream wait for a host
 thread:
@@ -46,12 +52,14 @@ thread:
   tensors that are ready to use.
 
 ``delete`` invalidates any staged prefetch of the key, and staged-prefetch
-bytes are counted (``staged_bytes`` / ``staged_peak_bytes``).  The
-journaled and sharded backends, the parameter lane and the fault hooks come
-later (ROADMAP queue 1, items 8, 12 and 15).
+bytes are counted (``staged_bytes`` / ``staged_peak_bytes``).  The engine's
+fault hooks (:mod:`repro_torch.core.faults`) cost one ``is not None`` test
+when no fault plan is installed.  The sharded backends and the parameter
+lane come later (ROADMAP queue 1, items 15 and 12).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import queue
@@ -63,16 +71,12 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import faults as _faults
+from repro_torch.core import journal as _journal
+from repro_torch.core.faults import (ChecksumError, StorageFault,
+                                     WriterCrashError, WriterKilled)
+from repro_torch.core.journal import RecoveredRun
 from repro_torch.distributed.compression import dequantize_np, quantize_np
-
-
-# Copy of the base classes of repro/core/faults.py's typed taxonomy.
-class StorageFault(RuntimeError):
-    """Base class of every typed Level-2 storage failure."""
-
-
-class WriterCrashError(StorageFault):
-    """The Level-2 writer thread died with stores outstanding."""
 
 
 class HostTree:
@@ -466,6 +470,15 @@ class CompressedStorage:
     @property
     def peak_bytes(self) -> int:
         return self.inner.peak_bytes
+
+    def __getattr__(self, name: str):
+        # Pass unknown verbs through to the inner backend (journal verbs
+        # for a hand-built CompressedStorage(inner=JournaledStorage(...))
+        # composition, instrumentation attributes otherwise).
+        inner = self.__dict__.get("inner")
+        if inner is None:
+            raise AttributeError(name)
+        return getattr(inner, name)
 
 
 class TieredStorage:
@@ -1079,6 +1092,298 @@ class NamespacedStorage:
         return getattr(inner, name)
 
 
+class JournaledStorage:
+    """Crash-consistent wrapper: write-ahead journal over any inner backend.
+
+    Every ``put``/``delete`` appends a CRC'd record to
+    ``<directory>/wal.log`` *before* touching the inner backend, whatever
+    the inner backend does with the bytes (host RAM evaporates with the
+    process; the journal does not).  Durability is **group-commit** at
+    segment granularity: bulk records defer their fsync, and the next
+    cursor/BEGIN/END append (or :meth:`commit`/:meth:`close`) is the
+    commit barrier that lands them — one fsync per segment instead of one
+    per record, with the same recovery guarantee: a durable cursor implies
+    every store appended before it is durable (shared-fd fsync + WAL
+    prefix semantics), so recovery can never claim a non-durable boundary.
+    ``get`` serves from the inner backend when it has the key and
+    re-hydrates from the journal otherwise (a fresh process after a
+    crash), verifying the record CRC on that path.
+
+    A STORE payload is the pickled tree of host numpy leaves (a bf16 leaf
+    as :class:`Bits`), so an fp32 dict or tuple state decodes to plain
+    numpy arrays; the inner backend still gets the tree as it was handed
+    over (a fused advance's page-locked chunk entry stays the inner store's
+    Level-2 copy, with no second copy).
+
+    One gradient run is an *epoch*: ``begin_run(meta)`` marks the start
+    (truncating the file when the previous epoch completed cleanly, so a
+    healthy training loop's journal stays one run long), ``put_cursor``
+    checkpoints the executor's :class:`~repro_torch.core.schedule.RunCursor`
+    at segment granularity, ``end_run`` marks clean completion, and
+    ``recover()`` returns a :class:`~repro_torch.core.journal.RecoveredRun`
+    (surviving keys, last cursor, per-segment reverse artifacts).
+
+    Damage semantics on open: a torn tail (crash mid-write) is silently
+    truncated — that is the artifact journaling exists to absorb; a
+    CRC-failing *complete* record is corruption and raises a typed
+    :class:`~repro_torch.core.faults.ChecksumError` unless ``repair=True``
+    (truncate back to the last good record and recover what precedes it).
+
+    Unknown attributes delegate to the inner backend, so plan-aware verbs
+    (``set_plan``, ``plan_prefetch_distance``) and instrumentation
+    (``bytes_written``, ``fast_peak_bytes``, ...) pass straight through.
+    """
+
+    # The journal must log the *global* payload: a sharded inner store's
+    # pre-split ``snapshot`` hook (ROADMAP queue 1, item 15) is disabled
+    # through this wrapper, as in the JAX package — a class-level None stops
+    # attribute lookup before __getattr__ can delegate it.
+    snapshot = None
+
+    def __init__(self, inner: Any, directory: str, *, repair: bool = False,
+                 faults: Any = None):
+        self.inner = inner
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+        self._journal = _journal.JournalFile(
+            os.path.join(directory, "wal.log"))
+        self._faults = faults if faults is not None else _faults.active()
+        self._lock = threading.Lock()
+        self._index: Dict[Any, int] = {}   # key -> journal record offset
+        self._cursor: Any = None
+        self._artifacts: Dict[Any, Any] = {}
+        self._meta: Dict[str, Any] = {}
+        self._torn = False
+        self._ended = False
+        self._load(repair=repair)
+
+    # ------------------------------------------------------------------- open
+    def _load(self, repair: bool) -> None:
+        scan = self._journal.scan()
+        if scan.damage is not None:
+            if scan.damage.kind == "checksum" and not repair:
+                raise ChecksumError(
+                    f"journal {self._journal.path}: {scan.damage.detail} "
+                    "(reopen with repair=True to truncate to the last good "
+                    "record and recover what precedes it)")
+            # torn tail (normal crash artifact) or explicit repair: discard
+            # everything from the damaged record on — framing is lost there
+            self._journal.truncate(scan.valid_end)
+            self._torn = True
+        for rec in _journal.iter_epoch(scan.records):
+            if rec.op == _journal.OP_BEGIN:
+                self._index.clear()
+                self._cursor = None
+                self._artifacts.clear()
+                self._ended = False
+                self._meta = pickle.loads(rec.payload) if rec.payload else {}
+            elif rec.op == _journal.OP_STORE:
+                self._index[rec.key] = rec.start
+            elif rec.op == _journal.OP_DELETE:
+                self._index.pop(rec.key, None)
+            elif rec.op == _journal.OP_CURSOR:
+                self._note_cursor(pickle.loads(rec.payload))
+            elif rec.op == _journal.OP_END:
+                self._ended = True
+
+    def _note_cursor(self, cursor: Any) -> None:
+        self._cursor = cursor
+        payload = getattr(cursor, "payload", None)
+        if isinstance(payload, dict) and payload.get("artifact") is not None:
+            self._artifacts[payload.get("artifact_key")] = payload["artifact"]
+
+    # -------------------------------------------------------------- run verbs
+    def begin_run(self, meta: Optional[Dict[str, Any]] = None) -> None:
+        """Open a new epoch.  When the previous epoch completed cleanly
+        (END seen and nothing left stored) the file is truncated first, so
+        repeated training steps do not grow the journal without bound."""
+        with self._lock:
+            if self._ended and not self._index:
+                self._journal.truncate(0)
+            self._journal.append(
+                _journal.OP_BEGIN,
+                payload=pickle.dumps(dict(meta or {}),
+                                     protocol=pickle.HIGHEST_PROTOCOL))
+            self._index.clear()
+            self._cursor = None
+            self._artifacts.clear()
+            self._meta = dict(meta or {})
+            self._ended = False
+
+    def put_cursor(self, cursor: Any, *, sync: bool = True) -> None:
+        """Durably checkpoint the executor's plan cursor (FIFO-ordered
+        behind the boundary stores when routed through the engine's
+        writer queue — a cursor can never claim a segment whose boundary
+        is not yet durable).
+
+        ``sync=False`` defers the commit barrier: the record is written
+        in order but fsyncs with the *next* barrier (cursor coalescing —
+        the engine passes it when a newer cursor is already queued, so a
+        burst of cursors costs one sync).  Consistency is unaffected
+        (recovery reads a file prefix, and file order is unchanged); only
+        the crash window widens from one cursor to the in-flight burst.
+        """
+        payload = pickle.dumps(cursor, protocol=pickle.HIGHEST_PROTOCOL)
+        with self._lock:
+            self._journal.append(_journal.OP_CURSOR, payload=payload,
+                                 sync=True if sync else False)
+            self._note_cursor(cursor)
+
+    def end_run(self) -> None:
+        with self._lock:
+            self._journal.append(_journal.OP_END)
+            self._ended = True
+            if not self._index:
+                # Compact: a completed epoch's bulk (boundary payloads,
+                # per-segment adjoint cursors) is dead weight — rewrite it
+                # as a tiny done-marker epoch so the next open scans
+                # O(bytes of one cursor) instead of re-reading and
+                # re-CRC-ing the whole previous sweep's Level-2 traffic.
+                self._journal.truncate(0)
+                # group commit inside the compaction too: the rewritten
+                # epoch only matters as a whole, so its BEGIN/CURSOR defer
+                # to the closing END barrier (one sync, not three)
+                self._journal.append(
+                    _journal.OP_BEGIN,
+                    payload=pickle.dumps(dict(self._meta),
+                                         protocol=pickle.HIGHEST_PROTOCOL),
+                    sync=False)
+                if self._cursor is not None:
+                    self._journal.append(
+                        _journal.OP_CURSOR,
+                        payload=pickle.dumps(
+                            self._cursor,
+                            protocol=pickle.HIGHEST_PROTOCOL),
+                        sync=False)
+                self._journal.append(_journal.OP_END)
+
+    def recover(self) -> RecoveredRun:
+        """The last epoch's durable state (keys in store order, last
+        cursor, reverse artifacts).  A cleanly-ended epoch still reports
+        its cursor — callers treat ``phase == "done"`` as nothing-to-do."""
+        with self._lock:
+            return RecoveredRun(keys=tuple(self._index),
+                                cursor=self._cursor,
+                                artifacts=dict(self._artifacts),
+                                meta=dict(self._meta),
+                                torn=self._torn,
+                                journal_bytes=self._journal.size)
+
+    @property
+    def cursor(self) -> Any:
+        with self._lock:
+            return self._cursor
+
+    @property
+    def journal_bytes(self) -> int:
+        return self._journal.size
+
+    @property
+    def journal_path(self) -> str:
+        return self._journal.path
+
+    @property
+    def fsync_count(self) -> int:
+        """Commit barriers (``fdatasync`` calls) made so far."""
+        return self._journal.fsync_count
+
+    # -------------------------------------------------------- backend protocol
+    def put(self, key: Any, tree: Any) -> None:
+        # host numpy views (no copy): pickling copies the bytes
+        host = pytree.tree_map(_leaf_numpy, tree)
+        key_b = pickle.dumps(key, protocol=pickle.HIGHEST_PROTOCOL)
+        payload = pickle.dumps(host, protocol=pickle.HIGHEST_PROTOCOL)
+        with self._lock:
+            # group commit: the store's fsync is deferred to the segment's
+            # cursor barrier (put_cursor / begin_run / end_run / commit) —
+            # one fsync per batch, same durability at segment granularity
+            start, end = self._journal.append(_journal.OP_STORE, key_b,
+                                              payload, sync=False)
+            self._index[key] = start
+        if self._faults is not None:
+            # may tear/corrupt the record just written and/or kill the
+            # writing thread (simulated crash mid-spill)
+            self._faults.on_journal_store(self._journal, start, end)
+        self.inner.put(key, tree)
+
+    def get(self, key: Any) -> Any:
+        if key in self.inner:
+            return self.inner.get(key)
+        # Re-hydrate from the journal (fresh process after a crash), then
+        # serve through the inner backend: for a lossy inner (compressed)
+        # the put/get round-trip reproduces exactly the decoded values the
+        # fault-free run read back, so resumed reverse sweeps stay
+        # bit-identical.  The record CRC is re-verified on the journal
+        # read -> typed ChecksumError.
+        self.inner.put(key, self._read_journal(key))
+        return self.inner.get(key)
+
+    def get_exact(self, key: Any) -> Any:
+        """The raw journaled payload, bypassing any lossy inner codec.
+
+        The executor's resume path loads its restart state through this:
+        the crashed run advanced from the *exact* running state at the
+        boundary (lossy encoding only ever applied to what the reverse
+        sweep reads back), so a bit-identical forward replay must start
+        from the raw journal record, not from a decode(encode(x))
+        round-trip."""
+        with self._lock:
+            off = self._index.get(key)
+        if off is not None:
+            return self._read_journal(key)
+        return self.inner.get(key)   # not journaled (shouldn't happen)
+
+    def _read_journal(self, key: Any) -> Any:
+        with self._lock:
+            off = self._index.get(key)
+        if off is None:
+            raise KeyError(key)
+        return _freeze_in_place(
+            pickle.loads(self._journal.read_payload(off)))
+
+    def delete(self, key: Any) -> None:
+        key_b = pickle.dumps(key, protocol=pickle.HIGHEST_PROTOCOL)
+        with self._lock:
+            # deferred like put: a retired boundary's delete only matters
+            # once a later cursor (which fsyncs) has superseded it
+            self._journal.append(_journal.OP_DELETE, key_b, sync=False)
+            self._index.pop(key, None)
+        self.inner.delete(key)
+
+    def commit(self) -> None:
+        """Explicit group-commit barrier: fsync any deferred STORE/DELETE
+        records now (no-op when nothing is pending).  The run verbs
+        (``put_cursor``/``begin_run``/``end_run``) are themselves barriers,
+        so the executor never needs this — it exists for callers driving
+        the backend directly."""
+        self._journal.flush()
+
+    def __contains__(self, key: Any) -> bool:
+        if key in self.inner:
+            return True
+        with self._lock:
+            return key in self._index
+
+    def keys(self) -> Iterable[Any]:
+        with self._lock:
+            journal_keys = set(self._index)
+        return list(journal_keys | set(self.inner.keys()))
+
+    def close(self) -> None:
+        # land any deferred records before the fd goes away: close is a
+        # commit barrier too
+        try:
+            self._journal.flush()
+        finally:
+            self._journal.close()
+
+    def __getattr__(self, name: str):
+        inner = self.__dict__.get("inner")
+        if inner is None:
+            raise AttributeError(name)
+        return getattr(inner, name)
+
+
 # ---------------------------------------------------------------------------
 # backend registry
 # ---------------------------------------------------------------------------
@@ -1092,6 +1397,7 @@ def register_backend(name: str, factory: Callable[..., Any]) -> None:
 
 
 def make_backend(kind: str, *, journal: Optional[str] = None,
+                 journal_repair: bool = False,
                  shards: Optional[int] = None, **kwargs: Any) -> Any:
     """Build a Level-2 backend by name.
 
@@ -1100,7 +1406,20 @@ def make_backend(kind: str, *, journal: Optional[str] = None,
     ``directory=`` puts its inner store on disk), ``"tiered"``
     (``capacity_bytes=`` required fast-tier budget; ``directory=`` puts the
     slow tier on disk, ``compress=True`` int8-quantises spilled copies).
-    ``journal=`` and ``shards=`` raise ``NotImplementedError``.
+
+    ``journal=<directory>`` composes a :class:`JournaledStorage` over the
+    backend: every store/delete is write-ahead-logged (CRC + fsync at each
+    segment's commit barrier) so the run is crash-consistent and resumable.  The
+    journal always records the *raw* boundary payloads (a lossy inner
+    codec like ``"compressed"`` costs its ~4x saving in the WAL): the
+    resume path restarts forward replay from the exact pre-crash state
+    (:meth:`JournaledStorage.get_exact`), while re-hydrated reverse-sweep
+    reads round-trip through the inner backend so they reproduce exactly
+    the (possibly lossy-decoded) values the fault-free run read back.
+    ``journal_repair=True`` truncates a CRC-damaged journal back to its
+    last good record on open instead of raising
+    :class:`~repro_torch.core.faults.ChecksumError`.  ``shards=`` raises
+    ``NotImplementedError`` (ROADMAP queue 1, item 15).
     """
     try:
         factory = _BACKENDS[kind]
@@ -1112,11 +1431,10 @@ def make_backend(kind: str, *, journal: Optional[str] = None,
         raise NotImplementedError(
             "make_backend(shards=...) is not ported yet (ROADMAP queue 1, "
             "item 15)")
-    if journal is not None:
-        raise NotImplementedError(
-            "make_backend(journal=...) is not ported yet (ROADMAP queue 1, "
-            "item 8)")
-    return factory(**kwargs)
+    backend = factory(**kwargs)
+    if journal is None:
+        return backend
+    return JournaledStorage(backend, journal, repair=journal_repair)
 
 
 register_backend("ram", lambda bandwidth=None: RAMStorage(bandwidth))
@@ -1149,11 +1467,21 @@ class AsyncTransferEngine:
     ``delete(key)`` invalidates any staged prefetch of ``key`` and detaches
     its in-flight prefetch job, so a delete + re-store + prefetch sequence
     always observes the re-stored value, never a stale staged one.
+
+    ``cursor_async`` rides a journaled backend's plan cursor behind the
+    queued stores (FIFO: a durable cursor implies durable boundaries).
+    ``faults`` (default: :func:`repro_torch.core.faults.active`, read once
+    here) is the fault injector whose hooks the writer loop and the fetches
+    call.
     """
 
-    def __init__(self, backend, device: Any = None):
+    def __init__(self, backend, device: Any = None, faults: Any = None):
         self.backend = backend
         self.device = None if device is None else torch.device(device)
+        # fault injection (tests): read once at construction; every hook
+        # site below is a single `is not None` test, so the disabled path
+        # costs nothing
+        self.faults = faults if faults is not None else _faults.active()
         self._store_q: "queue.Queue" = queue.Queue()
         self._prefetched: Dict[Any, Any] = {}
         self._prefetch_events: Dict[Any, threading.Event] = {}
@@ -1168,6 +1496,7 @@ class AsyncTransferEngine:
         self.num_prefetches = 0
         self.staged_bytes = 0       # memory held by staged prefetches
         self.staged_peak_bytes = 0  # its high-water mark across the run
+        self._pending_cursors = 0   # queued cursors (for commit coalescing)
         self._writer = threading.Thread(target=self._writer_loop, daemon=True)
         self._writer.start()
 
@@ -1184,31 +1513,48 @@ class AsyncTransferEngine:
                 return
             try:
                 if kind == "put":
-                    self._put(item[1], item[2])
+                    _, key, payload = item
+                    if self.faults is not None:
+                        self.faults.on_writer_store(key)
+                    self._put(key, payload)
+                elif kind == "cursor":
+                    self._put_cursor(item[1])
                 else:  # "delete"
                     self.backend.delete(item[1])
+            except WriterKilled:
+                # simulated abrupt writer death: leave the item un-done so
+                # joins observe exactly what a killed thread leaves behind
+                return
             except Exception as e:  # surfaced on wait_stores
                 self._errors.append(e)
-            finally:
+                self._store_q.task_done()
+            else:
                 self._store_q.task_done()
 
-    def _snapshot(self, tree: Any) -> Any:
+    def _snapshot(self, tree: Any, fenced: bool = False) -> Any:
         """Detach ``tree`` from Level 1 on the caller's thread without
         blocking it: CUDA leaves are copied into page-locked buffers on the
-        copy stream (fenced by an event), host leaves are deep-copied."""
+        copy stream (fenced by an event), host leaves are deep-copied.
+        ``fenced`` copies on the current stream instead, so work queued
+        after it (an in-place add into the same tensors) cannot overwrite
+        a leaf before it has been read."""
         leaves, spec = pytree.tree_flatten(tree)
         if not any(isinstance(x, torch.Tensor) and x.is_cuda for x in leaves):
             return _to_host(tree)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream()
-        stream = self._copy_stream
-        stream.wait_stream(torch.cuda.current_stream())
+        if fenced:
+            stream = torch.cuda.current_stream()
+        else:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream()
+            stream = self._copy_stream
+            stream.wait_stream(torch.cuda.current_stream())
         host = []
         with torch.cuda.stream(stream):
             for x in leaves:
                 h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
                 h.copy_(x, non_blocking=True)
-                x.record_stream(stream)
+                if not fenced:
+                    x.record_stream(stream)
                 host.append(h)
             ready = torch.cuda.Event()
             ready.record(stream)
@@ -1252,9 +1598,55 @@ class AsyncTransferEngine:
             backend.put(key, payload.wait()
                         if isinstance(payload, HostTree) else payload)
 
+    def cursor_async(self, cursor: Any) -> None:
+        """Enqueue a journal cursor checkpoint behind the pending stores.
+
+        FIFO ordering through the writer queue is the consistency
+        argument: a durable cursor implies every store enqueued before it
+        is durable too, so recovery can trust the cursor's plan position.
+        Requires a journaled backend (one with ``put_cursor``).
+
+        The payload's trees (``adjoint``, ``artifact``) are snapshotted
+        here, on the caller's thread, as a store's are: the reverse sweep
+        adds into its gradient accumulator in place, so a tree read later
+        on the writer thread could already hold the next segment's
+        contribution.  Scalar fields (``artifact_key``) stay as they are.
+        """
+        payload = getattr(cursor, "payload", None)
+        if payload:
+            payload = dict(payload)
+            for f in ("adjoint", "artifact"):
+                if payload.get(f) is not None:
+                    payload[f] = self._snapshot(payload[f], fenced=True)
+            cursor = dataclasses.replace(cursor, payload=payload)
+        with self._lock:
+            self._pending_cursors += 1
+        self._store_q.put(("cursor", cursor))
+
+    def _put_cursor(self, cur: Any) -> None:
+        """The writer's half of :meth:`cursor_async`: wait for the
+        payload's snapshots, turn them into host numpy trees (a bf16 leaf
+        as :class:`Bits`), and checkpoint the cursor."""
+        with self._lock:
+            self._pending_cursors -= 1
+            # coalesce: a newer cursor is already queued, so this one's
+            # commit barrier can ride with it (one sync per burst; file
+            # order — hence recovery consistency — is unchanged)
+            last = self._pending_cursors == 0
+        payload = getattr(cur, "payload", None)
+        if payload:
+            payload = dict(payload)
+            for f in ("adjoint", "artifact"):
+                v = payload.get(f)
+                if isinstance(v, HostTree):
+                    payload[f] = pytree.tree_map(_leaf_numpy, v.wait())
+            cur = dataclasses.replace(cur, payload=payload)
+        self.backend.put_cursor(cur, sync=last)
+
     def delete_async(self, key: Any) -> None:
         """Like :meth:`delete`, but the backend delete rides the writer
-        queue.  Staged/in-flight prefetches of the key are still
+        queue (FIFO behind any cursor checkpoint that still references the
+        key's segment).  Staged/in-flight prefetches of the key are still
         invalidated synchronously."""
         self._invalidate(key)
         self._store_q.put(("delete", key))
@@ -1294,8 +1686,11 @@ class AsyncTransferEngine:
     # -- prefetch path --------------------------------------------------------
     def _fetch(self, key: Any) -> Any:
         """Read ``key`` from the backend and, with a device, place it there.
-        A bare ``KeyError`` from a key whose store is stuck behind a dead
-        writer thread is re-raised as a :class:`WriterCrashError`."""
+        Every engine-level fetch funnels through here: the fault-injection
+        hook, and a bare ``KeyError`` from a key whose store is stuck behind
+        a dead writer thread is re-raised as a :class:`WriterCrashError`."""
+        if self.faults is not None:
+            self.faults.on_get(key)   # may raise InjectedFault
         try:
             val = self.backend.get(key)
         except StorageFault:

@@ -132,16 +132,35 @@ def test_offload_config_raises_the_same_value_errors(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"engine": "scan"}, "item 13"),
-    ({"journal_dir": "wal"}, "item 8"),
-    ({"mesh": "MESH"}, "item 15"),
-    ({"step_memory_budget": 1 << 20}, "item 11"),
-    ({"plan_2d": (2, 1)}, "item 11"),
-    ({"offload_params": "moe_experts"}, "item 12"),
+    # the ids the cases had while journal_dir= was a left-out knob too
+    pytest.param({"engine": "scan"}, "item 13", id="kw0-item 13"),
+    pytest.param({"mesh": "MESH"}, "item 15", id="kw2-item 15"),
+    pytest.param({"step_memory_budget": 1 << 20}, "item 11",
+                 id="kw3-item 11"),
+    pytest.param({"plan_2d": (2, 1)}, "item 11", id="kw4-item 11"),
+    pytest.param({"offload_params": "moe_experts"}, "item 12",
+                 id="kw5-item 12"),
 ])
 def test_left_out_knobs_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         fe.OffloadConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"journal_dir": "wal"},
+    {"journal_dir": "wal", "resume": True, "journal_repair": True},
+    {"journal_dir": "wal", "engine": "interpreted", "storage": "disk"},
+])
+def test_journal_knobs_are_accepted(kw):
+    """``journal_dir=`` (a left-out knob until the journal was ported),
+    ``resume=`` and ``journal_repair=`` build a config as in the JAX
+    package."""
+    from repro.api.frontend import OffloadConfig as JConfig
+
+    cfg = fe.OffloadConfig(**kw)
+    ref = JConfig(**kw)
+    for k in kw:
+        assert getattr(cfg, k) == getattr(ref, k) == kw[k]
 
 
 def _strategy_runs(ref, tok, kw):

@@ -26,7 +26,11 @@ allocation of its own.  The cell kernel under autograd (the per-step
 strategies' path) matches plain autograd through ``lstm_cell_ref`` at
 1e-5, and the Revolve, store-all and interpreted strategies on the card
 match the CPU run, as does the fused runner over the disk and tiered
-Level-2 backends (counters equal).  The
+Level-2 backends (counters equal).  A journaled fused gradient on the card
+is bit-identical to the unjournaled one and, after a writer kill at every
+forward store or a failed fetch at every reverse fetch, its resume is
+bit-identical to both (deterministic algorithms on), with the resume's
+counters equal to the CPU run's.  The
 decoder chains on the card: the offloaded gradient against dense autograd
 on the card, loss 1e-5 relative and each leaf 1e-4 of its max |g|.
 """
@@ -48,6 +52,12 @@ from repro_torch.kernels.ref import lstm_cell_ref
 from repro_torch.models import lstm
 from repro_torch.models.attention import _chunked_fwd, chunked_attention
 from repro_torch.models.model_factory import get_model
+
+# cuBLAS reads this once, when the process makes its first handle: set here,
+# at import (before any test's card work), it holds for the resume test's
+# GEMMs under deterministic algorithms.  It restricts only cuBLAS's
+# workspace, so it is left set for the session.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 V, DX, DH, B = 17, 8, 12, 3
 T_BODY = lstm.train_chain().body
@@ -649,3 +659,72 @@ def test_offloaded_decoder_on_card_matches_dense(cuda_device, arch, seq,
     for a, b in zip(pytree.tree_leaves(g), dense):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.fixture
+def deterministic(cuda_device):
+    """Deterministic algorithms for bit-identical resume (set by the
+    caller, as the front door's docs say; restored after).  Warn-only: an
+    op without a deterministic version warns rather than raises, and the
+    test's bit-equality asserts catch any divergence it causes."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield cuda_device
+    torch.use_deterministic_algorithms(was)
+
+
+@pytest.mark.cuda
+def test_journaled_fused_crash_and_resume_on_card(deterministic, tmp_path):
+    """The fused runner's journaled gradient on the card (its boundaries
+    handed over from page-locked memory into the WAL), killed at every
+    forward store and failing at every reverse fetch, then resumed: loss
+    and gradients bit-identical to the fault-free journaled run, which is
+    bit-identical to the unjournaled one; the resume's counters and
+    ``replayed_advances`` (<= I) equal the CPU run's for the same crash."""
+    from repro_torch.core import faults
+    from repro_torch.core.faults import FaultPlan
+
+    T, interval = 29, 6
+    segs = -(-T // interval)
+    rng = np.random.default_rng(11)
+    ref = init_lstm_numpy(11, V, DX, DH)
+    tok = torch.tensor(rng.integers(0, V, (B, T + 1)), dtype=torch.int32)
+    kw = {"interval": interval, "slots": 3, "runner": "fused"}
+
+    def inputs(device):
+        return (params_from_numpy(ref, device=device),
+                {"tokens": tok.to(device)})
+
+    plain = api.value_and_grad_offloaded(lstm.train_chain(), device="cuda",
+                                         **kw)(*inputs("cuda"))
+    fault_free = api.value_and_grad_offloaded(
+        lstm.train_chain(), device="cuda", journal_dir=str(tmp_path / "ok"),
+        **kw)(*inputs("cuda"))
+    assert torch.equal(plain[0], fault_free[0])
+    for a, b in zip(plain[1].values(), fault_free[1].values()):
+        assert torch.equal(a, b)
+    plans = [FaultPlan(kill_writer_at_store=k) for k in range(segs + 1)] + \
+        [FaultPlan(fail_get_at=j) for j in range(segs)]
+    for i, plan in enumerate(plans):
+        stats = {}
+        for device in ("cpu", "cuda"):
+            jd = str(tmp_path / f"{device}{i}")
+            vg = api.value_and_grad_offloaded(
+                lstm.train_chain(), device=device, journal_dir=jd, **kw)
+            with pytest.raises(Exception) as ei:
+                with faults.inject(plan):
+                    vg(*inputs(device))
+            assert faults.is_storage_fault(ei.value), ei.value
+            loss, grads = api.resume_offloaded(
+                lstm.train_chain(), *inputs(device), journal_dir=jd,
+                device=device, **kw)
+            stats[device] = api.last_stats()
+            if device == "cuda":
+                assert torch.equal(loss, fault_free[0]), plan
+                for k, g in fault_free[1].items():
+                    assert torch.equal(grads[k], g), (plan, k)
+        assert stats["cuda"].replayed_advances <= interval
+        for name in ("advances", "backwards", "replayed_advances",
+                     "l2_stores", "l2_prefetches", "fused_segments"):
+            assert getattr(stats["cuda"], name) == \
+                getattr(stats["cpu"], name), (plan, name)
