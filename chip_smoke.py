@@ -22,7 +22,8 @@ Phases, each printing its own lines:
               and exit state bit for bit those of one run of the step
               loop from the same entry; two calls bit for bit equal),
               ``flash_attention`` (gemma2-2b's layer shape in bf16 and
-              fp32, D=64 and 256, GQA, window < S, softcap, Sq < Sk,
+              fp32, phi3.5-moe's in bf16 (32 heads / 8 KV heads of 128,
+              no softcap), D=64 and 256, GQA, window < S, softcap, Sq < Sk,
               ragged edges, rows that see no key; its logsumexp at 1e-5 of
               the plain forward's) and ``ssd_scan`` (mamba2-370m's layer
               shape in bf16 and fp32, a ragged batch*heads and chunk tail
@@ -97,8 +98,10 @@ Phases, each printing its own lines:
               against dense autograd of ``train_loss`` (loss 1e-5 relative,
               each gradient leaf 1e-3 of its max |g|).  ``flash_attention``
               launches are read from the first offloaded call alone (the
-              main path, autotune probe included); a second call, with the
-              schedule cached, is timed against a second (warm) dense call.
+              main path, autotune probe included); a second and a third
+              call, with the schedule cached, are timed against a second
+              (warm) dense call, each with the caching allocator's retries
+              and device mallocs.
               Then one ``strategy="revolve"`` run (4 slots) under the same
               gates, ``flash_attention`` launched twice a step as above, and
               one ``storage="tiered"`` run at I=1 with a fast tier of 4
@@ -107,7 +110,16 @@ Phases, each printing its own lines:
               back bit for bit).
 9. ssm      — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
               and ``ssd_scan``.
-10. timing  — each kernel, its plain version and the nearest library call
+10. moe     — the same for ``phi3.5-moe-42b`` at full width (d_model
+              4096, 16 experts top-2 of d_ff 6400, capacity factor 1.25),
+              batch cut to 2 and depth cut to ``MOE_LAYERS`` (4 chain steps
+              of one ``attn_moe`` layer), ``flash_attention`` once a chain
+              step; the reference's gradients wait in page-locked host
+              memory while the offloaded calls run (in every decoder
+              phase), and every top-2 routing choice of the offloaded call
+              (forward sweep, probe, the reverse's recompute) must equal
+              the reference forward's.
+11. timing  — each kernel, its plain version and the nearest library call
               timed with CUDA events at the main path's shapes, with the
               achieved TFLOP/s where the bound is operations; the fused
               reverse at T=1000 also by part (recompute, hoisted products,
@@ -120,8 +132,9 @@ Phases, each printing its own lines:
               ``F.linear``, ``F.cross_entropy``); ``ssd_scan`` by pass
               (the same); the step loop over a recompute chunk per launch
               and per step, beside cuDNN's multi-step LSTM on the same
-              chunk.
-11. train   — three RMSProp steps through the offloaded LSTM gradient; the
+              chunk; ``flash_attention`` at gemma2-2b's and at
+              phi3.5-moe's shape (there beside SDPA, the same function).
+12. train   — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over one main-path
@@ -133,7 +146,7 @@ ptxas report, the profile tables) go to ``--out-dir`` (default
 ``build/chip_smoke/`` in the checkout).
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (per
-kernel: launches in the phase whose path runs it, error against the plain
+kernel: launches in the phases whose paths run it, error against the plain
 version at the main path's shapes, times and the least time the card could
 take for the same work); the last line
 is ``{"ok": true, "device": {...}}``.  A failure in any phase exits non-zero
@@ -142,6 +155,7 @@ without that line.  Without a CUDA device the script exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -154,7 +168,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 DEFAULT_OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
 PHASES = ("device", "build", "kernels", "main", "strategies", "level2",
-          "resume", "dense", "ssm", "timing", "train")
+          "resume", "dense", "ssm", "moe", "timing", "train")
 OPTIONAL = ("profile",)   # run only when named in --phases
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 bandwidth (data sheet)
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores (data sheet)
@@ -250,7 +264,9 @@ SSD_Y_DIMS, SSD_H_DIMS = (1, 3), (2, 3)   # y (B, T, H, P), h (B, H, P, N)
 
 def scaled_err(a, b) -> float:
     """max |a - b| / max(|b|max, 1e-30): gradient error relative to the
-    leaf's own scale."""
+    leaf's own scale (``b`` brought to ``a``'s device, where a decoder
+    phase keeps its reference on the host)."""
+    b = b.to(a.device, non_blocking=True)
     scale = float(b.float().abs().max())
     return max_err(a, b) / max(scale, 1e-30)
 
@@ -574,12 +590,14 @@ def _randn(torch, rng, shape, dtype, scale=1.0):
 
 
 # label, (B, Sq, Sk, H, G, D), dtype name, keyword arguments; the first
-# two are every gemma2-2b layer at the dense phase's shape
+# two are every gemma2-2b layer at the dense phase's shape, the third every
+# phi3.5-moe layer at the moe phase's (no softcap, no window, scale D^-0.5)
 GEMMA_KW = {"softcap": 50.0, "scale": 256 ** -0.5}
 FLASH_CASES = (
     ("gemma2-2b layer", (2, 4096, 4096, 8, 4, 256), "bfloat16", GEMMA_KW),
     ("gemma2-2b layer fp32", (2, 4096, 4096, 8, 4, 256), "float32",
      GEMMA_KW),
+    ("phi3.5-moe layer", (2, 4096, 4096, 32, 8, 128), "bfloat16", {}),
     ("fp32 D=64 window<S ragged", (2, 1000, 1000, 4, 1, 64), "float32",
      {"window": 100, "softcap": 30.0}),
     ("bf16 D=64 Sq<Sk ragged", (1, 300, 777, 4, 2, 64), "bfloat16",
@@ -780,10 +798,12 @@ def phase_kernels(state) -> None:
     check_flash_unseen_rows(torch)
     ssd = [check_ssd(torch, *case, seed=30 + i)
            for i, case in enumerate(SSD_CASES)]
+    # the flash kernel's shapes on the main path: gemma2-2b's, phi3.5-moe's
     state["err"] = {"lstm_cell": max(errs["torch.float32"], loop),
                     "fused_advance_segment": max(adv, adv1, adv_pinned),
                     "fused_reverse_segment": max(rev, rev1, rev_pinned),
-                    "flash_attention": flash[0], "ssd_scan": ssd[0]}
+                    "flash_attention": max(flash[0], flash[2]),
+                    "ssd_scan": ssd[0]}
 
 
 def _dense_reference(torch, params, batch):
@@ -1713,17 +1733,88 @@ def _tree_value_and_grad(torch, loss_fn, params, batch):
     return loss.detach(), list(grads)
 
 
+def _to_host(torch, tensors):
+    """Page-locked host copies of ``tensors`` (a decoder's reference
+    gradients while the offloaded calls run, so that the card never holds
+    two gradient trees)."""
+    out = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.append(h.copy_(t, non_blocking=True))
+    torch.cuda.synchronize()
+    return out
+
+
+class _RoutingRecorder:
+    """Each MoE layer's top-k choices (the indices ``moe._route`` returns),
+    by layer: the layer is the one whose router weight the call was given.
+    ``mode = "reference"`` records them (dense autograd's forward);
+    ``mode = "check"`` counts the choices that differ from the recorded
+    ones (the offloaded forward sweep, probe and recompute); ``None``
+    ignores the calls."""
+
+    def __init__(self, params, cfg):
+        from repro_torch.models.transformer import _periods
+
+        self.routers = [lp[f"pos{j}"]["moe"]["router"]["w"].detach()
+                        for lp in _periods(params["layers"])
+                        for j, kind in enumerate(cfg.layer_pattern)
+                        if kind.endswith("_moe")]
+        self.reference, self.mode = {}, None
+        self.calls, self.compared, self.flips = 0, 0, 0
+
+    def _layer(self, w):
+        import torch
+
+        for i, r in enumerate(self.routers):
+            if w.data_ptr() == r.data_ptr() or (
+                    w.shape == r.shape and torch.equal(w, r)):
+                return i
+        raise SmokeFailure("routing recorder: a router weight of no layer")
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._route = route = moe._route
+
+        def recorded(p, xg, n_experts, top_k):
+            out = route(p, xg, n_experts, top_k)
+            if self.mode is not None:
+                i = self._layer(p["router"]["w"].detach())
+                idx = out[1].detach()
+                self.calls += 1
+                if self.mode == "reference":
+                    self.reference[i] = idx.clone()
+                else:
+                    self.compared += idx.numel()
+                    self.flips += int((idx != self.reference[i]).sum())
+            return out
+
+        moe._route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._route = self._route
+
+
 def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
-                  per_step, revolve_slots=None, tiered_states=None) -> None:
+                  per_step, revolve_slots=None, tiered_states=None,
+                  n_layers=None) -> None:
     """The offloaded gradient of a decoder (``runner="compiled"``,
-    autotuned) at full width and depth, ``train_4k`` with the global batch
-    cut to ``batch_size``, held against dense autograd of ``train_loss``.
+    autotuned) at full width, ``train_4k`` with the global batch cut to
+    ``batch_size`` and, with ``n_layers``, the depth cut to that many
+    layers; held against dense autograd of ``train_loss``, whose gradients
+    wait on the host (page-locked) while the offloaded calls run.
     ``kernels``: name -> wrapper; ``per_step``: launches of each per chain
     step advanced (forward sweep, autotune probe and the reverse's
-    recompute alike).  With ``revolve_slots``, also one
-    ``strategy="revolve"`` gradient with that many Level-1 slots; with
-    ``tiered_states``, one ``storage="tiered"`` gradient at I=1 whose fast
-    tier holds that many boundary states."""
+    recompute alike).  A MoE model's routing in the offloaded call (forward
+    sweep, probe, recompute) must equal the reference forward's, choice
+    for choice.  With ``revolve_slots``, also one ``strategy="revolve"``
+    gradient with that many Level-1 slots; with ``tiered_states``, one
+    ``storage="tiered"`` gradient at I=1 whose fast tier holds that many
+    boundary states."""
     import torch
     from torch.utils import _pytree as pytree
 
@@ -1733,6 +1824,8 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     from repro_torch.models.model_factory import get_model
 
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     full = SHAPES["train_4k"]
     shape = ShapeSpec(full.name, full.seq_len, batch_size, full.kind)
     model = get_model(cfg)
@@ -1751,26 +1844,45 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     def dense():
         return _tree_value_and_grad(torch, model.train_loss, params, batch)
 
-    # the first call pays for the allocator's growth and library set-up;
-    # the second is the reference and its time
-    first, dense_cold = timed(dense)
-    del first
-    torch.cuda.reset_peak_memory_stats()
-    (ref_loss, ref_grads), dense_wall = timed(dense)
-    dense_peak = torch.cuda.max_memory_allocated()
-    log(f"[{key}] {arch}: {cfg.n_layers} layers, {n_params:,} parameters, "
-        f"B={batch_size} S={shape.seq_len}; dense autograd reference: loss "
-        f"{float(ref_loss):.6f} in {dense_wall:.3f}s (first call "
-        f"{dense_cold:.3f}s), device peak {dense_peak:,} B")
+    routing = _RoutingRecorder(params, cfg) if cfg.moe else None
+    with routing or contextlib.nullcontext():
+        # the first call pays for the allocator's growth and library
+        # set-up; the second is the reference and its time
+        first, dense_cold = timed(dense)
+        del first
+        torch.cuda.reset_peak_memory_stats()
+        if routing:
+            routing.mode = "reference"
+        (ref_loss, ref_grads), dense_wall = timed(dense)
+        dense_peak = torch.cuda.max_memory_allocated()
+        ref_grads = _to_host(torch, ref_grads)
+        log(f"[{key}] {arch}: {cfg.n_layers} layers, {n_params:,} "
+            f"parameters, B={batch_size} S={shape.seq_len}; dense autograd "
+            f"reference: loss {float(ref_loss):.6f} in {dense_wall:.3f}s "
+            f"(first call {dense_cold:.3f}s), device peak {dense_peak:,} B"
+            "; its gradients moved to page-locked host memory")
 
-    vg = api.value_and_grad_offloaded(model.train_loss, device="cuda")
-    for fn in kernels.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    (loss, grads), wall = timed(lambda: vg(params, batch))
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    l1_peak = torch.cuda.max_memory_allocated()
+        vg = api.value_and_grad_offloaded(model.train_loss, device="cuda")
+        for fn in kernels.values():
+            fn.launches = 0
+        if routing:
+            routing.mode, routing.calls = "check", 0
+        torch.cuda.reset_peak_memory_stats()
+        (loss, grads), wall = timed(lambda: vg(params, batch))
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        l1_peak = torch.cuda.max_memory_allocated()
+        if routing:
+            routing.mode = None
     tune, stats, plan = api.last_tune(), api.last_stats(), api.last_plan()
+    if routing:
+        require(routing.flips == 0 and routing.calls > 0,
+                f"{key}: {routing.flips} of {routing.compared} routing "
+                "choices of the offloaded call differ from the reference "
+                "forward's")
+        log(f"[{key}] routing: {routing.calls} MoE layer applications in "
+            f"the offloaded call (forward, probe, recompute), "
+            f"{routing.compared} top-{cfg.moe.top_k} choices, "
+            f"{routing.flips} differ from the reference forward's")
 
     grads = pytree.tree_leaves(grads)
     rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
@@ -1796,18 +1908,31 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
         f"grad scaled err {gerr:.3g}; wall {wall:.3f}s; launches "
         f"{launches} (forward, probe and the reverse's recompute)")
     del grads, loss
-    # a second call: the schedule is cached (no probe), buffers are warm
-    for fn in kernels.values():
-        fn.launches = 0
-    (loss, grads), warm = timed(lambda: vg(params, batch))
-    per_grad = {k: fn.launches for k, fn in kernels.items()}
-    for name, n in per_grad.items():
-        require(api.last_tune().probe_calls == 0
-                and n == per_step[name] * api.last_stats().advances,
-                f"{key}: {name} launched {n} times in the second call")
+    # a second and a third call: the schedule is cached (no probe); with
+    # the caching allocator's retries (a cudaMalloc that failed, so cached
+    # blocks were freed and the malloc retried) and its device mallocs
+    warm_walls, alloc = [], []
+    for _ in range(2):
+        for fn in kernels.values():
+            fn.launches = 0
+        m0 = torch.cuda.memory_stats()
+        (loss, grads), w = timed(lambda: vg(params, batch))
+        m1 = torch.cuda.memory_stats()
+        warm_walls.append(w)
+        alloc.append(tuple(m1.get(k, 0) - m0.get(k, 0) for k in
+                           ("num_alloc_retries", "num_device_alloc")))
+        per_grad = {k: fn.launches for k, fn in kernels.items()}
+        for name, n in per_grad.items():
+            require(api.last_tune().probe_calls == 0
+                    and n == per_step[name] * api.last_stats().advances,
+                    f"{key}: {name} launched {n} times in a warm call")
+        del grads, loss
+    warm = warm_walls[0]
     log(f"[{key}] offloaded, second call: wall {warm:.3f}s "
-        f"({warm / dense_wall:.3f}x dense autograd); launches {per_grad} "
-        "per gradient")
+        f"({warm / dense_wall:.3f}x dense autograd), third call "
+        f"{warm_walls[1]:.3f}s ({warm_walls[1] / dense_wall:.3f}x); "
+        f"allocator retries, device mallocs: {alloc[0]}, {alloc[1]}; "
+        f"launches {per_grad} per gradient")
     log(f"[{key}] stats advances={stats.advances} "
         f"backwards={stats.backwards} l2_stores={stats.l2_stores} "
         f"host_dispatches={stats.host_dispatches} "
@@ -1815,11 +1940,14 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
         f"l1_peak_device_bytes={l1_peak} "
         f"store_stall_s={stats.store_stall_s:.4f} "
         f"prefetch_stall_s={stats.prefetch_stall_s:.4f}")
-    state.setdefault("launches", {}).update(launches)
+    # a kernel on several phases' paths: its launches in all of them
+    total = state.setdefault("launches", {})
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+    state.setdefault("launches_by_phase", {})[key] = launches
     if state.get("profile"):   # the schedule is cached: no probe
         profile_call(state, key, f"{arch} I={tune.interval}",
                      lambda: vg(params, batch))
-    del grads, loss
     if revolve_slots is not None:
         decoder_revolve(key, model, params, batch, ref_loss, ref_grads,
                         kernels, per_step, revolve_slots)
@@ -1829,7 +1957,8 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     state[key] = {"arch": arch, "B": batch_size, "S": shape.seq_len,
                   "interval": tune.interval, "slots": tune.slots,
                   "segments": plan.num_segments, "wall_s": wall,
-                  "warm_wall_s": warm, "dense_wall_s": dense_wall,
+                  "warm_wall_s": warm, "third_wall_s": warm_walls[1],
+                  "dense_wall_s": dense_wall,
                   "dense_peak": dense_peak,
                   "l1_peak": l1_peak, "l2_peak": stats.l2_peak_bytes,
                   "loss_rel": rel, "grad_err": gerr, "cfg": cfg}
@@ -2004,6 +2133,21 @@ def phase_ssm(state) -> None:
 
     decoder_phase(state, "ssm", "mamba2-370m", 4, {"ssd_scan": ssd.ssd_scan},
                   {"ssd_scan": 1})
+
+
+# phi3.5-moe-42b's depth in phase moe: its fp32 parameters are 1.30 B a
+# layer (5.2 GB), and dense autograd holds them, their gradients and every
+# layer's activations (with the bf16 copies of the expert weights it saves)
+MOE_LAYERS = 4
+
+
+def phase_moe(state) -> None:
+    from repro_torch.kernels import flash_attention as fa
+
+    # one attn_moe layer a period: one flash launch a chain step
+    decoder_phase(state, "moe", "phi3.5-moe-42b", 2,
+                  {"flash_attention": fa.flash_attention},
+                  {"flash_attention": 1}, n_layers=MOE_LAYERS)
 
 
 def _cudnn_lstm(torch, w, b, Dx):
@@ -2245,10 +2389,12 @@ def _parts(torch, call, table):
 
 
 def _time_flash(torch, run):
-    """Kernel 4 at the dense phase's attention shape (every gemma2-2b layer:
-    the local layers' window of 4096 spans the whole sequence), its plain
-    version, and ``scaled_dot_product_attention`` without the softcap (no
-    library call computes it) as the library yardstick."""
+    """Kernel 4 at a decoder phase's attention shape (``run``: every
+    gemma2-2b layer, whose local layers' window of 4096 spans the whole
+    sequence, or every phi3.5-moe layer), its plain version, and
+    ``scaled_dot_product_attention`` on K/V repeated per group: the same
+    function at phi3.5-moe's shape, gemma2-2b's without its softcap (no
+    library call computes that)."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -2262,6 +2408,7 @@ def _time_flash(torch, run):
     k = _randn(torch, rng, (B, S, G, D), bf16)
     v = _randn(torch, rng, (B, S, G, D), bf16)
     kw = {"softcap": cfg.attn_softcap, "scale": cfg.query_scale}
+    same = cfg.attn_softcap is None
     ms_k = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), 5)
     ms_p = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 3)
     qt = q.transpose(1, 2).contiguous()
@@ -2273,11 +2420,13 @@ def _time_flash(torch, run):
     flops = 4.0 * B * H * D * S * (S + 1) / 2
     nbytes = 2.0 * (2 * B * S * H * D + 2 * B * S * G * D) + 4.0 * B * H * S
     b_ms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
-    log(f"[timing] flash_attention at B={B} S={S} H={H} G={G} D={D} bf16 "
-        f"(softcap {cfg.attn_softcap}): {flops / ms_k / 1e9:.1f} TFLOP/s "
-        f"(library {flops / ms_l / 1e9:.1f}); library: "
-        "scaled_dot_product_attention on K/V repeated per group, which lacks "
-        "the softcap")
+    log(f"[timing] flash_attention at {cfg.name}'s B={B} S={S} H={H} G={G} "
+        f"D={D} bf16 (softcap {cfg.attn_softcap}): {ms_k:.4f} ms, "
+        f"{flops / ms_k / 1e9:.1f} TFLOP/s (plain {ms_p:.4f} ms; bound "
+        f"{b_ms:.4f} ms by {by}; library {ms_l:.4f} ms, "
+        f"{flops / ms_l / 1e9:.1f} TFLOP/s: scaled_dot_product_attention on "
+        "K/V repeated per group, "
+        + ("the same function)" if same else "which lacks the softcap)"))
     return ("flash_attention", "src/repro_torch/kernels/csrc/"
             "flash_attention.cu", "src/repro/kernels/flash_attention.py:86",
             ms_k, ms_p, b_ms, by, ms_l, flops)
@@ -2418,7 +2567,15 @@ def phase_timing(state) -> None:
         f"written to page-locked host memory {writes['host']:.4f} ms, to "
         f"device memory {writes['device']:.4f} ms")
 
-    rows.append(_time_flash(torch, state["dense"]))
+    flash = {k: _time_flash(torch, state[k]) for k in ("dense", "moe")
+             if k in state}
+    # the row at phi3.5-moe's shape, where the library call computes the
+    # same function; launches: every decoder phase's offloaded first call
+    rows.append(flash["moe"] if "moe" in flash else flash["dense"])
+    by_phase = {k: v["flash_attention"]
+                for k, v in state["launches_by_phase"].items()
+                if "flash_attention" in v}
+    log(f"[timing] flash_attention launches by phase: {by_phase}")
     rows.append(_time_ssd(torch, state["ssm"]))
 
     out = []
@@ -2561,6 +2718,8 @@ def phase_profile(state) -> None:
     among the phases)."""
     from repro_torch import api
 
+    if "runs" not in state:   # phase main did not run
+        return
     model, params, batch = state["model"], state["params"], state["batch"]
     for run in state["runs"]:
         kw = {"interval": run["interval"]} if run["label"] == "pinned" \
@@ -2603,7 +2762,7 @@ def main(argv=None) -> int:
              "kernels": phase_kernels, "main": phase_main,
              "strategies": phase_strategies, "level2": phase_level2,
              "resume": phase_resume,
-             "dense": phase_dense, "ssm": phase_ssm,
+             "dense": phase_dense, "ssm": phase_ssm, "moe": phase_moe,
              "timing": phase_timing, "train": phase_train,
              "profile": phase_profile}
     for name in PHASES + OPTIONAL:

@@ -181,3 +181,26 @@ def steps_vjp(body: BodyFn, params: Params, carry: Carry, xs: Any,
     return (pytree.tree_unflatten(full[:n_p], p_spec),
             pytree.tree_unflatten(full[n_p:n_p + n_c], c_spec),
             full[n_p + n_c:])
+
+
+def is_broadcast_zero(t: torch.Tensor) -> bool:
+    """A zero that holds no memory of its own (``new_zeros(()).expand_as``):
+    an accumulator leaf no gradient has reached yet, or the gradient of a
+    parameter the steps do not read."""
+    return t.dim() > 0 and all(s == 0 for s in t.stride())
+
+
+def accumulate(gacc: Params, dp: Params) -> Params:
+    """``gacc + dp`` leaf by leaf, added in place into accumulator leaves
+    that hold memory.  A broadcast-zero accumulator leaf (as
+    ``zero_grads`` makes them) takes a copy of its first real gradient, so
+    a parameter the chain steps never read (a depth chain reads its
+    stacked layers from ``xs``) never gets a gradient buffer here."""
+    def add(acc, g):
+        if is_broadcast_zero(g):
+            return acc
+        if is_broadcast_zero(acc):
+            return g.clone()
+        return acc.add_(g)
+
+    return pytree.tree_map(add, gacc, dp)

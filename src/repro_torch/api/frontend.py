@@ -60,9 +60,9 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.api import autotune as at
-from repro_torch.api.chain import (ChainSpec, chain_length, combine,
-                                   diff_mask, index_xs, is_inexact,
-                                   partition, steps_vjp)
+from repro_torch.api.chain import (ChainSpec, accumulate, chain_length,
+                                   combine, diff_mask, index_xs, is_inexact,
+                                   is_broadcast_zero, partition, steps_vjp)
 from repro_torch.core import schedule as ms
 from repro_torch.core.compiled_ops import (CompiledChainOps,
                                            CompiledSegmentRunner,
@@ -319,17 +319,18 @@ class _Ops:
     def bwd(self, params, state, xs, k: int, batch, dcarry, gacc):
         """The vjp of step ``k`` from its input ``state``: ``(dc, gacc +
         dparams, dxd)``, ``dxd`` the cotangents of step ``k``'s inexact
-        ``xs`` leaves.  ``gacc`` is added to in place."""
+        ``xs`` leaves.  ``gacc`` is added to in place where it holds
+        memory (:func:`accumulate`)."""
         x_k = pytree.tree_map(lambda leaf: leaf[k:k + 1], xs)
         dp, dc, dxd = steps_vjp(self.spec.body, params, state, x_k, batch,
                                 self.xs_mask, dcarry)
-        for acc, g in zip(pytree.tree_leaves(gacc), pytree.tree_leaves(dp)):
-            acc.add_(g)
-        return dc, gacc, [d[0] for d in dxd]
+        return dc, accumulate(gacc, dp), [d[0] for d in dxd]
 
     @staticmethod
     def zero_grads(params):
-        return pytree.tree_map(torch.zeros_like, params)
+        """Broadcast zeros, which hold no memory (:func:`accumulate`)."""
+        return pytree.tree_map(lambda t: t.new_zeros(()).expand_as(t),
+                               params)
 
 
 def _resolve_schedule(static: _Static, ops: _Ops, params, carry0, xs, batch,
@@ -595,7 +596,7 @@ def _bwd(static: _Static, rec: _RunRecord, dcarry):
     # still stitch the full-chain dxs without re-reversing anything.
     def artifact_fn(seg):
         if isinstance(runner, CompiledSegmentRunner):
-            return runner.dx_segments.get(seg.begin)
+            return runner.dx_of(seg)
         if collect_dx:
             return {k: dx_slices[k]
                     for k in range(seg.begin, seg.end) if k in dx_slices}
@@ -606,7 +607,7 @@ def _bwd(static: _Static, rec: _RunRecord, dcarry):
             return
         artifact = placed(artifact, dcarry)   # host arrays from the journal
         if isinstance(runner, CompiledSegmentRunner):
-            runner.dx_segments[begin] = artifact
+            runner.keep_dx(begin, artifact)
         else:
             dx_slices.update(artifact)
 
@@ -627,8 +628,8 @@ def _bwd(static: _Static, rec: _RunRecord, dcarry):
     if not collect_dx:
         dxs_diff = []
     elif runner is not None:
-        # per-segment stacked cotangents, stitched back into full arrays
-        dxs_diff = runner.collect_dx(run.plan)
+        # the full-chain arrays each reversed segment wrote its part of
+        dxs_diff = runner.collect_dx()
     else:
         dxs_diff = [torch.stack([dx_slices[k][i] for k in range(n)])
                     for i in range(sum(static.xs_mask))]
@@ -654,8 +655,13 @@ class _Chain(torch.autograd.Function):
     def backward(ctx, *dcarry_leaves):
         dcarry = pytree.tree_unflatten(list(dcarry_leaves), ctx.c_spec)
         gparams, dcarry0, dxs_diff = _bwd(ctx.static, ctx.rec, dcarry)
-        return (None, None, *pytree.tree_leaves(gparams),
-                *pytree.tree_leaves(dcarry0), *dxs_diff)
+        # a parameter the steps never read gets no gradient here (its
+        # accumulator is still a broadcast zero), not a buffer of zeros
+        # that autograd would add to its other gradient
+        gparams = [None if is_broadcast_zero(g) else g
+                   for g in pytree.tree_leaves(gparams)]
+        return (None, None, *gparams, *pytree.tree_leaves(dcarry0),
+                *dxs_diff)
 
 
 def _chain(static: _Static, params, carry0, xs, batch):

@@ -1,5 +1,5 @@
-# Port of repro/configs/shapes.py: make_batch for the lstm, dense and ssm
-# families' train shapes.
+# Port of repro/configs/shapes.py: make_batch for the lstm and decoder
+# (dense, moe, hybrid, ssm) families' train shapes.
 """Concrete input batches per (architecture x shape) cell.
 
 ``make_batch`` draws from the same ``numpy.random.default_rng(seed)``
@@ -21,9 +21,10 @@ def make_batch(cfg: ArchConfig, shape: ShapeSpec, seed: int = 0, *,
     """Deterministic batch for ``cfg`` at ``shape`` on ``device`` (the card
     unless ``device="cpu"``)."""
     dev = resolve_device(device)
-    if cfg.family not in ("lstm", "dense", "ssm") or shape.kind != "train":
+    if cfg.family not in ("lstm", "dense", "moe", "hybrid", "ssm") \
+            or shape.kind != "train":
         raise NotImplementedError(
-            f"make_batch covers the lstm, dense and ssm families' train "
+            f"make_batch covers the lstm and decoder families' train "
             f"shapes only "
             f"(got family={cfg.family!r}, kind={shape.kind!r}); other "
             "families come with their models (ROADMAP queue 1, item 10)")

@@ -19,12 +19,12 @@ come later (ROADMAP queue 1, items 12 and 11).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.api.chain import chain_length, steps_vjp
+from repro_torch.api.chain import accumulate, chain_length, steps_vjp
 from repro_torch.core.schedule import SegmentSpec, chunk_length
 from repro_torch.core.storage import HostTree
 from repro_torch.kernels import segment_fused
@@ -70,17 +70,16 @@ class CompiledChainOps:
                                 chunk=chunk_length(seg_len, s_l1))
         # in place: the accumulator is the executor's own (a model's
         # parameters can be gigabytes)
-        for acc, g in zip(pytree.tree_leaves(gacc), pytree.tree_leaves(dp)):
-            acc.add_(g)
-        return dc, gacc, dxd
+        return dc, accumulate(gacc, dp), dxd
 
 
 class CompiledSegmentRunner:
     """Executor plug-in: one call per segment (O(n/I) host dispatches).
 
-    The adjoint is the front-end's ``(dcarry, param_grad_accum)`` pair; the
-    per-step input cotangents land in ``dx_segments`` keyed by segment begin
-    (the caller stitches them back together after the sweep).
+    The adjoint is the front-end's ``(dcarry, param_grad_accum)`` pair; each
+    reversed segment writes its per-step input cotangents into full-chain
+    arrays (``dx_full``, one per inexact xs leaf, step axis leading,
+    allocated at the first segment), so they are never held twice.
     """
 
     def __init__(self, ops: CompiledChainOps, params, xs, batch, *,
@@ -90,7 +89,7 @@ class CompiledSegmentRunner:
         self.xs = xs
         self.batch = batch
         self.s_l1 = s_l1
-        self.dx_segments: Dict[int, List[Any]] = {}
+        self.dx_full: Optional[List[torch.Tensor]] = None
 
     def _slice(self, seg: SegmentSpec):
         return tree_map(lambda leaf: leaf[seg.begin:seg.end], self.xs)
@@ -107,7 +106,7 @@ class CompiledSegmentRunner:
         dc, gacc, dxd = self.ops.reverse_segment(
             self.params, x_b, self._slice(seg), self.batch, dcarry, gacc,
             s_l1=self.s_l1)
-        self.dx_segments[seg.begin] = dxd
+        self.keep_dx(seg.begin, dxd)
         # logical advance accounting: the vjp replays the segment once while
         # linearising, and chunked checkpointing rematerialises each chunk
         # interior once more during the backward
@@ -119,15 +118,25 @@ class CompiledSegmentRunner:
         stats.host_dispatches += 1
         return dc, gacc
 
-    def collect_dx(self, plan) -> List[Any]:
-        """Stitch per-segment input cotangents back into full-chain arrays
-        (one stacked tensor per inexact xs leaf, step axis leading)."""
-        begins = [seg.begin for seg in plan.segments]
-        if not begins or not self.dx_segments:
-            return []
-        num_leaves = len(self.dx_segments[begins[0]])
-        return [torch.cat([self.dx_segments[b][i] for b in begins])
-                for i in range(num_leaves)]
+    def keep_dx(self, begin: int, dxd) -> None:
+        """Write one segment's stacked input cotangents (from its reverse,
+        or read back from a journal) into ``dx_full``."""
+        if self.dx_full is None:
+            n = chain_length(self.xs)
+            self.dx_full = [d.new_zeros((n, *d.shape[1:])) for d in dxd]
+        for full, d in zip(self.dx_full, dxd):
+            full[begin:begin + d.shape[0]].copy_(d)
+
+    def dx_of(self, seg: SegmentSpec) -> Optional[List[torch.Tensor]]:
+        """The segment's part of ``dx_full`` (views), once it is reversed."""
+        if self.dx_full is None:
+            return None
+        return [full[seg.begin:seg.end] for full in self.dx_full]
+
+    def collect_dx(self) -> List[Any]:
+        """The full-chain input cotangents (one stacked tensor per inexact
+        xs leaf, step axis leading)."""
+        return self.dx_full or []
 
 
 class FusedSegmentRunner(CompiledSegmentRunner):
@@ -180,7 +189,7 @@ class FusedSegmentRunner(CompiledSegmentRunner):
             self.ops.body, self.ops.xs_mask, self.params, x_b,
             self._slice(seg), self.batch, dcarry, chunk=self._chunk(seg))
         gacc = tree_map(torch.add, gacc, dp)
-        self.dx_segments[seg.begin] = dxd
+        self.keep_dx(seg.begin, dxd)
         # same logical accounting as the compiled runner
         replay = seg.length
         if chunk_length(seg.length, self.s_l1) is not None:

@@ -1,4 +1,5 @@
-# Port of repro/models/model_factory.py: the lstm, dense and ssm branches.
+# Port of repro/models/model_factory.py: the lstm and decoder (dense, moe,
+# hybrid, ssm) branches.
 """Uniform model API.
 
 ``get_model(cfg)`` returns a ``ModelAPI`` with
@@ -6,10 +7,10 @@
     init(generator, device=None)   -> params
     train_loss(params, batch)      -> scalar loss (tagged with chain_spec)
 
-for the paper's LSTM and the dense and SSM decoder families.  Serving entry
-points (``prefill``/``decode``/``init_cache``) raise ``NotImplementedError``
-for the decoders (ROADMAP queue 1, item 14); the MoE, hybrid, VLM and
-encoder-decoder families come later (item 10).
+for the paper's LSTM and the dense, MoE, hybrid and SSM decoder families.
+Serving entry points (``prefill``/``decode``/``init_cache``) raise
+``NotImplementedError`` for the decoders (ROADMAP queue 1, item 14); the
+VLM and encoder-decoder families come later (item 10).
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ def _not_ported(what: str) -> Callable:
 
 
 def get_model(cfg: ArchConfig) -> ModelAPI:
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family in ("dense", "moe", "hybrid", "ssm"):
         chain = transformer.train_chain(cfg)
         return ModelAPI(
             cfg=cfg,

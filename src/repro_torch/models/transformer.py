@@ -1,6 +1,6 @@
 # Port of repro/models/transformer.py: init, the full-sequence layer path,
-# train_loss and the depth chain (the dense and ssm families).
-"""Decoder-only LM assembly (the dense and SSM families).
+# train_loss and the depth chain (the dense, MoE, hybrid and ssm families).
+"""Decoder-only LM assembly (the dense, MoE, hybrid and SSM families).
 
 The layer stack is organised in *periods* (``cfg.layer_pattern``):
 parameters for each pattern position are stacked over ``n_periods``, so the
@@ -9,9 +9,8 @@ per-period states.  :func:`train_loss` loops over the periods;
 :func:`train_chain` hands the same computation to the offloaded autodiff
 with one period per chain step.
 
-Left out, raising or absent until their items: the MoE and hybrid layer
-kinds (``attn_moe``, ``mamba_moe``; ROADMAP queue 1, item 10), caches,
-``prefill`` and ``decode`` (item 14).  ``remat_layer`` (the JAX package's
+Left out until their item: caches, ``prefill`` and ``decode`` (ROADMAP
+queue 1, item 14).  ``remat_layer`` (the JAX package's
 per-period remat/offload policy) is a memory policy of the scanned stack and
 is not applied: the offloaded chain is the port's memory policy
 (ROADMAP queue 3).  ``distributed.sharding.constrain`` is the identity on
@@ -34,7 +33,7 @@ from repro_torch.models.layers import (DTypes, chunked_ce_loss, embed,
                                        rope_table)
 
 Params = Any
-KINDS = ("attn", "attn_local", "mamba")
+KINDS = ("attn", "attn_local", "attn_moe", "mamba", "mamba_moe")
 
 
 def _dtypes(cfg: ArchConfig) -> DTypes:
@@ -44,9 +43,8 @@ def _dtypes(cfg: ArchConfig) -> DTypes:
 def _check_kinds(cfg: ArchConfig) -> None:
     for kind in cfg.layer_pattern:
         if kind not in KINDS:
-            raise NotImplementedError(
-                f"layer kind {kind!r} ({cfg.name}) is not ported yet "
-                "(ROADMAP queue 1, item 10: MoE and hybrid families)")
+            raise ValueError(f"unknown layer kind {kind!r} ({cfg.name}); "
+                             f"known: {KINDS}")
 
 
 # ---------------------------------------------------------------------------
@@ -71,10 +69,16 @@ def _init_layer(generator, cfg: ArchConfig, kind: str, lead, device
             device=device)
     if cfg.use_post_norm:
         p["ln1_post"] = init_rmsnorm(d, lead=lead, device=device)
-    if kind in ("attn", "attn_local"):
+    if kind in ("attn", "attn_local", "attn_moe", "mamba_moe"):
         p["ln2"] = init_rmsnorm(d, lead=lead, device=device)
-        p["mlp"] = moe_mod.init_mlp(generator, d, cfg.d_ff, lead=lead,
-                                    device=device)
+        if kind.endswith("_moe"):
+            p["moe"] = moe_mod.init_moe(
+                generator, d, cfg.d_ff, cfg.moe.n_experts,
+                shared_expert=cfg.moe.shared_expert, lead=lead,
+                device=device)
+        else:
+            p["mlp"] = moe_mod.init_mlp(generator, d, cfg.d_ff, lead=lead,
+                                        device=device)
         if cfg.use_post_norm:
             p["ln2_post"] = init_rmsnorm(d, lead=lead, device=device)
     return p
@@ -118,12 +122,18 @@ def _post(p, name, y, cfg, dt):
 
 
 def _ffn(p, h, kind, cfg, dt):
-    if "mlp" not in p:
-        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    if "mlp" not in p and "moe" not in p:
+        return h, zero
     y = rmsnorm(p["ln2"], h, dt=dt)
-    y = moe_mod.mlp(p["mlp"], y, act=cfg.mlp_act, dt=dt)
-    return (h + _post(p, "ln2_post", y, cfg, dt),
-            torch.zeros((), dtype=torch.float32, device=h.device))
+    if "moe" in p:
+        y, aux = moe_mod.moe_apply(
+            p["moe"], y, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+            capacity_factor=cfg.moe.capacity_factor, act=cfg.mlp_act,
+            impl=cfg.moe_impl, dt=dt)
+    else:
+        y, aux = moe_mod.mlp(p["mlp"], y, act=cfg.mlp_act, dt=dt), zero
+    return h + _post(p, "ln2_post", y, cfg, dt), aux
 
 
 def _apply_layer_seq(p, x, kind, cfg: ArchConfig, rope, dt,
@@ -145,6 +155,10 @@ def _apply_layer_seq(p, x, kind, cfg: ArchConfig, rope, dt,
             chunk=s.chunk, dt=dt)
     h = x + _post(p, "ln1_post", y, cfg, dt)
     return _ffn(p, h, kind, cfg, dt)
+
+
+def _aux_coef(cfg: ArchConfig) -> float:
+    return cfg.moe.aux_coef if cfg.moe else 0.0
 
 
 def _embed_tokens(params, inp, cfg, dt):
@@ -172,7 +186,7 @@ def _periods(layers: Params):
 
 def train_loss(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ArchConfig) -> torch.Tensor:
-    """batch["tokens"]: (B, S+1) int32.  Mean next-token NLL."""
+    """batch["tokens"]: (B, S+1) int32.  Mean next-token NLL (+ MoE aux)."""
     _check_kinds(cfg)
     dt = _dtypes(cfg)
     tokens = batch["tokens"]
@@ -180,13 +194,20 @@ def train_loss(params: Params, batch: Dict[str, torch.Tensor],
     S = inp.shape[1]
     h = _embed_tokens(params, inp, cfg, dt)
     rope = rope_table(S, cfg.hd, cfg.rope_theta, device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in _periods(params["layers"]):
+        # the period's aux first, then the running total, as the JAX
+        # package's scan body adds them
+        aux_p = torch.zeros((), dtype=torch.float32, device=h.device)
         for j, kind in enumerate(cfg.layer_pattern):
-            h, _ = _apply_layer_seq(lp[f"pos{j}"], h, kind, cfg, rope, dt)
+            h, a = _apply_layer_seq(lp[f"pos{j}"], h, kind, cfg, rope, dt)
+            aux_p = aux_p + a
+        aux = aux + aux_p
     h = rmsnorm(params["final_norm"], h, dt=dt)
-    return chunked_ce_loss(h, unembed_weight(params, cfg), labels,
+    loss = chunked_ce_loss(h, unembed_weight(params, cfg), labels,
                            chunk=cfg.ce_chunk, logit_cap=cfg.logit_softcap,
                            mask=batch.get("mask"), valid_vocab=cfg.vocab)
+    return loss + _aux_coef(cfg) * aux / max(1, cfg.n_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -240,8 +261,7 @@ def train_chain(cfg: ArchConfig):
                                chunk=chunk, logit_cap=cfg.logit_softcap,
                                mask=batch.get("mask"),
                                valid_vocab=cfg.vocab)
-        # no MoE kind is ported: the aux term's coefficient is 0
-        return loss + 0.0 * aux_t / max(1, cfg.n_layers)
+        return loss + _aux_coef(cfg) * aux_t / max(1, cfg.n_layers)
 
     def readout(params, carry, batch):
         return readout_chunked(params, carry, batch, 1)

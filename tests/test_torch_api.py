@@ -406,3 +406,28 @@ def test_run_multistage_single_shot_matches_the_front_end():
     for k in ref_grads:
         torch.testing.assert_close(grads[k], ref_grads[k], rtol=1e-6,
                                    atol=0)
+
+
+def test_gradient_accumulator_holds_memory_only_for_read_params():
+    """The reverse sweep's parameter accumulator starts as broadcast zeros:
+    a leaf takes a copy of its first real gradient and is added to in
+    place after, and a parameter the steps never read (a depth chain's
+    stacked layers, read from ``xs``) never gets a buffer."""
+    from repro_torch.api.chain import accumulate, is_broadcast_zero
+
+    params = {"read": torch.ones(3, 4), "unread": torch.ones(1000),
+              "scalar": torch.ones(())}
+    gacc = fe._Ops.zero_grads(params)
+    assert is_broadcast_zero(gacc["read"])
+    assert gacc["unread"].untyped_storage().nbytes() == 4
+    dp = {"read": torch.full((3, 4), 2.0),
+          "unread": torch.zeros(()).expand(1000),
+          "scalar": torch.tensor(0.5)}
+    gacc = accumulate(gacc, dp)
+    assert torch.equal(gacc["read"], dp["read"])
+    assert gacc["read"].data_ptr() != dp["read"].data_ptr()
+    assert is_broadcast_zero(gacc["unread"])
+    first = gacc["read"]
+    gacc = accumulate(gacc, dp)
+    assert gacc["read"] is first and float(first[0, 0]) == 4.0
+    assert float(gacc["scalar"]) == 1.0

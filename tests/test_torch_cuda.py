@@ -31,8 +31,10 @@ is bit-identical to the unjournaled one and, after a writer kill at every
 forward store or a failed fetch at every reverse fetch, its resume is
 bit-identical to both (deterministic algorithms on), with the resume's
 counters equal to the CPU run's.  The
-decoder chains on the card: the offloaded gradient against dense autograd
-on the card, loss 1e-5 relative and each leaf 1e-4 of its max |g|.
+decoder chains on the card (dense, SSM, MoE and hybrid): the offloaded
+gradient against dense autograd on the card, loss 1e-5 relative and each
+leaf 1e-4 of its max |g|, each kernel launched once a layer that runs it
+for every chain step advanced.
 """
 import os
 
@@ -655,6 +657,49 @@ def test_offloaded_decoder_on_card_matches_dense(cuda_device, arch, seq,
     per_step = 2 if arch == "gemma2-2b" else 1
     # forward sweep and the reverse's recompute: one launch per layer each
     assert kernel.launches == per_step * stats.advances > 0
+    torch.testing.assert_close(v, loss.detach(), rtol=1e-5, atol=0)
+    for a, b in zip(pytree.tree_leaves(g), dense):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,n_layers,per_step", [
+    # top-1 of 4 experts with a shared expert, capacity factor 2.0: one
+    # attn_moe layer a chain step
+    ("llama4-scout-17b-16e", 4, {"flash_attention": 1}),
+    # three periods of (mamba, mamba_moe, mamba, attn_moe, mamba,
+    # mamba_moe, mamba, mamba_moe): a tail segment of one period
+    ("jamba-v0.1-52b", 24, {"flash_attention": 1, "ssd_scan": 7}),
+])
+def test_offloaded_moe_decoder_on_card_matches_dense(cuda_device, arch,
+                                                     n_layers, per_step):
+    """The MoE and hybrid chains at SMOKE width, S > 2048 (the flash
+    kernel's path): the offloaded gradient against dense autograd on the
+    card, and each kernel's launches as the plan implies."""
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config(arch, smoke=True).replace(n_layers=n_layers)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    batch = make_batch(cfg, ShapeSpec("t", 2064, 1, "train"), 0)
+    leaves, spec = pytree.tree_flatten(params)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    loss = model.train_loss(pytree.tree_unflatten(leaves, spec), batch)
+    dense = torch.autograd.grad(loss, leaves)
+    kernels = {"flash_attention": fa.flash_attention,
+               "ssd_scan": ssd.ssd_scan}
+    for fn in kernels.values():
+        fn.launches = 0
+    v, g = api.value_and_grad_offloaded(model.train_loss, interval=2,
+                                        slots=2, device="cuda")(params,
+                                                                batch)
+    stats = api.last_stats()
+    assert stats.n == cfg.n_periods
+    for name, fn in kernels.items():
+        # forward sweep and the reverse's recompute
+        assert fn.launches == per_step.get(name, 0) * stats.advances, name
+    assert all(kernels[name].launches > 0 for name in per_step)
     torch.testing.assert_close(v, loss.detach(), rtol=1e-5, atol=0)
     for a, b in zip(pytree.tree_leaves(g), dense):
         torch.testing.assert_close(a, b, rtol=1e-4,

@@ -1,17 +1,23 @@
-"""The port's decoder families (``gemma2-2b`` dense, ``mamba2-370m`` SSM)
-against the JAX package, on the CPU at SMOKE width.
+"""The port's decoder families (dense: ``gemma2-2b``, ``qwen1.5-4b``,
+``yi-6b``, ``granite-3-2b``; SSM: ``mamba2-370m``; MoE: ``phi3.5-moe-42b``,
+``llama4-scout-17b-16e``; hybrid: ``jamba-v0.1-52b``) against the JAX
+package, on the CPU at SMOKE width.
 
 Weights come from the JAX package's ``init_lm``, carried over by
 ``repro_torch.convert``; batches from both packages' ``make_batch`` (equal
 tokens).  Tolerances:
 
 * ``train_loss`` against JAX: loss 1e-3 relative, each gradient leaf 3e-2
-  of its max |g|.  Both sides compute in bf16 and round in different
+  of its max |g| (jamba's at the loss only: in bf16 the two packages
+  route some of its tokens to other experts).  Both sides compute in bf16 and round in different
   places.  JAX's CPU backend reduces a broadcast bf16 gradient (mamba's
   ``D``) in bf16 and lands farther than that from the fp32-compute
   gradient; a leaf whose JAX gradient is itself more than 3e-2 off the
   fp32-compute one is held against the fp32-compute gradient instead, at
-  the same 3e-2.  In fp32 compute the two packages agree to 1e-5.
+  the same 3e-2, except in the MoE and hybrid models, whose bf16 and fp32
+  computations route some tokens to other experts: there each leaf is
+  held against the JAX bf16 gradient.  In fp32 compute the two packages
+  agree to 1e-5.
 * The offloaded gradient (``runner="compiled"``) against the port's own
   dense autograd of ``train_loss``: loss 1e-5 relative, each leaf 1e-4 of
   its max |g|; the plan, the schedule and the executor counters equal the
@@ -41,7 +47,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import DTypes
 from repro_torch.models.model_factory import get_model
 
-ARCHS = ("gemma2-2b", "mamba2-370m")
+ARCHS = ("gemma2-2b", "mamba2-370m", "qwen1.5-4b", "yi-6b", "granite-3-2b",
+         "phi3.5-moe-42b", "llama4-scout-17b-16e", "jamba-v0.1-52b")
 COUNTERS = ("advances", "backwards", "l2_stores", "host_dispatches",
             "fused_segments", "fused_boundary_copies", "l2_peak_bytes")
 
@@ -129,6 +136,12 @@ def test_make_batch_and_param_tree_carry_over(arch):
     # flash-style backward) at one period of the local/global pattern, over
     # three KV chunks
     ("gemma2-2b", 2064, 1, {"attn_chunk": 688}),
+    ("qwen1.5-4b", None, None, {}),        # QKV bias
+    ("phi3.5-moe-42b", None, None, {}),    # top-2 of 4 experts
+    # top-1 with a shared expert, capacity factor 2.0
+    ("llama4-scout-17b-16e", None, None, {}),
+    # three periods of (mamba, mamba_moe, mamba, attn_moe, ...)
+    ("jamba-v0.1-52b", None, None, {"n_layers": 24}),
 ])
 def test_train_loss_matches_jax(arch, seq, batch, kw, monkeypatch):
     j_cfg, cfg, params, j_batch, t_batch = _case(arch, seq, batch, **kw)
@@ -146,12 +159,26 @@ def test_train_loss_matches_jax(arch, seq, batch, kw, monkeypatch):
     loss32, grads32 = _port_value_and_grad(
         lambda p, b: tf.train_loss(p, b, cfg), params, t_batch)
     np.testing.assert_allclose(loss32, j_loss32, rtol=1e-5)
-    for g, jg in zip(grads32, j_grads32):
-        assert _scaled(g, jg) <= 1e-5
     paths = [jax.tree_util.keystr(k) for k, _ in
              jax.tree_util.tree_leaves_with_path(params)]
+    for path, g, jg in zip(paths, grads32, j_grads32):
+        # jamba's A_log gradients nearly cancel: the JAX package's own jitted
+        # and eager fp32 gradients of this case differ by up to 1.2e-5 of
+        # the leaf's max |g| there, so those leaves are held at 3e-5
+        tol = 3e-5 if cfg.family == "hybrid" and "A_log" in path else 1e-5
+        assert _scaled(g, jg) <= tol, (path, _scaled(g, jg))
+    if cfg.family == "hybrid":
+        # jamba in bf16: from its second MoE layer on, 1-14 of each MoE
+        # layer's 128 top-2 choices go to another expert in one package
+        # than in the other (the routers see bf16 hidden states that
+        # differ in the last bit), so its bf16 case is held at the loss
+        # only; its fp32 gradients above route alike
+        return
     for path, g, jg, g32 in zip(paths, grads, j_grads, grads32):
-        want = jg if _scaled(jg, g32) <= 3e-2 else g32
+        # a routed model's bf16 gradient is no approximation of its fp32
+        # one (the two precisions route some tokens to other experts), so
+        # the fallback to the fp32-compute gradient does not apply there
+        want = jg if cfg.moe or _scaled(jg, g32) <= 3e-2 else g32
         assert _scaled(g, want) <= 3e-2, (path, _scaled(g, jg))
 
 
@@ -166,6 +193,9 @@ def _jax_offloaded(j_cfg, params, j_batch, interval, slots):
     ("gemma2-2b", 6, 2, 2),     # 3 periods: an uneven tail segment
     # 5 periods: segments 3 (chunked under checkpoint, s=2) and 2
     ("mamba2-370m", 5, 3, 2),
+    ("phi3.5-moe-42b", 5, 3, 2),
+    ("llama4-scout-17b-16e", 6, 2, 2),
+    ("jamba-v0.1-52b", 24, 2, 2),   # 3 periods of 8 layers: a tail of 1
 ])
 def test_offloaded_gradient_matches_dense_and_jax_plan(arch, n_layers,
                                                        interval, slots):
@@ -191,6 +221,21 @@ def test_offloaded_gradient_matches_dense_and_jax_plan(arch, n_layers,
     assert stats.l2_peak_bytes % (B * S * d * 2 + 4) == 0
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_decoder_builds_and_differentiates(arch):
+    """The port's own init, batch and autograd at SMOKE width: a finite
+    loss and a finite gradient for every parameter leaf."""
+    cfg = get_config(arch, smoke=True)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    loss, grads = _port_value_and_grad(
+        model.train_loss, params_to_numpy(params),
+        make_batch(cfg, SMOKE_SHAPE, 0, device="cpu"))
+    assert np.isfinite(loss)
+    assert len(grads) == len(pytree.tree_leaves(params))
+    assert all(np.isfinite(g).all() for g in grads)
+
+
 def test_decoder_chain_is_the_period_stack():
     cfg = get_config("gemma2-2b", smoke=True)
     spec = get_model(cfg).train_chain
@@ -210,7 +255,14 @@ def test_decoder_chain_is_the_period_stack():
 
 
 def test_unported_layer_kinds_raise():
-    cfg = get_config("gemma2-2b", smoke=True).replace(
-        layer_pattern=("attn_moe",), n_layers=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tf.train_chain(cfg)
+    """The families still to port (the VLM and the encoder-decoder) raise
+    in ``get_model``; every layer kind of the JAX package is ported."""
+    for family in ("vlm", "encdec"):
+        cfg = get_config("gemma2-2b", smoke=True).replace(family=family)
+        with pytest.raises(NotImplementedError, match="item 10"):
+            get_model(cfg)
+    assert set(tf.KINDS) == {"attn", "attn_local", "attn_moe", "mamba",
+                             "mamba_moe"}
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        tf.train_chain(get_config("gemma2-2b", smoke=True).replace(
+            layer_pattern=("attn_dense",)))
