@@ -46,6 +46,14 @@ Phases, each printing its own lines:
               kernels' launch counts are read from this phase alone, kernel
               1's launches and steps also by caller (the advance's chunks,
               the reverse's recompute), each held to what the plan implies.
+              The fused segments run captured (one CUDA graph replay per
+              segment and direction, ``segment_fused.CapturedRun``); each
+              schedule then takes three warm calls in turns, captured,
+              uncaptured (``segment_fused._CAPTURED`` off: the wrappers
+              that allocate per call) and captured again: bit for bit the
+              same loss and gradients, the same plan, counters and launch
+              counts, no graph captured again, and no page-locked host
+              allocation or device malloc in a warm captured call.
 5. strategies — the paper's baselines and its step-granular interpreter on
               ``lstm-paper`` at the same width, B=256, over the first 2048
               steps of ``train_4k`` (``STRATEGIES_T``): through
@@ -138,9 +146,13 @@ Phases, each printing its own lines:
               losses must fall.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over one main-path
-call per LSTM schedule and one offloaded call in each decoder phase (device
-kernel time by name and the device's busy share; for the LSTM, the device
-time under each fused segment wrapper, kernel 1's by caller).
+call per LSTM schedule, captured and uncaptured, and one offloaded call in
+each decoder phase (device kernel time by name and the device's busy share;
+for the LSTM, the device time under each fused segment wrapper, kernel 1's
+by caller), the host time of a warm LSTM call split by part, per segment
+(``_HostSplit``: the wrappers, the runner, the executor, the Level-2
+engine's calls and its threads), and one fused advance at the probe's shape
+timed per call, captured and uncaptured.
 It is not part of the default run.  Logs too long for the output (the
 ptxas report, the profile tables) go to ``--out-dir`` (default
 ``build/chip_smoke/`` in the checkout).
@@ -871,6 +883,77 @@ def _check_fused_launches(label, before, plan, tune, stats):
     return grew, cells
 
 
+def _alloc_counts(torch):
+    """Page-locked host allocations and device mallocs made so far (the
+    caching allocators' ``num_host_alloc`` and ``num_device_alloc``), and
+    the device segments allocated in the small and the large pool."""
+    host = getattr(torch.cuda, "host_memory_stats", lambda: {})()
+    dev = torch.cuda.memory_stats()
+    return (host.get("num_host_alloc", -1), dev.get("num_device_alloc", -1),
+            dev.get("segment.small_pool.allocated", -1),
+            dev.get("segment.large_pool.allocated", -1))
+
+
+MAIN_COUNTERS = ("advances", "backwards", "l2_stores", "host_dispatches",
+                 "fused_segments", "fused_boundary_copies", "l2_peak_bytes")
+
+
+def warm_call(vg, params, batch, captured: bool) -> dict:
+    """One warm fused gradient (the schedule cached), captured or through
+    the uncaptured wrappers (``segment_fused._CAPTURED``, the private
+    switch): its wall, result, counters, launches and the allocations it
+    made."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import segment_fused as sf
+
+    sf._CAPTURED = captured
+    try:
+        before, a0 = _fused_counts(), _alloc_counts(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = vg(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        a1, now = _alloc_counts(torch), _fused_counts()
+    finally:
+        sf._CAPTURED = True
+    launches = {k: v - before[0][k] for k, v in now[0].items()}
+    cells = {k: (v[0] - before[1][k][0], v[1] - before[1][k][1])
+             for k, v in now[1].items()}
+    return {"loss": loss, "grads": grads, "wall": wall,
+            "stats": api.last_stats(), "plan": api.last_plan(),
+            "tune": api.last_tune(), "launches": launches, "cells": cells,
+            "host_allocs": a1[0] - a0[0], "device_mallocs": a1[1] - a0[1],
+            "device_segments": (a1[2] - a0[2], a1[3] - a0[3])}
+
+
+def check_captured_equal(label, cap, ref) -> None:
+    """A captured warm call against the uncaptured one: loss and every
+    gradient leaf bit for bit, the plan, the counters and every launch
+    count equal."""
+    import torch
+
+    require(cap["plan"].plan_id == ref["plan"].plan_id,
+            f"{label}: plans differ ({cap['plan'].plan_id}, "
+            f"{ref['plan'].plan_id})")
+    require(torch.equal(cap["loss"], ref["loss"])
+            and all(torch.equal(cap["grads"][k], ref["grads"][k])
+                    for k in ref["grads"]),
+            f"{label}: the captured gradient is not bit for bit the "
+            "uncaptured one")
+    diff = {n: (getattr(cap["stats"], n), getattr(ref["stats"], n))
+            for n in MAIN_COUNTERS
+            if getattr(cap["stats"], n) != getattr(ref["stats"], n)}
+    require(not diff, f"{label}: counters differ (captured, uncaptured): "
+            f"{diff}")
+    require(cap["launches"] == ref["launches"]
+            and cap["cells"] == ref["cells"],
+            f"{label}: launches {cap['launches']} {cap['cells']} against "
+            f"the uncaptured {ref['launches']} {ref['cells']}")
+
+
 def phase_main(state) -> None:
     import torch
 
@@ -892,6 +975,7 @@ def phase_main(state) -> None:
     runs = []
     for label, kw in (("autotuned", {}), ("pinned", {"interval": 1000})):
         before = _fused_counts()
+        captures = sf.CapturedRun.captures
         vg = api.value_and_grad_offloaded(model.train_loss, runner="fused",
                                           device="cuda", **kw)
         torch.cuda.reset_peak_memory_stats()
@@ -908,8 +992,10 @@ def phase_main(state) -> None:
         log(f"[main] {label}: tune I={tune.interval} s={tune.slots} "
             f"T_A={tune.t_a:.6e}s T_T={tune.t_t:.6e}s ({tune.source}); "
             f"plan {plan.plan_id} ({segs} segments)")
-        log(f"[main] {label}: loss {float(loss):.6f} (rel err {rel:.3g}), "
-            f"grad scaled err {gerr:.3g}; wall {wall:.3f}s; launches {grew}")
+        log(f"[main] {label}: first call (captures "
+            f"{sf.CapturedRun.captures - captures} graphs): loss "
+            f"{float(loss):.6f} (rel err {rel:.3g}), grad scaled err "
+            f"{gerr:.3g}; wall {wall:.3f}s; launches {grew}")
         log(f"[main] {label}: lstm_cell step loop by caller (launches, cell "
             f"steps): advance {cells['advance']}, reverse recompute "
             f"{cells['reverse']}")
@@ -922,10 +1008,49 @@ def phase_main(state) -> None:
             f"l1_peak_device_bytes={l1_peak} "
             f"store_stall_s={stats.store_stall_s:.4f} "
             f"prefetch_stall_s={stats.prefetch_stall_s:.4f}")
+        del loss, grads
+        # warm calls, captured and uncaptured in turns, in this process
+        captures = sf.CapturedRun.captures
+        warm = []
+        for captured in (True, False, True):
+            w = warm_call(vg, params, batch, captured)
+            _check_against(label, w["loss"], w["grads"], ref_loss,
+                           ref_grads)
+            # compared on the host from here on: the card's copies go back
+            # to the caching allocator before the next call
+            w["loss"] = w["loss"].cpu()
+            w["grads"] = {k: g.cpu() for k, g in w["grads"].items()}
+            warm.append(w)
+        for name, w in zip(("captured", "uncaptured", "captured again"),
+                           warm):
+            log(f"[main] {label}: warm {name} call: wall {w['wall']:.4f}s "
+                f"({1e3 * w['wall'] / segs:.4f} ms a segment); page-locked "
+                f"host allocations {w['host_allocs']}, device mallocs "
+                f"{w['device_mallocs']} (segments small, large pool "
+                f"{w['device_segments']}); store_stall_s="
+                f"{w['stats'].store_stall_s:.4f} prefetch_stall_s="
+                f"{w['stats'].prefetch_stall_s:.4f}")
+        check_captured_equal(label, warm[0], warm[1])
+        check_captured_equal(label, warm[2], warm[1])
+        pool = next(iter(sf._POOLS.values()))
+        log(f"[main] {label}: captured warm calls bit for bit the "
+            f"uncaptured one, counters and launches equal; graphs captured "
+            f"in the warm calls {sf.CapturedRun.captures - captures}; "
+            f"Level-2 slot pool {pool.size} slots of {pool.slot_bytes} B "
+            f"(grown {pool.grown}, {pool.free} free)")
+        require(sf.CapturedRun.captures == captures,
+                f"{label}: a warm call captured graphs again")
+        for w in (warm[0], warm[2]):
+            require(w["host_allocs"] == 0 and w["device_mallocs"] == 0,
+                    f"{label}: a warm captured call allocated (page-locked "
+                    f"{w['host_allocs']}, device {w['device_mallocs']})")
         runs.append({"label": label, "interval": tune.interval,
                      "slots": tune.slots, "t_a": tune.t_a, "t_t": tune.t_t,
-                     "wall_s": wall, "l2_peak_bytes": stats.l2_peak_bytes,
+                     "wall_s": wall, "warm_s": warm[0]["wall"],
+                     "warm_uncaptured_s": warm[1]["wall"],
+                     "l2_peak_bytes": stats.l2_peak_bytes,
                      "l1_peak_device_bytes": l1_peak})
+        del warm
     launches = _fused_counts()[0]
     for k, n in launches.items():
         require(n > 0, f"{k} was not launched on the main path")
@@ -1085,8 +1210,11 @@ def phase_level2(state) -> None:
     autotuned; (b) tiered at I=256 with budgets of 16, 8 and 1 boundary
     states, after host RAM at the same I; (c) tiered, autotuned, 64
     states; (d) int8-compressed, autotuned.  Each under phase ``main``'s gates (compressed: each leaf
-    within the reference's 5e-2 of its scale) and launch counts; the slow
-    tier lives in a directory under the out-dir, removed afterwards."""
+    within the reference's 5e-2 of its scale) and launch counts; outside
+    RAM, the Level-2 slot pool holds at most the states the store keeps in
+    RAM (a tiered run's budget), the prefetch depth and two more at once;
+    the slow tier lives in a directory under the out-dir, removed
+    afterwards."""
     import shutil
 
     import torch
@@ -1094,6 +1222,7 @@ def phase_level2(state) -> None:
     from repro_torch import api
     from repro_torch.core import perfmodel
     from repro_torch.core.storage import tree_bytes
+    from repro_torch.kernels import segment_fused as sf
 
     lstm_inputs(state)
     model, params, batch = state["model"], state["params"], state["batch"]
@@ -1134,6 +1263,11 @@ def phase_level2(state) -> None:
             else None,
             **kw)
         before = _fused_counts()
+        pool = next(iter(sf._POOLS.values()), None)
+        pool_before = held = 0
+        if pool is not None:
+            pool.reset_peak()
+            pool_before, held = pool.size, pool.in_use
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with _SpyBackends() as spy:
@@ -1200,9 +1334,24 @@ def phase_level2(state) -> None:
             f"l2_staged_peak_bytes={stats.l2_staged_peak_bytes} "
             f"store_stall_s={stats.store_stall_s:.4f} "
             f"prefetch_stall_s={stats.prefetch_stall_s:.4f}")
-        if storage == "tiered":
-            log(f"[level2] {label}: page-locked host allocator "
-                f"{_host_allocator_stats(torch)}")
+        pool = next(iter(sf._POOLS.values()))
+        log(f"[level2] {label}: Level-2 slot pool {pool.size} slots of "
+            f"{pool.slot_bytes} B ({pool_before} before the call, {held} of "
+            f"them in use), at most {pool.peak - held} more in use at once; "
+            f"page-locked host allocator {_host_allocator_stats(torch)}")
+        if storage != "ram":
+            # page-locked host memory stays within what the store keeps in
+            # RAM (a tiered store's budget, none for the disk and the
+            # compressed ones, which copy), the prefetch depth and two more
+            kept = kw["l2_capacity_bytes"] // sb if storage == "tiered" else 0
+            most = kept + stats.prefetch_depth + 2
+            require(pool.peak - held <= most
+                    and pool.size <= max(pool_before, held + most),
+                    f"{label}: the slot pool held {pool.peak - held} slots "
+                    f"at once "
+                    f"and has {pool.size} ({pool_before} before), more than "
+                    f"the {kept} states kept in RAM + prefetch depth "
+                    f"{stats.prefetch_depth} + 2")
         runs.append({"label": label, "interval": tune.interval,
                      "segments": segs, "wall_s": wall, "l1_peak": l1_peak})
         del loss, grads, vg
@@ -1821,8 +1970,12 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     from repro_torch import api
     from repro_torch.configs import SHAPES, ShapeSpec, get_config
     from repro_torch.configs.shapes import make_batch
+    from repro_torch.kernels import segment_fused as sf
     from repro_torch.models.model_factory import get_model
 
+    # the LSTM phases' captured graphs and workspaces (~0.7 GB at the
+    # pinned shape) are not this model's: its device peaks leave them out
+    sf.clear_caches()
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
@@ -2299,7 +2452,7 @@ def _time_boundary_writes(torch, params, carry, xs, chunk):
         err = lib.lstm_adv_chunk(
             ptr(params["w_out"]), ptr(params["b_out"]), V, Dh, ptr(tgt),
             ptr(hs), ptr(cs), L, B, ptr(lg), ptr(msum), ptr(h0), ptr(c0),
-            ptr(bh), ptr(bc), ptr(nxt[0]), ptr(nxt[1]), stream)
+            ptr(bh), ptr(bc), ptr(nxt[0]), ptr(nxt[1]), None, 0, 0, stream)
         build.check(lib, err, "lstm_adv_chunk")
 
     ms = {"host": [], "device": []}
@@ -2634,8 +2787,8 @@ def profile_call(state, label: str, note: str, call) -> None:
     rows = []
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA") \
-                or e.key in CALLERS:   # a range's device span, not a kernel
-            continue
+                or e.key in CALLERS or e.key.startswith(RANGES):
+            continue   # a range's device span, not a kernel
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
@@ -2670,8 +2823,10 @@ def profile_call(state, label: str, note: str, call) -> None:
             f"{cell_ms:.3f} ms")
 
 
-# the fused segment wrappers' profiler ranges (segment_fused._card_call)
+# the fused segment wrappers' profiler ranges (segment_fused._card_call,
+# CapturedRun), and the ranges of their parts and of _HostSplit
 CALLERS = ("fused_advance_segment", "fused_reverse_segment")
+RANGES = ("fused.", "split.")
 
 
 def _device_events(prof):
@@ -2712,23 +2867,222 @@ def by_caller(prof):
     return acc
 
 
+class _HostSplit:
+    """Host milliseconds of offloaded gradients by part: each part a
+    ``torch.profiler.record_function`` range timed with ``perf_counter`` on
+    the thread that runs it, exclusive of the parts nested in it (the
+    executor's own bookkeeping is the executor's time less the runner's and
+    the store's calls it makes).  Installed by wrapping the functions named
+    in :meth:`install`; :meth:`remove` puts them back."""
+
+    def __init__(self):
+        import threading
+
+        self.ms = {}
+        self.calls = {}
+        self._tls = threading.local()
+        self._lock = threading.Lock()
+        self._undo = []
+
+    @contextlib.contextmanager
+    def timed(self, part: str):
+        import torch
+
+        stack = self._tls.__dict__.setdefault("stack", [])
+        stack.append(0.0)
+        t0 = time.perf_counter()
+        try:
+            with torch.profiler.record_function(f"split.{part}"):
+                yield
+        finally:
+            dt = time.perf_counter() - t0
+            nested = stack.pop()
+            if stack:
+                stack[-1] += dt
+            with self._lock:
+                self.ms[part] = self.ms.get(part, 0.0) + 1e3 * (dt - nested)
+                self.calls[part] = self.calls.get(part, 0) + 1
+
+    def wrap(self, owner, attr: str, part: str) -> None:
+        import functools
+
+        orig = getattr(owner, attr)
+
+        @functools.wraps(orig)
+        def timed_call(*args, **kwargs):
+            with self.timed(part):
+                return orig(*args, **kwargs)
+
+        setattr(owner, attr, timed_call)
+        self._undo.append((owner, attr, orig))
+
+    def install(self) -> "_HostSplit":
+        from repro_torch.api import autotune, frontend
+        from repro_torch.core import compiled_ops, executor, storage
+        from repro_torch.kernels import segment_fused as sf
+
+        eng = storage.AsyncTransferEngine
+        for owner, attr, part in (
+                (frontend, "_fwd", "front door"),
+                (frontend, "_bwd", "front door"),
+                (autotune.AutoTuner, "measure", "front door"),
+                (executor.CheckpointExecutor, "multistage_forward",
+                 "executor"),
+                (executor.CheckpointExecutor, "multistage_reverse",
+                 "executor"),
+                (compiled_ops.FusedSegmentRunner, "advance_with_store",
+                 "runner"),
+                (compiled_ops.FusedSegmentRunner, "advance", "runner"),
+                (compiled_ops.FusedSegmentRunner, "reverse", "runner"),
+                (sf, "_advance_lstm_cuda", "wrapper: launches"),
+                (sf, "_reverse_lstm_cuda", "wrapper: launches"),
+                (sf.CapturedRun, "advance", "wrapper: launches"),
+                (sf.CapturedRun, "reverse", "wrapper: launches"),
+                (eng, "store_async", "store enqueue"),
+                (eng, "cursor_async", "store enqueue"),
+                (eng, "prefetch_async", "prefetch enqueue"),
+                (eng, "wait_prefetch", "prefetch wait"),
+                (eng, "delete", "delete"),
+                (eng, "delete_async", "delete"),
+                (eng, "wait_stores", "wait_stores"),
+                (executor, "tree_bytes", "stats"),
+                (executor._L1Slots, "note_extra", "stats"),
+                (storage.HostTree, "wait", "thread: store event wait"),
+                (eng, "_put", "thread: store put"),
+                (eng, "_fetch", "thread: prefetch fetch")):
+            self.wrap(owner, attr, part)
+        parts = {"fused.alloc": "wrapper: allocations",
+                 "fused.args": "wrapper: argument block",
+                 "fused.replay": "wrapper: graph replay"}
+        orig_part = sf._part
+
+        @contextlib.contextmanager
+        def part(name):
+            with self.timed(parts.get(name, name)):
+                yield
+
+        sf._part = part
+        self._undo.append((sf, "_part", orig_part))
+        return self
+
+    def remove(self) -> None:
+        for owner, attr, orig in reversed(self._undo):
+            setattr(owner, attr, orig)
+        self._undo.clear()
+
+    def report(self, label: str, segments: int, wall_s: float) -> dict:
+        """Log the split in ms per segment and return it.  The parts run
+        one after another on the calling thread and on autograd's device
+        thread (which runs the backward while the caller waits); what is
+        left of the wall is the front door's own work and the final
+        synchronisation ("rest").  The Level-2 threads' parts ("thread:")
+        run beside them."""
+        ms = dict(self.ms)
+        serial = sum(v for k, v in ms.items() if not k.startswith("thread:"))
+        ms["rest"] = 1e3 * wall_s - serial
+        per = {k: v / segments for k, v in sorted(ms.items(),
+                                                   key=lambda kv: -kv[1])}
+        log(f"[profile] {label}: host split of one warm call over "
+            f"{segments} segments, ms per segment (wall {wall_s:.4f}s = "
+            f"{1e3 * wall_s / segments:.4f} ms a segment):")
+        for k, v in per.items():
+            log(f"[profile]   {v:9.4f}  {k} ({self.calls.get(k, 1)} calls)")
+        return per
+
+
+def host_split(call, label: str, segments: int) -> dict:
+    """:class:`_HostSplit` of one ``call()``, without the profiler."""
+    import torch
+
+    split = _HostSplit().install()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        split.remove()
+    return split.report(label, segments, wall)
+
+
+def advance_call_times(state, T: int) -> None:
+    """One fused advance of ``T`` steps (its chunk ``T``, as the autotuner's
+    probe runs it) captured and uncaptured, on ``train_4k``'s first steps:
+    host milliseconds a call synchronised after each (what the probe times)
+    and back to back (20 calls, one synchronisation), and device
+    milliseconds a call (CUDA events)."""
+    import torch
+
+    from repro_torch.kernels import segment_fused as sf
+    from repro_torch.models import lstm
+
+    spec = lstm.train_chain()
+    params = state["params"]
+    carry0, xs = spec.prelude(params, state["batch"])
+    xs = tuple(x[:T].contiguous() for x in xs)
+    run = sf.CapturedRun(spec.body, params, xs)
+    calls = {"captured": lambda: run.advance(carry0, 0, T, T, last=False),
+             "uncaptured": lambda: sf.fused_advance_segment(
+                 spec.body, params, carry0, xs, None, chunk=T)}
+    out = []
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+            torch.cuda.synchronize()
+        synced = (time.perf_counter() - t0) / 20
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+        out.append(f"{name} {1e3 * synced:.4f} ms synchronised, "
+                   f"{1e3 * (time.perf_counter() - t0) / 20:.4f} ms back "
+                   "to back")
+    device_ms = {name: cuda_ms(call, 20) for name, call in calls.items()}
+    log(f"[profile] fused advance of T={T} (its probe's chunk), a call: "
+        f"{'; '.join(out)}; device time a call (CUDA events): captured "
+        f"{device_ms['captured']:.4f} ms, uncaptured "
+        f"{device_ms['uncaptured']:.4f} ms")
+
+
 def phase_profile(state) -> None:
     """Where one offloaded LSTM gradient's time goes, per schedule of the
     main phase (the decoder phases profile themselves when ``profile`` is
-    among the phases)."""
+    among the phases): the host split of a warm call by part
+    (:class:`_HostSplit`), captured and uncaptured, then device time by
+    kernel and the device's busy share under the profiler, the same two
+    ways."""
     from repro_torch import api
+    from repro_torch.kernels import segment_fused as sf
 
     if "runs" not in state:   # phase main did not run
         return
     model, params, batch = state["model"], state["params"], state["batch"]
+    splits = state.setdefault("host_split", {})
+    for T in sorted({32, state["runs"][0]["interval"]}):
+        advance_call_times(state, T)
     for run in state["runs"]:
         kw = {"interval": run["interval"]} if run["label"] == "pinned" \
             else {}
         vg = api.value_and_grad_offloaded(model.train_loss, runner="fused",
                                           device="cuda", **kw)
         vg(params, batch)   # warm: the schedule is cached, kernels loaded
-        profile_call(state, run["label"], f"I={run['interval']}",
-                     lambda: vg(params, batch))
+        segs = api.last_plan().num_segments
+        for how in ("captured", "uncaptured"):
+            sf._CAPTURED = how == "captured"
+            try:
+                vg(params, batch)
+                label = f"{run['label']} {how}"
+                splits[label] = host_split(lambda: vg(params, batch), label,
+                                           segs)
+                profile_call(state, f"{run['label']}_{how}",
+                             f"I={run['interval']}, {how}",
+                             lambda: vg(params, batch))
+            finally:
+                sf._CAPTURED = True
 
 
 def main(argv=None) -> int:

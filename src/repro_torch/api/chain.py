@@ -123,7 +123,8 @@ def steps_vjp(body: BodyFn, params: Params, carry: Carry, xs: Any,
     the final carry.  Returns ``(dparams, dcarry_in, dxd)``: parameter and
     entry-carry cotangents with the structures of ``params``/``carry``,
     and one stacked cotangent per inexact ``xs`` leaf.  A parameter the
-    steps do not read gets a broadcast (read-only) zero.
+    steps do not read gets a broadcast (read-only) zero, and only such a
+    parameter: a real gradient leaves with strides of its own.
 
     ``chunk`` (the counterpart of the JAX engines' ``jax.checkpoint``
     regions) recomputes the steps under ``torch.utils.checkpoint`` in
@@ -177,6 +178,11 @@ def steps_vjp(body: BodyFn, params: Params, carry: Carry, xs: Any,
             # weights from xs) gets a broadcast zero: no memory
             g = t.new_zeros(()).expand_as(t) if i < n_p \
                 else torch.zeros_like(t)
+        elif is_broadcast_zero(g):
+            # a real gradient can come back broadcast (``p.sum()``'s
+            # backward expands its cotangent): made dense, so a broadcast
+            # zero leaving here always means "not read"
+            g = g.clone(memory_format=torch.contiguous_format)
         full.append(g)
     return (pytree.tree_unflatten(full[:n_p], p_spec),
             pytree.tree_unflatten(full[n_p:n_p + n_c], c_spec),
@@ -186,7 +192,9 @@ def steps_vjp(body: BodyFn, params: Params, carry: Carry, xs: Any,
 def is_broadcast_zero(t: torch.Tensor) -> bool:
     """A zero that holds no memory of its own (``new_zeros(()).expand_as``):
     an accumulator leaf no gradient has reached yet, or the gradient of a
-    parameter the steps do not read."""
+    parameter the steps do not read.  Only ``zero_grads`` and
+    :func:`steps_vjp` make such leaves (``steps_vjp`` copies a real
+    gradient that autograd hands back broadcast)."""
     return t.dim() > 0 and all(s == 0 for s in t.stride())
 
 

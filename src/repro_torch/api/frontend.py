@@ -369,12 +369,23 @@ def _resolve_schedule(static: _Static, ops: _Ops, params, carry0, xs, batch,
             # copy, and T_T stores what a fused advance hands the store —
             # the chunk entry the kernel already wrote to host memory
             last = None
+            captured = None
+            if segment_fused._CAPTURED and \
+                    not segment_fused._on_cpu(carry0):
+                # what the run replays: a captured segment (the tuner's
+                # untimed first call captures it)
+                captured = segment_fused.CapturedRun(ops.cops.body, params,
+                                                     xs_probe)
 
             def forward_segment(state):
                 nonlocal last
-                last = segment_fused.fused_advance_segment(
-                    ops.cops.body, params, state, xs_probe, batch,
-                    chunk=probe_len)
+                if captured is not None:
+                    last = captured.advance(state, 0, probe_len, probe_len,
+                                            last=False)
+                else:
+                    last = segment_fused.fused_advance_segment(
+                        ops.cops.body, params, state, xs_probe, batch,
+                        chunk=probe_len)
                 return last.carry
 
             def store_tree():

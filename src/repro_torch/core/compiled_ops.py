@@ -24,7 +24,8 @@ from typing import Any, List, Optional, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.api.chain import accumulate, chain_length, steps_vjp
+from repro_torch.api.chain import (accumulate, chain_length,
+                                   is_broadcast_zero, steps_vjp)
 from repro_torch.core.schedule import SegmentSpec, chunk_length
 from repro_torch.core.storage import HostTree
 from repro_torch.kernels import segment_fused
@@ -149,6 +150,13 @@ class FusedSegmentRunner(CompiledSegmentRunner):
     computed — instead of being snapshotted before the advance.  On CPU
     tensors the kernels' plain versions run (any body); on the card only the
     registered bodies (the LSTM chain step) run, others raise.
+
+    On the card every segment is one replay of a captured CUDA graph per
+    direction (:class:`~repro_torch.kernels.segment_fused.CapturedRun`,
+    the counterpart of the JAX runner's jit cache): boundaries go into
+    pooled page-locked slots (the pool grows to the run's need in its
+    first call), and the reverse adds each segment's gradient into one flat accumulator in
+    place.  The counters are those of the uncaptured run.
     """
 
     def __init__(self, ops: CompiledChainOps, params, xs, batch, *,
@@ -156,6 +164,19 @@ class FusedSegmentRunner(CompiledSegmentRunner):
         # contiguous per-step inputs: each segment slice is then contiguous
         xs = tree_map(lambda leaf: leaf.contiguous(), xs)
         super().__init__(ops, params, xs, batch, s_l1=s_l1)
+        self.n = chain_length(xs)
+        self._card = not segment_fused._on_cpu(params)
+        self._captured = None   # the CapturedRun, at first use
+        self._flat = None       # the card's gradient accumulator, flat
+        self._gtree = None      # ... as the parameter tree (views)
+
+    def _capture_run(self):
+        if not (self._card and segment_fused._CAPTURED):
+            return None
+        if self._captured is None:
+            self._captured = segment_fused.CapturedRun(
+                self.ops.body, self.params, self.xs)
+        return self._captured
 
     def _chunk(self, seg: SegmentSpec) -> int:
         # the reverse chunks like the compiled runner's checkpointed vjp;
@@ -163,9 +184,14 @@ class FusedSegmentRunner(CompiledSegmentRunner):
         return chunk_length(seg.length, self.s_l1) or seg.length
 
     def _advance_fused(self, state, seg: SegmentSpec, stats):
-        out = segment_fused.fused_advance_segment(
-            self.ops.body, self.params, state, self._slice(seg), self.batch,
-            chunk=self._chunk(seg))
+        cap = self._capture_run()
+        if cap is not None:
+            out = cap.advance(state, seg.begin, seg.length, self._chunk(seg),
+                              last=seg.end == self.n)
+        else:
+            out = segment_fused.fused_advance_segment(
+                self.ops.body, self.params, state, self._slice(seg),
+                self.batch, chunk=self._chunk(seg))
         stats.advances += seg.length
         stats.host_dispatches += 1
         stats.fused_segments += 1
@@ -183,13 +209,41 @@ class FusedSegmentRunner(CompiledSegmentRunner):
         out = self._advance_fused(state, seg, stats)
         return out.carry, HostTree(out.entries[0], out.ready)
 
+    def _accumulate(self, gacc, gflat):
+        """``gacc + gflat`` into the run's flat accumulator, in place: the
+        first segment (or a tree from elsewhere, such as a journal's
+        cursor) starts it."""
+        if gacc is not self._gtree:
+            self._flat = torch.zeros_like(gflat)
+            self._gtree = segment_fused._grad_views(
+                self._flat, _lstm_dims(self.params, self.xs))
+            for k, g in gacc.items():
+                if not is_broadcast_zero(g):
+                    self._gtree[k].copy_(g)
+        self._flat.add_(gflat)
+        return self._gtree
+
     def reverse(self, x_b, adjoint, seg: SegmentSpec, slots, stats):
         dcarry, gacc = adjoint
-        dc, dp, dxd = segment_fused.fused_reverse_segment(
-            self.ops.body, self.ops.xs_mask, self.params, x_b,
-            self._slice(seg), self.batch, dcarry, chunk=self._chunk(seg))
-        gacc = tree_map(torch.add, gacc, dp)
-        self.keep_dx(seg.begin, dxd)
+        if not self._card:
+            dc, dp, dxd = segment_fused.fused_reverse_segment(
+                self.ops.body, self.ops.xs_mask, self.params, x_b,
+                self._slice(seg), self.batch, dcarry,
+                chunk=self._chunk(seg))
+            gacc = tree_map(torch.add, gacc, dp)
+            self.keep_dx(seg.begin, dxd)
+        else:
+            cap = self._capture_run()
+            if cap is not None:
+                dc, gflat = cap.reverse(x_b, dcarry, seg.begin, seg.length,
+                                        self._chunk(seg),
+                                        last=seg.begin == 0)
+            else:
+                dc, gflat = segment_fused._fused_reverse_card(
+                    self.ops.body, self.params, x_b, self._slice(seg),
+                    dcarry, chunk=self._chunk(seg))
+            gacc = self._accumulate(gacc, gflat)
+            self.keep_dx(seg.begin, [])   # token ids: no input cotangents
         # same logical accounting as the compiled runner
         replay = seg.length
         if chunk_length(seg.length, self.s_l1) is not None:
@@ -201,3 +255,9 @@ class FusedSegmentRunner(CompiledSegmentRunner):
         nc = -(-seg.length // self._chunk(seg))
         stats.fused_boundary_copies += 2 * nc  # spill out + read back in
         return dc, gacc
+
+
+def _lstm_dims(params, xs):
+    """``(V, Dx, Dh, B)`` of the LSTM chain's parameters and inputs."""
+    V, Dx = params["emb"].shape
+    return V, Dx, params["w_out"].shape[0], xs[0].shape[1]

@@ -495,6 +495,8 @@ class CheckpointExecutor:
             # still orders the store before the segment's cursor, so journal
             # durability semantics are unchanged.
             aws = getattr(fwd_runner, "advance_with_store", None)
+            # every carry of the chain has the carry's structure and shapes
+            state_bytes = tree_bytes(current)
             for seg in plan.segments[start_idx:]:
                 if seg.begin in durable:
                     current = fwd_runner.advance(current, seg, stats)
@@ -504,7 +506,7 @@ class CheckpointExecutor:
                 else:
                     engine.store_async(seg.begin, current)
                     current = fwd_runner.advance(current, seg, stats)
-                slots.note_extra(tree_bytes(current))
+                slots.note_extra(state_bytes)
                 if jb is not None:
                     engine.cursor_async(plan.cursor("forward", seg.sid + 1))
             if jb is not None:
@@ -585,7 +587,9 @@ class CheckpointExecutor:
                 if j - depth >= 0:
                     engine.prefetch_async(segs[j - depth].begin)
                 x_b = engine.wait_prefetch(seg.begin)
-                slots.note_extra(tree_bytes(x_b))
+                if j == j_start:   # a boundary has the carry's structure
+                    state_bytes = tree_bytes(x_b)
+                slots.note_extra(state_bytes)
                 adjoint = runner.reverse(x_b, adjoint, seg, slots, stats)
                 if jb is not None:
                     artifact = artifact_fn(seg) if artifact_fn is not None \

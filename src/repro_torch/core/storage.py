@@ -43,7 +43,9 @@ thread:
   belong to Level 2 until the key is deleted (a tiered fast tier keeps
   them by reference; an eviction drops them once the slow tier holds its
   own copy).  Each must own its storage, so Level 2 holds exactly the
-  bytes it counts;
+  bytes it counts.  A captured fused segment writes into a slot of a
+  :class:`PinnedSlotPool` (grown on demand, reused from call to call),
+  which returns to the pool once nothing holds it any more;
 * a prefetch reads the host copy and moves it host-to-device on a side
   stream from the prefetch thread (a leaf that is not a view of a
   page-locked Level-2 buffer — a disk read, a decoded or promoted state —
@@ -65,6 +67,7 @@ import pickle
 import queue
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
@@ -230,6 +233,110 @@ def _host_tensor(a: Any, pin: bool = False) -> torch.Tensor:
         t.numpy()[...] = a
         return t
     return torch.from_numpy(np.array(a, copy=True))
+
+
+class PinnedSlotPool:
+    """Page-locked Level-2 slots of one state shape, reused from segment to
+    segment and from call to call: where a captured fused segment writes
+    its segment-entry state (and, in two scratch slots, its later chunk
+    entries).
+
+    ``take()`` hands out a free slot as fresh CPU tensors (one per leaf of
+    ``shapes``) over the slot's memory, each owning a storage of its own
+    that wraps the slot: Level 2 keeps them without a copy, as it keeps
+    any page-locked buffer (:func:`_frozen_views`).  The slot goes back to
+    the pool when the last reference to those tensors (and to any view or
+    numpy array of them) is gone: a store's delete, a tiered store's
+    eviction once the slow tier holds its copy, a disk store's put (it
+    pickles a copy), the prefetch thread's upload (it waits for the copy
+    before it drops the buffer); never while anything can still read it.
+    The kernel's writes are fenced by the segment's ``ready`` event, which
+    every reader waits for.
+
+    ``take()`` allocates one more slot only when none is free (counted in
+    ``grown``), so the pool settles at the most slots a run holds at once
+    (what its Level-2 store keeps plus what is in flight) during its first
+    call, and later calls of the same run allocate nothing;
+    ``reserve(count)`` allocates up to ``count`` slots ahead.  ``in_use``:
+    slots handed out and not yet back; ``peak``: its high-water mark since
+    :meth:`reset_peak`.  ``scratch``: two slots no one reads, for chunk
+    entries past the first."""
+
+    def __init__(self, shapes, dtype: torch.dtype, pin: bool = True):
+        self.shapes = [tuple(sh) for sh in shapes]
+        self.dtype = dtype
+        self.pin = pin
+        self._slots: list = []
+        self._free: list = []
+        self._lock = threading.Lock()
+        self.grown = 0
+        self.takes = 0
+        self.peak = 0
+        self.scratch = [self._new() for _ in range(2)]
+
+    def _new(self):
+        return tuple(torch.empty(sh, dtype=self.dtype, pin_memory=self.pin)
+                     for sh in self.shapes)
+
+    @property
+    def slot_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.scratch[0])
+
+    @property
+    def size(self) -> int:
+        """Slots allocated (the scratch pair not counted)."""
+        return len(self._slots)
+
+    @property
+    def free(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        with self._lock:
+            return len(self._slots) - len(self._free)
+
+    def reset_peak(self) -> None:
+        with self._lock:
+            self.peak = len(self._slots) - len(self._free)
+
+    def reserve(self, count: int) -> None:
+        with self._lock:
+            while len(self._slots) < count:
+                self._slots.append(self._new())
+                self._free.append(len(self._slots) - 1)
+
+    def take(self):
+        """``(index, leaves)``: a free slot and fresh tensors over it."""
+        with self._lock:
+            if self._free:
+                i = self._free.pop()
+            else:
+                self._slots.append(self._new())
+                i = len(self._slots) - 1
+                self.grown += 1
+            self.takes += 1
+            self.peak = max(self.peak, len(self._slots) - len(self._free))
+        left = [len(self.shapes)]
+
+        def released():
+            with self._lock:
+                left[0] -= 1
+                if left[0] == 0:
+                    self._free.append(i)
+
+        leaves = []
+        for t in self._slots[i]:
+            base = t.numpy()   # a fresh array over the slot's memory
+            weakref.finalize(base, released)
+            leaves.append(torch.from_numpy(base))
+        return i, tuple(leaves)
+
+    def leaves(self, i: int):
+        """The pool's own tensors of slot ``i`` (for the kernels'
+        destinations; never handed to Level 2)."""
+        return self._slots[i]
 
 
 def tree_bytes(tree: Any) -> int:
@@ -402,7 +509,9 @@ class CompressedStorage:
         if arr.dtype.kind == "f" and arr.nbytes >= self.min_bytes:
             q, scale = quantize_np(arr)
             return (q, scale, np.zeros((), arr.dtype))
-        return arr
+        # a copy: a raw leaf must not keep the caller's buffer (a pooled
+        # page-locked slot) alive
+        return np.array(arr, copy=True)
 
     @staticmethod
     def _decode_leaf(enc: Any) -> Any:
@@ -1451,13 +1560,34 @@ register_backend(
         bandwidth=bandwidth))
 
 
+_SIDE_STREAMS: Dict[Any, Any] = {}
+
+
+
+def _side_stream(kind: str, device: Any):
+    """The process's copy stream of ``kind`` on ``device``, shared by every
+    engine: the caching allocator keeps freed blocks per stream, so uploads
+    on one stream reuse the blocks of the previous call's instead of
+    allocating anew on a fresh stream each call."""
+    key = (kind, None if device is None else torch.device(device))
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[key]
+
+
 class AsyncTransferEngine:
     """Async store/prefetch around a Level-2 backend.
 
     * One writer thread drains a store queue (FIFO, preserves the schedule's
-      store order).
-    * Prefetches run one thread per outstanding key; results land in a
-      staging dict that ``wait_prefetch`` joins on.
+      store order).  A store waits while ``MAX_PENDING_STORES`` earlier
+      ones are not yet in the backend, so the caller runs at most that
+      many segments ahead of the writer and the host buffers in flight
+      stay few (a capacity-bounded store then holds at most its budget
+      and these in page-locked memory).
+    * One prefetch thread, started at the first prefetch, drains a queue of
+      prefetches in the order they were issued; each result lands in a
+      staging dict under the key's event, which ``wait_prefetch`` joins on,
+      and an error is raised at the caller's next wait.
 
     ``device`` (optional) is where prefetched states are wanted: with a
     device, ``wait_prefetch`` returns tensors there; without one it returns
@@ -1474,6 +1604,8 @@ class AsyncTransferEngine:
     here) is the fault injector whose hooks the writer loop and the fetches
     call.
     """
+
+    MAX_PENDING_STORES = 2
 
     def __init__(self, backend, device: Any = None, faults: Any = None):
         self.backend = backend
@@ -1497,8 +1629,13 @@ class AsyncTransferEngine:
         self.staged_bytes = 0       # memory held by staged prefetches
         self.staged_peak_bytes = 0  # its high-water mark across the run
         self._pending_cursors = 0   # queued cursors (for commit coalescing)
+        self._pending_puts = 0      # stores not yet in the backend
+        self._puts_done = threading.Condition()
         self._writer = threading.Thread(target=self._writer_loop, daemon=True)
         self._writer.start()
+        self._prefetch_q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._prefetcher: Optional[threading.Thread] = None
+        self._fence = None   # the compute stream at the last wait (CUDA)
 
     # -- store path -----------------------------------------------------------
     def _writer_loop(self) -> None:
@@ -1514,13 +1651,24 @@ class AsyncTransferEngine:
             try:
                 if kind == "put":
                     _, key, payload = item
-                    if self.faults is not None:
-                        self.faults.on_writer_store(key)
-                    self._put(key, payload)
+                    # the thread keeps no reference to a stored payload
+                    # while it waits for the next item (a pooled
+                    # page-locked slot returns when Level 2 lets go of it)
+                    item = None
+                    try:
+                        if self.faults is not None:
+                            self.faults.on_writer_store(key)
+                        self._put(key, payload)
+                    finally:
+                        payload = None
+                        with self._puts_done:
+                            self._pending_puts -= 1
+                            self._puts_done.notify_all()
                 elif kind == "cursor":
                     self._put_cursor(item[1])
                 else:  # "delete"
                     self.backend.delete(item[1])
+                item = None
             except WriterKilled:
                 # simulated abrupt writer death: leave the item un-done so
                 # joins observe exactly what a killed thread leaves behind
@@ -1545,7 +1693,7 @@ class AsyncTransferEngine:
             stream = torch.cuda.current_stream()
         else:
             if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream()
+                self._copy_stream = _side_stream("d2h", None)
             stream = self._copy_stream
             stream.wait_stream(torch.cuda.current_stream())
         host = []
@@ -1582,6 +1730,16 @@ class AsyncTransferEngine:
         """Enqueue a Level-2 store of ``tree`` (a :class:`HostTree` is
         handed over as it is: its buffers become the Level-2 copy)."""
         payload = self._payload(tree)
+        with self._puts_done:
+            if self._pending_puts >= self.MAX_PENDING_STORES:
+                t0 = time.perf_counter()
+                # a dead writer leaves its store pending: the join that
+                # follows reports it
+                while self._pending_puts >= self.MAX_PENDING_STORES \
+                        and self._writer.is_alive():
+                    self._puts_done.wait(timeout=0.05)
+                self.store_stall_s += time.perf_counter() - t0
+            self._pending_puts += 1
         self._store_q.put(("put", key, payload))
         with self._lock:
             self.num_stores += 1
@@ -1684,12 +1842,13 @@ class AsyncTransferEngine:
         self._raise_pending()
 
     # -- prefetch path --------------------------------------------------------
-    def _fetch(self, key: Any) -> Any:
+    def _fetch(self, key: Any, hook: bool = True) -> Any:
         """Read ``key`` from the backend and, with a device, place it there.
         Every engine-level fetch funnels through here: the fault-injection
-        hook, and a bare ``KeyError`` from a key whose store is stuck behind
-        a dead writer thread is re-raised as a :class:`WriterCrashError`."""
-        if self.faults is not None:
+        hook (unless ``hook`` is False: a prefetch calls it when issued),
+        and a bare ``KeyError`` from a key whose store is stuck behind a
+        dead writer thread is re-raised as a :class:`WriterCrashError`."""
+        if hook and self.faults is not None:
             self.faults.on_get(key)   # may raise InjectedFault
         try:
             val = self.backend.get(key)
@@ -1711,7 +1870,7 @@ class AsyncTransferEngine:
         # below is asynchronous whatever tier the value came from
         host = pytree.tree_map(lambda a: _host_tensor(a, pin=True), val)
         if self._h2d_stream is None:
-            self._h2d_stream = torch.cuda.Stream(self.device)
+            self._h2d_stream = _side_stream("h2d", self.device)
         with torch.cuda.stream(self._h2d_stream):
             out = pytree.tree_map(
                 lambda t: t.to(self.device, non_blocking=True), host)
@@ -1720,43 +1879,83 @@ class AsyncTransferEngine:
         done.synchronize()   # this (prefetch) thread waits, never compute
         return out
 
+    def _publish(self, key: Any, ev: threading.Event, val: Any = None,
+                 error: Optional[Exception] = None) -> None:
+        """Stage a prefetch's value (or record its error) and set its
+        event.  Only while ``ev`` is still the registered one for the key:
+        a delete (or delete + re-store + new prefetch) in the meantime
+        detaches the job, so its value can never be observed stale."""
+        try:
+            with self._lock:
+                if self._prefetch_events.get(key) is ev:
+                    if error is not None:
+                        self._errors.append(error)
+                    else:
+                        self._prefetched[key] = val
+                        self.staged_bytes += tree_bytes(val)
+                        self.staged_peak_bytes = max(self.staged_peak_bytes,
+                                                     self.staged_bytes)
+        finally:
+            ev.set()
+
+    def _prefetch_loop(self) -> None:
+        while True:
+            item = self._prefetch_q.get()
+            if item is None:
+                return
+            key, ev = item
+            item = None
+            try:
+                # upload only once the compute stream has run what it had
+                # queued at the last wait (the segment before the one now
+                # reversed): the uploads' freed blocks are then back in the
+                # caching allocator whatever the host's lead, and a warm
+                # call allocates none
+                fence = self._fence
+                if fence is not None:
+                    fence.synchronize()
+                val = self._fetch(key, hook=False)
+            except Exception as e:
+                self._publish(key, ev, error=e)
+            else:
+                self._publish(key, ev, val)
+            # no reference to the value while the thread waits (a pooled
+            # page-locked slot returns when Level 2 lets go of it)
+            val = None
+
     def prefetch_async(self, key: Any) -> None:
+        """Queue a fetch of ``key`` for the prefetch thread.  The fault hook
+        runs here, on the caller's thread: an injected fetch failure is
+        recorded before the caller's next wait, which raises it."""
         with self._lock:
             if key in self._prefetched or key in self._prefetch_events:
                 return
             ev = threading.Event()
             self._prefetch_events[key] = ev
             self.num_prefetches += 1
-
-        def _job() -> None:
-            # The staged result (and any error) is only published while this
-            # job's event is still the registered one for the key: a delete
-            # (or delete + re-store + new prefetch) in the meantime detaches
-            # this job, so its value can never be observed stale.
+        if self.faults is not None:
             try:
-                val = self._fetch(key)
-                with self._lock:
-                    if self._prefetch_events.get(key) is ev:
-                        self._prefetched[key] = val
-                        self.staged_bytes += tree_bytes(val)
-                        self.staged_peak_bytes = max(self.staged_peak_bytes,
-                                                     self.staged_bytes)
+                self.faults.on_get(key)
             except Exception as e:
-                with self._lock:
-                    if self._prefetch_events.get(key) is ev:
-                        self._errors.append(e)
-            finally:
-                ev.set()
-
-        threading.Thread(target=_job, daemon=True).start()
+                self._publish(key, ev, error=e)
+                return
+        if self._prefetcher is None:
+            self._prefetcher = threading.Thread(target=self._prefetch_loop,
+                                                daemon=True)
+            self._prefetcher.start()
+        self._prefetch_q.put((key, ev))
 
     def _adopt(self, val: Any) -> Any:
         """Hand prefetched CUDA tensors to the compute stream (their memory
-        was allocated on the upload stream)."""
+        was allocated on the upload stream), and record the fence the
+        prefetch thread waits for before its next upload."""
         if self.device is not None and self.device.type == "cuda":
             stream = torch.cuda.current_stream()
             for t in pytree.tree_leaves(val):
                 t.record_stream(stream)
+            fence = torch.cuda.Event()
+            fence.record(stream)
+            self._fence = fence
         return val
 
     def wait_prefetch(self, key: Any) -> Any:
@@ -1820,6 +2019,9 @@ class AsyncTransferEngine:
             events = list(self._prefetch_events.values())
         for ev in events:
             ev.wait(timeout=2.0)
+        if self._prefetcher is not None:
+            self._prefetch_q.put(None)
+            self._prefetcher.join(timeout=2.0)
         with self._lock:
             self._prefetched.clear()
             self._prefetch_events.clear()

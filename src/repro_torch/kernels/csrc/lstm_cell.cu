@@ -91,6 +91,10 @@ struct Cell {
   int vec;       // fp32 rows 16-byte aligned, Dx and Dh multiples of 4
   const T* h_entry = nullptr;   // step 0's h and c, when not h and c
   const T* c_entry = nullptr;
+  // a captured segment's argument block (lstm_step.cuh): when given, the
+  // ids of step t are row tok_lo + t of the segment's ARG_TOK rows
+  const long long* args = nullptr;
+  int tok_lo = 0;
 
   __device__ const T* h_at(int t) const {
     return t == 0 && h_entry != nullptr ? h_entry : h + t * step;
@@ -261,6 +265,8 @@ template <typename T>
 __global__ void __launch_bounds__(NT, 1)
 lstm_cell_kernel(Cell<T> p, int t_lo, int t_hi, unsigned* barrier) {
   extern __shared__ float smem[];
+  if (p.args != nullptr)
+    p.tok = repro::seg_ids(p.args, repro::ARG_TOK, p.tok_lo, p.B);
   const int B = p.B, Dx = p.Dx, K = Dx + p.Dh, LD = row_ld(K);
   const int ns = kpad(K) / BK;   // W slices
   const int nxs = Dx / BK;       // slices of x columns alone
@@ -443,17 +449,22 @@ extern "C" int lstm_cell_max_k() {
 // in place of hs[0], cs[0] (NULL: hs[0], cs[0]).  blocks_y: the grid's rows
 // of blocks (0: as many as can be resident beside the unit tiles, at most
 // one per row tile of 16).  barrier: blocks_y unsigned counters of device
-// scratch (the default needs ceil(B / 16)).
+// scratch (the default needs ceil(B / 16)).  args: a captured segment's
+// argument block (lstm_step.cuh), read on the card in place of tok (then
+// NULL): the ids are rows tok_lo .. tok_lo + L of the segment's ARG_TOK.
 extern "C" int lstm_cell_steps(const float* emb, const int32_t* tok,
                                float* hs, float* cs, const float* w,
                                const float* b, float* xh, float* acts,
                                const float* h_entry, const float* c_entry,
                                int L, int B, int Dx, int Dh, int blocks_y,
-                               unsigned* barrier, void* stream) {
+                               unsigned* barrier, const long long* args,
+                               int tok_lo, void* stream) {
   if (L <= 0 || B <= 0 || Dh <= 0) return 0;
+  if ((tok == nullptr) == (args == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long BDh = static_cast<long>(B) * Dh;
   Cell<float> p{emb, tok, hs, cs, hs + BDh, cs + BDh, w, b, xh, acts,
-                B, Dx, Dh, BDh, 0, h_entry, c_entry};
+                B, Dx, Dh, BDh, 0, h_entry, c_entry, args, tok_lo};
   p.vec = vec_of(p);
   size_t smem;
   cudaError_t e;
@@ -479,9 +490,9 @@ extern "C" int lstm_cell_steps(const float* emb, const int32_t* tok,
       cudaSuccess)
     return e;
   int t_lo = 0, t_hi = L - 1;
-  void* args[] = {&p, &t_lo, &t_hi, &barrier};
+  void* kargs[] = {&p, &t_lo, &t_hi, &barrier};
   return static_cast<int>(
-      cudaLaunchCooperativeKernel(kern, grid, dim3(NT), args, smem, s));
+      cudaLaunchCooperativeKernel(kern, grid, dim3(NT), kargs, smem, s));
 #else
   // blocks run one at a time here: one launch per step
   for (int t = 0; t < L; ++t) {

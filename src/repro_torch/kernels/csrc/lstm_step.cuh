@@ -12,6 +12,32 @@
 
 namespace repro {
 
+// A captured segment's argument block: int64 words in device memory that
+// the kernels of a captured CUDA graph read at launch, since a graph bakes
+// in every pointer it was captured with.  The wrapper writes the block
+// before each replay (one small host-to-device copy, ordered on the stream
+// before the replay).  ARG_TOK, ARG_TGT: the addresses of the chain's
+// (n, B) int32 token ids and targets; ARG_STEP: the segment's first step
+// in the chain; ARG_BH, ARG_BC, ARG_BACC: the device addresses of the
+// Level-2 slot the advance writes its segment-entry (h, c, acc) into.
+enum SegArg {
+  ARG_TOK = 0,
+  ARG_TGT = 1,
+  ARG_STEP = 2,
+  ARG_BH = 3,
+  ARG_BC = 4,
+  ARG_BACC = 5,
+  ARG_WORDS = 6
+};
+
+// Row t of the segment's ids (ARG_TOK or ARG_TGT), t counted from the
+// segment's first step.
+__device__ __forceinline__ const int32_t* seg_ids(const long long* args,
+                                                  int which, long t, int B) {
+  return reinterpret_cast<const int32_t*>(args[which]) +
+         (args[ARG_STEP] + t) * B;
+}
+
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }

@@ -68,7 +68,9 @@ constexpr int NW = NT / 32;
 // entry into the boundary (bh, bc; skipped when bh is NULL), then the exit
 // into next (the next chunk's entry, or the segment's carry).  entry_h may
 // alias next_h: each element is read before it is written, by the same
-// thread.
+// thread.  With a captured segment's argument block (args), the targets are
+// rows t_lo .. of the segment's ARG_TGT, and with dst_from_args the
+// boundary goes to the Level-2 slot the block names (ARG_BH, ARG_BC).
 constexpr int LT = 1024;   // threads of advance_loss_kernel
 constexpr int LW = LT / 32;
 
@@ -79,8 +81,16 @@ advance_loss_kernel(const float* __restrict__ lg,
                     const float* entry_c, float* bh, float* bc,
                     const float* __restrict__ exit_h,
                     const float* __restrict__ exit_c, float* next_h,
-                    float* next_c, long n) {
+                    float* next_c, long n, const long long* args, int t_lo,
+                    int dst_from_args) {
   __shared__ float wsum[LW];
+  if (args != nullptr) {
+    tgt = repro::seg_ids(args, repro::ARG_TGT, t_lo, B);
+    if (dst_from_args) {
+      bh = reinterpret_cast<float*>(args[repro::ARG_BH]);
+      bc = reinterpret_cast<float*>(args[repro::ARG_BC]);
+    }
+  }
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int t = blockIdx.x;
   if (t < L) {
@@ -116,13 +126,16 @@ advance_loss_kernel(const float* __restrict__ lg,
 }
 
 // acc_{t+1} = acc_t + msum[t] over the segment's T steps in order, from
-// *acc0; bnd_acc[k] = acc at the start of chunk k.  One thread.
+// *acc0; bnd_acc[k] = acc at the start of chunk k, and with a captured
+// segment's argument block (args) the segment's entry acc also into its
+// Level-2 slot (ARG_BACC).  One thread.
 __global__ void acc_finalize_kernel(const float* __restrict__ msum, int T,
                                     const float* __restrict__ acc0,
                                     float* __restrict__ acc_out,
                                     float* __restrict__ bnd_acc, int chunk,
-                                    int nc) {
+                                    int nc, const long long* args) {
   float a = *acc0;
+  if (args != nullptr) *reinterpret_cast<float*>(args[repro::ARG_BACC]) = a;
   for (int t = 0; t < T; ++t) {
     if (t % chunk == 0 && t / chunk < nc) bnd_acc[t / chunk] = a;
     a = a + msum[t];
@@ -298,10 +311,13 @@ __global__ void reduce_kernel(const float* __restrict__ part, int S, long n,
 }
 
 // dl[m] = g (softmax(logits[m]) - onehot(tgt[m])), g = dacc / B, in place:
-// one warp per row.
+// one warp per row.  With args (a captured segment's argument block), tgt
+// is rows t_lo .. of the segment's ARG_TGT.
 __global__ void __launch_bounds__(NT)
 dlogits_kernel(float* __restrict__ lg, const int32_t* __restrict__ tgt,
-               const float* __restrict__ dacc, int M, int V, int B) {
+               const float* __restrict__ dacc, int M, int V, int B,
+               const long long* args, int t_lo) {
+  if (args != nullptr) tgt = repro::seg_ids(args, repro::ARG_TGT, t_lo, B);
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * NW + threadIdx.x / 32;
   if (row >= M) return;
@@ -488,11 +504,15 @@ walk_kernel(const float* __restrict__ w_h, float* __restrict__ dz,
 }
 
 // part[z][v, d] = sum over rows m of slice z (ascending) with tok[m] == v
-// of dx[m, d]; reduce_kernel adds the slices.
+// of dx[m, d]; reduce_kernel adds the slices.  With args (a captured
+// segment's argument block), tok is rows t_lo .. of the segment's ARG_TOK
+// (B ids a row).
 __global__ void embed_grad_kernel(const int32_t* __restrict__ tok,
                                   const float* __restrict__ dx, int M, int V,
                                   int Dx, int rslice,
-                                  float* __restrict__ part) {
+                                  float* __restrict__ part,
+                                  const long long* args, int t_lo, int B) {
+  if (args != nullptr) tok = repro::seg_ids(args, repro::ARG_TOK, t_lo, B);
   const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long n = static_cast<long>(V) * Dx;
   if (i >= n) return;
@@ -619,14 +639,21 @@ cudaError_t readout(const float* hs1, const float* w_out, const float* b_out,
 // entry_c) into the boundary (bh, bc: page-locked host memory, written
 // through its device mapping, or device memory; NULL: not written), and the
 // exit (hs[L], cs[L]) into (next_h, next_c).  tgt: the chunk's (L, B)
-// targets.  Two launches.
+// targets.  Two launches.  args: a captured segment's argument block
+// (lstm_step.cuh), read on the card in place of tgt (then NULL): rows
+// t_lo .. t_lo + L of the segment's ARG_TGT; with dst_from_args the
+// boundary goes to its Level-2 slot in place of (bh, bc) (then NULL).
 extern "C" int lstm_adv_chunk(const float* w_out, const float* b_out, int V,
                               int Dh, const int32_t* tgt, const float* hs,
                               const float* cs, int L, int B, float* lg,
                               float* msum, const float* entry_h,
                               const float* entry_c, float* bh, float* bc,
-                              float* next_h, float* next_c, void* stream) {
-  if (L <= 0 || B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                              float* next_h, float* next_c,
+                              const long long* args, int t_lo,
+                              int dst_from_args, void* stream) {
+  if (L <= 0 || B <= 0 || (tgt == nullptr) == (args == nullptr) ||
+      (dst_from_args && (args == nullptr || bh != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   float *bhd = nullptr, *bcd = nullptr;
   cudaError_t e;
   if (bh != nullptr && ((e = device_view(bh, &bhd)) != cudaSuccess ||
@@ -640,22 +667,24 @@ extern "C" int lstm_adv_chunk(const float* w_out, const float* b_out, int V,
   const int blocks = max(L, static_cast<int>((n + 4 * LT - 1) / (4 * LT)));
   advance_loss_kernel<<<blocks, LT, 0, s>>>(
       lg, tgt, L, B, V, msum, entry_h, entry_c, bhd, bcd, hs + L * n,
-      cs + L * n, next_h, next_c, n);
+      cs + L * n, next_h, next_c, n, args, t_lo, dst_from_args);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Kernel 2, once a segment of T steps: the acc chain over msum (T) from
 // *acc0 into *acc_out, and its chunk boundaries into bnd_acc (page-locked
-// host memory, or device memory).
+// host memory, or device memory); with args (a captured segment's argument
+// block) the segment's entry acc also into its Level-2 slot.
 extern "C" int lstm_adv_finalize(const float* msum, int T, const float* acc0,
                                  float* acc_out, float* bnd_acc, int chunk,
-                                 int nc, void* stream) {
+                                 int nc, const long long* args,
+                                 void* stream) {
   if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
   float* bnd;
   cudaError_t e;
   if ((e = device_view(bnd_acc, &bnd)) != cudaSuccess) return e;
   acc_finalize_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      msum, T, acc0, acc_out, bnd, chunk, nc);
+      msum, T, acc0, acc_out, bnd, chunk, nc, args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -680,14 +709,18 @@ extern "C" long lstm_rev_scratch(int V, int Dx, int Dh, int M) {
 extern "C" int lstm_rev_hoisted(const float* w_out, const float* b_out, int V,
                                 int Dh, const int32_t* tgt, const float* hs1,
                                 const float* dacc, float* dl, float* dh_extra,
-                                int M, int B, float* part, void* stream) {
-  if (M <= 0 || B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                int M, int B, float* part,
+                                const long long* args, int t_lo,
+                                void* stream) {
+  if (M <= 0 || B <= 0 || (tgt == nullptr) == (args == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if ((e = product<false, false>(hs1, Dh, w_out, V, M, V, Dh, dl, b_out, 0,
                                  false, part, s)) != cudaSuccess)
     return e;
-  dlogits_kernel<<<(M + NW - 1) / NW, NT, 0, s>>>(dl, tgt, dacc, M, V, B);
+  dlogits_kernel<<<(M + NW - 1) / NW, NT, 0, s>>>(dl, tgt, dacc, M, V, B,
+                                                  args, t_lo);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return product<false, true>(dl, V, w_out, V, M, Dh, V, dh_extra, nullptr, 0,
                               false, part, s);
@@ -781,20 +814,34 @@ extern "C" int grad_reduce(const float* A, int lda, const float* Bm, int ldb,
 }
 
 // demb[v, d] (+)= sum over rows m with tok[m] == v of dx[m, d]: slices of
-// M in ascending row order, added in slice order.
+// M in ascending row order, added in slice order.  args: a captured
+// segment's argument block, read on the card in place of tok (then NULL):
+// rows t_lo .. of the segment's ARG_TOK, B ids a row.
 extern "C" int embed_grad(const int32_t* tok, const float* dx, int M, int V,
                           int Dx, float* demb, int accumulate, float* part,
+                          const long long* args, int t_lo, int B,
                           void* stream) {
+  if ((tok == nullptr) == (args == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int S = embed_slices(M);
   const long n = static_cast<long>(V) * Dx;
   embed_grad_kernel<<<dim3(grid1(n), S), NT, 0, s>>>(
-      tok, dx, M, V, Dx, (M + S - 1) / S, part);
+      tok, dx, M, V, Dx, (M + S - 1) / S, part, args, t_lo, B);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   reduce_kernel<<<grid1(n), NT, 0, s>>>(part, S, n, demb, accumulate, nullptr,
                                         1);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The device address of page-locked host memory (its UVA mapping) or of
+// device memory, for a captured segment's argument block.
+extern "C" int repro_device_address(void* p, long long* out) {
+  float* dev;
+  const cudaError_t e = device_view(p, &dev);
+  if (e == cudaSuccess) *out = reinterpret_cast<long long>(dev);
+  return static_cast<int>(e);
 }
 
 extern "C" int add_inplace(float* dst, const float* src, long n,

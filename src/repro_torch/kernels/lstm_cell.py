@@ -43,7 +43,7 @@ def _lib():
         fn.restype = _I
         fn.argtypes = [_P] * 10 + [_I, _I, _I, _P]
     lib.lstm_cell_steps.restype = _I
-    lib.lstm_cell_steps.argtypes = [_P] * 10 + [_I] * 5 + [_P, _P]
+    lib.lstm_cell_steps.argtypes = [_P] * 10 + [_I] * 5 + [_P, _P, _I, _P]
     lib.lstm_cell_max_k.restype = _I
     lib.lstm_cell_max_k.argtypes = []
     return lib
@@ -146,14 +146,16 @@ def lstm_cell_autograd(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     return _Cell.apply(x, h, c, w, b)
 
 
-def lstm_cell_token_steps(tok: torch.Tensor, emb: torch.Tensor,
+def lstm_cell_token_steps(tok: Optional[torch.Tensor], emb: torch.Tensor,
                           hs: torch.Tensor, cs: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor, *,
                           xh: Optional[torch.Tensor] = None,
                           acts: Optional[torch.Tensor] = None,
                           barrier: Optional[torch.Tensor] = None,
                           entry: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                          = None) -> None:
+                          = None, args: Optional[torch.Tensor] = None,
+                          tok_lo: int = 0, steps: Optional[int] = None
+                          ) -> None:
     """``L = len(tok)`` cell steps over the batch with ``x = emb[tok[t]]``
     (fp32, CUDA) in one launch: step ``t`` reads ``(hs[t], cs[t])`` and
     writes ``(hs[t+1], cs[t+1])`` and, when given, ``xh[t] = [x, h]`` and
@@ -162,23 +164,39 @@ def lstm_cell_token_steps(tok: torch.Tensor, emb: torch.Tensor,
     4Dh)`` contiguous fp32 on the card; ``entry``: ``(h, c)``, each ``(B,
     Dh)``, read by step 0 in place of ``(hs[0], cs[0])`` (which are then
     not read); ``barrier``: int32 device scratch for the barriers,
-    ``ceil(B / 16)`` counters (allocated when not given)."""
-    if not tok.is_cuda:
+    ``ceil(B / 16)`` counters (allocated when not given).
+
+    A captured segment passes ``tok=None`` and its argument block ``args``
+    (``ARG_WORDS`` int64 on the card, ``csrc/lstm_step.cuh``): the kernel
+    reads the ids of its ``steps`` steps at launch, rows ``tok_lo ..`` of
+    the segment's (a graph bakes in every pointer it was captured
+    with)."""
+    dev = (tok if tok is not None else args).device
+    if dev.type != "cuda":
         raise ValueError("lstm_cell_token_steps runs on the card only")
-    _token_steps(tok, emb, hs, cs, w, b, xh, acts, barrier, entry)
+    _token_steps(tok, emb, hs, cs, w, b, xh, acts, barrier, entry,
+                 args=args, tok_lo=tok_lo, steps=steps)
 
 
 def _token_steps(tok, emb, hs, cs, w, b, xh, acts, barrier=None, entry=None,
-                 *, blocks_y: int = 0) -> None:
+                 *, blocks_y: int = 0, args=None, tok_lo: int = 0,
+                 steps: Optional[int] = None) -> None:
     """The launch behind :func:`lstm_cell_token_steps`; ``blocks_y`` > 0
     forces the grid's row-tile blocks (0: as many as can be resident)."""
-    L, B = tok.shape
+    if (tok is None) == (args is None):
+        raise ValueError("lstm_cell_token_steps: give tok or args")
+    if tok is not None:
+        L, B = tok.shape
+        dev = tok.device
+    else:
+        L, B, dev = int(steps), hs.shape[1], args.device
     Dx, Dh = emb.shape[1], hs.shape[-1]
     f32 = torch.float32
     h_in, c_in = entry if entry is not None else (None, None)
-    _check_cuda(f32, tok.device, emb=emb, hs=hs, cs=cs, w=w, b=b, xh=xh,
+    _check_cuda(f32, dev, emb=emb, hs=hs, cs=cs, w=w, b=b, xh=xh,
                 acts=acts, h_entry=h_in, c_entry=c_in)
-    _check_cuda(torch.int32, tok.device, tok=tok, barrier=barrier)
+    _check_cuda(torch.int32, dev, tok=tok, barrier=barrier)
+    _check_cuda(torch.int64, dev, args=args)
     if hs.shape[0] < L + 1 or hs.shape[1:] != (B, Dh) \
             or cs.shape != hs.shape or w.shape != (Dx + Dh, 4 * Dh) \
             or (entry is not None and (h_in.shape != (B, Dh)
@@ -193,8 +211,7 @@ def _token_steps(tok, emb, hs, cs, w, b, xh, acts, barrier=None, entry=None,
     _check_k(lib, Dx, Dh, "lstm_cell_token_steps")
     counters = max(-(-B // 16), int(blocks_y))
     if barrier is None:
-        barrier = torch.empty((counters,), dtype=torch.int32,
-                              device=tok.device)
+        barrier = torch.empty((counters,), dtype=torch.int32, device=dev)
     if barrier.numel() < counters:
         raise ValueError(f"lstm_cell_token_steps: barrier has "
                          f"{barrier.numel()} counters, {counters} needed")
@@ -202,7 +219,7 @@ def _token_steps(tok, emb, hs, cs, w, b, xh, acts, barrier=None, entry=None,
     err = lib.lstm_cell_steps(
         ptr(emb), ptr(tok), ptr(hs), ptr(cs), ptr(w), ptr(b), ptr(xh),
         ptr(acts), ptr(h_in), ptr(c_in), L, B, Dx, Dh, int(blocks_y),
-        ptr(barrier), build.stream_ptr(tok.device))
+        ptr(barrier), ptr(args), int(tok_lo), build.stream_ptr(dev))
     build.check(lib, err, "lstm_cell_token_steps")
     lstm_cell.launches += 1
     lstm_cell.steps += L

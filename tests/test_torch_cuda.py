@@ -773,3 +773,123 @@ def test_journaled_fused_crash_and_resume_on_card(deterministic, tmp_path):
                      "l2_stores", "l2_prefetches", "fused_segments"):
             assert getattr(stats["cuda"], name) == \
                 getattr(stats["cpu"], name), (plan, name)
+
+
+def _fused_on_card(captured, tok, ref, **kw):
+    """One fused gradient on the card, captured or through the uncaptured
+    wrappers (``segment_fused._CAPTURED``, the private switch): (loss,
+    grads, stats, launch counts made)."""
+    counters = (lc.lstm_cell, sf.fused_advance_segment,
+                sf.fused_reverse_segment)
+    before = [(f.launches, getattr(f, "cell_launches", 0),
+               getattr(f, "cell_steps", getattr(f, "steps", 0)))
+              for f in counters]
+    was, sf._CAPTURED = sf._CAPTURED, captured
+    try:
+        loss, grads = api.value_and_grad_offloaded(
+            lstm.train_chain(), runner="fused", device="cuda", **kw)(
+            params_from_numpy(ref, device="cuda"),
+            {"tokens": tok.to("cuda")})
+    finally:
+        sf._CAPTURED = was
+    made = [(f.launches, getattr(f, "cell_launches", 0),
+             getattr(f, "cell_steps", getattr(f, "steps", 0)))
+            for f in counters]
+    return loss, grads, api.last_stats(), [
+        tuple(a - b for a, b in zip(m, b0)) for m, b0 in zip(made, before)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["ram", "tiered", "compressed",
+                                     "journaled"])
+def test_captured_fused_segments_equal_uncaptured_on_card(
+        deterministic, tmp_path, storage):
+    """``runner="fused"`` on the card replays captured segments
+    (``segment_fused.CapturedRun``): loss and gradients bit for bit the
+    uncaptured wrappers', with the same plan counters and launch counts,
+    over RAM, a tiered fast tier of one state, the int8-compressed store
+    and the write-ahead journal; a 29-step chain at I=6 ends in a 5-step
+    tail segment (a second graph shape).  The Level-2 slot pool holds at
+    most the states the store keeps in RAM (the fast tier's one, none for
+    the compressed store), the prefetch depth and two more at once.  Over RAM a second captured call captures no graph,
+    takes no new Level-2 slot and returns every slot it took."""
+    T = 29
+    rng = np.random.default_rng(12)
+    ref = init_lstm_numpy(12, V, DX, DH)
+    tok = torch.tensor(rng.integers(0, V, (B, T + 1)), dtype=torch.int32)
+    kw = {"interval": 6, "slots": 3}
+    if storage == "tiered":
+        kw.update(storage="tiered", storage_dir=str(tmp_path / "slow"),
+                  l2_capacity_bytes=2 * B * DH * 4 + 4)
+    elif storage == "compressed":
+        kw.update(storage="compressed")
+    elif storage == "journaled":
+        kw.update(journal_dir=str(tmp_path / "wal"))
+    want = _fused_on_card(False, tok, ref, **kw)
+    held = {}   # slots earlier tests' Level-2 state may still hold
+    for key, pool in sf._POOLS.items():
+        pool.reset_peak()
+        held[key] = pool.in_use
+    runs = [_fused_on_card(True, tok, ref, **kw)]
+    if storage in ("tiered", "compressed"):
+        key = (B, DH, torch.device("cuda", 0))
+        kept = 1 if storage == "tiered" else 0   # states kept in RAM
+        assert sf._POOLS[key].peak - held.get(key, 0) <= \
+            kept + runs[0][2].prefetch_depth + 2
+    if storage == "ram":
+        captures = sf.CapturedRun.captures
+        pool = sf._POOLS[(B, DH, torch.device("cuda", 0))]
+        grown, free = pool.grown, pool.free
+        runs.append(_fused_on_card(True, tok, ref, **kw))
+        # every slot the call took is back (others may still be held by
+        # earlier tests' Level-2 state)
+        assert sf.CapturedRun.captures == captures
+        assert pool.grown == grown and pool.free == free
+    for loss, grads, stats, made in runs:
+        assert torch.equal(loss, want[0])
+        for k, g in want[1].items():
+            assert torch.equal(grads[k], g), k
+        for name in ("advances", "backwards", "l2_stores", "host_dispatches",
+                     "fused_segments", "fused_boundary_copies",
+                     "l2_peak_bytes", "l2_fast_peak_bytes", "l2_evictions",
+                     "l2_promotions"):
+            assert getattr(stats, name) == getattr(want[2], name), name
+        assert made == want[3]
+
+
+@pytest.mark.cuda
+def test_captured_fused_resume_on_card(deterministic, tmp_path):
+    """A journaled captured gradient killed at its second forward store,
+    resumed with ``resume_offloaded``: bit for bit the fault-free captured
+    run, which is bit for bit the uncaptured one."""
+    from repro_torch.core import faults
+    from repro_torch.core.faults import FaultPlan
+
+    T = 29
+    rng = np.random.default_rng(13)
+    ref = init_lstm_numpy(13, V, DX, DH)
+    tok = torch.tensor(rng.integers(0, V, (B, T + 1)), dtype=torch.int32)
+    kw = {"interval": 6, "slots": 3, "runner": "fused", "device": "cuda"}
+
+    def inputs():
+        return (params_from_numpy(ref, device="cuda"),
+                {"tokens": tok.to("cuda")})
+
+    uncaptured = _fused_on_card(False, tok, ref, interval=6, slots=3)
+    loss, grads = api.value_and_grad_offloaded(
+        lstm.train_chain(), journal_dir=str(tmp_path / "ok"), **kw)(
+        *inputs())
+    assert torch.equal(loss, uncaptured[0])
+    jd = str(tmp_path / "wal")
+    with pytest.raises(Exception) as ei:
+        with faults.inject(FaultPlan(kill_writer_at_store=2)):
+            api.value_and_grad_offloaded(lstm.train_chain(), journal_dir=jd,
+                                         **kw)(*inputs())
+    assert faults.is_storage_fault(ei.value), ei.value
+    r_loss, r_grads = api.resume_offloaded(lstm.train_chain(), *inputs(),
+                                           journal_dir=jd, **kw)
+    assert torch.equal(r_loss, loss)
+    for k, g in grads.items():
+        assert torch.equal(r_grads[k], g) and torch.equal(
+            g, uncaptured[1][k]), k
+    assert 0 < api.last_stats().replayed_advances <= 6
