@@ -54,7 +54,18 @@ Phases, each printing its own lines:
               same loss and gradients, the same plan, counters and launch
               counts, no graph captured again, and no page-locked host
               allocation or device malloc in a warm captured call.
-5. strategies — the paper's baselines and its step-granular interpreter on
+5. scan     — the same ``lstm-paper`` gradient through ``engine="scan"``
+              (one autograd graph, an autograd function a segment whose
+              entry carry goes to page-locked host memory), autotuned and
+              pinned at I=64 (``SCAN_I``), each held to phase ``main``'s
+              gates against that phase's fused gradient; ``last_plan()``
+              equal to ``segment_plan(n, I, s)``, one page-locked boundary
+              a segment (``api.last_scan()``), ``lstm_cell`` launched once
+              a chain step run (forward, recompute, probe); a warm call
+              of the autotuned schedule; the device peak at S=4096 against
+              S=2048 (the same tokens' first half) at I=64 must grow less
+              than 1 MB per 1,000 steps.
+6. strategies — the paper's baselines and its step-granular interpreter on
               ``lstm-paper`` at the same width, B=256, over the first 2048
               steps of ``train_4k`` (``STRATEGIES_T``): through
               ``value_and_grad_offloaded(device="cuda")``, the interpreted
@@ -67,7 +78,7 @@ Phases, each printing its own lines:
               run) to one a chain step: the baselines' forward sweep, each
               advance, each backward's recompute and each autotune probe
               step.
-6. level2   — the other Level-2 backends through the front door on
+7. level2   — the other Level-2 backends through the front door on
               ``lstm-paper`` at ``train_4k``, ``runner="fused"``, each under
               phase ``main``'s gates and launch counts: ``storage="disk"``
               autotuned (no checkpoint left, live bytes 0 after);
@@ -81,7 +92,7 @@ Phases, each printing its own lines:
               scale, the reference's bound; under half the raw bytes
               written).  The slow tier is a directory under the out-dir
               (its filesystem printed, removed afterwards).
-7. resume   — crash consistency on ``lstm-paper`` at ``train_4k``,
+8. resume   — crash consistency on ``lstm-paper`` at ``train_4k``,
               ``runner="fused"``, I=256 (16 segments), the write-ahead
               journal in a directory under the out-dir (its filesystem and
               the cost of one commit barrier printed), deterministic
@@ -99,7 +110,7 @@ Phases, each printing its own lines:
               ``journal_repair=True``); a journaled tiered run at 8 states
               (counters equal to the plan); one autotuned journaled
               gradient (wall, I, journal bytes, barriers).
-8. dense    — ``value_and_grad_offloaded(get_model(gemma2-2b).train_loss)``
+9. dense    — ``value_and_grad_offloaded(get_model(gemma2-2b).train_loss)``
               (``runner="compiled"``, autotuned) at full width and depth (26
               layers, 13 chain steps), ``train_4k`` with the global batch
               cut from 256 to 2, weights from a seeded CUDA generator; held
@@ -110,15 +121,19 @@ Phases, each printing its own lines:
               call, with the schedule cached, are timed against a second
               (warm) dense call, each with the caching allocator's retries
               and device mallocs.
-              Then one ``strategy="revolve"`` run (4 slots) under the same
-              gates, ``flash_attention`` launched twice a step as above, and
+              Then one ``engine="scan"`` run (autotuned) under the same
+              gates (its plan, one page-locked boundary a segment,
+              ``flash_attention`` twice a chain step run: forward,
+              recompute, probe), one ``strategy="revolve"`` run (4 slots)
+              under the same gates, ``flash_attention`` launched twice a
+              step as above, and
               one ``storage="tiered"`` run at I=1 with a fast tier of 4
               boundary states over disk (fast peak and evictions as the
               model and plan say; a bf16 boundary spilled and promoted
               back bit for bit).
-9. ssm      — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
+10. ssm     — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
               and ``ssd_scan``.
-10. moe     — the same for ``phi3.5-moe-42b`` at full width (d_model
+11. moe     — the same for ``phi3.5-moe-42b`` at full width (d_model
               4096, 16 experts top-2 of d_ff 6400, capacity factor 1.25),
               batch cut to 2 and depth cut to ``MOE_LAYERS`` (4 chain steps
               of one ``attn_moe`` layer), ``flash_attention`` once a chain
@@ -126,8 +141,19 @@ Phases, each printing its own lines:
               memory while the offloaded calls run (in every decoder
               phase), and every top-2 routing choice of the offloaded call
               (forward sweep, probe, the reverse's recompute) must equal
-              the reference forward's.
-11. timing  — each kernel, its plain version and the nearest library call
+              the reference forward's.  Then one
+              ``offload_params="moe_experts"`` call, the expert weights on
+              the host, at the first call's schedule: bit for bit
+              (``torch.equal``) another unstreamed call's loss and
+              gradients, one parameter batch a segment and phase, each
+              expert blob read once a phase.  Then the deepest phi3.5-moe
+              the host RAM and the card allow (``moe_depth``; the host's
+              MemAvailable is printed in phase ``device``): the unstreamed
+              call must raise ``torch.cuda.OutOfMemoryError``, the streamed
+              one must run, its loss within 1e-5 relative of a ``no_grad``
+              forward that moves one layer's weights to the card at a
+              time, every gradient finite.
+12. timing  — each kernel, its plain version and the nearest library call
               timed with CUDA events at the main path's shapes, with the
               achieved TFLOP/s where the bound is operations; the fused
               reverse at T=1000 also by part (recompute, hoisted products,
@@ -142,7 +168,7 @@ Phases, each printing its own lines:
               and per step, beside cuDNN's multi-step LSTM on the same
               chunk; ``flash_attention`` at gemma2-2b's and at
               phi3.5-moe's shape (there beside SDPA, the same function).
-12. train   — three RMSProp steps through the offloaded LSTM gradient; the
+13. train   — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over one main-path
@@ -179,8 +205,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 DEFAULT_OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
-PHASES = ("device", "build", "kernels", "main", "strategies", "level2",
-          "resume", "dense", "ssm", "moe", "timing", "train")
+PHASES = ("device", "build", "kernels", "main", "scan", "strategies",
+          "level2", "resume", "dense", "ssm", "moe", "timing", "train")
 OPTIONAL = ("profile",)   # run only when named in --phases
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 bandwidth (data sheet)
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores (data sheet)
@@ -285,6 +311,28 @@ def scaled_err(a, b) -> float:
 
 # ----------------------------------------------------------------- phases
 
+def host_meminfo() -> dict:
+    """``/proc/meminfo`` in bytes, by field."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            name, _, rest = line.partition(":")
+            parts = rest.split()
+            if parts:
+                out[name] = int(parts[0]) * (1024 if parts[1:] == ["kB"]
+                                             else 1)
+    return out
+
+
+def vm_rss() -> int:
+    """This process's resident set (``/proc/self/status``), in bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
 def phase_device(state) -> None:
     import torch
 
@@ -297,6 +345,11 @@ def phase_device(state) -> None:
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    mem = host_meminfo()
+    state["host_mem"] = {"avail": mem["MemAvailable"], "rss": vm_rss()}
+    log(f"[device] host RAM: MemTotal {mem.get('MemTotal', -1):,} B, "
+        f"MemAvailable {mem.get('MemAvailable', -1):,} B (/proc/meminfo); "
+        f"this process {state['host_mem']['rss']:,} B resident")
     log(f"[device] {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__} cuda {torch.version.cuda}; "
         f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -988,6 +1041,10 @@ def phase_main(state) -> None:
         l1_peak = torch.cuda.max_memory_allocated()
         rel, gerr = _check_against(label, loss, grads, ref_loss, ref_grads)
         grew, cells = _check_fused_launches(label, before, plan, tune, stats)
+        if label == "autotuned":
+            # what phase scan holds the scan engine to
+            state["main_result"] = (loss.cpu(),
+                                    {k: g.cpu() for k, g in grads.items()})
         segs = plan.num_segments
         log(f"[main] {label}: tune I={tune.interval} s={tune.slots} "
             f"T_A={tune.t_a:.6e}s T_T={tune.t_t:.6e}s ({tune.source}); "
@@ -1063,6 +1120,190 @@ def phase_main(state) -> None:
     state.setdefault("launches", {}).update(launches)
     state["lstm_steps"] = lc.lstm_cell.steps
     state["runs"] = runs
+
+
+# phase scan: the pinned run's interval, and the shorter chain the device
+# peak is held flat against
+SCAN_I = 64
+SCAN_HALF_T = 2048
+
+
+def scan_call(vg, params, batch) -> dict:
+    """One scan-engine gradient: its result, wall, device peak above what
+    was allocated before it, ``lstm_cell`` launches and what its
+    boundaries moved (``api.last_scan()``)."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import lstm_cell as lc
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches = lc.lstm_cell.launches
+    t0 = time.perf_counter()
+    loss, grads = vg(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"loss": loss, "grads": grads, "wall": wall,
+            "peak": torch.cuda.max_memory_allocated() - base, "base": base,
+            "launches": lc.lstm_cell.launches - launches,
+            "record": api.last_scan(), "tune": api.last_tune(),
+            "plan": api.last_plan(), "stats": api.last_stats()}
+
+
+def scan_steps_run(plan, tune) -> int:
+    """Chain steps one scan-engine gradient runs: each step forward, each
+    step again in its segment's recompute (twice in a segment recomputed in
+    inner chunks: the chunks' forward, then each chunk's recompute), and
+    the autotune probe's steps."""
+    recompute = sum(seg.length * (2 if plan.inner_chunk(seg) else 1)
+                    for seg in plan.segments)
+    return plan.n + recompute + tune.probe_calls * tune.probe_len
+
+
+def check_scan_run(label, run, n) -> None:
+    """A scan-engine run's plan, record and counters: the plan is
+    ``segment_plan(n, I, s)`` of its schedule, no executor ran
+    (``last_stats()`` is None), and each segment offloaded one boundary,
+    into page-locked memory."""
+    from repro_torch.core import schedule as ms
+
+    tune, plan, rec = run["tune"], run["plan"], run["record"]
+    want = ms.segment_plan(n, tune.interval, tune.slots)
+    require(plan.plan_id == want.plan_id,
+            f"{label}: last_plan() {plan.plan_id}, the schedule gives "
+            f"{want.plan_id}")
+    require(run["stats"] is None, f"{label}: last_stats() is set after a "
+            "scan call")
+    require(rec.segments == rec.boundaries_offloaded == rec.pinned_boundaries
+            == plan.num_segments,
+            f"{label}: {rec.boundaries_offloaded} boundaries offloaded "
+            f"({rec.pinned_boundaries} page-locked) for "
+            f"{plan.num_segments} segments")
+    require(rec.prefetches + rec.demand_loads == plan.num_segments,
+            f"{label}: {rec.prefetches} uploads ahead and "
+            f"{rec.demand_loads} on demand for {plan.num_segments} segments")
+
+
+def log_scan_run(key, label, run) -> None:
+    tune, plan, rec = run["tune"], run["plan"], run["record"]
+    log(f"[{key}] {label}: tune I={tune.interval} s={tune.slots} "
+        f"T_A={tune.t_a:.6e}s T_T={tune.t_t:.6e}s ({tune.source}); plan "
+        f"{plan.plan_id} ({plan.num_segments} segments)")
+    log(f"[{key}] {label}: wall {run['wall']:.4f}s; device peak "
+        f"{run['peak']:,} B above the {run['base']:,} B held before the "
+        f"call; boundaries offloaded {rec.boundaries_offloaded} (page-locked "
+        f"{rec.pinned_boundaries}), {rec.d2h_bytes:,} B to the host, "
+        f"{rec.h2d_bytes:,} B back; uploads ahead {rec.prefetches}, on "
+        f"demand {rec.demand_loads}, blocked waits {rec.blocked_waits}")
+
+
+def phase_scan(state) -> None:
+    """``lstm-paper`` at ``train_4k`` through ``engine="scan"``: autotuned
+    and pinned at I=64, each held to phase ``main``'s gates against the
+    fused (``engine="compiled"``) gradient of phase ``main``; the plan, the
+    boundaries (one a segment, page-locked) and the ``lstm_cell`` launches
+    (one a step run: forward, recompute, probe); a warm autotuned call (a
+    pinned call has no probe: its first call is warm); the device peak at
+    S=4096 against S=2048 at the same I."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import lstm_cell as lc
+
+    lstm_inputs(state)
+    model, params, batch = state["model"], state["params"], state["batch"]
+    if "main_result" not in state:
+        # phase main did not run: its gradient, the same way
+        vg = api.value_and_grad_offloaded(model.train_loss, runner="fused",
+                                          device="cuda")
+        loss, grads = vg(params, batch)
+        state["main_result"] = (loss.cpu(),
+                                {k: g.cpu() for k, g in grads.items()})
+        del loss, grads
+    ref_loss = state["main_result"][0].cuda()
+    ref_grads = {k: g.cuda() for k, g in state["main_result"][1].items()}
+    n = batch["tokens"].shape[1] - 1
+    lc.lstm_cell.launches = 0
+    total = 0
+    runs = {}
+    for label, kw in (("autotuned", {}), ("pinned", {"interval": SCAN_I})):
+        vg = api.value_and_grad_offloaded(model.train_loss, engine="scan",
+                                          device="cuda", **kw)
+        first = scan_call(vg, params, batch)
+        rel, gerr = _check_against(f"scan {label}", first["loss"],
+                                   first["grads"], ref_loss, ref_grads)
+        check_scan_run(f"scan {label}", first, n)
+        want = scan_steps_run(first["plan"], first["tune"])
+        require(first["launches"] == want and first["launches"] > 0,
+                f"scan {label}: lstm_cell launched {first['launches']} "
+                f"times, the plan implies {want}")
+        log_scan_run("scan", f"{label}, first call", first)
+        log(f"[scan] {label}: loss {float(first['loss']):.6f} (rel err "
+            f"{rel:.3g} against phase main's fused gradient), grad scaled "
+            f"err {gerr:.3g}; lstm_cell launches {first['launches']}")
+        del first["loss"], first["grads"]
+        total += first["launches"]
+        runs[label] = {"first": first, "warm": first, "vg": vg}
+        if kw:
+            # a pinned schedule has no probe: its first call is warm
+            continue
+        warm = scan_call(vg, params, batch)
+        _check_against(f"scan {label} warm", warm["loss"], warm["grads"],
+                       ref_loss, ref_grads)
+        check_scan_run(f"scan {label} warm", warm, n)
+        require(warm["tune"].probe_calls == 0
+                and warm["launches"] == scan_steps_run(warm["plan"],
+                                                       warm["tune"]),
+                f"scan {label}: a warm call launched lstm_cell "
+                f"{warm['launches']} times")
+        log_scan_run("scan", f"{label}, warm call", warm)
+        del warm["loss"], warm["grads"]
+        total += warm["launches"]
+        runs[label]["warm"] = warm
+    # the device peak does not grow with the chain: I=64 over the first
+    # half of the same tokens (a view: the batch is in both baselines)
+    pinned = runs["pinned"]["warm"]
+    half = {"tokens": batch["tokens"][:, :SCAN_HALF_T + 1]}
+    short = scan_call(runs["pinned"]["vg"], params, half)
+    check_scan_run("scan pinned S=2048", short, SCAN_HALF_T)
+    require(math.isfinite(float(short["loss"]))
+            and all(bool(g.isfinite().all())
+                    for g in short["grads"].values()),
+            "scan pinned S=2048: non-finite loss or gradients")
+    total += short["launches"]
+    del short["loss"], short["grads"]
+    added = n - SCAN_HALF_T
+    growth = pinned["peak"] - short["peak"]
+    per_k = growth / (added / 1000)
+    tok = batch["tokens"]
+    tok_b = tok.numel() * tok.element_size()
+    log(f"[scan] device peak at I={SCAN_I}: S={n} {pinned['peak']:,} B, "
+        f"S={SCAN_HALF_T} {short['peak']:,} B above what each call found "
+        f"allocated; growth {growth:,} B over {added} steps = "
+        f"{per_k:,.0f} B per 1,000 steps (gate < 1,000,000).  Reckoning "
+        f"the tokens: the batch's {tuple(tok.shape)} {tok.dtype} tokens "
+        f"({tok_b:,} B) are allocated before both calls (the S=2048 batch "
+        f"is a view of them), and the chain's per-step token and target "
+        f"columns are views; what a step adds inside a call is its "
+        f"segment's graph node and its boundary, which is on the host")
+    require(per_k < 1e6, f"scan: the device peak grew {per_k:,.0f} B per "
+            "1,000 steps")
+    state.setdefault("launches", {})["lstm_cell"] = \
+        state.setdefault("launches", {}).get("lstm_cell", 0) + total
+    state.setdefault("launches_by_phase", {})["scan"] = {"lstm_cell": total}
+    log(f"[scan] lstm_cell: {total} launches in phase scan")
+    state["scan"] = {k: {"interval": r["first"]["tune"].interval,
+                         "wall_s": r["first"]["wall"],
+                         "warm_s": r["warm"]["wall"],
+                         "peak": r["warm"]["peak"],
+                         "blocked": r["warm"]["record"].blocked_waits}
+                     for k, r in runs.items()}
+    state["scan"]["half_peak"] = short["peak"]
+    del runs, ref_grads
+    torch.cuda.empty_cache()
+
 
 
 # chain length of phase strategies: train_4k's first half (at S=4096 the
@@ -1950,7 +2191,7 @@ class _RoutingRecorder:
 
 def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
                   per_step, revolve_slots=None, tiered_states=None,
-                  n_layers=None) -> None:
+                  n_layers=None, scan=False, stream=False) -> None:
     """The offloaded gradient of a decoder (``runner="compiled"``,
     autotuned) at full width, ``train_4k`` with the global batch cut to
     ``batch_size`` and, with ``n_layers``, the depth cut to that many
@@ -1963,19 +2204,25 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     for choice.  With ``revolve_slots``, also one ``strategy="revolve"``
     gradient with that many Level-1 slots; with ``tiered_states``, one
     ``storage="tiered"`` gradient at I=1 whose fast tier holds that many
-    boundary states."""
+    boundary states; with ``scan``, one ``engine="scan"`` gradient under
+    the same gates; with ``stream``, one ``offload_params="moe_experts"``
+    gradient, the expert weights on the host, bit for bit the first
+    offloaded call's."""
     import torch
     from torch.utils import _pytree as pytree
 
     from repro_torch import api
     from repro_torch.configs import SHAPES, ShapeSpec, get_config
     from repro_torch.configs.shapes import make_batch
+    from repro_torch.core import offload as ofl
     from repro_torch.kernels import segment_fused as sf
     from repro_torch.models.model_factory import get_model
 
     # the LSTM phases' captured graphs and workspaces (~0.7 GB at the
-    # pinned shape) are not this model's: its device peaks leave them out
+    # pinned shape) are not this model's: its device peaks leave them out;
+    # nor are the scan engine's page-locked boundary slots
     sf.clear_caches()
+    ofl.clear_pools()
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
@@ -2101,6 +2348,19 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     if state.get("profile"):   # the schedule is cached: no probe
         profile_call(state, key, f"{arch} I={tune.interval}",
                      lambda: vg(params, batch))
+    if scan:
+        decoder_scan(state, key, model, params, batch, ref_loss, ref_grads,
+                     kernels, per_step)
+    if stream:
+        # the reference's gradients are done with: the streamed check needs
+        # the host memory they held
+        require(revolve_slots is None and tiered_states is None,
+                f"{key}: the streamed check runs after the last reference "
+                "check")
+        ref_grads = None
+        _host_empty_cache()
+        decoder_stream(state, key, model, params, batch, vg, plan, kernels,
+                       per_step)
     if revolve_slots is not None:
         decoder_revolve(key, model, params, batch, ref_loss, ref_grads,
                         kernels, per_step, revolve_slots)
@@ -2114,10 +2374,177 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
                   "dense_wall_s": dense_wall,
                   "dense_peak": dense_peak,
                   "l1_peak": l1_peak, "l2_peak": stats.l2_peak_bytes,
-                  "loss_rel": rel, "grad_err": gerr, "cfg": cfg}
+                  "loss_rel": rel, "grad_err": gerr, "cfg": cfg,
+                  "layer_param_bytes": sum(
+                      t.numel() * t.element_size()
+                      for t in pytree.tree_leaves(params["layers"]))
+                  // cfg.n_layers}
     del params, ref_grads, vg
     torch.cuda.empty_cache()
+    _host_empty_cache()
 
+
+def _add_launches(state, key, launches) -> None:
+    """A run's launches into the kernels line's totals, and by phase."""
+    total = state.setdefault("launches", {})
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+    state.setdefault("launches_by_phase", {})[key] = launches
+
+
+def decoder_scan(state, key, model, params, batch, ref_loss, ref_grads,
+                 kernels, per_step) -> None:
+    """One ``engine="scan"`` gradient of a decoder (autotuned) under its
+    phase's gates: its plan, one page-locked boundary a segment, each
+    kernel ``per_step`` launches a chain step run (forward, recompute,
+    probe)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import api
+
+    vg = api.value_and_grad_offloaded(model.train_loss, engine="scan",
+                                      device="cuda")
+    for fn in kernels.values():
+        fn.launches = 0
+    run = scan_call(vg, params, batch)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    loss, grads = run["loss"], pytree.tree_leaves(run["grads"])
+    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    require(math.isfinite(float(loss))
+            and all(bool(g.isfinite().all()) for g in grads),
+            f"{key} scan: non-finite loss or gradients")
+    gerr = max(scaled_err(a, b) for a, b in zip(grads, ref_grads))
+    require(rel <= 1e-5, f"{key} scan: loss rel err {rel} > 1e-5")
+    require(gerr <= 1e-3, f"{key} scan: gradient scaled err {gerr} > 1e-3")
+    check_scan_run(f"{key} scan", run, run["plan"].n)
+    steps = scan_steps_run(run["plan"], run["tune"])
+    for name, got in launches.items():
+        want = per_step[name] * steps
+        require(got == want and got > 0,
+                f"{key} scan: {name} launched {got} times, expected {want}")
+    log_scan_run(key, "scan engine", run)
+    log(f"[{key}] scan engine: loss rel err {rel:.3g}, grad scaled err "
+        f"{gerr:.3g}; launches {launches}")
+    _add_launches(state, f"{key}-scan", launches)
+    state[f"{key}-scan"] = {"interval": run["tune"].interval,
+                            "wall_s": run["wall"], "peak": run["peak"],
+                            "blocked": run["record"].blocked_waits}
+    del run, grads, loss
+    torch.cuda.empty_cache()
+
+
+def _experts_on_host(params):
+    """``params`` with its expert leaves (what ``offload_params=
+    "moe_experts"`` streams) copied to host memory."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.api.frontend import _expert_leaf_ids
+
+    leaves, spec = pytree.tree_flatten(params)
+    ids = set(_expert_leaf_ids(params))
+    return pytree.tree_unflatten(
+        [t.cpu() if i in ids else t for i, t in enumerate(leaves)],
+        spec), sum(leaves[i].numel() * leaves[i].element_size()
+                   for i in ids)
+
+
+def _host_empty_cache() -> None:
+    """Return the page-locked host allocator's cached blocks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._host_emptyCache()
+
+
+def host_memory_line() -> str:
+    """This process's resident set, the host's MemAvailable and the
+    page-locked host allocator's current bytes."""
+    import torch
+
+    stats = torch.cuda.host_memory_stats()
+    return (f"VmRSS {vm_rss():,} B, MemAvailable "
+            f"{host_meminfo()['MemAvailable']:,} B, page-locked allocated "
+            f"{stats.get('allocated_bytes.current', -1):,} B")
+
+
+def decoder_stream(state, key, model, params, batch, vg, plan, kernels,
+                   per_step) -> None:
+    """One ``offload_params="moe_experts"`` gradient at the schedule of the
+    unstreamed transform ``vg`` (cached), the expert weights on the host:
+    its loss and every gradient leaf ``torch.equal`` to one more unstreamed
+    call's (kept on the host meanwhile), one parameter batch a segment and
+    phase, each blob read once a phase."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import api
+
+    log(f"[{key}] host memory before the streamed check: "
+        f"{host_memory_line()}")
+    u_loss, u_grads = vg(params, batch)
+    tune = api.last_tune()
+    require(api.last_plan().plan_id == plan.plan_id,
+            f"{key}: the unstreamed call changed plan")
+    u_loss = u_loss.cpu()
+    u_grads = [g.cpu() for g in pytree.tree_leaves(u_grads)]
+    host_params, expert_bytes = _experts_on_host(params)
+    s_vg = api.value_and_grad_offloaded(
+        model.train_loss, interval=tune.interval, slots=tune.slots,
+        offload_params="moe_experts", device="cuda")
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s_loss, s_grads = s_vg(host_params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    stats, s_plan = api.last_stats(), api.last_plan()
+    require(s_plan.plan_id == plan.plan_id,
+            f"{key} streamed: plan {s_plan.plan_id}, unstreamed "
+            f"{plan.plan_id}")
+    s_leaves = pytree.tree_leaves(s_grads)
+    require(len(s_leaves) == len(u_grads)
+            and torch.equal(s_loss.cpu(), u_loss)
+            and all(torch.equal(a, b.to(a.device))
+                    for a, b in zip(s_leaves, u_grads)),
+            f"{key} streamed: loss or gradients not bit for bit the "
+            "unstreamed call's")
+    want_batches = 2 * plan.num_segments
+    require(stats.param_prefetches == want_batches
+            and stats.param_bytes_moved == 2 * expert_bytes,
+            f"{key} streamed: {stats.param_prefetches} parameter batches "
+            f"({want_batches} planned), {stats.param_bytes_moved} B moved "
+            f"({2 * expert_bytes} planned: every blob once a phase)")
+    for name, got in launches.items():
+        want = per_step[name] * stats.advances
+        require(got == want and got > 0,
+                f"{key} streamed: {name} launched {got} times, expected "
+                f"{want}")
+    log(f"[{key}] streamed (offload_params='moe_experts', I="
+        f"{tune.interval}, the experts' {expert_bytes:,} B on the host): "
+        f"loss and every gradient leaf bit for bit the unstreamed call's; "
+        f"wall {wall:.3f}s; param_prefetches={stats.param_prefetches} "
+        f"param_bytes_moved={stats.param_bytes_moved} "
+        f"param_fetch_stalls={stats.param_fetch_stalls} (waits "
+        f"{stats.param_stall_s:.3f}s); blobs written to Level 2 in "
+        f"{stats.param_populate_s:.3f}s; "
+        f"l1_peak_device_bytes={peak} (the unstreamed parameters stay on "
+        f"the card beside it); launches {launches}")
+    _add_launches(state, f"{key}-stream", launches)
+    state[f"{key}-stream"] = {"wall_s": wall, "peak": peak,
+                              "stalls": stats.param_fetch_stalls,
+                              "moved": stats.param_bytes_moved}
+    del s_loss, s_grads, s_leaves, host_params, u_grads
+    torch.cuda.empty_cache()
+    log(f"[{key}] host memory after the streamed check: "
+        f"{host_memory_line()}")
 
 def decoder_revolve(key, model, params, batch, ref_loss, ref_grads, kernels,
                     per_step, slots) -> None:
@@ -2278,7 +2705,8 @@ def phase_dense(state) -> None:
     # every layer of gemma2-2b's (local, global) period is attention
     decoder_phase(state, "dense", "gemma2-2b", 2,
                   {"flash_attention": fa.flash_attention},
-                  {"flash_attention": 2}, revolve_slots=4, tiered_states=4)
+                  {"flash_attention": 2}, revolve_slots=4, tiered_states=4,
+                  scan=True)
 
 
 def phase_ssm(state) -> None:
@@ -2292,6 +2720,171 @@ def phase_ssm(state) -> None:
 # layer (5.2 GB), and dense autograd holds them, their gradients and every
 # layer's activations (with the bf16 copies of the expert weights it saves)
 MOE_LAYERS = 4
+# host memory kept free beside the deep streamed run's two copies of the
+# expert weights (the caller's and Level 2's) and one step's transient
+MOE_HOST_MARGIN = 16 * 2 ** 30
+
+
+def moe_depth(state, expert_layer_bytes: int, layer_bytes: int) -> int:
+    """The deepest phi3.5-moe the streamed call fits, above
+    ``MOE_LAYERS``: on the host, the caller's expert weights and Level 2's
+    copy of them (``2 * L * expert_layer_bytes``) plus one step's transient
+    (the tuner's read probe) under the host memory available, less
+    ``MOE_HOST_MARGIN``; on the card, the 4-layer streamed call's peak
+    without the 4 layers' expert weights (which the deep run keeps on the
+    host), plus each further layer's expert gradient and non-expert weights
+    and gradient, under 90% of the card's memory.
+
+    The host memory available is MemAvailable as phase ``device`` read it,
+    less what this process has grown by since (its resident set).  The
+    sandbox the card's machine runs in keeps memory a process freed out of
+    MemAvailable for a while (it returns to the process that freed it, not
+    to the count), so MemAvailable read now undercounts what the run can
+    use."""
+    import torch
+
+    _host_empty_cache()
+    now = host_meminfo()["MemAvailable"]
+    seen = state.get("host_mem") or {"avail": now, "rss": vm_rss()}
+    avail = seen["avail"] - max(0, vm_rss() - seen["rss"])
+    log(f"[moe] host memory before sizing the deep run: "
+        f"{host_memory_line()}; available by phase device's reading less "
+        f"this process's growth since: {avail:,} B")
+    by_host = (avail - MOE_HOST_MARGIN - expert_layer_bytes) // \
+        (2 * expert_layer_bytes)
+    card = torch.cuda.get_device_properties(0).total_memory
+    base = state["moe-stream"]["peak"] - MOE_LAYERS * expert_layer_bytes
+    per_layer = expert_layer_bytes + 2 * (layer_bytes - expert_layer_bytes)
+    by_card = MOE_LAYERS + int((0.9 * card - base) // per_layer)
+    depth = int(min(by_host, by_card))
+    log(f"[moe] depth: host memory available {avail:,} B allows {by_host} "
+        f"layers (2 x {expert_layer_bytes:,} B a layer + one layer's "
+        f"transient, {MOE_HOST_MARGIN:,} B kept free); the card "
+        f"({card:,} B) {by_card} (the 4-layer streamed peak less its "
+        f"experts, {base:,} B, + {per_layer:,} B a layer, under 90%); "
+        f"chosen {depth}")
+    return depth
+
+
+def moe_deep(state) -> None:
+    """phi3.5-moe at the deepest depth streaming allows (``moe_depth``),
+    the expert weights on the host: the unstreamed call must run out of
+    device memory, the streamed one must run, its loss within 1e-5
+    (relative) of a ``no_grad`` forward that moves one layer's weights to
+    the card at a time, every gradient finite."""
+    import gc
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import api
+    from repro_torch.api.frontend import _expert_leaf_ids
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config
+    from repro_torch.configs.shapes import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model_factory import get_model
+
+    cfg1 = get_config("phi3.5-moe-42b")
+    # w_gate, w_up (d x f) and w_down (f x d) of every expert, fp32
+    expert_layer_bytes = 3 * cfg1.moe.n_experts * cfg1.d_model * cfg1.d_ff * 4
+    layer_bytes = state["moe"]["layer_param_bytes"]
+    depth = moe_depth(state, expert_layer_bytes, layer_bytes)
+    require(depth > MOE_LAYERS, f"moe: streaming allows {depth} layers, "
+            f"not more than {MOE_LAYERS}")
+    cfg = cfg1.replace(n_layers=depth)
+    full = SHAPES["train_4k"]
+    shape = ShapeSpec(full.name, full.seq_len, 2, full.kind)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda")
+    params, expert_bytes = _experts_on_host(params)
+    torch.cuda.empty_cache()
+    log(f"[moe] deep: host memory with the experts on the host: "
+        f"{host_memory_line()}")
+    batch = make_batch(cfg, shape, seed=0)
+    held = torch.cuda.memory_allocated()
+    log(f"[moe] deep: {depth} layers, the experts' {expert_bytes:,} B on the "
+        f"host, {held:,} B of parameters and tokens on the card")
+
+    # without streaming the card cannot hold it
+    vg = api.value_and_grad_offloaded(model.train_loss, interval=1, slots=1,
+                                      device="cuda")
+    oom = None
+    try:
+        vg(params, batch)
+    except torch.cuda.OutOfMemoryError as err:
+        oom = str(err).splitlines()[0]
+    del vg
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(oom is not None, f"moe: the unstreamed call at {depth} layers "
+            "did not run out of device memory")
+    log(f"[moe] deep, unstreamed: torch.cuda.OutOfMemoryError ({oom[:160]}"
+        f"); after emptying the cache {torch.cuda.memory_allocated():,} B "
+        "allocated")
+
+    vg = api.value_and_grad_offloaded(model.train_loss,
+                                      offload_params="moe_experts",
+                                      device="cuda")
+    fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = vg(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = fa.flash_attention.launches
+    tune, stats, plan = api.last_tune(), api.last_stats(), api.last_plan()
+    leaves = pytree.tree_leaves(grads)
+    require(math.isfinite(float(loss))
+            and all(bool(g.isfinite().all()) for g in leaves),
+            "moe deep: non-finite loss or gradients")
+    require(stats.param_prefetches == 2 * plan.num_segments
+            and stats.param_bytes_moved == 2 * expert_bytes,
+            f"moe deep: {stats.param_prefetches} parameter batches, "
+            f"{stats.param_bytes_moved} B moved; the plan implies "
+            f"{2 * plan.num_segments} and {2 * expert_bytes}")
+    probe = tune.probe_calls * tune.probe_len
+    require(launches == stats.advances + probe and launches > 0,
+            f"moe deep: flash_attention launched {launches} times, "
+            f"expected {stats.advances + probe}")
+    on_card = sum(1 for i in _expert_leaf_ids(params) if leaves[i].is_cuda)
+    del grads, leaves
+    # the reference: one layer's weights on the card at a time
+    spec = model.train_loss.chain_spec
+    with torch.no_grad():
+        carry, xs = spec.prelude(params, batch)
+        for k in range(cfg.n_layers):
+            x = pytree.tree_map(lambda t: t[k].to("cuda"), xs)
+            carry = spec.body(params, carry, x, batch)
+            del x
+        ref = spec.readout(params, carry, batch)
+    del carry, xs
+    rel = abs(float(loss) - float(ref)) / abs(float(ref))
+    require(rel <= 1e-5, f"moe deep: loss rel err {rel} > 1e-5 against the "
+            "layer-at-a-time forward")
+    log(f"[moe] deep: host memory after the streamed call: "
+        f"{host_memory_line()}")
+    log(f"[moe] deep, streamed: tune I={tune.interval} s={tune.slots} "
+        f"T_A={tune.t_a:.6e}s T_T={tune.t_t:.6e}s T_T_param="
+        f"{tune.t_t_param:.6e}s ({tune.source}); {plan.num_segments} "
+        f"segments; loss {float(loss):.6f} (rel err {rel:.3g} against the "
+        f"layer-at-a-time forward); every gradient finite (the {on_card} "
+        f"expert leaves' on the card); wall {wall:.3f}s; "
+        f"l1_peak_device_bytes={peak}; param_prefetches="
+        f"{stats.param_prefetches} param_bytes_moved="
+        f"{stats.param_bytes_moved} param_fetch_stalls="
+        f"{stats.param_fetch_stalls} (waits {stats.param_stall_s:.3f}s); "
+        f"blobs written to Level 2 in {stats.param_populate_s:.3f}s; "
+        f"flash_attention launches {launches}")
+    _add_launches(state, "moe-deep", {"flash_attention": launches})
+    state["moe-deep"] = {"layers": depth, "wall_s": wall, "peak": peak,
+                         "oom": oom, "loss_rel": rel}
+    del params, vg, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    _host_empty_cache()
 
 
 def phase_moe(state) -> None:
@@ -2300,7 +2893,8 @@ def phase_moe(state) -> None:
     # one attn_moe layer a period: one flash launch a chain step
     decoder_phase(state, "moe", "phi3.5-moe-42b", 2,
                   {"flash_attention": fa.flash_attention},
-                  {"flash_attention": 1}, n_layers=MOE_LAYERS)
+                  {"flash_attention": 1}, n_layers=MOE_LAYERS, stream=True)
+    moe_deep(state)
 
 
 def _cudnn_lstm(torch, w, b, Dx):
@@ -3114,6 +3708,7 @@ def main(argv=None) -> int:
              "profile": "profile" in phases}
     steps = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "main": phase_main,
+             "scan": phase_scan,
              "strategies": phase_strategies, "level2": phase_level2,
              "resume": phase_resume,
              "dense": phase_dense, "ssm": phase_ssm, "moe": phase_moe,

@@ -1,6 +1,7 @@
 # Port of repro/api/autotune.py: TuneResult, snap_interval, default_slots,
 # AutoTuner.measure (one Level-2 stream; the per-step and per-segment
-# probes; the tiered backend's slow-tier probe) and AutoTuner.manual.
+# probes; the tiered backend's slow-tier probe; the parameter-lane read
+# probe), AutoTuner.measure_scan and AutoTuner.manual.
 """Schedule auto-tuning from the paper's §3 performance model.
 
 The multistage strategy has two knobs: the Level-2 store interval ``I`` and
@@ -28,10 +29,13 @@ import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.perfmodel import (H100, HardwareSpec,
+from repro_torch.core import offload as ofl
+from repro_torch.core.perfmodel import (H100, KNL, HardwareSpec,
+                                        choose_interval_with_params,
                                         choose_tiered_interval,
                                         effective_transfer_time,
                                         optimal_interval)
@@ -57,6 +61,8 @@ class TuneResult:
     # the fast-tier budget the interval was chosen for
     t_t_slow: float = 0.0
     capacity_bytes: Optional[int] = None
+    # parameter streaming: Level-2 read time of one step's streamed blobs
+    t_t_param: float = 0.0
 
 
 def snap_interval(n: int, target: int) -> int:
@@ -135,8 +141,8 @@ class AutoTuner:
                 forward_step: Optional[Callable[[Any, int], Any]] = None,
                 forward_segment: Optional[Callable[[Any], Any]] = None,
                 segment_len: int = 1,
-                store_tree: Optional[Callable[[], Any]] = None
-                ) -> TuneResult:
+                store_tree: Optional[Callable[[], Any]] = None,
+                param_stream_bytes: int = 0) -> TuneResult:
         """Time the forward compute and one Level-2 store; derive ``I``
         per §3.
 
@@ -165,6 +171,14 @@ class AutoTuner:
         ``perfmodel.choose_tiered_interval``'s, and a snap below it is
         kept only while the effective transfer time still hides behind a
         segment's compute.
+
+        ``param_stream_bytes`` (parameter streaming) is the size of one
+        chain step's streamed blobs: a third probe puts that many bytes
+        into Level 2 and times their non-promoting read back
+        (``t_t_param``, the traffic the parameter lane adds to every
+        segment), and ``I`` widens to
+        ``perfmodel.choose_interval_with_params`` so the boundary store
+        still hides behind the compute the reads leave.
         """
         backend = engine.backend
         state_bytes = tree_bytes(state0)
@@ -172,6 +186,9 @@ class AutoTuner:
         if isinstance(backend, TieredStorage):
             # the optimum depends on the budget: key it into the cache
             level2 = f"{level2}[{backend.capacity_bytes}]"
+        if param_stream_bytes:
+            # the reads added to every segment move the optimum
+            level2 = f"pstream[{param_stream_bytes}]:{level2}"
         key = (name, n, state_bytes, level2, _device_kind(state0))
         cached = self.lookup(key)
         if cached is not None:
@@ -221,6 +238,21 @@ class AutoTuner:
                                             t_t, t_t_slow)
         else:
             target = optimal_interval(t_t, t_a)
+        t_t_param = 0.0
+        if param_stream_bytes:
+            # one step's blob bytes, read back as the lane reads them
+            pkey = ("__autotune_param__", name)
+            blob = np.zeros(max(1, param_stream_bytes // 4), np.float32)
+            blob.setflags(write=False)   # a store keeps it without a copy
+            backend.put(pkey, blob)
+            del blob
+            read = getattr(backend, "peek", None) or backend.get
+
+            t_t_param = self._time(lambda: read(pkey))
+            backend.delete(pkey)
+            # widen, never shrink: the tiered minimum stays a floor
+            target = max(target, choose_interval_with_params(
+                t_a, t_t, t_t_param))
         interval = snap_interval(n, target)
         if capacity is not None and interval < target:
             # the tiered target is a minimum viable interval: a snap onto a
@@ -234,7 +266,73 @@ class AutoTuner:
             interval=interval, slots=slots, t_a=t_a, t_t=t_t,
             state_bytes=state_bytes, n=n, source="measured",
             probe_calls=1 + self.repeats, probe_len=segment_len,
-            t_t_slow=t_t_slow, capacity_bytes=capacity))
+            t_t_slow=t_t_slow, capacity_bytes=capacity,
+            t_t_param=t_t_param))
+
+    # ------------------------------------------------------- scan engine
+    def measure_scan(self, name: str, *, body: Callable[..., Any],
+                     params: Any, carry0: Any, xs: Any, batch: Any,
+                     n: int, segment_len: int = 32) -> TuneResult:
+        """Schedule for the scan engine (``engine="scan"``).
+
+        Two probes, on the caller's own inputs under ``no_grad`` (the
+        reference builds zero stand-ins from shapes alone, since its inputs
+        may be tracers; torch inputs never are, and stand-ins would hold a
+        second copy of the weights on the card and route every MoE token
+        the same way):
+
+        * ``T_A`` — the per-step time of one segment of ``segment_len``
+          steps of ``body(params, carry, x, batch)`` without a graph, the
+          segments' forward;
+        * ``T_T`` — on the card, one copy of the boundary into page-locked
+          host memory, the copy the segment policy makes; elsewhere the §3
+          roofline estimate ``state_bytes / d2h_bw`` from the ``KNL``
+          entry, as the reference uses where it cannot offload.
+
+        The cache key's Level-2 kind is ``"pinned_host"`` or
+        ``"roofline-knl"``, and the front-end passes ``"<spec>:scan"`` as
+        ``name``, so a scan-tuned interval is never reused for the executor
+        engines.
+        """
+        state_bytes = tree_bytes(carry0)
+        device = pytree.tree_leaves(carry0)[0].device
+        offloads = ofl.host_offload_supported(device)
+        level2 = ofl.HOST if offloads else f"roofline-{KNL.name}"
+        key = (name, n, state_bytes, level2, _device_kind(carry0))
+        cached = self.lookup(key)
+        if cached is not None:
+            return dataclasses.replace(cached, probe_calls=0)
+
+        segment_len = max(1, min(segment_len, n))
+
+        def probe():
+            c = carry0
+            with torch.no_grad():
+                for k in range(segment_len):
+                    c = body(params, c, pytree.tree_map(lambda t: t[k], xs),
+                             batch)
+            _synchronize(c)
+
+        t_a = self._time(probe) / segment_len
+        if offloads:
+            leaves = [t.detach() for t in pytree.tree_leaves(carry0)]
+            hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in leaves]
+
+            def one_store():
+                for h, t in zip(hosts, leaves):
+                    h.copy_(t, non_blocking=True)
+                torch.cuda.synchronize(device)
+
+            t_t = self._time(one_store)
+        else:
+            t_t = state_bytes / KNL.d2h_bw
+        interval = snap_interval(n, optimal_interval(t_t, t_a))
+        slots = default_slots(interval, self.l1_budget_states)
+        return self.store(key, TuneResult(
+            interval=interval, slots=slots, t_a=t_a, t_t=t_t,
+            state_bytes=state_bytes, n=n, source="measured",
+            probe_calls=1 + self.repeats, probe_len=segment_len))
 
     def manual(self, name: str, *, n: int, interval: int,
                slots: Optional[int] = None,

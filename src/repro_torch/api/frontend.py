@@ -1,8 +1,10 @@
 # Port of repro/api/frontend.py: OffloadConfig, value_and_grad_offloaded
-# (strategies multistage_async, revolve and conventional; engines compiled
-# and interpreted; the storage kinds of the backend registry and backend=;
-# journal_dir=/resume=/journal_repair=), _make_backend, _input_fingerprint,
-# resume_offloaded, checkpointed_bptt and last_stats/last_tune/last_plan.
+# (strategies multistage_async, revolve and conventional; engines compiled,
+# interpreted and scan; the storage kinds of the backend registry and
+# backend=; journal_dir=/resume=/journal_repair=; offload_params=),
+# _make_backend, _input_fingerprint, _expert_leaf_ids, _resolve_schedule,
+# _resolve_scan_schedule, _scan_loss, resume_offloaded, checkpointed_bptt
+# and last_stats/last_tune/last_plan.
 """Drop-in autodiff front-end for asynchronous multistage checkpointing.
 
 ``value_and_grad_offloaded(loss)`` is the paper's technique packaged the way
@@ -39,10 +41,16 @@ journal of every Level-2 store, delete and segment cursor), and
 ``resume_offloaded`` finishes a crashed gradient from that journal, bit for
 bit, replaying at most one interval.
 
+``engine="scan"`` runs the same plan inside one autograd graph
+(:func:`~repro_torch.core.multistage_scan.multistage_scan`): one autograd
+function a segment, whose entry carry goes to page-locked host memory and
+whose backward pass recomputes it.  ``offload_params="moe_experts"``
+streams a MoE chain's expert weights through Level 2 one segment ahead of
+the compute (``ParamStream``), so they stay where the caller put them.
+
 Everything runs on the card unless ``device="cpu"`` is passed.  Not ported
 yet, and raising ``NotImplementedError`` when asked for: meshes (ROADMAP
-queue 1, item 15), 2D plans (item 11), parameter streaming (item 12) and
-the scan engine (item 13).
+queue 1, item 15) and 2D plans (item 11).
 """
 from __future__ import annotations
 
@@ -66,11 +74,14 @@ from repro_torch.api.chain import (ChainSpec, accumulate, chain_length,
 from repro_torch.core import schedule as ms
 from repro_torch.core.compiled_ops import (CompiledChainOps,
                                            CompiledSegmentRunner,
-                                           FusedSegmentRunner)
+                                           FusedSegmentRunner,
+                                           ParamStreamSegmentRunner)
 from repro_torch.core.executor import (CheckpointExecutor, ExecutionStats,
-                                       placed)
+                                       ParamStream, placed)
+from repro_torch.core.multistage_scan import choose_interval, multistage_scan
 from repro_torch.core.storage import (AsyncTransferEngine, HostTree,
-                                      JournaledStorage, make_backend)
+                                      JournaledStorage, make_backend,
+                                      tree_bytes)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import segment_fused
 
@@ -100,14 +111,20 @@ class OffloadConfig:
     backend_id: int = 0               # key into the shared-backend registry
     #                                   (0: build one from ``storage``;
     #                                   else the caller's backend=)
-    engine: str = "compiled"
+    engine: str = "compiled"          # "compiled" (one runner call a
+    #                                   segment) | "interpreted" (one step a
+    #                                   dispatch) | "scan" (one autograd
+    #                                   graph, an autograd function a
+    #                                   segment)
     runner: str = "compiled"          # "compiled" (plain PyTorch per
     #                                   segment) | "fused" (CUDA kernels)
+    offload_params: Optional[str] = None  # "moe_experts": stream the
+    #                                   per-(layer, expert) FFN blobs through
+    #                                   Level 2 one segment ahead
     # knobs of the JAX package that are not ported yet (each raises)
     mesh: Optional[Any] = None
     step_memory_budget: Optional[int] = None
     plan_2d: Optional[Tuple[int, int]] = None
-    offload_params: Optional[str] = None
 
     def __post_init__(self):
         # the JAX package's ValueErrors for these knobs, in its order
@@ -156,8 +173,8 @@ class OffloadConfig:
                     f"only, got strategy={self.strategy!r}")
             if self.storage != "ram":
                 raise ValueError(
-                    "engine='scan' keeps Level-2 state in host memory of its "
-                    f"own; the pluggable storage backends "
+                    "engine='scan' keeps Level-2 state in page-locked host "
+                    "memory of its own; the pluggable storage backends "
                     f"({STORAGE_KINDS[1:]}) apply to the executor engines "
                     "only")
             if self.journal_dir is not None:
@@ -165,15 +182,48 @@ class OffloadConfig:
                     "engine='scan' runs as one traced program — its Level-2 "
                     "state cannot be journaled; use the executor engines "
                     "('compiled'/'interpreted') for crash consistency")
+        if self.offload_params is not None:
+            if self.offload_params != "moe_experts":
+                raise ValueError(
+                    f"unknown offload_params {self.offload_params!r}; "
+                    "known: ('moe_experts',)")
+            if self.strategy != "multistage_async":
+                raise ValueError(
+                    "offload_params= streams parameters through the "
+                    "multistage_async Level-2 store; strategy="
+                    f"{self.strategy!r} keeps no Level-2 state")
+            if self.engine != "compiled" or self.runner != "compiled":
+                raise ValueError(
+                    "offload_params= assembles streamed parameter slices in "
+                    "the compiled segment runner; it needs engine='compiled' "
+                    f"with runner='compiled' (got engine={self.engine!r}, "
+                    f"runner={self.runner!r})")
+            if self.mesh is not None:
+                raise ValueError(
+                    "offload_params= drives a single Level-2 parameter lane; "
+                    "sharded streams (mesh=) are not supported yet")
+            if self.journal_dir is not None:
+                raise ValueError(
+                    "offload_params= keeps transient parameter blobs in "
+                    "Level-2; journaling (journal_dir=/resume=) tracks "
+                    "boundary states only and cannot replay them")
+            if self.storage == "compressed":
+                raise ValueError(
+                    "offload_params= reads blobs back via non-promoting "
+                    "peek, which storage='compressed' would return encoded; "
+                    "use 'ram', 'disk' or 'tiered'")
+            if self.step_memory_budget is not None or \
+                    self.plan_2d is not None:
+                raise ValueError(
+                    "offload_params= is not supported together with 2D "
+                    "plans (step_memory_budget=/plan_2d=)")
         # valid, but not ported yet; an unknown storage kind raises at the
         # first call, from the backend registry (as in the JAX package)
         for given, what, item in (
-                (self.engine == "scan", "engine='scan'", 13),
                 (self.mesh is not None, "mesh=", 15),
                 (self.step_memory_budget is not None
                  or self.plan_2d is not None,
-                 "2D plans (step_memory_budget=/plan_2d=)", 11),
-                (self.offload_params is not None, "offload_params=", 12)):
+                 "2D plans (step_memory_budget=/plan_2d=)", 11)):
             if given:
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP queue 1, item "
@@ -270,7 +320,10 @@ def _make_backend(cfg: OffloadConfig):
         raise
 
 
-_LAST: Dict[str, Any] = {"stats": None, "tune": None, "plan": None}
+_LAST: Dict[str, Any] = {"stats": None, "tune": None, "plan": None,
+                         # streamed leaves' gradients, by id of the xs leaf
+                         # (offload_params=; collected by the transform)
+                         "streamed_grads": {}}
 
 
 def last_stats() -> Optional[ExecutionStats]:
@@ -287,19 +340,6 @@ def last_plan() -> Optional[ms.SegmentPlan]:
     """The :class:`~repro_torch.core.schedule.SegmentPlan` behind the most
     recent forward pass."""
     return _LAST["plan"]
-
-
-# Copy of repro/core/multistage_scan.py::choose_interval.
-def choose_interval(n: int, target: int) -> int:
-    """Best Level-2 store interval <= ``target`` for an ``n``-step chain:
-    the largest divisor of ``n`` in ``[ceil(target/2), target]``, else the
-    target itself (the plan then ends in a shorter tail segment)."""
-    target = max(1, min(target, n))
-    floor = max(1, -(-target // 2))
-    for i in range(target, floor - 1, -1):
-        if n % i == 0:
-            return i
-    return target
 
 
 class _Ops:
@@ -333,8 +373,28 @@ class _Ops:
                                params)
 
 
+_EXPERT_LEAF_NAMES = ("w_gate", "w_up", "w_down")
+
+
+def _expert_leaf_ids(tree) -> Tuple[int, ...]:
+    """Flat indices of the per-(layer, expert) MoE parameter leaves of
+    ``tree`` (the stacked chain inputs, or the parameters they come from):
+    leaves under a ``'moe'`` subtree named ``w_gate``/``w_up``/``w_down``
+    with at least two axes (``(n_layers, n_experts, ...)``).  Indices
+    address ``pytree.tree_leaves(tree)``."""
+    ids = []
+    flat, _ = pytree.tree_flatten_with_path(tree)
+    for i, (path, leaf) in enumerate(flat):
+        names = [getattr(p, "key", None) for p in path]
+        if "moe" in names and names[-1] in _EXPERT_LEAF_NAMES \
+                and isinstance(leaf, torch.Tensor) and leaf.dim() >= 2:
+            ids.append(i)
+    return tuple(ids)
+
+
 def _resolve_schedule(static: _Static, ops: _Ops, params, carry0, xs, batch,
-                      n: int, engine) -> at.TuneResult:
+                      n: int, engine, param_stream_bytes: int = 0,
+                      streamed: Tuple[int, ...] = ()) -> at.TuneResult:
     cfg = static.cfg
     tuner = _TUNERS.get(cfg.tuner_id, at.GLOBAL_TUNER)
     if cfg.interval is not None:
@@ -349,6 +409,10 @@ def _resolve_schedule(static: _Static, ops: _Ops, params, carry0, xs, batch,
     tune_name = f"{static.spec.name}:{cfg.engine}"
     if cfg.runner == "fused":
         tune_name += ":fused"
+    if param_stream_bytes:
+        # the parameter lane's reads move the optimum: a cache entry of its
+        # own
+        tune_name += ":pstream"
     if cfg.engine == "interpreted":
         def forward_step(state, k):
             return ops.fwd(params, state, index_xs(xs, k), batch)
@@ -361,8 +425,17 @@ def _resolve_schedule(static: _Static, ops: _Ops, params, carry0, xs, batch,
         cap = max(1, min(n, 32))
         cand = choose_interval(n, cap)
         probe_len = cand if cand >= min(cap, 8) else cap
-        xs_probe = pytree.tree_map(
-            lambda leaf: leaf[:probe_len].contiguous(), xs)
+        if streamed:
+            # one step: a longer probe would hold that many steps of
+            # streamed weights on the device at once, what streaming is
+            # for avoiding
+            probe_len = 1
+        dev = pytree.tree_leaves(carry0)[0].device
+        x_leaves, x_spec = pytree.tree_flatten(xs)
+        xs_probe = pytree.tree_unflatten(
+            [leaf[:probe_len].to(dev) if i in streamed
+             else leaf[:probe_len].contiguous()
+             for i, leaf in enumerate(x_leaves)], x_spec)
         store_tree = None
         if cfg.runner == "fused":
             # probe the fused path: T_A includes the in-kernel boundary
@@ -397,7 +470,8 @@ def _resolve_schedule(static: _Static, ops: _Ops, params, carry0, xs, batch,
 
         tune = tuner.measure(tune_name, forward_segment=forward_segment,
                              segment_len=probe_len, state0=carry0, n=n,
-                             engine=engine, store_tree=store_tree)
+                             engine=engine, store_tree=store_tree,
+                             param_stream_bytes=param_stream_bytes)
     if cfg.slots is not None:
         tune = dataclasses.replace(tune, slots=cfg.slots)
     return tune
@@ -517,6 +591,21 @@ def _fwd(static: _Static, params, carry0, xs, batch):
                 if cur is None or cur.phase == "done" or cur.n != n or \
                         (old_fp is not None and old_fp != fingerprint):
                     recovered = None
+            streamed: Tuple[int, ...] = ()
+            param_stream_bytes = 0
+            if cfg.offload_params is not None:
+                # the streamed leaves stay where the caller put them; the
+                # runner's xs keep 0-d placeholders at their positions
+                streamed = _expert_leaf_ids(xs)
+                if not streamed:
+                    raise ValueError(
+                        "offload_params='moe_experts' found no per-expert "
+                        "parameter leaves in the chain inputs (expected "
+                        "stacked MoE weights w_gate/w_up/w_down under a "
+                        "'moe' subtree)")
+                x_leaves, x_spec = pytree.tree_flatten(xs)
+                param_stream_bytes = sum(tree_bytes(x_leaves[i][0])
+                                         for i in streamed)
             if recovered is not None:
                 # the journal cursor pins the schedule: resuming under a
                 # different (I, s) than the crashed run would orphan its
@@ -527,9 +616,22 @@ def _fwd(static: _Static, params, carry0, xs, batch):
                                     slots=recovered.cursor.s_l1)
             else:
                 tune = _resolve_schedule(static, ops, params, carry0, xs,
-                                         batch, n, engine)
+                                         batch, n, engine,
+                                         param_stream_bytes=param_stream_bytes,
+                                         streamed=streamed)
             runner = None   # the interpreted engine: per-step operators
-            if cfg.engine == "compiled":
+            param_stream = None
+            if streamed:
+                param_stream = ParamStream(
+                    engine, {i: x_leaves[i] for i in streamed},
+                    n_experts=int(x_leaves[streamed[0]].shape[1]))
+                xs_runner = pytree.tree_unflatten(
+                    [leaf.new_zeros(()) if i in streamed else leaf
+                     for i, leaf in enumerate(x_leaves)], x_spec)
+                runner = ParamStreamSegmentRunner(
+                    ops.cops, params, xs_runner, batch, s_l1=tune.slots,
+                    stream=param_stream, n=n)
+            elif cfg.engine == "compiled":
                 runner_cls = FusedSegmentRunner if cfg.runner == "fused" \
                     else CompiledSegmentRunner
                 runner = runner_cls(ops.cops, params, xs, batch,
@@ -542,7 +644,8 @@ def _fwd(static: _Static, params, carry0, xs, batch):
                 carry0, n, interval=tune.interval, s_l1=tune.slots,
                 engine=engine, runner=runner, resume_from=recovered,
                 run_meta={"fingerprint": fingerprint}
-                if fingerprint is not None else None)
+                if fingerprint is not None else None,
+                param_stream=param_stream)
         except BaseException:
             # multistage_forward treats a passed-in engine as borrowed and
             # won't close it on error — engine and backend are ours, so
@@ -644,7 +747,12 @@ def _bwd(static: _Static, rec: _RunRecord, dcarry):
     else:
         dxs_diff = [torch.stack([dx_slices[k][i] for k in range(n)])
                     for i in range(sum(static.xs_mask))]
-    return gparams, dcarry0, dxs_diff
+    # the positions in dxs_diff of the streamed leaves (run.param_stream's)
+    ps = run.param_stream if run is not None else None
+    pos = {i: k for k, i in enumerate(
+        i for i, m in enumerate(static.xs_mask) if m)}
+    streamed = [pos[i] for i in ps.leaf_ids] if ps is not None else []
+    return gparams, dcarry0, dxs_diff, streamed
 
 
 class _Chain(torch.autograd.Function):
@@ -660,17 +768,33 @@ class _Chain(torch.autograd.Function):
                      static.xs_mask)
         x_n, rec = _fwd(static, params, carry0, xs, batch)
         ctx.static, ctx.rec, ctx.c_spec = static, rec, c_spec
+        ctx.xd_devices = [t.device for t in leaves[n_p + n_c:]]
+        ctx.xd_ids = [id(t) for t in leaves[n_p + n_c:]]
         return tuple(pytree.tree_leaves(x_n))
 
     @staticmethod
     def backward(ctx, *dcarry_leaves):
         dcarry = pytree.tree_unflatten(list(dcarry_leaves), ctx.c_spec)
-        gparams, dcarry0, dxs_diff = _bwd(ctx.static, ctx.rec, dcarry)
+        gparams, dcarry0, dxs_diff, streamed = _bwd(ctx.static, ctx.rec,
+                                                    dcarry)
         # a parameter the steps never read gets no gradient here (its
         # accumulator is still a broadcast zero), not a buffer of zeros
         # that autograd would add to its other gradient
         gparams = [None if is_broadcast_zero(g) else g
                    for g in pytree.tree_leaves(gparams)]
+        # an xs leaf's gradient goes where the leaf is (a streamed leaf
+        # may be on the host), and only to a leaf that wants one
+        first = 2 + len(gparams) + len(dcarry_leaves)
+        # a streamed leaf that takes no part in autograd (the front door's
+        # case) has its gradient handed over on the run's device, where the
+        # reverse sweep wrote it; one that wants a gradient gets it below
+        for k in streamed:
+            if not ctx.needs_input_grad[first + k]:
+                _LAST["streamed_grads"][ctx.xd_ids[k]] = dxs_diff[k]
+        dxs_diff = [g.to(dev) if g is not None
+                    and ctx.needs_input_grad[first + i] else None
+                    for i, (g, dev) in enumerate(zip(dxs_diff,
+                                                     ctx.xd_devices))]
         return (None, None, *gparams, *pytree.tree_leaves(dcarry0),
                 *dxs_diff)
 
@@ -689,10 +813,68 @@ def _chain(static: _Static, params, carry0, xs, batch):
     return pytree.tree_unflatten(list(out), c_spec)
 
 
+# ---------------------------------------------------------------------------
+# the scan engine (engine="scan")
+# ---------------------------------------------------------------------------
+
+
+def _resolve_scan_schedule(spec: ChainSpec, cfg: OffloadConfig, params,
+                           carry0, xs, batch, n: int) -> at.TuneResult:
+    """Schedule for a scan-engine chain: pinned, the default interval, or
+    measured by ``AutoTuner.measure_scan`` under the ``"<spec>:scan"`` name
+    (never shared with the executor engines)."""
+    tuner = _TUNERS.get(cfg.tuner_id, at.GLOBAL_TUNER)
+    if cfg.interval is not None:
+        return tuner.manual(spec.name, n=n, interval=cfg.interval,
+                            slots=cfg.slots)
+    if not cfg.autotune:
+        return tuner.manual(spec.name, n=n, interval=max(1, min(n, 32)),
+                            slots=cfg.slots)
+    tune = tuner.measure_scan(f"{spec.name}:scan", body=spec.body,
+                              params=params, carry0=carry0, xs=xs,
+                              batch=batch, n=n,
+                              segment_len=max(1, min(n, 32)))
+    if cfg.slots is not None:
+        tune = dataclasses.replace(tune, slots=cfg.slots)
+    return tune
+
+
+def _scan_loss(spec: ChainSpec, cfg: OffloadConfig
+               ) -> Callable[[Any, Any], Any]:
+    """The loss with its chain rewritten as a plan-driven
+    ``multistage_scan``: each segment's entry carry goes to page-locked
+    host memory (host memory on the CPU) and its interior is recomputed in
+    the backward pass at the plan's inner chunk granularity.  No executor
+    runs, so ``last_stats()`` is ``None`` after it; ``last_plan()`` and
+    ``last_tune()`` are set, and ``offload.last_record()`` counts what the
+    boundaries moved."""
+
+    def loss(params, batch):
+        carry0, xs = spec.prelude(params, batch)
+        n = chain_length(xs)
+        tune = _resolve_scan_schedule(spec, cfg, params, carry0, xs, batch,
+                                      n)
+        plan = ms.segment_plan(n, tune.interval, tune.slots)
+        _LAST["tune"] = tune
+        _LAST["plan"] = plan
+        _LAST["stats"] = None
+
+        def step(p, c, x):
+            return spec.body(p, c, x, batch), None
+
+        carry_n, _ = multistage_scan(step, carry0, xs, params=params,
+                                     plan=plan, offload=True)
+        return spec.readout(params, carry_n, batch)
+
+    return loss
+
+
 def offloaded_loss(spec: ChainSpec, cfg: OffloadConfig
                    ) -> Callable[[Any, Any], Any]:
-    """The loss with its chain segment rerouted through the executor;
-    differentiable with ``torch.autograd``."""
+    """The loss with its chain segment rerouted through the configured
+    engine; differentiable with ``torch.autograd``."""
+    if cfg.engine == "scan":
+        return _scan_loss(spec, cfg)
 
     def loss(params, batch):
         carry0, xs = spec.prelude(params, batch)
@@ -711,24 +893,49 @@ def _as_chain_spec(loss_fn) -> Optional[ChainSpec]:
     return getattr(loss_fn, "chain_spec", None)
 
 
+def _place(a, device):
+    return a.to(device) if isinstance(a, torch.Tensor) \
+        else torch.as_tensor(np.asarray(a), device=device)
+
+
 def _to_device(tree, device):
-    return pytree.tree_map(
-        lambda a: a.to(device) if isinstance(a, torch.Tensor)
-        else torch.as_tensor(np.asarray(a), device=device), tree)
+    return pytree.tree_map(lambda a: _place(a, device), tree)
 
 
-def _value_and_grad(loss, device):
+def _value_and_grad(loss, device, stream: bool = False):
+    """``(value, grads)`` of ``loss`` on ``device``.  With ``stream``
+    (``offload_params=``) the expert leaves of ``params``
+    (:func:`_expert_leaf_ids`) stay where the caller put them and take no
+    part in autograd: the run streams them, and their gradients come from
+    the reverse sweep's device-side buffer (``_LAST["streamed_grads"]``)."""
     def vg(params, batch):
-        params = _to_device(params, device)
-        batch = _to_device(batch, device)
         leaves, p_spec = pytree.tree_flatten(params)
-        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        streamed = set(_expert_leaf_ids(params)) if stream else set()
+        leaves = [(t if isinstance(t, torch.Tensor) else _place(t, device))
+                  .detach() if i in streamed
+                  else _place(t, device).detach().requires_grad_(True)
+                  for i, t in enumerate(leaves)]
+        batch = _to_device(batch, device)
+        diff = [t for i, t in enumerate(leaves) if i not in streamed]
+        _LAST["streamed_grads"] = {}
         with torch.enable_grad():
             value = loss(pytree.tree_unflatten(leaves, p_spec), batch)
-            grads = torch.autograd.grad(value, leaves, allow_unused=True)
-        grads = [torch.zeros_like(t) if g is None else g
-                 for t, g in zip(leaves, grads)]
-        return value.detach(), pytree.tree_unflatten(grads, p_spec)
+            grads = iter(torch.autograd.grad(value, diff, allow_unused=True))
+        got, _LAST["streamed_grads"] = _LAST["streamed_grads"], {}
+        out = []
+        for i, t in enumerate(leaves):
+            if i in streamed:
+                g = got.get(id(t))
+                if g is None:
+                    raise RuntimeError(
+                        "a streamed expert leaf did not reach the chain as "
+                        "it is (the prelude must hand it over unchanged)")
+            else:
+                g = next(grads)
+                if g is None:
+                    g = torch.zeros_like(t)
+            out.append(g)
+        return value.detach(), pytree.tree_unflatten(out, p_spec)
 
     return vg
 
@@ -787,11 +994,18 @@ def value_and_grad_offloaded(
     ``ChecksumError``.  ``strategy="revolve"`` (with ``slots`` Level-1
     slots) and ``strategy="conventional"`` run the paper's baselines over
     per-step operators; ``engine="interpreted"`` runs the multistage plan one
-    step per dispatch.  ``runner="fused"`` (the JAX package's
+    step per dispatch, and ``engine="scan"`` runs it inside one autograd
+    graph (one autograd function a segment, boundaries in page-locked host
+    memory; ``storage="ram"`` only).  ``runner="fused"`` (the JAX package's
     ``runner="pallas"``) runs the hand-written CUDA segment kernels on the
     card — the LSTM chain step only; other chains raise ``ValueError`` there
-    — and their plain PyTorch versions on the CPU.  ``mesh``,
-    ``step_memory_budget``, ``plan_2d`` and ``offload_params`` are the JAX
+    — and their plain PyTorch versions on the CPU.
+    ``offload_params="moe_experts"`` streams a MoE chain's expert weights
+    (``w_gate``/``w_up``/``w_down`` under a ``"moe"`` subtree) through
+    Level 2 one segment ahead of the compute: those leaves stay where the
+    caller put them (the host, for a saving on the card), their gradients
+    come back on the run's device (where the reverse sweep wrote them), and
+    gradients are bit for bit the unstreamed call's.  ``mesh``, ``step_memory_budget`` and ``plan_2d`` are the JAX
     package's knobs that are not ported yet: each raises
     ``NotImplementedError`` naming its ROADMAP item.
 
@@ -838,7 +1052,8 @@ def value_and_grad_offloaded(
                         plan_2d=tuple(plan_2d) if plan_2d is not None
                         else None,
                         offload_params=offload_params)
-    vg = _value_and_grad(offloaded_loss(spec, cfg), dev)
+    vg = _value_and_grad(offloaded_loss(spec, cfg), dev,
+                         stream=cfg.offload_params is not None)
     vg.chain_spec = spec
     vg.offload_config = cfg
     # keep the weak registry entries alive for as long as the transform is

@@ -1,5 +1,6 @@
 # Port of repro/core/compiled_ops.py: CompiledChainOps,
-# CompiledSegmentRunner and the fused runner (PallasSegmentRunner there).
+# CompiledSegmentRunner, ParamStreamSegmentRunner and the fused runner
+# (PallasSegmentRunner there).
 """Per-segment chain operators and the segment runners built on them.
 
 * :class:`CompiledChainOps` — the plain PyTorch segment ops:
@@ -10,12 +11,15 @@
   there).
 * :class:`CompiledSegmentRunner` — one call per segment (O(n/I) host
   dispatches); the counterpart of XLA's ``runner="compiled"``.
+* :class:`ParamStreamSegmentRunner` — the compiled runner whose streamed
+  ``xs`` leaves (a MoE chain's experts, ``offload_params=``) come from the
+  parameter lane of Level 2 (``executor.ParamStream``).
 * :class:`FusedSegmentRunner` — ``runner="fused"``, the JAX package's
   ``runner="pallas"``: the hand-written CUDA segment kernels of
   :mod:`repro_torch.kernels.segment_fused`, with the same counters.
 
-``ParamStreamSegmentRunner`` and the 2D planner's ``inner_chunked_body``
-come later (ROADMAP queue 1, items 12 and 11).
+The 2D planner's ``inner_chunked_body`` comes later (ROADMAP queue 1, item
+11).
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from repro_torch.core.storage import HostTree
 from repro_torch.kernels import segment_fused
 
 __all__ = ["CompiledChainOps", "CompiledSegmentRunner", "FusedSegmentRunner",
-           "chunk_length"]
+           "ParamStreamSegmentRunner", "chunk_length"]
 
 tree_map = pytree.tree_map
 
@@ -84,12 +88,13 @@ class CompiledSegmentRunner:
     """
 
     def __init__(self, ops: CompiledChainOps, params, xs, batch, *,
-                 s_l1: int):
+                 s_l1: int, n: Optional[int] = None):
         self.ops = ops
         self.params = params
         self.xs = xs
         self.batch = batch
         self.s_l1 = s_l1
+        self.n = chain_length(xs) if n is None else n
         self.dx_full: Optional[List[torch.Tensor]] = None
 
     def _slice(self, seg: SegmentSpec):
@@ -123,8 +128,7 @@ class CompiledSegmentRunner:
         """Write one segment's stacked input cotangents (from its reverse,
         or read back from a journal) into ``dx_full``."""
         if self.dx_full is None:
-            n = chain_length(self.xs)
-            self.dx_full = [d.new_zeros((n, *d.shape[1:])) for d in dxd]
+            self.dx_full = [d.new_zeros((self.n, *d.shape[1:])) for d in dxd]
         for full, d in zip(self.dx_full, dxd):
             full[begin:begin + d.shape[0]].copy_(d)
 
@@ -138,6 +142,35 @@ class CompiledSegmentRunner:
         """The full-chain input cotangents (one stacked tensor per inexact
         xs leaf, step axis leading)."""
         return self.dx_full or []
+
+
+class ParamStreamSegmentRunner(CompiledSegmentRunner):
+    """Compiled segment runner whose streamed ``xs`` leaves come from
+    Level 2.
+
+    ``stream`` is an :class:`~repro_torch.core.executor.ParamStream`;
+    ``xs`` holds 0-d placeholders at the streamed flat positions (the tree
+    keeps its structure) and ``n`` is the chain's length.  ``_slice``
+    assembles the streamed leaves' segment slices from the prefetched
+    blobs on the run's device and slices the resident leaves as usual, so
+    the tensors entering ``advance_segment``/``reverse_segment`` hold the
+    same values, shapes and layout as the unstreamed runner's: gradients
+    are bit for bit the same.  The streamed leaves' gradients land in
+    ``dx_full`` on the run's device, as every ``xs`` leaf's does.
+    """
+
+    def __init__(self, ops: CompiledChainOps, params, xs, batch, *,
+                 s_l1: int, stream, n: int):
+        super().__init__(ops, params, xs, batch, s_l1=s_l1, n=n)
+        self.stream = stream
+        self._leaves, self._spec = pytree.tree_flatten(xs)
+
+    def _slice(self, seg: SegmentSpec):
+        streamed = self.stream.leaf_ids
+        out = [self.stream.gather(i, seg) if i in streamed
+               else leaf[seg.begin:seg.end]
+               for i, leaf in enumerate(self._leaves)]
+        return pytree.tree_unflatten(out, self._spec)
 
 
 class FusedSegmentRunner(CompiledSegmentRunner):

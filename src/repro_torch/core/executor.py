@@ -1,8 +1,8 @@
 # Port of repro/core/executor.py: ExecutionStats, _L1Slots, _exec_revolve,
-# InterpretedSegmentRunner, MultistageRun and CheckpointExecutor's
-# conventional, Revolve and multistage strategies, with the journaled
-# forward/reverse sweeps and their resume (FINAL_STATE_KEY,
-# _journal_backend, _exact_get).
+# InterpretedSegmentRunner, ParamStream, MultistageRun and
+# CheckpointExecutor's conventional, Revolve and multistage strategies, with
+# the journaled forward/reverse sweeps and their resume (FINAL_STATE_KEY,
+# _journal_backend, _exact_get) and the parameter lane (param_stream=).
 """Checkpoint execution engine (the paper's §4) — the *execute* stage of the
 plan -> compile -> execute pipeline.
 
@@ -44,8 +44,9 @@ A plan-aware Level-2 backend (``TieredStorage``) gets the plan before the
 forward sweep (``set_plan``: Belady eviction) and sets the reverse's
 prefetch depth (``plan_prefetch_distance``).  Over a journaled backend
 (``JournaledStorage``) both sweeps are crash-consistent and resumable
-(``resume_from=``).  ``ParamStream`` (ROADMAP queue 1, item 12) is not
-ported yet.
+(``resume_from=``).  A :class:`ParamStream` (``param_stream=``) streams
+large per-step parameter blobs (a MoE chain's experts) through the same
+Level 2, one segment ahead of the compute in both sweeps.
 """
 from __future__ import annotations
 
@@ -54,6 +55,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import revolve as rv
@@ -63,7 +65,12 @@ from repro_torch.core.journal import RecoveredRun
 from repro_torch.core.revolve import Op
 from repro_torch.core.schedule import SegmentPlan, SegmentSpec
 from repro_torch.core.storage import (AsyncTransferEngine, RAMStorage,
-                                      _host_tensor, tree_bytes)
+                                      _frozen_views, _host_tensor,
+                                      page_locked_copy, tree_bytes)
+
+__all__ = ["CheckpointExecutor", "ExecutionStats", "FINAL_STATE_KEY",
+           "InterpretedSegmentRunner", "MultistageRun", "ParamStream",
+           "placed"]
 
 ForwardOp = Callable[[Any, int], Any]
 BackwardOp = Callable[[Any, Any, int], Any]
@@ -116,6 +123,12 @@ class ExecutionStats:
     l2_promotions: int = 0       # tiered backend: slow -> fast promotions
     l2_staged_peak_bytes: int = 0  # engine prefetch staging high-water mark
     prefetch_depth: int = 1      # segments of prefetch lead in the reverse
+    # -- parameter streaming lane (offload_params=, e.g. MoE experts) ------
+    param_prefetches: int = 0    # prefetch batches issued (per segment/phase)
+    param_fetch_stalls: int = 0  # param waits that actually blocked compute
+    param_bytes_moved: int = 0   # bytes fetched through the param lane
+    param_stall_s: float = 0.0   # time the sweeps waited for param blobs
+    param_populate_s: float = 0.0  # time writing the blobs to Level 2
     fused_segments: int = 0      # fused runner: segments run as fused kernels
     fused_boundary_copies: int = 0  # fused runner: boundary copies made by
     #                                 the kernels (host stream + spill)
@@ -250,6 +263,146 @@ class InterpretedSegmentRunner:
         return adjoint
 
 
+class ParamStream:
+    """Streams large per-step parameter blobs (MoE expert weights) through
+    Level 2 alongside boundary states: the paper's overlap discipline
+    applied to parameters (weight offload under the multistage schedule).
+
+    ``leaves_by_id`` maps a chain-input leaf id (its position among the
+    flattened ``xs`` leaves) to a tensor of shape ``(n, n_experts, ...)`` —
+    one blob per (step, expert) — wherever the caller keeps it.  Blobs live
+    in the engine's backend under
+    :func:`~repro_torch.core.schedule.expert_key` keys and share the
+    backend's capacity budget with boundary states through merged
+    :class:`~repro_torch.core.schedule.ResourceAccessPlan` orders.
+
+    Determinism contract (what makes the perfmodel's fast-tier peak
+    exact): :meth:`populate` writes every blob on the caller's thread in
+    :meth:`population_order`; after that the only fast-tier writer is the
+    engine's one FIFO store thread (boundary states), and every streamed
+    read goes through non-promoting ``peek``, so the backend's put
+    sequence, its Belady eviction trace and ``fast_peak_bytes`` are
+    replayable by ``perfmodel.fast_peak_bytes_resources``.
+
+    ``expert_counts`` (optional ``(n, n_experts)`` routing statistics from
+    ``models.moe.routing_stats``) orders experts busiest-first within each
+    step, so the lightest-loaded experts spill first under eviction.
+    """
+
+    lead = 1   # segments a segment's blobs are fetched ahead of its compute
+
+    def __init__(self, engine: AsyncTransferEngine,
+                 leaves_by_id: Dict[int, Any], n_experts: int,
+                 expert_counts: Any = None):
+        self.engine = engine
+        self.leaves_by_id = dict(leaves_by_id)
+        if not self.leaves_by_id:
+            raise ValueError("ParamStream needs at least one streamed leaf")
+        self.leaf_ids = tuple(sorted(int(k) for k in self.leaves_by_id))
+        self.n_experts = int(n_experts)
+        self.expert_counts = None if expert_counts is None \
+            else np.asarray(expert_counts)
+        self.plan: Optional[SegmentPlan] = None
+        self.state_bytes = 0   # boundary-state size, recorded by the forward
+        self.blob_bytes = {li: tree_bytes(arr[0, 0])
+                           for li, arr in self.leaves_by_id.items()}
+        self.step_param_bytes = sum(
+            tree_bytes(arr[0]) for arr in self.leaves_by_id.values())
+
+    # -- plan production ------------------------------------------------------
+    def bind(self, plan: SegmentPlan) -> None:
+        self.plan = plan
+
+    def access_plan(self, phase: str) -> "ms.ResourceAccessPlan":
+        """This stream's slice of the resource access IR for one phase."""
+        assert self.plan is not None, "bind(plan) first"
+        return ms.expert_access_plan(self.plan, self.leaf_ids, self.n_experts,
+                                     self.expert_counts, phase=phase,
+                                     blob_bytes=self.blob_bytes)
+
+    def _expert_order(self, step: int) -> list:
+        order = list(range(self.n_experts))
+        if self.expert_counts is not None:
+            row = self.expert_counts[step]
+            order.sort(key=lambda e: (-int(row[e]), e))
+        return order
+
+    def segment_keys(self, seg: SegmentSpec, phase: str = "reverse") -> list:
+        """One segment's blob keys in the phase's consumption order (steps
+        reversed for the reverse phase; experts busiest-first within a
+        step — the order of :func:`expert_access_plan`)."""
+        steps = range(seg.begin, seg.end)
+        if phase == "reverse":
+            steps = reversed(list(steps))
+        out = []
+        for k in steps:
+            for e in self._expert_order(k):
+                for li in self.leaf_ids:
+                    out.append(ms.expert_key(li, k, e))
+        return out
+
+    def population_order(self) -> tuple:
+        """Canonical Level-2 write order of :meth:`populate` (each unique
+        key once, soonest forward use first), the order
+        ``fast_peak_bytes_resources`` replays."""
+        return self.access_plan("forward").keys()
+
+    # -- Level-2 verbs --------------------------------------------------------
+    def populate(self) -> None:
+        """Write every blob to Level 2 on the caller's thread, in the
+        canonical order, so the sweeps stream them back instead of holding
+        the whole stack.  The backend keeps its own host copy; for a run on
+        the card that copy is page-locked (``page_locked_copy``), so the
+        lane uploads it without staging it again."""
+        backend = self.engine.backend
+        device = getattr(self.engine, "device", None)
+        pin = device is not None and device.type == "cuda"
+        for key in self.population_order():
+            _, li, step, e = key
+            blob = self.leaves_by_id[li][step, e]
+            if pin:
+                blob = _frozen_views(page_locked_copy(blob))
+            backend.put(key, blob)
+
+    def prefetch_segment(self, seg: SegmentSpec,
+                         phase: str = "reverse") -> None:
+        self.engine.prefetch_params_async(self.segment_keys(seg, phase))
+
+    def gather(self, leaf_id: int, seg: SegmentSpec):
+        """One leaf's ``(seg_len, n_experts, ...)`` slice assembled from
+        the streamed blobs (consuming the staged prefetches), on the
+        engine's device."""
+        wait = self.engine.wait_param
+        rows = []
+        for step in range(seg.begin, seg.end):
+            rows.append(torch.stack([
+                _as_tensor(wait(ms.expert_key(leaf_id, step, e)))
+                for e in range(self.n_experts)]))
+        return torch.stack(rows)
+
+    def delete_segment(self, seg: SegmentSpec) -> None:
+        """Retire a reversed segment's blobs (their last use is done)."""
+        for key in self.segment_keys(seg, phase="reverse"):
+            self.engine.delete(key)
+
+    def purge(self) -> None:
+        """Best-effort removal of every streamed blob (run teardown)."""
+        if self.plan is None:
+            return
+        for key in self.population_order():
+            try:
+                self.engine.delete(key)
+            except Exception:
+                pass
+
+
+def _as_tensor(a: Any):
+    """A blob from the parameter lane as a tensor (an engine without a
+    device hands back the backend's host arrays)."""
+    return a if isinstance(a, torch.Tensor) else _host_tensor(a)
+
+
+
 @dataclass
 class MultistageRun:
     """In-flight state of a split forward/reverse multistage execution.
@@ -273,6 +426,7 @@ class MultistageRun:
     own_engine: bool = True
     closed: bool = False
     resume: Optional[RecoveredRun] = None   # set when this run is a resume
+    param_stream: Optional[ParamStream] = None  # streamed-resource lane
 
     def close(self) -> None:
         """Release this run's Level-2 state (idempotent).
@@ -282,9 +436,9 @@ class MultistageRun:
         crash recovery state, and purging them on an error path would
         destroy exactly what ``resume_from=`` needs; a journaled run's keys
         are retired by the reverse sweep's ordered deletes (or superseded
-        by the next ``begin_run``).  The engine and the backend are closed
-        only when this run owns the engine.  ``engine.close()`` re-raises
-        pending transfer errors."""
+        by the next ``begin_run``).  A parameter stream's blobs are purged.
+        The engine and the backend are closed only when this run owns the
+        engine.  ``engine.close()`` re-raises pending transfer errors."""
         if self.closed:
             return
         self.closed = True
@@ -296,6 +450,8 @@ class MultistageRun:
                         self.engine.delete(seg.begin)
                     except Exception:
                         pass
+            if self.param_stream is not None:
+                self.param_stream.purge()
         finally:
             if self.own_engine:
                 try:
@@ -374,6 +530,7 @@ class CheckpointExecutor:
                            engine: "AsyncTransferEngine | None" = None,
                            resume_from: Optional[RecoveredRun] = None,
                            run_meta: Optional[Dict[str, Any]] = None,
+                           param_stream: Optional[ParamStream] = None,
                            ) -> "tuple[Any, MultistageRun]":
         """Phase 1: advance the chain to ``x_n`` while the engine
         asynchronously streams every ``interval``-th state to Level 2.
@@ -396,7 +553,10 @@ class CheckpointExecutor:
         cursor's adjoint).  Host state read back from the journal is placed
         where ``state0`` lives before anything reads it.
         ``run_meta`` rides the journal's BEGIN record (the front-end's
-        input fingerprint)."""
+        input fingerprint).  ``param_stream`` (a :class:`ParamStream`)
+        writes its blobs to Level 2 first and fetches each segment's
+        ``lead`` segments ahead of its compute; the run's runner reads
+        them (``ParamStreamSegmentRunner``)."""
         own_engine = engine is None
         if engine is None:
             # prefetched boundaries come back where the chain runs
@@ -408,13 +568,37 @@ class CheckpointExecutor:
         jb = _journal_backend(engine)
         run = MultistageRun(n=n, interval=interval, s_l1=s_l1, engine=engine,
                             stats=stats, slots=slots, plan=plan,
-                            runner=runner, own_engine=own_engine)
+                            runner=runner, own_engine=own_engine,
+                            param_stream=param_stream)
         fwd_runner = runner if runner is not None else \
             InterpretedSegmentRunner(self.forward_op, self.backward_op)
         # a capacity-bounded backend evicts by the plan's reverse access
-        # order: the victim is the boundary needed farthest ahead (Belady)
+        # order: the victim is the boundary needed farthest ahead (Belady).
+        # With a parameter stream the order is the merged resource IR:
+        # expert blobs rank by their forward use, boundary states (read
+        # back only in the reverse) after all of them.
         set_plan = getattr(engine.backend, "set_plan", None)
-        if set_plan is not None:
+        if param_stream is not None:
+            try:
+                param_stream.bind(plan)
+                param_stream.state_bytes = tree_bytes(state0)
+                if set_plan is not None:
+                    set_plan(ms.merge_access_plans(
+                        param_stream.access_plan("forward"),
+                        plan.resource_access_plan(param_stream.state_bytes)
+                            .shift(len(plan.segments))))
+                # boundary prefetches must not reorder the fast tier either
+                engine.prefetch_via_peek = True
+                t_pop = time.perf_counter()
+                param_stream.populate()
+                stats.param_populate_s = time.perf_counter() - t_pop
+            except BaseException:
+                try:
+                    run.close()
+                except Exception:
+                    pass
+                raise
+        elif set_plan is not None:
             set_plan(plan)
         cursor0 = None
         if resume_from is not None:
@@ -497,7 +681,20 @@ class CheckpointExecutor:
             aws = getattr(fwd_runner, "advance_with_store", None)
             # every carry of the chain has the carry's structure and shapes
             state_bytes = tree_bytes(current)
+            if param_stream is not None:
+                # warm the lane: the first `lead` segments' blobs start
+                # moving before any compute does
+                for pseg in plan.segments[start_idx:start_idx
+                                          + param_stream.lead]:
+                    param_stream.prefetch_segment(pseg, phase="forward")
             for seg in plan.segments[start_idx:]:
+                if param_stream is not None:
+                    # rolling lead: segment k+lead's blobs behind segment
+                    # k's compute
+                    nxt = seg.sid + param_stream.lead
+                    if nxt < len(plan.segments):
+                        param_stream.prefetch_segment(plan.segments[nxt],
+                                                      phase="forward")
                 if seg.begin in durable:
                     current = fwd_runner.advance(current, seg, stats)
                 elif aws is not None:
@@ -553,9 +750,19 @@ class CheckpointExecutor:
         jb = _journal_backend(engine)
         rec = resume_from if resume_from is not None else run.resume
         t0 = time.perf_counter()
+        ps = run.param_stream
         try:
             adjoint = adjoint0
             engine.wait_stores()
+            if ps is not None:
+                # the forward's stores have all landed: boundary states and
+                # expert blobs interleave by reverse segment rank under one
+                # Belady order
+                set_plan = getattr(engine.backend, "set_plan", None)
+                if set_plan is not None:
+                    set_plan(ms.merge_access_plans(
+                        run.plan.resource_access_plan(ps.state_bytes),
+                        ps.access_plan("reverse")))
             j_start = len(segs) - 1
             cursor = rec.cursor if rec is not None else None
             if cursor is not None and cursor.phase == "reverse":
@@ -582,15 +789,22 @@ class CheckpointExecutor:
             stats.prefetch_depth = depth
             for idx in range(j_start, max(j_start - depth, -1), -1):
                 engine.prefetch_async(segs[idx].begin)
+            if ps is not None:
+                for idx in range(j_start, max(j_start - ps.lead, -1), -1):
+                    ps.prefetch_segment(segs[idx], phase="reverse")
             for j in range(j_start, -1, -1):
                 seg = segs[j]
                 if j - depth >= 0:
                     engine.prefetch_async(segs[j - depth].begin)
+                if ps is not None and j - ps.lead >= 0:
+                    ps.prefetch_segment(segs[j - ps.lead], phase="reverse")
                 x_b = engine.wait_prefetch(seg.begin)
                 if j == j_start:   # a boundary has the carry's structure
                     state_bytes = tree_bytes(x_b)
                 slots.note_extra(state_bytes)
                 adjoint = runner.reverse(x_b, adjoint, seg, slots, stats)
+                if ps is not None:
+                    ps.delete_segment(seg)   # last use of these blobs
                 if jb is not None:
                     artifact = artifact_fn(seg) if artifact_fn is not None \
                         else None
@@ -622,6 +836,10 @@ class CheckpointExecutor:
             stats.l2_staged_peak_bytes = engine.staged_peak_bytes
             stats.store_stall_s = engine.store_stall_s
             stats.prefetch_stall_s = engine.prefetch_stall_s
+            stats.param_prefetches = engine.num_param_prefetches
+            stats.param_fetch_stalls = engine.param_fetch_stalls
+            stats.param_bytes_moved = engine.param_bytes_moved
+            stats.param_stall_s = engine.param_stall_s
         except BaseException:
             try:
                 run.close()

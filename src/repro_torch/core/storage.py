@@ -1,7 +1,8 @@
 # Port of repro/core/storage.py: tree_bytes, _freeze, _freeze_in_place,
 # RAMStorage, DiskStorage, CompressedStorage, TieredStorage,
 # NamespacedStorage, JournaledStorage, register_backend/make_backend and
-# AsyncTransferEngine (with its fault hooks and cursor_async).
+# AsyncTransferEngine (with its fault hooks, cursor_async and the parameter
+# lane: prefetch_params_async, wait_param).
 """Level-2 storage with asynchronous store / prefetch threads.
 
 Background threads move state pytrees between the compute level (Level 1:
@@ -56,8 +57,13 @@ thread:
 ``delete`` invalidates any staged prefetch of the key, and staged-prefetch
 bytes are counted (``staged_bytes`` / ``staged_peak_bytes``).  The engine's
 fault hooks (:mod:`repro_torch.core.faults`) cost one ``is not None`` test
-when no fault plan is installed.  The sharded backends and the parameter
-lane come later (ROADMAP queue 1, items 15 and 12).
+when no fault plan is installed.
+
+The engine's *parameter lane* (``prefetch_params_async`` / ``wait_param``)
+moves streamed parameter blobs (a MoE chain's expert weights,
+``executor.ParamStream``) the same way, one segment's batch a job on the
+prefetch thread, read through a tiered store's non-promoting ``peek``.
+The sharded backends come later (ROADMAP queue 1, item 15).
 """
 from __future__ import annotations
 
@@ -233,6 +239,36 @@ def _host_tensor(a: Any, pin: bool = False) -> torch.Tensor:
         t.numpy()[...] = a
         return t
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def page_locked_copy(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t`` in page-locked memory of exactly its size that
+    owns its storage (Level 2 keeps it without a copy, and an upload from it
+    is asynchronous): a pageable buffer registered with the CUDA driver
+    (``cudaHostRegister``) and unregistered when the last reference to it
+    goes.  The caching page-locked allocator would round each buffer up to
+    a power of two.
+
+    The memory is a numpy array's, and the registration ends with that
+    array, which the tensor's storage (and every view or numpy array of it)
+    keeps alive: a torch tensor's Python object may be dropped and made
+    anew while its storage lives on."""
+    bits = _BITS.get(t.dtype)
+    arr = np.empty(tuple(t.shape),
+                   torch.empty(0, dtype=bits or t.dtype).numpy().dtype)
+    h = torch.from_numpy(arr)
+    if bits:
+        h = h.view(t.dtype)
+    h.copy_(t)
+    ptr, nbytes = arr.ctypes.data, arr.nbytes
+    if nbytes:
+        cudart = torch.cuda.cudart()
+        err = cudart.cudaHostRegister(ptr, nbytes, 0)
+        if int(err) != 0:
+            raise RuntimeError(f"cudaHostRegister of {nbytes} B failed "
+                               f"({err})")
+        weakref.finalize(arr, cudart.cudaHostUnregister, ptr)
+    return h
 
 
 class PinnedSlotPool:
@@ -1588,6 +1624,15 @@ class AsyncTransferEngine:
       prefetches in the order they were issued; each result lands in a
       staging dict under the key's event, which ``wait_prefetch`` joins on,
       and an error is raised at the caller's next wait.
+    * The parameter lane rides the same thread: ``prefetch_params_async``
+      queues one job for a batch of blob keys (one segment's), each staged
+      under its own event, and ``wait_param`` consumes them; the counters
+      are ``num_param_prefetches`` (batches issued),
+      ``param_fetch_stalls`` (waits that blocked, or demand reads) and
+      ``param_bytes_moved``.  With ``prefetch_via_peek`` every read, the
+      boundaries' too, goes through the backend's non-promoting ``peek``
+      where it has one, so streamed reads cannot reorder a tiered store's
+      fast tier.
 
     ``device`` (optional) is where prefetched states are wanted: with a
     device, ``wait_prefetch`` returns tensors there; without one it returns
@@ -1636,6 +1681,15 @@ class AsyncTransferEngine:
         self._prefetch_q: "queue.SimpleQueue" = queue.SimpleQueue()
         self._prefetcher: Optional[threading.Thread] = None
         self._fence = None   # the compute stream at the last wait (CUDA)
+        # the parameter lane
+        self._param_staged: Dict[Any, Any] = {}
+        self._param_events: Dict[Any, threading.Event] = {}
+        self.num_param_prefetches = 0   # prefetch batches issued
+        self.param_fetch_stalls = 0     # wait_param calls that had to wait
+        self.param_bytes_moved = 0      # bytes fetched through the lane
+        self.param_stall_s = 0.0
+        # read via a tiered store's non-promoting peek (parameter streaming)
+        self.prefetch_via_peek = False
 
     # -- store path -----------------------------------------------------------
     def _writer_loop(self) -> None:
@@ -1842,16 +1896,23 @@ class AsyncTransferEngine:
         self._raise_pending()
 
     # -- prefetch path --------------------------------------------------------
-    def _fetch(self, key: Any, hook: bool = True) -> Any:
-        """Read ``key`` from the backend and, with a device, place it there.
-        Every engine-level fetch funnels through here: the fault-injection
-        hook (unless ``hook`` is False: a prefetch calls it when issued),
-        and a bare ``KeyError`` from a key whose store is stuck behind a
-        dead writer thread is re-raised as a :class:`WriterCrashError`."""
+    def _fetch(self, key: Any, hook: bool = True,
+               peek: Optional[bool] = None) -> Any:
+        """Read ``key`` from the backend (through its non-promoting
+        ``peek`` where it has one, when ``peek`` — by default
+        ``prefetch_via_peek`` — is set) and, with a device, place it there.
+        Every
+        engine-level fetch funnels through here: the fault-injection hook
+        (unless ``hook`` is False: a prefetch calls it when issued), and a
+        bare ``KeyError`` from a key whose store is stuck behind a dead
+        writer thread is re-raised as a :class:`WriterCrashError`."""
         if hook and self.faults is not None:
             self.faults.on_get(key)   # may raise InjectedFault
+        read = self.backend.get
+        if self.prefetch_via_peek if peek is None else peek:
+            read = getattr(self.backend, "peek", None) or read
         try:
-            val = self.backend.get(key)
+            val = read(key)
         except StorageFault:
             raise
         except Exception as e:
@@ -1903,7 +1964,11 @@ class AsyncTransferEngine:
             item = self._prefetch_q.get()
             if item is None:
                 return
-            key, ev = item
+            if item[0] == "params":
+                todo, item = item[1], None
+                self._fetch_params(todo)
+                continue
+            _, key, ev = item
             item = None
             try:
                 # upload only once the compute stream has run what it had
@@ -1939,11 +2004,14 @@ class AsyncTransferEngine:
             except Exception as e:
                 self._publish(key, ev, error=e)
                 return
+        self._enqueue(("state", key, ev))
+
+    def _enqueue(self, job) -> None:
         if self._prefetcher is None:
             self._prefetcher = threading.Thread(target=self._prefetch_loop,
                                                 daemon=True)
             self._prefetcher.start()
-        self._prefetch_q.put((key, ev))
+        self._prefetch_q.put(job)
 
     def _adopt(self, val: Any) -> Any:
         """Hand prefetched CUDA tensors to the compute stream (their memory
@@ -1990,12 +2058,114 @@ class AsyncTransferEngine:
             self._raise_pending()
         return self._adopt(val)
 
+    # -- parameter lane -------------------------------------------------------
+    def _fetch_params(self, todo) -> None:
+        """The prefetch thread's half of :meth:`prefetch_params_async`: each
+        blob of the batch in order, staged under its own event (published
+        only while that event is still the key's).  The batch waits once,
+        before its first upload, for the compute stream to pass the caller's
+        last wait (as a boundary prefetch does): the blobs of at most the
+        segments in flight hold device memory, and the uploads within a
+        batch run back to back."""
+        fence = self._fence
+        if fence is not None:
+            fence.synchronize()
+        for k, ev in todo:
+            try:
+                val = self._fetch(k, hook=False, peek=True)
+            except Exception as e:
+                with self._lock:
+                    if self._param_events.get(k) is ev:
+                        self._errors.append(e)
+            else:
+                with self._lock:
+                    if self._param_events.get(k) is ev:
+                        self._param_staged[k] = val
+                        self.param_bytes_moved += tree_bytes(val)
+            finally:
+                ev.set()
+            val = None
+
+    def prefetch_params_async(self, keys: Iterable[Any]) -> None:
+        """Fetch a batch of parameter blobs (one segment's streamed
+        weights) behind the current segment's compute: one job on the
+        prefetch thread reads them in order, staging each under its own
+        key, so a ``wait_param`` for the first can return while later ones
+        are still in flight.  Keys already staged or in flight are skipped;
+        the fault hook runs here for each key, as a prefetch's does."""
+        with self._lock:
+            todo = []
+            for k in keys:
+                if k in self._param_staged or k in self._param_events:
+                    continue
+                ev = threading.Event()
+                self._param_events[k] = ev
+                todo.append((k, ev))
+            if todo:
+                self.num_param_prefetches += 1
+        if not todo:
+            return
+        if self.faults is not None:
+            for k, ev in todo:
+                try:
+                    self.faults.on_get(k)
+                except Exception as e:
+                    with self._lock:
+                        if self._param_events.get(k) is ev:
+                            self._errors.append(e)
+                    ev.set()
+            todo = [(k, ev) for k, ev in todo if not ev.is_set()]
+        self._enqueue(("params", todo))
+
+    def wait_param(self, key: Any) -> Any:
+        """Consume one staged parameter blob (on the engine's device).  A
+        blob still in flight is waited for; one never prefetched (or
+        invalidated by a delete) is read on demand — both count in
+        ``param_fetch_stalls``."""
+        _MISSING = object()
+        with self._lock:
+            ev = self._param_events.get(key)
+            val = self._param_staged.pop(key, _MISSING)
+            if val is not _MISSING:
+                self._param_events.pop(key, None)
+        if val is not _MISSING:
+            return self._adopt(val)
+        if ev is not None:
+            stalled = not ev.is_set()
+            t0 = time.perf_counter()
+            ev.wait()
+            self.param_stall_s += time.perf_counter() - t0
+            self._raise_pending()
+            with self._lock:
+                if stalled:
+                    self.param_fetch_stalls += 1
+                if self._param_events.get(key) is ev:
+                    self._param_events.pop(key)
+                val = self._param_staged.pop(key, _MISSING)
+            if val is not _MISSING:
+                return self._adopt(val)
+        else:
+            # never prefetched: a demand read, a full stall
+            self._raise_pending()
+            with self._lock:
+                self.param_fetch_stalls += 1
+        # never prefetched, or invalidated between its event and this wait
+        t0 = time.perf_counter()
+        val = self._fetch(key, peek=True)
+        self.param_stall_s += time.perf_counter() - t0
+        with self._lock:
+            self.param_bytes_moved += tree_bytes(val)
+        self._raise_pending()
+        return self._adopt(val)
+
     def _invalidate(self, key: Any) -> None:
         with self._lock:
             self._prefetch_events.pop(key, None)   # detaches in-flight jobs
             dropped = self._prefetched.pop(key, None)
             if dropped is not None:
                 self.staged_bytes -= tree_bytes(dropped)
+            self._param_events.pop(key, None)
+            self._param_staged.pop(key, None)
 
     def delete(self, key: Any) -> None:
         """Drop ``key`` from Level 2 *and* invalidate any staged or
@@ -2016,7 +2186,8 @@ class AsyncTransferEngine:
         self._store_q.put(("stop",))   # wake the writer immediately
         self._writer.join(timeout=2.0)
         with self._lock:
-            events = list(self._prefetch_events.values())
+            events = list(self._prefetch_events.values()) + \
+                list(self._param_events.values())
         for ev in events:
             ev.wait(timeout=2.0)
         if self._prefetcher is not None:
@@ -2025,5 +2196,7 @@ class AsyncTransferEngine:
         with self._lock:
             self._prefetched.clear()
             self._prefetch_events.clear()
+            self._param_staged.clear()
+            self._param_events.clear()
             self.staged_bytes = 0
         self._raise_pending()

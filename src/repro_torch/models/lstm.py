@@ -13,8 +13,8 @@ Parameters are a plain dict with the JAX package's keys and layouts
 (:func:`make_operators`) and the chain body run the cell through the
 ``lstm_cell`` kernel (its plain version on CPU tensors);
 :func:`forward_loss`, the reference the offloaded paths are held to, keeps
-the plain cell.  ``bptt_loss_and_grad`` needs the scan engine (ROADMAP
-queue 1, item 13).
+the plain cell.  :func:`bptt_loss_and_grad` runs the chain through the
+scan engine (:func:`~repro_torch.core.multistage_scan.multistage_scan`).
 """
 from __future__ import annotations
 
@@ -140,6 +140,42 @@ def make_operators(params: Params, tokens: torch.Tensor):
         return ((h0, c0, torch.ones_like(acc0)), zero_g)
 
     return fwd, bwd, adjoint_seed, T
+
+
+# ---------------------------------------------------------------------------
+# Scan-engine path (multistage_scan)
+# ---------------------------------------------------------------------------
+
+
+def bptt_loss_and_grad(params: Params, tokens: torch.Tensor, *,
+                       interval: int, offload: bool = True,
+                       nested_intervals=()):
+    """Loss and gradient over the full sequence through the scan engine:
+    ``(loss, grads)`` of :func:`forward_loss`, the cell through the
+    ``lstm_cell`` kernel (its plain version on CPU tensors)."""
+    from repro_torch.core.multistage_scan import multistage_scan
+
+    B = tokens.shape[0]
+    h0, c0, _ = init_state(B, params["w"].shape[1] // 4, params["w"].dtype,
+                           device=tokens.device)
+    xs = (tokens[:, :-1].T, tokens[:, 1:].T)   # (T, B) each
+    names = list(params)
+    leaves = [params[k].detach().requires_grad_(True) for k in names]
+
+    def body(p, carry, x):
+        h, c = carry
+        tok, tgt = x
+        h, c, nll = step_loss(p, h, c, tok, tgt, cell=kernel_cell)
+        return (h, c), nll
+
+    with torch.enable_grad():
+        p = dict(zip(names, leaves))
+        _, nlls = multistage_scan(body, (h0, c0), xs, params=p,
+                                  interval=interval, offload=offload,
+                                  nested_intervals=nested_intervals)
+        loss = nlls.sum()
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), dict(zip(names, grads))
 
 
 # ---------------------------------------------------------------------------

@@ -132,18 +132,35 @@ def test_offload_config_raises_the_same_value_errors(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    # the ids the cases had while journal_dir= was a left-out knob too
-    pytest.param({"engine": "scan"}, "item 13", id="kw0-item 13"),
+    # the ids the cases had while journal_dir=, engine="scan" and
+    # offload_params= were left-out knobs too
     pytest.param({"mesh": "MESH"}, "item 15", id="kw2-item 15"),
     pytest.param({"step_memory_budget": 1 << 20}, "item 11",
                  id="kw3-item 11"),
     pytest.param({"plan_2d": (2, 1)}, "item 11", id="kw4-item 11"),
-    pytest.param({"offload_params": "moe_experts"}, "item 12",
-                 id="kw5-item 12"),
 ])
 def test_left_out_knobs_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         fe.OffloadConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"engine": "scan"},
+    {"engine": "scan", "interval": 8, "slots": 2, "autotune": False},
+    {"offload_params": "moe_experts"},
+    {"offload_params": "moe_experts", "storage": "tiered",
+     "l2_capacity_bytes": 1 << 20},
+])
+def test_scan_and_stream_knobs_are_accepted(kw):
+    """``engine="scan"`` and ``offload_params=`` (left-out knobs until the
+    scan engine and parameter streaming were ported) build a config as in
+    the JAX package."""
+    from repro.api.frontend import OffloadConfig as JConfig
+
+    cfg = fe.OffloadConfig(**kw)
+    j_cfg = JConfig(**kw)
+    for k in kw:
+        assert getattr(cfg, k) == getattr(j_cfg, k)
 
 
 @pytest.mark.parametrize("kw", [

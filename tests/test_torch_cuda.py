@@ -34,7 +34,11 @@ counters equal to the CPU run's.  The
 decoder chains on the card (dense, SSM, MoE and hybrid): the offloaded
 gradient against dense autograd on the card, loss 1e-5 relative and each
 leaf 1e-4 of its max |g|, each kernel launched once a layer that runs it
-for every chain step advanced.
+for every chain step advanced.  The scan engine (``engine="scan"``) on
+the card matches the CPU with its boundaries in page-locked memory and a
+device peak flat in the chain's length, and a streamed MoE call
+(``offload_params="moe_experts"``, experts on the host) is bit for bit the
+unstreamed one.
 """
 import os
 
@@ -893,3 +897,115 @@ def test_captured_fused_resume_on_card(deterministic, tmp_path):
         assert torch.equal(r_grads[k], g) and torch.equal(
             g, uncaptured[1][k]), k
     assert 0 < api.last_stats().replayed_advances <= 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interval", [4, 7])
+def test_scan_engine_on_card_matches_cpu(cuda_device, interval):
+    """``engine="scan"`` on ``lstm-paper``-shaped SMOKE weights: the card's
+    gradient against the CPU's (loss 1e-5, leaves 1e-4 of their scale), the
+    same plan, one boundary a segment, every one of them page-locked on the
+    card, and ``lstm_cell`` launched once a step run (forward and the
+    segments' recompute, twice where a segment recomputes in inner chunks).
+    """
+    T = 29
+    ref = init_lstm_numpy(3, V, DX, DH)
+    tok = np.random.default_rng(3).integers(0, V, (B, T + 1)).astype(
+        np.int32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        lc.lstm_cell.launches = 0
+        vg = api.value_and_grad_offloaded(
+            lstm.train_chain(), engine="scan", interval=interval, slots=4,
+            device=device)
+        v, g = vg(params_from_numpy(ref, device=device),
+                  {"tokens": torch.as_tensor(tok, device=device)})
+        rec, plan = api.last_scan(), api.last_plan()
+        assert api.last_stats() is None
+        assert rec.boundaries_offloaded == plan.num_segments
+        out[device] = (v.cpu(), {k: t.cpu() for k, t in g.items()},
+                       plan.plan_id, rec, lc.lstm_cell.launches, plan)
+    v_cpu, g_cpu, pid_cpu, _, _, plan = out["cpu"]
+    v_card, g_card, pid_card, rec, launches, _ = out["cuda"]
+    assert pid_card == pid_cpu
+    assert rec.pinned_boundaries == plan.num_segments
+    recompute = sum(s.length * (2 if plan.inner_chunk(s) else 1)
+                    for s in plan.segments)
+    assert launches == T + recompute
+    torch.testing.assert_close(v_card, v_cpu, rtol=1e-5, atol=0)
+    for k, want in g_cpu.items():
+        torch.testing.assert_close(g_card[k], want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_scan_boundaries_are_page_locked_and_flat(cuda_device):
+    """The scan engine's Level-2 boundaries on the card: one page-locked
+    slot a segment (the pool's slots, reused by the next call), each copied
+    back once; the device memory a call holds at its peak does not grow
+    with the chain."""
+    from repro_torch.core import multistage_scan as ms
+    from repro_torch.core import offload as ofl
+
+    torch.manual_seed(0)
+    W = (torch.randn(64, 64, device="cuda") * 0.1).requires_grad_(True)
+
+    def body(p, c, x):
+        c = torch.tanh(c @ p + x)
+        return c, (c ** 2).sum()
+
+    peaks = {}
+    for n in (256, 512):
+        xs = torch.randn(n, 32, 64, device="cuda") * 0.1
+        c0 = torch.zeros(32, 64, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, ls = ms.multistage_scan(body, c0, xs, params=W, interval=16)
+        (g,) = torch.autograd.grad(ls.sum(), [W])
+        torch.cuda.synchronize()
+        peaks[n] = torch.cuda.max_memory_allocated() - base   # xs in base
+        rec = ofl.last_record()
+        assert rec.boundaries_offloaded == rec.pinned_boundaries == n // 16
+        assert rec.h2d_bytes == rec.d2h_bytes == n // 16 * 32 * 64 * 4
+        assert bool(g.isfinite().all())
+    # 16 more segments: at most a few kB of bookkeeping, no activations
+    assert peaks[512] - peaks[256] < 64 * 1024, peaks
+
+
+@pytest.mark.cuda
+def test_streamed_moe_on_card_equals_unstreamed(cuda_device):
+    """``offload_params="moe_experts"`` on phi3.5-moe SMOKE at 4 layers, the
+    expert weights on the host: the loss and every gradient leaf bit for
+    bit the unstreamed call's on the card (the experts on the card), the
+    host leaves left where they were, their gradients on the card, each
+    expert blob read once a phase."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.api.frontend import _expert_leaf_ids
+
+    cfg = get_config("phi3.5-moe-42b", smoke=True).replace(n_layers=4)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    batch = make_batch(cfg, ShapeSpec("t", 2064, 1, "train"), 0)
+    v, g = api.value_and_grad_offloaded(model.train_loss, interval=2,
+                                        device="cuda")(params, batch)
+    leaves, spec = pytree.tree_flatten(params)
+    ids = set(_expert_leaf_ids(params))
+    host = pytree.tree_unflatten(
+        [t.cpu() if i in ids else t for i, t in enumerate(leaves)], spec)
+    fa.flash_attention.launches = 0
+    vs, gs = api.value_and_grad_offloaded(
+        model.train_loss, interval=2, offload_params="moe_experts",
+        device="cuda")(host, batch)
+    stats = api.last_stats()
+    assert torch.equal(vs, v)
+    for a, b in zip(pytree.tree_leaves(gs), pytree.tree_leaves(g)):
+        assert torch.equal(a, b)
+    host_leaves = pytree.tree_leaves(host)
+    assert all(not host_leaves[i].is_cuda for i in ids)
+    assert all(pytree.tree_leaves(gs)[i].is_cuda for i in ids)
+    expert_bytes = sum(host_leaves[i].numel() * 4 for i in ids)
+    assert stats.param_bytes_moved == 2 * expert_bytes
+    assert stats.param_prefetches == 2 * api.last_plan().num_segments
+    assert fa.flash_attention.launches == stats.advances > 0

@@ -20,6 +20,7 @@ run is bit-identical to an unjournaled one, and a reverse crash resumes
 exactly even when the journal writer lags the sweep (the cursor's adjoint
 is snapshotted when it is enqueued: the sweep adds into it in place).
 """
+import contextlib
 import os
 import tempfile
 import threading
@@ -136,6 +137,101 @@ def _recovered(make, jd):
             else (cur.phase, cur.segment_index))
 
 
+def _record_gets(inj):
+    """The keys the port's injector ``inj`` sees fetched, in the order the
+    fetches are issued (its get hook runs on the caller's thread, where a
+    prefetch is issued)."""
+    seen = []
+    count = inj.on_get
+
+    def on_get(key):
+        seen.append(key)
+        count(key)
+
+    inj.on_get = on_get
+    return seen
+
+
+@contextlib.contextmanager
+def _j_inject(plan, port_gets):
+    """``plan`` in the JAX package, its fetch failure at the key of the
+    port's ``fail_get_at``-th fetch (``port_gets``, from
+    :func:`_record_gets`) and raised where the port raises it.
+
+    The JAX package runs each prefetch on a thread of its own, whose fault
+    hook counts the fetch and whose error the caller raises at its next
+    wait.  Both depend on the threads' timing, and the journal a crash
+    leaves follows them:
+
+    * two prefetches are in flight at the start of the reverse sweep, and
+      the later one can reach the count first, so ``fail_get_at`` may name
+      another key;
+    * a failed prefetch of segment ``j - 1``'s boundary, issued just before
+      the wait for segment ``j``'s, is raised at that wait when its thread
+      has run by then, and else at the next one, after segment ``j`` has
+      been reversed and its cursor journaled.
+
+    The plan fixes the order fetches are issued in, the same in both
+    packages, and the port counts and raises in it (its hook runs where a
+    prefetch is issued, and a failure is raised at the next wait).  So the
+    JAX run fails the fetch of the same key, and the caller waits for that
+    one prefetch's thread before it goes on: its error is then raised at the
+    next wait, as the port's is.
+
+    Yields the keys the JAX run fetched on the caller's thread, in the order
+    it issued them (a prefetch where it is issued, a fetch with no prefetch
+    where it is made), for :func:`_assert_same_fetches`."""
+    key = None if plan.fail_get_at is None \
+        else port_gets[plan.fail_get_at]
+    engine = j_storage.AsyncTransferEngine
+    issue = engine.prefetch_async
+    lock, fired, issued = threading.Lock(), [], []
+    caller = threading.get_ident()
+
+    def on_get(k):
+        if threading.get_ident() == caller:
+            issued.append(k)
+        with lock:
+            hit = k == key and not fired
+            if hit:
+                fired.append(k)
+        if hit:
+            raise j_faults.InjectedFault(
+                f"injected Level-2 fetch failure at key {k!r}")
+
+    def prefetch_async(self, k):
+        with self._lock:
+            new = k not in self._prefetched \
+                and k not in self._prefetch_events
+        if new:
+            issued.append(k)
+        issue(self, k)
+        if k == key:
+            with self._lock:
+                ev = self._prefetch_events.get(k)
+            if ev is not None:
+                ev.wait()
+
+    with j_faults.inject(j_faults.FaultPlan(
+            kill_writer_at_store=plan.kill_writer_at_store)) as j_inj:
+        if key is not None:
+            j_inj.on_get = on_get
+            engine.prefetch_async = prefetch_async
+        try:
+            yield issued
+        finally:
+            engine.prefetch_async = issue
+
+
+def _assert_same_fetches(plan, port_gets, j_issued):
+    """The JAX run issued the same fetches as the port, in the same order,
+    up to the one ``plan`` fails: the failing key was taken from the port's
+    order, so this holds that order against the reference."""
+    if plan.fail_get_at is not None:
+        upto = plan.fail_get_at + 1
+        assert j_issued[:upto] == port_gets[:upto]
+
+
 def _crash_then_resume(engine, storage, plan):
     """Inject ``plan`` into both packages' journaled runs, expect a crash,
     resume each, and check the port against its fault-free run and the JAX
@@ -150,16 +246,16 @@ def _crash_then_resume(engine, storage, plan):
                                       engine=engine, storage=storage,
                                       journal_dir=jd, device="cpu")
         with pytest.raises(Exception):
-            with faults.inject(plan):
+            with faults.inject(plan) as inj:
+                gets = _record_gets(inj)
                 jbptt(*_inputs())
         j_jbptt = j_api.checkpointed_bptt(
             _j_body, interval=INTERVAL, slots=SLOTS, engine=engine,
             storage=storage, journal_dir=j_jd)
         with pytest.raises(Exception):
-            with j_faults.inject(j_faults.FaultPlan(
-                    kill_writer_at_store=plan.kill_writer_at_store,
-                    fail_get_at=plan.fail_get_at)):
+            with _j_inject(plan, gets) as j_gets:
                 j_jbptt(*_j_inputs())
+        _assert_same_fetches(plan, gets, j_gets)
         recovered = _recovered(make_backend, jd)
         assert recovered == _recovered(j_storage.make_backend, j_jd)
         params, c0, xs = _inputs()
@@ -470,18 +566,18 @@ def test_fused_lstm_smoke_crash_and_resume(plan):
             lstm["model"].train_loss, runner="fused", device="cpu",
             journal_dir=jd, **kw)
         with pytest.raises(Exception) as ei:
-            with faults.inject(plan):
+            with faults.inject(plan) as inj:
+                gets = _record_gets(inj)
                 vg(*lstm["inputs"])
         assert faults.is_storage_fault(ei.value)
         j_params = {k: jnp.asarray(v) for k, v in lstm["ref"].items()}
         j_batch = {"tokens": jnp.asarray(lstm["tok"])}
         with pytest.raises(Exception):
-            with j_faults.inject(j_faults.FaultPlan(
-                    kill_writer_at_store=plan.kill_writer_at_store,
-                    fail_get_at=plan.fail_get_at)):
+            with _j_inject(plan, gets) as j_gets:
                 j_api.value_and_grad_offloaded(
                     lstm["j_model"].train_loss, runner="compiled",
                     journal_dir=j_jd, **kw)(j_params, j_batch)
+        _assert_same_fetches(plan, gets, j_gets)
         keys, cur = _recovered(make_backend, jd)
         assert (keys, cur) == _recovered(j_storage.make_backend, j_jd)
         r_loss, r_grads = api.resume_offloaded(
