@@ -130,7 +130,17 @@ Phases, each printing its own lines:
               one ``storage="tiered"`` run at I=1 with a fast tier of 4
               boundary states over disk (fast peak and evictions as the
               model and plan say; a bf16 boundary spilled and promoted
-              back bit for bit).
+              back bit for bit).  And 2D plans at the first call's
+              interval: the byte profile (meta tensors: no device
+              memory), a 1D call, a ``plan_2d=(2, 1)`` call (each layer of
+              the period recomputed in a chunk of its own) and a
+              ``step_memory_budget=`` call (the profile's
+              ``sum(layer_bytes) + head_bytes - 1``), each under the same
+              gates, the 2D ones' ``inner_*`` counters equal to the
+              perfmodel's and ``flash_attention`` launched twice a step
+              advanced plus once a layer recomputed; the device peak
+              above what each call found allocated, and the ``(2, 1)``
+              call's must be below the 1D call's.
 10. ssm     — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
               and ``ssd_scan``.
 11. moe     — the same for ``phi3.5-moe-42b`` at full width (d_model
@@ -153,7 +163,21 @@ Phases, each printing its own lines:
               one must run, its loss within 1e-5 relative of a ``no_grad``
               forward that moves one layer's weights to the card at a
               time, every gradient finite.
-12. timing  — each kernel, its plain version and the nearest library call
+12. families — the VLM and the encoder-decoder through ``train_loss`` and
+              dense autograd at full width: ``internvl2-1b`` (24 layers,
+              ``train_4k``: 1,024 patches and 3,072 text tokens, batch cut
+              to ``FAMILY_BATCH``) with ``flash_attention`` (24 launches a
+              forward) held against the same call with the plain chunked
+              forward (``_PlainAttentionForward``) at the bf16 gate: the
+              loss at 3e-2, and each leaf's scaled distance from an
+              fp32-compute gradient (plain forward) at most 3e-2 above
+              the plain bf16 gradient's (two bf16 gradients 24 layers
+              deep differ by more than 3e-2 between themselves); and
+              ``whisper-tiny`` (4 + 4 layers, 2,048 encoder frames, 448
+              decoder tokens, the same batch), whose loss and gradients
+              must be finite (its attention is 2,048 long at most: the
+              dense path, no kernel).  Walls and device peaks logged.
+13. timing  — each kernel, its plain version and the nearest library call
               timed with CUDA events at the main path's shapes, with the
               achieved TFLOP/s where the bound is operations; the fused
               reverse at T=1000 also by part (recompute, hoisted products,
@@ -168,7 +192,7 @@ Phases, each printing its own lines:
               and per step, beside cuDNN's multi-step LSTM on the same
               chunk; ``flash_attention`` at gemma2-2b's and at
               phi3.5-moe's shape (there beside SDPA, the same function).
-13. train   — three RMSProp steps through the offloaded LSTM gradient; the
+14. train   — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over one main-path
@@ -206,7 +230,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 DEFAULT_OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
 PHASES = ("device", "build", "kernels", "main", "scan", "strategies",
-          "level2", "resume", "dense", "ssm", "moe", "timing", "train")
+          "level2", "resume", "dense", "ssm", "moe", "families", "timing",
+          "train")
 OPTIONAL = ("profile",)   # run only when named in --phases
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 bandwidth (data sheet)
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores (data sheet)
@@ -2191,7 +2216,8 @@ class _RoutingRecorder:
 
 def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
                   per_step, revolve_slots=None, tiered_states=None,
-                  n_layers=None, scan=False, stream=False) -> None:
+                  n_layers=None, scan=False, stream=False,
+                  plans_2d=False) -> None:
     """The offloaded gradient of a decoder (``runner="compiled"``,
     autotuned) at full width, ``train_4k`` with the global batch cut to
     ``batch_size`` and, with ``n_layers``, the depth cut to that many
@@ -2207,7 +2233,8 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     boundary states; with ``scan``, one ``engine="scan"`` gradient under
     the same gates; with ``stream``, one ``offload_params="moe_experts"``
     gradient, the expert weights on the host, bit for bit the first
-    offloaded call's."""
+    offloaded call's; with ``plans_2d``, the 2D calls of
+    :func:`decoder_2d` at the first call's schedule."""
     import torch
     from torch.utils import _pytree as pytree
 
@@ -2351,6 +2378,9 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     if scan:
         decoder_scan(state, key, model, params, batch, ref_loss, ref_grads,
                      kernels, per_step)
+    if plans_2d:
+        decoder_2d(state, key, model, params, batch, ref_loss, ref_grads,
+                   kernels, per_step, tune)
     if stream:
         # the reference's gradients are done with: the streamed check needs
         # the host memory they held
@@ -2546,6 +2576,128 @@ def decoder_stream(state, key, model, params, batch, vg, plan, kernels,
     log(f"[{key}] host memory after the streamed check: "
         f"{host_memory_line()}")
 
+def decoder_2d(state, key, model, params, batch, ref_loss, ref_grads,
+               kernels, per_step, tune) -> None:
+    """2D plans of a decoder at the first call's schedule (``tune``), under
+    the phase's gates.  The byte profile first: it runs on meta tensors and
+    must leave the card's allocated bytes and peak where they were.  Then
+    three gradients, each measured the same way (the device peak above
+    what the call found allocated, the wall): 1D, ``plan_2d=(2, 1)`` and
+    ``step_memory_budget=`` the profile's ``sum(layer_bytes) + head_bytes -
+    1``.  A 2D call's ``inner_*`` counters must equal the perfmodel's, and
+    each kernel runs ``per_step`` launches a step advanced plus the inner
+    recompute's (one more forward of every layer a step reversed).  The
+    ``(2, 1)`` call's peak must be below the 1D call's."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import api
+    from repro_torch.analysis.byte_profile import chain_step_byte_profile
+    from repro_torch.api.chain import index_xs
+    from repro_torch.core import perfmodel as pm
+
+    spec = model.train_loss.chain_spec
+    with torch.no_grad():
+        carry0, xs = spec.prelude(params, batch)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sb, lb, hb = chain_step_byte_profile(spec, params, carry0,
+                                         index_xs(xs, 0), batch)
+    prof_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    require(torch.cuda.max_memory_allocated() == held
+            and torch.cuda.memory_allocated() == held,
+            f"{key} 2D: the byte profile allocated device memory (peak "
+            f"{torch.cuda.max_memory_allocated() - held} B above {held})")
+    del carry0, xs
+    budget = int(sum(lb) + hb) - 1
+    log(f"[{key}] 2D: byte profile in {prof_s:.3f}s on meta tensors, no "
+        f"device memory: state {sb} B, layers {[int(b) for b in lb]} B, "
+        f"head {int(hb)} B; budget {budget} B")
+    runs = {}
+    for label, kw in (("1D", {}), ("plan_2d=(2, 1)", {"plan_2d": (2, 1)}),
+                      ("budget", {"step_memory_budget": budget})):
+        vg = api.value_and_grad_offloaded(
+            model.train_loss, interval=tune.interval, slots=tune.slots,
+            device="cuda", **kw)
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = vg(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        stats, plan = api.last_stats(), api.last_plan()
+        grads = pytree.tree_leaves(grads)
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        require(math.isfinite(float(loss))
+                and all(bool(g.isfinite().all()) for g in grads),
+                f"{key} {label}: non-finite loss or gradients")
+        gerr = max(scaled_err(a, b) for a, b in zip(grads, ref_grads))
+        del grads, loss
+        require(rel <= 1e-5, f"{key} {label}: loss rel err {rel} > 1e-5")
+        require(gerr <= 1e-3,
+                f"{key} {label}: gradient scaled err {gerr} > 1e-3")
+        inner = plan.inner
+        note = ""
+        if kw:
+            require(inner is not None and plan.plan_id.endswith(
+                f":L={inner.layer_chunks}:H={inner.head_chunks}"),
+                f"{key} {label}: plan {plan.plan_id} is not 2D")
+            want = (inner.layer_chunks, inner.head_chunks, inner.n_layers,
+                    pm.inner_recomputed_layers_model(stats.n, inner),
+                    int(pm.inner_boundary_bytes_model(inner, sb)))
+            got = (stats.inner_layer_chunks, stats.inner_head_chunks,
+                   stats.inner_layers, stats.inner_recomputed_layers,
+                   stats.inner_peak_bytes)
+            require(got == want and stats.inner_recompute_factor == 1.0,
+                    f"{key} {label}: inner counters {got}, perfmodel "
+                    f"{want}, recompute factor "
+                    f"{stats.inner_recompute_factor}")
+            note = (f"; (layer_chunks, head_chunks) = ({inner.layer_chunks}"
+                    f", {inner.head_chunks}), boundaries {inner.boundaries}"
+                    f"; inner_peak_bytes {stats.inner_peak_bytes}, "
+                    "inner_peak_bytes_model "
+                    f"{int(pm.inner_peak_bytes_model(inner, lb, sb))} B")
+        redo = stats.inner_recomputed_layers // max(1, stats.inner_layers)
+        for name, n in launches.items():
+            want_n = per_step[name] * (stats.advances + redo)
+            require(n == want_n and n > 0,
+                    f"{key} {label}: {name} launched {n} times, expected "
+                    f"{want_n} ({per_step[name]} x ({stats.advances} "
+                    f"advances + {redo} steps recomputed by the inner "
+                    "plan))")
+        runs[label] = {"peak": peak, "inner": inner}
+        _add_launches(state, f"{key} {label}", launches)
+        log(f"[{key}] {label}: plan {plan.plan_id}; loss rel err "
+            f"{rel:.3g}, grad scaled err {gerr:.3g}; wall {wall:.3f}s; "
+            f"device peak {peak:,} B above {base:,} B held{note}; "
+            f"launches {launches}")
+        del vg
+    one_d = runs["1D"]["peak"]
+    require(runs["plan_2d=(2, 1)"]["peak"] < one_d,
+            f"{key}: the plan_2d=(2, 1) call's device peak "
+            f"{runs['plan_2d=(2, 1)']['peak']:,} B is not below the 1D "
+            f"call's {one_d:,} B")
+    hc = runs["budget"]["inner"].head_chunks
+    S = batch["tokens"].shape[1] - 1
+    if 1 < hc < S / model.cfg.ce_chunk:
+        log(f"[{key}] budget plan: head_chunks={hc} widens the CE chunk to "
+            f"{-(-S // hc)} rows past ce_chunk={model.cfg.ce_chunk}; its "
+            f"peak {runs['budget']['peak']:,} B is "
+            f"{'above' if runs['budget']['peak'] > one_d else 'not above'}"
+            f" the 1D call's {one_d:,} B")
+    else:
+        log(f"[{key}] budget plan: head_chunks={hc}, not in (1, "
+            f"{S // model.cfg.ce_chunk}): the CE chunk is ce_chunk's")
+
+
 def decoder_revolve(key, model, params, batch, ref_loss, ref_grads, kernels,
                     per_step, slots) -> None:
     """One ``strategy="revolve"`` gradient of a decoder under its phase's
@@ -2706,7 +2858,7 @@ def phase_dense(state) -> None:
     decoder_phase(state, "dense", "gemma2-2b", 2,
                   {"flash_attention": fa.flash_attention},
                   {"flash_attention": 2}, revolve_slots=4, tiered_states=4,
-                  scan=True)
+                  scan=True, plans_2d=True)
 
 
 def phase_ssm(state) -> None:
@@ -2895,6 +3047,157 @@ def phase_moe(state) -> None:
                   {"flash_attention": fa.flash_attention},
                   {"flash_attention": 1}, n_layers=MOE_LAYERS, stream=True)
     moe_deep(state)
+
+
+FAMILY_BATCH = 2   # train_4k's global batch of 256, cut
+
+
+class _PlainAttentionForward:
+    """``chunked_attention``'s forward through its plain online-softmax
+    scan (``attention._chunked_fwd``) on CUDA tensors too, in place of the
+    flash kernel: the reference the model-level flash path is held
+    against."""
+
+    def __init__(self, chunk: int):
+        self.chunk = chunk
+
+    def flash_attention_fwd(self, q, k, v, *, causal, window, softcap,
+                            scale):
+        from repro_torch.models import attention
+
+        return attention._chunked_fwd(q, k, v, causal, window, softcap,
+                                      self.chunk, scale)
+
+    def __enter__(self):
+        from repro_torch.models import attention
+
+        self._fa, attention.fa = attention.fa, self
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+
+        attention.fa = self._fa
+
+
+def family_call(torch, model, params, batch, kernels):
+    """Dense autograd of ``train_loss``: ``(loss, grads, wall, peak above
+    what it found allocated, launches)``."""
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = _tree_value_and_grad(torch, model.train_loss, params,
+                                       batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (loss, grads, wall, torch.cuda.max_memory_allocated() - base,
+            {k: fn.launches for k, fn in kernels.items()})
+
+
+def phase_families(state) -> None:
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config
+    from repro_torch.configs.shapes import make_batch
+    from repro_torch.core import offload as ofl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import segment_fused as sf
+    from repro_torch.models.model_factory import get_model
+
+    sf.clear_caches()
+    ofl.clear_pools()
+    full = SHAPES["train_4k"]
+    shape = ShapeSpec(full.name, full.seq_len, FAMILY_BATCH, full.kind)
+    kernels = {"flash_attention": fa.flash_attention}
+    for arch in ("internvl2-1b", "whisper-tiny"):
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+        batch = make_batch(cfg, shape, seed=0)
+        n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+        inputs = {k: tuple(v.shape) for k, v in batch.items()}
+        # the first call pays for the allocator's growth and library set-up
+        first = family_call(torch, model, params, batch, kernels)
+        del first
+        loss, grads, wall, peak, launches = family_call(
+            torch, model, params, batch, kernels)
+        require(math.isfinite(float(loss))
+                and all(bool(g.isfinite().all()) for g in grads),
+                f"families {arch}: non-finite loss or gradients")
+        line = (f"[families] {arch}: {n_params:,} parameters, inputs "
+                f"{inputs}; loss {float(loss):.6f}; dense autograd wall "
+                f"{wall:.3f}s, device peak {peak:,} B above what it held; "
+                f"launches {launches}")
+        if cfg.family == "vlm":
+            want = cfg.n_layers
+            require(launches["flash_attention"] == want,
+                    f"families {arch}: flash_attention launched "
+                    f"{launches['flash_attention']} times in one forward, "
+                    f"expected {want} (one a layer)")
+            with _PlainAttentionForward(cfg.attn_chunk):
+                p_loss, p_grads, p_wall, p_peak, p_launches = family_call(
+                    torch, model, params, batch, kernels)
+            require(p_launches["flash_attention"] == 0,
+                    f"families {arch}: the plain forward launched the "
+                    "kernel")
+            # the referee: fp32 compute through the plain forward.  Both
+            # bf16 gradients are a bf16 rounding of it, 24 layers deep;
+            # the kernel may add at most the bf16 gate to what the plain
+            # forward's rounding already costs, leaf by leaf
+            from repro_torch.models import transformer as tfm
+            from repro_torch.models.layers import DTypes
+
+            dts = tfm._dtypes
+            tfm._dtypes = lambda c: DTypes(compute=torch.float32)
+            try:
+                with _PlainAttentionForward(cfg.attn_chunk):
+                    r_loss, r_grads, *_ = family_call(torch, model, params,
+                                                      batch, kernels)
+            finally:
+                tfm._dtypes = dts
+            paths = [pytree.keystr(k) for k, _ in
+                     pytree.tree_flatten_with_path(params)[0]]
+            rel = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
+            gerr = max((scaled_err(a, b), pth)
+                       for a, b, pth in zip(grads, p_grads, paths))
+            worst = max((scaled_err(a, r) - scaled_err(b, r), pth)
+                        for a, b, r, pth in zip(grads, p_grads, r_grads,
+                                                paths))
+            for name, gg in (("flash", grads), ("plain", p_grads)):
+                e32 = sorted(((scaled_err(a, b), pth) for a, b, pth in
+                              zip(gg, r_grads, paths)), reverse=True)
+                log(f"[families] {arch}: {name} bf16 gradient against the "
+                    f"fp32 one (loss {float(r_loss):.6f}), worst leaves "
+                    f"{[(pth, round(e, 5)) for e, pth in e32[:3]]}")
+            del r_grads
+            require(rel <= 3e-2 and worst[0] <= 3e-2,
+                    f"families {arch}: flash against the plain forward: "
+                    f"loss rel err {rel}; at {worst[1]} the flash "
+                    "gradient's scaled distance from the fp32 one exceeds "
+                    f"the plain forward's by {worst[0]} (gate 3e-2)")
+            line += (f"; against the plain chunked forward (wall "
+                     f"{p_wall:.3f}s, peak {p_peak:,} B): loss rel err "
+                     f"{rel:.3g}, grad scaled err {gerr[0]:.3g} "
+                     f"({gerr[1]}); the flash gradient's distance from the "
+                     f"fp32 one less the plain's: at most {worst[0]:.3g} "
+                     f"({worst[1]})")
+            del p_grads
+            _add_launches(state, "families", launches)
+        else:
+            require(launches["flash_attention"] == 0,
+                    f"families {arch}: the encoder at "
+                    f"{batch['frames'].shape[1]} frames takes the dense "
+                    "path, but the kernel was launched")
+            line += ("; every attention is at most 2,048 long: the dense "
+                     "path, no kernel")
+        log(line)
+        del params, grads, loss
+        torch.cuda.empty_cache()
 
 
 def _cudnn_lstm(torch, w, b, Dx):
@@ -3712,7 +4015,7 @@ def main(argv=None) -> int:
              "strategies": phase_strategies, "level2": phase_level2,
              "resume": phase_resume,
              "dense": phase_dense, "ssm": phase_ssm, "moe": phase_moe,
-             "timing": phase_timing, "train": phase_train,
+             "families": phase_families, "timing": phase_timing, "train": phase_train,
              "profile": phase_profile}
     for name in PHASES + OPTIONAL:
         if name in phases:

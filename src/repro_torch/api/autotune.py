@@ -1,7 +1,7 @@
 # Port of repro/api/autotune.py: TuneResult, snap_interval, default_slots,
 # AutoTuner.measure (one Level-2 stream; the per-step and per-segment
 # probes; the tiered backend's slow-tier probe; the parameter-lane read
-# probe), AutoTuner.measure_scan and AutoTuner.manual.
+# probe), AutoTuner.measure_scan, AutoTuner.plan_2d and AutoTuner.manual.
 """Schedule auto-tuning from the paper's §3 performance model.
 
 The multistage strategy has two knobs: the Level-2 store interval ``I`` and
@@ -19,8 +19,9 @@ is taken from a data sheet or another chip.  A capacity-bounded
 (``T_T_slow``), and ``I`` comes from the capacity-aware effective transfer
 time (``perfmodel.choose_tiered_interval``).  The interval is snapped with
 :func:`snap_interval` and cached per ``(model and engine, seq-len, state
-size, Level-2 kind and budget, device)``.  Scan-engine, roofline, 2D and
-sharded tuning come later (ROADMAP queue 1, items 11, 13 and 15).
+size, Level-2 kind and budget, device)``.  ``AutoTuner.plan_2d`` couples a
+measured schedule to the 2D model (``perfmodel.choose_2d_plan``).  Roofline
+and sharded tuning come later (ROADMAP queue 1, items 14 and 15).
 """
 from __future__ import annotations
 
@@ -333,6 +334,26 @@ class AutoTuner:
             interval=interval, slots=slots, t_a=t_a, t_t=t_t,
             state_bytes=state_bytes, n=n, source="measured",
             probe_calls=1 + self.repeats, probe_len=segment_len))
+
+    def plan_2d(self, tune: TuneResult, *, n: int, state_bytes: float,
+                layer_bytes, budget_bytes: float, head_bytes: float = 0.0):
+        """Pick 1D vs 2D for a measured schedule under a per-step budget.
+
+        Couples a :meth:`measure` result (the outer axis: §3's interval
+        from real ``T_A``/``T_T``) to the 2D overhead model
+        (``perfmodel.choose_2d_plan``): ``layer_bytes``/``head_bytes`` are
+        the chain's per-step byte profile
+        (``analysis.byte_profile.chain_step_byte_profile``), and the
+        returned ``Plan2D`` carries the chosen inner axis (``.inner is
+        None`` when time-only segmentation already fits), the modelled
+        per-step peak and the combined recompute factor of both axes."""
+        from repro_torch.core import perfmodel as pm
+
+        return pm.choose_2d_plan(
+            n, t_a=tune.t_a, t_t=tune.t_t, s_l1=tune.slots,
+            state_bytes=state_bytes, layer_bytes=layer_bytes,
+            budget_bytes=budget_bytes, head_bytes=head_bytes,
+            interval=tune.interval)
 
     def manual(self, name: str, *, n: int, interval: int,
                slots: Optional[int] = None,

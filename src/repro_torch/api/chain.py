@@ -32,21 +32,38 @@ Batch = Any
 PreludeFn = Callable[[Params, Batch], Tuple[Carry, Any]]
 BodyFn = Callable[[Params, Carry, Any, Batch], Carry]
 ReadoutFn = Callable[[Params, Carry, Batch], Any]
+# 2D plans: one per-step layer application (j is a Python int) and a
+# readout whose logits/loss head is evaluated in ``head_chunks`` pieces.
+LayerBodyFn = Callable[[Params, Carry, Any, Batch, int], Carry]
+ChunkedReadoutFn = Callable[[Params, Carry, Batch, int], Any]
 
 
 @dataclasses.dataclass(frozen=True)
 class ChainSpec:
     """A loss expressed as prelude -> n x body -> readout.
 
-    ``name`` doubles as the autotuner cache key component.  (The JAX
-    package's per-layer fields for 2D plans come with the 2D planner,
-    ROADMAP queue 1, item 11.)
+    ``name`` doubles as the autotuner cache key component.  The optional
+    per-step layer substructure makes the chain 2D-plannable
+    (``value_and_grad_offloaded(step_memory_budget=...)`` or
+    ``plan_2d=``): ``layer_body(params, carry, x, batch, j)`` applies the
+    step's ``j``-th layer (``j`` in ``range(n_layers)``), and composing
+    ``j = 0 .. n_layers-1`` must equal one ``body`` application exactly;
+    ``readout_chunked(params, carry, batch, head_chunks)`` must equal
+    ``readout`` at ``head_chunks == 1``.
     """
 
     prelude: PreludeFn
     body: BodyFn
     readout: ReadoutFn
     name: str = "chain"
+    layer_body: Optional[LayerBodyFn] = None
+    n_layers: int = 0
+    readout_chunked: Optional[ChunkedReadoutFn] = None
+
+    @property
+    def supports_2d(self) -> bool:
+        """Whether a 2D (time x layer) plan can execute this chain."""
+        return self.layer_body is not None and self.n_layers >= 1
 
     def loss_fn(self) -> Callable[[Params, Batch], Any]:
         """The undecomposed loss — reference semantics for the front-end

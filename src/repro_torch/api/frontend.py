@@ -1,8 +1,9 @@
 # Port of repro/api/frontend.py: OffloadConfig, value_and_grad_offloaded
 # (strategies multistage_async, revolve and conventional; engines compiled,
 # interpreted and scan; the storage kinds of the backend registry and
-# backend=; journal_dir=/resume=/journal_repair=; offload_params=),
-# _make_backend, _input_fingerprint, _expert_leaf_ids, _resolve_schedule,
+# backend=; journal_dir=/resume=/journal_repair=; offload_params=;
+# step_memory_budget=/plan_2d=), _make_backend, _input_fingerprint,
+# _expert_leaf_ids, _resolve_inner, _resolve_schedule,
 # _resolve_scan_schedule, _scan_loss, resume_offloaded, checkpointed_bptt
 # and last_stats/last_tune/last_plan.
 """Drop-in autodiff front-end for asynchronous multistage checkpointing.
@@ -47,10 +48,13 @@ function a segment, whose entry carry goes to page-locked host memory and
 whose backward pass recomputes it.  ``offload_params="moe_experts"``
 streams a MoE chain's expert weights through Level 2 one segment ahead of
 the compute (``ParamStream``), so they stay where the caller put them.
+``step_memory_budget=`` and ``plan_2d=`` make the plan two-dimensional: one
+chain step's layers are recomputed in sub-ranges in the reverse sweep, and
+the loss head is evaluated in sequence chunks.
 
 Everything runs on the card unless ``device="cpu"`` is passed.  Not ported
 yet, and raising ``NotImplementedError`` when asked for: meshes (ROADMAP
-queue 1, item 15) and 2D plans (item 11).
+queue 1, item 15).
 """
 from __future__ import annotations
 
@@ -75,7 +79,8 @@ from repro_torch.core import schedule as ms
 from repro_torch.core.compiled_ops import (CompiledChainOps,
                                            CompiledSegmentRunner,
                                            FusedSegmentRunner,
-                                           ParamStreamSegmentRunner)
+                                           ParamStreamSegmentRunner,
+                                           inner_chunked_body)
 from repro_torch.core.executor import (CheckpointExecutor, ExecutionStats,
                                        ParamStream, placed)
 from repro_torch.core.multistage_scan import choose_interval, multistage_scan
@@ -121,10 +126,15 @@ class OffloadConfig:
     offload_params: Optional[str] = None  # "moe_experts": stream the
     #                                   per-(layer, expert) FFN blobs through
     #                                   Level 2 one segment ahead
-    # knobs of the JAX package that are not ported yet (each raises)
+    step_memory_budget: Optional[int] = None  # per-step reverse-peak budget
+    #                                   (bytes): when one step's activations
+    #                                   exceed it, the plan goes 2D — inner
+    #                                   layer/head chunks chosen by
+    #                                   perfmodel.choose_2d_plan
+    plan_2d: Optional[Tuple[int, int]] = None  # pin the inner axis instead:
+    #                                   (layer_chunks, head_chunks)
+    # a knob of the JAX package that is not ported yet (raises)
     mesh: Optional[Any] = None
-    step_memory_budget: Optional[int] = None
-    plan_2d: Optional[Tuple[int, int]] = None
 
     def __post_init__(self):
         # the JAX package's ValueErrors for these knobs, in its order
@@ -166,6 +176,37 @@ class OffloadConfig:
                 "journal_dir= journals the Level-2 boundary stores of the "
                 "multistage_async strategy; strategy="
                 f"{self.strategy!r} keeps no Level-2 state to journal")
+        if self.step_memory_budget is not None:
+            if self.plan_2d is not None:
+                raise ValueError(
+                    "pass either step_memory_budget= (the planner chooses "
+                    "the inner axis) or plan_2d= (pin it), not both")
+            if self.step_memory_budget <= 0:
+                raise ValueError(
+                    "step_memory_budget must be a positive byte count, got "
+                    f"{self.step_memory_budget}")
+        if self.plan_2d is not None:
+            if len(self.plan_2d) != 2 or any(
+                    int(c) < 1 for c in self.plan_2d):
+                raise ValueError(
+                    "plan_2d must be (layer_chunks, head_chunks) with both "
+                    f">= 1, got {self.plan_2d!r}")
+        if self.step_memory_budget is not None or self.plan_2d is not None:
+            if self.strategy != "multistage_async":
+                raise ValueError(
+                    "2D plans (step_memory_budget=/plan_2d=) chunk the "
+                    "multistage_async reverse sweep's per-step work; "
+                    f"strategy={self.strategy!r} has no such sweep")
+            if self.engine != "compiled":
+                raise ValueError(
+                    "2D plans execute in the compiled engine's segment "
+                    f"runner; engine={self.engine!r} cannot run the inner "
+                    "axis")
+            if self.runner == "fused":
+                raise ValueError(
+                    "runner='fused' fuses the plain step body into its "
+                    "kernels; the inner remat regions of a 2D plan need "
+                    "runner='compiled'")
         if self.engine == "scan":
             if self.strategy != "multistage_async":
                 raise ValueError(
@@ -219,15 +260,9 @@ class OffloadConfig:
                     "plans (step_memory_budget=/plan_2d=)")
         # valid, but not ported yet; an unknown storage kind raises at the
         # first call, from the backend registry (as in the JAX package)
-        for given, what, item in (
-                (self.mesh is not None, "mesh=", 15),
-                (self.step_memory_budget is not None
-                 or self.plan_2d is not None,
-                 "2D plans (step_memory_budget=/plan_2d=)", 11)):
-            if given:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP queue 1, item "
-                    f"{item})")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "mesh= is not ported yet (ROADMAP queue 1, item 15)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,6 +273,7 @@ class _Static:
     cfg: OffloadConfig
     xs_treespec: Any
     xs_mask: Tuple[bool, ...]
+    inner: Optional[ms.InnerPlan] = None  # 2D plans: the resolved inner axis
 
 
 # ---------------------------------------------------------------------------
@@ -347,10 +383,19 @@ class _Ops:
     engine and the Revolve/conventional strategies, plus the per-segment
     ops (``CompiledChainOps``) of the compiled engine."""
 
-    def __init__(self, spec: ChainSpec, xs_treespec, xs_mask):
+    def __init__(self, spec: ChainSpec, xs_treespec, xs_mask,
+                 inner: Optional[ms.InnerPlan] = None):
         self.spec = spec
         self.xs_mask = xs_mask
-        self.cops = CompiledChainOps(spec.body, xs_treespec, xs_mask)
+        rbody = None
+        if inner is not None:
+            # 2D plan: the reverse sweep differentiates through the
+            # inner-chunked body (it computes what the body computes; its
+            # checkpoints only change what the backward keeps live), the
+            # advance keeps the plain body
+            rbody = inner_chunked_body(spec.layer_body, inner)
+        self.cops = CompiledChainOps(spec.body, xs_treespec, xs_mask,
+                                     reverse_body=rbody)
 
     def fwd(self, params, state, x, batch):
         with torch.no_grad():
@@ -371,6 +416,69 @@ class _Ops:
         """Broadcast zeros, which hold no memory (:func:`accumulate`)."""
         return pytree.tree_map(lambda t: t.new_zeros(()).expand_as(t),
                                params)
+
+
+# ---------------------------------------------------------------------------
+# 2D plans: the inner axis, resolved before the chain runs
+# ---------------------------------------------------------------------------
+
+# The inner axis is a function of shapes only (memory feasibility does not
+# depend on the measured T_A/T_T the way the outer interval does), so it is
+# cached per (spec, budget, input shapes): repeated gradient calls profile
+# nothing.
+_INNER_CACHE: Dict[Tuple, Optional[ms.InnerPlan]] = {}
+
+
+def _shape_signature(*trees) -> Tuple:
+    return tuple((tuple(leaf.shape), leaf.dtype)
+                 for tree in trees for leaf in pytree.tree_leaves(tree))
+
+
+def _resolve_inner(spec: ChainSpec, cfg: OffloadConfig, params, carry0, xs,
+                   batch) -> Optional[ms.InnerPlan]:
+    """The inner (per-step) axis of the plan, or ``None`` for 1D.
+
+    ``cfg.plan_2d`` pins it; ``cfg.step_memory_budget`` derives it from
+    the chain's per-layer byte profile
+    (:func:`~repro_torch.analysis.byte_profile.chain_step_byte_profile`,
+    on meta tensors) through the Gruslys-style DP
+    (``perfmodel.choose_2d_plan``).  Raises when the budget is infeasible,
+    naming the smallest budget that would work."""
+    if cfg.plan_2d is None and cfg.step_memory_budget is None:
+        return None
+    if not spec.supports_2d:
+        raise ValueError(
+            f"chain {spec.name!r} has no per-step layer decomposition — 2D "
+            "plans (step_memory_budget=/plan_2d=) need "
+            "ChainSpec.layer_body/n_layers (and readout_chunked for head "
+            "chunking)")
+    if cfg.plan_2d is not None:
+        lc, hc = cfg.plan_2d
+        return ms.InnerPlan(n_layers=spec.n_layers, layer_chunks=int(lc),
+                            head_chunks=int(hc))
+    key = (spec, cfg.step_memory_budget,
+           _shape_signature(params, carry0, xs, batch))
+    if key not in _INNER_CACHE:
+        from repro_torch.analysis.byte_profile import chain_step_byte_profile
+        from repro_torch.core import perfmodel as pm
+
+        state_bytes, layer_bytes, head_bytes = chain_step_byte_profile(
+            spec, params, carry0, index_xs(xs, 0), batch)
+        plan2d = pm.choose_2d_plan(
+            chain_length(xs), t_a=1.0, t_t=0.0,
+            s_l1=cfg.slots if cfg.slots is not None else 16,
+            state_bytes=state_bytes, layer_bytes=layer_bytes,
+            budget_bytes=cfg.step_memory_budget, head_bytes=head_bytes,
+            interval=cfg.interval if cfg.interval is not None else 1)
+        if not plan2d.feasible:
+            need = int(np.ceil(plan2d.min_budget_bytes))
+            raise ValueError(
+                f"step_memory_budget={cfg.step_memory_budget} is infeasible "
+                f"for chain {spec.name!r}: even layer_chunks="
+                f"{spec.n_layers} peaks above it; the smallest feasible "
+                f"budget is {need} bytes")
+        _INNER_CACHE[key] = plan2d.inner
+    return _INNER_CACHE[key]
 
 
 _EXPERT_LEAF_NAMES = ("w_gate", "w_up", "w_down")
@@ -565,7 +673,7 @@ class _RunRecord:
 def _fwd(static: _Static, params, carry0, xs, batch):
     spec, cfg = static.spec, static.cfg
     n = chain_length(xs)
-    ops = _Ops(spec, static.xs_treespec, static.xs_mask)
+    ops = _Ops(spec, static.xs_treespec, static.xs_mask, static.inner)
     rec = _RunRecord(cfg.strategy, ops, (params, carry0, xs, batch))
     if cfg.strategy == "multistage_async":
         device = pytree.tree_leaves(carry0)[0].device
@@ -630,12 +738,14 @@ def _fwd(static: _Static, params, carry0, xs, batch):
                      for i, leaf in enumerate(x_leaves)], x_spec)
                 runner = ParamStreamSegmentRunner(
                     ops.cops, params, xs_runner, batch, s_l1=tune.slots,
-                    stream=param_stream, n=n)
+                    stream=param_stream, n=n, inner=static.inner)
+            elif cfg.runner == "fused":
+                runner = FusedSegmentRunner(ops.cops, params, xs, batch,
+                                            s_l1=tune.slots)
             elif cfg.engine == "compiled":
-                runner_cls = FusedSegmentRunner if cfg.runner == "fused" \
-                    else CompiledSegmentRunner
-                runner = runner_cls(ops.cops, params, xs, batch,
-                                    s_l1=tune.slots)
+                runner = CompiledSegmentRunner(ops.cops, params, xs, batch,
+                                               s_l1=tune.slots,
+                                               inner=static.inner)
 
             def fwd_op(state, k):
                 return ops.fwd(params, state, index_xs(xs, k), batch)
@@ -645,7 +755,7 @@ def _fwd(static: _Static, params, carry0, xs, batch):
                 engine=engine, runner=runner, resume_from=recovered,
                 run_meta={"fingerprint": fingerprint}
                 if fingerprint is not None else None,
-                param_stream=param_stream)
+                inner=static.inner, param_stream=param_stream)
         except BaseException:
             # multistage_forward treats a passed-in engine as borrowed and
             # won't close it on error — engine and backend are ours, so
@@ -879,9 +989,17 @@ def offloaded_loss(spec: ChainSpec, cfg: OffloadConfig
     def loss(params, batch):
         carry0, xs = spec.prelude(params, batch)
         treespec, mask = diff_mask(xs)
+        inner = _resolve_inner(spec, cfg, params, carry0, xs, batch)
         static = _Static(spec=spec, cfg=cfg, xs_treespec=treespec,
-                         xs_mask=mask)
+                         xs_mask=mask, inner=inner)
         carry_n = _chain(static, params, carry0, xs, batch)
+        if inner is not None and inner.head_chunks > 1:
+            if spec.readout_chunked is None:
+                raise ValueError(
+                    f"2D plan wants head_chunks={inner.head_chunks} but "
+                    f"chain {spec.name!r} has no readout_chunked")
+            return spec.readout_chunked(params, carry_n, batch,
+                                        inner.head_chunks)
         return spec.readout(params, carry_n, batch)
 
     return loss
@@ -1005,8 +1123,26 @@ def value_and_grad_offloaded(
     Level 2 one segment ahead of the compute: those leaves stay where the
     caller put them (the host, for a saving on the card), their gradients
     come back on the run's device (where the reverse sweep wrote them), and
-    gradients are bit for bit the unstreamed call's.  ``mesh``, ``step_memory_budget`` and ``plan_2d`` are the JAX
-    package's knobs that are not ported yet: each raises
+    gradients are bit for bit the unstreamed call's.
+
+    ``step_memory_budget`` (compiled engine and runner only) bounds the
+    *per-step* reverse peak in bytes and makes the plan two-dimensional:
+    when one chain step's own activations exceed the budget, the step
+    itself is chunked.  The chain's per-layer byte profile
+    (:func:`~repro_torch.analysis.byte_profile.chain_step_byte_profile`,
+    counted on meta tensors) feeds a Gruslys-style DP
+    (``perfmodel.choose_2d_plan``) that picks the fewest recomputed layer
+    sub-ranges (and loss-head chunks) that fit; the outer interval stays
+    the tuner's §3 optimum.  It needs a chain with a layer decomposition
+    (``ChainSpec.layer_body``/``n_layers``; the decoders' chains have
+    them); an infeasible budget raises, naming the smallest feasible one.
+    ``plan_2d=(layer_chunks, head_chunks)`` pins the inner axis instead.
+    ``last_plan()`` reports both axes (``plan.inner``, and a ``plan_id``
+    ending in ``:L=<layer_chunks>:H=<head_chunks>``), ``last_stats()`` the
+    inner counters (``inner_recomputed_layers``, ``inner_peak_bytes``).  In
+    fp32 a 2D gradient with one head chunk is bit for bit the 1D plan's:
+    inner chunking only changes *when* layers are recomputed.  ``mesh`` is
+    the JAX package's knob that is not ported yet: it raises
     ``NotImplementedError`` naming its ROADMAP item.
 
     >>> import torch

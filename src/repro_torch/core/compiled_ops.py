@@ -1,4 +1,4 @@
-# Port of repro/core/compiled_ops.py: CompiledChainOps,
+# Port of repro/core/compiled_ops.py: inner_chunked_body, CompiledChainOps,
 # CompiledSegmentRunner, ParamStreamSegmentRunner and the fused runner
 # (PallasSegmentRunner there).
 """Per-segment chain operators and the segment runners built on them.
@@ -17,9 +17,9 @@
 * :class:`FusedSegmentRunner` — ``runner="fused"``, the JAX package's
   ``runner="pallas"``: the hand-written CUDA segment kernels of
   :mod:`repro_torch.kernels.segment_fused`, with the same counters.
-
-The 2D planner's ``inner_chunked_body`` comes later (ROADMAP queue 1, item
-11).
+* :func:`inner_chunked_body` — the reverse body of a 2D plan: one step's
+  layers in the plan's inner sub-ranges, each under
+  ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -27,17 +27,47 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api.chain import (accumulate, chain_length,
                                    is_broadcast_zero, steps_vjp)
-from repro_torch.core.schedule import SegmentSpec, chunk_length
-from repro_torch.core.storage import HostTree
+from repro_torch.core.schedule import InnerPlan, SegmentSpec, chunk_length
+from repro_torch.core.storage import HostTree, tree_bytes
 from repro_torch.kernels import segment_fused
 
 __all__ = ["CompiledChainOps", "CompiledSegmentRunner", "FusedSegmentRunner",
-           "ParamStreamSegmentRunner", "chunk_length"]
+           "ParamStreamSegmentRunner", "chunk_length", "inner_chunked_body"]
 
 tree_map = pytree.tree_map
+
+
+def inner_chunked_body(layer_body, inner: InnerPlan):
+    """A chain-step body that applies the step's layer stack in the 2D
+    plan's inner sub-ranges, each under ``torch.utils.checkpoint``
+    (non-reentrant, so it nests inside the segment's chunk checkpoints).
+
+    ``layer_body(params, carry, x, batch, j)`` is the
+    :class:`~repro_torch.api.chain.ChainSpec` per-layer contract; composing
+    ``j = 0 .. n_layers-1`` equals one plain ``body`` application, so the
+    returned function computes what the 1D body computes: under autograd
+    only the ``layer_chunks`` sub-range entry states of a step are saved,
+    and each chunk's interior is recomputed once when the step is
+    backwarded.
+    """
+    ranges = inner.chunk_ranges()
+
+    def body(params, carry, x, batch):
+        for lo, hi in ranges:
+            def chunk_fn(p, c, x_, lo=lo, hi=hi):
+                for j in range(lo, hi):
+                    c = layer_body(p, c, x_, batch, j)
+                return c
+
+            carry = checkpoint(chunk_fn, params, carry, x,
+                               use_reentrant=False)
+        return carry
+
+    return body
 
 
 class CompiledChainOps:
@@ -45,11 +75,15 @@ class CompiledChainOps:
 
     ``body(params, carry, x, batch) -> carry`` is one chain step (the
     :class:`~repro_torch.api.chain.ChainSpec` contract); ``xs_mask`` is the
-    per-leaf inexact (differentiable) mask of the per-step inputs.
+    per-leaf inexact (differentiable) mask of the per-step inputs.  A 2D
+    plan reverses through ``reverse_body`` (:func:`inner_chunked_body`),
+    which computes what ``body`` computes; the advance keeps ``body``.
     """
 
-    def __init__(self, body, xs_treespec, xs_mask: Tuple[bool, ...]):
+    def __init__(self, body, xs_treespec, xs_mask: Tuple[bool, ...],
+                 reverse_body=None):
         self.body = body
+        self.reverse_body = body if reverse_body is None else reverse_body
         self.xs_treespec = xs_treespec
         self.xs_mask = tuple(xs_mask)
 
@@ -70,8 +104,8 @@ class CompiledChainOps:
         per-step inputs, stacked along the step axis.
         """
         seg_len = chain_length(xs_seg)
-        dp, dc, dxd = steps_vjp(self.body, params, carry_b, xs_seg, batch,
-                                self.xs_mask, dcarry,
+        dp, dc, dxd = steps_vjp(self.reverse_body, params, carry_b, xs_seg,
+                                batch, self.xs_mask, dcarry,
                                 chunk=chunk_length(seg_len, s_l1))
         # in place: the accumulator is the executor's own (a model's
         # parameters can be gigabytes)
@@ -88,13 +122,15 @@ class CompiledSegmentRunner:
     """
 
     def __init__(self, ops: CompiledChainOps, params, xs, batch, *,
-                 s_l1: int, n: Optional[int] = None):
+                 s_l1: int, n: Optional[int] = None,
+                 inner: Optional[InnerPlan] = None):
         self.ops = ops
         self.params = params
         self.xs = xs
         self.batch = batch
         self.s_l1 = s_l1
         self.n = chain_length(xs) if n is None else n
+        self.inner = inner
         self.dx_full: Optional[List[torch.Tensor]] = None
 
     def _slice(self, seg: SegmentSpec):
@@ -122,6 +158,14 @@ class CompiledSegmentRunner:
         stats.advances += replay
         stats.backwards += seg.length
         stats.host_dispatches += 1
+        if self.inner is not None:
+            # inner-axis accounting: each backwarded step recomputes its
+            # whole layer stack once, saving layer_chunks sub-range entry
+            # states (each the carry's pytree, measured on the boundary)
+            stats.inner_recomputed_layers += \
+                seg.length * self.inner.n_layers
+            bnd = self.inner.layer_chunks * tree_bytes(x_b)
+            stats.inner_peak_bytes = max(stats.inner_peak_bytes, bnd)
         return dc, gacc
 
     def keep_dx(self, begin: int, dxd) -> None:
@@ -160,8 +204,10 @@ class ParamStreamSegmentRunner(CompiledSegmentRunner):
     """
 
     def __init__(self, ops: CompiledChainOps, params, xs, batch, *,
-                 s_l1: int, stream, n: int):
-        super().__init__(ops, params, xs, batch, s_l1=s_l1, n=n)
+                 s_l1: int, stream, n: int,
+                 inner: Optional[InnerPlan] = None):
+        super().__init__(ops, params, xs, batch, s_l1=s_l1, n=n,
+                         inner=inner)
         self.stream = stream
         self._leaves, self._spec = pytree.tree_flatten(xs)
 

@@ -132,6 +132,13 @@ class ExecutionStats:
     fused_segments: int = 0      # fused runner: segments run as fused kernels
     fused_boundary_copies: int = 0  # fused runner: boundary copies made by
     #                                 the kernels (host stream + spill)
+    # -- 2D (time x layer) plans: inner-axis counters ----------------------
+    inner_layer_chunks: int = 0  # rematted layer sub-ranges per step (0 = 1D)
+    inner_head_chunks: int = 0   # chunked logits/loss head chunks (0 = 1D)
+    inner_layers: int = 0        # layer applications per chain step
+    inner_recomputed_layers: int = 0  # layer applications replayed by the
+    #                                   inner remat during the reverse sweep
+    inner_peak_bytes: int = 0    # per-step saved inner-boundary high-water
     store_stall_s: float = 0.0
     prefetch_stall_s: float = 0.0
     wall_s: float = 0.0
@@ -139,6 +146,13 @@ class ExecutionStats:
     @property
     def recompute_factor(self) -> float:
         return self.advances / max(1, self.n - 1)
+
+    @property
+    def inner_recompute_factor(self) -> float:
+        """Extra forwards of the per-step layer stack per chain step
+        (0.0 for a 1D plan, 1.0 for the exact inner chunking)."""
+        denom = self.n * self.inner_layers
+        return self.inner_recomputed_layers / denom if denom else 0.0
 
 
 class _L1Slots:
@@ -530,6 +544,7 @@ class CheckpointExecutor:
                            engine: "AsyncTransferEngine | None" = None,
                            resume_from: Optional[RecoveredRun] = None,
                            run_meta: Optional[Dict[str, Any]] = None,
+                           inner: Any = None,
                            param_stream: Optional[ParamStream] = None,
                            ) -> "tuple[Any, MultistageRun]":
         """Phase 1: advance the chain to ``x_n`` while the engine
@@ -553,7 +568,9 @@ class CheckpointExecutor:
         cursor's adjoint).  Host state read back from the journal is placed
         where ``state0`` lives before anything reads it.
         ``run_meta`` rides the journal's BEGIN record (the front-end's
-        input fingerprint).  ``param_stream`` (a :class:`ParamStream`)
+        input fingerprint).  ``inner`` (a
+        :class:`~repro_torch.core.schedule.InnerPlan`) makes the plan 2D:
+        the runner chunks each step's layers by it in the reverse sweep.  ``param_stream`` (a :class:`ParamStream`)
         writes its blobs to Level 2 first and fetches each segment's
         ``lead`` segments ahead of its compute; the run's runner reads
         them (``ParamStreamSegmentRunner``)."""
@@ -564,7 +581,11 @@ class CheckpointExecutor:
                 RAMStorage(), device=pytree.tree_leaves(state0)[0].device)
         stats = ExecutionStats(n=n)
         slots = _L1Slots(stats)
-        plan = ms.segment_plan(n, interval, s_l1)
+        plan = ms.segment_plan(n, interval, s_l1, inner=inner)
+        if inner is not None:
+            stats.inner_layer_chunks = inner.layer_chunks
+            stats.inner_head_chunks = inner.head_chunks
+            stats.inner_layers = inner.n_layers
         jb = _journal_backend(engine)
         run = MultistageRun(n=n, interval=interval, s_l1=s_l1, engine=engine,
                             stats=stats, slots=slots, plan=plan,

@@ -1,5 +1,6 @@
 # Port of repro/models/attention.py: the training path (chunked attention
-# with its flash-style backward, the dense oracle, the attention block).
+# with its flash-style backward, the dense oracle, the attention block and
+# the encoder-decoder's cross attention).
 """GQA attention: the memory-efficient chunked (flash-style) training path
 with a hand-written backward, and the dense oracle.
 
@@ -15,8 +16,8 @@ has no attention backward kernel, and neither has the port.
 Supports grouped KV heads, causal masking with queries at the end of the
 keys, sliding windows (Gemma-2 local layers), logit softcapping and QKV
 bias.  ``distributed.sharding.constrain`` is the identity on one device and
-is dropped.  ``cross_attention``, the KV cache and ``decode_attention``
-come with decode (ROADMAP queue 1, item 14).
+is dropped.  The KV cache and ``decode_attention`` come with decode
+(ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -263,4 +264,18 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     else:
         o = reference_attention(q, k, v, causal, window, softcap, scale)
     B = x.shape[0]
+    return dense(p["wo"], o.reshape(B, S, n_heads * head_dim), dt)
+
+
+def cross_attention(p: Params, x: torch.Tensor, kv_src: torch.Tensor, *,
+                    n_heads: int, n_kv_heads: int, head_dim: int,
+                    dt: DTypes = DEFAULT_DTYPES) -> torch.Tensor:
+    """Encoder-decoder cross attention (non-causal over ``kv_src``, no
+    rope), through the dense oracle as in the JAX package."""
+    B, S, _ = x.shape
+    Sk = kv_src.shape[1]
+    q = dense(p["wq"], x, dt).reshape(B, S, n_heads, head_dim)
+    k = dense(p["wk"], kv_src, dt).reshape(B, Sk, n_kv_heads, head_dim)
+    v = dense(p["wv"], kv_src, dt).reshape(B, Sk, n_kv_heads, head_dim)
+    o = reference_attention(q, k, v, causal=False)
     return dense(p["wo"], o.reshape(B, S, n_heads * head_dim), dt)

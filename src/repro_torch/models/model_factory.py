@@ -1,16 +1,18 @@
-# Port of repro/models/model_factory.py: the lstm and decoder (dense, moe,
-# hybrid, ssm) branches.
+# Port of repro/models/model_factory.py: every family's branch.
 """Uniform model API.
 
 ``get_model(cfg)`` returns a ``ModelAPI`` with
 
     init(generator, device=None)   -> params
-    train_loss(params, batch)      -> scalar loss (tagged with chain_spec)
+    train_loss(params, batch)      -> scalar loss
 
-for the paper's LSTM and the dense, MoE, hybrid and SSM decoder families.
-Serving entry points (``prefill``/``decode``/``init_cache``) raise
-``NotImplementedError`` for the decoders (ROADMAP queue 1, item 14); the
-VLM and encoder-decoder families come later (item 10).
+for the paper's LSTM, the dense, MoE, hybrid and SSM decoder families, the
+VLM and the encoder-decoder.  The LSTM's and the decoders' ``train_loss``
+carry their chain decomposition (``chain_spec``, also ``train_chain``); the
+VLM and the encoder-decoder have none, as in the JAX package.  Serving
+entry points (``prefill``/``decode``/``init_cache``) raise
+``NotImplementedError`` for every family but the LSTM, which has none
+(ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lstm, transformer
+from repro_torch.models import encdec, lstm, transformer, vlm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +65,26 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
             init_cache=_not_ported("init_cache"),
             train_chain=chain,
         )
+    if cfg.family == "vlm":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda generator, device=None: vlm.init_vlm(
+                generator, cfg, device=device),
+            train_loss=lambda p, b: vlm.train_loss(p, b, cfg),
+            prefill=_not_ported("prefill"),
+            decode=_not_ported("decode"),
+            init_cache=_not_ported("init_cache"),
+        )
+    if cfg.family == "encdec":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda generator, device=None: encdec.init_encdec(
+                generator, cfg, device=device),
+            train_loss=lambda p, b: encdec.train_loss(p, b, cfg),
+            prefill=_not_ported("prefill"),
+            decode=_not_ported("decode"),
+            init_cache=_not_ported("init_cache"),
+        )
     if cfg.family == "lstm":
         def _loss(p, b):
             return lstm.forward_loss(p, b["tokens"])
@@ -75,6 +97,4 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
             train_loss=_attach_chain(_loss, chain),
             train_chain=chain,
         )
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-        "item 10)")
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -179,6 +179,21 @@ def _periods(layers: Params):
             for i in range(len(cols[0]))]
 
 
+def _scan_stack(params, h, cfg: ArchConfig, rope, dt):
+    """The layer stack over the hidden states ``h``, one period at a time.
+    Returns ``(h, aux)``, ``aux`` the summed MoE aux losses."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lp in _periods(params["layers"]):
+        # the period's aux first, then the running total, as the JAX
+        # package's scan body adds them
+        aux_p = torch.zeros((), dtype=torch.float32, device=h.device)
+        for j, kind in enumerate(cfg.layer_pattern):
+            h, a = _apply_layer_seq(lp[f"pos{j}"], h, kind, cfg, rope, dt)
+            aux_p = aux_p + a
+        aux = aux + aux_p
+    return h, aux
+
+
 # ---------------------------------------------------------------------------
 # train
 # ---------------------------------------------------------------------------
@@ -194,15 +209,7 @@ def train_loss(params: Params, batch: Dict[str, torch.Tensor],
     S = inp.shape[1]
     h = _embed_tokens(params, inp, cfg, dt)
     rope = rope_table(S, cfg.hd, cfg.rope_theta, device=h.device)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for lp in _periods(params["layers"]):
-        # the period's aux first, then the running total, as the JAX
-        # package's scan body adds them
-        aux_p = torch.zeros((), dtype=torch.float32, device=h.device)
-        for j, kind in enumerate(cfg.layer_pattern):
-            h, a = _apply_layer_seq(lp[f"pos{j}"], h, kind, cfg, rope, dt)
-            aux_p = aux_p + a
-        aux = aux + aux_p
+    h, aux = _scan_stack(params, h, cfg, rope, dt)
     h = rmsnorm(params["final_norm"], h, dt=dt)
     loss = chunked_ce_loss(h, unembed_weight(params, cfg), labels,
                            chunk=cfg.ce_chunk, logit_cap=cfg.logit_softcap,
@@ -266,4 +273,7 @@ def train_chain(cfg: ArchConfig):
     def readout(params, carry, batch):
         return readout_chunked(params, carry, batch, 1)
 
-    return ChainSpec(prelude, body, readout, name=f"{cfg.name}-depth")
+    return ChainSpec(prelude, body, readout, name=f"{cfg.name}-depth",
+                     layer_body=layer_body,
+                     n_layers=len(cfg.layer_pattern),
+                     readout_chunked=readout_chunked)

@@ -132,16 +132,31 @@ def test_offload_config_raises_the_same_value_errors(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    # the ids the cases had while journal_dir=, engine="scan" and
-    # offload_params= were left-out knobs too
+    # the id the case had while journal_dir=, engine="scan",
+    # offload_params= and the 2D knobs were left-out knobs too
     pytest.param({"mesh": "MESH"}, "item 15", id="kw2-item 15"),
-    pytest.param({"step_memory_budget": 1 << 20}, "item 11",
-                 id="kw3-item 11"),
-    pytest.param({"plan_2d": (2, 1)}, "item 11", id="kw4-item 11"),
 ])
 def test_left_out_knobs_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         fe.OffloadConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    # the two cases test_left_out_knobs_name_their_roadmap_item had while
+    # 2D plans were not ported
+    pytest.param({"step_memory_budget": 1 << 20}, id="kw3-item 11"),
+    pytest.param({"plan_2d": (2, 1)}, id="kw4-item 11"),
+])
+def test_2d_knobs_are_accepted(kw):
+    """``step_memory_budget=`` and ``plan_2d=`` (left-out knobs until the
+    2D planner's execution was ported) build a config as in the JAX
+    package."""
+    from repro.api.frontend import OffloadConfig as JConfig
+
+    cfg = fe.OffloadConfig(**kw)
+    j_cfg = JConfig(**kw)
+    for k in kw:
+        assert getattr(cfg, k) == getattr(j_cfg, k)
 
 
 @pytest.mark.parametrize("kw", [

@@ -38,7 +38,9 @@ for every chain step advanced.  The scan engine (``engine="scan"``) on
 the card matches the CPU with its boundaries in page-locked memory and a
 device peak flat in the chain's length, and a streamed MoE call
 (``offload_params="moe_experts"``, experts on the host) is bit for bit the
-unstreamed one.
+unstreamed one.  A budget-driven 2D plan splits jamba's period on the card
+(the offloaded gates, inner counters equal to the perfmodel's), and the
+byte profile of a full-width chain allocates no device memory.
 """
 import os
 
@@ -1009,3 +1011,88 @@ def test_streamed_moe_on_card_equals_unstreamed(cuda_device):
     assert stats.param_bytes_moved == 2 * expert_bytes
     assert stats.param_prefetches == 2 * api.last_plan().num_segments
     assert fa.flash_attention.launches == stats.advances > 0
+
+
+@pytest.mark.cuda
+def test_budget_2d_plan_on_card_splits_jamba_period(cuda_device):
+    """A budget-driven 2D gradient of jamba at SMOKE width (24 layers,
+    S=2064: the flash kernel's path) under 60% of one 8-layer period's
+    bytes: the plan splits the period (``layer_chunks > 1``), the gradient
+    matches dense autograd on the card, the inner counters equal the
+    perfmodel's, and each kernel launches once a layer run: the forward
+    sweep, the reverse's replay and the inner recompute."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.analysis.byte_profile import chain_step_byte_profile
+    from repro_torch.api.chain import index_xs
+    from repro_torch.core import perfmodel as pm
+
+    cfg = get_config("jamba-v0.1-52b", smoke=True).replace(n_layers=24)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    batch = make_batch(cfg, ShapeSpec("t", 2064, 1, "train"), 0)
+    leaves, spec = pytree.tree_flatten(params)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    loss = model.train_loss(pytree.tree_unflatten(leaves, spec), batch)
+    dense = torch.autograd.grad(loss, leaves)
+    chain = model.train_chain
+    carry0, xs = chain.prelude(params, batch)
+    sb, lb, hb = chain_step_byte_profile(chain, params, carry0,
+                                         index_xs(xs, 0), batch)
+    kernels = {"flash_attention": fa.flash_attention,
+               "ssd_scan": ssd.ssd_scan}
+    per_step = {"flash_attention": 1, "ssd_scan": 7}
+    for fn in kernels.values():
+        fn.launches = 0
+    v, g = api.value_and_grad_offloaded(
+        model.train_loss, interval=2, slots=2, device="cuda",
+        step_memory_budget=int(0.6 * sum(lb)))(params, batch)
+    stats, inner = api.last_stats(), api.last_plan().inner
+    assert inner is not None and inner.layer_chunks > 1
+    assert stats.inner_recomputed_layers == \
+        pm.inner_recomputed_layers_model(stats.n, inner)
+    assert stats.inner_peak_bytes == \
+        int(pm.inner_boundary_bytes_model(inner, sb))
+    assert stats.inner_recompute_factor == 1.0
+    for name, fn in kernels.items():
+        assert fn.launches == per_step[name] * (stats.advances + stats.n), \
+            name
+    torch.testing.assert_close(v, loss.detach(), rtol=1e-5, atol=0)
+    for a, b in zip(pytree.tree_leaves(g), dense):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_byte_profile_allocates_no_device_memory(cuda_device):
+    """The byte profile of gemma2-2b's chain at full width (B=2, S=4096,
+    its weights on the card) runs on meta tensors: the card's allocated
+    bytes and their peak stay where they were, and the numbers equal the
+    profile of the same chain's meta copy made on the host."""
+    from repro_torch.analysis.byte_profile import (chain_step_byte_profile,
+                                                   to_meta)
+    from repro_torch.api.chain import index_xs
+    from repro_torch.configs import SHAPES
+
+    cfg = get_config("gemma2-2b").replace(n_layers=2)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    shape = SHAPES["train_4k"]
+    batch = make_batch(cfg, ShapeSpec("t", shape.seq_len, 2, "train"), 0)
+    chain = model.train_chain
+    with torch.no_grad():
+        carry0, xs = chain.prelude(params, batch)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prof = chain_step_byte_profile(chain, params, carry0, index_xs(xs, 0),
+                                   batch)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == held
+    assert torch.cuda.max_memory_allocated() == held
+    host = chain_step_byte_profile(
+        chain, to_meta(params), to_meta(carry0), to_meta(index_xs(xs, 0)),
+        to_meta(batch))
+    assert prof == host
+    assert prof[0] == 2 * shape.seq_len * cfg.d_model * 2 + 4

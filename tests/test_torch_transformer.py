@@ -119,12 +119,19 @@ def test_decoder_chain_is_the_period_stack():
 
 
 def test_unported_layer_kinds_raise():
-    """The families still to port (the VLM and the encoder-decoder) raise
-    in ``get_model``; every layer kind of the JAX package is ported."""
-    for family in ("vlm", "encdec"):
-        cfg = get_config("gemma2-2b", smoke=True).replace(family=family)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            get_model(cfg)
+    """Every family of the JAX package builds in ``get_model`` (the VLM and
+    the encoder-decoder were the last ones), with the JAX package's
+    ``train_chain`` (none for those two); every layer kind of the JAX
+    package is ported, and an unknown one raises."""
+    for arch, family in (("internvl2-1b", "vlm"),
+                         ("whisper-tiny", "encdec")):
+        cfg = get_config(arch, smoke=True)
+        assert cfg.family == family
+        m = get_model(cfg)
+        assert m.train_chain is None
+        assert j_get_model(j_get_config(arch, smoke=True)).train_chain \
+            is None
+        assert callable(m.train_loss) and callable(m.init)
     assert set(tf.KINDS) == {"attn", "attn_local", "attn_moe", "mamba",
                              "mamba_moe"}
     with pytest.raises(ValueError, match="unknown layer kind"):
