@@ -36,7 +36,14 @@ Phases, each printing its own lines:
               held at the pinned run's segment shape (T=1000, its chunk),
               and it and the bf16 flash kernel must give the same bits on
               two calls; a bf16 head dim outside {16, 32, 64, 128, 256}
-              must be refused.
+              must be refused.  The generic fused segments' kernels bit
+              for bit against their plain versions: ``entry_store`` at
+              gemma2-2b's and mamba2-370m's carries, a 0-d fp32 leaf, a
+              bf16 leaf of odd length and a misaligned leaf, into
+              page-locked slots; ``fold`` at gemma2-2b's main-path reverse
+              chunk (4 chain steps of weight cotangents copied into their
+              rows, the unread parameters' broadcast zeros skipped) and at
+              a synthetic case with fp32, bf16, mixed and fresh adds.
 4. main     — ``value_and_grad_offloaded(get_model(lstm-paper).train_loss,
               runner="fused")`` on ``make_batch(lstm-paper, train_4k)``
               (B=256, S=4096), once autotuned and once with a pinned
@@ -140,9 +147,23 @@ Phases, each printing its own lines:
               perfmodel's and ``flash_attention`` launched twice a step
               advanced plus once a layer recomputed; the device peak
               above what each call found allocated, and the ``(2, 1)``
-              call's must be below the 1D call's.
+              call's must be below the 1D call's.  And ``runner="fused"``
+              (``decoder_fused``: the body's steps as PyTorch code, the
+              ``entry_store`` and ``fold`` kernels around them) autotuned
+              and at I=13, s=4 (``FUSED_PINNED``: forward chunks 4, 4, 5,
+              reverse 4, 4, 4, 1), each under the same gates, with
+              ``entry_store`` launched once a forward chunk (the probe's
+              included), ``fold`` once a reverse chunk, the model kernel
+              as the fused reverse runs the steps (phase A leaves out each
+              segment's last chunk) and the reference's
+              ``fused_segments``/``fused_boundary_copies``; beside a
+              ``runner="compiled"`` gradient at I=13, s=4: the loss bit for
+              bit, the same plan, the fused device peak at most two
+              carries above the compiled one's.  Then one fused advance of
+              those 13 steps timed against the compiled advance.
 10. ssm     — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
-              and ``ssd_scan``.
+              and ``ssd_scan``, with the fused gradients at I=14, s=4
+              (segments 14, 14, 14, 6).
 11. moe     — the same for ``phi3.5-moe-42b`` at full width (d_model
               4096, 16 experts top-2 of d_ff 6400, capacity factor 1.25),
               batch cut to 2 and depth cut to ``MOE_LAYERS`` (4 chain steps
@@ -191,7 +212,13 @@ Phases, each printing its own lines:
               (the same); the step loop over a recompute chunk per launch
               and per step, beside cuDNN's multi-step LSTM on the same
               chunk; ``flash_attention`` at gemma2-2b's and at
-              phi3.5-moe's shape (there beside SDPA, the same function).
+              phi3.5-moe's shape (there beside SDPA, the same function);
+              ``entry_store`` at both decoders' carries beside its plain
+              version and the copy engine (``copy_(non_blocking=True)``;
+              its bound the bytes over PCIe 5.0 x16, 64 GB/s), ``fold`` at
+              gemma2-2b's main-path chunk (the row) and at the synthetic
+              add case beside its plain version and
+              ``torch._foreach_add_`` + ``torch._foreach_copy_``.
 14. train   — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
@@ -847,6 +874,169 @@ def check_ssd(torch, label, dims, dtype, with_h0, seed):
     return err
 
 
+# the carries the generic fused segments store at each chunk entry: the
+# hidden state (bf16) and the aux accumulator (0-d fp32) of gemma2-2b at
+# the dense phase's shape and of mamba2-370m at the ssm phase's
+CARRIES = {"gemma2-2b": (2, 4096, 2304), "mamba2-370m": (4, 4096, 1024)}
+PCIE_BYTES_PER_S = 64e9   # PCIe 5.0 x16, each way (the host link)
+
+
+def _gen(torch, seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def generic_carry(torch, arch, seed):
+    g = _gen(torch, seed)
+    return [torch.randn(CARRIES[arch], generator=g, device="cuda").to(
+        torch.bfloat16), torch.randn((), generator=g, device="cuda")]
+
+
+def _bits_equal(torch, a, b) -> bool:
+    def bits(t):
+        t = t.contiguous()
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        torch.equal(bits(a).cpu(), bits(b).cpu())
+
+
+def check_entry_store(torch) -> None:
+    """``entry_store`` bit for bit (``torch.equal`` of the bits) against its
+    plain version (``dst.copy_(src)``) at both decoders' carries, a 0-d
+    fp32 leaf, a bf16 leaf of odd length and a leaf 4 bytes into its
+    buffer (the byte path), each into page-locked slots from the pools the
+    runner takes them from."""
+    from repro_torch.core.offload import _slot
+    from repro_torch.kernels import segment_generic as sg
+
+    g = _gen(torch, 50)
+    buf = torch.randn((1 << 20) + 3, generator=g, device="cuda")
+    cases = {arch: generic_carry(torch, arch, 51 + i)
+             for i, arch in enumerate(CARRIES)}
+    cases["0-d fp32"] = [torch.randn((), generator=g, device="cuda")]
+    cases["odd bf16"] = [torch.randn((1001,), generator=g,
+                                     device="cuda").to(torch.bfloat16)]
+    cases["misaligned fp32"] = [buf[1:]]
+    for label, leaves in cases.items():
+        dsts = [_slot(t, pin=True) for t in leaves]
+        plain = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 for t in leaves]
+        sg.entry_store_plain(leaves, plain)
+        sg.entry_store(leaves, dsts).synchronize()
+        require(all(_bits_equal(torch, a, b) for a, b in zip(dsts, plain)),
+                f"entry_store {label}: not bit for bit its plain version")
+        log(f"[kernels] entry_store {label} "
+            f"{[tuple(t.shape) for t in leaves]}: bit for bit its plain "
+            "version")
+
+
+def _gemma_period(torch, seed):
+    """``(layer leaves, other leaves)`` of gemma2-2b's parameters at two
+    layers (one chain step), random from ``seed``."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_factory import get_model
+
+    cfg = get_config("gemma2-2b").replace(n_layers=2)
+    params = get_model(cfg).init(_gen(torch, seed), device="cuda")
+    period = pytree.tree_leaves(params.pop("layers"))
+    others = [tuple(t.shape) for t in pytree.tree_leaves(params)]
+    del params
+    return period, others
+
+
+FOLD_STEPS = 4   # the pinned gemma2-2b schedule's reverse chunk (I=13, s=4)
+
+
+def generic_fold_chunk(torch, seed=62):
+    """One reverse chunk's fold as gemma2-2b's main path makes it at the
+    pinned schedule: each of the 22 weight cotangents of each of the
+    chunk's 4 chain steps (8 layers) copied into its row of the full-chain
+    buffer (the rows past the first, as a later chunk's are); the
+    parameters outside the chain's ``xs`` (the embedding, the final norm)
+    are not read by the steps, so their cotangents are broadcast zeros,
+    skipped, and the fold adds nothing.  Returns ``(gacc, dps, full, rows,
+    src_rows)``: ``rows(full)`` the destination views, in the order
+    :func:`segment_generic.reverse` passes them."""
+    period, others = _gemma_period(torch, seed)
+    g = _gen(torch, seed + 1)
+    full = [torch.zeros((FOLD_STEPS + 1, *t.shape[1:]), device="cuda")
+            for t in period]
+    src_rows = [torch.randn(t.shape[1:], generator=g, device="cuda")
+                for t in period for _ in range(FOLD_STEPS)]
+    zero = torch.zeros((), device="cuda")
+    gacc = {f"o{i}": zero.expand(sh) for i, sh in enumerate(others)}
+    dp = {f"o{i}": zero.expand(sh) for i, sh in enumerate(others)}
+    del period
+    return gacc, [dp], full, lambda fs: [
+        f[k] for f in fs for k in range(1, FOLD_STEPS + 1)], src_rows
+
+
+def generic_fold_case(torch, seed=60):
+    """A synthetic fold that takes every branch of the kernel, at a
+    gemma2-2b chunk's width (the decoders' own folds only copy, as
+    :func:`generic_fold_chunk` does): each weight cotangent into its rows
+    of a full-chain buffer, plus accumulator adds of one period's weights
+    in fp32 and a few bf16, mixed, fresh and unread leaves.  Returns
+    ``(gacc, dps, full, rows, src_rows)`` as :func:`generic_fold_chunk`
+    does."""
+    period, _ = _gemma_period(torch, seed)
+    g = _gen(torch, seed + 1)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    full = [torch.zeros((FOLD_STEPS + 1, *t.shape[1:]), device="cuda")
+            for t in period]
+    src_rows = [randn((FOLD_STEPS, *t.shape[1:])) for t in period]
+    gacc = {f"w{i}": randn(t.shape) for i, t in enumerate(period)}
+    dp = {f"w{i}": randn(t.shape) for i, t in enumerate(period)}
+    gacc.update(bf16=randn((3001,), torch.bfloat16), mixed=randn((777,)),
+                fresh=torch.zeros((), device="cuda").expand(4097),
+                unread=randn((5,)))
+    dp.update(bf16=randn((3001,), torch.bfloat16),
+              mixed=randn((777,), torch.bfloat16), fresh=randn((4097,)),
+              unread=torch.zeros((), device="cuda").expand(5))
+    # a short tail chunk's cotangent, added after the chunk's (chunk 0's
+    # launch), for the small leaves
+    tail = {k: (randn(v.shape, v.dtype) if k in ("bf16", "mixed", "fresh")
+                else torch.zeros((), device="cuda").expand(v.shape))
+            for k, v in dp.items()}
+    del period
+    return gacc, [dp, tail], full, lambda fs: [f[1:] for f in fs], src_rows
+
+
+def check_fold(torch) -> None:
+    """``fold`` bit for bit against its plain version (the same IEEE adds
+    in the same order, and copies) at gemma2-2b's main-path chunk and at
+    the synthetic case that takes the kernel's add branches."""
+    from repro_torch.api.chain import is_broadcast_zero
+    from repro_torch.kernels import segment_generic as sg
+
+    for label, case in (("gemma2-2b's main-path chunk", generic_fold_chunk),
+                        ("the synthetic add case", generic_fold_case)):
+        gacc, dps, full, rows, src_rows = case(torch)
+        ref_acc = {k: v if is_broadcast_zero(v) else v.clone()
+                   for k, v in gacc.items()}
+        ref_full = [f.clone() for f in full]
+        acc, ops = sg.fold_plan(ref_acc, dps, rows(ref_full), src_rows)
+        sg.fold_plain(ops)
+        got = sg.fold(gacc, dps, rows(full), src_rows)
+        torch.cuda.synchronize()
+        want = dict(zip(ref_acc, acc))
+        require(all(_bits_equal(torch, got[k], want[k]) for k in want)
+                and all(_bits_equal(torch, a, b)
+                        for a, b in zip(full, ref_full)),
+                f"fold: not bit for bit its plain version at {label}")
+        nbytes = sum(t.numel() * t.element_size() for t in src_rows)
+        log(f"[kernels] fold at {label} ({len(src_rows)} input-cotangent "
+            f"rows, {nbytes:,} B, {len(want)} accumulator leaves): bit for "
+            "bit its plain version")
+        del gacc, dps, full, src_rows, ref_acc, ref_full, ops
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(state) -> None:
     import torch
 
@@ -888,12 +1078,17 @@ def phase_kernels(state) -> None:
     check_flash_unseen_rows(torch)
     ssd = [check_ssd(torch, *case, seed=30 + i)
            for i, case in enumerate(SSD_CASES)]
+    check_entry_store(torch)
+    check_fold(torch)
+    torch.cuda.empty_cache()
     # the flash kernel's shapes on the main path: gemma2-2b's, phi3.5-moe's
     state["err"] = {"lstm_cell": max(errs["torch.float32"], loop),
                     "fused_advance_segment": max(adv, adv1, adv_pinned),
                     "fused_reverse_segment": max(rev, rev1, rev_pinned),
                     "flash_attention": max(flash[0], flash[2]),
-                    "ssd_scan": ssd[0]}
+                    "ssd_scan": ssd[0],
+                    # bit for bit, or the phase has failed
+                    "entry_store": 0.0, "fold": 0.0}
 
 
 def _dense_reference(torch, params, batch):
@@ -2217,7 +2412,7 @@ class _RoutingRecorder:
 def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
                   per_step, revolve_slots=None, tiered_states=None,
                   n_layers=None, scan=False, stream=False,
-                  plans_2d=False) -> None:
+                  plans_2d=False, fused=None) -> None:
     """The offloaded gradient of a decoder (``runner="compiled"``,
     autotuned) at full width, ``train_4k`` with the global batch cut to
     ``batch_size`` and, with ``n_layers``, the depth cut to that many
@@ -2234,7 +2429,8 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     the same gates; with ``stream``, one ``offload_params="moe_experts"``
     gradient, the expert weights on the host, bit for bit the first
     offloaded call's; with ``plans_2d``, the 2D calls of
-    :func:`decoder_2d` at the first call's schedule."""
+    :func:`decoder_2d` at the first call's schedule; with ``fused = (I,
+    slots)``, the ``runner="fused"`` gradients of :func:`decoder_fused`."""
     import torch
     from torch.utils import _pytree as pytree
 
@@ -2381,6 +2577,9 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     if plans_2d:
         decoder_2d(state, key, model, params, batch, ref_loss, ref_grads,
                    kernels, per_step, tune)
+    if fused is not None:
+        decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
+                      kernels, per_step, fused)
     if stream:
         # the reference's gradients are done with: the streamed check needs
         # the host memory they held
@@ -2462,6 +2661,206 @@ def decoder_scan(state, key, model, params, batch, ref_loss, ref_grads,
                             "blocked": run["record"].blocked_waits}
     del run, grads, loss
     torch.cuda.empty_cache()
+
+
+def generic_plan_work(plan, slots):
+    """What a generic body's fused gradient runs for ``plan`` at ``slots``
+    Level-1 slots (the runner's chunking): ``(forward chunks, reverse
+    chunks, chain steps run in the reverse)``.  The reverse recomputes
+    every chunk entry but the last chunk's (phase A), then runs each
+    chunk once more inside its vjp; the compiled runner's checkpointed vjp
+    runs every step twice when it chunks."""
+    from repro_torch.core.schedule import chunk_length
+    from repro_torch.kernels.segment_fused import (forward_bounds,
+                                                   reverse_layout)
+
+    fwd = rev = steps = 0
+    for seg in plan.segments:
+        L = seg.length
+        chunk = chunk_length(L, slots) or L
+        c, nc, _ = reverse_layout(L, chunk)
+        fwd += len(forward_bounds(L, chunk)) - 1
+        rev += nc
+        steps += (nc - 1) * c + L
+    return fwd, rev, steps
+
+
+def _carry_bytes(model, params, batch) -> int:
+    import torch
+    from torch.utils import _pytree as pytree
+
+    with torch.no_grad():
+        carry0, _ = model.train_loss.chain_spec.prelude(params, batch)
+    return sum(t.numel() * t.element_size()
+               for t in pytree.tree_leaves(carry0))
+
+
+def decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
+                  kernels, per_step, pinned) -> None:
+    """``runner="fused"`` on a decoder (a generic chain body: its steps as
+    PyTorch code, the chunk-entry stores and the cotangent fold by the
+    ``entry_store`` and ``fold`` kernels), under the phase's gates against
+    dense autograd: autotuned (a first and a second call), then at
+    ``pinned = (I, slots)`` beside a
+    ``runner="compiled"`` gradient at that schedule, which it must match
+    bit for bit in the loss, with the same plan and a device peak (above
+    what each call found allocated) at most two carries above the compiled
+    one's.  Each call's launches: ``entry_store`` once a forward chunk
+    (the probe's included), ``fold`` once a reverse chunk, each model
+    kernel ``per_step`` a chain step run (``generic_plan_work``); and
+    ``fused_segments``, ``fused_boundary_copies`` as the reference counts
+    them.  Then one fused advance of the pinned schedule's first segment
+    timed against the compiled advance of it."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import api
+    from repro_torch.kernels import segment_generic as sg
+
+    counted = {**kernels, "entry_store": sg.entry_store, "fold": sg.fold}
+
+    def call(runner, **kw):
+        vg = api.value_and_grad_offloaded(model.train_loss, runner=runner,
+                                          device="cuda", **kw)
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = vg(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return {"loss": loss, "grads": pytree.tree_leaves(grads),
+                "wall": wall,
+                "peak": torch.cuda.max_memory_allocated() - held,
+                "launches": {k: fn.launches for k, fn in counted.items()},
+                "stats": api.last_stats(), "plan": api.last_plan(),
+                "tune": api.last_tune()}
+
+    def gates(label, run, slots):
+        loss, grads = run["loss"], run["grads"]
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        require(math.isfinite(float(loss))
+                and all(bool(g.isfinite().all()) for g in grads),
+                f"{label}: non-finite loss or gradients")
+        gerr = max(scaled_err(a, b) for a, b in zip(grads, ref_grads))
+        require(rel <= 1e-5, f"{label}: loss rel err {rel} > 1e-5")
+        require(gerr <= 1e-3, f"{label}: gradient scaled err {gerr} > 1e-3")
+        plan, stats, tune = run["plan"], run["stats"], run["tune"]
+        fwd, rev, rsteps = generic_plan_work(plan, slots)
+        probe = tune.probe_calls   # one chunk each
+        fwd_steps = sum(seg.length for seg in plan.segments)
+        want = {"entry_store": fwd + probe, "fold": rev}
+        for name in kernels:
+            want[name] = per_step[name] * (fwd_steps + rsteps
+                                           + probe * tune.probe_len)
+        require(run["launches"] == want and all(want.values()),
+                f"{label}: launches {run['launches']}, the plan implies "
+                f"{want}")
+        require(stats.fused_segments == 2 * plan.num_segments
+                and stats.fused_boundary_copies == fwd + 2 * rev,
+                f"{label}: fused_segments {stats.fused_segments}, "
+                f"fused_boundary_copies {stats.fused_boundary_copies} for "
+                f"{plan.num_segments} segments, {fwd} forward and {rev} "
+                "reverse chunks")
+        log(f"[{key}] {label}: I={tune.interval} s={tune.slots} "
+            f"({tune.source}), plan {plan.plan_id} ({plan.num_segments} "
+            f"segments; {fwd} forward, {rev} reverse chunks); loss rel err "
+            f"{rel:.3g}, grad scaled err {gerr:.3g}; wall {run['wall']:.3f}s"
+            f"; device peak above held {run['peak']:,} B; launches "
+            f"{run['launches']}; T_A={tune.t_a:.6e}s T_T={tune.t_t:.6e}s")
+
+    auto = call("fused")
+    gates("fused autotuned", auto, auto["tune"].slots)
+    _add_launches(state, f"{key}-fused", auto["launches"])
+    summary = {"auto": {k: auto[k] for k in ("wall", "peak", "launches")},
+               "auto_tune": (auto["tune"].interval, auto["tune"].t_a,
+                             auto["tune"].t_t)}
+    del auto
+    # a second call: the schedule cached, no probe (the phase's second
+    # compiled call is its yardstick)
+    warm = call("fused")
+    gates("fused autotuned, second call", warm, warm["tune"].slots)
+    summary["warm_wall"] = warm["wall"]
+    del warm
+    torch.cuda.empty_cache()
+    interval, slots = pinned
+    fused = call("fused", interval=interval, slots=slots)
+    gates(f"fused I={interval} s={slots}", fused, slots)
+    _add_launches(state, f"{key}-fused-pinned", fused["launches"])
+    fused.pop("grads")
+    torch.cuda.empty_cache()
+    comp = call("compiled", interval=interval, slots=slots)
+    comp.pop("grads")
+    carry = _carry_bytes(model, params, batch)
+    require(torch.equal(fused["loss"], comp["loss"]),
+            f"{key}: the fused loss {float(fused['loss'])!r} is not bit for "
+            f"bit the compiled one's {float(comp['loss'])!r}")
+    require(fused["plan"].plan_id == comp["plan"].plan_id,
+            f"{key}: plans differ ({fused['plan'].plan_id}, "
+            f"{comp['plan'].plan_id})")
+    require(fused["peak"] <= comp["peak"] + 2 * carry,
+            f"{key}: the fused peak {fused['peak']:,} B is more than two "
+            f"carries ({carry:,} B each) above the compiled "
+            f"{comp['peak']:,} B")
+    comp_want = {k: per_step[k] * comp["stats"].advances for k in kernels}
+    comp_got = {k: comp["launches"][k] for k in kernels}
+    require(comp_got == comp_want,
+            f"{key}: compiled launches {comp_got}, expected {comp_want}")
+    fused_got = {k: fused["launches"][k] for k in kernels}
+    log(f"[{key}] compiled I={interval} s={slots}: loss bit for bit the "
+        f"fused one's, same plan; wall {comp['wall']:.3f}s (fused "
+        f"{fused['wall']:.3f}s); device peak above held {comp['peak']:,} B "
+        f"(fused {fused['peak']:,} B, carry {carry:,} B); model-kernel "
+        f"launches {comp_got} (fused {fused_got}: phase A leaves out each "
+        "segment's last chunk, the checkpointed vjp runs it twice)")
+    summary.update(pinned=(interval, slots), carry=carry,
+                   fused={k: fused[k] for k in ("wall", "peak", "launches")},
+                   compiled={k: comp[k] for k in ("wall", "peak")})
+    del fused, comp
+    torch.cuda.empty_cache()
+    summary["advance_ms"] = time_generic_advance(torch, model, params,
+                                                 batch, interval, slots)
+    log(f"[{key}] one advance of the first {interval} chain steps (chunk "
+        f"layout at s={slots}), device ms (CUDA events): fused "
+        f"{summary['advance_ms']['fused']:.3f}, compiled "
+        f"{summary['advance_ms']['compiled']:.3f}")
+    state[f"{key}-fused"] = summary
+
+
+def time_generic_advance(torch, model, params, batch, interval, slots):
+    """Device ms of one fused advance of the chain's first ``interval``
+    steps (``segment_generic.advance``: the steps plus an ``entry_store``
+    a chunk on the side stream, waited for at the end) against the
+    compiled runner's advance of them (the steps alone), in turns; the
+    better of two timings each."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core.compiled_ops import CompiledChainOps
+    from repro_torch.core.schedule import chunk_length
+    from repro_torch.kernels import segment_generic as sg
+
+    spec = model.train_loss.chain_spec
+    with torch.no_grad():
+        carry0, xs = spec.prelude(params, batch)
+    xs_seg = pytree.tree_map(lambda t: t[:interval], xs)
+    chunk = chunk_length(interval, slots) or interval
+    ops = CompiledChainOps(spec.body, None, ())
+    cur = torch.cuda.current_stream()
+
+    def fused():
+        cur.wait_event(sg.advance(spec.body, params, carry0, xs_seg, batch,
+                                  chunk=chunk).ready)
+
+    def compiled():
+        ops.advance_segment(params, carry0, xs_seg, batch)
+
+    times = {"fused": [], "compiled": []}
+    for name in ("compiled", "fused", "fused", "compiled"):
+        times[name].append(cuda_ms(fused if name == "fused" else compiled,
+                                   2))
+    return {k: min(v) for k, v in times.items()}
 
 
 def _experts_on_host(params):
@@ -2851,6 +3250,12 @@ def decoder_tiered(state, key, model, params, batch, ref_loss, ref_grads,
         f"{_host_allocator_stats(torch)}")
 
 
+# the pinned runner="fused" schedules of phases dense and ssm, (I, slots):
+# gemma2-2b's 13 chain steps in one segment, forward chunks 4, 4, 5 and
+# reverse chunks 4, 4, 4, 1; mamba2-370m's 48 in segments 14, 14, 14, 6
+FUSED_PINNED = {"dense": (13, 4), "ssm": (14, 4)}
+
+
 def phase_dense(state) -> None:
     from repro_torch.kernels import flash_attention as fa
 
@@ -2858,14 +3263,14 @@ def phase_dense(state) -> None:
     decoder_phase(state, "dense", "gemma2-2b", 2,
                   {"flash_attention": fa.flash_attention},
                   {"flash_attention": 2}, revolve_slots=4, tiered_states=4,
-                  scan=True, plans_2d=True)
+                  scan=True, plans_2d=True, fused=FUSED_PINNED["dense"])
 
 
 def phase_ssm(state) -> None:
     from repro_torch.kernels import ssd_scan as ssd
 
     decoder_phase(state, "ssm", "mamba2-370m", 4, {"ssd_scan": ssd.ssd_scan},
-                  {"ssd_scan": 1})
+                  {"ssd_scan": 1}, fused=FUSED_PINNED["ssm"])
 
 
 # phi3.5-moe-42b's depth in phase moe: its fp32 parameters are 1.30 B a
@@ -3537,6 +3942,97 @@ def _time_ssd(torch, run):
             flops)
 
 
+def _time_entry_store(torch, arch):
+    """``entry_store`` at a decoder's carry into page-locked slots (the
+    side stream, waited for on the timed stream), its plain version
+    (``copy_``, which waits for its copy) and the copy engine
+    (``copy_(non_blocking=True)`` into the same slots).  Bound: the bytes
+    over the host link, the slower of the two rates they cross."""
+    from repro_torch.core.offload import _slot
+    from repro_torch.kernels import segment_generic as sg
+
+    leaves = generic_carry(torch, arch, 70)
+    dsts = [_slot(t, pin=True) for t in leaves]
+    cur = torch.cuda.current_stream()
+    n0 = sg.entry_store.launches
+    ms_k = cuda_ms(lambda: cur.wait_event(sg.entry_store(leaves, dsts)), 20)
+    sg.entry_store.launches = n0   # timing launches are not the path's
+    ms_p = cuda_ms(lambda: sg.entry_store_plain(leaves, dsts), 20)
+
+    def engine():
+        for s, d in zip(leaves, dsts):
+            d.copy_(s, non_blocking=True)
+
+    ms_l = cuda_ms(engine, 20)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    b_ms = nbytes / PCIE_BYTES_PER_S * 1e3
+    log(f"[timing] entry_store at {arch}'s carry ({nbytes:,} B): {ms_k:.4f} "
+        f"ms ({nbytes / ms_k / 1e6:.2f} GB/s), plain {ms_p:.4f} ms, copy "
+        f"engine {ms_l:.4f} ms ({nbytes / ms_l / 1e6:.2f} GB/s); bound "
+        f"{b_ms:.4f} ms at 64 GB/s")
+    return ms_k, ms_p, b_ms, ms_l
+
+
+def _time_fold(torch, case, label):
+    """``fold`` on one case's chunk (its first cotangent and its rows)
+    beside its plain version and ``torch._foreach_add_`` plus
+    ``torch._foreach_copy_`` over the same lists.  Bound: the bytes read
+    and written over the card's memory rate."""
+    from repro_torch.kernels import segment_generic as sg
+
+    gacc, dps, full, rows, src_rows = case(torch)
+    dps, dst_rows = dps[:1], rows(full)
+    acc, ops = sg.fold_plan(gacc, dps, dst_rows, src_rows)
+    gacc = {k: a for k, a in zip(gacc, acc)}   # every read leaf a buffer
+    acc, ops = sg.fold_plan(gacc, dps, dst_rows, src_rows)
+    n0 = sg.fold.launches
+    ms_k = cuda_ms(lambda: sg.fold(gacc, dps, dst_rows, src_rows), 10)
+    sg.fold.launches = n0   # timing launches are not the path's
+    ms_p = cuda_ms(lambda: sg.fold_plain(ops), 10)
+    adds = [(d, srcs[0]) for d, srcs, kind in ops if kind == "add"]
+    copies = [(d, srcs[0]) for d, srcs, kind in ops if kind == "copy"]
+
+    def library():
+        if adds:
+            torch._foreach_add_([d for d, _ in adds], [s for _, s in adds])
+        torch._foreach_copy_([d for d, _ in copies],
+                             [s for _, s in copies])
+
+    ms_l = cuda_ms(library, 10)
+    nbytes = sum((3 if kind == "add" else 2) * srcs[0].numel()
+                 * srcs[0].element_size() for _, srcs, kind in ops)
+    b_ms, by = bound_ms(nbytes, 0.0)
+    log(f"[timing] fold at {label} ({len(adds)} adds, {len(copies)} row "
+        f"copies, {nbytes:,} B read and written): {ms_k:.4f} ms "
+        f"({nbytes / ms_k / 1e9:.3f} TB/s), plain {ms_p:.4f} ms, "
+        f"_foreach_add_ + _foreach_copy_ {ms_l:.4f} ms; bound {b_ms:.4f} ms "
+        "at 3.35 TB/s")
+    del gacc, dps, full, dst_rows, src_rows, ops, adds, copies
+    torch.cuda.empty_cache()
+    return ms_k, ms_p, b_ms, by, ms_l
+
+
+def _time_generic(torch):
+    """The two kernels of the generic fused segments at the decoders'
+    shapes: ``entry_store`` at gemma2-2b's and mamba2-370m's carries (the
+    row: gemma2-2b's), ``fold`` at gemma2-2b's main-path chunk (the row:
+    row copies only) and at the synthetic case with adds."""
+    stores = {arch: _time_entry_store(torch, arch) for arch in CARRIES}
+    fold_main = _time_fold(torch, generic_fold_chunk,
+                           "gemma2-2b's main-path chunk")
+    _time_fold(torch, generic_fold_case,
+               "the synthetic add case (not the main path's)")
+    src = "src/repro_torch/kernels/csrc/segment_generic.cu"
+    k_ms, p_ms, s_ms, l_ms = stores["gemma2-2b"]
+    ms_k, ms_p, b_ms, by, ms_l = fold_main
+    # the parts of the TPU kernels they stand for: the chunk-entry copy
+    # out, and the fold with its dxd rows
+    return [("entry_store", src, "src/repro/kernels/segment_pallas.py:205",
+             k_ms, p_ms, s_ms, "bytes", l_ms, 0.0),
+            ("fold", src, "src/repro/kernels/segment_pallas.py:414", ms_k,
+             ms_p, b_ms, by, ms_l, 0.0)]
+
+
 def log_parts(name, T, parts) -> None:
     log("[timing] {} at T={} by part (one call, device time of its kernels, "
         "torch.profiler): {}".format(
@@ -3627,6 +4123,7 @@ def phase_timing(state) -> None:
                 if "flash_attention" in v}
     log(f"[timing] flash_attention launches by phase: {by_phase}")
     rows.append(_time_ssd(torch, state["ssm"]))
+    rows += _time_generic(torch)
 
     out = []
     for name, src, rep, k_ms, p_ms, b_ms, by, l_ms, flops in rows:
@@ -3635,11 +4132,11 @@ def phase_timing(state) -> None:
                     "max_abs_err": state["err"][name], "ms": k_ms,
                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
                     "library_ms": l_ms})
+        rate = f"; {flops / k_ms / 1e9:.2f} TFLOP/s" if flops else ""
         log(f"[timing] {name}: {k_ms:.4f} ms (plain {p_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms by {by}, library "
-            f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}; "
-            f"{flops / k_ms / 1e9:.2f} TFLOP/s); launches "
-            f"{state['launches'][name]}")
+            f"{'n/a' if l_ms is None else f'{l_ms:.4f} ms'}{rate}); "
+            f"launches {state['launches'][name]}")
     log(f"[timing] LSTM segment shape: T={seg['T']} chunk={seg['chunk']} "
         f"B={B}; bounds: LSTM kernels at the fp32 peak (67 TFLOP/s), "
         f"flash_attention and ssd_scan at the bf16 tensor-core peak "

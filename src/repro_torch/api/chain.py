@@ -134,7 +134,7 @@ def combine(diff, nondiff, treespec, mask: Tuple[bool, ...]) -> Any:
 
 def steps_vjp(body: BodyFn, params: Params, carry: Carry, xs: Any,
               batch: Batch, xs_mask: Tuple[bool, ...], dcarry: Carry, *,
-              chunk: Optional[int] = None):
+              chunk: Optional[int] = None, split_xs: bool = False):
     """Vector-Jacobian product of the chain steps over ``xs`` (all of its
     leading axis) started from ``carry``, at the cotangent ``dcarry`` of
     the final carry.  Returns ``(dparams, dcarry_in, dxd)``: parameter and
@@ -146,7 +146,13 @@ def steps_vjp(body: BodyFn, params: Params, carry: Carry, xs: Any,
     ``chunk`` (the counterpart of the JAX engines' ``jax.checkpoint``
     regions) recomputes the steps under ``torch.utils.checkpoint`` in
     ``divmod(n, chunk)`` full chunks plus one shorter tail chunk, so only
-    chunk-entry carries are kept while linearising."""
+    chunk-entry carries are kept while linearising.
+
+    ``split_xs`` differentiates each step's slice of an inexact ``xs`` leaf
+    as an input of its own and returns, per inexact leaf, the list of the
+    steps' cotangents (the same values): autograd then holds each step's
+    cotangent as it is made, not a stacked buffer of every step from the
+    first one on."""
     p_leaves, p_spec = pytree.tree_flatten(params)
     c_leaves, c_spec = pytree.tree_flatten(carry)
     xs_spec = pytree.tree_structure(xs)
@@ -155,7 +161,11 @@ def steps_vjp(body: BodyFn, params: Params, carry: Carry, xs: Any,
     with torch.enable_grad():
         p_in = [t.detach().requires_grad_(is_inexact(t)) for t in p_leaves]
         c_in = [t.detach().requires_grad_(True) for t in c_leaves]
-        xd_in = [t.detach().requires_grad_(True) for t in xd]
+        if split_xs:
+            xd_in = [[t[k].detach().requires_grad_(True) for k in range(n)]
+                     for t in xd]
+        else:
+            xd_in = [t.detach().requires_grad_(True) for t in xd]
         params_v = pytree.tree_unflatten(p_in, p_spec)
 
         def run(lo, hi, *c_):
@@ -181,7 +191,8 @@ def steps_vjp(body: BodyFn, params: Params, carry: Carry, xs: Any,
                                  use_reentrant=False)
         dc_leaves = pytree.tree_leaves(dcarry)
         pairs = [(o, g) for o, g in zip(out, dc_leaves) if o.requires_grad]
-        inputs = p_in + c_in + xd_in
+        inputs = p_in + c_in + (
+            [t for steps in xd_in for t in steps] if split_xs else xd_in)
         wanted = [t for t in inputs if t.requires_grad]
         grads = iter(torch.autograd.grad(
             [o for o, _ in pairs], wanted, grad_outputs=[g for _, g in pairs],
@@ -201,9 +212,11 @@ def steps_vjp(body: BodyFn, params: Params, carry: Carry, xs: Any,
             # zero leaving here always means "not read"
             g = g.clone(memory_format=torch.contiguous_format)
         full.append(g)
+    dxd = full[n_p + n_c:]
+    if split_xs:
+        dxd = [dxd[i * n:(i + 1) * n] for i in range(len(xd))]
     return (pytree.tree_unflatten(full[:n_p], p_spec),
-            pytree.tree_unflatten(full[n_p:n_p + n_c], c_spec),
-            full[n_p + n_c:])
+            pytree.tree_unflatten(full[n_p:n_p + n_c], c_spec), dxd)
 
 
 def is_broadcast_zero(t: torch.Tensor) -> bool:
@@ -213,6 +226,12 @@ def is_broadcast_zero(t: torch.Tensor) -> bool:
     :func:`steps_vjp` make such leaves (``steps_vjp`` copies a real
     gradient that autograd hands back broadcast)."""
     return t.dim() > 0 and all(s == 0 for s in t.stride())
+
+
+def zero_grads(params: Params) -> Params:
+    """An empty gradient accumulator: broadcast zeros, which hold no
+    memory (:func:`accumulate`)."""
+    return pytree.tree_map(lambda t: t.new_zeros(()).expand_as(t), params)
 
 
 def accumulate(gacc: Params, dp: Params) -> Params:

@@ -33,7 +33,9 @@ backward runs the reverse sweep from the readout's cotangent.  Gradients
 of the prelude and readout flow through ordinary autograd around it.
 
 ``runner="fused"`` (the JAX package's ``runner="pallas"``) drives the
-hand-written CUDA segment kernels; ``runner="compiled"`` is plain PyTorch,
+hand-written CUDA segment kernels (for any chain body: the LSTM step's own,
+or the chunk-entry store and cotangent fold kernels around the body's
+steps); ``runner="compiled"`` is plain PyTorch,
 as XLA's is in JAX.  The schedule ``(I, s)`` is measured on the first call
 (``I = ceil(T_T/T_A)``, §3) unless ``interval=`` pins it.
 
@@ -74,7 +76,8 @@ from torch.utils import _pytree as pytree
 from repro_torch.api import autotune as at
 from repro_torch.api.chain import (ChainSpec, accumulate, chain_length,
                                    combine, diff_mask, index_xs, is_inexact,
-                                   is_broadcast_zero, partition, steps_vjp)
+                                   is_broadcast_zero, partition, steps_vjp,
+                                   zero_grads)
 from repro_torch.core import schedule as ms
 from repro_torch.core.compiled_ops import (CompiledChainOps,
                                            CompiledSegmentRunner,
@@ -411,11 +414,7 @@ class _Ops:
                                 self.xs_mask, dcarry)
         return dc, accumulate(gacc, dp), [d[0] for d in dxd]
 
-    @staticmethod
-    def zero_grads(params):
-        """Broadcast zeros, which hold no memory (:func:`accumulate`)."""
-        return pytree.tree_map(lambda t: t.new_zeros(()).expand_as(t),
-                               params)
+    zero_grads = staticmethod(zero_grads)
 
 
 # ---------------------------------------------------------------------------
@@ -552,9 +551,12 @@ def _resolve_schedule(static: _Static, ops: _Ops, params, carry0, xs, batch,
             last = None
             captured = None
             if segment_fused._CAPTURED and \
-                    not segment_fused._on_cpu(carry0):
+                    not segment_fused._on_cpu(carry0) and \
+                    segment_fused.body_kind(ops.cops.body) == "lstm":
                 # what the run replays: a captured segment (the tuner's
-                # untimed first call captures it)
+                # untimed first call captures it); a generic body's segment
+                # runs uncaptured, its entry stored by the entry_store
+                # kernel beside the chunk's steps
                 captured = segment_fused.CapturedRun(ops.cops.body, params,
                                                      xs_probe)
 
@@ -682,6 +684,7 @@ def _fwd(static: _Static, params, carry0, xs, batch):
         try:
             engine = AsyncTransferEngine(backend, device=device)
             if cfg.runner == "fused":
+                # the LSTM kernels' token ids (a generic body: no check)
                 segment_fused.check_token_range(spec.body, params, xs)
             recovered = None
             fingerprint = None
@@ -1116,8 +1119,10 @@ def value_and_grad_offloaded(
     graph (one autograd function a segment, boundaries in page-locked host
     memory; ``storage="ram"`` only).  ``runner="fused"`` (the JAX package's
     ``runner="pallas"``) runs the hand-written CUDA segment kernels on the
-    card — the LSTM chain step only; other chains raise ``ValueError`` there
-    — and their plain PyTorch versions on the CPU.
+    card: for the LSTM chain step the whole segment (captured), for any
+    other chain the body's own steps beside the ``entry_store`` and
+    ``fold`` kernels (chunk-entry stores, cotangent fold); on the CPU their
+    plain PyTorch versions.
     ``offload_params="moe_experts"`` streams a MoE chain's expert weights
     (``w_gate``/``w_up``/``w_down`` under a ``"moe"`` subtree) through
     Level 2 one segment ahead of the compute: those leaves stay where the

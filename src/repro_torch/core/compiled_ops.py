@@ -16,7 +16,9 @@
   parameter lane of Level 2 (``executor.ParamStream``).
 * :class:`FusedSegmentRunner` — ``runner="fused"``, the JAX package's
   ``runner="pallas"``: the hand-written CUDA segment kernels of
-  :mod:`repro_torch.kernels.segment_fused`, with the same counters.
+  :mod:`repro_torch.kernels.segment_fused` (the LSTM chain step), and for
+  any other body its own PyTorch code with the copy and fold kernels of
+  :mod:`repro_torch.kernels.segment_generic`, with the same counters.
 * :func:`inner_chunked_body` — the reverse body of a 2D plan: one step's
   layers in the plan's inner sub-ranges, each under
   ``torch.utils.checkpoint``.
@@ -220,22 +222,34 @@ class ParamStreamSegmentRunner(CompiledSegmentRunner):
 
 
 class FusedSegmentRunner(CompiledSegmentRunner):
-    """``runner="fused"``: the fused segment kernels
-    (:mod:`repro_torch.kernels.segment_fused`).
+    """``runner="fused"``: the fused segments
+    (:mod:`repro_torch.kernels.segment_fused`, and for any body other than
+    the LSTM chain step :mod:`repro_torch.kernels.segment_generic`).
 
     Same executor protocol as :class:`CompiledSegmentRunner`, plus
     :meth:`advance_with_store`: the segment-entry boundary comes *out of the
-    kernel* — already written to page-locked host memory while the segment
-    computed — instead of being snapshotted before the advance.  On CPU
-    tensors the kernels' plain versions run (any body); on the card only the
-    registered bodies (the LSTM chain step) run, others raise.
+    segment* — already written to page-locked host memory while the segment
+    computed — instead of being snapshotted before the advance.  What runs
+    where:
 
-    On the card every segment is one replay of a captured CUDA graph per
-    direction (:class:`~repro_torch.kernels.segment_fused.CapturedRun`,
-    the counterpart of the JAX runner's jit cache): boundaries go into
-    pooled page-locked slots (the pool grows to the run's need in its
-    first call), and the reverse adds each segment's gradient into one flat accumulator in
-    place.  The counters are those of the uncaptured run.
+    * the LSTM chain step on the card: the hand-written LSTM segment
+      kernels, every segment one replay of a captured CUDA graph per
+      direction (:class:`~repro_torch.kernels.segment_fused.CapturedRun`,
+      the counterpart of the JAX runner's jit cache): boundaries go into
+      pooled page-locked slots (the pool grows to the run's need in its
+      first call), and the reverse adds each segment's gradient into one
+      flat accumulator in place.  The counters are those of the uncaptured
+      run.  On CPU tensors the kernels' plain versions run.
+    * any other body (on the card or not, uncaptured): the body's steps and
+      their vjp as the caller's PyTorch code on the compute stream, as
+      :class:`CompiledSegmentRunner` runs them; each chunk entry goes to
+      host slots by the ``entry_store`` kernel on a side stream while the
+      chunk computes (the segment entry into a slot of its own, the later
+      ones into the pool's scratch pair), and each reverse chunk's
+      cotangents go by one
+      ``fold`` launch into the executor's own accumulator (in place) and
+      into ``dx_full``'s rows.  On CPU tensors those two run their plain
+      versions.
     """
 
     def __init__(self, ops: CompiledChainOps, params, xs, batch, *,
@@ -245,12 +259,14 @@ class FusedSegmentRunner(CompiledSegmentRunner):
         super().__init__(ops, params, xs, batch, s_l1=s_l1)
         self.n = chain_length(xs)
         self._card = not segment_fused._on_cpu(params)
+        self._generic = segment_fused.body_kind(ops.body) == \
+            segment_fused.GENERIC
         self._captured = None   # the CapturedRun, at first use
         self._flat = None       # the card's gradient accumulator, flat
         self._gtree = None      # ... as the parameter tree (views)
 
     def _capture_run(self):
-        if not (self._card and segment_fused._CAPTURED):
+        if not (self._card and segment_fused._CAPTURED) or self._generic:
             return None
         if self._captured is None:
             self._captured = segment_fused.CapturedRun(
@@ -282,16 +298,16 @@ class FusedSegmentRunner(CompiledSegmentRunner):
 
     def advance_with_store(self, state, seg: SegmentSpec, stats):
         """Advance one segment and return ``(new_state, entry_boundary)``:
-        the kernel's ``entries[0]`` as a :class:`HostTree` fenced by the
-        kernel's event — the Level-2 store takes those buffers as they are
-        (each owns its storage)."""
+        the segment's ``entries[0]`` as a :class:`HostTree` fenced by its
+        event — the Level-2 store takes those buffers as they are (each
+        owns its storage)."""
         out = self._advance_fused(state, seg, stats)
         return out.carry, HostTree(out.entries[0], out.ready)
 
     def _accumulate(self, gacc, gflat):
-        """``gacc + gflat`` into the run's flat accumulator, in place: the
-        first segment (or a tree from elsewhere, such as a journal's
-        cursor) starts it."""
+        """The LSTM card path's ``gacc + gflat`` into the run's flat
+        accumulator, in place: the first segment (or a tree from
+        elsewhere, such as a journal's cursor) starts it."""
         if gacc is not self._gtree:
             self._flat = torch.zeros_like(gflat)
             self._gtree = segment_fused._grad_views(
@@ -302,9 +318,25 @@ class FusedSegmentRunner(CompiledSegmentRunner):
         self._flat.add_(gflat)
         return self._gtree
 
+    def _reverse_generic(self, x_b, dcarry, gacc, seg: SegmentSpec):
+        """A generic body's reverse: the chunks' cotangents folded into
+        ``gacc`` and written into ``dx_full``'s rows of the segment."""
+        from repro_torch.kernels import segment_generic
+
+        if self.dx_full is None:
+            self.dx_full = segment_generic.dx_buffers(self.xs,
+                                                      self.ops.xs_mask)
+        rows = [full[seg.begin:seg.end] for full in self.dx_full]
+        return segment_generic.reverse(
+            self.ops.body, self.ops.xs_mask, self.params, x_b,
+            self._slice(seg), self.batch, dcarry, gacc, rows,
+            chunk=self._chunk(seg))
+
     def reverse(self, x_b, adjoint, seg: SegmentSpec, slots, stats):
         dcarry, gacc = adjoint
-        if not self._card:
+        if self._generic:
+            dc, gacc = self._reverse_generic(x_b, dcarry, gacc, seg)
+        elif not self._card:
             dc, dp, dxd = segment_fused.fused_reverse_segment(
                 self.ops.body, self.ops.xs_mask, self.params, x_b,
                 self._slice(seg), self.batch, dcarry,

@@ -91,17 +91,30 @@ _POOLS_LOCK = threading.Lock()
 _SLOT_DTYPE = {torch.bfloat16: torch.int16, torch.float16: torch.int16}
 
 
-def _slot(t: torch.Tensor, pin: bool) -> torch.Tensor:
-    """A free host slot shaped like ``t`` (page-locked when ``pin``), from a
-    pool shared by every scan call; it returns to the pool when nothing
-    holds it any more."""
+def _pool(t: torch.Tensor, pin: bool) -> Tuple[PinnedSlotPool, torch.dtype]:
     dtype = _SLOT_DTYPE.get(t.dtype, t.dtype)
     key = (tuple(t.shape), dtype, pin)
     with _POOLS_LOCK:
         pool = _POOLS.get(key)
         if pool is None:
             pool = _POOLS[key] = PinnedSlotPool([t.shape], dtype, pin=pin)
+    return pool, dtype
+
+
+def _slot(t: torch.Tensor, pin: bool) -> torch.Tensor:
+    """A free host slot shaped like ``t`` (page-locked when ``pin``), from a
+    pool shared by every scan call; it returns to the pool when nothing
+    holds it any more."""
+    pool, dtype = _pool(t, pin)
     _, (h,) = pool.take()
+    return h.view(t.dtype) if dtype != t.dtype else h
+
+
+def _scratch_slot(t: torch.Tensor, pin: bool, k: int) -> torch.Tensor:
+    """Scratch slot ``k % 2`` of the same pool: shared, never handed out,
+    for copies no one reads."""
+    pool, dtype = _pool(t, pin)
+    h = pool.scratch[k % 2][0]
     return h.view(t.dtype) if dtype != t.dtype else h
 
 

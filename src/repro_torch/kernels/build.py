@@ -29,6 +29,7 @@ SOURCES = {
     "segment_fused": "segment_fused.cu",
     "flash_attention": "flash_attention.cu",
     "ssd_scan": "ssd_scan.cu",
+    "segment_generic": "segment_generic.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -21,15 +21,17 @@
   ``dh_t = dz_t W_h^T`` and the cell's vjp (one cooperative launch per
   chunk), and the parameter gradients are reduced in a fixed order.
 
-The JAX kernels trace any chain body; the CUDA kernels are written for the
-LSTM chain step only, which ``repro_torch.models.lstm`` registers here.  On
-CUDA tensors an unregistered body raises ``ValueError``; on CPU tensors each
-wrapper runs its plain version, which works for any body: the chunk layouts
-of the JAX kernels (a length-1 forward tail merges into the previous chunk;
-the reverse folds full chunks from zero in descending order and adds a
-short tail chunk once at the end) with plain PyTorch steps and autograd.
-What bounds each kernel on the H100, and what its design does about it, is
-noted in the CUDA source.
+The JAX kernels trace any chain body.  These CUDA kernels are written for
+the LSTM chain step, which ``repro_torch.models.lstm`` registers here
+(:func:`register_body`); every other body is of the generic kind, whose
+segments :mod:`repro_torch.kernels.segment_generic` runs (the body's steps
+as PyTorch code, the chunk-entry stores and the cotangent fold as its two
+kernels).  On CPU tensors each LSTM wrapper runs its plain version, which
+works for any body: the chunk layouts of the JAX kernels (a length-1
+forward tail merges into the previous chunk; the reverse folds full chunks
+from zero in descending order and adds a short tail chunk once at the end)
+with plain PyTorch steps and autograd.  What bounds each kernel on the
+H100, and what its design does about it, is noted in the CUDA source.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from torch.utils import _pytree as pytree
 from repro_torch.kernels import build
 
 SUPPORTED_BODIES = ("lstm",)
+GENERIC = "generic"   # any other body: segment_generic's path
 _BODIES: Dict[Any, str] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,24 +61,26 @@ def register_body(body, kind: str) -> None:
 
 
 def body_kind(body) -> str:
-    """The registered kind of ``body``; raises ``ValueError`` for a body the
-    CUDA kernels do not implement (there is no fallback on the card)."""
-    kind = _BODIES.get(body)
-    if kind is None:
+    """The registered kind of ``body``, or :data:`GENERIC` for a body no
+    kernel of this module implements."""
+    return _BODIES.get(body, GENERIC)
+
+
+def _require_lstm(body) -> None:
+    if body_kind(body) != "lstm":
         raise ValueError(
-            f"runner='fused' on CUDA runs hand-written kernels for the chain "
-            f"bodies {SUPPORTED_BODIES} only (registered with "
-            f"segment_fused.register_body); got {body!r} — use "
-            "runner='compiled' for other chains")
-    return kind
+            f"the LSTM segment kernels run the chain bodies "
+            f"{SUPPORTED_BODIES} only (registered with "
+            f"segment_fused.register_body); got {body!r}, a generic body "
+            "(segment_generic runs its segments)")
 
 
 def check_token_range(body, params, xs) -> None:
-    """Host-side check, once per gradient call, of the ids the CUDA kernels
+    """Host-side check, once per gradient call, of the ids the LSTM kernels
     index with: an out-of-range token or target would read outside the
     embedding or the logits.  (The wrappers themselves do not synchronise
     per segment to check; the plain versions index with PyTorch, which
-    checks.)"""
+    checks.)  A generic body indexes with PyTorch: nothing to check."""
     if _on_cpu(xs) or body_kind(body) != "lstm":
         return
     tok, tgt = xs
@@ -141,9 +146,56 @@ def _slice(xs, lo, hi):
     return pytree.tree_map(lambda leaf: leaf[lo:hi], xs)
 
 
+def _step(xs, k):
+    return pytree.tree_map(lambda leaf: leaf[k], xs)
+
+
 def _on_cpu(tree) -> bool:
     return not any(t.is_cuda for t in pytree.tree_leaves(tree)
                    if isinstance(t, torch.Tensor))
+
+
+# --------------------------------------------------------------------------
+# the chunk walks (the TPU kernels' layouts), shared by the plain versions
+# and the generic body's card path
+# --------------------------------------------------------------------------
+
+
+def forward_walk(body, params, carry, xs_seg, batch, *, chunk: int,
+                 at_entry) -> Any:
+    """The segment's steps without a graph, in the forward kernel's chunks:
+    ``at_entry(kk, carry)`` at each chunk entry, before the chunk's steps.
+    Returns the carry after the segment."""
+    T = pytree.tree_leaves(xs_seg)[0].shape[0]
+    bounds = forward_bounds(T, chunk)
+    with torch.no_grad():
+        for kk, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+            at_entry(kk, carry)
+            for k in range(lo, hi):
+                carry = body(params, carry, _step(xs_seg, k), batch)
+    return carry
+
+
+def reverse_walk(body, params, carry_b, xs_seg, batch, *, chunk: int):
+    """The reverse kernel's walk from the segment's boundary ``carry_b``:
+    phase A recomputes the chunk entries without a graph, then yields
+    ``(kk, lo, hi, entry, tail)`` for each chunk from the last one down,
+    ``tail`` marking a short last chunk, whose parameter cotangent the TPU
+    kernel holds out of the running fold and adds once at the end.  Each
+    entry is released once the caller moves on."""
+    T = pytree.tree_leaves(xs_seg)[0].shape[0]
+    chunk, nc, rem = reverse_layout(T, chunk)
+    entries = [carry_b]
+    with torch.no_grad():
+        c = carry_b
+        for kk in range(nc - 1):
+            for k in range(kk * chunk, (kk + 1) * chunk):
+                c = body(params, c, _step(xs_seg, k), batch)
+            entries.append(c)
+        del c
+    for kk in range(nc - 1, -1, -1):
+        yield (kk, kk * chunk, min((kk + 1) * chunk, T), entries.pop(),
+               kk == nc - 1 and rem != chunk)
 
 
 # --------------------------------------------------------------------------
@@ -155,15 +207,11 @@ def advance_plain(body, params, carry, xs_seg, batch, *,
                   chunk: int) -> FusedAdvance:
     """The plain version of kernel 2: the carry over the segment plus a
     copy of every chunk-entry carry."""
-    T = pytree.tree_leaves(xs_seg)[0].shape[0]
-    bounds = forward_bounds(T, chunk)
     entries = []
-    with torch.no_grad():
-        for lo, hi in zip(bounds[:-1], bounds[1:]):
-            entries.append(pytree.tree_map(torch.clone, carry))
-            for k in range(lo, hi):
-                x = pytree.tree_map(lambda leaf: leaf[k], xs_seg)
-                carry = body(params, carry, x, batch)
+    carry = forward_walk(
+        body, params, carry, xs_seg, batch, chunk=chunk,
+        at_entry=lambda kk, c: entries.append(pytree.tree_map(torch.clone,
+                                                               c)))
     return FusedAdvance(carry, entries, None)
 
 
@@ -173,33 +221,22 @@ def reverse_plain(body, xs_mask, params, carry_b, xs_seg, batch, dcarry, *,
     with the JAX kernel's chunking and fold order."""
     from repro_torch.api.chain import steps_vjp
 
-    T = pytree.tree_leaves(xs_seg)[0].shape[0]
-    chunk, nc, rem = reverse_layout(T, chunk)
-    entries = [carry_b]
-    with torch.no_grad():   # phase A: the chunk-entry boundaries
-        c = carry_b
-        for kk in range(nc - 1):
-            for k in range(kk * chunk, (kk + 1) * chunk):
-                x = pytree.tree_map(lambda leaf: leaf[k], xs_seg)
-                c = body(params, c, x, batch)
-            entries.append(c)
     gacc = pytree.tree_map(torch.zeros_like, params)
     dp_tail = None
     dc = dcarry
     dxd_chunks: Dict[int, list] = {}
-    for kk in range(nc - 1, -1, -1):
-        lo, hi = kk * chunk, min((kk + 1) * chunk, T)
+    for kk, lo, hi, entry, tail in reverse_walk(body, params, carry_b,
+                                                xs_seg, batch, chunk=chunk):
         dp, dc, dxd_chunks[kk] = steps_vjp(
-            body, params, entries[kk], _slice(xs_seg, lo, hi), batch,
-            xs_mask, dc)
-        if kk == nc - 1 and rem != chunk:
+            body, params, entry, _slice(xs_seg, lo, hi), batch, xs_mask, dc)
+        if tail:
             dp_tail = dp   # short tail: added once at the end
         else:
             gacc = pytree.tree_map(torch.add, gacc, dp)
     if dp_tail is not None:
         gacc = pytree.tree_map(torch.add, gacc, dp_tail)
     n_diff = len(dxd_chunks[0])
-    dxd = [torch.cat([dxd_chunks[kk][i] for kk in range(nc)])
+    dxd = [torch.cat([dxd_chunks[kk][i] for kk in range(len(dxd_chunks))])
            for i in range(n_diff)]
     return dc, gacc, dxd
 
@@ -777,7 +814,7 @@ class CapturedRun:
     captures = 0   # graphs captured in this process
 
     def __init__(self, body, params, xs):
-        body_kind(body)
+        _require_lstm(body)
         self.lib = _seg_lib()
         p = [params[k] for k in _LSTM_KEYS]
         tok, tgt = xs
@@ -910,10 +947,15 @@ def fused_advance_segment(body, params, carry, xs_seg, batch, *,
     by the kernels, each leaf its own allocation, final once ``ready`` has
     completed); ``entries[0]`` is the segment-entry state the executor
     stores to Level 2.  (Uncaptured: its buffers are allocated per call;
-    :class:`CapturedRun` replays the same kernels.)"""
+    :class:`CapturedRun` replays the same kernels.)  A generic body's
+    segment is :func:`segment_generic.advance`."""
+    if body_kind(body) == GENERIC:
+        from repro_torch.kernels import segment_generic
+
+        return segment_generic.advance(body, params, carry, xs_seg, batch,
+                                       chunk=chunk)
     if _on_cpu(carry):
         return advance_plain(body, params, carry, xs_seg, batch, chunk=chunk)
-    body_kind(body)
     with _card_call(fused_advance_segment):
         return _advance_lstm_cuda(params, carry, xs_seg, chunk)
 
@@ -928,7 +970,7 @@ def _fused_reverse_card(body, params, carry_b, xs_seg, dcarry, *,
     """The uncaptured card path of :func:`fused_reverse_segment`:
     ``(dcarry_at_begin, gflat)``, the gradient flat
     (:func:`_grad_views` gives the dict)."""
-    body_kind(body)
+    _require_lstm(body)
     with _card_call(fused_reverse_segment):
         return _reverse_lstm_cuda(params, carry_b, xs_seg, dcarry, chunk)
 
@@ -940,7 +982,16 @@ def fused_reverse_segment(body, xs_mask, params, carry_b, xs_seg, batch,
     Returns ``(dcarry_at_begin, dparams_for_segment, dxs_diff_leaves)``;
     the caller folds ``dparams_for_segment`` into its gradient accumulator
     (``gacc + dp``).  The LSTM chain's per-step inputs are token ids, so on
-    the card ``dxs_diff_leaves`` is empty."""
+    the card ``dxs_diff_leaves`` is empty.  A generic body's segment is
+    :func:`segment_generic.reverse_segment` (its parameter gradient folded
+    from an empty accumulator; a leaf the steps do not read stays a
+    broadcast zero)."""
+    if body_kind(body) == GENERIC:
+        from repro_torch.kernels import segment_generic
+
+        return segment_generic.reverse_segment(
+            body, xs_mask, params, carry_b, xs_seg, batch, dcarry,
+            chunk=chunk)
     if _on_cpu(carry_b):
         return reverse_plain(body, xs_mask, params, carry_b, xs_seg, batch,
                              dcarry, chunk=chunk)

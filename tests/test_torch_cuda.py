@@ -41,6 +41,11 @@ device peak flat in the chain's length, and a streamed MoE call
 unstreamed one.  A budget-driven 2D plan splits jamba's period on the card
 (the offloaded gates, inner counters equal to the perfmodel's), and the
 byte profile of a full-width chain allocates no device memory.
+``runner="fused"`` on a generic chain body (the two reference chains of
+``tests/test_kernels.py``, jamba at SMOKE width) against
+``runner="compiled"`` on the card: the loss bit for bit, each leaf within
+1e-4 of its max |g|, the plan equal, ``entry_store`` launched once a
+forward chunk and ``fold`` once a reverse chunk.
 """
 import os
 
@@ -55,6 +60,7 @@ from repro_torch.configs.shapes import make_batch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lstm_cell as lc
 from repro_torch.kernels import segment_fused as sf
+from repro_torch.kernels import segment_generic as sg
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ref import lstm_cell_ref
 from repro_torch.models import lstm
@@ -183,13 +189,30 @@ def test_fused_kernels_match_plain(cuda_device, T, chunk):
 
 @pytest.mark.cuda
 def test_unregistered_body_raises_on_card(cuda_device):
+    """An unregistered body runs the generic path on the card: its
+    segments launch ``entry_store`` once a forward chunk and ``fold`` once
+    a reverse chunk (never the plain versions), and a carry with a CPU
+    leaf beside CUDA leaves raises ``ValueError``."""
     def body(p, c, x, batch):
-        return c
+        return (c[0] * p["a"] + x, c[1] + c[0].sum())
 
-    with pytest.raises(ValueError, match="bodies"):
-        sf.fused_advance_segment(body, {}, (torch.zeros(2, device="cuda"),),
-                                 (torch.zeros(4, 2, device="cuda"),), None,
-                                 chunk=2)
+    params = {"a": torch.tensor(0.9, device="cuda")}
+    carry = (torch.ones(2, device="cuda"), torch.zeros((), device="cuda"))
+    xs = torch.linspace(0, 1, 8, device="cuda").reshape(4, 2)
+    e0, f0 = sg.entry_store.launches, sg.fold.launches
+    out = sf.fused_advance_segment(body, params, carry, xs, None, chunk=2)
+    out.ready.synchronize()
+    assert sg.entry_store.launches - e0 == len(out.entries) == 2
+    assert all(t.is_pinned() for e in out.entries for t in e)
+    dc, dp, dxd = sf.fused_reverse_segment(
+        body, (True,), params, carry, xs, None,
+        (torch.zeros(2, device="cuda"), torch.ones((), device="cuda")),
+        chunk=2)
+    assert sg.fold.launches - f0 == 2
+    assert dxd[0].shape == xs.shape and dp["a"].is_cuda
+    with pytest.raises(ValueError, match="one device"):
+        sf.fused_advance_segment(body, params, (carry[0], torch.zeros(())),
+                                 xs, None, chunk=2)
 
 
 @pytest.mark.cuda
@@ -1096,3 +1119,109 @@ def test_byte_profile_allocates_no_device_memory(cuda_device):
         to_meta(batch))
     assert prof == host
     assert prof[0] == 2 * shape.seq_len * cfg.d_model * 2 + 4
+
+
+# ------------------------------------------- generic-body fused segments
+
+def _ref_lstm_chain(Bn, Dx, Dh):
+    """``tests/test_kernels.py:191``'s chain: the body is
+    ``lstm_cell_ref`` itself."""
+    from repro_torch.api.chain import ChainSpec
+
+    def prelude(p, batch):
+        z = batch["xs"].new_zeros((Bn, Dh))
+        return (z, z, z.new_zeros(())), batch["xs"]
+
+    def body(p, carry, x, batch):
+        h, c, acc = carry
+        h, c = lstm_cell_ref(x, h, c, p["w"], p["b"])
+        return (h, c, acc + torch.sum(h ** 2))
+
+    return ChainSpec(prelude, body, lambda p, c, b: c[2], name="ref-lstm")
+
+
+def _ssm_chain(Bn, D):
+    """``tests/test_kernels.py:220``'s diagonal SSM chain with float
+    inputs (the reverse writes their cotangents)."""
+    from repro_torch.api.chain import ChainSpec
+
+    def prelude(p, batch):
+        return ((batch["xs"].new_zeros((Bn, D)),
+                 batch["xs"].new_zeros(())), batch["xs"])
+
+    def body(p, carry, x, batch):
+        h, acc = carry
+        h = torch.exp(-torch.nn.functional.softplus(p["logA"])) * h \
+            + x @ p["Bm"]
+        return (h, acc + torch.mean((h @ p["Cm"]) ** 2))
+
+    return ChainSpec(prelude, body, lambda p, c, b: c[1], name="ssm")
+
+
+def _fused_against_compiled(spec, params, batch, interval, slots):
+    """``runner="fused"`` and ``runner="compiled"`` on the card at one
+    schedule: the loss bit for bit, each gradient leaf within 1e-4 of its
+    max |g|, the plan equal, and the generic kernels launched once a
+    forward chunk and once a reverse chunk."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core.schedule import chunk_length
+
+    out = {}
+    for runner in ("compiled", "fused"):
+        e0, f0 = sg.entry_store.launches, sg.fold.launches
+        vg = api.value_and_grad_offloaded(spec, interval=interval,
+                                          slots=slots, runner=runner,
+                                          device="cuda")
+        loss, grads = vg(params, batch)
+        out[runner] = (loss, pytree.tree_leaves(grads), api.last_plan(),
+                       api.last_stats(), (sg.entry_store.launches - e0,
+                                          sg.fold.launches - f0))
+    loss, grads, plan, stats, launches = out["fused"]
+    assert torch.equal(loss, out["compiled"][0])
+    assert plan.plan_id == out["compiled"][2].plan_id
+    for a, b in zip(grads, out["compiled"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+    fwd = rev = 0
+    for seg in plan.segments:
+        chunk = chunk_length(seg.length, slots) or seg.length
+        fwd += len(sf.forward_bounds(seg.length, chunk)) - 1
+        rev += sf.reverse_layout(seg.length, chunk)[1]
+    assert launches == (fwd, rev) and out["compiled"][4] == (0, 0)
+    assert stats.fused_segments == 2 * plan.num_segments
+    assert stats.fused_boundary_copies == fwd + 2 * rev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ref_lstm", "ssm"])
+def test_generic_chains_fused_on_card_match_compiled(cuda_device, kind):
+    rng = np.random.default_rng(7)
+    if kind == "ref_lstm":
+        Bn, Dx, Dh, T = 2, 4, 6, 29
+        spec = _ref_lstm_chain(Bn, Dx, Dh)
+        params = {"w": torch.tensor(_np(rng, (Dx + Dh, 4 * Dh), 0.2)),
+                  "b": torch.zeros(4 * Dh)}
+        xs, interval = _np(rng, (T, Bn, Dx), 0.5), 8
+    else:
+        Bn, D, T = 3, 8, 41
+        spec = _ssm_chain(Bn, D)
+        params = {"logA": torch.tensor(_np(rng, (D,), 0.1)),
+                  "Bm": torch.tensor(_np(rng, (D, D), 0.3)),
+                  "Cm": torch.tensor(_np(rng, (D, D), 0.3))}
+        xs, interval = _np(rng, (T, Bn, D), 0.4), 16
+    _fused_against_compiled(spec, _dev(params, "cuda"),
+                            {"xs": torch.tensor(xs, device="cuda")},
+                            interval, 4)
+
+
+@pytest.mark.cuda
+def test_generic_jamba_fused_on_card_matches_compiled(cuda_device):
+    """jamba at SMOKE width, 24 layers (three 8-layer periods), S > 2048
+    (the flash kernel's path): ``runner="fused"`` against
+    ``runner="compiled"`` on the card."""
+    cfg = get_config("jamba-v0.1-52b", smoke=True).replace(n_layers=24)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    batch = make_batch(cfg, ShapeSpec("t", 2064, 1, "train"), 0)
+    _fused_against_compiled(model.train_loss, params, batch, 2, 2)

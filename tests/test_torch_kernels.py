@@ -165,11 +165,20 @@ def test_fused_plain_versions_take_any_body():
 
 
 def test_unregistered_body_is_refused_for_the_card():
-    with pytest.raises(ValueError, match="supported|bodies"):
-        sf.body_kind(lambda p, c, x, b: c)
+    """An unregistered body is of the generic kind (its card path is the
+    entry_store and fold kernels around its own steps), which the LSTM
+    segment kernels refuse; an unknown kind cannot be registered."""
+    body = lambda p, c, x, b: c   # noqa: E731
+    assert sf.body_kind(body) == sf.GENERIC
     assert sf.body_kind(T_BODY) == "lstm"
+    with pytest.raises(ValueError, match="supported|bodies"):
+        sf.CapturedRun(body, {}, (torch.zeros((1, 1)),) * 2)
+    with pytest.raises(ValueError, match="generic"):
+        sf._fused_reverse_card(body, {}, None, None, None, chunk=1)
     with pytest.raises(ValueError):
-        sf.register_body(lambda p, c, x, b: c, "transformer")
+        sf.register_body(body, "transformer")
+    with pytest.raises(ValueError):
+        sf.register_body(body, sf.GENERIC)
 
 
 @pytest.mark.parametrize("T,chunk,nc", [(23, 5, 5), (21, 5, 4), (1, 5, 1)])
