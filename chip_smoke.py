@@ -11,7 +11,9 @@ Phases, each printing its own lines:
               ``build/repro_torch_kernels/`` (one ``nvcc`` per source, all
               started together), with the build seconds; ``cuobjdump
               -sass`` counts the tensor-core (HMMA) instructions of the
-              bf16 flash and SSD kernels, which must issue them.
+              bf16 flash forward and backward and SSD kernels, which must
+              contain them; the layer kernels' registers and spills from
+              the ptxas report.
 3. kernels  — each kernel against its plain PyTorch version on the card:
               ``lstm_cell`` (B=256, Dx=64, Dh=256; fp32 at 1e-5, bf16 at
               3e-2; its step loop over a recompute chunk of the pinned
@@ -44,6 +46,16 @@ Phases, each printing its own lines:
               chunk (4 chain steps of weight cotangents copied into their
               rows, the unread parameters' broadcast zeros skipped) and at
               a synthetic case with fp32, bf16, mixed and fresh adds.
+              The layer kernels of gemma2-2b's body against their plain
+              versions (``GRAD_TOL``, the scaled error over the plain
+              version's max |value|): ``flash_attention_bwd`` (dq, dk, dv
+              at gemma2-2b's attn_local and attn layers and phi3.5-moe's,
+              bf16 3e-2 and fp32 2e-4, on the flash forward's ``out`` and
+              ``lse``; ``FLASH_CASES``' smaller cases; two calls bit for
+              bit; bf16 D=96 refused), ``rmsnorm`` (with and without the
+              residual), ``glu`` (GeGLU and SwiGLU) and ``rope`` (q and k
+              in one launch), forward and backward at gemma2-2b's shapes,
+              bf16 3e-2 and fp32 1e-5, each two calls bit for bit.
 4. main     — ``value_and_grad_offloaded(get_model(lstm-paper).train_loss,
               runner="fused")`` on ``make_batch(lstm-paper, train_4k)``
               (B=256, S=4096), once autotuned and once with a pinned
@@ -117,7 +129,10 @@ Phases, each printing its own lines:
               ``journal_repair=True``); a journaled tiered run at 8 states
               (counters equal to the plan); one autotuned journaled
               gradient (wall, I, journal bytes, barriers).
-9. dense    — ``value_and_grad_offloaded(get_model(gemma2-2b).train_loss)``
+9. dense    — first ``tied_table_check`` (gemma2-2b's tied table's
+              gradient, summed in the head's buffer, bit for bit
+              autograd's sum at full size); then
+              ``value_and_grad_offloaded(get_model(gemma2-2b).train_loss)``
               (``runner="compiled"``, autotuned) at full width and depth (26
               layers, 13 chain steps), ``train_4k`` with the global batch
               cut from 256 to 2, weights from a seeded CUDA generator; held
@@ -146,8 +161,9 @@ Phases, each printing its own lines:
               gates, the 2D ones' ``inner_*`` counters equal to the
               perfmodel's and ``flash_attention`` launched twice a step
               advanced plus once a layer recomputed; the device peak
-              above what each call found allocated, and the ``(2, 1)``
-              call's must be below the 1D call's.  And ``runner="fused"``
+              above what each call found allocated (logged before, in
+              and after the reverse sweep), and the ``(2, 1)`` call's
+              must be below the 1D call's.  And ``runner="fused"``
               (``decoder_fused``: the body's steps as PyTorch code, the
               ``entry_store`` and ``fold`` kernels around them) autotuned
               and at I=13, s=4 (``FUSED_PINNED``: forward chunks 4, 4, 5,
@@ -159,8 +175,17 @@ Phases, each printing its own lines:
               ``fused_segments``/``fused_boundary_copies``; beside a
               ``runner="compiled"`` gradient at I=13, s=4: the loss bit for
               bit, the same plan, the fused device peak at most two
-              carries above the compiled one's.  Then one fused advance of
-              those 13 steps timed against the compiled advance.
+              carries above the compiled one's.  The layer kernels
+              (``layer_kernels``: the attention backward, rmsnorm, glu and
+              rope) launched as each call's plan implies: the forward
+              kernels each time a chain step runs, the backward ones once a
+              step's vjp, the final norm once each way.  The pinned fused
+              gradient is also held against the same call through the
+              plain versions (``_PlainVersions``), an fp32-compute call
+              through the plain versions the referee, at phase
+              ``families``' bf16 gate; walls and peaks of both logged.
+              Then one fused advance of those 13 steps timed against the
+              compiled advance.
 10. ssm     — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
               and ``ssd_scan``, with the fused gradients at I=14, s=4
               (segments 14, 14, 14, 6).
@@ -188,10 +213,10 @@ Phases, each printing its own lines:
               dense autograd at full width: ``internvl2-1b`` (24 layers,
               ``train_4k``: 1,024 patches and 3,072 text tokens, batch cut
               to ``FAMILY_BATCH``) with ``flash_attention`` (24 launches a
-              forward) held against the same call with the plain chunked
-              forward (``_PlainAttentionForward``) at the bf16 gate: the
-              loss at 3e-2, and each leaf's scaled distance from an
-              fp32-compute gradient (plain forward) at most 3e-2 above
+              forward) and the layer kernels held against the same call
+              through the plain versions (``_PlainVersions``) at the bf16
+              gate: the loss at 3e-2, and each leaf's scaled distance from
+              an fp32-compute gradient (plain versions) at most 3e-2 above
               the plain bf16 gradient's (two bf16 gradients 24 layers
               deep differ by more than 3e-2 between themselves); and
               ``whisper-tiny`` (4 + 4 layers, 2,048 encoder frames, 448
@@ -218,11 +243,22 @@ Phases, each printing its own lines:
               its bound the bytes over PCIe 5.0 x16, 64 GB/s), ``fold`` at
               gemma2-2b's main-path chunk (the row) and at the synthetic
               add case beside its plain version and
-              ``torch._foreach_add_`` + ``torch._foreach_copy_``.
+              ``torch._foreach_add_`` + ``torch._foreach_copy_``;
+              ``flash_attention_bwd`` at gemma2-2b's and phi3.5-moe's
+              layers beside its plain version and SDPA's backward (its
+              bound the five products of the backward at the bf16 peak),
+              ``rmsnorm`` (beside ``F.rms_norm`` on ``1 + scale``, its
+              backward beside that call's gradient through autograd),
+              ``glu`` and ``rope``, forward and backward, at gemma2-2b's
+              shapes (bound: bytes).
 14. train   — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
-``--phases ...,profile`` adds a ``torch.profiler`` pass over one main-path
+``--phases ...,profile`` adds a ``torch.profiler`` pass over one warm
+fused gemma2-2b gradient at I=13, s=4 by kernel, split into the
+hand-written kernels, the cuBLAS products and PyTorch's own
+(``tools/profile_fused_gemma.py``; with ``--parent DIR`` first for the
+checkout in ``DIR``, a ``git archive`` of another commit), one main-path
 call per LSTM schedule, captured and uncaptured, and one offloaded call in
 each decoder phase (device kernel time by name and the device's busy share;
 for the LSTM, the device time under each fused segment wrapper, kernel 1's
@@ -424,8 +460,15 @@ def phase_build(state) -> None:
     log("[build] " + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
         + f"; wall {total:.1f}s (ptxas report: "
         f"{os.path.join(out_dir, 'chip_smoke_build.log')})")
+    # registers and spills of the layer kernels (the attention backward's
+    # accumulators are the ones that could spill)
+    for lib in ("flash_attention_bwd", "rmsnorm", "glu", "rope"):
+        for kern, regs, spill in ptxas_usage(build.BUILD_LOG.get(lib, "")):
+            log(f"[build] {lib}: {kern}: {regs} registers, {spill}")
     # the bf16 kernels that must run on the tensor cores
     for lib, kernels in (("flash_attention", ("flash_fwd_bf16_kernel",)),
+                         ("flash_attention_bwd", ("bwd_dq_bf16_kernel",
+                                                  "bwd_dkdv_bf16_kernel")),
                          ("ssd_scan", ("ssd_state_bf16_kernel",
                                        "ssd_out_bf16_kernel"))):
         counts = hmma_counts(build.library_path(lib))
@@ -437,6 +480,39 @@ def phase_build(state) -> None:
             require(n > 0, f"{lib}: {kern} issues no HMMA instruction")
             log(f"[build] {lib}: {kern} has {n} HMMA instructions "
                 "(cuobjdump -sass)")
+
+
+def ptxas_usage(text):
+    """``(kernel, registers, spills)`` for each entry function in an
+    ``nvcc -Xptxas -v`` report: the name as ``cu++filt`` demangles it (the
+    mangled one without that tool), the registers used, and the spill
+    stores and loads as ptxas prints them."""
+    import re
+    import shutil
+
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            spill = ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill or "spills n/a"))
+            name = None
+    tool = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if out and os.path.exists(tool):
+        names = subprocess.run([tool], input="\n".join(k for k, _, _ in out),
+                               capture_output=True, text=True, timeout=60)
+        if names.returncode == 0:
+            out = [(d, r, sp) for d, (_, r, sp) in
+                   zip(names.stdout.splitlines(), out)]
+    return out
 
 
 def hmma_counts(lib_path):
@@ -815,6 +891,176 @@ def check_flash_unseen_rows(torch):
         raise SmokeFailure("flash_attention bf16 D=96 was not refused")
 
 
+# the attention backward's cases: gemma2-2b's two layer kinds (attn_local,
+# whose window of 4096 spans the sequence, and attn) and phi3.5-moe's layer
+# at their phases' shapes, in bf16 and fp32, then FLASH_CASES' smaller
+# cases with ragged edges, windows shorter than S, Sq < Sk, non-causal
+FLASH_BWD_CASES = tuple(
+    (f"{label}{' fp32' if dtype == 'float32' else ''}", dims, dtype, kw)
+    for label, dims, kw in (
+        ("gemma2-2b attn_local", (2, 4096, 4096, 8, 4, 256),
+         {**GEMMA_KW, "window": 4096}),
+        ("gemma2-2b attn", (2, 4096, 4096, 8, 4, 256), GEMMA_KW),
+        ("phi3.5-moe layer", (2, 4096, 4096, 32, 8, 128), {}))
+    for dtype in ("bfloat16", "float32")) + FLASH_CASES[3:]
+# the scaled error (max |a - b| over max |b|) each kernel's outputs and
+# cotangents may have against its plain version's: fp32 sums in another
+# order; bf16 one rounding of each output (and, in the attention backward,
+# of p and dS before their products, at other points than the plain version)
+GRAD_TOL = {"flash_attention_bwd": {"float32": 2e-4, "bfloat16": 3e-2},
+            "layers": {"float32": 1e-5, "bfloat16": 3e-2}}
+
+
+def check_flash_bwd(torch, label, dims, dtype, kw, seed):
+    """The attention backward kernel against its plain version
+    (``attention._chunked_bwd``) on the flash forward kernel's ``out`` and
+    ``lse``: dq, dk and dv each within ``GRAD_TOL`` of the plain version's
+    max |value|; at the main path's layers two calls bit for bit.  Returns
+    the max abs error."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import _chunked_bwd
+
+    B, Sq, Sk, H, G, D = dims
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    q = _randn(torch, rng, (B, Sq, H, D), dt)
+    k = _randn(torch, rng, (B, Sk, G, D), dt)
+    v = _randn(torch, rng, (B, Sk, G, D), dt)
+    dout = _randn(torch, rng, (B, Sq, H, D), dt)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    args = (kw.get("causal", True), kw.get("window"), kw.get("softcap"),
+            1024, kw.get("scale"))
+    want = _chunked_bwd(*args, (q, k, v, out, lse), dout)
+    torch.cuda.synchronize()
+    tol = GRAD_TOL["flash_attention_bwd"][dtype]
+    errs = {n: scaled_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got,
+                                                    want)}
+    require(all(bool(torch.isfinite(a.float()).all()) for a in got)
+            and max(errs.values()) <= tol,
+            f"flash_attention_bwd {label}: scaled errors {errs} over {tol}")
+    abs_err = max(max_err(a, b) for a, b in zip(got, want))
+    line = (f"[kernels] flash_attention_bwd {label} {dims} {dtype}: scaled "
+            "errors " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f" (gate {tol}), max abs err {abs_err:.3g}")
+    if label.startswith("gemma2-2b") or label.startswith("phi3.5"):
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"flash_attention_bwd {label}: two calls differ")
+        line += "; two calls bit for bit"
+    log(line)
+    del got, want, out, lse
+    torch.cuda.empty_cache()
+    return abs_err
+
+
+def check_flash_bwd_refused(torch):
+    """A bf16 head dim outside {16, 32, 64, 128, 256} is refused."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(12)
+    q = _randn(torch, rng, (1, 64, 2, 96), torch.bfloat16)
+    lse = torch.zeros((1, 2, 1, 64), device="cuda")
+    try:
+        fa.flash_attention_bwd(q, q, q, q, lse, q)
+    except ValueError:
+        log("[kernels] flash_attention_bwd bf16 D=96: refused (ValueError)")
+    else:
+        raise SmokeFailure("flash_attention_bwd bf16 D=96 was not refused")
+
+
+# gemma2-2b's layer shapes on the dense phase's path (B=2, S=4096)
+GEMMA_ROWS, GEMMA_D, GEMMA_FF = 2 * 4096, 2304, 9216
+GEMMA_QK = ((2, 4096, 8, 256), (2, 4096, 4, 256))
+
+
+def _twice_equal(torch, fn):
+    """``fn()`` twice: the outputs (a tuple) bit for bit."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    return a, all(_bits_equal(torch, x, y) for x, y in zip(a, b))
+
+
+def check_layer_kernels(torch) -> dict:
+    """rmsnorm (with and without the fused residual add), glu (GeGLU,
+    gemma2-2b's, and SwiGLU, phi3.5-moe's) and rope (q and k in one
+    launch), forward and backward, against their plain versions at
+    gemma2-2b's shapes, bf16 and fp32 (``GRAD_TOL["layers"]``), each two
+    calls bit for bit.  Returns the max abs error of each kernel (bf16, the
+    main path's dtype)."""
+    import numpy as np
+
+    from repro_torch.kernels import glu as glu_mod
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import rope as rope_mod
+    from repro_torch.models.layers import rope_table
+
+    rng = np.random.default_rng(70)
+    errs = {}
+
+    def gate(name, dtype, label, pairs, same):
+        tol = GRAD_TOL["layers"][dtype]
+        e = max(scaled_err(a, b) for a, b in pairs)
+        require(same and e <= tol and all(
+            bool(torch.isfinite(a.float()).all()) for a, _ in pairs),
+            f"{name} {label} {dtype}: scaled error {e} over {tol}, or two "
+            f"calls differ ({not same})")
+        ab = max(max_err(a, b) for a, b in pairs)
+        log(f"[kernels] {name} {label} {dtype}: scaled error {e:.3g} (gate "
+            f"{tol}), max abs err {ab:.3g}; two calls bit for bit")
+        if dtype == "bfloat16":
+            errs[name] = max(errs.get(name, 0.0), ab)
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        x = _randn(torch, rng, (2, 4096, GEMMA_D), dt)
+        res = _randn(torch, rng, (2, 4096, GEMMA_D), dt)
+        g = _randn(torch, rng, (2, 4096, GEMMA_D), dt)
+        scale = _randn(torch, rng, (GEMMA_D,), torch.float32, 0.3)
+        for label, r in (("plain form", None), ("with the residual", res)):
+            (out, rstd), same = _twice_equal(
+                torch, lambda: rn.rmsnorm(x, scale, r, out_dtype=dt))
+            want, _ = rn.rmsnorm_fwd_plain(x, scale, r, 1e-6, dt)
+            gate("rmsnorm", dtype, label, [(out, want)], same)
+        (dx, ds), same = _twice_equal(
+            torch, lambda: rn.rmsnorm_bwd(g, x, scale, rstd))
+        want = rn.rmsnorm_bwd_plain(g, x, scale, 1e-6, dt)
+        gate("rmsnorm_bwd", dtype, "dx, dscale", list(zip((dx, ds), want)),
+             same)
+        del x, res, g, out, rstd, dx, ds, want
+        gu = [_randn(torch, rng, (2, 4096, GEMMA_FF), dt) for _ in range(3)]
+        for act in ("gelu", "silu"):
+            (h,), same = _twice_equal(
+                torch, lambda: (glu_mod.glu(gu[0], gu[1], act),))
+            gate("glu", dtype, act, [(h, glu_mod.glu_plain(gu[0], gu[1],
+                                                           act))], same)
+            got, same = _twice_equal(
+                torch, lambda: glu_mod.glu_bwd(gu[2], gu[0], gu[1], act))
+            gate("glu_bwd", dtype, act, list(zip(
+                got, glu_mod.glu_bwd_plain(gu[2], gu[0], gu[1], act))),
+                same)
+        del gu, h, got
+        cos, sin = rope_table(4096, 256, device="cuda")
+        qk = [_randn(torch, rng, s, dt) for s in GEMMA_QK]
+        gs = [_randn(torch, rng, s, dt) for s in GEMMA_QK]
+        got, same = _twice_equal(torch, lambda: rope_mod.rope(qk, cos, sin))
+        gate("rope", dtype, "q and k", [
+            (y, rope_mod.rope_plain(x, cos, sin)) for x, y in zip(qk, got)],
+            same)
+        got, same = _twice_equal(torch,
+                                 lambda: rope_mod.rope_bwd(gs, cos, sin))
+        gate("rope_bwd", dtype, "q and k", [
+            (y, rope_mod.rope_bwd_plain(g, x, cos, sin))
+            for x, g, y in zip(qk, gs, got)], same)
+        del qk, gs, got
+        torch.cuda.empty_cache()
+    return errs
+
+
 # label, (B, T, H, G, P, N, chunk), dtype name, with an entry state; the
 # first two are every mamba2-370m layer at the ssm phase's shape
 SSD_CASES = (
@@ -1081,6 +1327,12 @@ def phase_kernels(state) -> None:
     check_entry_store(torch)
     check_fold(torch)
     torch.cuda.empty_cache()
+    # the layer kernels of gemma2-2b's body (the error kept: the bf16 main
+    # path's shapes)
+    bwd = [check_flash_bwd(torch, *case, seed=80 + i)
+           for i, case in enumerate(FLASH_BWD_CASES)]
+    check_flash_bwd_refused(torch)
+    layer_errs = check_layer_kernels(torch)
     # the flash kernel's shapes on the main path: gemma2-2b's, phi3.5-moe's
     state["err"] = {"lstm_cell": max(errs["torch.float32"], loop),
                     "fused_advance_segment": max(adv, adv1, adv_pinned),
@@ -1088,7 +1340,9 @@ def phase_kernels(state) -> None:
                     "flash_attention": max(flash[0], flash[2]),
                     "ssd_scan": ssd[0],
                     # bit for bit, or the phase has failed
-                    "entry_store": 0.0, "fold": 0.0}
+                    "entry_store": 0.0, "fold": 0.0,
+                    "flash_attention_bwd": max(bwd[0], bwd[2], bwd[4]),
+                    **layer_errs}
 
 
 def _dense_reference(torch, params, batch):
@@ -2412,7 +2666,7 @@ class _RoutingRecorder:
 def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
                   per_step, revolve_slots=None, tiered_states=None,
                   n_layers=None, scan=False, stream=False,
-                  plans_2d=False, fused=None) -> None:
+                  plans_2d=False, fused=None, fused_plain=False) -> None:
     """The offloaded gradient of a decoder (``runner="compiled"``,
     autotuned) at full width, ``train_4k`` with the global batch cut to
     ``batch_size`` and, with ``n_layers``, the depth cut to that many
@@ -2486,8 +2740,7 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
             "; its gradients moved to page-locked host memory")
 
         vg = api.value_and_grad_offloaded(model.train_loss, device="cuda")
-        for fn in kernels.values():
-            fn.launches = 0
+        zero_launches(kernels.values())
         if routing:
             routing.mode, routing.calls = "check", 0
         torch.cuda.reset_peak_memory_stats()
@@ -2536,8 +2789,7 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     # blocks were freed and the malloc retried) and its device mallocs
     warm_walls, alloc = [], []
     for _ in range(2):
-        for fn in kernels.values():
-            fn.launches = 0
+        zero_launches(kernels.values())
         m0 = torch.cuda.memory_stats()
         (loss, grads), w = timed(lambda: vg(params, batch))
         m1 = torch.cuda.memory_stats()
@@ -2579,7 +2831,8 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
                    kernels, per_step, tune)
     if fused is not None:
         decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
-                      kernels, per_step, fused)
+                      kernels, per_step, fused, layer=layer_kernels(cfg),
+                      plain_gate=fused_plain)
     if stream:
         # the reference's gradients are done with: the streamed check needs
         # the host memory they held
@@ -2634,8 +2887,7 @@ def decoder_scan(state, key, model, params, batch, ref_loss, ref_grads,
 
     vg = api.value_and_grad_offloaded(model.train_loss, engine="scan",
                                       device="cuda")
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launches(kernels.values())
     run = scan_call(vg, params, batch)
     launches = {k: fn.launches for k, fn in kernels.items()}
     loss, grads = run["loss"], pytree.tree_leaves(run["grads"])
@@ -2695,8 +2947,164 @@ def _carry_bytes(model, params, batch) -> int:
                for t in pytree.tree_leaves(carry0))
 
 
+def layer_kernels(cfg) -> dict:
+    """The layer kernels a decoder's chain body launches, by name: ``(wrapper,
+    launches each time a chain step runs, launches a chain step in the
+    reverse's vjp, launches a gradient outside the chain)``.  A step is one
+    period of ``cfg.layer_pattern``; the norms are ln1 and, with an MLP or
+    MoE, ln2, each with its post-norm where the model has them (the
+    residual add inside its kernel); outside the chain, the readout's final
+    norm once each way.  MoE layers (their experts' gated activations) are
+    not counted here; kernels a body does not launch are left out."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import glu as glu_mod
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import rope as rope_mod
+
+    post = 2 if cfg.use_post_norm else 1
+    attn = sum(k.startswith("attn") for k in cfg.layer_pattern)
+    mlp = sum(k in ("attn", "attn_local") for k in cfg.layer_pattern)
+    norms = sum(post * (2 if k in ("attn", "attn_local", "attn_moe",
+                                   "mamba_moe") else 1)
+                for k in cfg.layer_pattern)
+    table = {"flash_attention_bwd": (fa.flash_attention_bwd, 0, attn, 0),
+             "rmsnorm": (rn.rmsnorm, norms, 0, 1),
+             "rmsnorm_bwd": (rn.rmsnorm_bwd, 0, norms, 1),
+             "glu": (glu_mod.glu, mlp, 0, 0),
+             "glu_bwd": (glu_mod.glu_bwd, 0, mlp, 0),
+             "rope": (rope_mod.rope, attn, 0, 0),
+             "rope_bwd": (rope_mod.rope_bwd, 0, attn, 0)}
+    return {k: v for k, v in table.items() if any(v[1:])}
+
+
+def layer_launches(layer, run_steps, vjp_steps) -> dict:
+    """Each layer kernel's launches in one gradient that runs
+    ``run_steps`` chain steps forward (sweep, recompute, probe) and
+    ``vjp_steps`` steps' vjps."""
+    return {k: f * run_steps + b * vjp_steps + once
+            for k, (_, f, b, once) in layer.items()}
+
+
+def zero_launches(fns, plain=False) -> None:
+    """Every launch count in ``fns`` to 0 just before a measured call.  A
+    main-path call must find the model wrappers routed to their kernels
+    (``build.on_card`` the module's own function, no patch left in
+    place); a call inside :class:`_PlainVersions` passes ``plain``."""
+    from repro_torch.kernels import build
+
+    f = build.on_card
+    own = f.__module__ == build.__name__ and f.__name__ == "on_card"
+    require(own != plain,
+            f"build.on_card is {f!r}: the call would run "
+            f"{'the kernels' if own else 'the plain versions'}, expected "
+            f"{'the plain versions' if plain else 'the kernels'}")
+    for fn in fns:
+        fn.launches = 0
+
+
+class _PlainVersions:
+    """Every model-level kernel wrapper (``build.on_card``: the flash
+    forward and backward, rmsnorm, glu, rope) takes its plain PyTorch
+    version on CUDA tensors too: the reference the kernels are held
+    against.  The generic segments' data movement (``entry_store``,
+    ``fold``) is unchanged: bit for bit its plain version anyway."""
+
+    def __enter__(self):
+        from repro_torch.kernels import build
+
+        self._on_card, build.on_card = build.on_card, lambda t: False
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import build
+
+        build.on_card = self._on_card
+
+
+def fused_against_plain(key, cfg, call, fused, interval, slots,
+                        paths) -> dict:
+    """The fused gradient of the kernels (``fused``, at ``(interval,
+    slots)``) against the same call through the plain versions
+    (:class:`_PlainVersions`), the referee an fp32-compute gradient through
+    the plain versions: the loss within 3e-2, and each leaf's scaled
+    distance from the fp32 gradient at most 3e-2 above the plain bf16
+    gradient's (phase ``families``' bf16 gate: two bf16 gradients 26
+    layers deep differ by more than 3e-2 between themselves).  The plain
+    call runs twice (the second's wall is the warm one); walls and device
+    peaks are logged."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import DTypes
+    from repro_torch.models.model_factory import get_model
+
+    kern = _to_host(torch, fused["grads"])
+    fused["grads"] = None
+    torch.cuda.empty_cache()
+    with _PlainVersions():
+        first = call("fused", interval=interval, slots=slots, plain=True)
+        del first
+        plain = call("fused", interval=interval, slots=slots, plain=True)
+        model_launches = {k: n for k, n in plain["launches"].items()
+                          if k not in ("entry_store", "fold")}
+        require(not any(model_launches.values()),
+                f"{key}: the plain versions' call launched {model_launches}")
+        plain_grads = _to_host(torch, plain.pop("grads"))
+        torch.cuda.empty_cache()
+        # the chain fixes its compute dtype when it is built: an fp32 model
+        dts = tfm._dtypes
+        tfm._dtypes = lambda c: DTypes(compute=torch.float32)
+        try:
+            model32 = get_model(cfg)
+        finally:
+            tfm._dtypes = dts
+        ref = call("fused", loss_fn=model32.train_loss, interval=interval,
+                   slots=slots, plain=True)
+    loss, p_loss = float(fused["loss"]), float(plain["loss"])
+    rel = abs(loss - p_loss) / abs(p_loss)
+    dist = []   # (kernels' - plain's distance, path, kernels', plain's,
+    #             kernels' from plain's)
+    for a, b, r, pth in zip(kern, plain_grads, ref["grads"], paths):
+        a, b = a.to(r.device), b.to(r.device)
+        ek, ep = scaled_err(a, r), scaled_err(b, r)
+        dist.append((ek - ep, pth, ek, ep, scaled_err(a, b)))
+        del a, b
+    dist.sort(reverse=True)
+    worst, worst_at = dist[0][0], dist[0][1]
+    e_k, e_p = [d[2] for d in dist], [d[3] for d in dist]
+    log(f"[{key}] leaves farthest above the plain versions' distance from "
+        "the fp32 gradient (kernels', plain's, kernels' from plain's): "
+        + "; ".join(f"{pth} {ek:.4g} {ep:.4g} {kp:.4g}"
+                    for _, pth, ek, ep, kp in dist[:6]))
+    require(rel <= 3e-2 and worst <= 3e-2,
+            f"{key}: kernels against the plain versions: loss rel err {rel};"
+            f" at {worst_at} the kernels' gradient's scaled distance "
+            f"from the fp32 one exceeds the plain versions' by {worst} "
+            "(gate 3e-2)")
+    r_loss = float(ref["loss"])
+    require(r_loss != p_loss, f"{key}: the fp32 referee's loss is the plain "
+            "bf16 call's: it did not compute in fp32")
+    log(f"[{key}] fused I={interval} s={slots}, kernels against the plain "
+        f"versions: loss {loss:.6f} against {p_loss:.6f} (rel err "
+        f"{rel:.3g}; fp32 referee {r_loss:.6f}); scaled "
+        f"distance from the fp32 gradient, worst leaf: kernels "
+        f"{max(e_k):.4g}, plain {max(e_p):.4g}; the kernels' less the "
+        f"plain's at most {worst:.4g} ({worst_at}; gate 3e-2)")
+    log(f"[{key}] warm walls: kernels {fused['wall']:.3f}s, plain versions "
+        f"{plain['wall']:.3f}s, fp32 referee {ref['wall']:.3f}s; device "
+        f"peaks above held: kernels {fused['peak']:,} B, plain versions "
+        f"{plain['peak']:,} B, fp32 referee {ref['peak']:,} B")
+    out = {"loss_rel": rel, "worst": worst, "kern_wall": fused["wall"],
+           "plain_wall": plain["wall"], "kern_peak": fused["peak"],
+           "plain_peak": plain["peak"]}
+    del ref, kern, plain_grads
+    torch.cuda.empty_cache()
+    return out
+
+
 def decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
-                  kernels, per_step, pinned) -> None:
+                  kernels, per_step, pinned, layer=None,
+                  plain_gate=False) -> None:
     """``runner="fused"`` on a decoder (a generic chain body: its steps as
     PyTorch code, the chunk-entry stores and the cotangent fold by the
     ``entry_store`` and ``fold`` kernels), under the phase's gates against
@@ -2717,13 +3125,14 @@ def decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
     from repro_torch import api
     from repro_torch.kernels import segment_generic as sg
 
-    counted = {**kernels, "entry_store": sg.entry_store, "fold": sg.fold}
+    layer = layer or {}
+    counted = {**kernels, "entry_store": sg.entry_store, "fold": sg.fold,
+               **{k: v[0] for k, v in layer.items()}}
 
-    def call(runner, **kw):
-        vg = api.value_and_grad_offloaded(model.train_loss, runner=runner,
-                                          device="cuda", **kw)
-        for fn in counted.values():
-            fn.launches = 0
+    def call(runner, loss_fn=None, plain=False, **kw):
+        vg = api.value_and_grad_offloaded(loss_fn or model.train_loss,
+                                          runner=runner, device="cuda", **kw)
+        zero_launches(counted.values(), plain)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2755,6 +3164,8 @@ def decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
         for name in kernels:
             want[name] = per_step[name] * (fwd_steps + rsteps
                                            + probe * tune.probe_len)
+        want.update(layer_launches(
+            layer, fwd_steps + rsteps + probe * tune.probe_len, fwd_steps))
         require(run["launches"] == want and all(want.values()),
                 f"{label}: launches {run['launches']}, the plan implies "
                 f"{want}")
@@ -2789,6 +3200,11 @@ def decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
     fused = call("fused", interval=interval, slots=slots)
     gates(f"fused I={interval} s={slots}", fused, slots)
     _add_launches(state, f"{key}-fused-pinned", fused["launches"])
+    if plain_gate:
+        paths = [pytree.keystr(k) for k, _ in
+                 pytree.tree_flatten_with_path(params)[0]]
+        summary["plain"] = fused_against_plain(key, model.cfg, call, fused,
+                                               interval, slots, paths)
     fused.pop("grads")
     torch.cuda.empty_cache()
     comp = call("compiled", interval=interval, slots=slots)
@@ -2805,10 +3221,13 @@ def decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
             f"carries ({carry:,} B each) above the compiled "
             f"{comp['peak']:,} B")
     comp_want = {k: per_step[k] * comp["stats"].advances for k in kernels}
-    comp_got = {k: comp["launches"][k] for k in kernels}
+    comp_want.update(layer_launches(
+        layer, comp["stats"].advances,
+        sum(seg.length for seg in comp["plan"].segments)))
+    comp_got = {k: comp["launches"][k] for k in comp_want}
     require(comp_got == comp_want,
             f"{key}: compiled launches {comp_got}, expected {comp_want}")
-    fused_got = {k: fused["launches"][k] for k in kernels}
+    fused_got = {k: fused["launches"][k] for k in comp_want}
     log(f"[{key}] compiled I={interval} s={slots}: loss bit for bit the "
         f"fused one's, same plan; wall {comp['wall']:.3f}s (fused "
         f"{fused['wall']:.3f}s); device peak above held {comp['peak']:,} B "
@@ -2924,8 +3343,7 @@ def decoder_stream(state, key, model, params, batch, vg, plan, kernels,
     s_vg = api.value_and_grad_offloaded(
         model.train_loss, interval=tune.interval, slots=tune.slots,
         offload_params="moe_experts", device="cuda")
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launches(kernels.values())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2975,6 +3393,42 @@ def decoder_stream(state, key, model, params, batch, vg, plan, kernels,
     log(f"[{key}] host memory after the streamed check: "
         f"{host_memory_line()}")
 
+class _ReverseSweepPeak:
+    """Inside ``with``: where a call's device peak falls.  ``before``: the
+    peak before the chain's reverse sweep (``frontend._bwd``, where the
+    inner plan recomputes and differentiates a step's layers), the forward
+    and the loss head's backward; ``sweep``: the sweep's own peak; the
+    peak statistic is reset at the sweep's start and end, so after the
+    call ``max_memory_allocated()`` is the peak after the sweep (the
+    prelude's backward).  All three absolute."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.api import frontend
+
+        self._bwd = bwd = frontend._bwd
+        self.before, self.sweep = 0, 0
+
+        def measured(*args):
+            torch.cuda.synchronize()
+            self.before = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = bwd(*args)
+            torch.cuda.synchronize()
+            self.sweep = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+        frontend._bwd = measured
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.api import frontend
+
+        frontend._bwd = self._bwd
+
+
 def decoder_2d(state, key, model, params, batch, ref_loss, ref_grads,
                kernels, per_step, tune) -> None:
     """2D plans of a decoder at the first call's schedule (``tune``), under
@@ -2986,7 +3440,9 @@ def decoder_2d(state, key, model, params, batch, ref_loss, ref_grads,
     1``.  A 2D call's ``inner_*`` counters must equal the perfmodel's, and
     each kernel runs ``per_step`` launches a step advanced plus the inner
     recompute's (one more forward of every layer a step reversed).  The
-    ``(2, 1)`` call's peak must be below the 1D call's."""
+    ``(2, 1)`` call must peak below the 1D call; each call's peak is also
+    logged by part (:class:`_ReverseSweepPeak`): before the reverse sweep,
+    in it, after it."""
     import torch
     from torch.utils import _pytree as pytree
 
@@ -3016,21 +3472,24 @@ def decoder_2d(state, key, model, params, batch, ref_loss, ref_grads,
         f"device memory: state {sb} B, layers {[int(b) for b in lb]} B, "
         f"head {int(hb)} B; budget {budget} B")
     runs = {}
+    rev = _ReverseSweepPeak()
     for label, kw in (("1D", {}), ("plan_2d=(2, 1)", {"plan_2d": (2, 1)}),
                       ("budget", {"step_memory_budget": budget})):
         vg = api.value_and_grad_offloaded(
             model.train_loss, interval=tune.interval, slots=tune.slots,
             device="cuda", **kw)
-        for fn in kernels.values():
-            fn.launches = 0
+        zero_launches(kernels.values())
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        loss, grads = vg(params, batch)
+        with rev:
+            loss, grads = vg(params, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() - base
+        after = torch.cuda.max_memory_allocated()
+        parts = (rev.before - base, rev.sweep - base, after - base)
+        peak = max(parts)
         launches = {k: fn.launches for k, fn in kernels.items()}
         stats, plan = api.last_stats(), api.last_plan()
         grads = pytree.tree_leaves(grads)
@@ -3076,8 +3535,9 @@ def decoder_2d(state, key, model, params, batch, ref_loss, ref_grads,
         _add_launches(state, f"{key} {label}", launches)
         log(f"[{key}] {label}: plan {plan.plan_id}; loss rel err "
             f"{rel:.3g}, grad scaled err {gerr:.3g}; wall {wall:.3f}s; "
-            f"device peak {peak:,} B above {base:,} B held{note}; "
-            f"launches {launches}")
+            f"device peak {peak:,} B above {base:,} B held (before the "
+            f"reverse sweep {parts[0]:,} B, in it {parts[1]:,} B, after it "
+            f"{parts[2]:,} B){note}; launches {launches}")
         del vg
     one_d = runs["1D"]["peak"]
     require(runs["plan_2d=(2, 1)"]["peak"] < one_d,
@@ -3110,8 +3570,7 @@ def decoder_revolve(key, model, params, batch, ref_loss, ref_grads, kernels,
 
     vg = api.value_and_grad_offloaded(model.train_loss, strategy="revolve",
                                       slots=slots, device="cuda")
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launches(kernels.values())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3202,8 +3661,7 @@ def decoder_tiered(state, key, model, params, batch, ref_loss, ref_grads,
                                       l2_capacity_bytes=cap,
                                       storage_dir=directory, interval=1,
                                       device="cuda")
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launches(kernels.values())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3256,14 +3714,75 @@ def decoder_tiered(state, key, model, params, batch, ref_loss, ref_grads,
 FUSED_PINNED = {"dense": (13, 4), "ssm": (14, 4)}
 
 
+def tied_table_check(torch) -> None:
+    """gemma2-2b's tied table read by its embedding and its loss head
+    (``layers.embed(tied=True)``, ``head_table``): the table's gradient bit
+    for bit the one autograd's sum of the two dense gradients gives.  Two
+    device peaks of each way: the whole backward's (the head's chunks set
+    it) and that from the gather's cotangent on (a hook on the rows), above
+    what was allocated there (one dense gradient of the table against
+    two)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config("gemma2-2b")
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    table = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                        device="cuda") * cfg.d_model ** -0.5
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (2, 4097)),
+                          dtype=torch.int32, device="cuda")
+    grads, peaks = [], []
+    for tied in (False, True):
+        w = table.clone().requires_grad_(True)
+        rows = L.embed({"emb": w}, tokens[:, :-1], tied=tied)
+        mark = {}
+
+        def at_gather(g, mark=mark):
+            torch.cuda.synchronize()
+            mark["whole"] = torch.cuda.max_memory_allocated()
+            mark["base"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+        rows.register_hook(at_gather)
+        loss = L.chunked_ce_loss(rows * 3.0, w, tokens[:, 1:],
+                                 chunk=cfg.ce_chunk,
+                                 logit_cap=cfg.logit_softcap)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads.append(torch.autograd.grad(loss, [w])[0])
+        torch.cuda.synchronize()
+        peaks.append((max(mark["whole"], torch.cuda.max_memory_allocated())
+                      - base,
+                      torch.cuda.max_memory_allocated() - mark["base"]))
+        del w, rows, loss
+    require(torch.equal(grads[0], grads[1]),
+            "the tied table's gradient differs from autograd's sum of the "
+            "embedding's and the head's: max |diff| "
+            f"{(grads[0] - grads[1]).abs().max().item()}")
+    log(f"[dense] tied table ({cfg.vocab}, {cfg.d_model}) fp32: gradient bit "
+        f"for bit autograd's sum; device peak of the backward {peaks[1][0]:,}"
+        f" B, from the gather's cotangent on {peaks[1][1]:,} B (autograd's "
+        f"two dense gradients: {peaks[0][0]:,} B, {peaks[0][1]:,} B)")
+    del grads, table
+    torch.cuda.empty_cache()
+
+
 def phase_dense(state) -> None:
+    import torch
+
     from repro_torch.kernels import flash_attention as fa
 
+    tied_table_check(torch)
     # every layer of gemma2-2b's (local, global) period is attention
     decoder_phase(state, "dense", "gemma2-2b", 2,
                   {"flash_attention": fa.flash_attention},
                   {"flash_attention": 2}, revolve_slots=4, tiered_states=4,
-                  scan=True, plans_2d=True, fused=FUSED_PINNED["dense"])
+                  scan=True, plans_2d=True, fused=FUSED_PINNED["dense"],
+                  fused_plain=True)
 
 
 def phase_ssm(state) -> None:
@@ -3383,7 +3902,7 @@ def moe_deep(state) -> None:
     vg = api.value_and_grad_offloaded(model.train_loss,
                                       offload_params="moe_experts",
                                       device="cuda")
-    fa.flash_attention.launches = 0
+    zero_launches([fa.flash_attention])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3457,39 +3976,11 @@ def phase_moe(state) -> None:
 FAMILY_BATCH = 2   # train_4k's global batch of 256, cut
 
 
-class _PlainAttentionForward:
-    """``chunked_attention``'s forward through its plain online-softmax
-    scan (``attention._chunked_fwd``) on CUDA tensors too, in place of the
-    flash kernel: the reference the model-level flash path is held
-    against."""
-
-    def __init__(self, chunk: int):
-        self.chunk = chunk
-
-    def flash_attention_fwd(self, q, k, v, *, causal, window, softcap,
-                            scale):
-        from repro_torch.models import attention
-
-        return attention._chunked_fwd(q, k, v, causal, window, softcap,
-                                      self.chunk, scale)
-
-    def __enter__(self):
-        from repro_torch.models import attention
-
-        self._fa, attention.fa = attention.fa, self
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.models import attention
-
-        attention.fa = self._fa
-
-
-def family_call(torch, model, params, batch, kernels):
+def family_call(torch, model, params, batch, kernels, plain=False):
     """Dense autograd of ``train_loss``: ``(loss, grads, wall, peak above
-    what it found allocated, launches)``."""
-    for fn in kernels.values():
-        fn.launches = 0
+    what it found allocated, launches)``; ``plain`` inside
+    :class:`_PlainVersions`."""
+    zero_launches(kernels.values(), plain)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3517,7 +4008,9 @@ def phase_families(state) -> None:
     ofl.clear_pools()
     full = SHAPES["train_4k"]
     shape = ShapeSpec(full.name, full.seq_len, FAMILY_BATCH, full.kind)
-    kernels = {"flash_attention": fa.flash_attention}
+    kernels = {"flash_attention": fa.flash_attention,
+               **{k: v[0] for k, v in layer_kernels(
+                   get_config("internvl2-1b")).items()}}
     for arch in ("internvl2-1b", "whisper-tiny"):
         cfg = get_config(arch)
         model = get_model(cfg)
@@ -3544,25 +4037,26 @@ def phase_families(state) -> None:
                     f"families {arch}: flash_attention launched "
                     f"{launches['flash_attention']} times in one forward, "
                     f"expected {want} (one a layer)")
-            with _PlainAttentionForward(cfg.attn_chunk):
+            with _PlainVersions():
                 p_loss, p_grads, p_wall, p_peak, p_launches = family_call(
-                    torch, model, params, batch, kernels)
-            require(p_launches["flash_attention"] == 0,
-                    f"families {arch}: the plain forward launched the "
-                    "kernel")
-            # the referee: fp32 compute through the plain forward.  Both
+                    torch, model, params, batch, kernels, plain=True)
+            require(not any(p_launches.values()),
+                    f"families {arch}: the plain versions launched "
+                    f"{p_launches}")
+            # the referee: fp32 compute through the plain versions.  Both
             # bf16 gradients are a bf16 rounding of it, 24 layers deep;
-            # the kernel may add at most the bf16 gate to what the plain
-            # forward's rounding already costs, leaf by leaf
+            # the kernels may add at most the bf16 gate to what the plain
+            # versions' rounding already costs, leaf by leaf
             from repro_torch.models import transformer as tfm
             from repro_torch.models.layers import DTypes
 
             dts = tfm._dtypes
             tfm._dtypes = lambda c: DTypes(compute=torch.float32)
             try:
-                with _PlainAttentionForward(cfg.attn_chunk):
+                with _PlainVersions():
                     r_loss, r_grads, *_ = family_call(torch, model, params,
-                                                      batch, kernels)
+                                                      batch, kernels,
+                                                      plain=True)
             finally:
                 tfm._dtypes = dts
             paths = [pytree.keystr(k) for k, _ in
@@ -3573,7 +4067,7 @@ def phase_families(state) -> None:
             worst = max((scaled_err(a, r) - scaled_err(b, r), pth)
                         for a, b, r, pth in zip(grads, p_grads, r_grads,
                                                 paths))
-            for name, gg in (("flash", grads), ("plain", p_grads)):
+            for name, gg in (("kernels", grads), ("plain", p_grads)):
                 e32 = sorted(((scaled_err(a, b), pth) for a, b, pth in
                               zip(gg, r_grads, paths)), reverse=True)
                 log(f"[families] {arch}: {name} bf16 gradient against the "
@@ -3581,16 +4075,16 @@ def phase_families(state) -> None:
                     f"{[(pth, round(e, 5)) for e, pth in e32[:3]]}")
             del r_grads
             require(rel <= 3e-2 and worst[0] <= 3e-2,
-                    f"families {arch}: flash against the plain forward: "
-                    f"loss rel err {rel}; at {worst[1]} the flash "
-                    "gradient's scaled distance from the fp32 one exceeds "
-                    f"the plain forward's by {worst[0]} (gate 3e-2)")
-            line += (f"; against the plain chunked forward (wall "
+                    f"families {arch}: the kernels against the plain "
+                    f"versions: loss rel err {rel}; at {worst[1]} the "
+                    "kernels' gradient's scaled distance from the fp32 one "
+                    f"exceeds the plain versions' by {worst[0]} (gate 3e-2)")
+            line += (f"; against the plain versions (wall "
                      f"{p_wall:.3f}s, peak {p_peak:,} B): loss rel err "
                      f"{rel:.3g}, grad scaled err {gerr[0]:.3g} "
-                     f"({gerr[1]}); the flash gradient's distance from the "
-                     f"fp32 one less the plain's: at most {worst[0]:.3g} "
-                     f"({worst[1]})")
+                     f"({gerr[1]}); the kernels' gradient's distance from "
+                     f"the fp32 one less the plain's: at most "
+                     f"{worst[0]:.3g} ({worst[1]})")
             del p_grads
             _add_launches(state, "families", launches)
         else:
@@ -4033,6 +4527,175 @@ def _time_generic(torch):
              ms_p, b_ms, by, ms_l, 0.0)]
 
 
+def _time_flash_bwd(torch, cfg, B, S):
+    """The attention backward at a decoder's layer shape (gemma2-2b's: its
+    softcap, one layer kind's cost is the other's at S=4096; phi3.5-moe's),
+    its plain version, and SDPA's backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` on K/V repeated per group: no softcap,
+    and its dK/dV per query head, not summed per group).  Returns ``(ms,
+    plain_ms, bound_ms, by, library_ms, flops)``."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import _chunked_bwd
+
+    H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rng = np.random.default_rng(41)
+    bf16 = torch.bfloat16
+    q = _randn(torch, rng, (B, S, H, D), bf16)
+    k = _randn(torch, rng, (B, S, G, D), bf16)
+    v = _randn(torch, rng, (B, S, G, D), bf16)
+    dout = _randn(torch, rng, (B, S, H, D), bf16)
+    kw = {"softcap": cfg.attn_softcap, "scale": cfg.query_scale}
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ms_k = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                  **kw), 5)
+    res = (q, k, v, out, lse)
+    ms_p = cuda_ms(lambda: _chunked_bwd(True, None, cfg.attn_softcap, 1024,
+                                        cfg.query_scale, res, dout), 2)
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt = k.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous() \
+        .requires_grad_(True)
+    vt = v.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous() \
+        .requires_grad_(True)
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        scale=cfg.query_scale)
+    dot = dout.transpose(1, 2).contiguous()
+    ms_l = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                               retain_graph=True), 5)
+    # the five products of the backward (S, dP, dV, dK, dQ) over the
+    # causal (query, key) pairs; q, out, dout, dq and k, v, dk, dv once
+    # each, lse
+    flops = 10.0 * B * H * D * S * (S + 1) / 2
+    nbytes = 2.0 * (4 * B * S * H * D + 4 * B * S * G * D) + 4.0 * B * H * S
+    b_ms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
+    log(f"[timing] flash_attention_bwd at {cfg.name}'s B={B} S={S} H={H} "
+        f"G={G} D={D} bf16 (softcap {cfg.attn_softcap}): {ms_k:.4f} ms, "
+        f"{flops / ms_k / 1e9:.1f} TFLOP/s of the five products (plain "
+        f"{ms_p:.4f} ms; bound {b_ms:.4f} ms by {by}; library {ms_l:.4f} "
+        "ms: SDPA's backward on K/V repeated per group"
+        + (")" if cfg.attn_softcap is None else ", without the softcap)"))
+    del qt, kt, vt, ot
+    return ms_k, ms_p, b_ms, by, ms_l, flops
+
+
+def _time_layer_kernels(torch, state):
+    """The layer kernels of gemma2-2b's body at the dense phase's shapes
+    (B=2, S=4096), each beside its plain version and its bound (bytes at
+    3.35 TB/s: every input read once, every output written once), and
+    ``F.rms_norm`` on ``1 + scale`` for rmsnorm, its gradient through
+    autograd for rmsnorm's backward (no single PyTorch call computes the
+    others); the attention backward also at phi3.5-moe's
+    layer.  Returns the kernels line's rows."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import glu as glu_mod
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import rope as rope_mod
+    from repro_torch.models.layers import rope_table
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    # the TPU kernel whose traced body computed them (the segment kernels'
+    # chunk scans and chunk vjp)
+    rep = "src/repro/kernels/segment_pallas.py:248"
+    rows = []
+    gemma = get_config("gemma2-2b")
+    fb = _time_flash_bwd(torch, gemma, 2, 4096)
+    rows.append(("flash_attention_bwd", csrc + "flash_attention_bwd.cu",
+                 rep, *fb))
+    if "moe" in state:
+        run = state["moe"]
+        _time_flash_bwd(torch, run["cfg"], run["B"], run["S"])
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(71)
+    bf16 = torch.bfloat16
+    N, d = GEMMA_ROWS, GEMMA_D
+    x = _randn(torch, rng, (2, 4096, d), bf16)
+    res = _randn(torch, rng, (2, 4096, d), bf16)
+    g = _randn(torch, rng, (2, 4096, d), bf16)
+    scale = _randn(torch, rng, (d,), torch.float32, 0.3)
+
+    def row(name, src, k_fn, p_fn, nbytes, l_fn=None, what=""):
+        ms_k = cuda_ms(k_fn, 20)
+        ms_p = cuda_ms(p_fn, 5)
+        ms_l = cuda_ms(l_fn, 20) if l_fn is not None else None
+        b_ms, by = bound_ms(nbytes, 0.0, BF16_TC_FLOPS)
+        log(f"[timing] {name}{what}: {ms_k:.4f} ms "
+            f"({nbytes / ms_k / 1e6:.0f} GB/s; plain {ms_p:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {by}, library "
+            f"{'n/a' if ms_l is None else f'{ms_l:.4f} ms'})")
+        return (name, csrc + src, rep, ms_k, ms_p, b_ms, by, ms_l, 0.0)
+
+    el = 2.0
+    w = (1.0 + scale).to(bf16)
+    rms_lib = getattr(F, "rms_norm", None)
+    rows.append(row(
+        "rmsnorm", "rmsnorm.cu",
+        lambda: rn.rmsnorm(x, scale, out_dtype=bf16),
+        lambda: rn.rmsnorm_fwd_plain(x, scale, None, 1e-6, bf16),
+        2 * el * N * d + 4.0 * (N + d),
+        None if rms_lib is None else (lambda: rms_lib(x, (d,), w, 1e-6)),
+        f" at ({N}, {d}) bf16 (ln1, ln2)"))
+    row("rmsnorm", "rmsnorm.cu",
+        lambda: rn.rmsnorm(x, scale, res, out_dtype=bf16),
+        lambda: rn.rmsnorm_fwd_plain(x, scale, res, 1e-6, bf16),
+        3 * el * N * d + 4.0 * (N + d), None,
+        " with the residual (the post-norms)")
+    _, rstd = rn.rmsnorm(x, scale, out_dtype=bf16)
+    # the library's backward: autograd through F.rms_norm, the gradient of
+    # its weight (1 + scale) being dscale
+    lib_bwd = None
+    if rms_lib is not None:
+        xl = x.detach().requires_grad_(True)
+        wl = w.detach().requires_grad_(True)
+        yl = rms_lib(xl, (d,), wl, 1e-6)
+
+        def lib_bwd():
+            return torch.autograd.grad(yl, (xl, wl), g, retain_graph=True)
+    rows.append(row(
+        "rmsnorm_bwd", "rmsnorm.cu",
+        lambda: rn.rmsnorm_bwd(g, x, scale, rstd),
+        lambda: rn.rmsnorm_bwd_plain(g, x, scale, 1e-6, bf16),
+        3 * el * N * d + 4.0 * (N + 2 * d), lib_bwd,
+        f" at ({N}, {d}) bf16 (library: the gradient of F.rms_norm on "
+        "1 + scale in bf16, through autograd)"))
+    del x, res, g, rstd, lib_bwd
+    n = 2 * 4096 * GEMMA_FF
+    gate, up, gg = (_randn(torch, rng, (2, 4096, GEMMA_FF), bf16)
+                    for _ in range(3))
+    rows.append(row(
+        "glu", "glu.cu", lambda: glu_mod.glu(gate, up, "gelu"),
+        lambda: glu_mod.glu_plain(gate, up, "gelu"), 3 * el * n, None,
+        f" (GeGLU) at (2, 4096, {GEMMA_FF}) bf16"))
+    rows.append(row(
+        "glu_bwd", "glu.cu", lambda: glu_mod.glu_bwd(gg, gate, up, "gelu"),
+        lambda: glu_mod.glu_bwd_plain(gg, gate, up, "gelu"), 5 * el * n,
+        None, " (GeGLU)"))
+    del gate, up, gg
+    cos, sin = rope_table(4096, 256, device="cuda")
+    qk = [_randn(torch, rng, sh, bf16) for sh in GEMMA_QK]
+    gs = [_randn(torch, rng, sh, bf16) for sh in GEMMA_QK]
+    nqk = sum(t.numel() for t in qk)
+    rows.append(row(
+        "rope", "rope.cu", lambda: rope_mod.rope(qk, cos, sin),
+        lambda: [rope_mod.rope_plain(t, cos, sin) for t in qk],
+        2 * el * nqk + 2 * 4.0 * cos.numel(), None,
+        " (q and k in one launch) at gemma2-2b's q (2, 4096, 8, 256), k "
+        "(2, 4096, 4, 256) bf16"))
+    rows.append(row(
+        "rope_bwd", "rope.cu", lambda: rope_mod.rope_bwd(gs, cos, sin),
+        lambda: [rope_mod.rope_bwd_plain(t, x, cos, sin)
+                 for t, x in zip(gs, qk)],
+        2 * el * nqk + 2 * 4.0 * cos.numel(), None, ""))
+    del qk, gs
+    torch.cuda.empty_cache()
+    return rows
+
+
 def log_parts(name, T, parts) -> None:
     log("[timing] {} at T={} by part (one call, device time of its kernels, "
         "torch.profiler): {}".format(
@@ -4124,6 +4787,7 @@ def phase_timing(state) -> None:
     log(f"[timing] flash_attention launches by phase: {by_phase}")
     rows.append(_time_ssd(torch, state["ssm"]))
     rows += _time_generic(torch)
+    rows += _time_layer_kernels(torch, state)
 
     out = []
     for name, src, rep, k_ms, p_ms, b_ms, by, l_ms, flops in rows:
@@ -4442,6 +5106,31 @@ def advance_call_times(state, T: int) -> None:
         f"{device_ms['uncaptured']:.4f} ms")
 
 
+def profile_gemma(state) -> None:
+    """Device time of one warm fused gemma2-2b gradient by kernel, split
+    into the hand-written kernels, the cuBLAS products and PyTorch's own
+    (``tools/profile_fused_gemma.py``, each tree in a process of its own):
+    the tree given with ``--parent`` (a ``git archive`` of another commit)
+    first, then this one; the tables to ``<out-dir>/profile_gemma_*.txt``."""
+    import torch
+
+    torch.cuda.empty_cache()
+    trees = [("parent", state["parent"])] if state.get("parent") else []
+    trees.append(("tree", ROOT))
+    for label, root in trees:
+        out = os.path.join(state["out_dir"], f"profile_gemma_{label}.txt")
+        res = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools",
+                                          "profile_fused_gemma.py"),
+             "--src", os.path.join(root, "src"), "--out", out,
+             "--label", label], capture_output=True, text=True,
+            timeout=900)
+        require(res.returncode == 0, f"profile of gemma2-2b ({label}) "
+                f"failed:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        for line in res.stdout.splitlines():
+            log(line)
+
+
 def phase_profile(state) -> None:
     """Where one offloaded LSTM gradient's time goes, per schedule of the
     main phase (the decoder phases profile themselves when ``profile`` is
@@ -4452,6 +5141,7 @@ def phase_profile(state) -> None:
     from repro_torch import api
     from repro_torch.kernels import segment_fused as sf
 
+    profile_gemma(state)
     if "runs" not in state:   # phase main did not run
         return
     model, params, batch = state["model"], state["params"], state["batch"]
@@ -4486,6 +5176,10 @@ def main(argv=None) -> int:
                     + ",".join(PHASES + OPTIONAL))
     ap.add_argument("--out-dir", default=DEFAULT_OUT_DIR,
                     help="directory for the build log and profile tables")
+    ap.add_argument("--parent", default=None,
+                    help="phase profile: also profile the fused gemma2-2b "
+                    "gradient of the checkout in this directory (a git "
+                    "archive of another commit)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES) - set(OPTIONAL)
@@ -4505,7 +5199,8 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     state = {"out_dir": os.path.abspath(args.out_dir),
-             "profile": "profile" in phases}
+             "profile": "profile" in phases,
+             "parent": args.parent and os.path.abspath(args.parent)}
     steps = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "main": phase_main,
              "scan": phase_scan,

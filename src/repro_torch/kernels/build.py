@@ -30,6 +30,10 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "ssd_scan": "ssd_scan.cu",
     "segment_generic": "segment_generic.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
+    "rmsnorm": "rmsnorm.cu",
+    "glu": "glu.cu",
+    "rope": "rope.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -125,6 +129,13 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.repro_error_string(int(err)).decode()
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+def on_card(t) -> bool:
+    """Whether a wrapper launches its kernel for ``t``: a CUDA tensor.  Any
+    other tensor (the CPU's, or the byte profile's meta tensors) takes the
+    kernel's plain version."""
+    return t.is_cuda
 
 
 def ptr(t) -> ctypes.c_void_p:

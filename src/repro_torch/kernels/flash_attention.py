@@ -18,6 +18,12 @@ is the launch itself (CUDA only; bf16 takes the tensor-core kernel and
 head dims 16, 32, 64, 128 and 256 only) and also returns ``lse`` (fp32,
 ``(B, G, H/G, Sq)``), which the TPU kernel does not produce and the
 attention backward needs.  Launches count into ``flash_attention.launches``.
+
+:func:`flash_attention_bwd` is the backward (``csrc/flash_attention_bwd.cu``,
+CUDA only, the same dtypes and head dims): ``(dq, dk, dv)`` from the
+forward's ``out`` and ``lse`` and the output cotangent, as the plain
+``models/attention.py::_chunked_bwd`` computes them; two kernel launches a
+call, counted once into ``flash_attention_bwd.launches``.
 """
 from __future__ import annotations
 
@@ -36,12 +42,25 @@ MAX_HEAD_DIM = 256
 BF16_HEAD_DIMS = (16, 32, 64, 128, 256)   # the tensor-core kernel's
 
 
+_BWD_FNS = {torch.float32: "flash_attention_bwd_f32",
+            torch.bfloat16: "flash_attention_bwd_bf16"}
+
+
 def _lib():
     lib = build.load("flash_attention")
     for name in _FNS.values():
         fn = getattr(lib, name)
         fn.restype = _I
         fn.argtypes = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _F, _P]
+    return lib
+
+
+def _bwd_lib():
+    lib = build.load("flash_attention_bwd")
+    for name in _BWD_FNS.values():
+        fn = getattr(lib, name)
+        fn.restype = _I
+        fn.argtypes = [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _P]
     return lib
 
 
@@ -68,28 +87,83 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel (CUDA tensors only): ``(out, lse)``."""
     _check(q, k, v, window, softcap)
-    if not q.is_cuda:
+    if not build.on_card(q):
         raise ValueError("flash_attention_fwd runs on the card only")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"flash_attention: {name} is {t.dtype} on "
-                             f"{t.device}, expected {q.dtype} on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous")
-    if q.dtype not in _FNS:
-        raise ValueError(f"flash_attention: dtype {q.dtype} is not "
-                         f"supported (one of {list(_FNS)})")
-    if q.shape[3] > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {q.shape[3]} > "
-                         f"{MAX_HEAD_DIM}")
-    if q.dtype == torch.bfloat16 and q.shape[3] not in BF16_HEAD_DIMS:
-        raise ValueError(f"flash_attention: bf16 head dim {q.shape[3]} is "
-                         f"not one of {BF16_HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} is not 16-byte "
-                             "aligned")
+    _check_launch("flash_attention", q, (("q", q), ("k", k), ("v", v)))
     return _launch(q, k, v, causal, window, softcap, scale)
+
+
+def _check_launch(what, q, named) -> None:
+    """What the kernels take: one dtype and device, contiguous, 16-byte
+    aligned tensors; fp32 with any head dim up to ``MAX_HEAD_DIM`` or bf16
+    with one of ``BF16_HEAD_DIMS``."""
+    for name, t in named:
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}, "
+                             f"expected {q.dtype} on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if q.dtype not in _FNS:
+        raise ValueError(f"{what}: dtype {q.dtype} is not supported (one "
+                         f"of {list(_FNS)})")
+    if q.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {q.shape[3]} > {MAX_HEAD_DIM}")
+    if q.dtype == torch.bfloat16 and q.shape[3] not in BF16_HEAD_DIMS:
+        raise ValueError(f"{what}: bf16 head dim {q.shape[3]} is not one "
+                         f"of {BF16_HEAD_DIMS}")
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel (CUDA tensors only; the plain version is
+    ``models/attention.py::_chunked_bwd``): ``(dq, dk, dv)`` in the layouts
+    and dtypes of ``q``, ``k``, ``v``.  ``out`` and ``lse`` are
+    :func:`flash_attention_fwd`'s, ``dout`` the cotangent of ``out``."""
+    _check(q, k, v, window, softcap)
+    if not build.on_card(q):
+        raise ValueError("flash_attention_bwd runs on the card only")
+    B, Sq, H, _ = q.shape
+    G = k.shape[2]
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: out{tuple(out.shape)} and "
+                         f"dout{tuple(dout.shape)} must be q's shape "
+                         f"{tuple(q.shape)}")
+    if (lse.shape != (B, G, H // G, Sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse{tuple(lse.shape)} "
+                         f"{lse.dtype} must be contiguous fp32 "
+                         f"{(B, G, H // G, Sq)} on {q.device}")
+    _check_launch("flash_attention_bwd", q, (
+        ("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)))
+    return _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap,
+                       scale)
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap, scale):
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    sc = (D ** -0.5) if scale is None else scale
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    err = getattr(lib, _BWD_FNS[q.dtype])(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+        build.ptr(dout), build.ptr(lse), build.ptr(dvec), build.ptr(dq),
+        build.ptr(dk), build.ptr(dv), B, Sq, Sk, H, G, D, float(sc),
+        int(bool(causal)), 0 if window is None else int(window),
+        0.0 if softcap is None else float(softcap),
+        build.stream_ptr(q.device))
+    build.check(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 def _launch(q, k, v, causal, window, softcap, scale):
@@ -117,7 +191,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Sk, G, D).  Returns (B, Sq, H, D)."""
     _check(q, k, v, window, softcap)
-    if q.is_cuda:
+    if build.on_card(q):
         return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)[0]
     return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -144,3 +218,4 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -6,11 +6,19 @@ The TPU kernels (``repro/kernels/segment_pallas.py::fused_advance_segment``
 and ``::fused_reverse_segment``) trace the caller's body into a
 ``pallas_call`` and do their own work around it.  On the card the body's
 steps, the reverse's recompute and the chunks' vjps -- the kernels'
-arithmetic -- run as the caller's PyTorch code on the compute stream,
-exactly as ``runner="compiled"`` runs them (no hand-written kernel computes
-an arbitrary Python body), so this module does not port those TPU kernels:
-only their data movement is hand-written, two kernels, each one launch over
-a table of leaves:
+arithmetic -- run as the caller's code on the compute stream, exactly as
+``runner="compiled"`` runs them (no hand-written kernel computes an
+arbitrary Python body).  For gemma2-2b's body that code is partly the
+port's hand-written layer kernels (``flash_attention`` and its backward,
+``rmsnorm``, ``glu``, ``rope``, each forward and backward); its
+projections, which the TPU kernel computes inside its traced body, still
+run on cuBLAS (``torch.matmul``), and its weight casts and gradient adds
+as PyTorch's own kernels, so that body's half of the TPU kernels is only
+partly ported.  Other bodies (mamba2-370m's: the SSD backward, the gated
+norm, the depthwise conv) still run plain PyTorch arithmetic there
+(ROADMAP queue 2).  This module
+hand-writes the segments' own data movement, two kernels, each one launch
+over a table of leaves:
 
 * :func:`entry_store` — each chunk-entry carry copied into page-locked host
   slots (one slot a leaf, from the pools of

@@ -8,10 +8,15 @@ with a hand-written backward, and the dense oracle.
 the flash-attention kernel on the card (:mod:`repro_torch.kernels.
 flash_attention`, which also writes the logsumexp) and the plain online-
 softmax scan :func:`_chunked_fwd` on the CPU; either way it saves
-``(q, k, v, out, lse)``.  Its backward is :func:`_chunked_bwd` on both
-devices: it recomputes the probabilities chunk by chunk from the saved
-logsumexp, so the ``(Sq, Sk)`` score matrix never exists.  The JAX package
-has no attention backward kernel, and neither has the port.
+``(q, k, v, out, lse)``.  Its backward recomputes the probabilities from
+the saved logsumexp, so the ``(Sq, Sk)`` score matrix never exists: on the
+card the hand-written backward kernel ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``), on the CPU its plain version
+:func:`_chunked_bwd`, chunk by chunk.  The JAX package has no attention
+backward kernel of its own: its custom VJP's backward runs inside the
+segment kernel the decoder body is traced into
+(``repro/kernels/segment_pallas.py``), and this is the port of that
+arithmetic.
 
 Supports grouped KV heads, causal masking with queries at the end of the
 keys, sliding windows (Gemma-2 local layers), logit softcapping and QKV
@@ -26,7 +31,8 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.layers import (DEFAULT_DTYPES, DTypes, apply_rope,
+from repro_torch.kernels import build
+from repro_torch.models.layers import (DEFAULT_DTYPES, DTypes, apply_rope_qk,
                                        dense, init_dense)
 
 Params = Any
@@ -162,10 +168,11 @@ class ChunkedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, chunk, scale):
-        if q.is_cuda:
+        if build.on_card(q):
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             out, lse = fa.flash_attention_fwd(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                causal=causal, window=window, softcap=softcap, scale=scale)
+                q, k, v, causal=causal, window=window, softcap=softcap,
+                scale=scale)
         else:
             out, lse = _chunked_fwd(q, k, v, causal, window, softcap, chunk,
                                     scale)
@@ -175,7 +182,14 @@ class ChunkedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        dq, dk, dv = _chunked_bwd(*ctx.args, ctx.saved_tensors, dout)
+        q, k, v, out, lse = ctx.saved_tensors
+        if build.on_card(q):
+            causal, window, softcap, _, scale = ctx.args
+            dq, dk, dv = fa.flash_attention_bwd(
+                q, k, v, out.contiguous(), lse, dout.contiguous(),
+                causal=causal, window=window, softcap=softcap, scale=scale)
+        else:
+            dq, dk, dv = _chunked_bwd(*ctx.args, ctx.saved_tensors, dout)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -254,8 +268,7 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     shorter ones the dense oracle, as in the JAX package."""
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, dt)
     if rope is not None:
-        cos, sin = rope
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        q, k = apply_rope_qk(q, k, *rope)
     S = x.shape[1]
     if use_chunked is None:
         use_chunked = S > 2048

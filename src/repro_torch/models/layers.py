@@ -1,5 +1,10 @@
 # Port of repro/models/layers.py: the training-path building blocks.
-"""Shared neural-net building blocks (plain PyTorch functions).
+"""Shared neural-net building blocks.
+
+``rmsnorm``, ``geglu``/``swiglu`` and ``apply_rope`` are autograd functions
+whose forward and backward launch hand-written kernels on the card
+(``kernels/rmsnorm.py``, ``glu.py``, ``rope.py``) and run their plain
+PyTorch versions on any other device; the rest is plain PyTorch.
 
 Conventions, as in the JAX package:
 
@@ -18,11 +23,17 @@ and comes with it (ROADMAP queue 1, item 14).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+from torch.utils.weak import WeakIdKeyDictionary
+
+from repro_torch.kernels import glu as glu_mod
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import rope as rope_mod
 
 Params = Any
 
@@ -93,12 +104,13 @@ def init_rmsnorm(d: int, dtype=torch.float32, *, lead: Tuple[int, ...] = (),
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6,
-            dt: DTypes = DEFAULT_DTYPES) -> torch.Tensor:
-    # Gemma-style: normalise in fp32, weight stored as offset from 1.
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * (1.0 + p["scale"].float())
-    return y.to(dt.compute)
+            dt: DTypes = DEFAULT_DTYPES,
+            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gemma-style: normalise in fp32, weight stored as offset from 1, cast
+    to the compute dtype; with ``residual``, ``residual + rmsnorm(x)`` (a
+    post-norm's residual add, inside the same kernel on the card)."""
+    return rn.rmsnorm_norm(x, p["scale"], eps=eps, out_dtype=dt.compute,
+                           residual=residual)
 
 
 def init_embedding(generator, vocab: int, d: int, dtype=torch.float32, *,
@@ -108,10 +120,97 @@ def init_embedding(generator, vocab: int, d: int, dtype=torch.float32, *,
 
 
 def embed(p: Params, tokens: torch.Tensor,
-          dt: DTypes = DEFAULT_DTYPES) -> torch.Tensor:
+          dt: DTypes = DEFAULT_DTYPES, tied: bool = False) -> torch.Tensor:
+    """The table's rows for ``tokens`` in the compute dtype.  ``tied``: the
+    loss head reads the same table (:func:`head_table`), and the two
+    gradients meet in one buffer (:class:`_TiedGather`)."""
     # gather, then cast: the JAX package's cast-then-gather gives the same
     # values without a compute-type copy of the whole table
-    return dt.c(F.embedding(tokens.long(), p["emb"]))
+    table, tokens = p["emb"], tokens.long()
+    if tied and table.requires_grad and torch.is_grad_enabled():
+        tie = _Tie()
+        rows = _TiedGather.apply(table, tokens, tie)
+        # weak: the node holds the tie, and a cycle would keep the graph
+        tie.gather = weakref.ref(rows.grad_fn)
+        _TIES[table] = tie
+        return dt.c(rows)
+    return dt.c(F.embedding(tokens, table))
+
+
+def head_table(table: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``table.to(dtype)`` for a loss head; if :func:`embed` gathered from
+    this table with ``tied``, the head's gradient waits for the gather's,
+    which adds its rows into it in place (:class:`_TiedGather`)."""
+    tie = _TIES.pop(table, None)
+    if tie is None or table.dtype == dtype or not torch.is_grad_enabled():
+        return table.to(dtype)
+    return _HeadCast.apply(table, dtype, tie)
+
+
+class _Tie:
+    """The head's gradient of a tied table (``grad``), handed to the
+    gather's backward (``gather``, a weak reference to its node;
+    ``gathered`` once it has run)."""
+
+    def __init__(self):
+        self.grad, self.gather, self.gathered = None, None, False
+
+
+# a tied table -> the tie its last gather made, until the head takes it
+_TIES = WeakIdKeyDictionary()
+
+
+class _HeadCast(torch.autograd.Function):
+    """``table.to(dtype)`` whose backward (``ToCopyBackward``'s cast of the
+    cotangent) leaves the result to the tie when the gather's backward is
+    still to run in this backward pass: autograd would otherwise hold it
+    beside a second dense gradient of the table, the gather's, and add the
+    two."""
+
+    @staticmethod
+    def forward(ctx, table, dtype, tie):
+        ctx.src, ctx.tie = table.dtype, tie
+        return table.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        grad, tie = g.to(ctx.src), ctx.tie
+        gather = tie.gather()
+        if (gather is None or tie.gathered
+                or not torch._C._will_engine_execute_node(gather)):
+            return grad, None, None
+        tie.grad = grad
+        return None, None, None
+
+
+class _TiedGather(torch.autograd.Function):
+    """``F.embedding(tokens, table)`` whose backward adds its rows into
+    the head's gradient of the table in place, when the head left it in
+    the tie: each token's rows summed as ``embedding_dense_backward`` sums
+    them (on the distinct tokens, in the same order), then one add a
+    distinct token, so the table's gradient is the one autograd's sum of
+    the two dense gradients gives, with one dense buffer in place of
+    two."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, tie):
+        ctx.save_for_backward(tokens)
+        ctx.n, ctx.tie = table.shape[0], tie
+        return F.embedding(tokens, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        tie = ctx.tie
+        head, tie.grad, tie.gathered = tie.grad, None, True
+        if head is None:
+            return (torch.ops.aten.embedding_dense_backward(
+                g, tokens, ctx.n, -1, False), None, None)
+        uniq, inv = torch.unique(tokens, sorted=True, return_inverse=True)
+        rows = torch.ops.aten.embedding_dense_backward(g, inv, uniq.numel(),
+                                                       -1, False)
+        head.index_put_((uniq,), head.index_select(0, uniq) + rows)
+        return head, None, None
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -121,11 +220,11 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    return F.silu(gate) * up
+    return glu_mod.glu_act(gate, up, "silu")
 
 
 def geglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    return F.gelu(gate, approximate="tanh") * up
+    return glu_mod.glu_act(gate, up, "gelu")
 
 
 # ---------------------------------------------------------------------------
@@ -148,12 +247,13 @@ def rope_table(seq_len: int, head_dim: int, theta: float = 10000.0,
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """x: (..., S, H, D); cos/sin: (S, D/2) — rotate-half convention."""
-    d2 = x.shape[-1] // 2
-    x1, x2 = x[..., :d2], x[..., d2:]
-    cos = cos[..., :, None, :]  # (S, 1, D/2) broadcast over heads
-    sin = sin[..., :, None, :]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
-                     dim=-1).to(x.dtype)
+    return rope_mod.rope_apply(cos, sin, x)[0]
+
+
+def apply_rope_qk(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+                  sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``apply_rope`` of q and k (one kernel launch on the card)."""
+    return rope_mod.rope_apply(cos, sin, q, k)
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +288,7 @@ def chunked_ce_loss(h: torch.Tensor, emb_w: torch.Tensor,
         pad_mask = torch.arange(V, device=h.device) < valid_vocab
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
-    wt = emb_w.to(h.dtype)
+    wt = head_table(emb_w, h.dtype)
 
     def terms(hk, lk, mk):
         logits = hk @ wt.T  # (B, chunk, V)

@@ -117,8 +117,12 @@ def unembed_weight(params: Params, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _post(p, name, y, cfg, dt):
-    return rmsnorm(p[name], y, dt=dt) if cfg.use_post_norm else y
+def _residual(p, name, x, y, cfg, dt):
+    """``x + post_norm(y)`` (the norm and the add one kernel on the card),
+    or ``x + y`` without post-norms."""
+    if cfg.use_post_norm:
+        return rmsnorm(p[name], y, dt=dt, residual=x)
+    return x + y
 
 
 def _ffn(p, h, kind, cfg, dt):
@@ -133,7 +137,7 @@ def _ffn(p, h, kind, cfg, dt):
             impl=cfg.moe_impl, dt=dt)
     else:
         y, aux = moe_mod.mlp(p["mlp"], y, act=cfg.mlp_act, dt=dt), zero
-    return h + _post(p, "ln2_post", y, cfg, dt), aux
+    return _residual(p, "ln2_post", h, y, cfg, dt), aux
 
 
 def _apply_layer_seq(p, x, kind, cfg: ArchConfig, rope, dt,
@@ -153,7 +157,7 @@ def _apply_layer_seq(p, x, kind, cfg: ArchConfig, rope, dt,
             p["mamba"], y, d_state=s.d_state, headdim=s.headdim,
             expand=s.expand, ngroups=s.ngroups, conv_k=s.conv_k,
             chunk=s.chunk, dt=dt)
-    h = x + _post(p, "ln1_post", y, cfg, dt)
+    h = _residual(p, "ln1_post", x, y, cfg, dt)
     return _ffn(p, h, kind, cfg, dt)
 
 
@@ -162,7 +166,7 @@ def _aux_coef(cfg: ArchConfig) -> float:
 
 
 def _embed_tokens(params, inp, cfg, dt):
-    h = embed(params["embed"], inp, dt)
+    h = embed(params["embed"], inp, dt, tied=cfg.tie_embeddings)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dt.compute)
     return h

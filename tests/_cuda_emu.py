@@ -88,6 +88,17 @@ class _Libs(dict):
             (build.CSRC / build.SOURCES[name]).read_text(), self.out, name)
         return lib
 
+    def prebuild(self, names):
+        """Compile the named libraries not built yet, all at once."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        todo = [n for n in names if n not in self]
+        with ThreadPoolExecutor(max(1, len(todo))) as pool:
+            for name, lib in zip(todo, pool.map(
+                    lambda n: _compile((build.CSRC / build.SOURCES[n])
+                                       .read_text(), self.out, n), todo)):
+                self[name] = lib
+
 
 @pytest.fixture(scope="module")
 def emulated_libs(tmp_path_factory):
@@ -193,3 +204,29 @@ def cell_on_card(card_paths, monkeypatch):
     on_card.launches = on_card.steps = 0
     monkeypatch.setattr(lc, "lstm_cell", on_card)
     return on_card
+
+
+@pytest.fixture
+def kernels_on_card(emulated_libs, monkeypatch):
+    """The model kernels' wrappers (``build.on_card``: flash attention, its
+    backward, rmsnorm, glu, rope) take their card paths on CPU tensors,
+    with the emulated kernels; meta tensors keep the plain versions."""
+    monkeypatch.setattr(build, "load", lambda name: emulated_libs[name])
+    monkeypatch.setattr(build, "stream_ptr",
+                        lambda device=None: ctypes.c_void_p(0))
+    monkeypatch.setattr(build, "on_card", lambda t: t.device.type == "cpu")
+
+
+def bits_equal(a, b) -> bool:
+    """Same shape, dtype and bits (bf16 compared as int16)."""
+    def bits(t):
+        t = t.detach().contiguous()
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        torch.equal(bits(a), bits(b))
+
+
+def scaled_err(a, b) -> float:
+    """max |a - b| over max |b| (1e-30 at least), in fp32."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))

@@ -125,3 +125,34 @@ def test_failed_build_raises_instead_of_falling_back(monkeypatch):
     with pytest.raises(RuntimeError, match="build failed"):
         attn.chunked_attention(q, k, v)
     assert fa.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("kw", [dict(window=24, softcap=50.0),
+                                dict(causal=False)])
+def test_chunked_attention_bf16_grads_match_jax(kw):
+    """The plain backward ``_chunked_bwd`` in bf16 (p and dS rounded to
+    bf16 before their products, as in the JAX package) against JAX's
+    custom VJP: each gradient within 3e-2 of its max |value|."""
+    B, Sq, Sk, H, G, D, chunk = 2, 40, 56, 4, 2, 32, 8
+    arrs = _qkv(9, B, Sq, Sk, H, G, D)
+    dout = np.random.default_rng(2).standard_normal(
+        (B, Sq, H, D)).astype(np.float32)
+    args = (kw.get("causal", True), kw.get("window"), kw.get("softcap"),
+            chunk, None)
+
+    def j_loss(q, k, v):
+        o = j_attn.chunked_attention(q, k, v, *args)
+        return jnp.sum(o.astype(jnp.float32) * dout)
+
+    j_grads = jax.grad(j_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a, jnp.bfloat16) for a in arrs))
+    q, k, v = (torch.tensor(a).to(torch.bfloat16).requires_grad_(True)
+               for a in arrs)
+    out = attn.chunked_attention(q, k, v, *args)
+    grads = torch.autograd.grad(torch.sum(out.float() * torch.tensor(dout)),
+                                (q, k, v))
+    for g, jg in zip(grads, j_grads):
+        assert g.dtype == torch.bfloat16
+        jg = np.asarray(jg, np.float32)
+        err = np.abs(g.float().numpy() - jg).max() / np.abs(jg).max()
+        assert err <= 3e-2, err
