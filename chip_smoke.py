@@ -56,6 +56,16 @@ Phases, each printing its own lines:
               residual), ``glu`` (GeGLU and SwiGLU) and ``rope`` (q and k
               in one launch), forward and backward at gemma2-2b's shapes,
               bf16 3e-2 and fp32 1e-5, each two calls bit for bit.
+              The kernels of mamba2-370m's body: ``ssd_scan_bwd`` (every
+              leaf per element at ``TOL["ssd_scan"]``, at the layer shape in
+              bf16 and a small fp32 shape with groups and an entry state;
+              two calls bit for bit; a backward that drops the cotangent
+              carried from chunk 1 into chunk 0 fails that check),
+              ``causal_conv``, ``dt_softplus`` and ``gated_norm``, forward
+              and backward, at the layer shape in bf16 and a small fp32
+              shape (``MAMBA_TOL``: elementwise per element against the
+              row's RMS, the sums over rows by their scaled error), two
+              calls bit for bit.
 4. main     — ``value_and_grad_offloaded(get_model(lstm-paper).train_loss,
               runner="fused")`` on ``make_batch(lstm-paper, train_4k)``
               (B=256, S=4096), once autotuned and once with a pinned
@@ -188,7 +198,10 @@ Phases, each printing its own lines:
               compiled advance.
 10. ssm     — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
               and ``ssd_scan``, with the fused gradients at I=14, s=4
-              (segments 14, 14, 14, 6).
+              (segments 14, 14, 14, 6), the layer kernels of its body
+              counted (``layer_kernels``) and the fused gradient held
+              against the same call through the plain versions as in
+              ``dense``.
 11. moe     — the same for ``phi3.5-moe-42b`` at full width (d_model
               4096, 16 experts top-2 of d_ff 6400, capacity factor 1.25),
               batch cut to 2 and depth cut to ``MOE_LAYERS`` (4 chain steps
@@ -250,15 +263,21 @@ Phases, each printing its own lines:
               ``rmsnorm`` (beside ``F.rms_norm`` on ``1 + scale``, its
               backward beside that call's gradient through autograd),
               ``glu`` and ``rope``, forward and backward, at gemma2-2b's
-              shapes (bound: bytes).
+              shapes (bound: bytes); mamba2-370m's ``ssd_scan_bwd`` (bound:
+              its products at the bf16 peak), ``causal_conv`` (beside
+              ``F.conv1d(groups=C)``, without the SiLU), ``dt_softplus``
+              (beside ``F.softplus``) and ``gated_norm``, forward and
+              backward, at its layer (bound: bytes).
 14. train   — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over one warm
-fused gemma2-2b gradient at I=13, s=4 by kernel, split into the
-hand-written kernels, the cuBLAS products and PyTorch's own
-(``tools/profile_fused_gemma.py``; with ``--parent DIR`` first for the
-checkout in ``DIR``, a ``git archive`` of another commit), one main-path
+fused gradient of gemma2-2b (I=13, s=4) and of mamba2-370m (I=14, s=4)
+by kernel (``--profile-archs`` picks), split into the hand-written
+kernels, the cuBLAS products and PyTorch's own, with their warm walls
+autotuned and pinned (``tools/profile_fused.py``; with ``--parent DIR``
+first for the checkout in ``DIR``, a ``git archive`` of another commit),
+one main-path
 call per LSTM schedule, captured and uncaptured, and one offloaded call in
 each decoder phase (device kernel time by name and the device's busy share;
 for the LSTM, the device time under each fused segment wrapper, kernel 1's
@@ -1120,6 +1139,217 @@ def check_ssd(torch, label, dims, dtype, with_h0, seed):
     return err
 
 
+# mamba2-370m's layer at the ssm phase's shape: the SSD's (B, T, H, G, P, N,
+# chunk), the conv's channels (x, B, C) and width
+MAMBA_SSD = (4, 4096, 32, 1, 64, 128, 128)
+MAMBA_CONV = (2304, 4)
+# label, SSD dims, dtype name, with an entry state: the first is every
+# mamba2-370m layer's backward at the ssm phase's shape (no entry state)
+SSD_BWD_CASES = (
+    ("mamba2-370m layer", MAMBA_SSD, "bfloat16", False),
+    ("small, fp32, groups and h0", (2, 520, 8, 2, 32, 64, 64), "float32",
+     True),
+)
+# each leaf of the SSD backward: the axes of the RMS its excess is over
+# (dx, db, dc per head or group over the sequence, ddt per head, dA over
+# the heads, dh0 per head over its state)
+SSD_BWD_DIMS = (("dx", (1, 3)), ("ddt", (1,)), ("dA", (0,)), ("db", (1, 3)),
+                ("dc", (1, 3)), ("dh0", (2, 3)))
+
+
+def _ssd_bwd_args(torch, rng, dims, dtype, with_h0):
+    B, T, H, G, P, N, _ = dims
+    dt_, f32 = getattr(torch, dtype), torch.float32
+    x = _randn(torch, rng, (B, T, H, P), dt_, 0.5)
+    dt = torch.nn.functional.softplus(_randn(torch, rng, (B, T, H), f32))
+    A = -torch.exp(_randn(torch, rng, (H,), f32, 0.3))
+    b = _randn(torch, rng, (B, T, G, N), dt_, 0.5)
+    c = _randn(torch, rng, (B, T, G, N), dt_, 0.5)
+    h0 = _randn(torch, rng, (B, H, P, N), f32, 0.5) if with_h0 else None
+    dy = _randn(torch, rng, (B, T, H, P), dt_)
+    dhf = _randn(torch, rng, (B, H, P, N), f32)
+    return x, dt, A, b, c, h0, dy, dhf
+
+
+def _ssd_bwd_dropped(torch, args, chunk):
+    """The plain backward with the cotangent carried from chunk 1 into
+    chunk 0 dropped: chunk 0 differentiated on its own (a zero final-state
+    cotangent), the rest from the state entering chunk 1; (dx, ddt, db,
+    dc)."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    x, dt, A, b, c, h0, dy, dhf = args
+    head = [t[:, :chunk].contiguous() for t in (x, dt, b, c, dy)]
+    tail = [t[:, chunk:].contiguous() for t in (x, dt, b, c, dy)]
+    _, h1 = ssd.ssd_scan_plain(head[0], head[1], A, head[2], head[3], h0)
+    g0 = ssd.ssd_scan_bwd_plain(head[0], head[1], A, head[2], head[3], h0,
+                                head[4], None, chunk=chunk)
+    g1 = ssd.ssd_scan_bwd_plain(tail[0], tail[1], A, tail[2], tail[3],
+                                h1.contiguous(), tail[4], dhf, chunk=chunk)
+    return [torch.cat([g0[i], g1[i]], dim=1) for i in (0, 1, 3, 4)]
+
+
+def check_ssd_bwd(torch, label, dims, dtype, with_h0, seed):
+    """The SSD-scan backward kernel against its plain version (autograd
+    over ``ssd_chunked_plain``), per element (``TOL["ssd_scan"]``, the RMS
+    over ``SSD_BWD_DIMS``), two calls bit for bit; at the main path's shape
+    a backward that drops one chunk's carried cotangent must fail the same
+    gate.  Returns the max abs error over the leaves."""
+    import numpy as np
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    chunk = dims[-1]
+    args = _ssd_bwd_args(torch, np.random.default_rng(seed), dims, dtype,
+                         with_h0)
+    got, same = _twice_equal(torch, lambda: tuple(
+        t for t in ssd.ssd_scan_bwd(*args, chunk=chunk) if t is not None))
+    want = [t for t in ssd.ssd_scan_bwd_plain(*args, chunk=chunk)
+            if t is not None]
+    torch.cuda.synchronize()
+    rtol, atol = TOL["ssd_scan"][dtype]
+    ex = {name: excess(a, b, rtol, d)
+          for (name, d), a, b in zip(SSD_BWD_DIMS, got, want)}
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    require(same and max(ex.values()) <= atol and all(
+        bool(torch.isfinite(a.float()).all()) for a in got),
+        f"ssd_scan_bwd {label}: scaled excess {ex} (rtol {rtol}, atol "
+        f"{atol}), or two calls differ ({not same})")
+    log(f"[kernels] ssd_scan_bwd {label} {dims} {dtype}: max abs err "
+        f"{err:.3g}, scaled excess " + ", ".join(
+            f"{k} {v:.3g}" for k, v in ex.items())
+        + f" (rtol {rtol}, atol {atol}); two calls bit for bit")
+    if label == "mamba2-370m layer":
+        bad = _ssd_bwd_dropped(torch, args, chunk)
+        ex_bad = max(excess(a, want[i], rtol, SSD_BWD_DIMS[i][1])
+                     for i, a in zip((0, 1, 3, 4), bad))
+        require(ex_bad > atol, f"ssd_scan_bwd {label}: a backward that "
+                f"drops the cotangent carried from chunk 1 into chunk 0 "
+                f"passes the check ({ex_bad})")
+        log(f"[kernels] ssd_scan_bwd {label}: the cotangent carried into "
+            f"chunk 0 dropped would give a scaled excess of {ex_bad:.3g}")
+        del bad
+    del got, want, args
+    torch.cuda.empty_cache()
+    return err
+
+
+# (rtol, atol) of the elementwise outputs of mamba2's layer kernels against
+# their plain versions, atol in units of the row's RMS (fp32: sums in other
+# orders; bf16: one rounding against the plain version's; the conv is held
+# against its plain version in fp32 on the same values, since in bf16 that
+# rounds every product and partial sum); and the scaled error of their
+# sums over rows (dD, dscale, the conv's weight and bias, dt_bias)
+MAMBA_TOL = {"float32": ((1e-5, 1e-5), 1e-4),
+             "bfloat16": ((1e-2, 3e-2), 3e-2)}
+
+
+def check_mamba_layer_kernels(torch) -> dict:
+    """gated_norm, causal_conv and dt_softplus, forward and backward,
+    against their plain versions at mamba2-370m's layer (the inputs laid
+    out as the model's: z, xBC and dt_raw column slices of one projection
+    row, x the conv output's first columns) in bf16 and at a small fp32
+    shape, per element (``MAMBA_TOL``), each two calls bit for bit.
+    Returns the max abs error of each kernel (bf16, the main path's)."""
+    import numpy as np
+
+    from repro_torch.kernels import causal_conv as cc
+    from repro_torch.kernels import dt_softplus as ds
+    from repro_torch.kernels import gated_norm as gn
+
+    rng = np.random.default_rng(72)
+    errs = {}
+    f32 = torch.float32
+
+    def gate(name, dtype, label, elem, sums, same, plain=None):
+        """``plain``: the plain version's outputs, where ``elem`` and
+        ``sums`` hold the kernel against the plain version in fp32 on the
+        same values (the conv's: its plain version rounds every product and
+        partial sum to bf16, the kernel once); the max abs error is the
+        kernel's from ``plain`` then."""
+        (rtol, atol), stol = MAMBA_TOL[dtype]
+        e = max([excess(a, b, rtol) for a, b in elem] or [0.0])
+        es = max([scaled_err(a, b) for a, b in sums] or [0.0])
+        pairs = elem + sums
+        require(same and e <= atol and es <= stol and all(
+            bool(torch.isfinite(a.float()).all()) for a, _ in pairs),
+            f"{name} {label} {dtype}: scaled excess {e} (atol {atol}), sums' "
+            f"scaled error {es} (over {stol}), or two calls differ "
+            f"({not same})")
+        against = pairs if plain is None else list(zip(
+            [a for a, _ in pairs], plain))
+        ab = max(max_err(a, b) for a, b in against)
+        if plain is not None:
+            ep = max(excess(b, r, rtol) for (_, r), b in zip(elem, plain))
+            log(f"[kernels] {name} {label} {dtype}: held against the plain "
+                f"version in fp32 on the same values; the bf16 plain "
+                f"version's own scaled excess from it {ep:.3g}")
+        log(f"[kernels] {name} {label} {dtype}: scaled excess {e:.3g} "
+            f"(rtol {rtol}, atol {atol}), sums' scaled error {es:.3g} (gate "
+            f"{stol}), max abs err {ab:.3g}; two calls bit for bit")
+        if dtype == "bfloat16":
+            errs[name] = max(errs.get(name, 0.0), ab)
+
+    B, T, H, _, P, N, _ = MAMBA_SSD
+    for dtype, (B, T, H, P, N) in (("bfloat16", (B, T, H, P, N)),
+                                   ("float32", (2, 300, 4, 16, 16))):
+        dt_ = getattr(torch, dtype)
+        d, K = H * P, MAMBA_CONV[1]
+        C = d + 2 * N
+        proj = _randn(torch, rng, (B, T, 2 * d + 2 * N + H), dt_)
+        z, xbc, raw = proj[..., :d], proj[..., d:d + C], proj[..., d + C:]
+        label = f"({B}, {T}, {C} channels, {H} heads)"
+        # the conv, with the width and weight scale of init_mamba2
+        w = _randn(torch, rng, (K, C), dt_, 0.2)
+        bias = _randn(torch, rng, (C,), dt_, 0.1)
+        (out,), same = _twice_equal(
+            torch, lambda: (cc.causal_conv(xbc, w, bias),))
+        f32s = [t.float() for t in (xbc, w, bias)]
+        gate("causal_conv", dtype, label,
+             [(out, cc.causal_conv_plain(*f32s, None)[0])], [], same,
+             [cc.causal_conv_plain(xbc, w, bias, None)[0]])
+        g = _randn(torch, rng, (B, T, C), dt_)
+        got, same = _twice_equal(torch, lambda: cc.causal_conv_bwd(
+            g, xbc, w, bias)[:3])
+        want = cc.causal_conv_bwd_plain(g.float(), *f32s, None)
+        gate("causal_conv_bwd", dtype, label, [(got[0], want[0])],
+             list(zip(got[1:], want[1:3])), same,
+             cc.causal_conv_bwd_plain(g, xbc, w, bias, None)[:3])
+        del got, want, g, f32s
+        # the step sizes
+        dtb = _randn(torch, rng, (H,), f32)
+        (dts,), same = _twice_equal(torch, lambda: (ds.dt_softplus(raw, dtb),))
+        gate("dt_softplus", dtype, label,
+             [(dts, ds.dt_softplus_plain(raw, dtb))], [], same)
+        g = _randn(torch, rng, (B, T, H), f32)
+        got, same = _twice_equal(torch, lambda: ds.dt_softplus_bwd(g, raw,
+                                                                    dtb))
+        want = ds.dt_softplus_bwd_plain(g, raw, dtb)
+        gate("dt_softplus_bwd", dtype, label, [(got[0], want[0])],
+             [(got[1], want[1])], same)
+        del got, want, g
+        # the gated norm on the SSD's y and the conv output's x
+        y = _randn(torch, rng, (B, T, H, P), dt_)
+        x = out[..., :d].reshape(B, T, H, P)
+        D = _randn(torch, rng, (H,), f32)
+        scale = _randn(torch, rng, (d,), f32, 0.3)
+        (o, rstd), same = _twice_equal(torch, lambda: gn.gated_norm(
+            y, x, D, z, scale, out_dtype=dt_))
+        gate("gated_norm", dtype, label,
+             [(o, gn.gated_norm_plain(y, x, D, z, scale, 1e-6, dt_))], [],
+             same)
+        g = _randn(torch, rng, (B, T, d), dt_)
+        got, same = _twice_equal(torch, lambda: gn.gated_norm_bwd(
+            g, y, x, D, z, scale, rstd))
+        want = gn.gated_norm_bwd_plain(g, y, x, D, z, scale, 1e-6, dt_)
+        gate("gated_norm_bwd", dtype, label,
+             [(got[i], want[i]) for i in (0, 1, 3)],
+             [(got[i], want[i]) for i in (2, 4)], same)
+        del got, want, g, y, x, o, rstd, out, proj
+        torch.cuda.empty_cache()
+    return errs
+
+
 # the carries the generic fused segments store at each chunk entry: the
 # hidden state (bf16) and the aux accumulator (0-d fp32) of gemma2-2b at
 # the dense phase's shape and of mamba2-370m at the ssm phase's
@@ -1333,6 +1563,11 @@ def phase_kernels(state) -> None:
            for i, case in enumerate(FLASH_BWD_CASES)]
     check_flash_bwd_refused(torch)
     layer_errs = check_layer_kernels(torch)
+    # mamba2-370m's body (the SSD backward, the conv, the step sizes, the
+    # gated norm)
+    ssd_bwd = [check_ssd_bwd(torch, *case, seed=90 + i)
+               for i, case in enumerate(SSD_BWD_CASES)]
+    mamba_errs = check_mamba_layer_kernels(torch)
     # the flash kernel's shapes on the main path: gemma2-2b's, phi3.5-moe's
     state["err"] = {"lstm_cell": max(errs["torch.float32"], loop),
                     "fused_advance_segment": max(adv, adv1, adv_pinned),
@@ -1342,7 +1577,8 @@ def phase_kernels(state) -> None:
                     # bit for bit, or the phase has failed
                     "entry_store": 0.0, "fold": 0.0,
                     "flash_attention_bwd": max(bwd[0], bwd[2], bwd[4]),
-                    **layer_errs}
+                    "ssd_scan_bwd": ssd_bwd[0],
+                    **layer_errs, **mamba_errs}
 
 
 def _dense_reference(torch, params, batch):
@@ -2954,12 +3190,19 @@ def layer_kernels(cfg) -> dict:
     period of ``cfg.layer_pattern``; the norms are ln1 and, with an MLP or
     MoE, ln2, each with its post-norm where the model has them (the
     residual add inside its kernel); outside the chain, the readout's final
-    norm once each way.  MoE layers (their experts' gated activations) are
-    not counted here; kernels a body does not launch are left out."""
+    norm once each way.  A mamba layer (``mamba``, ``mamba_moe``) runs the
+    conv, the step sizes and the gated norm once each way and the SSD's
+    backward once in the vjp (its forward, ``ssd_scan``, is the phase's
+    ``kernels``).  MoE layers (their experts' gated activations) are not
+    counted here; kernels a body does not launch are left out."""
+    from repro_torch.kernels import causal_conv as cc
+    from repro_torch.kernels import dt_softplus as ds
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gated_norm as gn
     from repro_torch.kernels import glu as glu_mod
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import rope as rope_mod
+    from repro_torch.kernels import ssd_scan as ssd
 
     post = 2 if cfg.use_post_norm else 1
     attn = sum(k.startswith("attn") for k in cfg.layer_pattern)
@@ -2967,13 +3210,21 @@ def layer_kernels(cfg) -> dict:
     norms = sum(post * (2 if k in ("attn", "attn_local", "attn_moe",
                                    "mamba_moe") else 1)
                 for k in cfg.layer_pattern)
+    mamba = sum(k.startswith("mamba") for k in cfg.layer_pattern)
     table = {"flash_attention_bwd": (fa.flash_attention_bwd, 0, attn, 0),
              "rmsnorm": (rn.rmsnorm, norms, 0, 1),
              "rmsnorm_bwd": (rn.rmsnorm_bwd, 0, norms, 1),
              "glu": (glu_mod.glu, mlp, 0, 0),
              "glu_bwd": (glu_mod.glu_bwd, 0, mlp, 0),
              "rope": (rope_mod.rope, attn, 0, 0),
-             "rope_bwd": (rope_mod.rope_bwd, 0, attn, 0)}
+             "rope_bwd": (rope_mod.rope_bwd, 0, attn, 0),
+             "ssd_scan_bwd": (ssd.ssd_scan_bwd, 0, mamba, 0),
+             "causal_conv": (cc.causal_conv, mamba, 0, 0),
+             "causal_conv_bwd": (cc.causal_conv_bwd, 0, mamba, 0),
+             "dt_softplus": (ds.dt_softplus, mamba, 0, 0),
+             "dt_softplus_bwd": (ds.dt_softplus_bwd, 0, mamba, 0),
+             "gated_norm": (gn.gated_norm, mamba, 0, 0),
+             "gated_norm_bwd": (gn.gated_norm_bwd, 0, mamba, 0)}
     return {k: v for k, v in table.items() if any(v[1:])}
 
 
@@ -3004,9 +3255,10 @@ def zero_launches(fns, plain=False) -> None:
 
 class _PlainVersions:
     """Every model-level kernel wrapper (``build.on_card``: the flash
-    forward and backward, rmsnorm, glu, rope) takes its plain PyTorch
-    version on CUDA tensors too: the reference the kernels are held
-    against.  The generic segments' data movement (``entry_store``,
+    forward and backward, rmsnorm, glu, rope, the SSD scan and its
+    backward, the causal conv, the step sizes, the gated norm, the LSTM
+    cell) takes its plain PyTorch version on CUDA tensors too: the
+    reference the kernels are held against.  The generic segments' data movement (``entry_store``,
     ``fold``) is unchanged: bit for bit its plain version anyway."""
 
     def __enter__(self):
@@ -3789,7 +4041,8 @@ def phase_ssm(state) -> None:
     from repro_torch.kernels import ssd_scan as ssd
 
     decoder_phase(state, "ssm", "mamba2-370m", 4, {"ssd_scan": ssd.ssd_scan},
-                  {"ssd_scan": 1}, fused=FUSED_PINNED["ssm"])
+                  {"ssd_scan": 1}, fused=FUSED_PINNED["ssm"],
+                  fused_plain=True)
 
 
 # phi3.5-moe-42b's depth in phase moe: its fp32 parameters are 1.30 B a
@@ -4580,6 +4833,24 @@ def _time_flash_bwd(torch, cfg, B, S):
     return ms_k, ms_p, b_ms, by, ms_l, flops
 
 
+def timing_row(name, source, replaces, k_fn, p_fn, nbytes, flops=0.0,
+               l_fn=None, what="", iters=(20, 5)):
+    """One bf16 decoder kernel's row of the kernels line: its time, its
+    plain version's and the library call's (``l_fn``, if any; ``iters``
+    launches of the kernel and the library call, of the plain version),
+    and its bound (``nbytes`` at 3.35 TB/s against ``flops`` at the bf16
+    peak), logged."""
+    ms_k = cuda_ms(k_fn, iters[0])
+    ms_p = cuda_ms(p_fn, iters[1])
+    ms_l = cuda_ms(l_fn, iters[0]) if l_fn is not None else None
+    b_ms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
+    log(f"[timing] {name}{what}: {ms_k:.4f} ms "
+        f"({nbytes / ms_k / 1e6:.0f} GB/s; plain {ms_p:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {by}, library "
+        f"{'none' if ms_l is None else f'{ms_l:.4f} ms'})")
+    return (name, source, replaces, ms_k, ms_p, b_ms, by, ms_l, flops)
+
+
 def _time_layer_kernels(torch, state):
     """The layer kernels of gemma2-2b's body at the dense phase's shapes
     (B=2, S=4096), each beside its plain version and its bound (bytes at
@@ -4620,15 +4891,8 @@ def _time_layer_kernels(torch, state):
     scale = _randn(torch, rng, (d,), torch.float32, 0.3)
 
     def row(name, src, k_fn, p_fn, nbytes, l_fn=None, what=""):
-        ms_k = cuda_ms(k_fn, 20)
-        ms_p = cuda_ms(p_fn, 5)
-        ms_l = cuda_ms(l_fn, 20) if l_fn is not None else None
-        b_ms, by = bound_ms(nbytes, 0.0, BF16_TC_FLOPS)
-        log(f"[timing] {name}{what}: {ms_k:.4f} ms "
-            f"({nbytes / ms_k / 1e6:.0f} GB/s; plain {ms_p:.4f} ms, bound "
-            f"{b_ms:.4f} ms by {by}, library "
-            f"{'n/a' if ms_l is None else f'{ms_l:.4f} ms'})")
-        return (name, csrc + src, rep, ms_k, ms_p, b_ms, by, ms_l, 0.0)
+        return timing_row(name, csrc + src, rep, k_fn, p_fn, nbytes,
+                          l_fn=l_fn, what=what, iters=(20, 5))
 
     el = 2.0
     w = (1.0 + scale).to(bf16)
@@ -4692,6 +4956,123 @@ def _time_layer_kernels(torch, state):
                  for t, x in zip(gs, qk)],
         2 * el * nqk + 2 * 4.0 * cos.numel(), None, ""))
     del qk, gs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_bwd_flops(B, T, H, G, P, N, L) -> float:
+    """The SSD backward's multiply-adds x 2, per chunk: the chunk's state
+    and its cotangent's input (two P x N x L products), dx's two products
+    with the state and its cotangent and dc's and db's with them (four P x N
+    x L), the causal halves of dM, M^T dy (L x L x P each) and of dc's and
+    db's products with dcb (L x L x N each); C B^T's causal half once a
+    group."""
+    nc = -(-T // L)
+    head = 12.0 * L * P * N + 2.0 * L * L * P + 2.0 * L * L * N
+    return B * nc * (H * head + G * L * L * N)
+
+
+def _time_mamba_kernels(torch):
+    """mamba2-370m's layer kernels at the ssm phase's shape (B=4, T=4096,
+    bf16), each beside its plain version, its bound (bytes at 3.35 TB/s,
+    every input read once and every output written once; the SSD backward's
+    operations at the bf16 tensor-core peak) and, where one PyTorch call
+    computes the same function, that call: ``F.conv1d(groups=C)`` for the
+    conv (without its SiLU) and ``F.softplus`` on the fp32 sum for the
+    step sizes.  Returns the kernels line's rows."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import causal_conv as cc
+    from repro_torch.kernels import dt_softplus as ds
+    from repro_torch.kernels import gated_norm as gn
+    from repro_torch.kernels import ssd_scan as ssd
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    rep = "src/repro/kernels/segment_pallas.py:456"   # the reverse's vjp
+    rep_f = "src/repro/kernels/segment_pallas.py:248"
+    rows = []
+    rng = np.random.default_rng(73)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, T, H, G, P, N, L = MAMBA_SSD
+    C, K = MAMBA_CONV
+    d = H * P
+
+    def row(name, src, replaces, k_fn, p_fn, nbytes, flops=0.0, l_fn=None,
+            what=""):
+        return timing_row(name, csrc + src, replaces, k_fn, p_fn, nbytes,
+                          flops, l_fn, what, iters=(10, 3))
+
+    # the SSD backward as the model calls it: no entry state, the final
+    # state's cotangent a zero tensor
+    args = list(_ssd_bwd_args(torch, rng, MAMBA_SSD, "bfloat16", False))
+    args[7] = torch.zeros_like(args[7])
+    x_b = B * T * H * P * 2.0
+    bc_b = 2 * B * T * G * N * 2.0
+    nbytes = (2 * x_b + bc_b + B * T * H * 4.0 + H * 4.0 + B * H * P * N * 4.0
+              + x_b + bc_b + B * T * H * 4.0 + H * 4.0)
+    rows.append(row("ssd_scan_bwd", "ssd_scan_bwd.cu", rep,
+                    lambda: ssd.ssd_scan_bwd(*args, chunk=L),
+                    lambda: ssd.ssd_scan_bwd_plain(*args, chunk=L), nbytes,
+                    ssd_bwd_flops(B, T, H, G, P, N, L),
+                    what=f" at {MAMBA_SSD} bf16"))
+    del args
+    torch.cuda.empty_cache()
+    proj = _randn(torch, rng, (B, T, 2 * d + 2 * G * N + H), bf16)
+    z, xbc, raw = proj[..., :d], proj[..., d:d + C], proj[..., d + C:]
+    w = _randn(torch, rng, (K, C), bf16, 0.2)
+    bias = _randn(torch, rng, (C,), bf16, 0.1)
+    wl = w.t().contiguous().unsqueeze(1)    # (C, 1, K)
+    xl = xbc.transpose(1, 2)
+
+    def conv_lib():
+        return F.conv1d(xl, wl, bias, padding=K - 1, groups=C)
+
+    n = B * T * C
+    rows.append(row("causal_conv", "causal_conv.cu", rep_f,
+                    lambda: cc.causal_conv(xbc, w, bias),
+                    lambda: cc.causal_conv_plain(xbc, w, bias, None),
+                    2 * 2.0 * n + 2.0 * (K + 1) * C, 0.0, conv_lib,
+                    f" at ({B}, {T}, {C}) bf16, K={K} (library: F.conv1d, "
+                    "groups=C, without the SiLU)"))
+    out = cc.causal_conv(xbc, w, bias)
+    g = _randn(torch, rng, (B, T, C), bf16)
+    rows.append(row("causal_conv_bwd", "causal_conv.cu", rep,
+                    lambda: cc.causal_conv_bwd(g, xbc, w, bias),
+                    lambda: cc.causal_conv_bwd_plain(g, xbc, w, bias, None),
+                    3 * 2.0 * n + 2 * 2.0 * (K + 1) * C))
+    dtb = _randn(torch, rng, (H,), f32)
+    v = raw.float() + dtb
+    rows.append(row("dt_softplus", "dt_softplus.cu", rep_f,
+                    lambda: ds.dt_softplus(raw, dtb),
+                    lambda: ds.dt_softplus_plain(raw, dtb),
+                    B * T * H * (2.0 + 4.0) + 4.0 * H, 0.0,
+                    lambda: F.softplus(v),
+                    " (library: F.softplus on the fp32 sum)"))
+    gd = _randn(torch, rng, (B, T, H), f32)
+    rows.append(row("dt_softplus_bwd", "dt_softplus.cu", rep,
+                    lambda: ds.dt_softplus_bwd(gd, raw, dtb),
+                    lambda: ds.dt_softplus_bwd_plain(gd, raw, dtb),
+                    B * T * H * (2.0 + 4.0 + 2.0) + 8.0 * H))
+    y = _randn(torch, rng, (B, T, H, P), bf16)
+    x = out[..., :d].reshape(B, T, H, P)
+    D = _randn(torch, rng, (H,), f32)
+    scale = _randn(torch, rng, (d,), f32, 0.3)
+    m = B * T * d
+    rows.append(row("gated_norm", "gated_norm.cu", rep_f,
+                    lambda: gn.gated_norm(y, x, D, z, scale, out_dtype=bf16),
+                    lambda: gn.gated_norm_plain(y, x, D, z, scale, 1e-6,
+                                                bf16),
+                    4 * 2.0 * m + 4.0 * (B * T + H + d),
+                    what=f" at ({B * T}, {d}) bf16"))
+    _, rstd = gn.gated_norm(y, x, D, z, scale, out_dtype=bf16)
+    gg = _randn(torch, rng, (B, T, d), bf16)
+    rows.append(row("gated_norm_bwd", "gated_norm.cu", rep,
+                    lambda: gn.gated_norm_bwd(gg, y, x, D, z, scale, rstd),
+                    lambda: gn.gated_norm_bwd_plain(gg, y, x, D, z, scale,
+                                                    1e-6, bf16),
+                    7 * 2.0 * m + 4.0 * (B * T + 2 * (H + d))))
+    del proj, out, g, v, gd, y, x, gg, rstd
     torch.cuda.empty_cache()
     return rows
 
@@ -4788,6 +5169,7 @@ def phase_timing(state) -> None:
     rows.append(_time_ssd(torch, state["ssm"]))
     rows += _time_generic(torch)
     rows += _time_layer_kernels(torch, state)
+    rows += _time_mamba_kernels(torch)
 
     out = []
     for name, src, rep, k_ms, p_ms, b_ms, by, l_ms, flops in rows:
@@ -5106,29 +5488,40 @@ def advance_call_times(state, T: int) -> None:
         f"{device_ms['uncaptured']:.4f} ms")
 
 
-def profile_gemma(state) -> None:
-    """Device time of one warm fused gemma2-2b gradient by kernel, split
-    into the hand-written kernels, the cuBLAS products and PyTorch's own
-    (``tools/profile_fused_gemma.py``, each tree in a process of its own):
-    the tree given with ``--parent`` (a ``git archive`` of another commit)
-    first, then this one; the tables to ``<out-dir>/profile_gemma_*.txt``."""
+# the decoders phase profile times: arch -> (its phase, its batch)
+PROFILE_ARCHS = {"gemma2-2b": ("dense", 2), "mamba2-370m": ("ssm", 4)}
+
+
+def profile_fused(state) -> None:
+    """Device time of one warm fused gradient by kernel for each arch of
+    ``--profile-archs`` at its phase's pinned schedule (``FUSED_PINNED``),
+    split into the hand-written kernels, the cuBLAS products and PyTorch's
+    own, with its warm walls autotuned and pinned (``tools/profile_fused.py``,
+    each tree and arch in a process of its own): the tree given with
+    ``--parent`` (a ``git archive`` of another commit) first, then this
+    one; the tables to ``<out-dir>/profile_<arch>_*.txt``."""
     import torch
 
     torch.cuda.empty_cache()
     trees = [("parent", state["parent"])] if state.get("parent") else []
     trees.append(("tree", ROOT))
-    for label, root in trees:
-        out = os.path.join(state["out_dir"], f"profile_gemma_{label}.txt")
-        res = subprocess.run(
-            [sys.executable, os.path.join(ROOT, "tools",
-                                          "profile_fused_gemma.py"),
-             "--src", os.path.join(root, "src"), "--out", out,
-             "--label", label], capture_output=True, text=True,
-            timeout=900)
-        require(res.returncode == 0, f"profile of gemma2-2b ({label}) "
-                f"failed:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
-        for line in res.stdout.splitlines():
-            log(line)
+    for arch in state["profile_archs"]:
+        key, batch = PROFILE_ARCHS[arch]
+        interval, slots = FUSED_PINNED[key]
+        for label, root in trees:
+            out = os.path.join(state["out_dir"],
+                               f"profile_{arch}_{label}.txt")
+            res = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "tools",
+                                              "profile_fused.py"),
+                 "--arch", arch, "--batch", str(batch), "--interval",
+                 str(interval), "--slots", str(slots), "--src",
+                 os.path.join(root, "src"), "--out", out, "--label", label],
+                capture_output=True, text=True, timeout=900)
+            require(res.returncode == 0, f"profile of {arch} ({label}) "
+                    f"failed:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+            for line in res.stdout.splitlines():
+                log(line)
 
 
 def phase_profile(state) -> None:
@@ -5141,7 +5534,7 @@ def phase_profile(state) -> None:
     from repro_torch import api
     from repro_torch.kernels import segment_fused as sf
 
-    profile_gemma(state)
+    profile_fused(state)
     if "runs" not in state:   # phase main did not run
         return
     model, params, batch = state["model"], state["params"], state["batch"]
@@ -5177,9 +5570,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out-dir", default=DEFAULT_OUT_DIR,
                     help="directory for the build log and profile tables")
     ap.add_argument("--parent", default=None,
-                    help="phase profile: also profile the fused gemma2-2b "
-                    "gradient of the checkout in this directory (a git "
+                    help="phase profile: also profile the fused decoder "
+                    "gradients of the checkout in this directory (a git "
                     "archive of another commit)")
+    ap.add_argument("--profile-archs", default=",".join(PROFILE_ARCHS),
+                    help="phase profile: the decoders to profile, of "
+                    + ",".join(PROFILE_ARCHS))
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES) - set(OPTIONAL)
@@ -5200,7 +5596,9 @@ def main(argv=None) -> int:
 
     state = {"out_dir": os.path.abspath(args.out_dir),
              "profile": "profile" in phases,
-             "parent": args.parent and os.path.abspath(args.parent)}
+             "parent": args.parent and os.path.abspath(args.parent),
+             "profile_archs": [a for a in args.profile_archs.split(",")
+                               if a]}
     steps = {"device": phase_device, "build": phase_build,
              "kernels": phase_kernels, "main": phase_main,
              "scan": phase_scan,

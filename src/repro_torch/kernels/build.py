@@ -34,6 +34,10 @@ SOURCES = {
     "rmsnorm": "rmsnorm.cu",
     "glu": "glu.cu",
     "rope": "rope.cu",
+    "ssd_scan_bwd": "ssd_scan_bwd.cu",
+    "gated_norm": "gated_norm.cu",
+    "causal_conv": "causal_conv.cu",
+    "dt_softplus": "dt_softplus.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -136,6 +140,16 @@ def on_card(t) -> bool:
     other tensor (the CPU's, or the byte profile's meta tensors) takes the
     kernel's plain version."""
     return t.is_cuda
+
+
+def rows(t, width: int):
+    """``t`` as (rows, ``width``) with unit column stride -- a view where
+    one exists (a column slice of wider rows), else a contiguous copy --
+    and its row stride, for a kernel that reads rows in place."""
+    r = t.reshape(-1, width)
+    if r.stride(1) != 1 or (r.shape[0] > 1 and r.stride(0) < width):
+        r = r.contiguous()
+    return r, r.stride(0)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -102,7 +102,7 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
             f"lstm_cell: shapes x{tuple(x.shape)} h{tuple(h.shape)} "
             f"c{tuple(c.shape)} w{tuple(w.shape)} b{tuple(b.shape)} do not "
             "fit x (B, Dx), h/c (B, Dh), w (Dx+Dh, 4Dh), b (4Dh,)")
-    if not x.is_cuda:
+    if not build.on_card(x):
         # plain version: fp32 math, outputs in the state dtypes (as the
         # kernel does)
         f32 = torch.float32

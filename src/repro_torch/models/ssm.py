@@ -8,21 +8,29 @@ The SSD recurrence per head (state N, head dim P)::
     y_t = h_t @ C_t + D * x_t                             a_t = exp(dt_t * A)
 
 :func:`ssd_chunked` evaluates it with the chunked algorithm of the Mamba-2
-paper.  On the card its forward is the SSD-scan kernel
-(:mod:`repro_torch.kernels.ssd_scan`); its backward recomputes the plain
-chunked form (:func:`ssd_chunked_plain`) under autograd and backpropagates
-through it, as the JAX package differentiates its XLA path (it has no SSD
-backward kernel).  On the CPU the plain form runs under autograd directly.
-:func:`ssd_sequential` is the O(T) oracle of the tests.  The single-token
-decode step comes with decode (ROADMAP queue 1, item 14).
+paper.  On the card (``build.on_card``) its forward is the SSD-scan kernel
+and its backward the SSD-scan backward kernel
+(:mod:`repro_torch.kernels.ssd_scan`), which recomputes the chunks' decays
+and entry states itself; elsewhere (CPU and meta tensors) the plain chunked
+form :func:`ssd_chunked_plain` runs under autograd.  :func:`mamba2_block`
+likewise takes the kernels of its causal conv, its step sizes and its
+gated norm on the card (:mod:`repro_torch.kernels.causal_conv`,
+:mod:`~repro_torch.kernels.dt_softplus`,
+:mod:`~repro_torch.kernels.gated_norm`) and their plain versions, the JAX
+package's operations one for one, elsewhere.  :func:`ssd_sequential` is
+the O(T) oracle of the tests.  The single-token decode step comes with
+decode (ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.kernels import build
+from repro_torch.kernels import causal_conv as conv_kernel
+from repro_torch.kernels import dt_softplus as dt_kernel
+from repro_torch.kernels import gated_norm as gate_kernel
 from repro_torch.kernels import ssd_scan as ssd_kernel
 from repro_torch.models.layers import (DEFAULT_DTYPES, DTypes, dense,
                                        init_dense, normal, zeros)
@@ -113,43 +121,42 @@ def ssd_chunked_plain(x, dt, A, B, C, *, chunk: int = 64, h0=None):
 
 
 class SSDScan(torch.autograd.Function):
-    """The chunked SSD with the kernel's forward (CUDA tensors) and the
-    plain chunked form's backward (recomputed under autograd)."""
+    """The chunked SSD with the kernels' forward and backward (card
+    tensors; elsewhere their plain versions); only the inputs are
+    saved."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, h0, chunk):
         f32 = torch.float32
-        y, hf = ssd_kernel.ssd_scan(
-            x.contiguous(), dt.to(f32).contiguous(), A.to(f32).contiguous(),
-            B.contiguous(), C.contiguous(), chunk=chunk,
-            h0=None if h0 is None else h0.to(f32).contiguous())
-        ctx.save_for_backward(x, dt, A, B, C, h0)
+        args = (x.contiguous(), dt.to(f32).contiguous(),
+                A.to(f32).contiguous(), B.contiguous(), C.contiguous(),
+                None if h0 is None else h0.to(f32).contiguous())
+        y, hf = ssd_kernel.ssd_scan(*args[:5], chunk=chunk, h0=args[5])
+        ctx.save_for_backward(*args)
+        ctx.dtypes = tuple(None if t is None else t.dtype
+                           for t in (x, dt, A, B, C, h0))
         ctx.chunk = chunk
         return y, hf
 
     @staticmethod
     def backward(ctx, dy, dhf):
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[:6]
-        with torch.enable_grad():
-            ins = [None if t is None else t.detach().requires_grad_(n)
-                   for t, n in zip(saved, needs)]
-            y, hf = ssd_chunked_plain(*ins[:5], chunk=ctx.chunk, h0=ins[5])
-            wanted = [t for t in ins if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad((y, hf), wanted, (dy, dhf),
-                                             allow_unused=True)
-                         if wanted else [])
-        out = [next(grads) if t is not None and t.requires_grad else None
-               for t in ins]
-        return (*out, None)
+        x, dt, A, B, C, h0 = ctx.saved_tensors
+        bwd = (ssd_kernel.ssd_scan_bwd if build.on_card(x)
+               else ssd_kernel.ssd_scan_bwd_plain)
+        grads = bwd(x, dt, A, B, C, h0, dy.to(x.dtype).contiguous(),
+                    None if dhf is None else dhf.float().contiguous(),
+                    chunk=ctx.chunk)
+        return (*[g.to(dtype) if need and g is not None else None
+                  for g, need, dtype in zip(grads, ctx.needs_input_grad,
+                                            ctx.dtypes)], None)
 
 
 def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64, h0=None):
     """Chunked SSD.  x: (b,t,h,p); dt: (b,t,h); A: (h,); B, C: (b,t,g,n);
     optional entry state h0 (b,h,p,n).  Returns (y (b,t,h,p) in x's dtype,
-    h_final (b,h,p,n) fp32).  The SSD-scan kernel on the card, the plain
-    chunked form on the CPU."""
-    if x.is_cuda:
+    h_final (b,h,p,n) fp32).  The SSD-scan kernels on the card, the plain
+    chunked form elsewhere."""
+    if build.on_card(x):
         return SSDScan.apply(x, dt, A, B, C, h0, chunk)
     return ssd_chunked_plain(x, dt, A, B, C, chunk=chunk, h0=h0)
 
@@ -192,12 +199,6 @@ def _split_proj(z, d_inner, ngroups, d_state, nheads):
     return tuple(z[..., idx[i]:idx[i + 1]] for i in range(5))
 
 
-def _gated_norm(p, y, z, eps=1e-6):
-    yf = y.float() * F.silu(z.float())
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
-    return yf * torch.rsqrt(var + eps) * (1.0 + p["norm_scale"].float())
-
-
 def mamba2_block(p: Params, x: torch.Tensor, *, d_state: int = 128,
                  headdim: int = 64, expand: int = 2, ngroups: int = 1,
                  conv_k: int = 4, chunk: int = 64,
@@ -216,28 +217,23 @@ def mamba2_block(p: Params, x: torch.Tensor, *, d_state: int = 128,
 
     # causal depthwise conv over (x, B, C); prev conv window via `state`
     xbc = torch.cat([xi, Bc, Cc], dim=-1)
-    conv_state_in = (state[0] if state is not None else
-                     torch.zeros((Bsz, conv_k - 1, xbc.shape[-1]),
-                                 dtype=xbc.dtype, device=x.device))
-    pad = torch.cat([conv_state_in.to(xbc.dtype), xbc], dim=1)
-    conv = sum(pad[:, i:i + T, :] * dt.c(p["conv_w"][i])[None, None, :]
-               for i in range(conv_k)) + dt.c(p["conv_b"])
-    conv = F.silu(conv)
-    new_conv_state = pad[:, T:, :]
+    conv, new_conv_state = conv_kernel.conv_silu(
+        xbc, p["conv_w"], p["conv_b"], state[0] if state is not None else None,
+        dt.compute)
     xi = conv[..., :d_inner]
     Bc = conv[..., d_inner:d_inner + ngroups * d_state]
     Cc = conv[..., d_inner + ngroups * d_state:]
 
-    dts = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    dts = dt_kernel.softplus_dt(dt_raw, p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
     xh = xi.reshape(Bsz, T, nheads, headdim)
     Bg = Bc.reshape(Bsz, T, ngroups, d_state)
     Cg = Cc.reshape(Bsz, T, ngroups, d_state)
     h0 = state[1].float() if state is not None else None
     y, hf = ssd_chunked(xh, dts, A, Bg, Cg, chunk=chunk, h0=h0)
-    y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(Bsz, T, d_inner)
-    y = _gated_norm(p, y, z).to(dt.compute)
+    # the D skip and the gated norm, cast to the compute dtype
+    y = gate_kernel.gated_norm_out(y, xh, p["D"], z, p["norm_scale"],
+                                   out_dtype=dt.compute)
     out = dense(p["out_proj"], y, dt)
     if return_state:
         return out, (new_conv_state.float(), hf)

@@ -1308,3 +1308,141 @@ def test_layer_kernels_match_plain_under_autograd(cuda_device, dtype, tol):
     for a, b in zip(results["cuda"], results["cpu"]):
         assert float((a - b).abs().max() / b.abs().max().clamp_min(
             1e-30)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mamba2_block_kernels_match_plain_under_autograd(cuda_device, dtype,
+                                                         tol, with_state):
+    """``ssm.mamba2_block`` on the card (the SSD scan and its backward, the
+    causal conv, the step sizes and the gated norm, each a kernel both
+    ways; with a carried conv window and SSD state too) against the same
+    block on the CPU (the plain versions under autograd): the output, the
+    new state and every gradient within ``tol`` of the CPU's max |value|,
+    each kernel launched once each way."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels import causal_conv as cc
+    from repro_torch.kernels import dt_softplus as ds
+    from repro_torch.kernels import gated_norm as gn
+    from repro_torch.models import layers, ssm as ssm_mod
+
+    d, s = 64, dict(d_state=16, headdim=16, expand=2, ngroups=2, conv_k=4)
+    Bn, T = 2, 48
+    dt = getattr(torch, dtype)
+    dts = layers.DTypes(compute=dt)
+    base = ssm_mod.init_mamba2(torch.Generator().manual_seed(3), d, **s)
+    rng = np.random.default_rng(8)
+    x0 = _np(rng, (Bn, T, d))
+    conv_dim = 2 * d + 2 * s["ngroups"] * s["d_state"]
+    st0 = (_np(rng, (Bn, s["conv_k"] - 1, conv_dim)),
+           _np(rng, (Bn, 2 * d // s["headdim"], s["headdim"], s["d_state"]),
+               0.3))
+    counters = (ssd.ssd_scan, ssd.ssd_scan_bwd, cc.causal_conv,
+                cc.causal_conv_bwd, ds.dt_softplus, ds.dt_softplus_bwd,
+                gn.gated_norm, gn.gated_norm_bwd)
+    results = {}
+    for device in ("cpu", "cuda"):
+        leaves, spec = pytree.tree_flatten(
+            pytree.tree_map(lambda t: t.to(device), base))
+        leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+        x = torch.tensor(x0, device=device).to(dt).requires_grad_(True)
+        state = tuple(torch.tensor(a, device=device).requires_grad_(True)
+                      for a in st0) if with_state else None
+        before = [c.launches for c in counters]
+        out, (cs, hs) = ssm_mod.mamba2_block(
+            pytree.tree_unflatten(leaves, spec), x, chunk=16, dt=dts,
+            state=state, return_state=True, **s)
+        loss = (out.float().sum() + (cs * 0.5).sum()
+                + (hs * 0.25).sum())
+        wrt = leaves + [x] + (list(state) if with_state else [])
+        grads = torch.autograd.grad(loss, wrt)
+        launched = [c.launches - n for c, n in zip(counters, before)]
+        assert launched == ([1] * 8 if device == "cuda" else [0] * 8)
+        results[device] = [t.detach().float().cpu()
+                           for t in (out, cs, hs, *grads)]
+    for i, (a, b) in enumerate(zip(results["cuda"], results["cpu"])):
+        assert float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) <= tol, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,dtype,with_h0", [
+    ((2, 300, 4, 2, 32, 64, 64), "float32", True),
+    ((2, 256, 4, 1, 64, 128, 128), "bfloat16", False),
+])
+def test_ssd_scan_bwd_matches_plain(cuda_device, dims, dtype, with_h0):
+    """The SSD backward kernel against autograd over the plain chunked
+    form: every leaf within 1e-4 (fp32) or 3e-2 (bf16) of its max |value|,
+    two calls bit for bit."""
+    B, T, H, G, P, N, chunk = dims
+    rng = np.random.default_rng(T)
+    dt_ = getattr(torch, dtype)
+
+    def t(shape, scale=1.0, dtype=dt_):
+        return torch.tensor(_np(rng, shape, scale), device="cuda").to(dtype)
+
+    f32 = torch.float32
+    args = (t((B, T, H, P), 0.5), torch.nn.functional.softplus(
+        t((B, T, H), dtype=f32)), -torch.exp(t((H,), 0.3, f32)),
+        t((B, T, G, N), 0.5), t((B, T, G, N), 0.5),
+        t((B, H, P, N), 0.5, f32) if with_h0 else None, t((B, T, H, P)),
+        t((B, H, P, N), dtype=f32))
+    got = ssd.ssd_scan_bwd(*args, chunk=chunk)
+    want = ssd.ssd_scan_bwd_plain(*args, chunk=chunk)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        err = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert a.dtype == b.dtype and float(err) <= tol
+    again = ssd.ssd_scan_bwd(*args, chunk=chunk)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,n_layers,mamba", [
+    ("mamba2-370m", 5, 1),
+    # three periods of 8 layers, 7 of them mamba or mamba_moe
+    ("jamba-v0.1-52b", 24, 7),
+])
+def test_mamba_layers_run_their_kernels_on_card(cuda_device, arch, n_layers,
+                                                mamba):
+    """mamba2-370m and jamba at SMOKE width: the offloaded gradient on the
+    card against dense autograd (loss 1e-5, leaves 1e-4 of their max |g|),
+    each of the mamba layers' kernels launched as the plan implies: the
+    forward ones a mamba layer each time a step runs, the backward ones a
+    mamba layer a step's vjp."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels import causal_conv as cc
+    from repro_torch.kernels import dt_softplus as ds
+    from repro_torch.kernels import gated_norm as gn
+
+    cfg = get_config(arch, smoke=True).replace(n_layers=n_layers)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    batch = make_batch(cfg, ShapeSpec("t", 2064, 1, "train"), 0)
+    leaves, spec = pytree.tree_flatten(params)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    loss = model.train_loss(pytree.tree_unflatten(leaves, spec), batch)
+    dense = torch.autograd.grad(loss, leaves)
+    fwd = (ssd.ssd_scan, cc.causal_conv, ds.dt_softplus, gn.gated_norm)
+    bwd = (ssd.ssd_scan_bwd, cc.causal_conv_bwd, ds.dt_softplus_bwd,
+           gn.gated_norm_bwd)
+    for fn in fwd + bwd:
+        fn.launches = 0
+    v, g = api.value_and_grad_offloaded(model.train_loss, interval=2,
+                                        slots=2, device="cuda")(params,
+                                                                batch)
+    stats, plan = api.last_stats(), api.last_plan()
+    steps = sum(seg.length for seg in plan.segments)
+    assert [fn.launches for fn in fwd] == [mamba * stats.advances] * 4
+    assert [fn.launches for fn in bwd] == [mamba * steps] * 4
+    torch.testing.assert_close(v, loss.detach(), rtol=1e-5, atol=0)
+    for a, b in zip(pytree.tree_leaves(g), dense):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))

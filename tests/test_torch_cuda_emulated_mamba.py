@@ -1,0 +1,115 @@
+"""The slice end to end on the CPU: mamba2-370m's chain body (one
+``mamba`` layer a chain step) through
+``value_and_grad_offloaded(runner="fused")`` with its hand-written kernels
+(``ssd_scan`` and its backward, ``causal_conv``, ``dt_softplus``,
+``gated_norm``, ``rmsnorm``, each forward and backward) compiled under the
+emulation of ``tests/_cuda_emu.py`` and launched through their wrappers'
+card paths on CPU tensors, against the JAX package's ``runner="pallas"``
+(the decoder body traced into its segment kernels, run in interpret mode)
+on the same weights and tokens, in fp32 compute: loss within 1e-5
+relative, each gradient leaf within 1e-4 of its max |g|, every kernel
+launched as often as the plan implies.  SMOKE width, 2 layers (one
+segment of two chain steps, chunks of one step: a chunk entry stored,
+one recomputed in the reverse), B=1, S=32 (four SSD chunks of 8).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+import repro.models.transformer as j_tf
+from _cuda_emu import emulated_libs, kernels_on_card  # noqa: F401
+from _transformer_cases import _case
+from repro import api as j_api
+from repro.models.layers import DTypes as JDTypes
+from repro.models.model_factory import get_model as j_get_model
+from repro_torch import api
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.schedule import chunk_length
+from repro_torch.kernels import causal_conv as cc
+from repro_torch.kernels import dt_softplus as ds
+from repro_torch.kernels import gated_norm as gn
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels.segment_fused import forward_bounds, reverse_layout
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import DTypes
+from repro_torch.models.model_factory import get_model
+
+N_LAYERS, INTERVAL, SLOTS, BATCH = 2, 2, 2, 1
+# launches a chain step (one mamba layer): forward kernels each time a step
+# runs, backward kernels once a step in the reverse; the readout's final
+# norm once each way
+FORWARD = {"ssd_scan": 1, "causal_conv": 1, "dt_softplus": 1,
+           "gated_norm": 1, "rmsnorm": 1}
+BACKWARD = {"ssd_scan_bwd": 1, "causal_conv_bwd": 1, "dt_softplus_bwd": 1,
+            "gated_norm_bwd": 1, "rmsnorm_bwd": 1}
+HEAD = {"rmsnorm": 1, "rmsnorm_bwd": 1}
+WRAPPERS = {"ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd.ssd_scan_bwd,
+            "causal_conv": cc.causal_conv,
+            "causal_conv_bwd": cc.causal_conv_bwd,
+            "dt_softplus": ds.dt_softplus,
+            "dt_softplus_bwd": ds.dt_softplus_bwd,
+            "gated_norm": gn.gated_norm, "gated_norm_bwd": gn.gated_norm_bwd,
+            "rmsnorm": rn.rmsnorm, "rmsnorm_bwd": rn.rmsnorm_bwd}
+
+
+def _counts():
+    return {k: fn.launches for k, fn in WRAPPERS.items()}
+
+
+def _expected(plan, slots):
+    """Each kernel's launches for ``plan``: the forward sweep runs every
+    step once, the fused reverse recomputes each segment's chunk entries
+    but the last chunk's and runs every chunk once more inside its vjp."""
+    fwd_steps = rev_steps = 0
+    for seg in plan.segments:
+        L = seg.length
+        chunk = chunk_length(L, slots) or L
+        c, nc, _ = reverse_layout(L, chunk)
+        assert forward_bounds(L, chunk)[-1] == L
+        fwd_steps += L
+        rev_steps += (nc - 1) * c + L
+    want = {k: n * (fwd_steps + rev_steps) for k, n in FORWARD.items()}
+    want.update({k: n * fwd_steps for k, n in BACKWARD.items()})
+    for k, n in HEAD.items():
+        want[k] += n
+    return want
+
+
+def test_mamba_fused_with_emulated_kernels_matches_jax_pallas(
+        emulated_libs, kernels_on_card, monkeypatch):
+    emulated_libs.prebuild(["ssd_scan", "ssd_scan_bwd", "causal_conv",
+                            "dt_softplus", "gated_norm", "rmsnorm"])
+    monkeypatch.setattr(j_tf, "_dtypes",
+                        lambda c: JDTypes(compute=jnp.float32))
+    monkeypatch.setattr(tf, "_dtypes", lambda c: DTypes(compute=torch.float32))
+    monkeypatch.setenv("REPRO_PALLAS_INTERPRET", "1")
+    j_cfg, cfg, params, j_batch, t_batch = _case("mamba2-370m", batch=BATCH,
+                                                 n_layers=N_LAYERS)
+    j_vg = j_api.value_and_grad_offloaded(
+        j_get_model(j_cfg).train_loss, interval=INTERVAL, slots=SLOTS,
+        runner="pallas")
+    j_loss, j_grads = j_vg(jax.tree_util.tree_map(jnp.asarray, params),
+                           jax.tree_util.tree_map(jnp.asarray, j_batch))
+    assert j_api.last_stats().fused_segments > 0   # the segment kernels ran
+
+    vg = api.value_and_grad_offloaded(get_model(cfg).train_loss,
+                                      interval=INTERVAL, slots=SLOTS,
+                                      runner="fused", device="cpu")
+    before = _counts()
+    loss, grads = vg(params_from_numpy(params, device="cpu"), t_batch)
+    launched = {k: n - before[k] for k, n in _counts().items()}
+    assert launched == _expected(api.last_plan(), SLOTS)
+    assert api.last_plan().plan_id == j_api.last_plan().plan_id
+
+    np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5)
+    leaves = pytree.tree_leaves(grads)
+    j_leaves = jax.tree_util.tree_leaves(j_grads)
+    assert len(leaves) == len(j_leaves)
+    for i, (g, jg) in enumerate(zip(leaves, j_leaves)):
+        jg = np.asarray(jg)
+        assert g.shape == jg.shape, i
+        scale = max(float(np.abs(jg).max()), 1e-30)
+        assert float(np.abs(g.numpy() - jg).max()) <= 1e-4 * scale, i

@@ -7,7 +7,7 @@
   ``tests/test_kernels.py``
   (``test_ssd_scan_shapes``, ``test_ssd_kernel_vs_flat_ref``): 2e-4.
 * Gradients of ``ssd_chunked`` (and of :class:`SSDScan`, the card path's
-  autograd Function: kernel forward, plain chunked backward) against
+  autograd Function, here over the kernels' plain versions) against
   ``jax.grad``: 2e-4 of each gradient's scale.
 * ``mamba2_block`` against JAX, bf16 compute on both sides: 3e-2.
 """

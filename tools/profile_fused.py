@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Device time of one warm fused gemma2-2b gradient on the card, by kernel.
+"""Device time of one warm fused decoder gradient on the card, by kernel.
 
-    python3 tools/profile_fused_gemma.py [--src DIR] [--out FILE]
+    python3 tools/profile_fused.py [--arch NAME] [--batch B] [--interval I]
+        [--slots S] [--src DIR] [--out FILE]
 
-Runs ``value_and_grad_offloaded(get_model("gemma2-2b").train_loss,
-runner="fused", interval=13, slots=4)`` (``chip_smoke.py``'s phase
-``dense`` at its pinned schedule: 26 layers at full width, ``train_4k``
-with the batch cut to 2, weights from a seeded CUDA generator) with the
-``repro_torch`` package found under ``DIR`` (default: this checkout's
-``src``; give a ``git archive`` of another commit's tree to compare), twice
-to warm up, then once under ``torch.profiler``.  Prints the wall, the
-device's busy time and that time split three ways: the hand-written
-kernels (every ``__global__`` function of ``DIR/repro_torch/kernels/csrc``),
-the cuBLAS products (kernel names with ``gemm``, ``cutlass``, ``xmma`` or
-``nvjet``) and the rest (PyTorch's own kernels); writes the table by kernel
-to ``FILE``.  Needs one CUDA card; imports no JAX.
+Runs ``value_and_grad_offloaded(get_model(NAME).train_loss,
+runner="fused", interval=I, slots=S)`` (by default gemma2-2b at I=13, s=4
+and B=2, ``chip_smoke.py``'s phase ``dense`` at its pinned schedule;
+``--arch mamba2-370m --batch 4 --interval 14`` is phase ``ssm``'s: full
+width and depth, ``train_4k`` with the batch cut to B, weights from a
+seeded CUDA generator) with the ``repro_torch`` package found under ``DIR``
+(default: this checkout's ``src``; give a ``git archive`` of another
+commit's tree to compare): first two autotuned calls (the second's wall
+is the warm autotuned one), then at the pinned schedule twice to warm up
+and once under ``torch.profiler``.  Prints the walls, the device's busy
+time and that time split three ways: the hand-written kernels (every
+``__global__`` function of ``DIR/repro_torch/kernels/csrc``), the cuBLAS
+products (kernel names with ``gemm``, ``cutlass``, ``xmma`` or ``nvjet``)
+and the rest (PyTorch's own kernels); writes the table by kernel to
+``FILE``.  Needs one CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -56,6 +60,10 @@ def kind(name: str, ours: set) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--interval", type=int, default=13)
+    ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--out", default=None)
     ap.add_argument("--label", default=None)
@@ -66,7 +74,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
-        print("profile_fused_gemma: no CUDA device", file=sys.stderr)
+        print("profile_fused: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch import api
     from repro_torch.configs import SHAPES, ShapeSpec, get_config
@@ -82,23 +90,33 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build_all()
-    cfg = get_config("gemma2-2b")
+    cfg = get_config(args.arch)
     full = SHAPES["train_4k"]
-    shape = ShapeSpec(full.name, full.seq_len, 2, full.kind)
+    shape = ShapeSpec(full.name, full.seq_len, args.batch, full.kind)
     model = get_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         device="cuda")
     batch = make_batch(cfg, shape, seed=0)
+
+    def walls_of(vg):
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = vg(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            del grads
+        return walls
+
+    auto = walls_of(api.value_and_grad_offloaded(
+        model.train_loss, runner="fused", device="cuda"))
+    tune = api.last_tune()
+    sched = f"I={args.interval} s={args.slots}"
     vg = api.value_and_grad_offloaded(model.train_loss, runner="fused",
-                                      interval=13, slots=4, device="cuda")
-    walls = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, grads = vg(params, batch)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        del grads
+                                      interval=args.interval,
+                                      slots=args.slots, device="cuda")
+    walls = walls_of(vg)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -120,21 +138,23 @@ def main(argv=None) -> int:
     split = {}
     for us, _, k, _ in rows:
         split[k] = split.get(k, 0.0) + us / 1e3
-    head = (f"[profile-gemma] {label}: {card}; gemma2-2b fused I=13 s=4, "
-            f"loss {float(loss):.6f}; warm walls {walls[0]:.3f}s "
-            f"{walls[1]:.3f}s, profiled {wall:.3f}s; device busy "
-            f"{busy:.3f} ms")
+    tag = f"[profile {args.arch}]"
+    head = (f"{tag} {label}: {card}; fused autotuned (I={tune.interval} "
+            f"s={tune.slots}) walls {auto[0]:.3f}s (first), {auto[1]:.3f}s "
+            f"(warm); fused {sched}, loss {float(loss):.6f}; warm walls "
+            f"{walls[0]:.3f}s {walls[1]:.3f}s, profiled {wall:.3f}s; device "
+            f"busy {busy:.3f} ms")
     print(head, flush=True)
     if not rows:
-        print(f"[profile-gemma] {label}: the profiler saw no device time "
-              "(not measured)", flush=True)
+        print(f"{tag} {label}: the profiler saw no device time (not "
+              "measured)", flush=True)
         return 0
-    print(f"[profile-gemma] {label}: " + ", ".join(
+    print(f"{tag} {label}: " + ", ".join(
         f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)"
         for k, v in sorted(split.items(), key=lambda kv: -kv[1])),
         flush=True)
     for us, count, k, key in rows[:12]:
-        print(f"[profile-gemma]   {us / 1e3:10.3f} ms x{count:<6d} {k:12s} "
+        print(f"{tag}   {us / 1e3:10.3f} ms x{count:<6d} {k:12s} "
               f"{key[:80]}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
