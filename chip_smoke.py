@@ -65,7 +65,14 @@ Phases, each printing its own lines:
               and backward, at the layer shape in bf16 and a small fp32
               shape (``MAMBA_TOL``: elementwise per element against the
               row's RMS, the sums over rows by their scaled error), two
-              calls bit for bit.
+              calls bit for bit.  The projections' GEMM (``dense_fwd``,
+              ``dense_bwd``'s dx and dw; ``check_dense``) at every
+              projection of both bodies (``DENSE_CASES``: x, dy bf16, w
+              the fp32 parameter cast in the load) and at a ragged fp32
+              shape with w fp32 and bf16, per element (``DENSE_TOL``)
+              against the plain version on cuBLAS with fp32 reductions,
+              two calls bit for bit; a dw without its last 32 rows must
+              fail that gate.
 4. main     — ``value_and_grad_offloaded(get_model(lstm-paper).train_loss,
               runner="fused")`` on ``make_batch(lstm-paper, train_4k)``
               (B=256, S=4096), once autotuned and once with a pinned
@@ -186,8 +193,10 @@ Phases, each printing its own lines:
               ``runner="compiled"`` gradient at I=13, s=4: the loss bit for
               bit, the same plan, the fused device peak at most two
               carries above the compiled one's.  The layer kernels
-              (``layer_kernels``: the attention backward, rmsnorm, glu and
-              rope) launched as each call's plan implies: the forward
+              (``layer_kernels``: the attention backward, rmsnorm, glu,
+              rope and the projections, ``dense_fwd`` 4 a step an attention
+              layer and 3 an MLP, ``dense_bwd`` once each in a step's vjp)
+              launched as each call's plan implies: the forward
               kernels each time a chain step runs, the backward ones once a
               step's vjp, the final norm once each way.  The pinned fused
               gradient is also held against the same call through the
@@ -199,7 +208,8 @@ Phases, each printing its own lines:
 10. ssm     — the same for ``mamba2-370m`` (48 layers, batch cut to 4)
               and ``ssd_scan``, with the fused gradients at I=14, s=4
               (segments 14, 14, 14, 6), the layer kernels of its body
-              counted (``layer_kernels``) and the fused gradient held
+              counted (``layer_kernels``, the projections 2 a layer) and
+              the fused gradient held
               against the same call through the plain versions as in
               ``dense``.
 11. moe     — the same for ``phi3.5-moe-42b`` at full width (d_model
@@ -267,7 +277,11 @@ Phases, each printing its own lines:
               its products at the bf16 peak), ``causal_conv`` (beside
               ``F.conv1d(groups=C)``, without the SiLU), ``dt_softplus``
               (beside ``F.softplus``) and ``gated_norm``, forward and
-              backward, at its layer (bound: bytes).
+              backward, at its layer (bound: bytes); the projections' GEMM
+              at each ``DENSE_CASES`` shape, forward, dx and dw, beside the
+              plain version, cuBLAS with the bf16 weight made beforehand
+              and the cast alone (bound: operations at the bf16 peak; the
+              kernels line's rows at gemma2-2b's gate/up shape).
 14. train   — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
@@ -276,7 +290,8 @@ fused gradient of gemma2-2b (I=13, s=4) and of mamba2-370m (I=14, s=4)
 by kernel (``--profile-archs`` picks), split into the hand-written
 kernels, the cuBLAS products and PyTorch's own, with their warm walls
 autotuned and pinned (``tools/profile_fused.py``; with ``--parent DIR``
-first for the checkout in ``DIR``, a ``git archive`` of another commit),
+first for the checkout in ``DIR``, a ``git archive`` of another commit;
+this tree's cuBLAS products must be the loss head's alone),
 one main-path
 call per LSTM schedule, captured and uncaptured, and one offloaded call in
 each decoder phase (device kernel time by name and the device's busy share;
@@ -481,7 +496,7 @@ def phase_build(state) -> None:
         f"{os.path.join(out_dir, 'chip_smoke_build.log')})")
     # registers and spills of the layer kernels (the attention backward's
     # accumulators are the ones that could spill)
-    for lib in ("flash_attention_bwd", "rmsnorm", "glu", "rope"):
+    for lib in ("flash_attention_bwd", "rmsnorm", "glu", "rope", "dense"):
         for kern, regs, spill in ptxas_usage(build.BUILD_LOG.get(lib, "")):
             log(f"[build] {lib}: {kern}: {regs} registers, {spill}")
     # the bf16 kernels that must run on the tensor cores
@@ -489,7 +504,8 @@ def phase_build(state) -> None:
                          ("flash_attention_bwd", ("bwd_dq_bf16_kernel",
                                                   "bwd_dkdv_bf16_kernel")),
                          ("ssd_scan", ("ssd_state_bf16_kernel",
-                                       "ssd_out_bf16_kernel"))):
+                                       "ssd_out_bf16_kernel")),
+                         ("dense", ("dense_tc_kernel",))):
         counts = hmma_counts(build.library_path(lib))
         if counts is None:
             log(f"[build] {lib}: cuobjdump not found, HMMA not counted")
@@ -1350,6 +1366,106 @@ def check_mamba_layer_kernels(torch) -> dict:
     return errs
 
 
+# label, (M, K, N): the projections of gemma2-2b's layer at the dense
+# phase's shape (B=2, S=4096) and of mamba2-370m's at the ssm phase's (B=4)
+DENSE_CASES = (("gemma2-2b wq", (8192, 2304, 2048)),
+               ("gemma2-2b wk, wv", (8192, 2304, 1024)),
+               ("gemma2-2b wo", (8192, 2048, 2304)),
+               ("gemma2-2b gate, up", (8192, 2304, 9216)),
+               ("gemma2-2b down", (8192, 9216, 2304)),
+               ("mamba2-370m in_proj", (16384, 1024, 4384)),
+               ("mamba2-370m out_proj", (16384, 2048, 1024)))
+# (rtol, atol) per element, atol in units of the output row's RMS: bf16, the
+# kernel's and cuBLAS's fp32 sums (in other orders) each rounded once to
+# bf16 (1 ulp is at most 2^-7 of |ref|); fp32, sums in other orders
+DENSE_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-4)}
+
+
+@contextlib.contextmanager
+def _full_precision_reductions(torch):
+    """cuBLAS's bf16 products with fp32 reductions throughout (no split-K
+    partial sums rounded to bf16), for a plain reference."""
+    m = torch.backends.cuda.matmul
+    was = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction = was
+
+
+def check_dense(torch) -> dict:
+    """The projection GEMM (``dense_fwd``, and ``dense_bwd``'s dx and dw)
+    against its plain version at every projection of gemma2-2b's and
+    mamba2-370m's layers (``DENSE_CASES``; x and dy bf16, w the fp32
+    parameter, cast in the kernel's load) and at a small ragged fp32 shape
+    with w in fp32 and in bf16, per element at ``DENSE_TOL`` (bf16's where
+    x or the output is bf16), each two calls bit for bit; a dw whose sum
+    drops the last 32 rows (one stage of its walk over M) must fail the
+    gate.  Returns the max abs error of each (bf16, the main path's)."""
+    import numpy as np
+
+    from repro_torch.kernels import dense as dn
+
+    rng = np.random.default_rng(73)
+    errs = {"dense_fwd": 0.0, "dense_bwd": 0.0}
+
+    def gate(name, label, x_dt, pairs, same):
+        worst = 0.0
+        for a, b in pairs:
+            dt = "bfloat16" if torch.bfloat16 in (x_dt, a.dtype) \
+                else "float32"
+            rtol, atol = DENSE_TOL[dt]
+            worst = max(worst, excess(a, b, rtol) / atol)
+        ab = max(max_err(a, b) for a, b in pairs)
+        require(same and worst <= 1.0 and all(
+            bool(torch.isfinite(a.float()).all()) for a, _ in pairs),
+            f"{name} {label}: {worst:.3g} of the gate {DENSE_TOL}, or two "
+            f"calls differ ({not same})")
+        log(f"[kernels] {name} {label}: per-element excess {worst:.3g} of "
+            f"the gate, max abs err {ab:.3g}; two calls bit for bit")
+        if x_dt == torch.bfloat16:
+            errs[name] = max(errs[name], ab)
+
+    cases = [(lbl, dims, torch.bfloat16, torch.float32)
+             for lbl, dims in DENSE_CASES]
+    cases += [("ragged fp32, w fp32", (77, 72, 37), torch.float32,
+               torch.float32),
+              ("ragged fp32, w bf16", (77, 72, 37), torch.float32,
+               torch.bfloat16)]
+    for i, (label, (M, K, N), x_dt, w_dt) in enumerate(cases):
+        label = f"{label} (M={M}, K={K}, N={N}, x {str(x_dt)[6:]}, w " \
+            f"{str(w_dt)[6:]})"
+        x = _randn(torch, rng, (M, K), x_dt)
+        w = _randn(torch, rng, (K, N), torch.float32, K ** -0.5).to(w_dt)
+        dy = _randn(torch, rng, (M, N), x_dt)
+        (y,), same = _twice_equal(torch, lambda: (dn.dense_fwd(x, w),))
+        with _full_precision_reductions(torch):
+            want = dn.dense_fwd_plain(x, w)
+        gate("dense_fwd", label, x_dt, [(y, want)], same)
+        del y, want
+        got, same = _twice_equal(torch, lambda: dn.dense_bwd(dy, x, w))
+        with _full_precision_reductions(torch):
+            want = dn.dense_bwd_plain(dy, x, w)
+        require(got[1].dtype == w_dt, f"dense_bwd {label}: dw is "
+                f"{got[1].dtype}, w {w_dt}")
+        gate("dense_bwd", label, x_dt, list(zip(got, want)), same)
+        if i == 0:
+            # the negative check: the last stage of dw's walk over M left out
+            _, short = dn.dense_bwd(dy[:-32], x[:-32], w, need_dx=False)
+            torch.cuda.synchronize()
+            rtol, atol = DENSE_TOL["bfloat16"]
+            e = excess(short, want[1], rtol) / atol
+            require(e > 1.0, f"dense_bwd {label}: a dw without the last 32 "
+                    f"rows passes the gate ({e:.3g} of it)")
+            log(f"[kernels] dense_bwd {label}: a dw without the last 32 rows"
+                f" is {e:.3g} of the gate: rejected")
+            del short
+        del got, want, x, w, dy
+        torch.cuda.empty_cache()
+    return errs
+
+
 # the carries the generic fused segments store at each chunk entry: the
 # hidden state (bf16) and the aux accumulator (0-d fp32) of gemma2-2b at
 # the dense phase's shape and of mamba2-370m at the ssm phase's
@@ -1568,6 +1684,8 @@ def phase_kernels(state) -> None:
     ssd_bwd = [check_ssd_bwd(torch, *case, seed=90 + i)
                for i, case in enumerate(SSD_BWD_CASES)]
     mamba_errs = check_mamba_layer_kernels(torch)
+    # the projections of both bodies
+    dense_errs = check_dense(torch)
     # the flash kernel's shapes on the main path: gemma2-2b's, phi3.5-moe's
     state["err"] = {"lstm_cell": max(errs["torch.float32"], loop),
                     "fused_advance_segment": max(adv, adv1, adv_pinned),
@@ -1578,7 +1696,7 @@ def phase_kernels(state) -> None:
                     "entry_store": 0.0, "fold": 0.0,
                     "flash_attention_bwd": max(bwd[0], bwd[2], bwd[4]),
                     "ssd_scan_bwd": ssd_bwd[0],
-                    **layer_errs, **mamba_errs}
+                    **layer_errs, **mamba_errs, **dense_errs}
 
 
 def _dense_reference(torch, params, batch):
@@ -3193,9 +3311,13 @@ def layer_kernels(cfg) -> dict:
     norm once each way.  A mamba layer (``mamba``, ``mamba_moe``) runs the
     conv, the step sizes and the gated norm once each way and the SSD's
     backward once in the vjp (its forward, ``ssd_scan``, is the phase's
-    ``kernels``).  MoE layers (their experts' gated activations) are not
-    counted here; kernels a body does not launch are left out."""
+    ``kernels``).  The projections (``dense``): q, k, v and o an attention
+    layer, gate, up and down an MLP or a shared expert, in and out a mamba
+    layer, each with one backward call in the vjp; outside the chain, a
+    VLM's patch projection.  MoE layers' experts are not counted here;
+    kernels a body does not launch are left out."""
     from repro_torch.kernels import causal_conv as cc
+    from repro_torch.kernels import dense as dn
     from repro_torch.kernels import dt_softplus as ds
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gated_norm as gn
@@ -3211,6 +3333,10 @@ def layer_kernels(cfg) -> dict:
                                    "mamba_moe") else 1)
                 for k in cfg.layer_pattern)
     mamba = sum(k.startswith("mamba") for k in cfg.layer_pattern)
+    shared = sum(k.endswith("_moe") for k in cfg.layer_pattern) \
+        if cfg.moe is not None and cfg.moe.shared_expert else 0
+    proj = 4 * attn + 3 * (mlp + shared) + 2 * mamba
+    patch = 1 if cfg.family == "vlm" else 0
     table = {"flash_attention_bwd": (fa.flash_attention_bwd, 0, attn, 0),
              "rmsnorm": (rn.rmsnorm, norms, 0, 1),
              "rmsnorm_bwd": (rn.rmsnorm_bwd, 0, norms, 1),
@@ -3224,7 +3350,9 @@ def layer_kernels(cfg) -> dict:
              "dt_softplus": (ds.dt_softplus, mamba, 0, 0),
              "dt_softplus_bwd": (ds.dt_softplus_bwd, 0, mamba, 0),
              "gated_norm": (gn.gated_norm, mamba, 0, 0),
-             "gated_norm_bwd": (gn.gated_norm_bwd, 0, mamba, 0)}
+             "gated_norm_bwd": (gn.gated_norm_bwd, 0, mamba, 0),
+             "dense_fwd": (dn.dense_fwd, proj, 0, patch),
+             "dense_bwd": (dn.dense_bwd, 0, proj, patch)}
     return {k: v for k, v in table.items() if any(v[1:])}
 
 
@@ -4960,6 +5088,80 @@ def _time_layer_kernels(torch, state):
     return rows
 
 
+def _time_dense(torch, state):
+    """The projection GEMM at every projection of gemma2-2b's and
+    mamba2-370m's layers (``DENSE_CASES``; x, dy bf16, w the fp32
+    parameter): the forward, dx and dw each per launch, beside the plain
+    versions (``x @ w.to(bf16)`` and autograd's vjp of it, the cast
+    included), the library yardstick (cuBLAS's ``x @ w_bf16``, ``dy @
+    w_bf16.T``, ``x.T @ dy`` with the bf16 weight made beforehand) and the
+    cast's own time, and the bound (operations at the bf16 peak), with the
+    launches a warm fused gradient makes of each.  Returns the kernels
+    line's rows, at gemma2-2b's gate/up shape."""
+    import numpy as np
+
+    from repro_torch.kernels import dense as dn
+
+    src = "src/repro_torch/kernels/csrc/dense.cu"
+    # the segment kernels whose traced body computed them: the forward in
+    # the advance's chunk scans, the backward in the reverse's chunk vjp
+    rep = "src/repro/kernels/segment_pallas.py:"
+    rng = np.random.default_rng(74)
+    bf16 = torch.bfloat16
+    pinned = {k: state["launches_by_phase"].get(f"{k}-fused-pinned", {})
+              for k in ("dense", "ssm")}
+    # projections of each shape a chain step, of all a step
+    share = {"gemma2-2b": (14, {"wq": 2, "wk, wv": 4, "wo": 2,
+                                "gate, up": 4, "down": 2}),
+             "mamba2-370m": (2, {"in_proj": 1, "out_proj": 1})}
+    rows, table = [], []
+    for label, (M, K, N) in DENSE_CASES:
+        arch, proj = label.split(" ", 1)
+        x = _randn(torch, rng, (M, K), bf16)
+        w = _randn(torch, rng, (K, N), torch.float32, K ** -0.5)
+        dy = _randn(torch, rng, (M, N), bf16)
+        wb = w.to(bf16)
+        flops = 2.0 * M * K * N
+        nbytes = 2.0 * M * K + 4.0 * K * N + 2.0 * M * N
+        ms = {"fwd": cuda_ms(lambda: dn.dense_fwd(x, w), 20),
+              "dx": cuda_ms(lambda: dn.dense_bwd(dy, x, w, need_dw=False),
+                            20),
+              "dw": cuda_ms(lambda: dn.dense_bwd(dy, x, w, need_dx=False),
+                            20),
+              "plain": cuda_ms(lambda: dn.dense_fwd_plain(x, w), 5),
+              "plain_bwd": cuda_ms(lambda: dn.dense_bwd_plain(dy, x, w), 5),
+              "lib": cuda_ms(lambda: x @ wb, 20),
+              "lib_dx": cuda_ms(lambda: dy @ wb.T, 20),
+              "lib_dw": cuda_ms(lambda: x.T @ dy, 20),
+              "cast": cuda_ms(lambda: w.to(bf16), 20)}
+        b_ms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
+        key = "dense" if arch == "gemma2-2b" else "ssm"
+        of, each = share[arch]
+        n_fwd = pinned[key].get("dense_fwd", 0) * each[proj] // of
+        n_bwd = pinned[key].get("dense_bwd", 0) * each[proj] // of
+        tf = {k: flops / ms[k] / 1e9 for k in ("fwd", "dx", "dw")}
+        log(f"[timing] dense {label} (M={M}, K={K}, N={N}): forward "
+            f"{ms['fwd']:.4f} ms ({tf['fwd']:.1f} TFLOP/s), dx "
+            f"{ms['dx']:.4f} ({tf['dx']:.1f}), dw {ms['dw']:.4f} "
+            f"({tf['dw']:.1f}); bound {b_ms:.4f} ms each by {by}; plain "
+            f"{ms['plain']:.4f} (backward {ms['plain_bwd']:.4f}); cuBLAS "
+            f"{ms['lib']:.4f}, dx {ms['lib_dx']:.4f}, dw {ms['lib_dw']:.4f},"
+            f" the cast {ms['cast']:.4f}; launches in the pinned fused "
+            f"gradient {n_fwd} forward, {n_bwd} backward")
+        table.append((label, ms, b_ms, n_fwd, n_bwd))
+        if proj == "gate, up":
+            rows.append(("dense_fwd", src, rep + "248", ms["fwd"],
+                         ms["plain"], b_ms, by, ms["lib"], flops))
+            b2, by2 = bound_ms(2 * nbytes, 2 * flops, BF16_TC_FLOPS)
+            rows.append(("dense_bwd", src, rep + "456", ms["dx"] + ms["dw"],
+                         ms["plain_bwd"], b2, by2,
+                         ms["lib_dx"] + ms["lib_dw"], 2 * flops))
+        del x, w, dy, wb
+        torch.cuda.empty_cache()
+    state["dense_timing"] = table
+    return rows
+
+
 def ssd_bwd_flops(B, T, H, G, P, N, L) -> float:
     """The SSD backward's multiply-adds x 2, per chunk: the chunk's state
     and its cotangent's input (two P x N x L products), dx's two products
@@ -5170,6 +5372,7 @@ def phase_timing(state) -> None:
     rows += _time_generic(torch)
     rows += _time_layer_kernels(torch, state)
     rows += _time_mamba_kernels(torch)
+    rows += _time_dense(torch, state)
 
     out = []
     for name, src, rep, k_ms, p_ms, b_ms, by, l_ms, flops in rows:
@@ -5499,7 +5702,8 @@ def profile_fused(state) -> None:
     own, with its warm walls autotuned and pinned (``tools/profile_fused.py``,
     each tree and arch in a process of its own): the tree given with
     ``--parent`` (a ``git archive`` of another commit) first, then this
-    one; the tables to ``<out-dir>/profile_<arch>_*.txt``."""
+    one, whose cuBLAS products must be the readout's alone
+    (``--readout-only``); the tables to ``<out-dir>/profile_<arch>_*.txt``."""
     import torch
 
     torch.cuda.empty_cache()
@@ -5516,7 +5720,8 @@ def profile_fused(state) -> None:
                                               "profile_fused.py"),
                  "--arch", arch, "--batch", str(batch), "--interval",
                  str(interval), "--slots", str(slots), "--src",
-                 os.path.join(root, "src"), "--out", out, "--label", label],
+                 os.path.join(root, "src"), "--out", out, "--label", label]
+                + (["--readout-only"] if label == "tree" else []),
                 capture_output=True, text=True, timeout=900)
             require(res.returncode == 0, f"profile of {arch} ({label}) "
                     f"failed:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")

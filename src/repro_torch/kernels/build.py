@@ -38,6 +38,7 @@ SOURCES = {
     "gated_norm": "gated_norm.cu",
     "causal_conv": "causal_conv.cu",
     "dt_softplus": "dt_softplus.cu",
+    "dense": "dense.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,10 +1,11 @@
 # Port of repro/models/layers.py: the training-path building blocks.
 """Shared neural-net building blocks.
 
-``rmsnorm``, ``geglu``/``swiglu`` and ``apply_rope`` are autograd functions
-whose forward and backward launch hand-written kernels on the card
-(``kernels/rmsnorm.py``, ``glu.py``, ``rope.py``) and run their plain
-PyTorch versions on any other device; the rest is plain PyTorch.
+``dense``'s product, ``rmsnorm``, ``geglu``/``swiglu`` and ``apply_rope``
+are autograd functions whose forward and backward launch hand-written
+kernels on the card (``kernels/dense.py``, ``rmsnorm.py``, ``glu.py``,
+``rope.py``) and run their plain PyTorch versions on any other device; the
+rest is plain PyTorch (the loss head's products stay ``torch.matmul``).
 
 Conventions, as in the JAX package:
 
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 from torch.utils.weak import WeakIdKeyDictionary
 
+from repro_torch.kernels import dense as dense_mod
 from repro_torch.kernels import glu as glu_mod
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import rope as rope_mod
@@ -92,7 +94,9 @@ def init_dense(generator, d_in: int, d_out: int, *, bias: bool = False,
 
 def dense(p: Params, x: torch.Tensor,
           dt: DTypes = DEFAULT_DTYPES) -> torch.Tensor:
-    y = x @ dt.c(p["w"])
+    """``x @ w`` in the compute dtype, plus the bias: the product (with the
+    weight's cast) in one kernel each way on the card."""
+    y = dense_mod.project(x, p["w"], dt.compute)
     if "b" in p:
         y = y + dt.c(p["b"])
     return y

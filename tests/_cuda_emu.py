@@ -209,8 +209,9 @@ def cell_on_card(card_paths, monkeypatch):
 @pytest.fixture
 def kernels_on_card(emulated_libs, monkeypatch):
     """The model kernels' wrappers (``build.on_card``: flash attention, its
-    backward, rmsnorm, glu, rope, the SSD scan and its backward, the causal
-    conv, the step sizes, the gated norm, the LSTM cell) take their card
+    backward, rmsnorm, glu, rope, the projections' GEMM, the SSD scan and
+    its backward, the causal conv, the step sizes, the gated norm, the LSTM
+    cell) take their card
     paths on CPU tensors, with the emulated kernels; meta tensors keep the
     plain versions."""
     monkeypatch.setattr(build, "load", lambda name: emulated_libs[name])

@@ -50,7 +50,11 @@ kernel against its plain version (fp32 2e-4, bf16 3e-2 of the plain max
 |value|, two calls bit for bit), and the layer functions (rmsnorm with the
 residual, GeGLU, SwiGLU, rope of q and k) on the card against the same on
 the CPU, values and gradients (fp32 1e-5, bf16 3e-2), each kernel launched
-once each way.
+once each way.  The projection GEMM (``kernels/dense.py``) against its
+plain version at a smoke shape and at gemma2-2b's gate projection, per
+element (bf16: 1e-2 of |ref| plus 1e-3 of the row's RMS), two calls bit for
+bit, and ``dense_fwd``, ``dense_bwd`` counted in the MoE and hybrid
+decoders' gradients.
 """
 import gc
 import os
@@ -63,6 +67,7 @@ from repro_torch import api
 from repro_torch.convert import init_lstm_numpy, params_from_numpy
 from repro_torch.configs import ShapeSpec, get_config
 from repro_torch.configs.shapes import make_batch
+from repro_torch.kernels import dense as dn
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lstm_cell as lc
 from repro_torch.kernels import segment_fused as sf
@@ -701,11 +706,13 @@ def test_offloaded_decoder_on_card_matches_dense(cuda_device, arch, seq,
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,n_layers,per_step", [
     # top-1 of 4 experts with a shared expert, capacity factor 2.0: one
-    # attn_moe layer a chain step
-    ("llama4-scout-17b-16e", 4, {"flash_attention": 1}),
+    # attn_moe layer a chain step (q, k, v, o and the shared expert's gate,
+    # up, down)
+    ("llama4-scout-17b-16e", 4, {"flash_attention": 1, "dense_fwd": 7}),
     # three periods of (mamba, mamba_moe, mamba, attn_moe, mamba,
     # mamba_moe, mamba, mamba_moe): a tail segment of one period
-    ("jamba-v0.1-52b", 24, {"flash_attention": 1, "ssd_scan": 7}),
+    ("jamba-v0.1-52b", 24, {"flash_attention": 1, "ssd_scan": 7,
+                            "dense_fwd": 18}),
 ])
 def test_offloaded_moe_decoder_on_card_matches_dense(cuda_device, arch,
                                                      n_layers, per_step):
@@ -723,8 +730,8 @@ def test_offloaded_moe_decoder_on_card_matches_dense(cuda_device, arch,
     loss = model.train_loss(pytree.tree_unflatten(leaves, spec), batch)
     dense = torch.autograd.grad(loss, leaves)
     kernels = {"flash_attention": fa.flash_attention,
-               "ssd_scan": ssd.ssd_scan}
-    for fn in kernels.values():
+               "ssd_scan": ssd.ssd_scan, "dense_fwd": dn.dense_fwd}
+    for fn in (*kernels.values(), dn.dense_bwd):
         fn.launches = 0
     v, g = api.value_and_grad_offloaded(model.train_loss, interval=2,
                                         slots=2, device="cuda")(params,
@@ -735,6 +742,8 @@ def test_offloaded_moe_decoder_on_card_matches_dense(cuda_device, arch,
         # forward sweep and the reverse's recompute
         assert fn.launches == per_step.get(name, 0) * stats.advances, name
     assert all(kernels[name].launches > 0 for name in per_step)
+    # the projections' backward: once a projection in each step's vjp
+    assert dn.dense_bwd.launches == per_step["dense_fwd"] * stats.n
     torch.testing.assert_close(v, loss.detach(), rtol=1e-5, atol=0)
     for a, b in zip(pytree.tree_leaves(g), dense):
         torch.testing.assert_close(a, b, rtol=1e-4,
@@ -1446,3 +1455,30 @@ def test_mamba_layers_run_their_kernels_on_card(cuda_device, arch, n_layers,
     for a, b in zip(pytree.tree_leaves(g), dense):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(77, 64, 128),        # a smoke shape
+                                   (8192, 2304, 9216)])  # gemma2-2b's gate
+def test_dense_kernel_matches_plain(cuda_device, M, K, N):
+    """``dense_fwd`` and ``dense_bwd`` (x, dy bf16; w the fp32 parameter,
+    cast in the load) against the plain version on the card (cuBLAS with
+    fp32 reductions), per element at (1e-2, 1e-3): both round one fp32 sum
+    to bf16; two calls bit for bit; dw in w's dtype."""
+    rng = np.random.default_rng(M + N)
+    x = torch.tensor(_np(rng, (M, K)), device="cuda").to(torch.bfloat16)
+    w = torch.tensor(_np(rng, (K, N), K ** -0.5), device="cuda")
+    dy = torch.tensor(_np(rng, (M, N)), device="cuda").to(torch.bfloat16)
+    got = (dn.dense_fwd(x, w), *dn.dense_bwd(dy, x, w))
+    again = (dn.dense_fwd(x, w), *dn.dense_bwd(dy, x, w))
+    mm = torch.backends.cuda.matmul
+    was = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        want = (dn.dense_fwd_plain(x, w), *dn.dense_bwd_plain(dy, x, w))
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = was
+    assert got[2].dtype == torch.float32
+    for a, b in zip(got, want):
+        _assert_close_to(a, b, 1e-2, 1e-3)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

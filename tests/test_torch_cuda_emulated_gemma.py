@@ -1,9 +1,10 @@
 """The slice end to end on the CPU: gemma2-2b's chain body (an
 ``attn_local`` and an ``attn`` layer a chain step) through
 ``value_and_grad_offloaded(runner="fused")`` with its hand-written kernels
-(``flash_attention`` and its backward, ``rmsnorm``, ``glu``, ``rope``)
-compiled under the emulation of ``tests/_cuda_emu.py`` and launched through
-their wrappers' card paths on CPU tensors, against the JAX package's
+(``flash_attention`` and its backward, ``rmsnorm``, ``glu``, ``rope``,
+``dense`` for the projections) compiled under the emulation of
+``tests/_cuda_emu.py`` and launched through their wrappers' card paths on
+CPU tensors, against the JAX package's
 ``runner="pallas"`` (the decoder body traced into its segment kernels, run
 in interpret mode) on the same weights and tokens, in fp32 compute: loss
 within 1e-5 relative, each gradient leaf within 1e-4 of its max |g|, every
@@ -31,6 +32,7 @@ from repro.models.model_factory import get_model as j_get_model
 from repro_torch import api
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.schedule import chunk_length
+from repro_torch.kernels import dense as dn
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import glu as glu_mod
 from repro_torch.kernels import rmsnorm as rn
@@ -45,15 +47,18 @@ N_LAYERS, INTERVAL, SLOTS, BATCH = 4, 2, 2, 1
 # launches a chain step (two layers): forward kernels each time a step
 # runs, backward kernels once a step in the reverse; the readout's final
 # norm once each way
-FORWARD = {"flash_attention": 2, "rope": 2, "glu": 2, "rmsnorm": 8}
+# (the projections: q, k, v, o, gate, up and down a layer)
+FORWARD = {"flash_attention": 2, "rope": 2, "glu": 2, "rmsnorm": 8,
+           "dense_fwd": 14}
 BACKWARD = {"flash_attention_bwd": 2, "rope_bwd": 2, "glu_bwd": 2,
-            "rmsnorm_bwd": 8}
+            "rmsnorm_bwd": 8, "dense_bwd": 14}
 HEAD = {"rmsnorm": 1, "rmsnorm_bwd": 1}
 WRAPPERS = {"flash_attention": fa.flash_attention_fwd,
             "flash_attention_bwd": fa.flash_attention_bwd,
             "rope": rope_mod.rope, "rope_bwd": rope_mod.rope_bwd,
             "glu": glu_mod.glu, "glu_bwd": glu_mod.glu_bwd,
-            "rmsnorm": rn.rmsnorm, "rmsnorm_bwd": rn.rmsnorm_bwd}
+            "rmsnorm": rn.rmsnorm, "rmsnorm_bwd": rn.rmsnorm_bwd,
+            "dense_fwd": dn.dense_fwd, "dense_bwd": dn.dense_bwd}
 
 
 def _counts():
@@ -91,7 +96,7 @@ def _expected(plan, slots):
 def test_gemma_fused_with_emulated_kernels_matches_jax_pallas(
         emulated_libs, kernels_on_card, monkeypatch):
     emulated_libs.prebuild(["flash_attention", "flash_attention_bwd",
-                            "rmsnorm", "glu", "rope"])
+                            "rmsnorm", "glu", "rope", "dense"])
     monkeypatch.setattr(j_tf, "_dtypes",
                         lambda c: JDTypes(compute=jnp.float32))
     monkeypatch.setattr(tf, "_dtypes", lambda c: DTypes(compute=torch.float32))

@@ -2,7 +2,8 @@
 ``mamba`` layer a chain step) through
 ``value_and_grad_offloaded(runner="fused")`` with its hand-written kernels
 (``ssd_scan`` and its backward, ``causal_conv``, ``dt_softplus``,
-``gated_norm``, ``rmsnorm``, each forward and backward) compiled under the
+``gated_norm``, ``rmsnorm``, ``dense`` (``in_proj``, ``out_proj``), each
+forward and backward) compiled under the
 emulation of ``tests/_cuda_emu.py`` and launched through their wrappers'
 card paths on CPU tensors, against the JAX package's ``runner="pallas"``
 (the decoder body traced into its segment kernels, run in interpret mode)
@@ -28,6 +29,7 @@ from repro_torch import api
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.schedule import chunk_length
 from repro_torch.kernels import causal_conv as cc
+from repro_torch.kernels import dense as dn
 from repro_torch.kernels import dt_softplus as ds
 from repro_torch.kernels import gated_norm as gn
 from repro_torch.kernels import rmsnorm as rn
@@ -42,9 +44,9 @@ N_LAYERS, INTERVAL, SLOTS, BATCH = 2, 2, 2, 1
 # runs, backward kernels once a step in the reverse; the readout's final
 # norm once each way
 FORWARD = {"ssd_scan": 1, "causal_conv": 1, "dt_softplus": 1,
-           "gated_norm": 1, "rmsnorm": 1}
+           "gated_norm": 1, "rmsnorm": 1, "dense_fwd": 2}
 BACKWARD = {"ssd_scan_bwd": 1, "causal_conv_bwd": 1, "dt_softplus_bwd": 1,
-            "gated_norm_bwd": 1, "rmsnorm_bwd": 1}
+            "gated_norm_bwd": 1, "rmsnorm_bwd": 1, "dense_bwd": 2}
 HEAD = {"rmsnorm": 1, "rmsnorm_bwd": 1}
 WRAPPERS = {"ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd.ssd_scan_bwd,
             "causal_conv": cc.causal_conv,
@@ -52,7 +54,8 @@ WRAPPERS = {"ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd.ssd_scan_bwd,
             "dt_softplus": ds.dt_softplus,
             "dt_softplus_bwd": ds.dt_softplus_bwd,
             "gated_norm": gn.gated_norm, "gated_norm_bwd": gn.gated_norm_bwd,
-            "rmsnorm": rn.rmsnorm, "rmsnorm_bwd": rn.rmsnorm_bwd}
+            "rmsnorm": rn.rmsnorm, "rmsnorm_bwd": rn.rmsnorm_bwd,
+            "dense_fwd": dn.dense_fwd, "dense_bwd": dn.dense_bwd}
 
 
 def _counts():
@@ -81,7 +84,8 @@ def _expected(plan, slots):
 def test_mamba_fused_with_emulated_kernels_matches_jax_pallas(
         emulated_libs, kernels_on_card, monkeypatch):
     emulated_libs.prebuild(["ssd_scan", "ssd_scan_bwd", "causal_conv",
-                            "dt_softplus", "gated_norm", "rmsnorm"])
+                            "dt_softplus", "gated_norm", "rmsnorm",
+                            "dense"])
     monkeypatch.setattr(j_tf, "_dtypes",
                         lambda c: JDTypes(compute=jnp.float32))
     monkeypatch.setattr(tf, "_dtypes", lambda c: DTypes(compute=torch.float32))

@@ -2,7 +2,7 @@
 """Device time of one warm fused decoder gradient on the card, by kernel.
 
     python3 tools/profile_fused.py [--arch NAME] [--batch B] [--interval I]
-        [--slots S] [--src DIR] [--out FILE]
+        [--slots S] [--src DIR] [--out FILE] [--readout-only]
 
 Runs ``value_and_grad_offloaded(get_model(NAME).train_loss,
 runner="fused", interval=I, slots=S)`` (by default gemma2-2b at I=13, s=4
@@ -18,7 +18,13 @@ time and that time split three ways: the hand-written kernels (every
 ``__global__`` function of ``DIR/repro_torch/kernels/csrc``), the cuBLAS
 products (kernel names with ``gemm``, ``cutlass``, ``xmma`` or ``nvjet``)
 and the rest (PyTorch's own kernels); writes the table by kernel to
-``FILE``.  Needs one CUDA card; imports no JAX.
+``FILE``.  Counts the cuBLAS products (its launches less the split-K
+reductions that follow a split product) beside the readout's (the loss
+head, ``layers.chunked_ce_loss``: each sequence chunk's logits in the
+forward and in its checkpoint's recompute, and their two gradient
+products); ``--readout-only`` exits 1 unless the two are equal, that is
+unless the chain body launches no cuBLAS product.  Needs one CUDA card;
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -67,6 +73,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--out", default=None)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--readout-only", action="store_true",
+                    help="fail unless every cuBLAS launch is the readout's")
     args = ap.parse_args(argv)
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
@@ -153,6 +161,18 @@ def main(argv=None) -> int:
         f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)"
         for k, v in sorted(split.items(), key=lambda kv: -kv[1])),
         flush=True)
+    S = batch["tokens"].shape[1] - 1
+    readout = 4 * -(-S // min(cfg.ce_chunk, S))
+    library = sum(n for _, n, k, _ in rows if k == "cuBLAS")
+    # a split-K product is a GEMM launch and a reduction launch
+    splits = sum(n for _, n, k, key in rows
+                 if k == "cuBLAS" and "splitkreduce" in key.lower())
+    products = library - splits
+    print(f"{tag} {label}: cuBLAS launches {library} ({splits} split-K "
+          f"reductions), products {products}; the readout's products "
+          f"{readout} (4 a chunk of {min(cfg.ce_chunk, S)} of S={S}); "
+          + ", ".join(f"{key[:60]} x{n}" for _, n, k, key in rows
+                      if k == "cuBLAS"), flush=True)
     for us, count, k, key in rows[:12]:
         print(f"{tag}   {us / 1e3:10.3f} ms x{count:<6d} {k:12s} "
               f"{key[:80]}", flush=True)
@@ -163,6 +183,11 @@ def main(argv=None) -> int:
             f.write(f"# {head}\n# device_us\tcount\tkind\tname\n")
             for us, count, k, key in rows:
                 f.write(f"{us:.1f}\t{count}\t{k}\t{key}\n")
+    if args.readout_only and products != readout:
+        print(f"{tag} {label}: {products} cuBLAS products, the readout "
+              f"makes {readout}: the chain body still runs a cuBLAS "
+              "product", file=sys.stderr, flush=True)
+        return 1
     return 0
 
 
