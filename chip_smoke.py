@@ -72,7 +72,16 @@ Phases, each printing its own lines:
               shape with w fp32 and bf16, per element (``DENSE_TOL``)
               against the plain version on cuBLAS with fp32 reductions,
               two calls bit for bit; a dw without its last 32 rows must
-              fail that gate.
+              fail that gate.  The MoE layer's kernels (``check_moe``) at
+              phi3.5-moe's layer (``MOE_LAYER``: 2 groups of 4096 tokens,
+              d 4096 bf16, 16 experts top-2): the routing (probs and
+              weights 1e-5, dx and dW_r by ``MOE_TOL``; a choice may
+              differ from the plain version's only at a near-tie of its
+              probs, ``ROUTE_TIE``, logged), and at capacity factors 1.25
+              and 0.25 (experts overflow) the slots equal, the dispatch and
+              its vjp bit for bit, the combine and its vjp (``MOE_TOL``);
+              the experts' products batched (gate/up and down) at
+              ``DENSE_TOL``; every kernel two calls bit for bit.
 4. main     — ``value_and_grad_offloaded(get_model(lstm-paper).train_loss,
               runner="fused")`` on ``make_batch(lstm-paper, train_4k)``
               (B=256, S=4096), once autotuned and once with a pinned
@@ -216,11 +225,20 @@ Phases, each printing its own lines:
               4096, 16 experts top-2 of d_ff 6400, capacity factor 1.25),
               batch cut to 2 and depth cut to ``MOE_LAYERS`` (4 chain steps
               of one ``attn_moe`` layer), ``flash_attention`` once a chain
-              step; the reference's gradients wait in page-locked host
+              step and the body's layer kernels (``layer_kernels``: the
+              MoE layer's routing, slots, dispatch, combine and experts'
+              products, their backwards, and the attention's, norms' and
+              projections') counted in every call; the reference's
+              gradients wait in page-locked host
               memory while the offloaded calls run (in every decoder
               phase), and every top-2 routing choice of the offloaded call
               (forward sweep, probe, the reverse's recompute) must equal
-              the reference forward's.  Then one
+              the reference forward's.  Then ``runner="fused"`` as in
+              ``dense``, autotuned and at I=2, s=2 (``FUSED_PINNED``: two
+              segments of one chunk), routing equal in every call, beside
+              the compiled call at I=2, s=2 and against the plain
+              versions' call (whose differing routing choices are
+              logged).  Then one
               ``offload_params="moe_experts"`` call, the expert weights on
               the host, at the first call's schedule: bit for bit
               (``torch.equal``) another unstreamed call's loss and
@@ -281,13 +299,19 @@ Phases, each printing its own lines:
               at each ``DENSE_CASES`` shape, forward, dx and dw, beside the
               plain version, cuBLAS with the bf16 weight made beforehand
               and the cast alone (bound: operations at the bf16 peak; the
-              kernels line's rows at gemma2-2b's gate/up shape).
+              kernels line's rows at gemma2-2b's gate/up shape); the MoE
+              layer's kernels at phi3.5-moe's (``_time_moe``: bound bytes,
+              the gathers' kept rows only; the dispatch beside
+              ``index_select``, its vjp beside ``index_add_``) and the
+              experts' products at its gate/up and down shapes beside
+              ``torch.bmm`` on bf16 weights plus the cast (bound:
+              operations).
 14. train   — three RMSProp steps through the offloaded LSTM gradient; the
               losses must fall.
 
 ``--phases ...,profile`` adds a ``torch.profiler`` pass over one warm
-fused gradient of gemma2-2b (I=13, s=4) and of mamba2-370m (I=14, s=4)
-by kernel (``--profile-archs`` picks), split into the hand-written
+fused gradient of gemma2-2b (I=13, s=4), of mamba2-370m (I=14, s=4) and
+of phi3.5-moe (4 layers, I=2, s=2) by kernel (``--profile-archs`` picks), split into the hand-written
 kernels, the cuBLAS products and PyTorch's own, with their warm walls
 autotuned and pinned (``tools/profile_fused.py``; with ``--parent DIR``
 first for the checkout in ``DIR``, a ``git archive`` of another commit;
@@ -496,7 +520,8 @@ def phase_build(state) -> None:
         f"{os.path.join(out_dir, 'chip_smoke_build.log')})")
     # registers and spills of the layer kernels (the attention backward's
     # accumulators are the ones that could spill)
-    for lib in ("flash_attention_bwd", "rmsnorm", "glu", "rope", "dense"):
+    for lib in ("flash_attention_bwd", "rmsnorm", "glu", "rope", "dense",
+                "moe"):
         for kern, regs, spill in ptxas_usage(build.BUILD_LOG.get(lib, "")):
             log(f"[build] {lib}: {kern}: {regs} registers, {spill}")
     # the bf16 kernels that must run on the tensor cores
@@ -1466,6 +1491,179 @@ def check_dense(torch) -> dict:
     return errs
 
 
+# phi3.5-moe's MoE layer at the moe phase's shape: G groups (the batch) of S
+# tokens of width d, E experts top-k of width f; capacity factors: the
+# config's, and one under which experts overflow
+MOE_LAYER = (2, 4096, 4096, 16, 2, 6400)
+MOE_CFS = (1.25, 0.25)
+# the routing kernel against its plain version: probs and weights (fp32,
+# the logits summed in another order) absolute; dx (bf16: one rounding
+# apart) and dW_r (fp32 sums over 8192 tokens in another order) scaled by
+# the plain version's max |value|; a choice may differ only where the plain
+# probs of the two choices are within ROUTE_TIE
+MOE_TOL = {"probs": 1e-5, "dx": 1e-2, "dw": 1e-4, "combine": 1e-2,
+           "dweights": 1e-4}
+ROUTE_TIE = 1e-5
+
+
+def _moe_inputs(torch, rng):
+    """x, the router weight and the routing kernel's choices at
+    ``MOE_LAYER``."""
+    from repro_torch.kernels import moe as mk
+
+    G, S, d, E, k, f = MOE_LAYER
+    x = _randn(torch, rng, (G, S, d), torch.bfloat16)
+    w = _randn(torch, rng, (d, E), torch.float32, d ** -0.5)
+    return x, w, mk.moe_route(x, w, k)
+
+
+def check_moe(torch) -> dict:
+    """The MoE layer's kernels against their plain versions at
+    phi3.5-moe's layer (``MOE_LAYER``, bf16 x, fp32 router): the routing
+    (``MOE_TOL``; a choice that differs must be a near-tie of the plain
+    probs, ``ROUTE_TIE``, and its token's cotangents are zeroed for the
+    backward's comparison), and at each capacity factor of ``MOE_CFS``
+    (0.25: experts overflow) the slots (equal), the dispatch and its vjp
+    (bit for bit), the combine and its vjp (``MOE_TOL``); the experts'
+    products (gate/up and down) per element at ``DENSE_TOL`` against the
+    plain version on cuBLAS with fp32 reductions.  Every kernel twice, bit
+    for bit.  Returns each kernel's max abs error."""
+    import numpy as np
+
+    from repro_torch.kernels import dense as dn
+    from repro_torch.kernels import moe as mk
+    from repro_torch.models.moe import _capacity
+
+    G, S, d, E, k, f = MOE_LAYER
+    rng = np.random.default_rng(75)
+    bf16 = torch.bfloat16
+    x, w, _ = _moe_inputs(torch, rng)
+    (weights, idx, probs), same = _twice_equal(
+        torch, lambda: mk.moe_route(x, w, k))
+    want_w, want_idx, want_p = mk.route_plain(x, w, k)
+    flipped = (idx != want_idx).any(-1)
+    gap = (want_p.gather(-1, idx) - want_p.gather(-1, want_idx)).abs()
+    ties = bool((gap.amax(-1)[flipped] <= ROUTE_TIE).all())
+    agree = ~flipped
+    e_p = max_err(probs, want_p)
+    e_w = max_err(weights[agree], want_w[agree])
+    require(same and ties and e_p <= MOE_TOL["probs"]
+            and e_w <= MOE_TOL["probs"],
+            f"moe_route: probs err {e_p:.3g}, weights err {e_w:.3g} (tol "
+            f"{MOE_TOL['probs']}); {int(flipped.sum())} tokens routed "
+            f"otherwise, all near-ties: {ties}; two calls equal: {same}")
+    log(f"[kernels] moe_route (G={G}, S={S}, d={d}, E={E}, top-{k}): probs "
+        f"max abs err {e_p:.3g}, weights {e_w:.3g}; {int(flipped.sum())} of "
+        f"{G * S} tokens routed otherwise than the plain version (near-ties "
+        f"within {ROUTE_TIE}); two calls bit for bit")
+    errs = {"moe_route": max(e_p, e_w)}
+    keep = agree[..., None].float()
+    dweights = _randn(torch, rng, (G, S, k), torch.float32) * keep
+    dprobs = _randn(torch, rng, (G, S, E), torch.float32, 0.1) * keep
+    (dx, dw), same = _twice_equal(
+        torch, lambda: mk.moe_route_bwd(dweights, dprobs, x, w, probs, idx))
+    want_dx, want_dw = mk.route_bwd_plain(dweights, dprobs, x, w, k)
+    e_dx, e_dw = scaled_err(dx, want_dx), scaled_err(dw, want_dw)
+    require(same and e_dx <= MOE_TOL["dx"] and e_dw <= MOE_TOL["dw"],
+            f"moe_route_bwd: dx {e_dx:.3g} (tol {MOE_TOL['dx']}), dW_r "
+            f"{e_dw:.3g} (tol {MOE_TOL['dw']}) of the plain max; two calls "
+            f"equal: {same}")
+    log(f"[kernels] moe_route_bwd: dx scaled err {e_dx:.3g}, dW_r "
+        f"{e_dw:.3g}; two calls bit for bit")
+    errs["moe_route_bwd"] = max(max_err(dx, want_dx), max_err(dw, want_dw))
+    del dx, dw, want_dx, want_dw
+    errs.update({n: 0.0 for n in ("moe_slots", "moe_dispatch",
+                                  "moe_dispatch_bwd")})
+    errs["moe_combine"] = errs["moe_combine_bwd"] = 0.0
+    for cf in MOE_CFS:
+        C = _capacity(S, E, k, cf)
+        got, same = _twice_equal(torch, lambda: mk.moe_slots(idx, E, C))
+        want = mk.slots_plain(idx, E, C)
+        choice_slot, slot_src, routed = got
+        dropped = int((choice_slot < 0).sum())
+        require(same and all(torch.equal(a, b) for a, b in zip(got, want))
+                and (dropped > 0 or cf >= 1.0),
+                f"moe_slots C={C}: differ from the plain version, or two "
+                f"calls differ, or no choice dropped at capacity factor "
+                f"{cf}")
+        (buckets,), same = _twice_equal(
+            torch, lambda: (mk.moe_dispatch(x, slot_src, k),))
+        require(same and _bits_equal(torch, buckets,
+                                     mk.dispatch_plain(x, slot_src, k)),
+                f"moe_dispatch C={C}: not bit for bit the plain version's")
+        dexp = _randn(torch, rng, tuple(buckets.shape), bf16)
+        (dxd,), same = _twice_equal(
+            torch, lambda: (mk.moe_dispatch_bwd(dexp, choice_slot),))
+        require(same and _bits_equal(
+            torch, dxd, mk.dispatch_bwd_plain(dexp, choice_slot)),
+            f"moe_dispatch_bwd C={C}: not bit for bit the plain version's")
+        del buckets, dxd
+        rows = dexp
+        (y,), same = _twice_equal(
+            torch, lambda: (mk.moe_combine(rows, weights, choice_slot,
+                                           bf16),))
+        want_y = mk.combine_plain(rows, weights, choice_slot, bf16)
+        e_y = scaled_err(y, want_y)
+        bits = _bits_equal(torch, y, want_y)
+        require(same and e_y <= MOE_TOL["combine"],
+                f"moe_combine C={C}: scaled err {e_y:.3g} (tol "
+                f"{MOE_TOL['combine']}); two calls equal: {same}")
+        dy = _randn(torch, rng, (G, S, d), bf16)
+        got, same = _twice_equal(torch, lambda: mk.moe_combine_bwd(
+            dy, rows, weights, choice_slot, slot_src))
+        want = mk.combine_bwd_plain(dy, rows, weights, choice_slot,
+                                    slot_src)
+        e_r, e_dw = scaled_err(got[0], want[0]), scaled_err(got[1], want[1])
+        require(same and e_r <= MOE_TOL["combine"]
+                and e_dw <= MOE_TOL["dweights"],
+                f"moe_combine_bwd C={C}: rows {e_r:.3g}, weights {e_dw:.3g}"
+                f" (tol {MOE_TOL}); two calls equal: {same}")
+        kept = int((slot_src >= 0).sum())
+        log(f"[kernels] MoE slots at capacity factor {cf} (C={C}): equal to "
+            f"the plain version's, {kept} of {G * S * k} choices kept, "
+            f"{dropped} dropped; dispatch and its vjp bit for bit; combine "
+            f"scaled err {e_y:.3g} (bit for bit: {bits}), its vjp rows "
+            f"{e_r:.3g}, weights {e_dw:.3g}; every kernel two calls bit for "
+            "bit")
+        if cf == MOE_CFS[0]:
+            errs["moe_combine"] = max_err(y, want_y)
+            errs["moe_combine_bwd"] = max(max_err(got[0], want[0]),
+                                          max_err(got[1], want[1]))
+        del rows, dexp, y, want_y, dy, got, want
+        torch.cuda.empty_cache()
+    # the experts' products, at the config's capacity: E x (G C) rows
+    M = G * _capacity(S, E, k, MOE_CFS[0])
+    errs["expert_fwd"] = errs["expert_bwd"] = 0.0
+    for label, K, N in (("gate/up", d, f), ("down", f, d)):
+        xe = _randn(torch, rng, (E, M, K), bf16)
+        we = _randn(torch, rng, (E, K, N), torch.float32, K ** -0.5)
+        dy = _randn(torch, rng, (E, M, N), bf16)
+        (y,), same = _twice_equal(torch, lambda: (dn.expert_fwd(xe, we),))
+        with _full_precision_reductions(torch):
+            want = dn.expert_fwd_plain(xe, we)
+        rtol, atol = DENSE_TOL["bfloat16"]
+        e_y = excess(y, want, rtol) / atol
+        require(same and e_y <= 1.0, f"expert_fwd {label}: {e_y:.3g} of "
+                f"the gate {DENSE_TOL['bfloat16']}; two calls equal: {same}")
+        errs["expert_fwd"] = max(errs["expert_fwd"], max_err(y, want))
+        del y, want
+        got, same = _twice_equal(torch, lambda: dn.expert_bwd(dy, xe, we))
+        with _full_precision_reductions(torch):
+            want = dn.expert_bwd_plain(dy, xe, we)
+        e_b = max(excess(a, b, rtol) / atol for a, b in zip(got, want))
+        require(same and e_b <= 1.0 and got[1].dtype == torch.float32,
+                f"expert_bwd {label}: {e_b:.3g} of the gate; two calls "
+                f"equal: {same}")
+        errs["expert_bwd"] = max(errs["expert_bwd"],
+                                 *(max_err(a, b) for a, b in zip(got, want)))
+        log(f"[kernels] experts {label} (E={E}, M={M}, K={K}, N={N}, x bf16,"
+            f" w fp32): forward {e_y:.3g}, dx and dw {e_b:.3g} of the gate "
+            f"{DENSE_TOL['bfloat16']}; two calls bit for bit")
+        del xe, we, dy, got, want
+        torch.cuda.empty_cache()
+    return errs
+
+
 # the carries the generic fused segments store at each chunk entry: the
 # hidden state (bf16) and the aux accumulator (0-d fp32) of gemma2-2b at
 # the dense phase's shape and of mamba2-370m at the ssm phase's
@@ -1686,6 +1884,8 @@ def phase_kernels(state) -> None:
     mamba_errs = check_mamba_layer_kernels(torch)
     # the projections of both bodies
     dense_errs = check_dense(torch)
+    # phi3.5-moe's MoE layer
+    moe_errs = check_moe(torch)
     # the flash kernel's shapes on the main path: gemma2-2b's, phi3.5-moe's
     state["err"] = {"lstm_cell": max(errs["torch.float32"], loop),
                     "fused_advance_segment": max(adv, adv1, adv_pinned),
@@ -1696,7 +1896,7 @@ def phase_kernels(state) -> None:
                     "entry_store": 0.0, "fold": 0.0,
                     "flash_attention_bwd": max(bwd[0], bwd[2], bwd[4]),
                     "ssd_scan_bwd": ssd_bwd[0],
-                    **layer_errs, **mamba_errs, **dense_errs}
+                    **layer_errs, **mamba_errs, **dense_errs, **moe_errs}
 
 
 def _dense_reference(torch, params, batch):
@@ -2968,8 +3168,12 @@ class _RoutingRecorder:
     by layer: the layer is the one whose router weight the call was given.
     ``mode = "reference"`` records them (dense autograd's forward);
     ``mode = "check"`` counts the choices that differ from the recorded
-    ones (the offloaded forward sweep, probe and recompute); ``None``
-    ignores the calls."""
+    ones (the offloaded forward sweep, probe and recompute); ``mode =
+    "force"`` counts them too and then routes by the recorded choices
+    instead (:func:`_forced_route`: the call's own softmax, gathered at
+    those choices and renormalised, and its aux loss), so that calls that
+    round elsewhere (the plain versions', an fp32 model's) take the same
+    discrete decisions; ``None`` ignores the calls."""
 
     def __init__(self, params, cfg):
         from repro_torch.models.transformer import _periods
@@ -3006,6 +3210,9 @@ class _RoutingRecorder:
                 else:
                     self.compared += idx.numel()
                     self.flips += int((idx != self.reference[i]).sum())
+                if self.mode == "force":
+                    return _forced_route(p, xg, n_experts,
+                                         self.reference[i])
             return out
 
         moe._route = recorded
@@ -3017,10 +3224,28 @@ class _RoutingRecorder:
         moe._route = self._route
 
 
+def _forced_route(p, xg, n_experts, idx):
+    """``moe._route``'s outputs with the choices ``idx`` given: the plain
+    softmax of the fp32 logits gathered at ``idx`` and renormalised, and
+    the Switch aux loss of those choices."""
+    import torch
+    import torch.nn.functional as F
+
+    logits = torch.einsum("gsd,de->gse", xg.float(),
+                          p["router"]["w"].float())
+    probs = torch.softmax(logits, dim=-1)
+    weights = probs.gather(-1, idx)
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    ce = F.one_hot(idx, n_experts).float().sum(2).mean(dim=(0, 1))
+    aux = n_experts * torch.sum(probs.mean(dim=(0, 1)) * ce)
+    return weights, idx, aux
+
+
 def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
                   per_step, revolve_slots=None, tiered_states=None,
                   n_layers=None, scan=False, stream=False,
-                  plans_2d=False, fused=None, fused_plain=False) -> None:
+                  plans_2d=False, fused=None, fused_plain=False,
+                  layer_gates=False) -> None:
     """The offloaded gradient of a decoder (``runner="compiled"``,
     autotuned) at full width, ``train_4k`` with the global batch cut to
     ``batch_size`` and, with ``n_layers``, the depth cut to that many
@@ -3038,7 +3263,11 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     gradient, the expert weights on the host, bit for bit the first
     offloaded call's; with ``plans_2d``, the 2D calls of
     :func:`decoder_2d` at the first call's schedule; with ``fused = (I,
-    slots)``, the ``runner="fused"`` gradients of :func:`decoder_fused`."""
+    slots)``, the ``runner="fused"`` gradients of :func:`decoder_fused`.
+    With ``layer_gates``, the offloaded (compiled, warm and streamed)
+    calls also count the body's layer kernels (:func:`layer_kernels`):
+    the forward ones each time a step runs, the backward ones once a
+    step's vjp."""
     import torch
     from torch.utils import _pytree as pytree
 
@@ -3076,6 +3305,8 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
         return _tree_value_and_grad(torch, model.train_loss, params, batch)
 
     routing = _RoutingRecorder(params, cfg) if cfg.moe else None
+    layer = layer_kernels(cfg) if layer_gates else {}
+    counted = {**kernels, **{k: v[0] for k, v in layer.items()}}
     with routing or contextlib.nullcontext():
         # the first call pays for the allocator's growth and library
         # set-up; the second is the reference and its time
@@ -3094,12 +3325,12 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
             "; its gradients moved to page-locked host memory")
 
         vg = api.value_and_grad_offloaded(model.train_loss, device="cuda")
-        zero_launches(kernels.values())
+        zero_launches(counted.values())
         if routing:
             routing.mode, routing.calls = "check", 0
         torch.cuda.reset_peak_memory_stats()
         (loss, grads), wall = timed(lambda: vg(params, batch))
-        launches = {k: fn.launches for k, fn in kernels.items()}
+        launches = {k: fn.launches for k, fn in counted.items()}
         l1_peak = torch.cuda.max_memory_allocated()
         if routing:
             routing.mode = None
@@ -3125,12 +3356,17 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     require(rel <= 1e-5, f"{key}: loss rel err {rel} > 1e-5")
     require(gerr <= 1e-3, f"{key}: gradient scaled err {gerr} > 1e-3")
     probe = tune.probe_calls * tune.probe_len   # chain steps the probe ran
-    for name, n in launches.items():
-        want = per_step[name] * (stats.advances + probe)
+    for name in kernels:
+        n, want = launches[name], per_step[name] * (stats.advances + probe)
         require(n == want and n > 0,
                 f"{key}: {name} launched {n} times, expected {want} "
                 f"({per_step[name]} per step x ({stats.advances} advances "
                 f"+ {probe} probe steps))")
+    n_steps = sum(seg.length for seg in plan.segments)
+    want = layer_launches(layer, stats.advances + probe, n_steps)
+    got = {k: launches[k] for k in want}
+    require(got == want and all(want.values()),
+            f"{key}: layer kernels launched {got}, the plan implies {want}")
     log(f"[{key}] tune I={tune.interval} s={tune.slots} "
         f"T_A={tune.t_a:.6e}s T_T={tune.t_t:.6e}s ({tune.source}); plan "
         f"{plan.plan_id} ({plan.num_segments} segments of n={plan.n})")
@@ -3143,18 +3379,20 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     # blocks were freed and the malloc retried) and its device mallocs
     warm_walls, alloc = [], []
     for _ in range(2):
-        zero_launches(kernels.values())
+        zero_launches(counted.values())
         m0 = torch.cuda.memory_stats()
         (loss, grads), w = timed(lambda: vg(params, batch))
         m1 = torch.cuda.memory_stats()
         warm_walls.append(w)
         alloc.append(tuple(m1.get(k, 0) - m0.get(k, 0) for k in
                            ("num_alloc_retries", "num_device_alloc")))
-        per_grad = {k: fn.launches for k, fn in kernels.items()}
-        for name, n in per_grad.items():
-            require(api.last_tune().probe_calls == 0
-                    and n == per_step[name] * api.last_stats().advances,
-                    f"{key}: {name} launched {n} times in a warm call")
+        per_grad = {k: fn.launches for k, fn in counted.items()}
+        advances = api.last_stats().advances
+        want = {name: per_step[name] * advances for name in kernels}
+        want.update(layer_launches(layer, advances, n_steps))
+        require(api.last_tune().probe_calls == 0 and per_grad == want,
+                f"{key}: launched {per_grad} in a warm call, expected "
+                f"{want}")
         del grads, loss
     warm = warm_walls[0]
     log(f"[{key}] offloaded, second call: wall {warm:.3f}s "
@@ -3186,7 +3424,8 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
     if fused is not None:
         decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
                       kernels, per_step, fused, layer=layer_kernels(cfg),
-                      plain_gate=fused_plain)
+                      plain_gate=fused_plain, routing=routing,
+                      release_ref=stream)
     if stream:
         # the reference's gradients are done with: the streamed check needs
         # the host memory they held
@@ -3196,7 +3435,7 @@ def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
         ref_grads = None
         _host_empty_cache()
         decoder_stream(state, key, model, params, batch, vg, plan, kernels,
-                       per_step)
+                       per_step, layer)
     if revolve_slots is not None:
         decoder_revolve(key, model, params, batch, ref_loss, ref_grads,
                         kernels, per_step, revolve_slots)
@@ -3314,14 +3553,19 @@ def layer_kernels(cfg) -> dict:
     ``kernels``).  The projections (``dense``): q, k, v and o an attention
     layer, gate, up and down an MLP or a shared expert, in and out a mamba
     layer, each with one backward call in the vjp; outside the chain, a
-    VLM's patch projection.  MoE layers' experts are not counted here;
-    kernels a body does not launch are left out."""
+    VLM's patch projection.  A MoE layer (``attn_moe``, ``mamba_moe``) runs
+    the routing kernel, the experts' three products (``expert_fwd``) and
+    their SwiGLU (``glu``) each time it runs, their backwards once in the
+    vjp, and with ``moe_impl="einsum"`` the slots, the dispatch and the
+    combine (the slots forward only); a shared expert is an MLP.  Kernels a
+    body does not launch are left out."""
     from repro_torch.kernels import causal_conv as cc
     from repro_torch.kernels import dense as dn
     from repro_torch.kernels import dt_softplus as ds
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gated_norm as gn
     from repro_torch.kernels import glu as glu_mod
+    from repro_torch.kernels import moe as mk
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import rope as rope_mod
     from repro_torch.kernels import ssd_scan as ssd
@@ -3333,15 +3577,18 @@ def layer_kernels(cfg) -> dict:
                                    "mamba_moe") else 1)
                 for k in cfg.layer_pattern)
     mamba = sum(k.startswith("mamba") for k in cfg.layer_pattern)
-    shared = sum(k.endswith("_moe") for k in cfg.layer_pattern) \
-        if cfg.moe is not None and cfg.moe.shared_expert else 0
+    moe = sum(k.endswith("_moe") for k in cfg.layer_pattern) \
+        if cfg.moe is not None else 0
+    shared = moe if moe and cfg.moe.shared_expert else 0
+    gather = moe if cfg.moe_impl == "einsum" else 0
     proj = 4 * attn + 3 * (mlp + shared) + 2 * mamba
+    glu = mlp + moe + shared
     patch = 1 if cfg.family == "vlm" else 0
     table = {"flash_attention_bwd": (fa.flash_attention_bwd, 0, attn, 0),
              "rmsnorm": (rn.rmsnorm, norms, 0, 1),
              "rmsnorm_bwd": (rn.rmsnorm_bwd, 0, norms, 1),
-             "glu": (glu_mod.glu, mlp, 0, 0),
-             "glu_bwd": (glu_mod.glu_bwd, 0, mlp, 0),
+             "glu": (glu_mod.glu, glu, 0, 0),
+             "glu_bwd": (glu_mod.glu_bwd, 0, glu, 0),
              "rope": (rope_mod.rope, attn, 0, 0),
              "rope_bwd": (rope_mod.rope_bwd, 0, attn, 0),
              "ssd_scan_bwd": (ssd.ssd_scan_bwd, 0, mamba, 0),
@@ -3352,7 +3599,16 @@ def layer_kernels(cfg) -> dict:
              "gated_norm": (gn.gated_norm, mamba, 0, 0),
              "gated_norm_bwd": (gn.gated_norm_bwd, 0, mamba, 0),
              "dense_fwd": (dn.dense_fwd, proj, 0, patch),
-             "dense_bwd": (dn.dense_bwd, 0, proj, patch)}
+             "dense_bwd": (dn.dense_bwd, 0, proj, patch),
+             "moe_route": (mk.moe_route, moe, 0, 0),
+             "moe_route_bwd": (mk.moe_route_bwd, 0, moe, 0),
+             "moe_slots": (mk.moe_slots, gather, 0, 0),
+             "moe_dispatch": (mk.moe_dispatch, gather, 0, 0),
+             "moe_dispatch_bwd": (mk.moe_dispatch_bwd, 0, gather, 0),
+             "moe_combine": (mk.moe_combine, gather, 0, 0),
+             "moe_combine_bwd": (mk.moe_combine_bwd, 0, gather, 0),
+             "expert_fwd": (dn.expert_fwd, 3 * moe, 0, 0),
+             "expert_bwd": (dn.expert_bwd, 0, 3 * moe, 0)}
     return {k: v for k, v in table.items() if any(v[1:])}
 
 
@@ -3383,11 +3639,14 @@ def zero_launches(fns, plain=False) -> None:
 
 class _PlainVersions:
     """Every model-level kernel wrapper (``build.on_card``: the flash
-    forward and backward, rmsnorm, glu, rope, the SSD scan and its
-    backward, the causal conv, the step sizes, the gated norm, the LSTM
-    cell) takes its plain PyTorch version on CUDA tensors too: the
-    reference the kernels are held against.  The generic segments' data movement (``entry_store``,
-    ``fold``) is unchanged: bit for bit its plain version anyway."""
+    forward and backward, rmsnorm, glu, rope, the projections' GEMM, the
+    SSD scan and its backward, the causal conv, the step sizes, the gated
+    norm, the LSTM cell, and the MoE layer: its routing, and in
+    ``moe_einsum`` the one-hot einsums in place of the slots, dispatch,
+    experts' products and combine) takes its plain PyTorch version on CUDA
+    tensors too: the reference the kernels are held against.  The generic
+    segments' data movement (``entry_store``, ``fold``) is unchanged: bit
+    for bit its plain version anyway."""
 
     def __enter__(self):
         from repro_torch.kernels import build
@@ -3411,7 +3670,11 @@ def fused_against_plain(key, cfg, call, fused, interval, slots,
     gradient's (phase ``families``' bf16 gate: two bf16 gradients 26
     layers deep differ by more than 3e-2 between themselves).  The plain
     call runs twice (the second's wall is the warm one); walls and device
-    peaks are logged."""
+    peaks are logged.  A MoE model's plain and fp32 calls are routed by the
+    kernels' choices (``call`` forces them): a routing choice is discrete,
+    and the bf16 and fp32 paths round the router's input differently, so
+    unforced the gate would compare routings, not arithmetic; the choices
+    the plain call would have made otherwise are counted and logged."""
     import torch
 
     from repro_torch.models import transformer as tfm
@@ -3431,6 +3694,18 @@ def fused_against_plain(key, cfg, call, fused, interval, slots,
                 f"{key}: the plain versions' call launched {model_launches}")
         plain_grads = _to_host(torch, plain.pop("grads"))
         torch.cuda.empty_cache()
+        if plain["routing"] is not None:
+            calls, compared, flips = plain["routing"]
+            log(f"[{key}] routing of the plain versions' call: its own "
+                f"choices differ from the kernels' (the reference "
+                f"forward's) in {flips} of {compared} top-{cfg.moe.top_k} "
+                f"choices ({calls} MoE layer applications): its router "
+                "sums the logits in cuBLAS's order, and from the second "
+                "layer on its input was rounded elsewhere in bf16 (the "
+                "attention's, norms' and projections' plain versions); it "
+                "and the fp32 referee are routed by the kernels' choices "
+                "(_RoutingRecorder's force mode), so the gate compares "
+                "their arithmetic")
         # the chain fixes its compute dtype when it is built: an fp32 model
         dts = tfm._dtypes
         tfm._dtypes = lambda c: DTypes(compute=torch.float32)
@@ -3484,7 +3759,7 @@ def fused_against_plain(key, cfg, call, fused, interval, slots,
 
 def decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
                   kernels, per_step, pinned, layer=None,
-                  plain_gate=False) -> None:
+                  plain_gate=False, routing=None, release_ref=False) -> None:
     """``runner="fused"`` on a decoder (a generic chain body: its steps as
     PyTorch code, the chunk-entry stores and the cotangent fold by the
     ``entry_store`` and ``fold`` kernels), under the phase's gates against
@@ -3498,7 +3773,15 @@ def decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
     kernel ``per_step`` a chain step run (``generic_plan_work``); and
     ``fused_segments``, ``fused_boundary_copies`` as the reference counts
     them.  Then one fused advance of the pinned schedule's first segment
-    timed against the compiled advance of it."""
+    timed against the compiled advance of it.  With ``routing`` (a MoE
+    model's :class:`_RoutingRecorder`, holding the reference forward's
+    choices), every call's routing (forward, probe, recompute) must equal
+    the reference's; the plain versions' calls (and the fp32 referee's)
+    are routed by the reference's choices, the choices they would have
+    made otherwise counted and logged (:func:`fused_against_plain`).
+    With ``release_ref``, the caller's reference gradients (a list on the
+    host) are emptied once the pinned call is gated: the plain versions'
+    check holds two more gradients on the host."""
     import torch
     from torch.utils import _pytree as pytree
 
@@ -3513,6 +3796,9 @@ def decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
         vg = api.value_and_grad_offloaded(loss_fn or model.train_loss,
                                           runner=runner, device="cuda", **kw)
         zero_launches(counted.values(), plain)
+        if routing is not None:   # the plain calls take the kernels' routing
+            routing.mode = "force" if plain else "check"
+            routing.calls = routing.compared = routing.flips = 0
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -3520,12 +3806,19 @@ def decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
         loss, grads = vg(params, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        route = None
+        if routing is not None:
+            route = (routing.calls, routing.compared, routing.flips)
+            routing.mode = None
+            require(plain or (route[2] == 0 and route[0] > 0),
+                f"{key} {runner} {kw}: {route[2]} of {route[1]} routing "
+                "choices differ from the reference forward's")
         return {"loss": loss, "grads": pytree.tree_leaves(grads),
                 "wall": wall,
                 "peak": torch.cuda.max_memory_allocated() - held,
                 "launches": {k: fn.launches for k, fn in counted.items()},
                 "stats": api.last_stats(), "plan": api.last_plan(),
-                "tune": api.last_tune()}
+                "tune": api.last_tune(), "routing": route}
 
     def gates(label, run, slots):
         loss, grads = run["loss"], run["grads"]
@@ -3562,70 +3855,74 @@ def decoder_fused(state, key, model, params, batch, ref_loss, ref_grads,
             f"; device peak above held {run['peak']:,} B; launches "
             f"{run['launches']}; T_A={tune.t_a:.6e}s T_T={tune.t_t:.6e}s")
 
-    auto = call("fused")
-    gates("fused autotuned", auto, auto["tune"].slots)
-    _add_launches(state, f"{key}-fused", auto["launches"])
-    summary = {"auto": {k: auto[k] for k in ("wall", "peak", "launches")},
-               "auto_tune": (auto["tune"].interval, auto["tune"].t_a,
-                             auto["tune"].t_t)}
-    del auto
-    # a second call: the schedule cached, no probe (the phase's second
-    # compiled call is its yardstick)
-    warm = call("fused")
-    gates("fused autotuned, second call", warm, warm["tune"].slots)
-    summary["warm_wall"] = warm["wall"]
-    del warm
-    torch.cuda.empty_cache()
-    interval, slots = pinned
-    fused = call("fused", interval=interval, slots=slots)
-    gates(f"fused I={interval} s={slots}", fused, slots)
-    _add_launches(state, f"{key}-fused-pinned", fused["launches"])
-    if plain_gate:
-        paths = [pytree.keystr(k) for k, _ in
-                 pytree.tree_flatten_with_path(params)[0]]
-        summary["plain"] = fused_against_plain(key, model.cfg, call, fused,
-                                               interval, slots, paths)
-    fused.pop("grads")
-    torch.cuda.empty_cache()
-    comp = call("compiled", interval=interval, slots=slots)
-    comp.pop("grads")
-    carry = _carry_bytes(model, params, batch)
-    require(torch.equal(fused["loss"], comp["loss"]),
-            f"{key}: the fused loss {float(fused['loss'])!r} is not bit for "
-            f"bit the compiled one's {float(comp['loss'])!r}")
-    require(fused["plan"].plan_id == comp["plan"].plan_id,
-            f"{key}: plans differ ({fused['plan'].plan_id}, "
-            f"{comp['plan'].plan_id})")
-    require(fused["peak"] <= comp["peak"] + 2 * carry,
-            f"{key}: the fused peak {fused['peak']:,} B is more than two "
-            f"carries ({carry:,} B each) above the compiled "
-            f"{comp['peak']:,} B")
-    comp_want = {k: per_step[k] * comp["stats"].advances for k in kernels}
-    comp_want.update(layer_launches(
-        layer, comp["stats"].advances,
-        sum(seg.length for seg in comp["plan"].segments)))
-    comp_got = {k: comp["launches"][k] for k in comp_want}
-    require(comp_got == comp_want,
-            f"{key}: compiled launches {comp_got}, expected {comp_want}")
-    fused_got = {k: fused["launches"][k] for k in comp_want}
-    log(f"[{key}] compiled I={interval} s={slots}: loss bit for bit the "
-        f"fused one's, same plan; wall {comp['wall']:.3f}s (fused "
-        f"{fused['wall']:.3f}s); device peak above held {comp['peak']:,} B "
-        f"(fused {fused['peak']:,} B, carry {carry:,} B); model-kernel "
-        f"launches {comp_got} (fused {fused_got}: phase A leaves out each "
-        "segment's last chunk, the checkpointed vjp runs it twice)")
-    summary.update(pinned=(interval, slots), carry=carry,
-                   fused={k: fused[k] for k in ("wall", "peak", "launches")},
-                   compiled={k: comp[k] for k in ("wall", "peak")})
-    del fused, comp
-    torch.cuda.empty_cache()
-    summary["advance_ms"] = time_generic_advance(torch, model, params,
-                                                 batch, interval, slots)
-    log(f"[{key}] one advance of the first {interval} chain steps (chunk "
-        f"layout at s={slots}), device ms (CUDA events): fused "
-        f"{summary['advance_ms']['fused']:.3f}, compiled "
-        f"{summary['advance_ms']['compiled']:.3f}")
-    state[f"{key}-fused"] = summary
+    with routing or contextlib.nullcontext():
+        auto = call("fused")
+        gates("fused autotuned", auto, auto["tune"].slots)
+        _add_launches(state, f"{key}-fused", auto["launches"])
+        summary = {"auto": {k: auto[k] for k in ("wall", "peak", "launches")},
+                   "auto_tune": (auto["tune"].interval, auto["tune"].t_a,
+                                 auto["tune"].t_t)}
+        del auto
+        # a second call: the schedule cached, no probe (the phase's second
+        # compiled call is its yardstick)
+        warm = call("fused")
+        gates("fused autotuned, second call", warm, warm["tune"].slots)
+        summary["warm_wall"] = warm["wall"]
+        del warm
+        torch.cuda.empty_cache()
+        interval, slots = pinned
+        fused = call("fused", interval=interval, slots=slots)
+        gates(f"fused I={interval} s={slots}", fused, slots)
+        _add_launches(state, f"{key}-fused-pinned", fused["launches"])
+        if release_ref:
+            ref_grads.clear()
+            _host_empty_cache()
+        if plain_gate:
+            paths = [pytree.keystr(k) for k, _ in
+                     pytree.tree_flatten_with_path(params)[0]]
+            summary["plain"] = fused_against_plain(key, model.cfg, call, fused,
+                                                   interval, slots, paths)
+        fused.pop("grads")
+        torch.cuda.empty_cache()
+        comp = call("compiled", interval=interval, slots=slots)
+        comp.pop("grads")
+        carry = _carry_bytes(model, params, batch)
+        require(torch.equal(fused["loss"], comp["loss"]),
+                f"{key}: the fused loss {float(fused['loss'])!r} is not bit for "
+                f"bit the compiled one's {float(comp['loss'])!r}")
+        require(fused["plan"].plan_id == comp["plan"].plan_id,
+                f"{key}: plans differ ({fused['plan'].plan_id}, "
+                f"{comp['plan'].plan_id})")
+        require(fused["peak"] <= comp["peak"] + 2 * carry,
+                f"{key}: the fused peak {fused['peak']:,} B is more than two "
+                f"carries ({carry:,} B each) above the compiled "
+                f"{comp['peak']:,} B")
+        comp_want = {k: per_step[k] * comp["stats"].advances for k in kernels}
+        comp_want.update(layer_launches(
+            layer, comp["stats"].advances,
+            sum(seg.length for seg in comp["plan"].segments)))
+        comp_got = {k: comp["launches"][k] for k in comp_want}
+        require(comp_got == comp_want,
+                f"{key}: compiled launches {comp_got}, expected {comp_want}")
+        fused_got = {k: fused["launches"][k] for k in comp_want}
+        log(f"[{key}] compiled I={interval} s={slots}: loss bit for bit the "
+            f"fused one's, same plan; wall {comp['wall']:.3f}s (fused "
+            f"{fused['wall']:.3f}s); device peak above held {comp['peak']:,} B "
+            f"(fused {fused['peak']:,} B, carry {carry:,} B); model-kernel "
+            f"launches {comp_got} (fused {fused_got}: phase A leaves out each "
+            "segment's last chunk, the checkpointed vjp runs it twice)")
+        summary.update(pinned=(interval, slots), carry=carry,
+                       fused={k: fused[k] for k in ("wall", "peak", "launches")},
+                       compiled={k: comp[k] for k in ("wall", "peak")})
+        del fused, comp
+        torch.cuda.empty_cache()
+        summary["advance_ms"] = time_generic_advance(torch, model, params,
+                                                     batch, interval, slots)
+        log(f"[{key}] one advance of the first {interval} chain steps (chunk "
+            f"layout at s={slots}), device ms (CUDA events): fused "
+            f"{summary['advance_ms']['fused']:.3f}, compiled "
+            f"{summary['advance_ms']['compiled']:.3f}")
+        state[f"{key}-fused"] = summary
 
 
 def time_generic_advance(torch, model, params, batch, interval, slots):
@@ -3700,12 +3997,13 @@ def host_memory_line() -> str:
 
 
 def decoder_stream(state, key, model, params, batch, vg, plan, kernels,
-                   per_step) -> None:
+                   per_step, layer=None) -> None:
     """One ``offload_params="moe_experts"`` gradient at the schedule of the
     unstreamed transform ``vg`` (cached), the expert weights on the host:
     its loss and every gradient leaf ``torch.equal`` to one more unstreamed
     call's (kept on the host meanwhile), one parameter batch a segment and
-    phase, each blob read once a phase."""
+    phase, each blob read once a phase; ``kernels`` launched ``per_step`` a
+    step advanced, the ``layer`` kernels as :func:`layer_launches` says."""
     import torch
     from torch.utils import _pytree as pytree
 
@@ -3723,7 +4021,9 @@ def decoder_stream(state, key, model, params, batch, vg, plan, kernels,
     s_vg = api.value_and_grad_offloaded(
         model.train_loss, interval=tune.interval, slots=tune.slots,
         offload_params="moe_experts", device="cuda")
-    zero_launches(kernels.values())
+    layer = layer or {}
+    counted = {**kernels, **{k: v[0] for k, v in layer.items()}}
+    zero_launches(counted.values())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3731,7 +4031,7 @@ def decoder_stream(state, key, model, params, batch, vg, plan, kernels,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = {k: fn.launches for k, fn in counted.items()}
     stats, s_plan = api.last_stats(), api.last_plan()
     require(s_plan.plan_id == plan.plan_id,
             f"{key} streamed: plan {s_plan.plan_id}, unstreamed "
@@ -3749,11 +4049,11 @@ def decoder_stream(state, key, model, params, batch, vg, plan, kernels,
             f"{key} streamed: {stats.param_prefetches} parameter batches "
             f"({want_batches} planned), {stats.param_bytes_moved} B moved "
             f"({2 * expert_bytes} planned: every blob once a phase)")
-    for name, got in launches.items():
-        want = per_step[name] * stats.advances
-        require(got == want and got > 0,
-                f"{key} streamed: {name} launched {got} times, expected "
-                f"{want}")
+    want = {name: per_step[name] * stats.advances for name in kernels}
+    want.update(layer_launches(layer, stats.advances,
+                               sum(seg.length for seg in s_plan.segments)))
+    require(launches == want and all(want.values()),
+            f"{key} streamed: launched {launches}, expected {want}")
     log(f"[{key}] streamed (offload_params='moe_experts', I="
         f"{tune.interval}, the experts' {expert_bytes:,} B on the host): "
         f"loss and every gradient leaf bit for bit the unstreamed call's; "
@@ -4088,10 +4388,12 @@ def decoder_tiered(state, key, model, params, batch, ref_loss, ref_grads,
         f"{_host_allocator_stats(torch)}")
 
 
-# the pinned runner="fused" schedules of phases dense and ssm, (I, slots):
-# gemma2-2b's 13 chain steps in one segment, forward chunks 4, 4, 5 and
-# reverse chunks 4, 4, 4, 1; mamba2-370m's 48 in segments 14, 14, 14, 6
-FUSED_PINNED = {"dense": (13, 4), "ssm": (14, 4)}
+# the pinned runner="fused" schedules of phases dense, ssm and moe, (I,
+# slots): gemma2-2b's 13 chain steps in one segment, forward chunks 4, 4, 5
+# and reverse chunks 4, 4, 4, 1; mamba2-370m's 48 in segments 14, 14, 14,
+# 6; phi3.5-moe's 4 in two segments of one chunk of 2, each recomputed in
+# its reverse
+FUSED_PINNED = {"dense": (13, 4), "ssm": (14, 4), "moe": (2, 2)}
 
 
 def tied_table_check(torch) -> None:
@@ -4283,7 +4585,10 @@ def moe_deep(state) -> None:
     vg = api.value_and_grad_offloaded(model.train_loss,
                                       offload_params="moe_experts",
                                       device="cuda")
-    zero_launches([fa.flash_attention])
+    layer = layer_kernels(cfg)
+    counted = {"flash_attention": fa.flash_attention,
+               **{k: v[0] for k, v in layer.items()}}
+    zero_launches(counted.values())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4291,7 +4596,7 @@ def moe_deep(state) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = fa.flash_attention.launches
+    launches = {k: fn.launches for k, fn in counted.items()}
     tune, stats, plan = api.last_tune(), api.last_stats(), api.last_plan()
     leaves = pytree.tree_leaves(grads)
     require(math.isfinite(float(loss))
@@ -4303,9 +4608,11 @@ def moe_deep(state) -> None:
             f"{stats.param_bytes_moved} B moved; the plan implies "
             f"{2 * plan.num_segments} and {2 * expert_bytes}")
     probe = tune.probe_calls * tune.probe_len
-    require(launches == stats.advances + probe and launches > 0,
-            f"moe deep: flash_attention launched {launches} times, "
-            f"expected {stats.advances + probe}")
+    want = {"flash_attention": stats.advances + probe}
+    want.update(layer_launches(layer, stats.advances + probe,
+                               sum(seg.length for seg in plan.segments)))
+    require(launches == want and all(want.values()),
+            f"moe deep: launched {launches}, the plan implies {want}")
     on_card = sum(1 for i in _expert_leaf_ids(params) if leaves[i].is_cuda)
     del grads, leaves
     # the reference: one layer's weights on the card at a time
@@ -4334,8 +4641,8 @@ def moe_deep(state) -> None:
         f"{stats.param_bytes_moved} param_fetch_stalls="
         f"{stats.param_fetch_stalls} (waits {stats.param_stall_s:.3f}s); "
         f"blobs written to Level 2 in {stats.param_populate_s:.3f}s; "
-        f"flash_attention launches {launches}")
-    _add_launches(state, "moe-deep", {"flash_attention": launches})
+        f"launches {launches}")
+    _add_launches(state, "moe-deep", launches)
     state["moe-deep"] = {"layers": depth, "wall_s": wall, "peak": peak,
                          "oom": oom, "loss_rel": rel}
     del params, vg, loss
@@ -4347,10 +4654,14 @@ def moe_deep(state) -> None:
 def phase_moe(state) -> None:
     from repro_torch.kernels import flash_attention as fa
 
-    # one attn_moe layer a period: one flash launch a chain step
+    # one attn_moe layer a period: one flash launch a chain step; the MoE
+    # layer's kernels (routing, slots, dispatch, experts, combine) and the
+    # rest of the body's counted in every call
     decoder_phase(state, "moe", "phi3.5-moe-42b", 2,
                   {"flash_attention": fa.flash_attention},
-                  {"flash_attention": 1}, n_layers=MOE_LAYERS, stream=True)
+                  {"flash_attention": 1}, n_layers=MOE_LAYERS, stream=True,
+                  fused=FUSED_PINNED["moe"], fused_plain=True,
+                  layer_gates=True)
     moe_deep(state)
 
 
@@ -5162,6 +5473,129 @@ def _time_dense(torch, state):
     return rows
 
 
+def _time_moe(torch, state):
+    """The MoE layer's kernels at phi3.5-moe's layer (``MOE_LAYER`` at the
+    config's capacity, C = 640: the moe phase's shape), each beside its
+    plain version and its bound (bytes at 3.35 TB/s: every input read once,
+    only the kept rows of a gather, every output written once; the
+    experts' products: operations at the bf16 peak), and the one-call
+    library yardstick where there is one: ``index_select`` for the
+    dispatch, ``index_add_`` for its vjp, ``torch.bmm`` on bf16 weights
+    made beforehand plus the cast for the experts' products (both shapes
+    logged; the rows at gate/up's).  Returns the kernels line's rows."""
+    import numpy as np
+
+    from repro_torch.kernels import dense as dn
+    from repro_torch.kernels import moe as mk
+    from repro_torch.models.moe import _capacity
+
+    G, S, d, E, k, f = MOE_LAYER
+    N = G * S
+    C = _capacity(S, E, k, MOE_CFS[0])
+    src = "src/repro_torch/kernels/csrc/"
+    # the TPU kernels whose traced body computed them (src/repro/models/
+    # moe.py:81-161): the forward in the advance's chunk scans, the
+    # backward in the reverse's chunk vjp
+    rep_ = "src/repro/kernels/segment_pallas.py:"
+    rng = np.random.default_rng(76)
+    bf16 = torch.bfloat16
+    x, w, (weights, idx, probs) = _moe_inputs(torch, rng)
+    choice_slot, slot_src, _ = mk.moe_slots(idx, E, C)
+    kept = int((slot_src >= 0).sum())
+    rows_bytes = 2.0 * kept * d          # the kept rows a gather reads
+    nk, egc = N * k, E * G * C
+    dweights = _randn(torch, rng, (G, S, k), torch.float32)
+    dprobs = _randn(torch, rng, (G, S, E), torch.float32, 0.1)
+    out = []
+
+    def row(name, cu, k_fn, p_fn, nbytes, flops=0.0, l_fn=None, what=""):
+        line = "456" if name.endswith("_bwd") else "248"
+        out.append(timing_row(name, src + cu, rep_ + line, k_fn, p_fn,
+                              nbytes, flops, l_fn, what, iters=(20, 3)))
+
+    row("moe_route", "moe.cu", lambda: mk.moe_route(x, w, k),
+        lambda: mk.route_plain(x, w, k),
+        2.0 * N * d + 4.0 * d * E + 4.0 * N * E + 12.0 * nk,
+        what=f" at ({G}, {S}, {d}) bf16, E={E}, top-{k}")
+    row("moe_route_bwd", "moe.cu",
+        lambda: mk.moe_route_bwd(dweights, dprobs, x, w, probs, idx),
+        lambda: mk.route_bwd_plain(dweights, dprobs, x, w, k),
+        4.0 * N * d + 8.0 * d * E + 8.0 * N * E + 16.0 * nk)
+    row("moe_slots", "moe.cu", lambda: mk.moe_slots(idx, E, C),
+        lambda: mk.slots_plain(idx, E, C),
+        8.0 * nk + 4.0 * nk + 4.0 * egc + 4.0 * G * E,
+        what=f" (C={C}, {kept} of {nk} choices kept)")
+    xp = torch.cat([x.reshape(N, d), x.new_zeros((1, d))])
+    tok = torch.where(slot_src >= 0, slot_src // k, N).long().reshape(-1)
+    row("moe_dispatch", "moe.cu",
+        lambda: mk.moe_dispatch(x, slot_src, k),
+        lambda: mk.dispatch_plain(x, slot_src, k),
+        4.0 * egc + rows_bytes + 2.0 * egc * d,
+        l_fn=lambda: xp.index_select(0, tok),
+        what=" (library: index_select of x with a zero row appended)")
+    dexp = _randn(torch, rng, (E, G * C, d), bf16)
+    acc = x.new_zeros((N + 1, d))
+    dexp_flat = dexp.reshape(-1, d)
+    row("moe_dispatch_bwd", "moe.cu",
+        lambda: mk.moe_dispatch_bwd(dexp, choice_slot),
+        lambda: mk.dispatch_bwd_plain(dexp, choice_slot),
+        4.0 * nk + rows_bytes + 2.0 * N * d,
+        l_fn=lambda: acc.index_add_(0, tok, dexp_flat),
+        what=" (library: index_add_ of the bucket rows into the tokens')")
+    row("moe_combine", "moe.cu",
+        lambda: mk.moe_combine(dexp, weights, choice_slot, bf16),
+        lambda: mk.combine_plain(dexp, weights, choice_slot, bf16),
+        8.0 * nk + rows_bytes + 2.0 * N * d)
+    dy = _randn(torch, rng, (G, S, d), bf16)
+    row("moe_combine_bwd", "moe.cu",
+        lambda: mk.moe_combine_bwd(dy, dexp, weights, choice_slot, slot_src),
+        lambda: mk.combine_bwd_plain(dy, dexp, weights, choice_slot,
+                                     slot_src),
+        2.0 * N * d + 8.0 * nk + 4.0 * egc + rows_bytes + 2.0 * egc * d
+        + 4.0 * nk)
+    del xp, tok, dexp, acc, dexp_flat, dy
+    torch.cuda.empty_cache()
+    M = G * C
+    for label, K, Nn in (("gate/up", d, f), ("down", f, d)):
+        xe = _randn(torch, rng, (E, M, K), bf16)
+        we = _randn(torch, rng, (E, K, Nn), torch.float32, K ** -0.5)
+        dye = _randn(torch, rng, (E, M, Nn), bf16)
+        wb = we.to(bf16)
+        flops = 2.0 * E * M * K * Nn
+        nbytes = 2.0 * E * M * K + 4.0 * E * K * Nn + 2.0 * E * M * Nn
+        ms = {"cast": cuda_ms(lambda: we.to(bf16), 10),
+              "bmm": cuda_ms(lambda: torch.bmm(xe, wb), 10),
+              "bmm_dx": cuda_ms(lambda: torch.bmm(dye, wb.transpose(1, 2)),
+                                10),
+              "bmm_dw": cuda_ms(lambda: torch.bmm(xe.transpose(1, 2), dye),
+                                10)}
+        fwd = timing_row(
+            "expert_fwd", src + "dense.cu", rep_ + "248",
+            lambda: dn.expert_fwd(xe, we), lambda: dn.expert_fwd_plain(xe, we),
+            nbytes, flops, lambda: torch.bmm(xe, wb), iters=(10, 3),
+            what=f" {label} (E={E}, M={M}, K={K}, N={Nn})")
+        bwd = timing_row(
+            "expert_bwd", src + "dense.cu", rep_ + "456",
+            lambda: dn.expert_bwd(dye, xe, we),
+            lambda: dn.expert_bwd_plain(dye, xe, we),
+            2.0 * nbytes, 2.0 * flops,
+            lambda: (torch.bmm(dye, wb.transpose(1, 2)),
+                     torch.bmm(xe.transpose(1, 2), dye)),
+            iters=(10, 3), what=f" {label}")
+        log(f"[timing] experts {label}: forward {fwd[3]:.4f} ms "
+            f"({flops / fwd[3] / 1e9:.1f} TFLOP/s), backward {bwd[3]:.4f} ms "
+            f"({2 * flops / bwd[3] / 1e9:.1f}); cuBLAS bmm {ms['bmm']:.4f}, "
+            f"dx {ms['bmm_dx']:.4f}, dw {ms['bmm_dw']:.4f}, the cast "
+            f"{ms['cast']:.4f} ms; bound {fwd[5]:.4f} ms a product")
+        if label == "gate/up":   # the rows: bmm with the bf16 weight and
+            # the cast that makes it
+            out.append(fwd[:7] + (fwd[7] + ms["cast"], fwd[8]))
+            out.append(bwd[:7] + (bwd[7] + ms["cast"], bwd[8]))
+        del xe, we, dye, wb
+        torch.cuda.empty_cache()
+    return out
+
+
 def ssd_bwd_flops(B, T, H, G, P, N, L) -> float:
     """The SSD backward's multiply-adds x 2, per chunk: the chunk's state
     and its cotangent's input (two P x N x L products), dx's two products
@@ -5373,6 +5807,7 @@ def phase_timing(state) -> None:
     rows += _time_layer_kernels(torch, state)
     rows += _time_mamba_kernels(torch)
     rows += _time_dense(torch, state)
+    rows += _time_moe(torch, state)
 
     out = []
     for name, src, rep, k_ms, p_ms, b_ms, by, l_ms, flops in rows:
@@ -5692,7 +6127,10 @@ def advance_call_times(state, T: int) -> None:
 
 
 # the decoders phase profile times: arch -> (its phase, its batch)
-PROFILE_ARCHS = {"gemma2-2b": ("dense", 2), "mamba2-370m": ("ssm", 4)}
+# arch -> (phase, batch, depth cut or None)
+PROFILE_ARCHS = {"gemma2-2b": ("dense", 2, None),
+                 "mamba2-370m": ("ssm", 4, None),
+                 "phi3.5-moe-42b": ("moe", 2, MOE_LAYERS)}
 
 
 def profile_fused(state) -> None:
@@ -5710,7 +6148,7 @@ def profile_fused(state) -> None:
     trees = [("parent", state["parent"])] if state.get("parent") else []
     trees.append(("tree", ROOT))
     for arch in state["profile_archs"]:
-        key, batch = PROFILE_ARCHS[arch]
+        key, batch, layers = PROFILE_ARCHS[arch]
         interval, slots = FUSED_PINNED[key]
         for label, root in trees:
             out = os.path.join(state["out_dir"],
@@ -5721,6 +6159,7 @@ def profile_fused(state) -> None:
                  "--arch", arch, "--batch", str(batch), "--interval",
                  str(interval), "--slots", str(slots), "--src",
                  os.path.join(root, "src"), "--out", out, "--label", label]
+                + (["--layers", str(layers)] if layers else [])
                 + (["--readout-only"] if label == "tree" else []),
                 capture_output=True, text=True, timeout=900)
             require(res.returncode == 0, f"profile of {arch} ({label}) "

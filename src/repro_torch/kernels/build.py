@@ -39,6 +39,7 @@ SOURCES = {
     "causal_conv": "causal_conv.cu",
     "dt_softplus": "dt_softplus.cu",
     "dense": "dense.cu",
+    "moe": "moe.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

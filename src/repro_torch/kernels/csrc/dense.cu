@@ -6,8 +6,13 @@
 // (the body is traced into the pallas_call: the chunk scans at :186, :323 and
 // the chunk vjp at :395-409): src/repro/models/layers.py::dense
 // (y = x @ dt.c(p["w"])) and its vjp, as the attention projections, the
-// gated MLP and the mamba in/out projections call it.  The port's plain
-// version is repro_torch/kernels/dense.py::dense_fwd_plain / dense_bwd_plain.
+// gated MLP and the mamba in/out projections call it; and, batched over
+// the experts (blockIdx.z an expert, a batch stride for each operand),
+// src/repro/models/moe.py::_expert_ffn's three einsums (:105-111) and their
+// vjps, each expert's rows one matrix of the expert-major buckets
+// (csrc/moe.cu), each expert's dw the sum over its own rows.  The port's
+// plain versions are repro_torch/kernels/dense.py::dense_fwd_plain /
+// dense_bwd_plain and expert_fwd_plain / expert_bwd_plain.
 //
 // Every call is one product C[P, Q] = sum_r A[p, r] B[r, q] over the
 // operands as they lie in memory (nothing is transposed or copied first):
@@ -49,7 +54,9 @@
 // threads, 8 x 8 outputs a thread, each a sequential sum over r; an fp32 w
 // is used as it is, a bf16 one widened.
 //
-// Bound: operations.  At gemma2-2b's gate/up projection (M = 8192 tokens,
+// Bound: operations.  At phi3.5-moe's expert gate/up product (16 experts
+// of 1,280 rows, K = 4096, N = 6400) a call does 1.074 TFLOP: 1.086 ms at
+// 989 TFLOP/s.  At gemma2-2b's gate/up projection (M = 8192 tokens,
 // K = 2304, N = 9216) a call does 348 GFLOP against 0.23 GB: 0.35 ms at
 // 989 TFLOP/s against 0.07 ms for the bytes at 3.35 TB/s; every call of the
 // two decoders' bodies is above the card's ~295 FLOP a byte.  This is the
@@ -194,10 +201,15 @@ struct TcLayout {
 // B's columns.
 template <int AL, int BL, typename TB, typename TC>
 __global__ void __launch_bounds__(NT)
-dense_tc_kernel(const bf16* __restrict__ a, long lda,
-                const TB* __restrict__ b, long ldb, TC* __restrict__ c,
-                long ldc, int P, int Q, int R, int vec_a, int vec_b) {
+dense_tc_kernel(const bf16* __restrict__ a, long lda, long sa,
+                const TB* __restrict__ b, long ldb, long sb,
+                TC* __restrict__ c, long ldc, long sc, int P, int Q, int R,
+                int vec_a, int vec_b) {
   using L = TcLayout<AL, BL, TB>;
+  // the batch's product (the experts' products: one a blockIdx.z)
+  a += blockIdx.z * sa;
+  b += blockIdx.z * sb;
+  c += blockIdx.z * sc;
   using TA = typename L::A;
   using TBt = typename L::B;
   extern __shared__ float smem[];
@@ -349,9 +361,12 @@ __device__ __forceinline__ float widen<bf16>(bf16 v) {
 
 template <typename TB, typename TC>
 __global__ void __launch_bounds__(FNT)
-dense_f32_kernel(const float* __restrict__ a, long sap, long sar,
-                 const TB* __restrict__ b, long sbr, long sbq,
-                 TC* __restrict__ c, long ldc, int P, int Q, int R) {
+dense_f32_kernel(const float* __restrict__ a, long sap, long sar, long sa,
+                 const TB* __restrict__ b, long sbr, long sbq, long sb,
+                 TC* __restrict__ c, long ldc, long sc, int P, int Q, int R) {
+  a += blockIdx.z * sa;
+  b += blockIdx.z * sb;
+  c += blockIdx.z * sc;
   __shared__ float as[FR][FT + 1];
   __shared__ float bs[FR][FT + 1];
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
@@ -402,96 +417,119 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// Batch: `batch` products, the i-th at a + i sa, b + i sb, c + i sc
+// (strides in elements).
+struct Batch {
+  int n;
+  long sa, sb, sc;
+};
+
 template <int AL, int BL, typename TB, typename TC>
 int launch_tc(const void* a, long lda, const void* b, long ldb, void* c,
-              long ldc, int P, int Q, int R, void* stream) {
+              long ldc, int P, int Q, int R, Batch bt, void* stream) {
   using L = TcLayout<AL, BL, TB>;
-  const int vec_a = aligned16(a) && lda % 8 == 0;
-  const int vec_b = aligned16(b) && ldb % (16 / sizeof(TB)) == 0;
+  const int vec_a = aligned16(a) && lda % 8 == 0 && bt.sa % 8 == 0;
+  const long vb = 16 / sizeof(TB);
+  const int vec_b = aligned16(b) && ldb % vb == 0 && bt.sb % vb == 0;
   auto kern = dense_tc_kernel<AL, BL, TB, TC>;
   cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(kern),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((P + TP - 1) / TP, (Q + TQ - 1) / TQ);
+  const dim3 grid((P + TP - 1) / TP, (Q + TQ - 1) / TQ, bt.n);
   kern<<<grid, NT, L::smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), lda, static_cast<const TB*>(b), ldb,
-      static_cast<TC*>(c), ldc, P, Q, R, vec_a, vec_b);
+      static_cast<const bf16*>(a), lda, bt.sa, static_cast<const TB*>(b),
+      ldb, bt.sb, static_cast<TC*>(c), ldc, bt.sc, P, Q, R, vec_a, vec_b);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TB, typename TC>
 int launch_f32(const void* a, long sap, long sar, const void* b, long sbr,
-               long sbq, void* c, long ldc, int P, int Q, int R,
+               long sbq, void* c, long ldc, int P, int Q, int R, Batch bt,
                void* stream) {
   auto kern = dense_f32_kernel<TB, TC>;
-  const dim3 grid((P + FT - 1) / FT, (Q + FT - 1) / FT);
+  const dim3 grid((P + FT - 1) / FT, (Q + FT - 1) / FT, bt.n);
   kern<<<grid, FNT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), sap, sar, static_cast<const TB*>(b), sbr,
-      sbq, static_cast<TC*>(c), ldc, P, Q, R);
+      static_cast<const float*>(a), sap, sar, bt.sa,
+      static_cast<const TB*>(b), sbr, sbq, bt.sb, static_cast<TC*>(c), ldc,
+      bt.sc, P, Q, R);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the most output columns a launch takes (gridDim.y of 64-column tiles)
 constexpr long MAX_Q = 65535L * FT;
 
-bool empty_or_too_big(int P, int Q, int* err) {
+constexpr int MAX_BATCH = 65535;   // gridDim.z
+
+bool empty_or_too_big(int P, int Q, int batch, int* err) {
   *err = 0;
-  if (Q > MAX_Q) *err = static_cast<int>(cudaErrorInvalidValue);
-  return P <= 0 || Q <= 0 || *err != 0;
+  if (Q > MAX_Q || batch > MAX_BATCH)
+    *err = static_cast<int>(cudaErrorInvalidValue);
+  return P <= 0 || Q <= 0 || batch <= 0 || *err != 0;
 }
 
 }  // namespace
 
 // x (M, K) with row stride ldx, bf16 (x_bf16) or fp32; w (K, N) contiguous,
 // bf16 (w_bf16) or fp32; y (M, N) contiguous in x's dtype.  K and N at most
-// 65535 x 64 (cudaErrorInvalidValue otherwise).
+// 65535 x 64 (cudaErrorInvalidValue otherwise).  `batch` products (at most
+// 65535), the i-th at x + i sx, w + i sw, y + i sy (strides in elements):
+// the experts' products, one an expert.
 extern "C" int dense_fwd(const void* x, long ldx, const void* w, void* y,
                          int M, int K, int N, int x_bf16, int w_bf16,
+                         int batch, long sx, long sw, long sy,
                          void* stream) {
   int err;
-  if (empty_or_too_big(M, N, &err)) return err;
+  if (empty_or_too_big(M, N, batch, &err)) return err;
+  const Batch bt{batch, sx, sw, sy};
   if (x_bf16)
     return w_bf16 ? launch_tc<ROW, RQ, bf16, bf16>(x, ldx, w, N, y, N, M, N,
-                                                   K, stream)
+                                                   K, bt, stream)
                   : launch_tc<ROW, RQ, float, bf16>(x, ldx, w, N, y, N, M, N,
-                                                    K, stream);
+                                                    K, bt, stream);
   return w_bf16 ? launch_f32<bf16, float>(x, ldx, 1, w, N, 1, y, N, M, N, K,
-                                          stream)
+                                          bt, stream)
                 : launch_f32<float, float>(x, ldx, 1, w, N, 1, y, N, M, N, K,
-                                           stream);
+                                           bt, stream);
 }
 
 // dy (M, N) with row stride lddy, in x's dtype; dx (M, K) contiguous.
+// Batched as dense_fwd: dy + i sdy, w + i sw, dx + i sdx.
 extern "C" int dense_dx(const void* dy, long lddy, const void* w, void* dx,
                         int M, int K, int N, int x_bf16, int w_bf16,
+                        int batch, long sdy, long sw, long sdx,
                         void* stream) {
   int err;
-  if (empty_or_too_big(M, K, &err)) return err;
+  if (empty_or_too_big(M, K, batch, &err)) return err;
+  const Batch bt{batch, sdy, sw, sdx};
   if (x_bf16)
     return w_bf16 ? launch_tc<ROW, QR, bf16, bf16>(dy, lddy, w, N, dx, K, M,
-                                                   K, N, stream)
+                                                   K, N, bt, stream)
                   : launch_tc<ROW, QR, float, bf16>(dy, lddy, w, N, dx, K, M,
-                                                    K, N, stream);
+                                                    K, N, bt, stream);
   return w_bf16 ? launch_f32<bf16, float>(dy, lddy, 1, w, 1, N, dx, K, M, K,
-                                          N, stream)
+                                          N, bt, stream)
                 : launch_f32<float, float>(dy, lddy, 1, w, 1, N, dx, K, M, K,
-                                           N, stream);
+                                           N, bt, stream);
 }
 
-// dw (K, N) contiguous in w's dtype: the sum over all M rows.
+// dw (K, N) contiguous in w's dtype: the sum over all M rows.  Batched as
+// dense_fwd: x + i sx, dy + i sdy, dw + i sdw (each expert's dw the sum
+// over its own rows).
 extern "C" int dense_dw(const void* x, long ldx, const void* dy, long lddy,
                         void* dw, int M, int K, int N, int x_bf16, int w_bf16,
+                        int batch, long sx, long sdy, long sdw,
                         void* stream) {
   int err;
-  if (empty_or_too_big(K, N, &err)) return err;
+  if (empty_or_too_big(K, N, batch, &err)) return err;
+  const Batch bt{batch, sx, sdy, sdw};
   if (x_bf16)
     return w_bf16 ? launch_tc<COL, RQ, bf16, bf16>(x, ldx, dy, lddy, dw, N,
-                                                   K, N, M, stream)
+                                                   K, N, M, bt, stream)
                   : launch_tc<COL, RQ, bf16, float>(x, ldx, dy, lddy, dw, N,
-                                                    K, N, M, stream);
+                                                    K, N, M, bt, stream);
   return w_bf16 ? launch_f32<float, bf16>(x, 1, ldx, dy, lddy, 1, dw, N, K,
-                                          N, M, stream)
+                                          N, M, bt, stream)
                 : launch_f32<float, float>(x, 1, ldx, dy, lddy, 1, dw, N, K,
-                                           N, M, stream);
+                                           N, M, bt, stream);
 }

@@ -16,6 +16,15 @@ skipped when ``w`` needs no gradient.  bf16 ``x`` runs on the tensor
 cores; fp32 ``x`` (an fp32-compute model) a SIMT fp32 product.  Launches
 count into ``dense_fwd.launches`` and ``dense_bwd.launches`` (the backward
 is one or two kernel launches a call, counted once).
+
+The same kernels batched over a MoE layer's experts (one expert a
+``blockIdx.z``): :func:`expert_fwd` and :func:`expert_bwd` on the
+expert-major buckets (E, G C, d) of ``models/moe.py``, replacing the three
+einsums of ``repro/models/moe.py::_expert_ffn`` and their vjps;
+:func:`project_experts` is what ``_expert_ffn`` calls, :class:`_Experts`
+its autograd function, ``expert_fwd_plain`` / ``expert_bwd_plain`` the
+plain versions; launches in ``expert_fwd.launches`` and
+``expert_bwd.launches``.
 """
 from __future__ import annotations
 
@@ -29,19 +38,25 @@ from repro_torch.kernels import build
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 DTYPES = (torch.float32, torch.bfloat16)
 # the most columns of w, and rows of w (dx's columns), a launch takes:
-# 65535 tiles of 64
+# 65535 tiles of 64; the most experts a batched launch takes (gridDim.z)
 MAX_W = 65535 * 64
+MAX_BATCH = 65535
 
 
 def _lib():
     lib = build.load("dense")
     lib.dense_fwd.restype = _I
-    lib.dense_fwd.argtypes = [_P, _L, _P, _P] + [_I] * 5 + [_P]
+    # ..., batch, and the batch strides of the three operands, stream
+    tail = [_I] * 5 + [_I, _L, _L, _L, _P]
+    lib.dense_fwd.argtypes = [_P, _L, _P, _P] + tail
     lib.dense_dx.restype = _I
-    lib.dense_dx.argtypes = [_P, _L, _P, _P] + [_I] * 5 + [_P]
+    lib.dense_dx.argtypes = [_P, _L, _P, _P] + tail
     lib.dense_dw.restype = _I
-    lib.dense_dw.argtypes = [_P, _L, _P, _L, _P] + [_I] * 5 + [_P]
+    lib.dense_dw.argtypes = [_P, _L, _P, _L, _P] + tail
     return lib
+
+
+ONE = (1, 0, 0, 0)   # one product: no batch strides
 
 
 def _check(what, x, w, dy=None) -> None:
@@ -95,7 +110,7 @@ def dense_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     err = lib.dense_fwd(build.ptr(x2), ldx, build.ptr(w), build.ptr(y),
                         x2.shape[0], K, N, int(x.dtype == torch.bfloat16),
-                        int(w.dtype == torch.bfloat16),
+                        int(w.dtype == torch.bfloat16), *ONE,
                         build.stream_ptr(x.device))
     build.check(lib, err, "dense_fwd")
     dense_fwd.launches += 1
@@ -123,13 +138,14 @@ def dense_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
         w = w.contiguous()
         dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         err = lib.dense_dx(build.ptr(dy2), lddy, build.ptr(w), build.ptr(dx),
-                           M, K, N, x_bf16, w_bf16, stream)
+                           M, K, N, x_bf16, w_bf16, *ONE, stream)
         build.check(lib, err, "dense_bwd (dx)")
     if need_dw:
         x2, ldx = build.rows(x, K)
         dw = torch.empty((K, N), dtype=w.dtype, device=x.device)
         err = lib.dense_dw(build.ptr(x2), ldx, build.ptr(dy2), lddy,
-                           build.ptr(dw), M, K, N, x_bf16, w_bf16, stream)
+                           build.ptr(dw), M, K, N, x_bf16, w_bf16, *ONE,
+                           stream)
         build.check(lib, err, "dense_bwd (dw)")
     dense_bwd.launches += 1
     return dx, dw
@@ -164,5 +180,123 @@ def project(x: torch.Tensor, w: torch.Tensor,
     return x @ w.to(compute)
 
 
+# ------------------------------------------------ the experts' products
+
+
+def _check_experts(what, x, w, dy=None) -> None:
+    _check(what, x[0], w[0], None if dy is None else dy[0])
+    if w.dim() != 3 or x.dim() != 3 or x.shape[0] != w.shape[0]:
+        raise ValueError(f"{what}: x{tuple(x.shape)} @ w{tuple(w.shape)}: "
+                         "w must be (E, K, N) and x (E, M, K)")
+    if dy is not None and dy.shape != (*x.shape[:2], w.shape[2]):
+        raise ValueError(f"{what}: dy{tuple(dy.shape)} does not fit "
+                         f"x{tuple(x.shape)} @ w{tuple(w.shape)}")
+    if x.shape[0] > MAX_BATCH:
+        raise ValueError(f"{what}: {x.shape[0]} experts, at most "
+                         f"{MAX_BATCH} a launch")
+
+
+def expert_fwd_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.to(x.dtype)`` for each expert: ``_expert_ffn``'s einsum
+    ``ecd,edf->ecf`` on the expert-major buckets."""
+    return x @ w.to(x.dtype)
+
+
+def expert_bwd_plain(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)``: the vjp of :func:`expert_fwd_plain` by autograd."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        wr = w.detach().requires_grad_(True)
+        return torch.autograd.grad(expert_fwd_plain(xr, wr), (xr, wr), dy)
+
+
+def expert_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward kernel batched over experts (CUDA tensors only): x (E,
+    M, K), w (E, K, N), each fp32 or bf16; ``x[e] @ w[e].to(x.dtype)``
+    for every expert, (E, M, N) in x's dtype."""
+    if not build.on_card(x):
+        raise ValueError("expert_fwd runs on the card only")
+    _check_experts("expert_fwd", x, w)
+    E, M, K = x.shape
+    N = w.shape[2]
+    x, w = x.contiguous(), w.contiguous()
+    y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    lib = _lib()
+    err = lib.dense_fwd(build.ptr(x), K, build.ptr(w), build.ptr(y), M, K, N,
+                        int(x.dtype == torch.bfloat16),
+                        int(w.dtype == torch.bfloat16), E, M * K, K * N,
+                        M * N, build.stream_ptr(x.device))
+    build.check(lib, err, "expert_fwd")
+    expert_fwd.launches += 1
+    return y
+
+
+def expert_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
+               need_dx: bool = True, need_dw: bool = True
+               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The backward kernels batched over experts (CUDA tensors only):
+    ``(dx, dw)``, dx (E, M, K) in x's dtype, dw (E, K, N) in w's, each
+    expert's the sum over its own M rows; either None where not needed."""
+    if not build.on_card(x):
+        raise ValueError("expert_bwd runs on the card only")
+    _check_experts("expert_bwd", x, w, dy)
+    E, M, K = x.shape
+    N = w.shape[2]
+    x_bf16, w_bf16 = int(x.dtype == torch.bfloat16), \
+        int(w.dtype == torch.bfloat16)
+    dy = dy.contiguous()
+    stream = build.stream_ptr(x.device)
+    lib = _lib()
+    dx = dw = None
+    if need_dx:
+        w = w.contiguous()
+        dx = torch.empty((E, M, K), dtype=x.dtype, device=x.device)
+        err = lib.dense_dx(build.ptr(dy), N, build.ptr(w), build.ptr(dx), M,
+                           K, N, x_bf16, w_bf16, E, M * N, K * N, M * K,
+                           stream)
+        build.check(lib, err, "expert_bwd (dx)")
+    if need_dw:
+        x = x.contiguous()
+        dw = torch.empty((E, K, N), dtype=w.dtype, device=x.device)
+        err = lib.dense_dw(build.ptr(x), K, build.ptr(dy), N, build.ptr(dw),
+                           M, K, N, x_bf16, w_bf16, E, M * K, M * N, K * N,
+                           stream)
+        build.check(lib, err, "expert_bwd (dw)")
+    expert_bwd.launches += 1
+    return dx, dw
+
+
+class _Experts(torch.autograd.Function):
+    """The batched kernels as one autograd function (CUDA tensors): saves
+    ``x`` and the stacked ``w`` as given (no bf16 copy of the weights)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return expert_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return expert_bwd(dy, x, w, need_dx=ctx.needs_input_grad[0],
+                          need_dw=ctx.needs_input_grad[1])
+
+
+def project_experts(x: torch.Tensor, w: torch.Tensor,
+                    compute: torch.dtype) -> torch.Tensor:
+    """``x[e] @ w[e].to(compute)`` for every expert, x (E, M, K) and w (E,
+    K, N), differentiable in both: the batched kernels on the card (x in
+    ``compute``), ``x @ w.to(compute)`` under autograd elsewhere."""
+    if build.on_card(x):
+        if x.dtype != compute:
+            raise ValueError(f"experts: x is {x.dtype}, the compute dtype "
+                             f"{compute}")
+        return _Experts.apply(x, w)
+    return x @ w.to(compute)
+
+
 dense_fwd.launches = 0
 dense_bwd.launches = 0
+expert_fwd.launches = 0
+expert_bwd.launches = 0

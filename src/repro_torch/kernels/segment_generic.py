@@ -8,15 +8,18 @@ and ``::fused_reverse_segment``) trace the caller's body into a
 steps, the reverse's recompute and the chunks' vjps -- the kernels'
 arithmetic -- run as the caller's code on the compute stream, exactly as
 ``runner="compiled"`` runs them (no hand-written kernel computes an
-arbitrary Python body).  For gemma2-2b's body that code is partly the
-port's hand-written layer kernels (``flash_attention`` and its backward,
-``rmsnorm``, ``glu``, ``rope``, each forward and backward); its
-projections, which the TPU kernel computes inside its traced body, still
-run on cuBLAS (``torch.matmul``), and its weight casts and gradient adds
-as PyTorch's own kernels, so that body's half of the TPU kernels is only
-partly ported.  Other bodies (mamba2-370m's: the SSD backward, the gated
-norm, the depthwise conv) still run plain PyTorch arithmetic there
-(ROADMAP queue 2).  This module
+arbitrary Python body).  For the decoders the card runs, that code is the
+port's hand-written layer kernels, each forward and backward: gemma2-2b's
+attention (``flash_attention`` and its backward), ``rmsnorm``, ``glu``,
+``rope`` and the projections' GEMM (``dense``); mamba2-370m's SSD scan and
+its backward, causal conv, step sizes and gated norm, with the norms and
+projections; phi3.5-moe's attention, norms and projections and its MoE
+layer (``kernels/moe.py``: the routing, the slots, the gather dispatch,
+the weighted combine, and the experts' products batched in ``dense``).
+What is left of those bodies as PyTorch's own kernels is elementwise
+glue (residual adds, casts, copies, fills, the aux loss's reductions:
+ROADMAP queue 2, item 1), so the bodies' half of the TPU kernels is
+ported but for it.  This module
 hand-writes the segments' own data movement, two kernels, each one launch
 over a table of leaves:
 

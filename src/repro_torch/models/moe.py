@@ -22,10 +22,26 @@ expert's bucket once for each dropped entry, so that expert's rank-0 token
 loses its contribution.  Here the bucket scatter writes only kept entries,
 so each expert keeps exactly ``min(count, C)`` tokens, as the docstring and
 ``with_stats`` of both packages say (ROADMAP queue 3).  Without overflow
-the two agree.  The dispatch/combine products and the expert FFN are plain
-matrix products, as in the JAX package (XLA there, outside any Pallas
-kernel).  ``distributed.sharding.constrain`` is the identity on one device
-and is dropped.
+the two agree.  ``distributed.sharding.constrain`` is the identity on one
+device and is dropped.
+
+In the JAX package the routing, the one-hot products and the expert FFN
+are XLA's under ``runner="compiled"`` and traced into the segment kernels
+(``repro/kernels/segment_pallas.py``) under ``runner="pallas"``.  Here, on
+the card (``build.on_card``), they are hand-written kernels
+(``kernels/moe.py``, ``kernels/dense.py::project_experts``): ``_route``
+launches the routing kernel, and ``moe_einsum`` computes the one-hot
+products' values by slot index (:func:`_experts_major`: the einsum's
+positions, the kept rows gathered into expert-major buckets ``(E, G C,
+d)``, the experts' products batched over ``E``, each token's weighted sum
+of its k rows), so no one-hot tensor and no bf16 copy of the expert
+weights is made; ``moe_sorted`` gets the routing and the experts' kernels
+(its sort and gathers stay PyTorch).  Elsewhere (the CPU, the byte
+profile's meta tensors) the one-hot einsums below run as they did: the
+plain version of the whole layer.  Deliberate differences on the card: the
+buckets' layout, the combine's sum order (each token's k rows in choice
+order, not the einsum's), and the router's logits summed in the kernel's
+order, so a near-tie may route differently from the plain version.
 """
 from __future__ import annotations
 
@@ -36,6 +52,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import build
+from repro_torch.kernels import dense as dense_mod
+from repro_torch.kernels import moe as moe_kernels
 from repro_torch.models.layers import (DEFAULT_DTYPES, DTypes, dense, geglu,
                                        init_dense, normal, swiglu)
 
@@ -92,14 +111,10 @@ def init_moe(generator, d_model: int, d_ff: int, n_experts: int, *,
 
 def _route(p, xg, n_experts: int, top_k: int):
     """Top-k softmax routing.  xg: (G, S, d) grouped tokens.  Returns
-    (weights (G,S,k), indices (G,S,k), aux_loss)."""
-    logits = torch.einsum("gsd,de->gse", xg.float(),
-                          p["router"]["w"].float())
-    probs = torch.softmax(logits, dim=-1)
-    # a stable descending sort puts the lower index first among equals
-    srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    weights, idx = srt[..., :top_k], order[..., :top_k]
-    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    (weights (G,S,k), indices (G,S,k), aux_loss).  The routing kernel on
+    the card, ``kernels/moe.py::route_plain`` (a stable descending sort
+    puts the lower index first among equals) elsewhere."""
+    weights, idx, probs = moe_kernels.route(xg, p["router"]["w"], top_k)
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(idx, n_experts).float().sum(2).mean(dim=(0, 1))
@@ -115,7 +130,18 @@ def _capacity(group_tokens: int, n_experts: int, top_k: int,
 
 def _expert_ffn(p, expert_in: torch.Tensor, act: str,
                 dt: DTypes) -> torch.Tensor:
-    """expert_in: (..., E, C, d) -> same, via the stacked expert weights."""
+    """expert_in: (..., E, C, d) -> same, via the stacked expert weights.
+    On the card the three products are the batched GEMM (each expert's
+    rows one matrix, the weights' cast in its load); a leading axis is
+    moved behind E first."""
+    if build.on_card(expert_in):
+        *lead, E, C, d = expert_in.shape
+        xe = expert_in.movedim(-3, 0).reshape(E, -1, d)
+        g = dense_mod.project_experts(xe, p["w_gate"], dt.compute)
+        u = dense_mod.project_experts(xe, p["w_up"], dt.compute)
+        h = swiglu(g, u) if act == "silu" else geglu(g, u)
+        out = dense_mod.project_experts(h, p["w_down"], dt.compute)
+        return out.reshape(E, *lead, C, d).movedim(0, -3)
     g = torch.einsum("...ecd,edf->...ecf", expert_in, dt.c(p["w_gate"]))
     u = torch.einsum("...ecd,edf->...ecf", expert_in, dt.c(p["w_up"]))
     h = swiglu(g, u) if act == "silu" else geglu(g, u)
@@ -144,6 +170,23 @@ def _einsum_slots(idx: torch.Tensor, n_experts: int, top_k: int, C: int):
         yield mask_i, pos_i, keep
 
 
+def _experts_major(p, x: torch.Tensor, weights: torch.Tensor,
+                   idx: torch.Tensor, n_experts: int, C: int, act: str,
+                   dt: DTypes):
+    """The values of :func:`moe_einsum`'s one-hot products by slot index:
+    the einsum's slots (``kernels/moe.py::slots``), x's kept rows gathered
+    into expert-major buckets (E, G C, d), the experts' FFN on them, and
+    each token's weighted sum of its kept rows, in x's dtype.  Returns (y,
+    routed (G, E) int32).  Kernels on the card, their plain versions (PyTorch
+    gathers) elsewhere."""
+    choice_slot, slot_src, routed = moe_kernels.slots(idx, n_experts, C)
+    expert_in = moe_kernels.dispatch(x.to(dt.compute), choice_slot, slot_src)
+    expert_out = _expert_ffn(p, expert_in, act, dt)
+    y = moe_kernels.combine(expert_out, weights, choice_slot, slot_src,
+                            x.dtype)
+    return y, routed
+
+
 def moe_einsum(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
                capacity_factor: float = 1.25, act: str = "silu",
                dt: DTypes = DEFAULT_DTYPES, with_stats: bool = False):
@@ -151,10 +194,19 @@ def moe_einsum(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     group with its own capacity.  x: (B, S, d).  Returns (y, aux_loss), or
     (y, aux_loss, stats) with ``with_stats=True`` (per-expert routed/kept
     counts and the ``dropped_tokens`` overflow; see :func:`routing_stats`).
+    On the card the products' values come from :func:`_experts_major`.
     """
     G, S, d = x.shape
     weights, idx, aux = _route(p, x, n_experts, top_k)
     C = _capacity(S, n_experts, top_k, capacity_factor)
+    if build.on_card(x):
+        y, routed = _experts_major(p, x, weights, idx, n_experts, C, act, dt)
+        if "shared" in p:
+            y = y + mlp(p["shared"], x, act=act, dt=dt)
+        if with_stats:
+            return y, aux, _stats(routed.sum(0),
+                                  torch.clamp(routed, max=C).sum(0), C)
+        return y, aux
     slots = torch.arange(C, dtype=torch.int32, device=x.device)
     dispatch = torch.zeros((G, S, n_experts, C), dtype=dt.compute,
                            device=x.device)
@@ -274,11 +326,17 @@ def routing_stats(p: Params, x, *, n_experts: int, top_k: int,
     with torch.no_grad():
         _, idx, _ = _route(p, x, n_experts, top_k)
         C = _capacity(S, n_experts, top_k, capacity_factor)
-        routed = np.zeros((n_experts,), np.int32)
-        kept = np.zeros((n_experts,), np.int32)
-        for mask_i, _, keep in _einsum_slots(idx, n_experts, top_k, C):
-            routed += mask_i.sum((0, 1)).cpu().numpy().astype(np.int32)
-            kept += keep.sum((0, 1)).cpu().numpy().astype(np.int32)
+        if build.on_card(x):   # the slots kernel's counts
+            by_group = moe_kernels.slots(idx, n_experts, C)[2]
+            routed = by_group.sum(0).cpu().numpy().astype(np.int32)
+            kept = torch.clamp(by_group, max=C).sum(0).cpu().numpy() \
+                .astype(np.int32)
+        else:
+            routed = np.zeros((n_experts,), np.int32)
+            kept = np.zeros((n_experts,), np.int32)
+            for mask_i, _, keep in _einsum_slots(idx, n_experts, top_k, C):
+                routed += mask_i.sum((0, 1)).cpu().numpy().astype(np.int32)
+                kept += keep.sum((0, 1)).cpu().numpy().astype(np.int32)
     return {"expert_counts": kept, "routed_counts": routed,
             "dropped_tokens": int(routed.sum() - kept.sum()),
             "capacity": int(C)}

@@ -54,7 +54,10 @@ once each way.  The projection GEMM (``kernels/dense.py``) against its
 plain version at a smoke shape and at gemma2-2b's gate projection, per
 element (bf16: 1e-2 of |ref| plus 1e-3 of the row's RMS), two calls bit for
 bit, and ``dense_fwd``, ``dense_bwd`` counted in the MoE and hybrid
-decoders' gradients.
+decoders' gradients, as are the MoE layers' kernels (the routing, the
+slots, the dispatch, the combine, the experts' products, each backward);
+phi3.5-moe at SMOKE width through ``runner="fused"`` against
+``runner="compiled"``, its MoE kernels launched as the fused plan implies.
 """
 import gc
 import os
@@ -70,6 +73,7 @@ from repro_torch.configs.shapes import make_batch
 from repro_torch.kernels import dense as dn
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lstm_cell as lc
+from repro_torch.kernels import moe as mk
 from repro_torch.kernels import segment_fused as sf
 from repro_torch.kernels import segment_generic as sg
 from repro_torch.kernels import ssd_scan as ssd
@@ -703,22 +707,39 @@ def test_offloaded_decoder_on_card_matches_dense(cuda_device, arch, seq,
                                    atol=1e-4 * float(b.abs().max()))
 
 
+def _moe_step(layers):
+    """The MoE layer kernels' forward launches a chain step of ``layers``
+    MoE layers (``moe_einsum``: the routing, the slots, the dispatch, the
+    combine and the experts' three products)."""
+    return {"moe_route": layers, "moe_slots": layers,
+            "moe_dispatch": layers, "moe_combine": layers,
+            "expert_fwd": 3 * layers}
+
+
+# each forward kernel's backward, launched once a step's vjp
+BACKWARDS = {"dense_fwd": "dense_bwd", "moe_route": "moe_route_bwd",
+             "moe_dispatch": "moe_dispatch_bwd",
+             "moe_combine": "moe_combine_bwd", "expert_fwd": "expert_bwd"}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,n_layers,per_step", [
     # top-1 of 4 experts with a shared expert, capacity factor 2.0: one
     # attn_moe layer a chain step (q, k, v, o and the shared expert's gate,
     # up, down)
-    ("llama4-scout-17b-16e", 4, {"flash_attention": 1, "dense_fwd": 7}),
+    ("llama4-scout-17b-16e", 4, {"flash_attention": 1, "dense_fwd": 7,
+                                 **_moe_step(1)}),
     # three periods of (mamba, mamba_moe, mamba, attn_moe, mamba,
     # mamba_moe, mamba, mamba_moe): a tail segment of one period
     ("jamba-v0.1-52b", 24, {"flash_attention": 1, "ssd_scan": 7,
-                            "dense_fwd": 18}),
+                            "dense_fwd": 18, **_moe_step(4)}),
 ])
 def test_offloaded_moe_decoder_on_card_matches_dense(cuda_device, arch,
                                                      n_layers, per_step):
     """The MoE and hybrid chains at SMOKE width, S > 2048 (the flash
     kernel's path): the offloaded gradient against dense autograd on the
-    card, and each kernel's launches as the plan implies."""
+    card, and each kernel's launches as the plan implies (the MoE layers'
+    routing, slots, dispatch, combine and experts' products among them)."""
     from torch.utils import _pytree as pytree
 
     cfg = get_config(arch, smoke=True).replace(n_layers=n_layers)
@@ -730,8 +751,13 @@ def test_offloaded_moe_decoder_on_card_matches_dense(cuda_device, arch,
     loss = model.train_loss(pytree.tree_unflatten(leaves, spec), batch)
     dense = torch.autograd.grad(loss, leaves)
     kernels = {"flash_attention": fa.flash_attention,
-               "ssd_scan": ssd.ssd_scan, "dense_fwd": dn.dense_fwd}
-    for fn in (*kernels.values(), dn.dense_bwd):
+               "ssd_scan": ssd.ssd_scan, "dense_fwd": dn.dense_fwd,
+               "moe_route": mk.moe_route, "moe_slots": mk.moe_slots,
+               "moe_dispatch": mk.moe_dispatch, "moe_combine": mk.moe_combine,
+               "expert_fwd": dn.expert_fwd}
+    backwards = {name: getattr(mk, name, None) or getattr(dn, name)
+                 for name in BACKWARDS.values()}
+    for fn in (*kernels.values(), *backwards.values()):
         fn.launches = 0
     v, g = api.value_and_grad_offloaded(model.train_loss, interval=2,
                                         slots=2, device="cuda")(params,
@@ -742,8 +768,10 @@ def test_offloaded_moe_decoder_on_card_matches_dense(cuda_device, arch,
         # forward sweep and the reverse's recompute
         assert fn.launches == per_step.get(name, 0) * stats.advances, name
     assert all(kernels[name].launches > 0 for name in per_step)
-    # the projections' backward: once a projection in each step's vjp
-    assert dn.dense_bwd.launches == per_step["dense_fwd"] * stats.n
+    # the backwards (the projections', the MoE layers'): once in each
+    # step's vjp
+    for fwd, bwd in BACKWARDS.items():
+        assert backwards[bwd].launches == per_step[fwd] * stats.n, bwd
     torch.testing.assert_close(v, loss.detach(), rtol=1e-5, atol=0)
     for a, b in zip(pytree.tree_leaves(g), dense):
         torch.testing.assert_close(a, b, rtol=1e-4,
@@ -1242,6 +1270,35 @@ def test_generic_jamba_fused_on_card_matches_compiled(cuda_device):
     model = get_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cuda")
     batch = make_batch(cfg, ShapeSpec("t", 2064, 1, "train"), 0)
+    _fused_against_compiled(model.train_loss, params, batch, 2, 2)
+
+
+@pytest.mark.cuda
+def test_generic_phi35_moe_fused_on_card_matches_compiled(cuda_device):
+    """phi3.5-moe at SMOKE width, 4 layers, S > 2048: ``runner="fused"``
+    (the MoE layer in its kernels) against ``runner="compiled"`` on the
+    card, and the MoE kernels launched as the fused plan implies: the
+    forward ones each time a step runs (forward chunks and the reverse's
+    recompute), the backward ones once a step's vjp."""
+    cfg = get_config("phi3.5-moe-42b", smoke=True).replace(n_layers=4)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    batch = make_batch(cfg, ShapeSpec("t", 2064, 1, "train"), 0)
+    fwd = (mk.moe_route, mk.moe_slots, mk.moe_dispatch, mk.moe_combine)
+    bwd = (mk.moe_route_bwd, mk.moe_dispatch_bwd, mk.moe_combine_bwd)
+    for fn in fwd + bwd + (dn.expert_fwd, dn.expert_bwd):
+        fn.launches = 0
+    vg = api.value_and_grad_offloaded(model.train_loss, interval=2, slots=2,
+                                      runner="fused", device="cuda")
+    vg(params, batch)
+    plan = api.last_plan()
+    steps = sum(seg.length for seg in plan.segments)
+    # two segments of one chunk: each step runs forward, then again in its
+    # segment's reverse (the chunk's checkpointed vjp)
+    assert [fn.launches for fn in fwd] == [2 * steps] * 4
+    assert [fn.launches for fn in bwd] == [steps] * 3
+    assert (dn.expert_fwd.launches, dn.expert_bwd.launches) == (
+        6 * steps, 3 * steps)
     _fused_against_compiled(model.train_loss, params, batch, 2, 2)
 
 

@@ -10,7 +10,8 @@ the Pallas kernels in interpret mode, on the same numpy-seeded inputs.
   every executor counter (``fused_segments`` and ``fused_boundary_copies``
   included) equal; against the port's own ``runner="compiled"`` the loss
   is bit for bit (the forward runs the same operations in the same order).
-* gemma2-2b (10 layers) and mamba2-370m (7 layers) at SMOKE width in fp32
+* gemma2-2b (10 layers), mamba2-370m (7 layers) and phi3.5-moe (4
+  layers: its MoE body) at SMOKE width in fp32
   compute, weights from the JAX package's ``init_lm``, under the same
   gates.
 * The plain fold's association: chunks from the last one down, a short
@@ -177,6 +178,7 @@ def test_generic_chain_matches_jax_pallas(kind, monkeypatch):
 @pytest.mark.parametrize("arch,n_layers,interval,slots,copies", [
     ("gemma2-2b", 10, 5, 2, 6),     # one segment, chunks 3, 2
     ("mamba2-370m", 7, 7, 3, 8),    # forward chunks 3, 4; reverse 3, 3, 1
+    ("phi3.5-moe-42b", 4, 4, 2, 6),  # a MoE body: chunks 2, 2
 ])
 def test_decoder_matches_jax_pallas(arch, n_layers, interval, slots, copies,
                                     monkeypatch):

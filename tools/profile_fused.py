@@ -2,14 +2,16 @@
 """Device time of one warm fused decoder gradient on the card, by kernel.
 
     python3 tools/profile_fused.py [--arch NAME] [--batch B] [--interval I]
-        [--slots S] [--src DIR] [--out FILE] [--readout-only]
+        [--slots S] [--layers L] [--src DIR] [--out FILE] [--readout-only]
 
 Runs ``value_and_grad_offloaded(get_model(NAME).train_loss,
 runner="fused", interval=I, slots=S)`` (by default gemma2-2b at I=13, s=4
 and B=2, ``chip_smoke.py``'s phase ``dense`` at its pinned schedule;
-``--arch mamba2-370m --batch 4 --interval 14`` is phase ``ssm``'s: full
-width and depth, ``train_4k`` with the batch cut to B, weights from a
-seeded CUDA generator) with the ``repro_torch`` package found under ``DIR``
+``--arch mamba2-370m --batch 4 --interval 14`` is phase ``ssm``'s and
+``--arch phi3.5-moe-42b --layers 4 --interval 2 --slots 2`` phase
+``moe``'s: full width, ``train_4k`` with the batch cut to B, the depth cut
+to L layers where given, weights from a seeded CUDA generator) with the
+``repro_torch`` package found under ``DIR``
 (default: this checkout's ``src``; give a ``git archive`` of another
 commit's tree to compare): first two autotuned calls (the second's wall
 is the warm autotuned one), then at the pinned schedule twice to warm up
@@ -70,6 +72,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--interval", type=int, default=13)
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (phi3.5-moe's "
+                    "full depth does not fit the card)")
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--out", default=None)
     ap.add_argument("--label", default=None)
@@ -99,6 +104,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     build.build_all()
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = cfg.replace(n_layers=args.layers)
     full = SHAPES["train_4k"]
     shape = ShapeSpec(full.name, full.seq_len, args.batch, full.kind)
     model = get_model(cfg)
