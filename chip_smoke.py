@@ -1538,7 +1538,7 @@ def check_moe(torch) -> dict:
     rng = np.random.default_rng(75)
     bf16 = torch.bfloat16
     x, w, _ = _moe_inputs(torch, rng)
-    (weights, idx, probs), same = _twice_equal(
+    (weights, idx, probs, _, ce), same = _twice_equal(
         torch, lambda: mk.moe_route(x, w, k))
     want_w, want_idx, want_p = mk.route_plain(x, w, k)
     flipped = (idx != want_idx).any(-1)
@@ -1559,10 +1559,13 @@ def check_moe(torch) -> dict:
     errs = {"moe_route": max(e_p, e_w)}
     keep = agree[..., None].float()
     dweights = _randn(torch, rng, (G, S, k), torch.float32) * keep
-    dprobs = _randn(torch, rng, (G, S, E), torch.float32, 0.1) * keep
-    (dx, dw), same = _twice_equal(
-        torch, lambda: mk.moe_route_bwd(dweights, dprobs, x, w, probs, idx))
-    want_dx, want_dw = mk.route_bwd_plain(dweights, dprobs, x, w, k)
+    # the aux loss's cotangent (its dprobs spread over every token; a
+    # flipped choice moves 1 / (G S) of a count between experts, far
+    # below the gate)
+    daux = torch.tensor(0.7, device="cuda")
+    (dx, dw), same = _twice_equal(torch, lambda: mk.moe_route_bwd(
+        dweights, daux, x, w, probs, idx, ce))
+    want_dx, want_dw = mk.route_bwd_plain(dweights, daux, x, w, k)
     e_dx, e_dw = scaled_err(dx, want_dx), scaled_err(dw, want_dw)
     require(same and e_dx <= MOE_TOL["dx"] and e_dw <= MOE_TOL["dw"],
             f"moe_route_bwd: dx {e_dx:.3g} (tol {MOE_TOL['dx']}), dW_r "
@@ -1886,6 +1889,9 @@ def phase_kernels(state) -> None:
     dense_errs = check_dense(torch)
     # phi3.5-moe's MoE layer
     moe_errs = check_moe(torch)
+    # the bodies' glue inside the kernels (the residual epilogues, the
+    # fan-out and skip sums, the rope's angles, mamba2's split, the aux)
+    glue_errs = check_glue(torch)
     # the flash kernel's shapes on the main path: gemma2-2b's, phi3.5-moe's
     state["err"] = {"lstm_cell": max(errs["torch.float32"], loop),
                     "fused_advance_segment": max(adv, adv1, adv_pinned),
@@ -1897,6 +1903,208 @@ def phase_kernels(state) -> None:
                     "flash_attention_bwd": max(bwd[0], bwd[2], bwd[4]),
                     "ssd_scan_bwd": ssd_bwd[0],
                     **layer_errs, **mamba_errs, **dense_errs, **moe_errs}
+    for name, e in glue_errs.items():
+        state["err"][name] = max(state["err"].get(name, 0.0), e)
+
+
+def _mixer_case(torch, rng, cfg, B, T):
+    """mamba2's mixer inputs at ``cfg``'s widths: ``zxbcdt`` (B, T, d_proj)
+    bf16, the layer's parameters (init_mamba2's scales) and the output's
+    cotangent."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    H, gn = d_inner // s.headdim, s.ngroups * s.d_state
+    C = d_inner + 2 * gn
+    bf16, f32 = torch.bfloat16, torch.float32
+    zx = _randn(torch, rng, (B, T, 2 * d_inner + 2 * gn + H), bf16)
+    p = {"conv_w": _randn(torch, rng, (s.conv_k, C), f32, 0.2),
+         "conv_b": _randn(torch, rng, (C,), f32, 0.1),
+         "dt_bias": _randn(torch, rng, (H,), f32, 0.5),
+         "A_log": _randn(torch, rng, (H,), f32, 0.5),
+         "D": _randn(torch, rng, (H,), f32),
+         "norm_scale": _randn(torch, rng, (d_inner,), f32, 0.3)}
+    return zx, p, _randn(torch, rng, (B, T, d_inner), bf16)
+
+
+def mixer_grads(torch, zx0, p0, cot, cfg, composed):
+    """mamba2's mixer (``ssm._Mixer``: the split owned, each backward
+    kernel writing its columns of one cotangent) or (``composed``) the same
+    kernels' separate autograd functions over the split's slices and
+    ``torch.cat``, as the block ran them before: ``(output, d zxbcdt,
+    every parameter's gradient)``."""
+    from repro_torch.kernels import causal_conv as cc
+    from repro_torch.kernels import dt_softplus as ds
+    from repro_torch.kernels import gated_norm as gn
+    from repro_torch.models import ssm
+
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    B, T = zx0.shape[:2]
+    G, N, hd = s.ngroups, s.d_state, s.headdim
+    bf = torch.bfloat16
+    zx = zx0.detach().clone().requires_grad_(True)
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in p0.items()}
+    A = -torch.exp(p["A_log"].float())
+    w, b = p["conv_w"].to(bf), p["conv_b"].to(bf)
+    if composed:
+        z, xi, Bc, Cc, dt_raw = ssm._split_proj(zx, d_inner, G, N,
+                                                d_inner // hd)
+        conv, _ = cc.conv_silu(torch.cat([xi, Bc, Cc], dim=-1), w, b)
+        xh = conv[..., :d_inner].reshape(B, T, -1, hd)
+        Bg = conv[..., d_inner:d_inner + G * N].reshape(B, T, G, N)
+        Cg = conv[..., d_inner + G * N:].reshape(B, T, G, N)
+        dts = ds.softplus_dt(dt_raw, p["dt_bias"])
+        y, _ = ssm.ssd_chunked(xh, dts, A, Bg, Cg, chunk=s.chunk)
+        out = gn.gated_norm_out(y, xh, p["D"], z, p["norm_scale"],
+                                out_dtype=bf)
+    else:
+        out, _ = ssm._Mixer.apply(zx, w, b, p["dt_bias"], A, p["D"],
+                                  p["norm_scale"], None, None,
+                                  (d_inner, G, N, hd, s.chunk, bf))
+    leaves = [zx] + [p[k] for k in sorted(p)]
+    grads = torch.autograd.grad(out, leaves, cot)
+    return (out.detach(),) + grads
+
+
+def check_glue(torch) -> dict:
+    """The bodies' glue moved into the kernels, at the main path's shapes
+    in bf16, each form two calls bit for bit and bit for bit what it
+    replaces: ``dense_fwd``'s residual epilogue (gemma2-2b's ``wo``,
+    mamba2-370m's ``out_proj``) against the product plus PyTorch's add;
+    ``rmsnorm_bwd`` with three consumers' cotangents and the skip's
+    (gemma2-2b's ln1) against it on their sum (each add rounded) plus the
+    skip's add, and against the plain version at ``GRAD_TOL``; the rope by
+    theta (gemma2-2b's q and k) against the plain version on the table at
+    ``GRAD_TOL``; mamba2-370m's mixer (the conv reading its columns in
+    place and writing x, B, C apart, the step sizes' and gated norm's
+    backwards into their columns, the conv's from the SSD's pieces with
+    the skip's addend) against the same kernels over the split's slices
+    and ``torch.cat`` (the output and the parameters' gradients bit for
+    bit, ``zxbcdt``'s equal: a -0.0 the slices' zero fill made +0.0 stays
+    -0.0); phi3.5-moe's combine with the residual, the dispatch backward
+    with the gate's and up's cotangents, the routing's aux loss (on its
+    own choices, 1e-5 of the plain ``aux_plain``, a running total's sum
+    bit for bit).  Returns the max abs error of each kernel against its
+    plain version."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dense as dn
+    from repro_torch.kernels import moe as mk
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import rope as rope_mod
+    from repro_torch.models.layers import rope_table
+    from repro_torch.models.moe import _capacity
+
+    rng = np.random.default_rng(78)
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = {}
+
+    def same_bits(name, label, got, want, same, values_only=()):
+        ok = same and all(
+            (torch.equal(a, b) if i in values_only
+             else _bits_equal(torch, a, b))
+            for i, (a, b) in enumerate(zip(got, want)))
+        require(ok, f"{name} {label}: not bit for bit the form it replaces,"
+                f" or two calls differ ({not same})")
+        log(f"[kernels] {name} {label}: bit for bit the form it replaces; "
+            "two calls bit for bit")
+
+    for label, (M, K, N) in (("gemma2-2b wo", (8192, 2048, 2304)),
+                             ("mamba2-370m out_proj", (16384, 2048, 1024))):
+        x = _randn(torch, rng, (M, K), bf16)
+        w = _randn(torch, rng, (K, N), f32, K ** -0.5)
+        res = _randn(torch, rng, (M, N), bf16)
+        (y,), same = _twice_equal(torch, lambda: (dn.dense_fwd(x, w, res),))
+        same_bits("dense_fwd", f"{label} with the residual", [y],
+                  [res + dn.dense_fwd(x, w)], same)
+        del x, w, res, y
+    scale = _randn(torch, rng, (GEMMA_D,), f32, 0.3)
+    x = _randn(torch, rng, (2, 4096, GEMMA_D), bf16)
+    gs = [_randn(torch, rng, x.shape, bf16) for _ in range(3)]
+    dskip = _randn(torch, rng, x.shape, bf16)
+    _, rstd = rn.rmsnorm(x, scale, out_dtype=bf16)
+    got, same = _twice_equal(torch, lambda: rn.rmsnorm_bwd(
+        gs[0], x, scale, rstd, g_more=gs[1:], dskip=dskip))
+    g = (gs[0] + gs[1]) + gs[2]
+    dx, dsc = rn.rmsnorm_bwd(g, x, scale, rstd)
+    same_bits("rmsnorm_bwd", "three consumers and the skip (gemma2-2b ln1)",
+              got, [dx + dskip, dsc], same)
+    want = rn.rmsnorm_bwd_plain(g, x, scale, 1e-6, bf16)
+    want = (want[0] + dskip, want[1])
+    e = max(scaled_err(a, b) for a, b in zip(got, want))
+    require(e <= GRAD_TOL["layers"]["bfloat16"],
+            f"rmsnorm_bwd with the fan-out and the skip: scaled error {e} "
+            "from the plain version")
+    errs["rmsnorm_bwd"] = max(max_err(a, b) for a, b in zip(got, want))
+    del x, gs, dskip, rstd, got, g, dx, dsc, want
+    gemma = get_config("gemma2-2b")
+    cos, sin = rope_table(4096, 256, gemma.rope_theta, device="cuda")
+    qk = [_randn(torch, rng, sh, bf16) for sh in GEMMA_QK]
+    for name, fn, plain in (
+            ("rope", rope_mod.rope,
+             lambda t: rope_mod.rope_plain(t, cos, sin)),
+            ("rope_bwd", rope_mod.rope_bwd,
+             lambda t: rope_mod.rope_bwd_plain(t, t, cos, sin))):
+        got, same = _twice_equal(torch, lambda: fn(
+            qk, None, None, theta=gemma.rope_theta))
+        pairs = [(y, plain(t)) for t, y in zip(qk, got)]
+        e = max(scaled_err(a, b) for a, b in pairs)
+        tab = max(max_err(a, b) for a, b in zip(got, fn(qk, cos, sin)))
+        require(same and e <= GRAD_TOL["layers"]["bfloat16"],
+                f"{name} by theta: scaled error {e} from the plain version "
+                f"on the table, or two calls differ ({not same})")
+        errs[name] = max(max_err(a, b) for a, b in pairs)
+        log(f"[kernels] {name} by theta={gemma.rope_theta} (gemma2-2b's q "
+            f"and k, bf16): scaled error {e:.3g} from the plain version on "
+            f"the table (gate {GRAD_TOL['layers']['bfloat16']}), max abs "
+            f"err {errs[name]:.3g}; from the kernel on the table {tab:.3g}; "
+            "two calls bit for bit")
+    del qk, cos, sin
+    torch.cuda.empty_cache()
+    mamba = get_config("mamba2-370m")
+    zx, p, cot = _mixer_case(torch, rng, mamba, *CARRIES["mamba2-370m"][:2])
+    got, same = _twice_equal(torch, lambda: mixer_grads(
+        torch, zx, p, cot, mamba, composed=False))
+    want = mixer_grads(torch, zx, p, cot, mamba, composed=True)
+    same_bits("mamba2 mixer", "(causal_conv, dt_softplus, ssd_scan, "
+              "gated_norm and their backwards owning the split; "
+              "mamba2-370m's layer)", got, want, same, values_only=(1,))
+    del zx, p, cot, got, want
+    torch.cuda.empty_cache()
+    G, S, d, E, k, f = MOE_LAYER
+    x = _randn(torch, rng, (G, S, d), bf16)
+    w = _randn(torch, rng, (d, E), f32, d ** -0.5)
+    aux_in = torch.tensor(0.25, device="cuda")
+    (weights, idx, probs, aux, ce), same = _twice_equal(
+        torch, lambda: mk.moe_route(x, w, k, aux_in=aux_in))
+    base = mk.moe_route(x, w, k)[3]
+    want = mk.aux_plain(probs, idx, E)
+    e = scaled_err(base, want)
+    require(same and e <= 1e-5 and _bits_equal(torch, aux, aux_in + base),
+            f"moe_route's aux: {e} from the plain version on its choices, "
+            f"or the running total's sum not bit for bit, or two calls "
+            f"differ ({not same})")
+    errs["moe_route"] = max_err(base, want)
+    log(f"[kernels] moe_route's aux loss (phi3.5-moe's layer): {float(base)}"
+        f", scaled error {e:.3g} from the plain version on its choices; the "
+        "running total's sum bit for bit; two calls bit for bit")
+    C = _capacity(S, E, k, MOE_CFS[0])
+    choice_slot, slot_src, _ = mk.moe_slots(idx, E, C)
+    rows = _randn(torch, rng, (E, G * C, d), bf16)
+    res = _randn(torch, rng, (G, S, d), bf16)
+    (y,), same = _twice_equal(torch, lambda: (mk.moe_combine(
+        rows, weights, choice_slot, bf16, res),))
+    same_bits("moe_combine", "with the residual (phi3.5-moe's layer)", [y],
+              [res + mk.moe_combine(rows, weights, choice_slot, bf16)], same)
+    dexp2 = _randn(torch, rng, rows.shape, bf16)
+    (dx,), same = _twice_equal(torch, lambda: (mk.moe_dispatch_bwd(
+        rows, choice_slot, dexp2),))
+    same_bits("moe_dispatch_bwd", "from the gate's and up's cotangents",
+              [dx], [mk.moe_dispatch_bwd(rows + dexp2, choice_slot)], same)
+    del x, w, weights, idx, probs, rows, res, y, dexp2, dx
+    torch.cuda.empty_cache()
+    return errs
 
 
 def _dense_reference(torch, params, batch):
@@ -3199,8 +3407,8 @@ class _RoutingRecorder:
 
         self._route = route = moe._route
 
-        def recorded(p, xg, n_experts, top_k):
-            out = route(p, xg, n_experts, top_k)
+        def recorded(p, xg, n_experts, top_k, aux_in=None):
+            out = route(p, xg, n_experts, top_k, aux_in)
             if self.mode is not None:
                 i = self._layer(p["router"]["w"].detach())
                 idx = out[1].detach()
@@ -3212,7 +3420,7 @@ class _RoutingRecorder:
                     self.flips += int((idx != self.reference[i]).sum())
                 if self.mode == "force":
                     return _forced_route(p, xg, n_experts,
-                                         self.reference[i])
+                                         self.reference[i], aux_in)
             return out
 
         moe._route = recorded
@@ -3224,10 +3432,11 @@ class _RoutingRecorder:
         moe._route = self._route
 
 
-def _forced_route(p, xg, n_experts, idx):
+def _forced_route(p, xg, n_experts, idx, aux_in=None):
     """``moe._route``'s outputs with the choices ``idx`` given: the plain
     softmax of the fp32 logits gathered at ``idx`` and renormalised, and
-    the Switch aux loss of those choices."""
+    the Switch aux loss of those choices (added to ``aux_in`` where
+    given)."""
     import torch
     import torch.nn.functional as F
 
@@ -3238,7 +3447,7 @@ def _forced_route(p, xg, n_experts, idx):
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
     ce = F.one_hot(idx, n_experts).float().sum(2).mean(dim=(0, 1))
     aux = n_experts * torch.sum(probs.mean(dim=(0, 1)) * ce)
-    return weights, idx, aux
+    return weights, idx, aux if aux_in is None else aux_in + aux
 
 
 def decoder_phase(state, key: str, arch: str, batch_size: int, kernels,
@@ -4525,12 +4734,42 @@ def moe_depth(state, expert_layer_bytes: int, layer_bytes: int) -> int:
     return depth
 
 
+def _unstreamed_call(model, params, batch):
+    """One unstreamed offloaded gradient at I=1, s=1 (the least device
+    memory it takes): ``(None, its device peak)``, or ``(the
+    OutOfMemoryError's first line, None)``."""
+    import gc
+
+    import torch
+
+    from repro_torch import api
+
+    vg = api.value_and_grad_offloaded(model.train_loss, interval=1, slots=1,
+                                      device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    oom = peak = None
+    try:
+        loss, grads = vg(params, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del loss, grads
+    except torch.cuda.OutOfMemoryError as err:
+        oom = str(err).splitlines()[0]
+    del vg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return oom, peak
+
+
 def moe_deep(state) -> None:
     """phi3.5-moe at the deepest depth streaming allows (``moe_depth``),
     the expert weights on the host: the unstreamed call must run out of
-    device memory, the streamed one must run, its loss within 1e-5
-    (relative) of a ``no_grad`` forward that moves one layer's weights to
-    the card at a time, every gradient finite."""
+    device memory there -- or, where the card holds it, one layer deeper
+    (the experts on the card), and the streamed call must peak below it --
+    the streamed one must run, its loss within 1e-5 (relative) of a
+    ``no_grad`` forward that moves one layer's weights to the card at a
+    time, every gradient finite."""
     import gc
 
     import torch
@@ -4565,22 +4804,31 @@ def moe_deep(state) -> None:
     log(f"[moe] deep: {depth} layers, the experts' {expert_bytes:,} B on the "
         f"host, {held:,} B of parameters and tokens on the card")
 
-    # without streaming the card cannot hold it
-    vg = api.value_and_grad_offloaded(model.train_loss, interval=1, slots=1,
-                                      device="cuda")
-    oom = None
-    try:
-        vg(params, batch)
-    except torch.cuda.OutOfMemoryError as err:
-        oom = str(err).splitlines()[0]
-    del vg
-    gc.collect()
-    torch.cuda.empty_cache()
-    require(oom is not None, f"moe: the unstreamed call at {depth} layers "
-            "did not run out of device memory")
-    log(f"[moe] deep, unstreamed: torch.cuda.OutOfMemoryError ({oom[:160]}"
-        f"); after emptying the cache {torch.cuda.memory_allocated():,} B "
-        "allocated")
+    # without streaming: the card cannot hold it, or, where it can (the
+    # program grew leaner than this depth's margin), it cannot one layer
+    # deeper, and the streamed call below must peak lower
+    oom, unstreamed_peak = _unstreamed_call(model, params, batch)
+    if oom is None:
+        log(f"[moe] deep, unstreamed: {depth} layers fit the card "
+            f"(device peak {unstreamed_peak:,} B); the host streams no "
+            f"deeper, so the card's limit is shown one layer deeper, the "
+            "experts on the card")
+        deeper = get_model(cfg.replace(n_layers=depth + 1))
+        with torch.no_grad():
+            deep_params = deeper.init(
+                torch.Generator(device="cuda").manual_seed(1), device="cuda")
+        oom, _ = _unstreamed_call(deeper, deep_params, batch)
+        del deeper, deep_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        require(oom is not None, f"moe: the unstreamed call at {depth + 1} "
+                "layers did not run out of device memory")
+        log(f"[moe] deep, unstreamed at {depth + 1} layers: "
+            f"torch.cuda.OutOfMemoryError ({oom[:160]})")
+    else:
+        log(f"[moe] deep, unstreamed: torch.cuda.OutOfMemoryError "
+            f"({oom[:160]}); after emptying the cache "
+            f"{torch.cuda.memory_allocated():,} B allocated")
 
     vg = api.value_and_grad_offloaded(model.train_loss,
                                       offload_params="moe_experts",
@@ -4628,6 +4876,9 @@ def moe_deep(state) -> None:
     rel = abs(float(loss) - float(ref)) / abs(float(ref))
     require(rel <= 1e-5, f"moe deep: loss rel err {rel} > 1e-5 against the "
             "layer-at-a-time forward")
+    require(unstreamed_peak is None or peak < unstreamed_peak,
+            f"moe deep: the streamed call peaked at {peak:,} B, the "
+            f"unstreamed one at {unstreamed_peak:,} B")
     log(f"[moe] deep: host memory after the streamed call: "
         f"{host_memory_line()}")
     log(f"[moe] deep, streamed: tune I={tune.interval} s={tune.slots} "
@@ -4644,7 +4895,8 @@ def moe_deep(state) -> None:
         f"launches {launches}")
     _add_launches(state, "moe-deep", launches)
     state["moe-deep"] = {"layers": depth, "wall_s": wall, "peak": peak,
-                         "oom": oom, "loss_rel": rel}
+                         "oom": oom, "loss_rel": rel,
+                         "unstreamed_peak": unstreamed_peak}
     del params, vg, loss
     gc.collect()
     torch.cuda.empty_cache()
@@ -5290,6 +5542,17 @@ def timing_row(name, source, replaces, k_fn, p_fn, nbytes, flops=0.0,
     return (name, source, replaces, ms_k, ms_p, b_ms, by, ms_l, flops)
 
 
+def timing_alt(name, k_fn, nbytes, what, iters=20):
+    """A kernel's other form (the one a row's main-path form replaced, or
+    a second main-path form), logged beside its row: its time and its
+    bound (bytes at 3.35 TB/s)."""
+    ms = cuda_ms(k_fn, iters)
+    b_ms, by = bound_ms(nbytes, 0.0, BF16_TC_FLOPS)
+    log(f"[timing] {name} {what}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
+        f"{by})")
+    return ms
+
+
 def _time_layer_kernels(torch, state):
     """The layer kernels of gemma2-2b's body at the dense phase's shapes
     (B=2, S=4096), each beside its plain version and its bound (bytes at
@@ -5359,14 +5622,33 @@ def _time_layer_kernels(torch, state):
 
         def lib_bwd():
             return torch.autograd.grad(yl, (xl, wl), g, retain_graph=True)
+    # the main path's form: gemma2-2b's ln1, whose output q, k and v read
+    # and whose input the residual passes on (three cotangents summed and
+    # the skip's added in the kernel); no one PyTorch call computes it
+    g2, g3, dskip = (_randn(torch, rng, (2, 4096, d), bf16)
+                     for _ in range(3))
     rows.append(row(
         "rmsnorm_bwd", "rmsnorm.cu",
-        lambda: rn.rmsnorm_bwd(g, x, scale, rstd),
-        lambda: rn.rmsnorm_bwd_plain(g, x, scale, 1e-6, bf16),
-        3 * el * N * d + 4.0 * (N + 2 * d), lib_bwd,
-        f" at ({N}, {d}) bf16 (library: the gradient of F.rms_norm on "
-        "1 + scale in bf16, through autograd)"))
-    del x, res, g, rstd, lib_bwd
+        lambda: rn.rmsnorm_bwd(g, x, scale, rstd, g_more=(g2, g3),
+                               dskip=dskip),
+        lambda: (rn.rmsnorm_bwd_plain((g + g2) + g3, x, scale, 1e-6,
+                                      bf16)[0] + dskip),
+        6 * el * N * d + 4.0 * (N + 2 * d), None,
+        f" at ({N}, {d}) bf16, three consumers' cotangents and the skip's "
+        "(gemma2-2b's ln1)"))
+    timing_alt("rmsnorm_bwd", lambda: rn.rmsnorm_bwd(g, x, scale, rstd),
+               3 * el * N * d + 4.0 * (N + 2 * d),
+               "with one cotangent (the final norm; the row's form before)")
+    timing_alt("rmsnorm_bwd", lambda: rn.rmsnorm_bwd(
+        g, x, scale, rstd, g_more=(g2,), dskip=dskip),
+        5 * el * N * d + 4.0 * (N + 2 * d),
+        "with two consumers' cotangents and the skip's (gemma2-2b's ln2)")
+    if lib_bwd is not None:
+        timing_alt("F.rms_norm's gradient", lib_bwd,
+                   3 * el * N * d + 4.0 * (N + 2 * d),
+                   "through autograd (one cotangent: the library yardstick "
+                   "of the row's form before)")
+    del x, res, g, rstd, lib_bwd, g2, g3, dskip
     n = 2 * 4096 * GEMMA_FF
     gate, up, gg = (_randn(torch, rng, (2, 4096, GEMMA_FF), bf16)
                     for _ in range(3))
@@ -5383,17 +5665,32 @@ def _time_layer_kernels(torch, state):
     qk = [_randn(torch, rng, sh, bf16) for sh in GEMMA_QK]
     gs = [_randn(torch, rng, sh, bf16) for sh in GEMMA_QK]
     nqk = sum(t.numel() for t in qk)
+    theta = get_config("gemma2-2b").rope_theta
+    # the main path's form: the angles from theta in the kernel (the plain
+    # version builds the table and rotates)
     rows.append(row(
-        "rope", "rope.cu", lambda: rope_mod.rope(qk, cos, sin),
-        lambda: [rope_mod.rope_plain(t, cos, sin) for t in qk],
-        2 * el * nqk + 2 * 4.0 * cos.numel(), None,
-        " (q and k in one launch) at gemma2-2b's q (2, 4096, 8, 256), k "
-        "(2, 4096, 4, 256) bf16"))
+        "rope", "rope.cu",
+        lambda: rope_mod.rope(qk, None, None, theta=theta),
+        lambda: [rope_mod.rope_plain(t, *rope_table(4096, 256, theta,
+                                                    device="cuda"))
+                 for t in qk],
+        2 * el * nqk, None,
+        " (q and k in one launch, the angles from theta) at gemma2-2b's q "
+        "(2, 4096, 8, 256), k (2, 4096, 4, 256) bf16"))
     rows.append(row(
-        "rope_bwd", "rope.cu", lambda: rope_mod.rope_bwd(gs, cos, sin),
+        "rope_bwd", "rope.cu",
+        lambda: rope_mod.rope_bwd(gs, None, None, theta=theta),
         lambda: [rope_mod.rope_bwd_plain(t, x, cos, sin)
                  for t, x in zip(gs, qk)],
-        2 * el * nqk + 2 * 4.0 * cos.numel(), None, ""))
+        2 * el * nqk, None, " (the angles from theta)"))
+    for name, fn, xs in (("rope", rope_mod.rope, qk),
+                         ("rope_bwd", rope_mod.rope_bwd, gs)):
+        timing_alt(name, lambda: fn(xs, cos, sin),
+                   2 * el * nqk + 2 * 4.0 * cos.numel(),
+                   "on the table (the row's form before)")
+    timing_alt("rope_table", lambda: rope_table(4096, 256, theta,
+                                                device="cuda"),
+               2 * 4.0 * cos.numel(), "(the per-layer table it replaces)")
     del qk, gs
     torch.cuda.empty_cache()
     return rows
@@ -5460,6 +5757,18 @@ def _time_dense(torch, state):
             f" the cast {ms['cast']:.4f}; launches in the pinned fused "
             f"gradient {n_fwd} forward, {n_bwd} backward")
         table.append((label, ms, b_ms, n_fwd, n_bwd))
+        if proj in ("wo", "out_proj"):
+            # the main path's form here: the pre-norm's skip added in the
+            # epilogue (the residual read once more)
+            res = _randn(torch, rng, (M, N), bf16)
+            t_res = timing_alt(
+                "dense_fwd", lambda: dn.dense_fwd(x, w, res),
+                nbytes + 2.0 * M * N, f"{label} with the residual")
+            log(f"[timing] dense {label}: the residual epilogue adds "
+                f"{t_res - ms['fwd']:.4f} ms to the product's "
+                f"{ms['fwd']:.4f}; PyTorch's add of two such tensors (the "
+                f"add it replaces) {cuda_ms(lambda: res + res, 20):.4f} ms")
+            del res
         if proj == "gate, up":
             rows.append(("dense_fwd", src, rep + "248", ms["fwd"],
                          ms["plain"], b_ms, by, ms["lib"], flops))
@@ -5499,13 +5808,13 @@ def _time_moe(torch, state):
     rep_ = "src/repro/kernels/segment_pallas.py:"
     rng = np.random.default_rng(76)
     bf16 = torch.bfloat16
-    x, w, (weights, idx, probs) = _moe_inputs(torch, rng)
+    x, w, (weights, idx, probs, _, ce) = _moe_inputs(torch, rng)
     choice_slot, slot_src, _ = mk.moe_slots(idx, E, C)
     kept = int((slot_src >= 0).sum())
     rows_bytes = 2.0 * kept * d          # the kept rows a gather reads
     nk, egc = N * k, E * G * C
     dweights = _randn(torch, rng, (G, S, k), torch.float32)
-    dprobs = _randn(torch, rng, (G, S, E), torch.float32, 0.1)
+    daux = torch.tensor(0.7, device="cuda")
     out = []
 
     def row(name, cu, k_fn, p_fn, nbytes, flops=0.0, l_fn=None, what=""):
@@ -5513,14 +5822,18 @@ def _time_moe(torch, state):
         out.append(timing_row(name, src + cu, rep_ + line, k_fn, p_fn,
                               nbytes, flops, l_fn, what, iters=(20, 3)))
 
+    # the routing with its aux loss (the probs and choices read again by
+    # the aux's block: counted once, as written)
     row("moe_route", "moe.cu", lambda: mk.moe_route(x, w, k),
-        lambda: mk.route_plain(x, w, k),
-        2.0 * N * d + 4.0 * d * E + 4.0 * N * E + 12.0 * nk,
-        what=f" at ({G}, {S}, {d}) bf16, E={E}, top-{k}")
+        lambda: (mk.route_plain(x, w, k),
+                 mk.aux_plain(probs, idx, E)),
+        2.0 * N * d + 4.0 * d * E + 4.0 * N * E + 12.0 * nk + 4.0 * E + 4.0,
+        what=f" at ({G}, {S}, {d}) bf16, E={E}, top-{k}, with the aux loss")
     row("moe_route_bwd", "moe.cu",
-        lambda: mk.moe_route_bwd(dweights, dprobs, x, w, probs, idx),
-        lambda: mk.route_bwd_plain(dweights, dprobs, x, w, k),
-        4.0 * N * d + 8.0 * d * E + 8.0 * N * E + 16.0 * nk)
+        lambda: mk.moe_route_bwd(dweights, daux, x, w, probs, idx, ce),
+        lambda: mk.route_bwd_plain(dweights, daux, x, w, k),
+        4.0 * N * d + 8.0 * d * E + 4.0 * N * E + 12.0 * nk + 4.0 * E,
+        what=" (the weights' and the aux's cotangents)")
     row("moe_slots", "moe.cu", lambda: mk.moe_slots(idx, E, C),
         lambda: mk.slots_plain(idx, E, C),
         8.0 * nk + 4.0 * nk + 4.0 * egc + 4.0 * G * E,
@@ -5534,18 +5847,34 @@ def _time_moe(torch, state):
         l_fn=lambda: xp.index_select(0, tok),
         what=" (library: index_select of x with a zero row appended)")
     dexp = _randn(torch, rng, (E, G * C, d), bf16)
+    dexp2 = _randn(torch, rng, (E, G * C, d), bf16)
     acc = x.new_zeros((N + 1, d))
     dexp_flat = dexp.reshape(-1, d)
+    # the main path's form: the gate's and the up product's cotangents of
+    # the buckets summed in the kernel (no one PyTorch call computes it)
     row("moe_dispatch_bwd", "moe.cu",
-        lambda: mk.moe_dispatch_bwd(dexp, choice_slot),
-        lambda: mk.dispatch_bwd_plain(dexp, choice_slot),
-        4.0 * nk + rows_bytes + 2.0 * N * d,
-        l_fn=lambda: acc.index_add_(0, tok, dexp_flat),
-        what=" (library: index_add_ of the bucket rows into the tokens')")
+        lambda: mk.moe_dispatch_bwd(dexp, choice_slot, dexp2),
+        lambda: mk.dispatch_bwd_plain(dexp + dexp2, choice_slot),
+        4.0 * nk + 2 * rows_bytes + 2.0 * N * d,
+        what=" (the gate's and up's cotangents of the buckets)")
+    timing_alt("moe_dispatch_bwd", lambda: mk.moe_dispatch_bwd(
+        dexp, choice_slot), 4.0 * nk + rows_bytes + 2.0 * N * d,
+        "from one cotangent (the row's form before)")
+    timing_alt("index_add_", lambda: acc.index_add_(0, tok, dexp_flat),
+               4.0 * nk + rows_bytes + 2.0 * N * d,
+               "of the bucket rows into the tokens' (the library yardstick "
+               "of the row's form before)")
+    res = _randn(torch, rng, (G, S, d), bf16)
+    # the main path's form: the layer's skip added in the kernel
     row("moe_combine", "moe.cu",
-        lambda: mk.moe_combine(dexp, weights, choice_slot, bf16),
-        lambda: mk.combine_plain(dexp, weights, choice_slot, bf16),
-        8.0 * nk + rows_bytes + 2.0 * N * d)
+        lambda: mk.moe_combine(dexp, weights, choice_slot, bf16, res),
+        lambda: mk.combine_plain(dexp, weights, choice_slot, bf16, res),
+        8.0 * nk + rows_bytes + 2 * 2.0 * N * d,
+        what=" (with the residual)")
+    timing_alt("moe_combine", lambda: mk.moe_combine(
+        dexp, weights, choice_slot, bf16), 8.0 * nk + rows_bytes
+        + 2.0 * N * d, "without the residual (the row's form before)")
+    del dexp2, res
     dy = _randn(torch, rng, (G, S, d), bf16)
     row("moe_combine_bwd", "moe.cu",
         lambda: mk.moe_combine_bwd(dy, dexp, weights, choice_slot, slot_src),
@@ -5656,27 +5985,47 @@ def _time_mamba_kernels(torch):
     torch.cuda.empty_cache()
     proj = _randn(torch, rng, (B, T, 2 * d + 2 * G * N + H), bf16)
     z, xbc, raw = proj[..., :d], proj[..., d:d + C], proj[..., d + C:]
+    # the input projection's cotangent, whose columns the backwards write
+    dproj = torch.empty_like(proj)
     w = _randn(torch, rng, (K, C), bf16, 0.2)
     bias = _randn(torch, rng, (C,), bf16, 0.1)
     wl = w.t().contiguous().unsqueeze(1)    # (C, 1, K)
     xl = xbc.transpose(1, 2)
+    splits = (d, G * N, G * N)
 
     def conv_lib():
         return F.conv1d(xl, wl, bias, padding=K - 1, groups=C)
 
     n = B * T * C
+    # the main path's forms (the mixer owns the split): the conv reads its
+    # columns in place and writes x, B and C apart; its backward reads the
+    # SSD's three cotangents and the gated norm's skip cotangent on x and
+    # writes its columns of the projection's cotangent
     rows.append(row("causal_conv", "causal_conv.cu", rep_f,
-                    lambda: cc.causal_conv(xbc, w, bias),
+                    lambda: cc.causal_conv(xbc, w, bias, splits=splits),
                     lambda: cc.causal_conv_plain(xbc, w, bias, None),
                     2 * 2.0 * n + 2.0 * (K + 1) * C, 0.0, conv_lib,
-                    f" at ({B}, {T}, {C}) bf16, K={K} (library: F.conv1d, "
-                    "groups=C, without the SiLU)"))
-    out = cc.causal_conv(xbc, w, bias)
-    g = _randn(torch, rng, (B, T, C), bf16)
+                    f" at ({B}, {T}, {C}) bf16, K={K}, into x, B and C "
+                    "(library: F.conv1d, groups=C, without the SiLU)"))
+    timing_alt("causal_conv", lambda: cc.causal_conv(xbc, w, bias),
+               2 * 2.0 * n + 2.0 * (K + 1) * C,
+               "into one tensor (the row's form before)", iters=10)
+    pieces = cc.causal_conv(xbc, w, bias, splits=splits)
+    gp = [_randn(torch, rng, t.shape, bf16) for t in pieces]
+    gadd = _randn(torch, rng, gp[0].shape, bf16)
+    g = torch.cat([gp[0] + gadd] + gp[1:], dim=-1)
     rows.append(row("causal_conv_bwd", "causal_conv.cu", rep,
-                    lambda: cc.causal_conv_bwd(g, xbc, w, bias),
+                    lambda: cc.causal_conv_bwd(
+                        tuple(gp), xbc, w, bias, g_add=gadd,
+                        dx_out=dproj[..., d:d + C]),
                     lambda: cc.causal_conv_bwd_plain(g, xbc, w, bias, None),
-                    3 * 2.0 * n + 2 * 2.0 * (K + 1) * C))
+                    3 * 2.0 * n + 2.0 * B * T * d + 2 * 2.0 * (K + 1) * C,
+                    what=" (from the SSD's pieces and the skip's addend, "
+                    "into its columns of the projection's cotangent)"))
+    timing_alt("causal_conv_bwd", lambda: cc.causal_conv_bwd(
+        g, xbc, w, bias), 3 * 2.0 * n + 2 * 2.0 * (K + 1) * C,
+        "from one cotangent into its own tensor (the row's form before)",
+        iters=10)
     dtb = _randn(torch, rng, (H,), f32)
     v = raw.float() + dtb
     rows.append(row("dt_softplus", "dt_softplus.cu", rep_f,
@@ -5687,11 +6036,14 @@ def _time_mamba_kernels(torch):
                     " (library: F.softplus on the fp32 sum)"))
     gd = _randn(torch, rng, (B, T, H), f32)
     rows.append(row("dt_softplus_bwd", "dt_softplus.cu", rep,
-                    lambda: ds.dt_softplus_bwd(gd, raw, dtb),
+                    lambda: ds.dt_softplus_bwd(gd, raw, dtb,
+                                               draw_out=dproj[..., d + C:]),
                     lambda: ds.dt_softplus_bwd_plain(gd, raw, dtb),
-                    B * T * H * (2.0 + 4.0 + 2.0) + 8.0 * H))
+                    B * T * H * (2.0 + 4.0 + 2.0) + 8.0 * H,
+                    what=" (into its columns of the projection's "
+                    "cotangent)"))
     y = _randn(torch, rng, (B, T, H, P), bf16)
-    x = out[..., :d].reshape(B, T, H, P)
+    x = pieces[0].view(B, T, H, P)
     D = _randn(torch, rng, (H,), f32)
     scale = _randn(torch, rng, (d,), f32, 0.3)
     m = B * T * d
@@ -5704,11 +6056,14 @@ def _time_mamba_kernels(torch):
     _, rstd = gn.gated_norm(y, x, D, z, scale, out_dtype=bf16)
     gg = _randn(torch, rng, (B, T, d), bf16)
     rows.append(row("gated_norm_bwd", "gated_norm.cu", rep,
-                    lambda: gn.gated_norm_bwd(gg, y, x, D, z, scale, rstd),
+                    lambda: gn.gated_norm_bwd(gg, y, x, D, z, scale, rstd,
+                                              dz_out=dproj[..., :d]),
                     lambda: gn.gated_norm_bwd_plain(gg, y, x, D, z, scale,
                                                     1e-6, bf16),
-                    7 * 2.0 * m + 4.0 * (B * T + 2 * (H + d))))
-    del proj, out, g, v, gd, y, x, gg, rstd
+                    7 * 2.0 * m + 4.0 * (B * T + 2 * (H + d)),
+                    what=" (dz into its columns of the projection's "
+                    "cotangent)"))
+    del proj, dproj, pieces, gp, gadd, g, v, gd, y, x, gg, rstd
     torch.cuda.empty_cache()
     return rows
 
@@ -6141,7 +6496,10 @@ def profile_fused(state) -> None:
     each tree and arch in a process of its own): the tree given with
     ``--parent`` (a ``git archive`` of another commit) first, then this
     one, whose cuBLAS products must be the readout's alone
-    (``--readout-only``); the tables to ``<out-dir>/profile_<arch>_*.txt``."""
+    (``--readout-only``) and whose fused segments' body ranges must launch
+    no PyTorch kernel on a tensor with a token axis (``--body-only``: the
+    device time split by range, and the body's PyTorch kernels listed); the
+    tables to ``<out-dir>/profile_<arch>_*.txt``."""
     import torch
 
     torch.cuda.empty_cache()
@@ -6160,7 +6518,8 @@ def profile_fused(state) -> None:
                  str(interval), "--slots", str(slots), "--src",
                  os.path.join(root, "src"), "--out", out, "--label", label]
                 + (["--layers", str(layers)] if layers else [])
-                + (["--readout-only"] if label == "tree" else []),
+                + (["--readout-only", "--body-only"] if label == "tree"
+                   else []),
                 capture_output=True, text=True, timeout=900)
             require(res.returncode == 0, f"profile of {arch} ({label}) "
                     f"failed:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")

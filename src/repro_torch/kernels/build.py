@@ -144,14 +144,42 @@ def on_card(t) -> bool:
     return t.is_cuda
 
 
-def rows(t, width: int):
-    """``t`` as (rows, ``width``) with unit column stride -- a view where
-    one exists (a column slice of wider rows), else a contiguous copy --
-    and its row stride, for a kernel that reads rows in place."""
-    r = t.reshape(-1, width)
-    if r.stride(1) != 1 or (r.shape[0] > 1 and r.stride(0) < width):
-        r = r.contiguous()
+def rows(t, width: int, what: str = "a kernel"):
+    """``t`` as a (rows, ``width``) view with unit column stride (a column
+    slice of wider rows is one) and its row stride, for a kernel that reads
+    rows in place.  ``ValueError`` where no such view exists: the wrappers
+    never copy an operand to fit a kernel."""
+    try:
+        r = t.view(-1, width)
+    except RuntimeError:
+        r = None
+    if r is None or r.stride(1) != 1 or (r.shape[0] > 1
+                                          and r.stride(0) < width):
+        raise ValueError(f"{what}: an operand of shape {tuple(t.shape)} and "
+                         f"strides {t.stride()} is not rows of {width} "
+                         "values with one row stride")
     return r, r.stride(0)
+
+
+def cotangent(g):
+    """An autograd function's incoming cotangent as its backward kernels
+    read it: ``g`` itself, or a dense copy where autograd hands back a view
+    (a ``sum``'s broadcast, a concatenation's slice) -- the one copy the
+    card's autograd functions make, which the decoders' chain bodies never
+    need (their cotangents are dense: ``tools/profile_fused.py
+    --body-only``)."""
+    if g is not None and not g.is_contiguous():
+        return g.contiguous()
+    return g
+
+
+def dense(t, what: str = "a kernel"):
+    """``t`` itself when it is contiguous; ``ValueError`` otherwise (the
+    wrappers never copy an operand to fit a kernel)."""
+    if t is not None and not t.is_contiguous():
+        raise ValueError(f"{what}: the operand of shape {tuple(t.shape)} "
+                         f"and strides {t.stride()} must be contiguous")
+    return t
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -16,11 +16,18 @@ three kernel launches a call, counted once).
 
 Shapes: ``xbc`` (B, T, C), ``w`` (K, C), ``bias`` (C,), ``window`` (B,
 K - 1, C) or None (zeros), all of one dtype (the model's compute dtype).
+``xbc`` may be a column slice of wider rows (read in place).  The kernels
+also split their output by columns: :func:`causal_conv` with ``splits``
+writes the column pieces into buffers of their own (mamba2's x, B and C,
+which the SSD reads as they are), and :func:`causal_conv_bwd` reads its
+cotangent as those pieces (the first plus a second addend ``g_add``, as
+autograd would add them) and writes ``dxbc`` into a given view (its
+columns of the input projection's cotangent buffer).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,9 +41,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 def _lib():
     lib = build.load("causal_conv")
     lib.causal_conv_fwd.restype = _I
-    lib.causal_conv_fwd.argtypes = [_P] * 5 + [_I] * 4 + [_L, _I, _P]
+    lib.causal_conv_fwd.argtypes = [_P] * 7 + [_L] * 3 + [_I] * 6 + [
+        _L, _I, _P]
     lib.causal_conv_bwd.restype = _I
-    lib.causal_conv_bwd.argtypes = [_P] * 10 + [_I] * 4 + [_L, _I, _P]
+    lib.causal_conv_bwd.argtypes = ([_P] * 7 + [_L] * 3 + [_I] * 2
+                                    + [_P, _P, _L] + [_P] * 4 + [_I] * 4
+                                    + [_L, _I, _P])
     lib.causal_conv_bwd_parts.restype = _I
     lib.causal_conv_bwd_parts.argtypes = [_L]
     lib.causal_conv_max_k.restype = _I
@@ -74,7 +84,7 @@ def causal_conv_bwd_plain(g, xbc, w, bias, window):
     return tuple(None if t is None else next(grads) for t in ins)
 
 
-def _window_of(xbc, window, K):
+def window_of(xbc, window, K):
     """The last K - 1 rows of ``[window; xbc]``: a view of ``xbc`` where
     it is at least that long."""
     T = xbc.shape[1]
@@ -113,59 +123,108 @@ def _check(what, xbc, w, bias, window):
                          f"{K}")
 
 
+def _pieces(what, ts: Sequence[torch.Tensor], Bsz: int, T: int, C: int,
+            dtype) -> Tuple[list, list, int, int]:
+    """The kernels' column pieces: pointers' tensors (three, None padded),
+    their row strides and the piece boundaries ``c1``, ``c2``."""
+    ts = list(ts)
+    if not 1 <= len(ts) <= 3 or any(
+            t.dim() != 3 or t.shape[:2] != (Bsz, T) or t.dtype != dtype
+            for t in ts) or sum(t.shape[2] for t in ts) != C:
+        raise ValueError(f"{what}: pieces "
+                         f"{[(tuple(t.shape), t.dtype) for t in ts]} do not "
+                         f"split ({Bsz}, {T}, {C}) {dtype} by columns")
+    rows, lds = [], []
+    for i, t in enumerate(ts):
+        r, ld = build.rows(t, t.shape[2], f"{what}: piece {i}")
+        rows.append(r)
+        lds.append(ld)
+    widths = [t.shape[2] for t in ts] + [0] * (3 - len(ts))
+    c1 = widths[0]
+    return (rows + [None] * (3 - len(ts)), lds + [0] * (3 - len(ts)), c1,
+            c1 + widths[1])
+
+
 def causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                window: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The forward kernel (card only): ``silu(conv + bias)`` (B, T, C)."""
+                window: Optional[torch.Tensor] = None,
+                splits: Sequence[int] = ()) -> Tuple[torch.Tensor, ...]:
+    """The forward kernel (card only): ``silu(conv + bias)`` (B, T, C), as
+    one tensor, or with ``splits`` (column widths summing to C, up to
+    three) as that many contiguous tensors, written by the kernel."""
     if not build.on_card(xbc):
         raise ValueError("causal_conv runs on the card only")
     _check("causal_conv", xbc, w, bias, window)
     Bsz, T, C = xbc.shape
-    xr, sx = build.rows(xbc, C)
-    out = torch.empty((Bsz, T, C), dtype=xbc.dtype, device=xbc.device)
+    widths = list(splits) or [C]
+    xr, sx = build.rows(xbc, C, "causal_conv: xbc")
+    outs = [torch.empty((Bsz, T, c), dtype=xbc.dtype, device=xbc.device)
+            for c in widths]
+    ptrs, lds, c1, c2 = _pieces("causal_conv", outs, Bsz, T, C, xbc.dtype)
     lib = _lib()
     err = lib.causal_conv_fwd(
-        build.ptr(xr), build.ptr(None if window is None
-                                 else window.contiguous()),
-        build.ptr(w.contiguous()), build.ptr(bias.contiguous()),
-        build.ptr(out), Bsz, T, C, w.shape[0], sx,
-        int(xbc.dtype == torch.bfloat16), build.stream_ptr(xbc.device))
+        build.ptr(xr), build.ptr(build.dense(window, "causal_conv: window")),
+        build.ptr(build.dense(w, "causal_conv: w")),
+        build.ptr(build.dense(bias, "causal_conv: bias")),
+        *[build.ptr(p) for p in ptrs], *lds, c1, c2, Bsz, T, C, w.shape[0],
+        sx, int(xbc.dtype == torch.bfloat16), build.stream_ptr(xbc.device))
     build.check(lib, err, "causal_conv")
     causal_conv.launches += 1
-    return out
+    return tuple(outs) if splits else outs[0]
 
 
-def causal_conv_bwd(g: torch.Tensor, xbc: torch.Tensor, w: torch.Tensor,
-                    bias: torch.Tensor, window: Optional[torch.Tensor] = None
+def causal_conv_bwd(g, xbc: torch.Tensor, w: torch.Tensor,
+                    bias: torch.Tensor, window: Optional[torch.Tensor] = None,
+                    *, g_add: Optional[torch.Tensor] = None,
+                    dx_out: Optional[torch.Tensor] = None
                     ) -> Tuple[Optional[torch.Tensor], ...]:
     """The backward kernel (card only): ``(dxbc, dw, dbias, dwindow)`` for
     the cotangent ``g`` of :func:`causal_conv`'s output (``dwindow`` None
-    without a window), in the inputs' dtype."""
+    without a window), in the inputs' dtype.  ``g``: a tensor, or a tuple
+    of its column pieces (as :func:`causal_conv`'s ``splits`` gives them);
+    ``g_add``: a second cotangent of the first piece, added to it (rounded
+    to its dtype) as autograd would; ``dx_out``: the (B, T, C) view (rows
+    with one stride) that takes ``dxbc``, which is then returned."""
     if not build.on_card(xbc):
         raise ValueError("causal_conv_bwd runs on the card only")
     _check("causal_conv_bwd", xbc, w, bias, window)
-    if g.shape != xbc.shape or g.dtype != xbc.dtype:
-        raise ValueError(f"causal_conv_bwd: g{tuple(g.shape)} {g.dtype} does "
-                         f"not fit xbc{tuple(xbc.shape)} {xbc.dtype}")
     Bsz, T, C = xbc.shape
     K = w.shape[0]
-    xr, sx = build.rows(xbc, C)
-    win = None if window is None else window.contiguous()
+    gs = list(g) if isinstance(g, (tuple, list)) else [g]
+    gptrs, glds, c1, c2 = _pieces("causal_conv_bwd", gs, Bsz, T, C,
+                                  xbc.dtype)
+    if g_add is not None and (g_add.shape != gs[0].shape
+                              or g_add.dtype != gs[0].dtype
+                              or g_add.stride() != gs[0].stride()):
+        raise ValueError(f"causal_conv_bwd: g_add{tuple(g_add.shape)} "
+                         f"{g_add.dtype} is not laid out as the first "
+                         f"piece {tuple(gs[0].shape)} {gs[0].dtype}")
+    xr, sx = build.rows(xbc, C, "causal_conv_bwd: xbc")
+    win = build.dense(window, "causal_conv_bwd: window")
     lib = _lib()
     part = torch.empty((lib.causal_conv_bwd_parts(Bsz * T), K + 1, C),
                        dtype=torch.float32, device=xbc.device)
-    dx = torch.empty((Bsz, T, C), dtype=xbc.dtype, device=xbc.device)
+    if dx_out is None:
+        dx_out = torch.empty((Bsz, T, C), dtype=xbc.dtype,
+                             device=xbc.device)
+    elif dx_out.shape != (Bsz, T, C) or dx_out.dtype != xbc.dtype:
+        raise ValueError(f"causal_conv_bwd: dx_out{tuple(dx_out.shape)} "
+                         f"{dx_out.dtype} is not {(Bsz, T, C)} "
+                         f"{xbc.dtype}")
+    dxr, sdx = build.rows(dx_out, C, "causal_conv_bwd: dx_out")
     dwin = None if win is None else torch.empty_like(win)
     dw = torch.empty((K, C), dtype=w.dtype, device=xbc.device)
     db = torch.empty((C,), dtype=bias.dtype, device=xbc.device)
     err = lib.causal_conv_bwd(
-        build.ptr(xr), build.ptr(win), build.ptr(w.contiguous()),
-        build.ptr(bias.contiguous()), build.ptr(g.contiguous()),
-        build.ptr(dx), build.ptr(dwin), build.ptr(dw), build.ptr(db),
+        build.ptr(xr), build.ptr(win),
+        build.ptr(build.dense(w, "causal_conv_bwd: w")),
+        build.ptr(build.dense(bias, "causal_conv_bwd: bias")),
+        *[build.ptr(p) for p in gptrs], *glds, c1, c2, build.ptr(g_add),
+        build.ptr(dxr), sdx, build.ptr(dwin), build.ptr(dw), build.ptr(db),
         build.ptr(part), Bsz, T, C, K, sx, int(xbc.dtype == torch.bfloat16),
         build.stream_ptr(xbc.device))
     build.check(lib, err, "causal_conv_bwd")
     causal_conv_bwd.launches += 1
-    return dx, dw, db, dwin
+    return dx_out, dw, db, dwin
 
 
 class _CausalConv(torch.autograd.Function):
@@ -179,7 +238,7 @@ class _CausalConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return causal_conv_bwd(g, *ctx.saved_tensors)
+        return causal_conv_bwd(build.cotangent(g), *ctx.saved_tensors)
 
 
 def conv_silu(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -193,7 +252,7 @@ def conv_silu(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         dtype = xbc.dtype if dtype is None else dtype
         win = None if window is None else window.to(xbc.dtype)
         return (_CausalConv.apply(xbc, w.to(dtype), bias.to(dtype), win),
-                _window_of(xbc, win, w.shape[0]))
+                window_of(xbc, win, w.shape[0]))
     return causal_conv_plain(xbc, w, bias, window, dtype)
 
 

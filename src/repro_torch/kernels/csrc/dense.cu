@@ -45,7 +45,10 @@
 // fp32 sum over the reduction in a fixed order (stage by stage from 0, the
 // tensor core's order within a stage), rounded once to bf16; dw is rounded
 // to bf16 and then written in w's dtype: autograd's value for
-// x @ w.to(bf16) followed by the cast's backward.  No atomics: a dw tile
+// x @ w.to(bf16) followed by the cast's backward.  The forward may add a
+// residual in its epilogue (y = round(res + round(x @ w)): a pre-norm
+// layer's skip, the plain version's residual + y with both roundings);
+// a batched call takes none.  No atomics: a dw tile
 // walks all M rows itself (gemma2-2b's and mamba2-370m's dw have 64 to 648
 // tiles of 256 x 128).
 //
@@ -170,6 +173,27 @@ __device__ __forceinline__ float from_bf16<float>(bf16 v) {
   return __bfloat162float(v);
 }
 
+// round(res + v) in T, the sum in fp32
+__device__ __forceinline__ bf16 add_rounded(bf16 res, bf16 v) {
+  return __float2bfloat16(__bfloat162float(res) + __bfloat162float(v));
+}
+__device__ __forceinline__ float add_rounded(float res, float v) {
+  return res + v;
+}
+
+__device__ __forceinline__ void load_pair(const bf16* src, bf16* v0,
+                                          bf16* v1) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(src);
+  *v0 = __ushort_as_bfloat16(static_cast<unsigned short>(u & 0xffffu));
+  *v1 = __ushort_as_bfloat16(static_cast<unsigned short>(u >> 16));
+}
+__device__ __forceinline__ void load_pair(const float* src, float* v0,
+                                          float* v1) {
+  const float2 f = *reinterpret_cast<const float2*>(src);
+  *v0 = f.x;
+  *v1 = f.y;
+}
+
 __device__ __forceinline__ void store_pair(bf16* dst, bf16 v0, bf16 v1) {
   *reinterpret_cast<uint32_t*>(dst) =
       static_cast<uint32_t>(__bfloat16_as_ushort(v0)) |
@@ -203,8 +227,8 @@ template <int AL, int BL, typename TB, typename TC>
 __global__ void __launch_bounds__(NT)
 dense_tc_kernel(const bf16* __restrict__ a, long lda, long sa,
                 const TB* __restrict__ b, long ldb, long sb,
-                TC* __restrict__ c, long ldc, long sc, int P, int Q, int R,
-                int vec_a, int vec_b) {
+                TC* __restrict__ c, const TC* __restrict__ res, long ldc,
+                long sc, int P, int Q, int R, int vec_a, int vec_b) {
   using L = TcLayout<AL, BL, TB>;
   // the batch's product (the experts' products: one a blockIdx.z)
   a += blockIdx.z * sa;
@@ -316,10 +340,13 @@ dense_tc_kernel(const bf16* __restrict__ a, long lda, long sa,
   }
   repro::cp_async_wait<0>();
 
-  // each sum rounded once to bf16, then written in TC: a lane's two
-  // neighbouring columns in one store where both are in range and aligned
+  // each sum rounded once to bf16, then written in TC (plus the residual,
+  // rounded again): a lane's two neighbouring columns in one store where
+  // both are in range and aligned
   const bool pairs = ldc % 2 == 0 &&
                      (reinterpret_cast<uintptr_t>(c) % (2 * sizeof(TC))) == 0;
+  const bool res_pairs =
+      pairs && (reinterpret_cast<uintptr_t>(res) % (2 * sizeof(TC))) == 0;
 #pragma unroll
   for (int i = 0; i < WP / 16; ++i)
 #pragma unroll
@@ -329,8 +356,20 @@ dense_tc_kernel(const bf16* __restrict__ a, long lda, long sa,
         const int p = p0 + wp + i * 16 + g + 8 * h;
         const int q = q0 + wq + j * 8 + 2 * tq;
         if (p >= P) continue;
-        const TC v0 = from_bf16<TC>(__float2bfloat16(acc[i][j][2 * h]));
-        const TC v1 = from_bf16<TC>(__float2bfloat16(acc[i][j][2 * h + 1]));
+        TC v0 = from_bf16<TC>(__float2bfloat16(acc[i][j][2 * h]));
+        TC v1 = from_bf16<TC>(__float2bfloat16(acc[i][j][2 * h + 1]));
+        if (res) {
+          const TC* rs = res + p * ldc + q;
+          if (res_pairs && q + 1 < Q) {
+            TC r0, r1;
+            load_pair(rs, &r0, &r1);
+            v0 = add_rounded(r0, v0);
+            v1 = add_rounded(r1, v1);
+          } else {
+            if (q < Q) v0 = add_rounded(rs[0], v0);
+            if (q + 1 < Q) v1 = add_rounded(rs[1], v1);
+          }
+        }
         TC* dst = c + p * ldc + q;
         if (pairs && q + 1 < Q) {
           store_pair(dst, v0, v1);
@@ -343,7 +382,7 @@ dense_tc_kernel(const bf16* __restrict__ a, long lda, long sa,
 
 // The fp32 product: C = A . B with A (p, r) at a[p * sap + r * sar], B (r,
 // q) at b[r * sbr + q * sbq], each output one sequential fp32 FMA sum over
-// r, written in TC.  64 threads, 8 x 8 outputs each.
+// r, written in TC (plus res where given).  64 threads, 8 x 8 outputs each.
 constexpr int FT = 64;    // tile rows and columns
 constexpr int FR = 32;    // reduction depth of a stage
 constexpr int FNT = 64;   // threads
@@ -363,7 +402,8 @@ template <typename TB, typename TC>
 __global__ void __launch_bounds__(FNT)
 dense_f32_kernel(const float* __restrict__ a, long sap, long sar, long sa,
                  const TB* __restrict__ b, long sbr, long sbq, long sb,
-                 TC* __restrict__ c, long ldc, long sc, int P, int Q, int R) {
+                 TC* __restrict__ c, const TC* __restrict__ res, long ldc,
+                 long sc, int P, int Q, int R) {
   a += blockIdx.z * sa;
   b += blockIdx.z * sb;
   c += blockIdx.z * sc;
@@ -409,7 +449,9 @@ dense_f32_kernel(const float* __restrict__ a, long sap, long sar, long sa,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int p = p0 + ty + 8 * i, q = q0 + tx + 8 * j;
-      if (p < P && q < Q) c[p * ldc + q] = repro::from_f32<TC>(acc[i][j]);
+      if (p >= P || q >= Q) continue;
+      const TC v = repro::from_f32<TC>(acc[i][j]);
+      c[p * ldc + q] = res ? add_rounded(res[p * ldc + q], v) : v;
     }
 }
 
@@ -426,7 +468,8 @@ struct Batch {
 
 template <int AL, int BL, typename TB, typename TC>
 int launch_tc(const void* a, long lda, const void* b, long ldb, void* c,
-              long ldc, int P, int Q, int R, Batch bt, void* stream) {
+              long ldc, int P, int Q, int R, Batch bt, void* stream,
+              const void* res = nullptr) {
   using L = TcLayout<AL, BL, TB>;
   const int vec_a = aligned16(a) && lda % 8 == 0 && bt.sa % 8 == 0;
   const long vb = 16 / sizeof(TB);
@@ -439,20 +482,21 @@ int launch_tc(const void* a, long lda, const void* b, long ldb, void* c,
   const dim3 grid((P + TP - 1) / TP, (Q + TQ - 1) / TQ, bt.n);
   kern<<<grid, NT, L::smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(a), lda, bt.sa, static_cast<const TB*>(b),
-      ldb, bt.sb, static_cast<TC*>(c), ldc, bt.sc, P, Q, R, vec_a, vec_b);
+      ldb, bt.sb, static_cast<TC*>(c), static_cast<const TC*>(res), ldc,
+      bt.sc, P, Q, R, vec_a, vec_b);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TB, typename TC>
 int launch_f32(const void* a, long sap, long sar, const void* b, long sbr,
                long sbq, void* c, long ldc, int P, int Q, int R, Batch bt,
-               void* stream) {
+               void* stream, const void* res = nullptr) {
   auto kern = dense_f32_kernel<TB, TC>;
   const dim3 grid((P + FT - 1) / FT, (Q + FT - 1) / FT, bt.n);
   kern<<<grid, FNT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), sap, sar, bt.sa,
-      static_cast<const TB*>(b), sbr, sbq, bt.sb, static_cast<TC*>(c), ldc,
-      bt.sc, P, Q, R);
+      static_cast<const TB*>(b), sbr, sbq, bt.sb, static_cast<TC*>(c),
+      static_cast<const TC*>(res), ldc, bt.sc, P, Q, R);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -471,26 +515,28 @@ bool empty_or_too_big(int P, int Q, int batch, int* err) {
 }  // namespace
 
 // x (M, K) with row stride ldx, bf16 (x_bf16) or fp32; w (K, N) contiguous,
-// bf16 (w_bf16) or fp32; y (M, N) contiguous in x's dtype.  K and N at most
+// bf16 (w_bf16) or fp32; y (M, N) contiguous in x's dtype, and res (M, N)
+// contiguous in x's dtype or null: y = res + x @ w.  K and N at most
 // 65535 x 64 (cudaErrorInvalidValue otherwise).  `batch` products (at most
 // 65535), the i-th at x + i sx, w + i sw, y + i sy (strides in elements):
-// the experts' products, one an expert.
+// the experts' products, one an expert (no residual).
 extern "C" int dense_fwd(const void* x, long ldx, const void* w, void* y,
-                         int M, int K, int N, int x_bf16, int w_bf16,
-                         int batch, long sx, long sw, long sy,
+                         const void* res, int M, int K, int N, int x_bf16,
+                         int w_bf16, int batch, long sx, long sw, long sy,
                          void* stream) {
   int err;
   if (empty_or_too_big(M, N, batch, &err)) return err;
+  if (res && batch != 1) return static_cast<int>(cudaErrorInvalidValue);
   const Batch bt{batch, sx, sw, sy};
   if (x_bf16)
     return w_bf16 ? launch_tc<ROW, RQ, bf16, bf16>(x, ldx, w, N, y, N, M, N,
-                                                   K, bt, stream)
+                                                   K, bt, stream, res)
                   : launch_tc<ROW, RQ, float, bf16>(x, ldx, w, N, y, N, M, N,
-                                                    K, bt, stream);
+                                                    K, bt, stream, res);
   return w_bf16 ? launch_f32<bf16, float>(x, ldx, 1, w, N, 1, y, N, M, N, K,
-                                          bt, stream)
+                                          bt, stream, res)
                 : launch_f32<float, float>(x, ldx, 1, w, N, 1, y, N, M, N, K,
-                                           bt, stream);
+                                           bt, stream, res);
 }
 
 // dy (M, N) with row stride lddy, in x's dtype; dx (M, K) contiguous.

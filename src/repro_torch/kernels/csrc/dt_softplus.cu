@@ -54,12 +54,13 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 dt_bwd_kernel(const T* __restrict__ raw, const float* __restrict__ bias,
               const float* __restrict__ g, T* __restrict__ draw, long rows,
-              int H, long sr) {
+              int H, long sr, long sd) {
   const long e = static_cast<long>(blockIdx.x) * NT + threadIdx.x;
   if (e >= rows * H) return;
   const long r = e / H;
   const int h = static_cast<int>(e % H);
-  draw[e] = from_f32<T>(softplus_grad(g[e], to_f32(raw[r * sr + h]) + bias[h]));
+  draw[r * sd + h] =
+      from_f32<T>(softplus_grad(g[e], to_f32(raw[r * sr + h]) + bias[h]));
 }
 
 // a block a head: dbias[h] = sum over rows of the fp32 cotangent
@@ -103,10 +104,11 @@ extern "C" int dt_softplus_fwd(const void* raw, const float* bias, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// g (rows, H) fp32; draw (rows, H) of raw's type; dbias (H) fp32.
+// g (rows, H) fp32; draw (rows, H) of raw's type at row stride sd (its
+// columns of the input projection's cotangent); dbias (H) fp32.
 extern "C" int dt_softplus_bwd(const void* raw, const float* bias,
                                const float* g, void* draw, float* dbias,
-                               long rows, int H, long sr, int bf16,
+                               long rows, int H, long sr, long sd, int bf16,
                                void* stream) {
   if (rows <= 0 || H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -114,13 +116,13 @@ extern "C" int dt_softplus_bwd(const void* raw, const float* bias,
     using T = __nv_bfloat16;
     dt_bwd_kernel<T><<<blocks(rows * H), NT, 0, st>>>(
         static_cast<const T*>(raw), bias, g, static_cast<T*>(draw), rows, H,
-        sr);
+        sr, sd);
     dt_bias_kernel<T><<<H, NT, 0, st>>>(static_cast<const T*>(raw), bias, g,
                                         dbias, rows, H, sr);
   } else {
     dt_bwd_kernel<float><<<blocks(rows * H), NT, 0, st>>>(
         static_cast<const float*>(raw), bias, g, static_cast<float*>(draw),
-        rows, H, sr);
+        rows, H, sr, sd);
     dt_bias_kernel<float><<<H, NT, 0, st>>>(static_cast<const float*>(raw),
                                             bias, g, dbias, rows, H, sr);
   }

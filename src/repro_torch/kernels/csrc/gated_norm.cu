@@ -23,8 +23,9 @@
 //             order (no atomics: two calls give the same bits)
 //
 // Column i belongs to head i / P.  x and z are read in place through a row
-// stride (x the conv output's first d_inner columns, z the input
-// projection's first d_inner).
+// stride (z the input projection's first d_inner columns, x the conv's x
+// output), and dz is written through one (into those columns of the input
+// projection's cotangent).
 //
 // Bound: bytes.  At mamba2-370m's rows (16384 x 2048, bf16) the forward
 // reads y, x, z and writes out: 268 MB, 80 us at 3.35 TB/s; the backward
@@ -77,7 +78,9 @@ __device__ __forceinline__ float skip(TY y, TY x, float d) {
 struct Rows {
   long rows;
   int d, P;
-  long sx, sz;   // row strides of x and z (y, g and the outputs: d)
+  long sx, sz;   // row strides of x and z (y, g and the outputs: d) ...
+  long sdz;      // ... but dz's (its columns of the input projection's
+                 // cotangent)
   float eps;
 };
 
@@ -152,7 +155,8 @@ gated_norm_bwd_kernel(const TO* __restrict__ g, const TY* __restrict__ y,
       const long o = row * r.d + i;
       dy[o] = du;
       dx[o] = from_f32<TY>(to_f32(du) * dh);
-      dz[o] = from_f32<TZ>(dv * u * (sg * (1.0f + zv * (1.0f - sg))));
+      dz[row * r.sdz + i] =
+          from_f32<TZ>(dv * u * (sg * (1.0f + zv * (1.0f - sg))));
       ps[i] = fmaf(gv, vh, ps[i]);   // column i is this thread's alone
       pd[i] = fmaf(to_f32(du), to_f32(xr[i]), pd[i]);
     }
@@ -256,7 +260,7 @@ extern "C" int gated_norm_fwd(const void* y, const void* x, const void* z,
                               void* stream) {
   if (rows <= 0 || d <= 0) return 0;
   if (P <= 0 || d % P != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Rows r{rows, d, P, sx, sz, eps};
+  const Rows r{rows, d, P, sx, sz, d, eps};
   return dispatch(bf16, out_bf16, [&](auto ty, auto to) {
     using TY = decltype(ty);
     using TO = decltype(to);
@@ -264,18 +268,19 @@ extern "C" int gated_norm_fwd(const void* y, const void* x, const void* z,
   });
 }
 
-// g (rows, d) of the output's type; dy, dx, dz (rows, d) of y's and z's;
-// part (gated_norm_bwd_blocks(rows), 2 d) fp32 scratch; dscale fp32 (d),
-// dD fp32 (d / P).
+// g (rows, d) of the output's type; dy, dx (rows, d) of y's and dz (rows,
+// d) at row stride sdz of z's; part (gated_norm_bwd_blocks(rows), 2 d) fp32
+// scratch; dscale fp32 (d), dD fp32 (d / P).
 extern "C" int gated_norm_bwd(const void* g, const void* y, const void* x,
                               const void* z, const float* D,
                               const float* scale, const float* rstd, void* dy,
                               void* dx, void* dz, float* part, float* dscale,
                               float* dD, long rows, int d, int P, long sx,
-                              long sz, int bf16, int out_bf16, void* stream) {
+                              long sz, long sdz, int bf16, int out_bf16,
+                              void* stream) {
   if (rows <= 0 || d <= 0) return 0;
   if (P <= 0 || d % P != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Rows r{rows, d, P, sx, sz, 0.0f};
+  const Rows r{rows, d, P, sx, sz, sdz, 0.0f};
   return dispatch(bf16, out_bf16, [&](auto ty, auto to) {
     using TY = decltype(ty);
     using TO = decltype(to);

@@ -24,8 +24,14 @@
 //              stored), probs = softmax, top-k by a descending scan that
 //              keeps the lower expert among equals (lax.top_k's order),
 //              weights = top / max(sum top, 1e-9); one thread block a tile
-//              of RT tokens, W_r staged through shared memory
-//   route_bwd  dprobs (the aux loss's, E ce / (G S)) plus, through the
+//              of RT tokens, W_r staged through shared memory; then the
+//              Switch aux loss in one block (route_aux): me_e = sum_n
+//              probs[n][e] / N, ce_e = (choices of e) / N, aux = E sum_e
+//              me_e ce_e, written added to the chain's running aux (aux_in
+//              + aux: the carry's sum), ce kept for the backward; each
+//              routing block sums its tokens' share, then one block adds
+//              the blocks' sums in order
+//   route_bwd  dprobs (the aux loss's, (daux E) ce_e / N) plus, through the
 //              renormalisation, dw / den - sum(dw w) / den on the chosen
 //              experts; dlogits = p (dp - <p, dp>); dx = dlogits W_r^T
 //              (rounded to x's type; W_r staged through shared memory as
@@ -42,10 +48,14 @@
 //              like the other row kernels below, a warp a row, the rows
 //              walked with a grid stride)
 //   dispatch_bwd  dx[token] = sum over its kept choices, in choice order,
-//              of their slots' rows: a gather-sum in fp32, rounded once
+//              of their slots' rows: a gather-sum in fp32, rounded once;
+//              with two cotangents of the buckets (the experts' gate and
+//              up products read them), each row their sum rounded first,
+//              as autograd adds them
 //   combine    y[token] = sum over its kept choices, in choice order, of
 //              weight * row (each product and sum rounded to fp32 apart, as
-//              the plain version's multiply and add), rounded to y's type
+//              the plain version's multiply and add), rounded to y's type;
+//              with a residual, y = round(res + y) (the layer's skip)
 //   combine_bwd   d row[slot] = weight * dy[token] (0 for an empty slot);
 //              d weight = <row, dy[token]> (0 for a dropped choice), a
 //              warp a token, each lane's columns in order, then a fixed
@@ -130,14 +140,57 @@ __device__ __forceinline__ float mul_add_rn(float a, float b, float c) {
 
 // ------------------------------------------------------------- routing
 
+// one token's softmax (in place in l: its probabilities), top-k and
+// renormalised weights
+__device__ __forceinline__ void route_token(float* l, int* sel,
+                                            float* __restrict__ probs,
+                                            float* __restrict__ weights,
+                                            long long* __restrict__ idx,
+                                            long n, int E, int k) {
+  float m = l[0];
+  for (int c = 1; c < E; ++c) m = fmaxf(m, l[c]);
+  float s = 0.0f;
+  for (int c = 0; c < E; ++c) {
+    l[c] = expf(l[c] - m);
+    s += l[c];
+  }
+  for (int c = 0; c < E; ++c) {
+    l[c] = l[c] / s;
+    probs[n * E + c] = l[c];
+  }
+  // top-k: the largest not yet taken, the lower expert among equals
+  unsigned long long taken = 0ull;
+  float top[MAX_K], tot = 0.0f;
+  for (int i = 0; i < k; ++i) {
+    int best = -1;
+    float bv = 0.0f;
+    for (int c = 0; c < E; ++c)
+      if (!((taken >> c) & 1ull) && (best < 0 || l[c] > bv)) {
+        best = c;
+        bv = l[c];
+      }
+    taken |= 1ull << best;
+    sel[i] = best;
+    top[i] = bv;
+    tot += bv;
+  }
+  const float den = fmaxf(tot, 1e-9f);
+  for (int i = 0; i < k; ++i) {
+    weights[n * k + i] = top[i] / den;
+    idx[n * k + i] = sel[i];
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(RNT)
 route_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                  float* __restrict__ probs, float* __restrict__ weights,
-                 long long* __restrict__ idx, int N, int d, int E, int k) {
+                 long long* __restrict__ idx, float* __restrict__ part_p,
+                 int* __restrict__ part_c, int N, int d, int E, int k) {
   __shared__ float xs[RT][RD + 1];
   __shared__ float ws[RD][MAX_E];
   __shared__ float lg[RT][MAX_E + 1];
+  __shared__ int chosen[RT][MAX_K];
   const int tid = threadIdx.x;
   const long t0 = static_cast<long>(blockIdx.x) * RT;
   float acc[RP];
@@ -172,42 +225,65 @@ route_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     if (p < RT * E) lg[p / E][p % E] = acc[j];
   }
   __syncthreads();
-  if (tid >= RT || t0 + tid >= N) return;
-  const long n = t0 + tid;
-  float* l = lg[tid];
-  float m = l[0];
-  for (int c = 1; c < E; ++c) m = fmaxf(m, l[c]);
+  const int nt = static_cast<int>(min(static_cast<long>(RT), N - t0));
+  if (tid < nt) route_token(lg[tid], chosen[tid], probs, weights, idx,
+                            t0 + tid, E, k);
+  if (part_p == nullptr) return;
+  __syncthreads();
+  // the block's part of the aux loss: each expert's probabilities and
+  // choices summed over the block's tokens, in order
+  if (tid < E) {
+    float sp = 0.0f;
+    int sc = 0;
+    for (int t = 0; t < nt; ++t) {
+      sp += lg[t][tid];
+      for (int i = 0; i < k; ++i) sc += chosen[t][i] == tid;
+    }
+    part_p[static_cast<long>(blockIdx.x) * E + tid] = sp;
+    part_c[static_cast<long>(blockIdx.x) * E + tid] = sc;
+  }
+}
+
+// The aux loss of one routing: ce (E) and aux_out = aux_in + E sum_e me_e
+// ce_e (aux_in null: 0 added), in one block from the routing blocks'
+// partial sums (nb of them): thread t sums expert t % E's partials over
+// the blocks b = t / E (mod RNT / E), in order, then the parts are added
+// in order.
+__global__ void __launch_bounds__(RNT)
+route_aux_kernel(const float* __restrict__ part_p,
+                 const int* __restrict__ part_c, int nb,
+                 const float* __restrict__ aux_in, float* __restrict__ aux_out,
+                 float* __restrict__ ce, int N, int E) {
+  __shared__ float pm[RNT];
+  __shared__ int pc[RNT];
+  const int tid = threadIdx.x, lanes = RNT / E;
   float s = 0.0f;
-  for (int c = 0; c < E; ++c) {
-    l[c] = expf(l[c] - m);
-    s += l[c];
+  int cnt = 0;
+  if (tid < lanes * E) {
+    const int e = tid % E;
+    for (int b = tid / E; b < nb; b += lanes) {
+      s += part_p[static_cast<long>(b) * E + e];
+      cnt += part_c[static_cast<long>(b) * E + e];
+    }
   }
-  for (int c = 0; c < E; ++c) {
-    l[c] = l[c] / s;
-    probs[n * E + c] = l[c];
+  pm[tid] = s;
+  pc[tid] = cnt;
+  __syncthreads();
+  if (tid != 0) return;
+  float tot = 0.0f;
+  for (int e = 0; e < E; ++e) {
+    float me = 0.0f;
+    int c = 0;
+    for (int j = 0; j < lanes; ++j) {
+      me += pm[j * E + e];
+      c += pc[j * E + e];
+    }
+    const float cv = static_cast<float>(c) / N;
+    ce[e] = cv;
+    tot += (me / N) * cv;
   }
-  // top-k: the largest not yet taken, the lower expert among equals
-  unsigned long long taken = 0ull;
-  int sel[MAX_K];
-  float top[MAX_K], tot = 0.0f;
-  for (int i = 0; i < k; ++i) {
-    int best = -1;
-    float bv = 0.0f;
-    for (int c = 0; c < E; ++c)
-      if (!((taken >> c) & 1ull) && (best < 0 || l[c] > bv)) {
-        best = c;
-        bv = l[c];
-      }
-    taken |= 1ull << best;
-    sel[i] = best;
-    top[i] = bv;
-    tot += bv;
-  }
-  const float den = fmaxf(tot, 1e-9f);
-  for (int i = 0; i < k; ++i) {
-    weights[n * k + i] = top[i] / den;
-    idx[n * k + i] = sel[i];
-  }
+  const float aux = static_cast<float>(E) * tot;
+  aux_out[0] = aux_in ? aux_in[0] + aux : aux;
 }
 
 // dlogits (into dlog) and dx = dlogits W_r^T for a tile of RT tokens
@@ -217,7 +293,8 @@ route_dlogits_kernel(const float* __restrict__ w,
                      const float* __restrict__ probs,
                      const long long* __restrict__ idx,
                      const float* __restrict__ dweights,
-                     const float* __restrict__ dprobs,
+                     const float* __restrict__ daux,
+                     const float* __restrict__ ce,
                      float* __restrict__ dlog, T* __restrict__ dx, int N,
                      int d, int E, int k) {
   __shared__ float dl[RT][MAX_E + 1];
@@ -229,7 +306,9 @@ route_dlogits_kernel(const float* __restrict__ w,
     const long n = t0 + tid;
     const float* p = probs + n * E;
     float* g = dl[tid];
-    for (int c = 0; c < E; ++c) g[c] = dprobs ? dprobs[n * E + c] : 0.0f;
+    // the aux loss's dprobs: (daux E) ce_e, spread over the N rows
+    const float da = daux ? daux[0] * static_cast<float>(E) : 0.0f;
+    for (int c = 0; c < E; ++c) g[c] = daux ? da * ce[c] / N : 0.0f;
     if (dweights) {
       float s = 0.0f;
       for (int i = 0; i < k; ++i) s += p[idx[n * k + i]];
@@ -410,10 +489,11 @@ dispatch_kernel(const T* __restrict__ x, const int* __restrict__ slot_src,
   }
 }
 
-// dx[n] = sum over kept i, in order, of dexp[choice_slot[n k + i]]
+// dx[n] = sum over kept i, in order, of dexp[choice_slot[n k + i]] (with
+// dexp2, each row round(dexp + dexp2) first)
 template <typename T>
 __global__ void __launch_bounds__(ROWT)
-dispatch_bwd_kernel(const T* __restrict__ dexp,
+dispatch_bwd_kernel(const T* __restrict__ dexp, const T* __restrict__ dexp2,
                     const int* __restrict__ choice_slot, T* __restrict__ dx,
                     long ntok, int d, int k, int vec) {
   const int lane = threadIdx.x & 31;
@@ -427,6 +507,13 @@ dispatch_bwd_kernel(const T* __restrict__ dexp,
           if (cs[i] < 0) continue;
           float v[8];
           load8(dexp + static_cast<long>(cs[i]) * d + c, v);
+          if (dexp2) {
+            float v2[8];
+            load8(dexp2 + static_cast<long>(cs[i]) * d + c, v2);
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+              v[q] = to_f32(from_f32<T>(v[q] + v2[q]));
+          }
 #pragma unroll
           for (int q = 0; q < 8; ++q) acc[q] += v[q];
         }
@@ -435,9 +522,13 @@ dispatch_bwd_kernel(const T* __restrict__ dexp,
     } else {
       for (int c = lane; c < d; c += 32) {
         float acc = 0.0f;
-        for (int i = 0; i < k; ++i)
-          if (cs[i] >= 0)
-            acc += to_f32(dexp[static_cast<long>(cs[i]) * d + c]);
+        for (int i = 0; i < k; ++i) {
+          if (cs[i] < 0) continue;
+          const long at = static_cast<long>(cs[i]) * d + c;
+          acc += dexp2 ? to_f32(from_f32<T>(to_f32(dexp[at]) +
+                                            to_f32(dexp2[at])))
+                       : to_f32(dexp[at]);
+        }
         dst[c] = from_f32<T>(acc);
       }
     }
@@ -446,12 +537,14 @@ dispatch_bwd_kernel(const T* __restrict__ dexp,
 
 // ------------------------------------------------------------- combine
 
-// y[n] = sum over kept i, in order, of weights[n k + i] rows[slot]
+// y[n] = sum over kept i, in order, of weights[n k + i] rows[slot] (with
+// res, round(res[n] + round(that)))
 template <typename TO, typename TY>
 __global__ void __launch_bounds__(ROWT)
 combine_kernel(const TO* __restrict__ rows, const float* __restrict__ weights,
-               const int* __restrict__ choice_slot, TY* __restrict__ y,
-               long ntok, int d, int k, int vec) {
+               const int* __restrict__ choice_slot,
+               const TY* __restrict__ res, TY* __restrict__ y, long ntok,
+               int d, int k, int vec) {
   const int lane = threadIdx.x & 31;
   REPRO_FOR_ROWS(n, ntok) {
     const int* cs = choice_slot + n * k;
@@ -468,6 +561,13 @@ combine_kernel(const TO* __restrict__ rows, const float* __restrict__ weights,
           for (int q = 0; q < 8; ++q)
             acc[q] = mul_add_rn(wt[i], v[q], acc[q]);
         }
+        if (res) {
+          float r[8];
+          load8(res + n * d + c, r);
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            acc[q] = r[q] + to_f32(from_f32<TY>(acc[q]));
+        }
         store8(dst + c, acc);
       }
     } else {
@@ -477,6 +577,7 @@ combine_kernel(const TO* __restrict__ rows, const float* __restrict__ weights,
           if (cs[i] >= 0)
             acc = mul_add_rn(
                 wt[i], to_f32(rows[static_cast<long>(cs[i]) * d + c]), acc);
+        if (res) acc = to_f32(res[n * d + c]) + to_f32(from_f32<TY>(acc));
         dst[c] = from_f32<TY>(acc);
       }
     }
@@ -588,24 +689,36 @@ unsigned blocks_for(long n) {
 
 template <typename T>
 int route_fwd(const void* x, const void* w, void* probs, void* weights,
-              void* idx, int N, int d, int E, int k, cudaStream_t stream) {
-  route_fwd_kernel<T><<<(N + RT - 1) / RT, RNT, 0, stream>>>(
+              void* idx, const void* aux_in, void* aux_out, void* ce,
+              void* part_p, void* part_c, int N, int d, int E, int k,
+              cudaStream_t stream) {
+  const int nb = (N + RT - 1) / RT;
+  float* pp = aux_out ? static_cast<float*>(part_p) : nullptr;
+  route_fwd_kernel<T><<<nb, RNT, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<float*>(probs), static_cast<float*>(weights),
-      static_cast<long long*>(idx), N, d, E, k);
+      static_cast<long long*>(idx), pp, static_cast<int*>(part_c), N, d, E,
+      k);
+  const int err = last_error();
+  if (err || aux_out == nullptr) return err;
+  route_aux_kernel<<<1, RNT, 0, stream>>>(
+      static_cast<const float*>(part_p), static_cast<const int*>(part_c), nb,
+      static_cast<const float*>(aux_in), static_cast<float*>(aux_out),
+      static_cast<float*>(ce), N, E);
   return last_error();
 }
 
 template <typename T>
 int route_bwd(const void* x, const void* w, const void* probs,
-              const void* idx, const void* dweights, const void* dprobs,
-              void* dlog, void* part, void* dx, void* dw, int N, int d,
-              int E, int k, int nsplit, cudaStream_t stream) {
+              const void* idx, const void* dweights, const void* daux,
+              const void* ce, void* dlog, void* part, void* dx, void* dw,
+              int N, int d, int E, int k, int nsplit, cudaStream_t stream) {
   route_dlogits_kernel<T><<<(N + RT - 1) / RT, RNT, 0, stream>>>(
       static_cast<const float*>(w), static_cast<const float*>(probs),
       static_cast<const long long*>(idx),
-      static_cast<const float*>(dweights), static_cast<const float*>(dprobs),
-      static_cast<float*>(dlog), static_cast<T*>(dx), N, d, E, k);
+      static_cast<const float*>(dweights), static_cast<const float*>(daux),
+      static_cast<const float*>(ce), static_cast<float*>(dlog),
+      static_cast<T*>(dx), N, d, E, k);
   int err = last_error();
   if (err) return err;
   const int rows_per_split = (N + nsplit - 1) / nsplit;
@@ -632,23 +745,27 @@ int dispatch(const void* x, const void* slot_src, void* out, long rows, int d,
 }
 
 template <typename T>
-int dispatch_bwd(const void* dexp, const void* choice_slot, void* dx,
-                 long ntok, int d, int k, cudaStream_t stream) {
-  const int vec = aligned16(dexp) && aligned16(dx) && d % 8 == 0;
+int dispatch_bwd(const void* dexp, const void* dexp2, const void* choice_slot,
+                 void* dx, long ntok, int d, int k, cudaStream_t stream) {
+  const int vec = aligned16(dexp) && (!dexp2 || aligned16(dexp2)) &&
+                  aligned16(dx) && d % 8 == 0;
   dispatch_bwd_kernel<T><<<blocks_for(ntok), ROWT, 0, stream>>>(
-      static_cast<const T*>(dexp), static_cast<const int*>(choice_slot),
-      static_cast<T*>(dx), ntok, d, k, vec);
+      static_cast<const T*>(dexp), static_cast<const T*>(dexp2),
+      static_cast<const int*>(choice_slot), static_cast<T*>(dx), ntok, d, k,
+      vec);
   return last_error();
 }
 
 template <typename TO, typename TY>
 int combine(const void* rows, const void* weights, const void* choice_slot,
-            void* y, long ntok, int d, int k, cudaStream_t stream) {
-  const int vec = aligned16(rows) && aligned16(y) && d % 8 == 0;
+            const void* res, void* y, long ntok, int d, int k,
+            cudaStream_t stream) {
+  const int vec = aligned16(rows) && aligned16(y) &&
+                  (!res || aligned16(res)) && d % 8 == 0;
   combine_kernel<TO, TY><<<blocks_for(ntok), ROWT, 0, stream>>>(
       static_cast<const TO*>(rows), static_cast<const float*>(weights),
-      static_cast<const int*>(choice_slot), static_cast<TY*>(y), ntok, d, k,
-      vec);
+      static_cast<const int*>(choice_slot), static_cast<const TY*>(res),
+      static_cast<TY*>(y), ntok, d, k, vec);
   return last_error();
 }
 
@@ -680,34 +797,52 @@ cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
 }  // namespace
 
+// The routing blocks of N tokens (the rows of the aux loss's partial sums,
+// (blocks, E) fp32 and int32).
+extern "C" int moe_route_blocks(int N) {
+  return N <= 0 ? 0 : (N + RT - 1) / RT;
+}
+
 // x (N, d) bf16 (x_bf16) or fp32, w (d, E) fp32; probs (N, E), weights
-// (N, k) fp32, idx (N, k) int64.  E <= 64, k <= min(E, 8).
+// (N, k) fp32, idx (N, k) int64; aux_out (1) and ce (E) fp32, or both NULL
+// (no aux loss), aux_in (1) fp32 or NULL; part_p, part_c the aux loss's
+// partial sums (moe_route_blocks(N), E) fp32 and int32 scratch.  E <= 64,
+// k <= min(E, 8).
 extern "C" int moe_route_fwd(const void* x, const void* w, void* probs,
-                             void* weights, void* idx, int N, int d, int E,
-                             int k, int x_bf16, void* stream) {
+                             void* weights, void* idx, const void* aux_in,
+                             void* aux_out, void* ce, void* part_p,
+                             void* part_c, int N, int d, int E, int k,
+                             int x_bf16, void* stream) {
   if (int err = check_ek(E, k)) return err;
   if (N <= 0) return 0;
-  return x_bf16 ? route_fwd<bf16>(x, w, probs, weights, idx, N, d, E, k,
+  if ((aux_out == nullptr) != (ce == nullptr) ||
+      (aux_out != nullptr && (part_p == nullptr || part_c == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return x_bf16 ? route_fwd<bf16>(x, w, probs, weights, idx, aux_in, aux_out,
+                                  ce, part_p, part_c, N, d, E, k,
                                   as_stream(stream))
-                : route_fwd<float>(x, w, probs, weights, idx, N, d, E, k,
+                : route_fwd<float>(x, w, probs, weights, idx, aux_in,
+                                   aux_out, ce, part_p, part_c, N, d, E, k,
                                    as_stream(stream));
 }
 
-// dweights (N, k) and dprobs (N, E) fp32, either NULL for zeros; scratch
-// dlog (N, E) and part (nsplit, d, E) fp32; dx (N, d) in x's type, dw (d,
-// E) fp32.
+// dweights (N, k) fp32 or NULL for zeros; daux (1) fp32, the aux loss's
+// cotangent, with the forward's ce (E), or NULL for zero; scratch dlog (N,
+// E) and part (nsplit, d, E) fp32; dx (N, d) in x's type, dw (d, E) fp32.
 extern "C" int moe_route_bwd(const void* x, const void* w, const void* probs,
                              const void* idx, const void* dweights,
-                             const void* dprobs, void* dlog, void* part,
-                             void* dx, void* dw, int N, int d, int E, int k,
-                             int nsplit, int x_bf16, void* stream) {
+                             const void* daux, const void* ce, void* dlog,
+                             void* part, void* dx, void* dw, int N, int d,
+                             int E, int k, int nsplit, int x_bf16,
+                             void* stream) {
   if (int err = check_ek(E, k)) return err;
-  if (N <= 0 || nsplit < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return x_bf16 ? route_bwd<bf16>(x, w, probs, idx, dweights, dprobs, dlog,
+  if (N <= 0 || nsplit < 1 || (daux != nullptr && ce == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return x_bf16 ? route_bwd<bf16>(x, w, probs, idx, dweights, daux, ce, dlog,
                                   part, dx, dw, N, d, E, k, nsplit,
                                   as_stream(stream))
-                : route_bwd<float>(x, w, probs, idx, dweights, dprobs, dlog,
-                                   part, dx, dw, N, d, E, k, nsplit,
+                : route_bwd<float>(x, w, probs, idx, dweights, daux, ce,
+                                   dlog, part, dx, dw, N, d, E, k, nsplit,
                                    as_stream(stream));
 }
 
@@ -734,15 +869,16 @@ extern "C" int moe_dispatch(const void* x, const void* slot_src, void* out,
                                  as_stream(stream));
 }
 
-// dexp (E G C, d), dx (ntok = G S, d).
-extern "C" int moe_dispatch_bwd(const void* dexp, const void* choice_slot,
-                                void* dx, long ntok, int d, int k, int bf16_,
-                                void* stream) {
+// dexp, dexp2 (E G C, d; dexp2 NULL or a second cotangent of the buckets),
+// dx (ntok = G S, d).
+extern "C" int moe_dispatch_bwd(const void* dexp, const void* dexp2,
+                                const void* choice_slot, void* dx, long ntok,
+                                int d, int k, int bf16_, void* stream) {
   if (ntok <= 0 || d <= 0) return 0;
-  return bf16_ ? dispatch_bwd<bf16>(dexp, choice_slot, dx, ntok, d, k,
+  return bf16_ ? dispatch_bwd<bf16>(dexp, dexp2, choice_slot, dx, ntok, d, k,
                                     as_stream(stream))
-               : dispatch_bwd<float>(dexp, choice_slot, dx, ntok, d, k,
-                                     as_stream(stream));
+               : dispatch_bwd<float>(dexp, dexp2, choice_slot, dx, ntok, d,
+                                     k, as_stream(stream));
 }
 
 #define REPRO_MOE_TYPES(CALL)                                            \
@@ -751,14 +887,16 @@ extern "C" int moe_dispatch_bwd(const void* dexp, const void* choice_slot,
   if (y_bf16) return CALL(float, bf16);                                  \
   return CALL(float, float);
 
-// rows (E G C, d) in the compute type (rows_bf16), y (ntok, d) in x's type
-// (y_bf16), weights (ntok, k) fp32.
+// rows (E G C, d) in the compute type (rows_bf16), y and res (ntok, d; res
+// NULL or the residual) in x's type (y_bf16), weights (ntok, k) fp32.
 extern "C" int moe_combine(const void* rows, const void* weights,
-                           const void* choice_slot, void* y, long ntok, int d,
-                           int k, int rows_bf16, int y_bf16, void* stream) {
+                           const void* choice_slot, const void* res, void* y,
+                           long ntok, int d, int k, int rows_bf16, int y_bf16,
+                           void* stream) {
   if (ntok <= 0 || d <= 0) return 0;
-#define REPRO_CALL(TO, TY) \
-  combine<TO, TY>(rows, weights, choice_slot, y, ntok, d, k, as_stream(stream))
+#define REPRO_CALL(TO, TY)                                             \
+  combine<TO, TY>(rows, weights, choice_slot, res, y, ntok, d, k,      \
+                  as_stream(stream))
   REPRO_MOE_TYPES(REPRO_CALL)
 #undef REPRO_CALL
 }

@@ -14,6 +14,12 @@
 //             version's x + rmsnorm(y), both roundings kept)
 //   backward  dx = rstd (g w - xh mean(g w xh)), xh = x rstd, w = 1 + scale,
 //             in fp32, rounded to x's type; dscale = sum over rows of g xh,
+//             where g is the output's cotangent: with the output read by up
+//             to three consumers, the sum of theirs, g = round(round(g1 +
+//             g2) + g3) (autograd's sum of a fan-out's cotangents, each add
+//             rounded to the output's type); with the input also passed on
+//             as a skip (a residual), dx = round(round(dx) + dskip), the
+//             skip's cotangent added as autograd would add it;
 //             fp32: per-block partial sums over fixed row ranges, then a
 //             second launch sums the partials in block order (no atomics:
 //             two calls give the same bits)
@@ -84,11 +90,25 @@ rmsnorm_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// the output's cotangent: the sum of its consumers' (g[1], g[2] may be
+// null), each add rounded to TO as autograd's accumulation rounds it
+template <typename TO>
+struct Cot {
+  const TO* g[3];
+  __device__ __forceinline__ float at(long i) const {
+    float v = to_f32(g[0][i]);
+    if (g[1]) v = to_f32(from_f32<TO>(v + to_f32(g[1][i])));
+    if (g[2]) v = to_f32(from_f32<TO>(v + to_f32(g[2][i])));
+    return v;
+  }
+};
+
 template <typename TX, typename TO>
 __global__ void __launch_bounds__(NT)
-rmsnorm_bwd_kernel(const TO* __restrict__ g, const TX* __restrict__ x,
+rmsnorm_bwd_kernel(Cot<TO> g, const TX* __restrict__ x,
                    const float* __restrict__ scale,
-                   const float* __restrict__ rstd, TX* __restrict__ dx,
+                   const float* __restrict__ rstd,
+                   const TX* __restrict__ dskip, TX* __restrict__ dx,
                    float* __restrict__ part, long rows, int d,
                    long rows_per_block) {
   extern __shared__ float smem[];  // this block's dscale partial, d floats
@@ -100,18 +120,19 @@ rmsnorm_bwd_kernel(const TO* __restrict__ g, const TX* __restrict__ x,
   for (long row = r0; row < r1; ++row) {
     const float r = rstd[row];
     const TX* xr = x + row * d;
-    const TO* gr = g + row * d;
     float s = 0.0f;
     for (int i = threadIdx.x; i < d; i += NT) {
       const float xh = to_f32(xr[i]) * r;
-      s = fmaf(to_f32(gr[i]) * (1.0f + scale[i]), xh, s);
+      s = fmaf(g.at(row * d + i) * (1.0f + scale[i]), xh, s);
     }
     const float m = block_sum(s, red) / d;
     TX* dxr = dx + row * d;
+    const TX* sk = dskip ? dskip + row * d : nullptr;
     for (int i = threadIdx.x; i < d; i += NT) {
       const float xh = to_f32(xr[i]) * r;
-      const float gv = to_f32(gr[i]);
-      dxr[i] = from_f32<TX>(r * (gv * (1.0f + scale[i]) - xh * m));
+      const float gv = g.at(row * d + i);
+      const TX v = from_f32<TX>(r * (gv * (1.0f + scale[i]) - xh * m));
+      dxr[i] = sk ? from_f32<TX>(to_f32(v) + to_f32(sk[i])) : v;
       smem[i] = fmaf(gv, xh, smem[i]);  // column i is this thread's alone
     }
   }
@@ -142,9 +163,9 @@ int fwd(const void* x, const float* scale, const void* res, void* out,
 }
 
 template <typename TX, typename TO>
-int bwd(const void* g, const void* x, const float* scale, const float* rstd,
-        void* dx, float* part, float* dscale, long rows, int d,
-        void* stream) {
+int bwd(const void* const* g, const void* x, const float* scale,
+        const float* rstd, const void* dskip, void* dx, float* part,
+        float* dscale, long rows, int d, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long per = bwd_rows_per_block(rows);
   const int nblocks = static_cast<int>((rows + per - 1) / per);
@@ -154,9 +175,13 @@ int bwd(const void* g, const void* x, const float* scale, const float* rstd,
       reinterpret_cast<const void*>(kern),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
+  const Cot<TO> cot{{static_cast<const TO*>(g[0]),
+                     static_cast<const TO*>(g[1]),
+                     static_cast<const TO*>(g[2])}};
   kern<<<nblocks, NT, smem, st>>>(
-      static_cast<const TO*>(g), static_cast<const TX*>(x), scale, rstd,
-      static_cast<TX*>(dx), part, rows, d, per);
+      cot, static_cast<const TX*>(x), scale, rstd,
+      static_cast<const TX*>(dskip), static_cast<TX*>(dx), part, rows, d,
+      per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   rmsnorm_dscale_kernel<<<(d + NT - 1) / NT, NT, 0, st>>>(part, dscale,
@@ -193,22 +218,27 @@ extern "C" int rmsnorm_fwd(const void* x, const float* scale, const void* res,
   return fwd<float, float>(x, scale, res, out, rstd, rows, d, eps, stream);
 }
 
-// g of the output's type, x and dx of x's; part (rmsnorm_bwd_blocks(rows),
-// d) fp32 scratch; dscale fp32 (d).
-extern "C" int rmsnorm_bwd(const void* g, const void* x, const float* scale,
-                           const float* rstd, void* dx, float* part,
-                           float* dscale, long rows, int d, int x_bf16,
-                           int out_bf16, void* stream) {
+// g, g2, g3 (the output's consumers' cotangents, g2 and g3 nullable) of the
+// output's type; x, dskip (the skip's cotangent, nullable) and dx of x's;
+// part (rmsnorm_bwd_blocks(rows), d) fp32 scratch; dscale fp32 (d).
+extern "C" int rmsnorm_bwd(const void* g1, const void* g2, const void* g3,
+                           const void* x, const float* scale,
+                           const float* rstd, const void* dskip, void* dx,
+                           float* part, float* dscale, long rows, int d,
+                           int x_bf16, int out_bf16, void* stream) {
   if (rows <= 0 || d <= 0) return 0;
+  if (g2 == nullptr && g3 != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* g[3] = {g1, g2, g3};
   if (x_bf16 && out_bf16)
-    return bwd<__nv_bfloat16, __nv_bfloat16>(g, x, scale, rstd, dx, part,
-                                             dscale, rows, d, stream);
+    return bwd<__nv_bfloat16, __nv_bfloat16>(g, x, scale, rstd, dskip, dx,
+                                             part, dscale, rows, d, stream);
   if (x_bf16)
-    return bwd<__nv_bfloat16, float>(g, x, scale, rstd, dx, part, dscale,
-                                     rows, d, stream);
+    return bwd<__nv_bfloat16, float>(g, x, scale, rstd, dskip, dx, part,
+                                     dscale, rows, d, stream);
   if (out_bf16)
-    return bwd<float, __nv_bfloat16>(g, x, scale, rstd, dx, part, dscale,
-                                     rows, d, stream);
-  return bwd<float, float>(g, x, scale, rstd, dx, part, dscale, rows, d,
-                           stream);
+    return bwd<float, __nv_bfloat16>(g, x, scale, rstd, dskip, dx, part,
+                                     dscale, rows, d, stream);
+  return bwd<float, float>(g, x, scale, rstd, dskip, dx, part, dscale, rows,
+                           d, stream);
 }

@@ -48,7 +48,7 @@ def _lib():
     lib.dense_fwd.restype = _I
     # ..., batch, and the batch strides of the three operands, stream
     tail = [_I] * 5 + [_I, _L, _L, _L, _P]
-    lib.dense_fwd.argtypes = [_P, _L, _P, _P] + tail
+    lib.dense_fwd.argtypes = [_P, _L, _P, _P, _P] + tail
     lib.dense_dx.restype = _I
     lib.dense_dx.argtypes = [_P, _L, _P, _P] + tail
     lib.dense_dw.restype = _I
@@ -83,7 +83,8 @@ def _check(what, x, w, dy=None) -> None:
 
 
 def dense_fwd_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w.to(x.dtype)``: the JAX package's ``dense`` without a bias."""
+    """``x @ w.to(x.dtype)``: the JAX package's ``dense`` without a bias
+    (with a residual, ``residual +`` it)."""
     return x @ w.to(x.dtype)
 
 
@@ -97,19 +98,30 @@ def dense_bwd_plain(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor
         return torch.autograd.grad(dense_fwd_plain(xr, wr), (xr, wr), dy)
 
 
-def dense_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def dense_fwd(x: torch.Tensor, w: torch.Tensor,
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The forward kernel (CUDA tensors only): ``x @ w.to(x.dtype)``, x
-    (..., K) and w (K, N) each fp32 or bf16, in x's dtype."""
+    (..., K) and w (K, N) each fp32 or bf16, in x's dtype; with
+    ``residual`` (contiguous, the output's shape and dtype) added in the
+    epilogue, the product rounded first."""
     if not build.on_card(x):
         raise ValueError("dense_fwd runs on the card only")
     _check("dense_fwd", x, w)
     K, N = w.shape
-    x2, ldx = build.rows(x, K)
-    w = w.contiguous()
+    x2, ldx = build.rows(x, K, "dense_fwd: x")
+    w = build.dense(w, "dense_fwd: w")
     y = torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
+    if residual is not None and (residual.shape != y.shape
+                                 or residual.dtype != y.dtype
+                                 or residual.device != y.device
+                                 or not residual.is_contiguous()):
+        raise ValueError(f"dense_fwd: residual{tuple(residual.shape)} "
+                         f"{residual.dtype} must be contiguous "
+                         f"{tuple(y.shape)} {y.dtype}")
     lib = _lib()
     err = lib.dense_fwd(build.ptr(x2), ldx, build.ptr(w), build.ptr(y),
-                        x2.shape[0], K, N, int(x.dtype == torch.bfloat16),
+                        build.ptr(residual), x2.shape[0], K, N,
+                        int(x.dtype == torch.bfloat16),
                         int(w.dtype == torch.bfloat16), *ONE,
                         build.stream_ptr(x.device))
     build.check(lib, err, "dense_fwd")
@@ -129,19 +141,19 @@ def dense_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
     K, N = w.shape
     x_bf16, w_bf16 = int(x.dtype == torch.bfloat16), \
         int(w.dtype == torch.bfloat16)
-    dy2, lddy = build.rows(dy, N)
+    dy2, lddy = build.rows(dy, N, "dense_bwd: dy")
     M = dy2.shape[0]
     stream = build.stream_ptr(x.device)
     lib = _lib()
     dx = dw = None
     if need_dx:
-        w = w.contiguous()
+        w = build.dense(w, "dense_bwd: w")
         dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         err = lib.dense_dx(build.ptr(dy2), lddy, build.ptr(w), build.ptr(dx),
                            M, K, N, x_bf16, w_bf16, *ONE, stream)
         build.check(lib, err, "dense_bwd (dx)")
     if need_dw:
-        x2, ldx = build.rows(x, K)
+        x2, ldx = build.rows(x, K, "dense_bwd: x")
         dw = torch.empty((K, N), dtype=w.dtype, device=x.device)
         err = lib.dense_dw(build.ptr(x2), ldx, build.ptr(dy2), lddy,
                            build.ptr(dw), M, K, N, x_bf16, w_bf16, *ONE,
@@ -153,31 +165,35 @@ def dense_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
 
 class _Dense(torch.autograd.Function):
     """The kernels as one autograd function (CUDA tensors): saves ``x`` and
-    ``w`` as given."""
+    ``w`` as given; a residual's cotangent is ``dy`` itself."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, residual):
         ctx.save_for_backward(x, w)
-        return dense_fwd(x, w)
+        return dense_fwd(x, w, residual)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        return dense_bwd(dy, x, w, need_dx=ctx.needs_input_grad[0],
-                         need_dw=ctx.needs_input_grad[1])
+        dy = build.cotangent(dy)
+        dx, dw = dense_bwd(dy, x, w, need_dx=ctx.needs_input_grad[0],
+                           need_dw=ctx.needs_input_grad[1])
+        return dx, dw, (dy if ctx.needs_input_grad[2] else None)
 
 
-def project(x: torch.Tensor, w: torch.Tensor,
-            compute: torch.dtype) -> torch.Tensor:
-    """``x @ w.to(compute)``, differentiable in both: the kernels on the
-    card (where x must already be in ``compute``), ``x @ w.to(compute)``
-    under autograd elsewhere."""
+def project(x: torch.Tensor, w: torch.Tensor, compute: torch.dtype,
+            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w.to(compute)`` (with ``residual``, ``residual`` plus it),
+    differentiable in all three: the kernels on the card (where x must
+    already be in ``compute``), the plain version under autograd
+    elsewhere."""
     if build.on_card(x):
         if x.dtype != compute:
             raise ValueError(f"dense: x is {x.dtype}, the compute dtype "
                              f"{compute}")
-        return _Dense.apply(x, w)
-    return x @ w.to(compute)
+        return _Dense.apply(x, w, residual)
+    y = x @ w.to(compute)
+    return y if residual is None else residual + y
 
 
 # ------------------------------------------------ the experts' products
@@ -220,10 +236,11 @@ def expert_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_experts("expert_fwd", x, w)
     E, M, K = x.shape
     N = w.shape[2]
-    x, w = x.contiguous(), w.contiguous()
+    x, w = build.dense(x, "expert_fwd: x"), build.dense(w, "expert_fwd: w")
     y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
     lib = _lib()
-    err = lib.dense_fwd(build.ptr(x), K, build.ptr(w), build.ptr(y), M, K, N,
+    err = lib.dense_fwd(build.ptr(x), K, build.ptr(w), build.ptr(y), None,
+                        M, K, N,
                         int(x.dtype == torch.bfloat16),
                         int(w.dtype == torch.bfloat16), E, M * K, K * N,
                         M * N, build.stream_ptr(x.device))
@@ -245,19 +262,19 @@ def expert_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
     N = w.shape[2]
     x_bf16, w_bf16 = int(x.dtype == torch.bfloat16), \
         int(w.dtype == torch.bfloat16)
-    dy = dy.contiguous()
+    dy = build.dense(dy, "expert_bwd: dy")
     stream = build.stream_ptr(x.device)
     lib = _lib()
     dx = dw = None
     if need_dx:
-        w = w.contiguous()
+        w = build.dense(w, "expert_bwd: w")
         dx = torch.empty((E, M, K), dtype=x.dtype, device=x.device)
         err = lib.dense_dx(build.ptr(dy), N, build.ptr(w), build.ptr(dx), M,
                            K, N, x_bf16, w_bf16, E, M * N, K * N, M * K,
                            stream)
         build.check(lib, err, "expert_bwd (dx)")
     if need_dw:
-        x = x.contiguous()
+        x = build.dense(x, "expert_bwd: x")
         dw = torch.empty((E, K, N), dtype=w.dtype, device=x.device)
         err = lib.dense_dw(build.ptr(x), K, build.ptr(dy), N, build.ptr(dw),
                            M, K, N, x_bf16, w_bf16, E, M * K, M * N, K * N,
@@ -279,7 +296,8 @@ class _Experts(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        return expert_bwd(dy, x, w, need_dx=ctx.needs_input_grad[0],
+        return expert_bwd(build.cotangent(dy), x, w,
+                          need_dx=ctx.needs_input_grad[0],
                           need_dw=ctx.needs_input_grad[1])
 
 

@@ -19,7 +19,7 @@ fp32.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,7 +35,7 @@ def _lib():
     lib.dt_softplus_fwd.restype = _I
     lib.dt_softplus_fwd.argtypes = [_P] * 3 + [_L, _I, _L, _I, _P]
     lib.dt_softplus_bwd.restype = _I
-    lib.dt_softplus_bwd.argtypes = [_P] * 5 + [_L, _I, _L, _I, _P]
+    lib.dt_softplus_bwd.argtypes = [_P] * 5 + [_L, _I, _L, _L, _I, _P]
     return lib
 
 
@@ -71,7 +71,7 @@ def dt_softplus(dt_raw: torch.Tensor, dt_bias: torch.Tensor) -> torch.Tensor:
     if not build.on_card(dt_raw):
         raise ValueError("dt_softplus runs on the card only")
     _check("dt_softplus", dt_raw, dt_bias)
-    r, sr = build.rows(dt_raw, dt_raw.shape[-1])
+    r, sr = build.rows(dt_raw, dt_raw.shape[-1], "dt_softplus: dt_raw")
     out = torch.empty(dt_raw.shape, dtype=torch.float32,
                       device=dt_raw.device)
     lib = _lib()
@@ -85,31 +85,40 @@ def dt_softplus(dt_raw: torch.Tensor, dt_bias: torch.Tensor) -> torch.Tensor:
 
 
 def dt_softplus_bwd(g: torch.Tensor, dt_raw: torch.Tensor,
-                    dt_bias: torch.Tensor
+                    dt_bias: torch.Tensor, *,
+                    draw_out: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward kernel (card only): ``(d dt_raw, d dt_bias)`` for the
     fp32 cotangent ``g`` of :func:`dt_softplus`'s output, in the inputs'
-    dtypes."""
+    dtypes; ``draw_out``: the view (rows with one stride, dt_raw's shape
+    and dtype) that takes ``d dt_raw``, which is then returned."""
     if not build.on_card(dt_raw):
         raise ValueError("dt_softplus_bwd runs on the card only")
     _check("dt_softplus_bwd", dt_raw, dt_bias)
     if g.shape != dt_raw.shape or g.dtype != torch.float32:
         raise ValueError(f"dt_softplus_bwd: g{tuple(g.shape)} {g.dtype} is "
                          f"not dt_raw's shape {tuple(dt_raw.shape)} in fp32")
-    r, sr = build.rows(dt_raw, dt_raw.shape[-1])
-    draw = torch.empty(dt_raw.shape, dtype=dt_raw.dtype,
-                       device=dt_raw.device)
+    H = dt_raw.shape[-1]
+    r, sr = build.rows(dt_raw, H, "dt_softplus_bwd: dt_raw")
+    if draw_out is None:
+        draw_out = torch.empty(dt_raw.shape, dtype=dt_raw.dtype,
+                               device=dt_raw.device)
+    elif draw_out.shape != dt_raw.shape or draw_out.dtype != dt_raw.dtype:
+        raise ValueError(f"dt_softplus_bwd: draw_out"
+                         f"{tuple(draw_out.shape)} {draw_out.dtype} is not "
+                         f"dt_raw's {tuple(dt_raw.shape)} {dt_raw.dtype}")
+    dr, sd = build.rows(draw_out, H, "dt_softplus_bwd: draw_out")
     dbias = torch.empty(dt_bias.shape, dtype=torch.float32,
                         device=dt_raw.device)
     lib = _lib()
     err = lib.dt_softplus_bwd(
         build.ptr(r), build.ptr(dt_bias.float().contiguous()),
-        build.ptr(g.contiguous()), build.ptr(draw), build.ptr(dbias),
-        r.shape[0], r.shape[1], sr, int(dt_raw.dtype == torch.bfloat16),
-        build.stream_ptr(dt_raw.device))
+        build.ptr(build.dense(g, "dt_softplus_bwd: g")), build.ptr(dr),
+        build.ptr(dbias), r.shape[0], r.shape[1], sr, sd,
+        int(dt_raw.dtype == torch.bfloat16), build.stream_ptr(dt_raw.device))
     build.check(lib, err, "dt_softplus_bwd")
     dt_softplus_bwd.launches += 1
-    return draw, dbias.to(dt_bias.dtype)
+    return draw_out, dbias.to(dt_bias.dtype)
 
 
 class _DtSoftplus(torch.autograd.Function):
@@ -122,7 +131,7 @@ class _DtSoftplus(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return dt_softplus_bwd(g, *ctx.saved_tensors)
+        return dt_softplus_bwd(build.cotangent(g), *ctx.saved_tensors)
 
 
 def softplus_dt(dt_raw: torch.Tensor, dt_bias: torch.Tensor) -> torch.Tensor:

@@ -37,8 +37,8 @@ def _lib():
     lib.gated_norm_fwd.argtypes = [_P] * 7 + [_L, _I, _I, _L, _L, _F, _I, _I,
                                               _P]
     lib.gated_norm_bwd.restype = _I
-    lib.gated_norm_bwd.argtypes = [_P] * 13 + [_L, _I, _I, _L, _L, _I, _I,
-                                               _P]
+    lib.gated_norm_bwd.argtypes = [_P] * 13 + [_L, _I, _I, _L, _L, _L, _I,
+                                               _I, _P]
     lib.gated_norm_bwd_blocks.restype = _I
     lib.gated_norm_bwd_blocks.argtypes = [_L]
     return lib
@@ -103,9 +103,9 @@ def gated_norm(y, x, D, z, scale, *, eps: float = 1e-6, out_dtype=None):
                          f"of {list(DTYPES)}")
     Bsz, T, H, P = y.shape
     d = H * P
-    yr = y.contiguous()
-    xr, sx = build.rows(x, d)
-    zr, sz = build.rows(z, d)
+    yr = build.dense(y, "gated_norm: y")
+    xr, sx = build.rows(x, d, "gated_norm: x")
+    zr, sz = build.rows(z, d, "gated_norm: z")
     rows = xr.shape[0]
     Dv = D.to(y.dtype).float().contiguous()
     sc = scale.float().contiguous()
@@ -122,11 +122,12 @@ def gated_norm(y, x, D, z, scale, *, eps: float = 1e-6, out_dtype=None):
     return out, rstd
 
 
-def gated_norm_bwd(g, y, x, D, z, scale, rstd):
+def gated_norm_bwd(g, y, x, D, z, scale, rstd, *, dz_out=None):
     """The backward kernel (card only): ``(dy, dx, dD, dz, dscale)`` for
     the cotangent ``g`` of :func:`gated_norm`'s output, each in its
     input's dtype (``dx`` the skip's part; ``dD`` rounded to y's dtype
-    first, as the plain version's sum is)."""
+    first, as the plain version's sum is).  ``dz_out``: the view (rows
+    with one stride, z's shape and dtype) that takes ``dz``."""
     if not build.on_card(y):
         raise ValueError("gated_norm_bwd runs on the card only")
     _check("gated_norm_bwd", y, x, D, z, scale)
@@ -137,9 +138,10 @@ def gated_norm_bwd(g, y, x, D, z, scale, rstd):
         raise ValueError(f"gated_norm_bwd: g{tuple(g.shape)} {g.dtype}, "
                          f"rstd{tuple(rstd.shape)} {rstd.dtype} do not fit "
                          f"y{tuple(y.shape)}")
-    yr, gr = y.contiguous(), g.contiguous()
-    xr, sx = build.rows(x, d)
-    zr, sz = build.rows(z, d)
+    yr = build.dense(y, "gated_norm_bwd: y")
+    gr = build.dense(g, "gated_norm_bwd: g")
+    xr, sx = build.rows(x, d, "gated_norm_bwd: x")
+    zr, sz = build.rows(z, d, "gated_norm_bwd: z")
     rows = xr.shape[0]
     Dv = D.to(y.dtype).float().contiguous()
     sc = scale.float().contiguous()
@@ -148,18 +150,25 @@ def gated_norm_bwd(g, y, x, D, z, scale, rstd):
                        dtype=torch.float32, device=y.device)
     dy = torch.empty(y.shape, dtype=y.dtype, device=y.device)
     dx = torch.empty(y.shape, dtype=y.dtype, device=y.device)
-    dz = torch.empty((Bsz, T, d), dtype=z.dtype, device=y.device)
+    if dz_out is None:
+        dz_out = torch.empty((Bsz, T, d), dtype=z.dtype, device=y.device)
+    elif dz_out.shape != z.shape or dz_out.dtype != z.dtype:
+        raise ValueError(f"gated_norm_bwd: dz_out{tuple(dz_out.shape)} "
+                         f"{dz_out.dtype} is not z's {tuple(z.shape)} "
+                         f"{z.dtype}")
+    dzr, sdz = build.rows(dz_out, d, "gated_norm_bwd: dz_out")
     dscale = torch.empty((d,), dtype=torch.float32, device=y.device)
     dD = torch.empty((H,), dtype=torch.float32, device=y.device)
     err = lib.gated_norm_bwd(
         build.ptr(gr), build.ptr(yr), build.ptr(xr), build.ptr(zr),
         build.ptr(Dv), build.ptr(sc), build.ptr(rstd), build.ptr(dy),
-        build.ptr(dx), build.ptr(dz), build.ptr(part), build.ptr(dscale),
-        build.ptr(dD), rows, d, P, sx, sz, int(y.dtype == torch.bfloat16),
-        int(g.dtype == torch.bfloat16), build.stream_ptr(y.device))
+        build.ptr(dx), build.ptr(dzr), build.ptr(part), build.ptr(dscale),
+        build.ptr(dD), rows, d, P, sx, sz, sdz,
+        int(y.dtype == torch.bfloat16), int(g.dtype == torch.bfloat16),
+        build.stream_ptr(y.device))
     build.check(lib, err, "gated_norm_bwd")
     gated_norm_bwd.launches += 1
-    return (dy, dx, dD.to(y.dtype).to(D.dtype), dz,
+    return (dy, dx, dD.to(y.dtype).to(D.dtype), dz_out,
             dscale.to(scale.dtype))
 
 
@@ -175,7 +184,8 @@ class _GatedNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (*gated_norm_bwd(g, *ctx.saved_tensors), None, None)
+        return (*gated_norm_bwd(build.cotangent(g), *ctx.saved_tensors),
+                None, None)
 
 
 def gated_norm_out(y: torch.Tensor, x: torch.Tensor, D: torch.Tensor,

@@ -74,7 +74,7 @@ def glu(gate: torch.Tensor, up: torch.Tensor, act: str) -> torch.Tensor:
     if not build.on_card(gate):
         raise ValueError("glu runs on the card only")
     _check("glu", act, [("gate", gate), ("up", up)])
-    gate, up = gate.contiguous(), up.contiguous()
+    gate, up = build.dense(gate, "glu: gate"), build.dense(up, "glu: up")
     out = torch.empty_like(gate)
     lib = _lib()
     err = lib.glu_fwd(build.ptr(gate), build.ptr(up), build.ptr(out),
@@ -92,7 +92,8 @@ def glu_bwd(g: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
     if not build.on_card(gate):
         raise ValueError("glu_bwd runs on the card only")
     _check("glu_bwd", act, [("gate", gate), ("up", up), ("g", g)])
-    g, gate, up = g.contiguous(), gate.contiguous(), up.contiguous()
+    g = build.dense(g, "glu_bwd: g")
+    gate, up = build.dense(gate, "glu_bwd: gate"), build.dense(up, "up")
     dgate, dup = torch.empty_like(gate), torch.empty_like(up)
     lib = _lib()
     err = lib.glu_bwd(build.ptr(g), build.ptr(gate), build.ptr(up),
@@ -116,7 +117,7 @@ class _GLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         gate, up = ctx.saved_tensors
-        dgate, dup = glu_bwd(g, gate, up, ctx.act)
+        dgate, dup = glu_bwd(build.cotangent(g), gate, up, ctx.act)
         return dgate, dup, None
 
 

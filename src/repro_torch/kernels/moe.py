@@ -25,6 +25,11 @@ The model-facing functions :func:`route`, :func:`slots`, :func:`dispatch`
 and :func:`combine` launch the kernels for CUDA tensors (autograd functions
 whose backwards launch the backward kernels, or raise) and run the plain
 versions (``*_plain``, PyTorch gathers; the vjps by autograd) elsewhere.
+The routing kernels also compute the Switch aux loss (:func:`aux_plain`)
+and add it to a running total, and take its cotangent in the backward; the
+dispatch gives one output for each reader of the buckets (the experts'
+gate and up products), whose cotangents its backward kernel sums; the
+combine adds the layer's residual in its kernel.
 ``models/moe.py`` calls them only on the card: on the CPU its one-hot
 einsums run as before, and the plain versions here are what the kernels
 are held against.  Each wrapper counts its launches (``.launches``; a
@@ -52,17 +57,19 @@ MAX_SPLITS, ROWS_PER_SPLIT = 16, 512
 def _lib():
     lib = build.load("moe")
     lib.moe_route_fwd.restype = _I
-    lib.moe_route_fwd.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    lib.moe_route_fwd.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    lib.moe_route_blocks.restype = _I
+    lib.moe_route_blocks.argtypes = [_I]
     lib.moe_route_bwd.restype = _I
-    lib.moe_route_bwd.argtypes = [_P] * 10 + [_I] * 6 + [_P]
+    lib.moe_route_bwd.argtypes = [_P] * 11 + [_I] * 6 + [_P]
     lib.moe_slots.restype = _I
     lib.moe_slots.argtypes = [_P] * 4 + [_I] * 5 + [_P]
     lib.moe_dispatch.restype = _I
     lib.moe_dispatch.argtypes = [_P] * 3 + [_L, _I, _I, _I, _P]
     lib.moe_dispatch_bwd.restype = _I
-    lib.moe_dispatch_bwd.argtypes = [_P] * 3 + [_L, _I, _I, _I, _P]
+    lib.moe_dispatch_bwd.argtypes = [_P] * 4 + [_L, _I, _I, _I, _P]
     lib.moe_combine.restype = _I
-    lib.moe_combine.argtypes = [_P] * 4 + [_L, _I, _I, _I, _I, _P]
+    lib.moe_combine.argtypes = [_P] * 5 + [_L, _I, _I, _I, _I, _P]
     lib.moe_combine_bwd.restype = _I
     lib.moe_combine_bwd.argtypes = [_P] * 7 + [_L, _L, _I, _I, _I, _I, _P]
     return lib
@@ -116,19 +123,30 @@ def route_plain(x: torch.Tensor, w: torch.Tensor, top_k: int
     return weights, idx, probs
 
 
+def aux_plain(probs: torch.Tensor, idx: torch.Tensor, n_experts: int
+              ) -> torch.Tensor:
+    """The Switch load-balance loss ``E sum_e me_e ce_e`` of one routing
+    (``repro/models/moe.py::_route``'s ``aux``): ``me`` the mean
+    probability, ``ce`` the mean count of choices, of each expert."""
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(idx, n_experts).float().sum(2).mean(dim=(0, 1))
+    return n_experts * torch.sum(me * ce)
+
+
 def route_bwd_plain(dweights: Optional[torch.Tensor],
-                    dprobs: Optional[torch.Tensor], x: torch.Tensor,
+                    daux: Optional[torch.Tensor], x: torch.Tensor,
                     w: torch.Tensor, top_k: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dx, dw)``: the vjp of :func:`route_plain` for the cotangents of
-    ``weights`` and ``probs`` (None for zeros), by autograd over it
-    recomputed; dx in x's dtype, dw in fp32."""
+    """``(dx, dw)``: the vjp of :func:`route_plain`'s ``weights`` and of the
+    aux loss :func:`aux_plain` for their cotangents (None for zeros), by
+    autograd over them recomputed; dx in x's dtype, dw in fp32."""
     with torch.enable_grad():
         xr = x.detach().requires_grad_(True)
         wr = w.detach().float().requires_grad_(True)
-        weights, _, probs = route_plain(xr, wr, top_k)
+        weights, idx, probs = route_plain(xr, wr, top_k)
+        aux = aux_plain(probs, idx, w.shape[1])
         outs, cots = [], []
-        for out, cot in ((weights, dweights), (probs, dprobs)):
+        for out, cot in ((weights, dweights), (aux, daux)):
             if cot is not None:
                 outs.append(out)
                 cots.append(cot)
@@ -146,27 +164,44 @@ def _check_route(what, x, w, top_k) -> None:
     _check_ek(what, w.shape[1], top_k)
 
 
-def moe_route(x: torch.Tensor, w: torch.Tensor, top_k: int
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The routing kernel (CUDA tensors only): :func:`route_plain`'s
-    ``(weights, idx, probs)``; x (G, S, d) fp32 or bf16, w (d, E) fp32."""
+def moe_route(x: torch.Tensor, w: torch.Tensor, top_k: int, *,
+              aux_in: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, ...]:
+    """The routing kernels (CUDA tensors only): :func:`route_plain`'s
+    ``(weights, idx, probs)``, then ``aux_in`` (a 0-d fp32 running total,
+    None for 0) plus :func:`aux_plain`'s loss, and each expert's mean
+    count of choices ``ce`` (E,) fp32 for the backward: ``(weights, idx,
+    probs, aux, ce)``.  x (G, S, d) fp32 or bf16, w (d, E) fp32."""
     if not build.on_card(x):
         raise ValueError("moe_route runs on the card only")
     _check_route("moe_route", x, w, top_k)
+    if aux_in is not None and (aux_in.shape != () or aux_in.dtype
+                               != torch.float32 or aux_in.device != x.device):
+        raise ValueError(f"moe_route: aux_in{tuple(aux_in.shape)} "
+                         f"{aux_in.dtype} must be a 0-d fp32 tensor on "
+                         f"{x.device}")
     G, S, d = x.shape
     E = w.shape[1]
-    x, w = x.contiguous(), w.contiguous()
-    probs = torch.empty((G, S, E), dtype=torch.float32, device=x.device)
-    weights = torch.empty((G, S, top_k), dtype=torch.float32,
-                          device=x.device)
-    idx = torch.empty((G, S, top_k), dtype=torch.int64, device=x.device)
+    x, w = build.dense(x, "moe_route: x"), build.dense(w, "moe_route: w")
+    dev = x.device
+    probs = torch.empty((G, S, E), dtype=torch.float32, device=dev)
+    weights = torch.empty((G, S, top_k), dtype=torch.float32, device=dev)
+    idx = torch.empty((G, S, top_k), dtype=torch.int64, device=dev)
+    aux = torch.empty((), dtype=torch.float32, device=dev)
+    ce = torch.empty((E,), dtype=torch.float32, device=dev)
     lib = _lib()
+    # the routing blocks' partial sums of the aux loss
+    nb = lib.moe_route_blocks(G * S)
+    part_p = torch.empty((nb, E), dtype=torch.float32, device=dev)
+    part_c = torch.empty((nb, E), dtype=torch.int32, device=dev)
     err = lib.moe_route_fwd(build.ptr(x), build.ptr(w), build.ptr(probs),
-                            build.ptr(weights), build.ptr(idx), G * S, d, E,
-                            top_k, _bf16(x), build.stream_ptr(x.device))
+                            build.ptr(weights), build.ptr(idx),
+                            build.ptr(aux_in), build.ptr(aux), build.ptr(ce),
+                            build.ptr(part_p), build.ptr(part_c), G * S, d,
+                            E, top_k, _bf16(x), build.stream_ptr(dev))
     build.check(lib, err, "moe_route")
     moe_route.launches += 1
-    return weights, idx, probs
+    return weights, idx, probs, aux, ce
 
 
 def route_splits(n_tokens: int) -> int:
@@ -175,24 +210,27 @@ def route_splits(n_tokens: int) -> int:
 
 
 def moe_route_bwd(dweights: Optional[torch.Tensor],
-                  dprobs: Optional[torch.Tensor], x: torch.Tensor,
-                  w: torch.Tensor, probs: torch.Tensor, idx: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  daux: Optional[torch.Tensor], x: torch.Tensor,
+                  w: torch.Tensor, probs: torch.Tensor, idx: torch.Tensor,
+                  ce: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routing backward (CUDA tensors only): ``(dx, dw)`` for the
-    cotangents of :func:`moe_route`'s weights and probs (None for zeros),
-    from its saved ``probs`` and ``idx``."""
+    cotangents of :func:`moe_route`'s weights (G, S, k) and aux (0-d), fp32
+    (None for zeros), from its saved ``probs``, ``idx`` and ``ce``."""
     if not build.on_card(x):
         raise ValueError("moe_route_bwd runs on the card only")
     top_k = idx.shape[-1]
     _check_route("moe_route_bwd", x, w, top_k)
     G, S, d = x.shape
     E, N = w.shape[1], G * S
-    x, w = x.contiguous(), w.contiguous()
-    probs, idx = probs.contiguous(), idx.contiguous()
-    if dweights is not None:
-        dweights = dweights.float().contiguous()
-    if dprobs is not None:
-        dprobs = dprobs.float().contiguous()
+    for name, t, shape in (("dweights", dweights, (G, S, top_k)),
+                           ("daux", daux, ()), ("ce", ce, (E,)),
+                           ("probs", probs, (G, S, E))):
+        if t is not None and (t.shape != shape or t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError(f"moe_route_bwd: {name}{tuple(t.shape)} "
+                             f"{t.dtype} must be contiguous fp32 {shape}")
+    x, w = build.dense(x, "moe_route_bwd: x"), build.dense(w, "w")
+    idx = build.dense(idx, "moe_route_bwd: idx")
     nsplit = route_splits(N)
     dlog = torch.empty((N, E), dtype=torch.float32, device=x.device)
     part = torch.empty((nsplit, d, E), dtype=torch.float32, device=x.device)
@@ -201,7 +239,7 @@ def moe_route_bwd(dweights: Optional[torch.Tensor],
     lib = _lib()
     err = lib.moe_route_bwd(build.ptr(x), build.ptr(w), build.ptr(probs),
                             build.ptr(idx), build.ptr(dweights),
-                            build.ptr(dprobs), build.ptr(dlog),
+                            build.ptr(daux), build.ptr(ce), build.ptr(dlog),
                             build.ptr(part), build.ptr(dx), build.ptr(dw), N,
                             d, E, top_k, nsplit, _bf16(x),
                             build.stream_ptr(x.device))
@@ -212,29 +250,37 @@ def moe_route_bwd(dweights: Optional[torch.Tensor],
 
 class _Route(torch.autograd.Function):
     """The routing kernels as one autograd function (CUDA tensors): saves
-    x, w and the forward's probs and choices."""
+    x, w and the forward's probs, choices and ``ce``; the running total's
+    cotangent is the aux's."""
 
     @staticmethod
-    def forward(ctx, x, w, top_k):
-        weights, idx, probs = moe_route(x, w, top_k)
+    def forward(ctx, x, w, top_k, aux_in):
+        weights, idx, probs, aux, ce = moe_route(x, w, top_k, aux_in=aux_in)
         ctx.mark_non_differentiable(idx)
-        ctx.save_for_backward(x, w, probs, idx)
-        return weights, idx, probs
+        ctx.save_for_backward(x, w, probs, idx, ce)
+        ctx.set_materialize_grads(False)
+        return weights, idx, aux
 
     @staticmethod
-    def backward(ctx, dweights, _didx, dprobs):
-        x, w, probs, idx = ctx.saved_tensors
-        dx, dw = moe_route_bwd(dweights, dprobs, x, w, probs, idx)
-        return dx, dw, None
+    def backward(ctx, dweights, _didx, daux):
+        x, w, probs, idx, ce = ctx.saved_tensors
+        dx, dw = moe_route_bwd(build.cotangent(dweights), daux, x, w, probs,
+                               idx, ce)
+        return dx, dw, None, (daux if ctx.needs_input_grad[3] else None)
 
 
-def route(x: torch.Tensor, w: torch.Tensor, top_k: int
+def route(x: torch.Tensor, w: torch.Tensor, top_k: int,
+          aux_in: Optional[torch.Tensor] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(weights, idx, probs)`` of :func:`route_plain`, differentiable in
-    x and w: the kernels on the card, the plain version elsewhere."""
+    """``(weights, idx, aux)``: :func:`route_plain`'s weights and choices
+    and :func:`aux_plain`'s loss, added to ``aux_in`` (a running total)
+    where given; differentiable in x, w and ``aux_in``: the kernels on the
+    card (the sum in the kernel), the plain version elsewhere."""
     if build.on_card(x):
-        return _Route.apply(x, w.float(), top_k)
-    return route_plain(x, w, top_k)
+        return _Route.apply(x, w.float(), top_k, aux_in)
+    weights, idx, probs = route_plain(x, w, top_k)
+    aux = aux_plain(probs, idx, w.shape[1])
+    return weights, idx, (aux if aux_in is None else aux_in + aux)
 
 
 # --------------------------------------------------------------- slots
@@ -279,7 +325,7 @@ def moe_slots(idx: torch.Tensor, E: int, C: int
     if E * G * C >= 2 ** 31 or G * S * k >= 2 ** 31:
         raise ValueError(f"moe_slots: E G C = {E * G * C} bucket rows, G S k "
                          f"= {G * S * k} choices: at most 2**31 - 1")
-    idx = idx.contiguous()
+    idx = build.dense(idx, "moe_slots: idx")
     dev = idx.device
     choice_slot = torch.empty((G, S, k), dtype=torch.int32, device=dev)
     slot_src = torch.empty((E, G * C), dtype=torch.int32, device=dev)
@@ -349,7 +395,8 @@ def moe_dispatch(x: torch.Tensor, slot_src: torch.Tensor, k: int
                          f"d), slot_src{tuple(slot_src.shape)} (E, G C) "
                          "int32")
     d = x.shape[2]
-    x, slot_src = x.contiguous(), slot_src.contiguous()
+    x = build.dense(x, "moe_dispatch: x")
+    slot_src = build.dense(slot_src, "moe_dispatch: slot_src")
     out = torch.empty((*slot_src.shape, d), dtype=x.dtype, device=x.device)
     lib = _lib()
     err = lib.moe_dispatch(build.ptr(x), build.ptr(slot_src), build.ptr(out),
@@ -360,10 +407,12 @@ def moe_dispatch(x: torch.Tensor, slot_src: torch.Tensor, k: int
     return out
 
 
-def moe_dispatch_bwd(dexp: torch.Tensor, choice_slot: torch.Tensor
-                     ) -> torch.Tensor:
+def moe_dispatch_bwd(dexp: torch.Tensor, choice_slot: torch.Tensor,
+                     dexp2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The dispatch's backward kernel (CUDA tensors only):
-    :func:`dispatch_bwd_plain`."""
+    :func:`dispatch_bwd_plain` of ``dexp``, or of ``dexp + dexp2`` (two
+    readers' cotangents of the buckets, each element's sum rounded to
+    their dtype first, as autograd adds them)."""
     if not build.on_card(dexp):
         raise ValueError("moe_dispatch_bwd runs on the card only")
     _check_dtype("moe_dispatch_bwd", [("dexp", dexp)])
@@ -373,11 +422,19 @@ def moe_dispatch_bwd(dexp: torch.Tensor, choice_slot: torch.Tensor
                          "int32")
     G, S, k = choice_slot.shape
     d = dexp.shape[-1]
-    dexp, choice_slot = dexp.contiguous(), choice_slot.contiguous()
+    if dexp2 is not None and (dexp2.shape != dexp.shape
+                              or dexp2.dtype != dexp.dtype):
+        raise ValueError(f"moe_dispatch_bwd: dexp2{tuple(dexp2.shape)} "
+                         f"{dexp2.dtype} is not dexp's "
+                         f"{tuple(dexp.shape)} {dexp.dtype}")
+    dexp = build.dense(dexp, "moe_dispatch_bwd: dexp")
+    dexp2 = build.dense(dexp2, "moe_dispatch_bwd: dexp2")
+    choice_slot = build.dense(choice_slot, "moe_dispatch_bwd: choice_slot")
     dx = torch.empty((G, S, d), dtype=dexp.dtype, device=dexp.device)
     lib = _lib()
-    err = lib.moe_dispatch_bwd(build.ptr(dexp), build.ptr(choice_slot),
-                               build.ptr(dx), G * S, d, k, _bf16(dexp),
+    err = lib.moe_dispatch_bwd(build.ptr(dexp), build.ptr(dexp2),
+                               build.ptr(choice_slot), build.ptr(dx), G * S,
+                               d, k, _bf16(dexp),
                                build.stream_ptr(dexp.device))
     build.check(lib, err, "moe_dispatch_bwd")
     moe_dispatch_bwd.launches += 1
@@ -385,38 +442,48 @@ def moe_dispatch_bwd(dexp: torch.Tensor, choice_slot: torch.Tensor
 
 
 class _Dispatch(torch.autograd.Function):
-    """The dispatch kernels as one autograd function (CUDA tensors)."""
+    """The dispatch kernels as one autograd function (CUDA tensors) with
+    ``n`` (1 or 2) equal outputs, one for each reader of the buckets: the
+    backward kernel sums their cotangents."""
 
     @staticmethod
-    def forward(ctx, x, choice_slot, slot_src):
+    def forward(ctx, x, choice_slot, slot_src, n):
         ctx.save_for_backward(choice_slot)
-        return moe_dispatch(x, slot_src, choice_slot.shape[-1])
+        ctx.set_materialize_grads(False)
+        out = moe_dispatch(x, slot_src, choice_slot.shape[-1])
+        return (out,) + tuple(out.view_as(out) for _ in range(n - 1))
 
     @staticmethod
-    def backward(ctx, dexp):
+    def backward(ctx, *dexps):
         (choice_slot,) = ctx.saved_tensors
-        return moe_dispatch_bwd(dexp, choice_slot), None, None
+        gs = [build.cotangent(g) for g in dexps if g is not None]
+        dx = moe_dispatch_bwd(gs[0], choice_slot, *gs[1:]) if gs else None
+        return dx, None, None, None
 
 
 def dispatch(x: torch.Tensor, choice_slot: torch.Tensor,
-             slot_src: torch.Tensor) -> torch.Tensor:
-    """The buckets (E, G C, d) of x (G, S, d), differentiable in x: the
-    kernels on the card, :func:`dispatch_plain` under autograd elsewhere."""
+             slot_src: torch.Tensor, n: int = 1) -> Tuple[torch.Tensor, ...]:
+    """The buckets (E, G C, d) of x (G, S, d) for each of ``n`` (1 or 2)
+    readers, differentiable in x: the kernels on the card (the readers'
+    cotangents summed in the backward kernel), :func:`dispatch_plain` under
+    autograd elsewhere (the same tensor ``n`` times)."""
     _check_slots("dispatch", choice_slot, slot_src)
+    if n not in (1, 2):
+        raise ValueError(f"dispatch: {n} readers, 1 or 2 taken")
     if build.on_card(x):
-        return _Dispatch.apply(x, choice_slot, slot_src)
-    return dispatch_plain(x, slot_src, choice_slot.shape[-1])
+        return _Dispatch.apply(x, choice_slot, slot_src, n)
+    return (dispatch_plain(x, slot_src, choice_slot.shape[-1]),) * n
 
 
 # ------------------------------------------------------------- combine
 
 
 def combine_plain(rows: torch.Tensor, weights: torch.Tensor,
-                  choice_slot: torch.Tensor, dtype: torch.dtype
-                  ) -> torch.Tensor:
+                  choice_slot: torch.Tensor, dtype: torch.dtype,
+                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y (G, S, d): each token's kept choices' bucket rows times their
     weights, summed in fp32 in choice order (a multiply, then an add),
-    rounded once to ``dtype``."""
+    rounded once to ``dtype``; with ``residual``, ``residual + y``."""
     G, S, k = choice_slot.shape
     d = rows.shape[-1]
     flat = _padded(rows, d)
@@ -424,7 +491,8 @@ def combine_plain(rows: torch.Tensor, weights: torch.Tensor,
     acc = torch.zeros((G, S, d), dtype=torch.float32, device=rows.device)
     for i in range(k):
         acc = acc + weights[..., i, None] * flat[sl[..., i]].float()
-    return acc.to(dtype)
+    y = acc.to(dtype)
+    return y if residual is None else residual + y
 
 
 def combine_bwd_plain(dy: torch.Tensor, rows: torch.Tensor,
@@ -460,9 +528,10 @@ def _check_combine(what, rows, weights, choice_slot) -> None:
 
 
 def moe_combine(rows: torch.Tensor, weights: torch.Tensor,
-                choice_slot: torch.Tensor, dtype: torch.dtype
-                ) -> torch.Tensor:
-    """The combine kernel (CUDA tensors only): :func:`combine_plain`."""
+                choice_slot: torch.Tensor, dtype: torch.dtype,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The combine kernel (CUDA tensors only): :func:`combine_plain` (the
+    residual, contiguous (G, S, d) in ``dtype``, added in the kernel)."""
     if not build.on_card(rows):
         raise ValueError("moe_combine runs on the card only")
     _check_combine("moe_combine", rows, weights, choice_slot)
@@ -470,13 +539,19 @@ def moe_combine(rows: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"moe_combine: output dtype {dtype}")
     G, S, k = choice_slot.shape
     d = rows.shape[-1]
-    rows, weights = rows.contiguous(), weights.contiguous()
-    choice_slot = choice_slot.contiguous()
+    if residual is not None and (residual.shape != (G, S, d)
+                                 or residual.dtype != dtype):
+        raise ValueError(f"moe_combine: residual{tuple(residual.shape)} "
+                         f"{residual.dtype} is not {(G, S, d)} {dtype}")
+    rows = build.dense(rows, "moe_combine: rows")
+    weights = build.dense(weights, "moe_combine: weights")
+    choice_slot = build.dense(choice_slot, "moe_combine: choice_slot")
+    residual = build.dense(residual, "moe_combine: residual")
     y = torch.empty((G, S, d), dtype=dtype, device=rows.device)
     lib = _lib()
     err = lib.moe_combine(build.ptr(rows), build.ptr(weights),
-                          build.ptr(choice_slot), build.ptr(y), G * S, d, k,
-                          _bf16(rows), _bf16(y),
+                          build.ptr(choice_slot), build.ptr(residual),
+                          build.ptr(y), G * S, d, k, _bf16(rows), _bf16(y),
                           build.stream_ptr(rows.device))
     build.check(lib, err, "moe_combine")
     moe_combine.launches += 1
@@ -498,9 +573,10 @@ def moe_combine_bwd(dy: torch.Tensor, rows: torch.Tensor,
     if dy.shape != (G, S, d):
         raise ValueError(f"moe_combine_bwd: dy{tuple(dy.shape)}, y is "
                          f"{(G, S, d)}")
-    dy, rows, weights = dy.contiguous(), rows.contiguous(), \
-        weights.contiguous()
-    choice_slot, slot_src = choice_slot.contiguous(), slot_src.contiguous()
+    dy, rows = build.dense(dy, "moe_combine_bwd: dy"), build.dense(rows)
+    weights = build.dense(weights, "moe_combine_bwd: weights")
+    choice_slot = build.dense(choice_slot, "moe_combine_bwd: choice_slot")
+    slot_src = build.dense(slot_src, "moe_combine_bwd: slot_src")
     drows = torch.empty_like(rows)
     dweights = torch.empty((G, S, k), dtype=torch.float32, device=rows.device)
     lib = _lib()
@@ -516,31 +592,36 @@ def moe_combine_bwd(dy: torch.Tensor, rows: torch.Tensor,
 
 
 class _Combine(torch.autograd.Function):
-    """The combine kernels as one autograd function (CUDA tensors)."""
+    """The combine kernels as one autograd function (CUDA tensors); a
+    residual's cotangent is ``dy`` itself."""
 
     @staticmethod
-    def forward(ctx, rows, weights, choice_slot, slot_src, dtype):
+    def forward(ctx, rows, weights, choice_slot, slot_src, dtype, residual):
         ctx.save_for_backward(rows, weights, choice_slot, slot_src)
-        return moe_combine(rows, weights, choice_slot, dtype)
+        return moe_combine(rows, weights, choice_slot, dtype, residual)
 
     @staticmethod
     def backward(ctx, dy):
         rows, weights, choice_slot, slot_src = ctx.saved_tensors
-        drows, dweights = moe_combine_bwd(dy, rows, weights, choice_slot,
-                                          slot_src)
-        return drows, dweights, None, None, None
+        drows, dweights = moe_combine_bwd(build.cotangent(dy), rows, weights,
+                                          choice_slot, slot_src)
+        return (drows, dweights, None, None, None,
+                dy if ctx.needs_input_grad[5] else None)
 
 
 def combine(rows: torch.Tensor, weights: torch.Tensor,
             choice_slot: torch.Tensor, slot_src: torch.Tensor,
-            dtype: torch.dtype) -> torch.Tensor:
+            dtype: torch.dtype, residual: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
     """y (G, S, d) in ``dtype`` from the buckets' outputs ``rows`` (E, G C,
-    d) and the routing weights (G, S, k), differentiable in both: the
-    kernels on the card, :func:`combine_plain` under autograd elsewhere."""
+    d) and the routing weights (G, S, k), plus ``residual`` where given,
+    differentiable in all three: the kernels on the card, :func:`combine_plain`
+    under autograd elsewhere."""
     _check_slots("combine", choice_slot, slot_src)
     if build.on_card(rows):
-        return _Combine.apply(rows, weights, choice_slot, slot_src, dtype)
-    return combine_plain(rows, weights, choice_slot, dtype)
+        return _Combine.apply(rows, weights, choice_slot, slot_src, dtype,
+                              residual)
+    return combine_plain(rows, weights, choice_slot, dtype, residual)
 
 
 moe_route.launches = 0

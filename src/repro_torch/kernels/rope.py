@@ -12,25 +12,31 @@ autograd, whose vjp is :func:`rope_bwd_plain`.  The backward kernel rounds
 each cotangent once; autograd over the plain version rounds the two
 products of a half apart in bf16 (equal bits in fp32).  Launches count
 into ``rope.launches`` (forward) and ``rope_bwd.launches``.
+
+:func:`rope_apply_theta` is the same rotation with the angles computed in
+the kernel from the position and ``theta`` (``models/layers.py::
+rope_table``'s formula in fp32), so a layer on the card makes no
+``(S, D/2)`` table: held to the plain table's rotation within the rope
+tolerance, not its bits (the device's ``powf``, ``cosf`` and ``sinf``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _lib():
     lib = build.load("rope")
     lib.rope.restype = _I
-    lib.rope.argtypes = [_P, _P, _L, _I, _P, _P, _L, _I, _P, _P, _I, _I, _I,
-                         _I, _P]
+    lib.rope.argtypes = [_P, _P, _L, _I, _P, _P, _L, _I, _P, _P, _F, _I, _I,
+                         _I, _I, _P]
     return lib
 
 
@@ -54,8 +60,10 @@ def rope_bwd_plain(g: torch.Tensor, x: torch.Tensor, cos: torch.Tensor,
         return torch.autograd.grad(rope_plain(xr, cos, sin), xr, g)[0]
 
 
-def _launch(xs: Sequence[torch.Tensor], cos, sin, inverse: bool, what: str
-            ) -> Tuple[torch.Tensor, ...]:
+def _launch(xs: Sequence[torch.Tensor], cos, sin, inverse: bool, what: str,
+            theta: Optional[float] = None) -> Tuple[torch.Tensor, ...]:
+    """One launch over ``xs``; ``cos``/``sin`` the table, or both None and
+    the angles from ``theta``."""
     if not build.on_card(xs[0]):
         raise ValueError(f"{what} runs on the card only")
     if not 1 <= len(xs) <= 2:
@@ -64,11 +72,16 @@ def _launch(xs: Sequence[torch.Tensor], cos, sin, inverse: bool, what: str
     if x0.dim() < 3:
         raise ValueError(f"{what}: x{tuple(x0.shape)} is not (..., S, H, D)")
     S, D = x0.shape[-3], x0.shape[-1]
+    if (cos is None) != (theta is not None) or (cos is None) != (sin is None):
+        raise ValueError(f"{what}: a table (cos, sin) or theta")
     for name, t in (("cos", cos), ("sin", sin)):
+        if t is None:
+            continue
         if t.shape != (S, D // 2) or t.dtype != torch.float32 \
-                or t.device != x0.device:
+                or t.device != x0.device or not t.is_contiguous():
             raise ValueError(f"{what}: {name}{tuple(t.shape)} {t.dtype} "
-                             f"must be fp32 ({S}, {D // 2}) on {x0.device}")
+                             f"must be contiguous fp32 ({S}, {D // 2}) on "
+                             f"{x0.device}")
     for x in xs:
         if x.dim() < 3 or x.shape[-3] != S or x.shape[-1] != D or D % 2 \
                 or x.dtype != x0.dtype or x.device != x0.device:
@@ -77,7 +90,7 @@ def _launch(xs: Sequence[torch.Tensor], cos, sin, inverse: bool, what: str
     if x0.dtype not in DTYPES:
         raise ValueError(f"{what}: dtype {x0.dtype} is not one of "
                          f"{list(DTYPES)}")
-    xs = [x.contiguous() for x in xs]
+    xs = [build.dense(x, what) for x in xs]
     ys = [torch.empty_like(x) for x in xs]
     args = []
     for i in range(2):
@@ -87,44 +100,52 @@ def _launch(xs: Sequence[torch.Tensor], cos, sin, inverse: bool, what: str
         else:
             args += [build.ptr(None), build.ptr(None), 0, 0]
     lib = _lib()
-    err = lib.rope(*args, build.ptr(cos.contiguous()),
-                   build.ptr(sin.contiguous()), S, D // 2, int(inverse),
+    err = lib.rope(*args, build.ptr(cos), build.ptr(sin),
+                   0.0 if theta is None else float(theta), S, D // 2,
+                   int(inverse),
                    int(x0.dtype == torch.bfloat16),
                    build.stream_ptr(x0.device))
     build.check(lib, err, what)
     return tuple(ys)
 
 
-def rope(xs: Sequence[torch.Tensor], cos: torch.Tensor, sin: torch.Tensor
+def rope(xs: Sequence[torch.Tensor], cos: Optional[torch.Tensor],
+         sin: Optional[torch.Tensor], *, theta: Optional[float] = None
          ) -> Tuple[torch.Tensor, ...]:
     """The forward kernel (CUDA tensors only): each of ``xs`` (one or two,
-    (..., S, H, D), one dtype) rotated, in one launch."""
-    ys = _launch(xs, cos, sin, False, "rope")
+    (..., S, H, D), one dtype) rotated, in one launch, by the table
+    ``cos``, ``sin`` or (both None) by the angles of ``theta``."""
+    ys = _launch(xs, cos, sin, False, "rope", theta)
     rope.launches += 1
     return ys
 
 
-def rope_bwd(gs: Sequence[torch.Tensor], cos: torch.Tensor,
-             sin: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+def rope_bwd(gs: Sequence[torch.Tensor], cos: Optional[torch.Tensor],
+             sin: Optional[torch.Tensor], *, theta: Optional[float] = None
+             ) -> Tuple[torch.Tensor, ...]:
     """The backward kernel (CUDA tensors only): each cotangent rotated by
     -theta, in one launch."""
-    ys = _launch(gs, cos, sin, True, "rope_bwd")
+    ys = _launch(gs, cos, sin, True, "rope_bwd", theta)
     rope_bwd.launches += 1
     return ys
 
 
 class _Rope(torch.autograd.Function):
-    """The kernels as one autograd function (CUDA tensors)."""
+    """The kernels as one autograd function (CUDA tensors): the table's
+    rotation, or (``cos`` None) the angles of ``theta``."""
 
     @staticmethod
-    def forward(ctx, cos, sin, *xs):
+    def forward(ctx, cos, sin, theta, *xs):
         ctx.save_for_backward(cos, sin)
-        return rope(xs, cos, sin)
+        ctx.theta = theta
+        return rope(xs, cos, sin, theta=theta)
 
     @staticmethod
     def backward(ctx, *gs):
         cos, sin = ctx.saved_tensors
-        return (None, None, *rope_bwd(gs, cos, sin))
+        return (None, None, None,
+                *rope_bwd([build.cotangent(g) for g in gs], cos, sin,
+                          theta=ctx.theta))
 
 
 def rope_apply(cos: torch.Tensor, sin: torch.Tensor,
@@ -133,7 +154,32 @@ def rope_apply(cos: torch.Tensor, sin: torch.Tensor,
     table; differentiable in ``xs``: one kernel launch each way on the
     card, autograd over the plain version elsewhere."""
     if build.on_card(xs[0]):
-        return _Rope.apply(cos, sin, *xs)
+        return _Rope.apply(cos, sin, None, *xs)
+    return tuple(rope_plain(x, cos, sin) for x in xs)
+
+
+def rope_table_plain(seq_len: int, half: int, theta: float, device=None,
+                     dtype=torch.float32
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(cos, sin)`` (seq_len, half): the rotary table of positions ``0 ..
+    seq_len - 1`` (``models/layers.py::rope_table``), the one
+    :func:`rope_apply_theta` computes in its kernel (in fp32)."""
+    freqs = theta ** (-torch.arange(0, half, dtype=dtype, device=device)
+                      / half)
+    angles = torch.arange(seq_len, dtype=dtype,
+                          device=device)[:, None] * freqs[None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rope_apply_theta(theta: float, *xs: torch.Tensor
+                     ) -> Tuple[torch.Tensor, ...]:
+    """:func:`rope_apply` by the table of positions ``0 .. S - 1`` and
+    ``theta``: on the card the angles computed in the kernel (no table is
+    made), elsewhere the plain version on :func:`rope_table_plain`."""
+    if build.on_card(xs[0]):
+        return _Rope.apply(None, None, float(theta), *xs)
+    cos, sin = rope_table_plain(xs[0].shape[-3], xs[0].shape[-1] // 2,
+                                theta, xs[0].device)
     return tuple(rope_plain(x, cos, sin) for x in xs)
 
 

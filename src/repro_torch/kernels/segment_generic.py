@@ -14,12 +14,19 @@ attention (``flash_attention`` and its backward), ``rmsnorm``, ``glu``,
 ``rope`` and the projections' GEMM (``dense``); mamba2-370m's SSD scan and
 its backward, causal conv, step sizes and gated norm, with the norms and
 projections; phi3.5-moe's attention, norms and projections and its MoE
-layer (``kernels/moe.py``: the routing, the slots, the gather dispatch,
-the weighted combine, and the experts' products batched in ``dense``).
-What is left of those bodies as PyTorch's own kernels is elementwise
-glue (residual adds, casts, copies, fills, the aux loss's reductions:
-ROADMAP queue 2, item 1), so the bodies' half of the TPU kernels is
-ported but for it.  This module
+layer (``kernels/moe.py``: the routing with its aux loss, the slots,
+the gather dispatch, the weighted combine, and the experts' products
+batched in ``dense``).  The bodies' glue is inside those kernels too: each
+pre-norm's residual add in the epilogue of the layer's last kernel (the
+output projection, the MoE combine, or a post-norm), the cotangent sums of
+a fan-out (q, k and v; gate and up; router and dispatch) and of the skip
+in ``rmsnorm_bwd``, the RoPE angles in the rope kernel, mamba2's input
+projection split in its mixer (``models/ssm.py::_Mixer``), the carry's aux
+sum in the routing kernel; what PyTorch still runs inside a body is
+parameter-sized (casts, ``-exp(A_log)``).  The body's work is recorded
+in the profiler ranges ``generic.advance`` (the chunks' steps) and
+``generic.reverse`` (the recompute, each chunk's vjp, its fold), which
+``tools/profile_fused.py --body-only`` reads.  This module
 hand-writes the segments' own data movement, two kernels, each one launch
 over a table of leaves:
 
@@ -64,6 +71,18 @@ from repro_torch.kernels.segment_fused import (FusedAdvance, _device_address,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+# the profiler ranges of the segments' body work (``tools/profile_fused.py
+# --body-only`` assigns each device kernel to the range open at its launch)
+ADVANCE_RANGE, REVERSE_RANGE = "generic.advance", "generic.reverse"
+
+
+def _ranged(name: str, fn):
+    """``fn`` run inside the profiler range ``name``."""
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return run
 
 # fold's op word (csrc/segment_generic.cu)
 OP_ACC, FRESH, DST_BF16, SRC_BF16, SRC2_BF16 = 1, 2, 4, 8, 16
@@ -329,8 +348,8 @@ def advance(body, params, carry, xs_seg, batch, *,
         ready = entry_store(leaves, slots) or ready
         entries.append(pytree.tree_unflatten(slots, spec))
 
-    carry = forward_walk(body, params, carry, xs_seg, batch, chunk=chunk,
-                         at_entry=store)
+    carry = forward_walk(_ranged(ADVANCE_RANGE, body), params, carry,
+                         xs_seg, batch, chunk=chunk, at_entry=store)
     return FusedAdvance(carry, entries, ready)
 
 
@@ -346,12 +365,14 @@ def reverse(body, xs_mask, params, carry_b, xs_seg, batch, dcarry, gacc,
     adds it once at the end (``segment_fused.reverse_walk``).  Returns
     ``(dcarry_at_begin, gacc)``."""
     dc, dp_tail = dcarry, None
-    for kk, lo, hi, entry, tail in reverse_walk(body, params, carry_b,
-                                                xs_seg, batch, chunk=chunk):
+    walk = reverse_walk(_ranged(REVERSE_RANGE, body), params, carry_b,
+                        xs_seg, batch, chunk=chunk)
+    for kk, lo, hi, entry, tail in walk:
         # each step's input cotangents as autograd makes them: no stacked
         # buffer of the chunk held beside its activations
-        dp, dc, dxd = steps_vjp(body, params, entry, _slice(xs_seg, lo, hi),
-                                batch, xs_mask, dc, split_xs=True)
+        dp, dc, dxd = _ranged(REVERSE_RANGE, steps_vjp)(
+            body, params, entry, _slice(xs_seg, lo, hi), batch, xs_mask, dc,
+            split_xs=True)
         del entry
         dps = [dp]
         if tail:
@@ -359,9 +380,9 @@ def reverse(body, xs_mask, params, carry_b, xs_seg, batch, dcarry, gacc,
             dp_tail, dps = dp, []
         elif kk == 0 and dp_tail is not None:
             dps.append(dp_tail)
-        gacc = fold(gacc, dps,
-                    [r[k] for r in dx_rows for k in range(lo, hi)],
-                    [g for steps in dxd for g in steps])
+        gacc = _ranged(REVERSE_RANGE, fold)(
+            gacc, dps, [r[k] for r in dx_rows for k in range(lo, hi)],
+            [g for steps in dxd for g in steps])
         del dp, dps, dxd
     return dc, gacc
 

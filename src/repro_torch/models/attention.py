@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import build
-from repro_torch.models.layers import (DEFAULT_DTYPES, DTypes, apply_rope_qk,
+from repro_torch.models.layers import (DEFAULT_DTYPES, DTypes, rotate_qk,
                                        dense, init_dense)
 
 Params = Any
@@ -168,8 +168,7 @@ class ChunkedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, chunk, scale):
-        if build.on_card(q):
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if build.on_card(q):   # the kernel takes contiguous q, k, v
             out, lse = fa.flash_attention_fwd(
                 q, k, v, causal=causal, window=window, softcap=softcap,
                 scale=scale)
@@ -186,7 +185,7 @@ class ChunkedAttention(torch.autograd.Function):
         if build.on_card(q):
             causal, window, softcap, _, scale = ctx.args
             dq, dk, dv = fa.flash_attention_bwd(
-                q, k, v, out.contiguous(), lse, dout.contiguous(),
+                q, k, v, out, lse, build.cotangent(dout),
                 causal=causal, window=window, softcap=softcap, scale=scale)
         else:
             dq, dk, dv = _chunked_bwd(*ctx.args, ctx.saved_tensors, dout)
@@ -249,35 +248,42 @@ def init_attention(generator, d_model: int, n_heads: int, n_kv_heads: int,
 
 
 def _project_qkv(p, x, n_heads, n_kv_heads, head_dim, dt):
-    B, S, _ = x.shape
-    q = dense(p["wq"], x, dt).reshape(B, S, n_heads, head_dim)
-    k = dense(p["wk"], x, dt).reshape(B, S, n_kv_heads, head_dim)
-    v = dense(p["wv"], x, dt).reshape(B, S, n_kv_heads, head_dim)
+    """``x``: the input, or a tuple of one for each of q, k and v (a
+    fan-out norm's outputs, ``layers.rmsnorm_fanout``)."""
+    xq, xk, xv = x if isinstance(x, tuple) else (x, x, x)
+    B, S, _ = xq.shape
+    q = dense(p["wq"], xq, dt).reshape(B, S, n_heads, head_dim)
+    k = dense(p["wk"], xk, dt).reshape(B, S, n_kv_heads, head_dim)
+    v = dense(p["wv"], xv, dt).reshape(B, S, n_kv_heads, head_dim)
     return q, k, v
 
 
 def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
               head_dim: int,
-              rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+              rope,
               causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None, scale: Optional[float] = None,
               chunk: int = 1024, use_chunked: Optional[bool] = None,
-              dt: DTypes = DEFAULT_DTYPES) -> torch.Tensor:
+              dt: DTypes = DEFAULT_DTYPES,
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention over a full sequence (training compute).  Sequences
     longer than 2048 take the chunked path (the flash kernel on the card),
-    shorter ones the dense oracle, as in the JAX package."""
+    shorter ones the dense oracle, as in the JAX package.  ``x`` may be a
+    tuple of q's, k's and v's inputs; ``rope`` a ``(cos, sin)`` table or
+    ``layers.RopeAngles``; ``residual`` is added to the output projection
+    (in its kernel's epilogue on the card)."""
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, dt)
     if rope is not None:
-        q, k = apply_rope_qk(q, k, *rope)
-    S = x.shape[1]
+        q, k = rotate_qk(q, k, rope)
+    B, S = q.shape[:2]
     if use_chunked is None:
         use_chunked = S > 2048
     if use_chunked:
         o = chunked_attention(q, k, v, causal, window, softcap, chunk, scale)
     else:
         o = reference_attention(q, k, v, causal, window, softcap, scale)
-    B = x.shape[0]
-    return dense(p["wo"], o.reshape(B, S, n_heads * head_dim), dt)
+    return dense(p["wo"], o.reshape(B, S, n_heads * head_dim), dt,
+                 residual=residual)
 
 
 def cross_attention(p: Params, x: torch.Tensor, kv_src: torch.Tensor, *,

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 from torch.utils.weak import WeakIdKeyDictionary
 
+from repro_torch.kernels import build
 from repro_torch.kernels import dense as dense_mod
 from repro_torch.kernels import glu as glu_mod
 from repro_torch.kernels import rmsnorm as rn
@@ -92,14 +93,16 @@ def init_dense(generator, d_in: int, d_out: int, *, bias: bool = False,
     return p
 
 
-def dense(p: Params, x: torch.Tensor,
-          dt: DTypes = DEFAULT_DTYPES) -> torch.Tensor:
+def dense(p: Params, x: torch.Tensor, dt: DTypes = DEFAULT_DTYPES,
+          residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ w`` in the compute dtype, plus the bias: the product (with the
-    weight's cast) in one kernel each way on the card."""
-    y = dense_mod.project(x, p["w"], dt.compute)
+    weight's cast) in one kernel each way on the card.  ``residual``: a
+    pre-norm layer's skip added to the result (``residual + y``), in the
+    product's epilogue on the card where there is no bias."""
     if "b" in p:
-        y = y + dt.c(p["b"])
-    return y
+        y = dense_mod.project(x, p["w"], dt.compute) + dt.c(p["b"])
+        return y if residual is None else residual + y
+    return dense_mod.project(x, p["w"], dt.compute, residual)
 
 
 def init_rmsnorm(d: int, dtype=torch.float32, *, lead: Tuple[int, ...] = (),
@@ -115,6 +118,18 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6,
     post-norm's residual add, inside the same kernel on the card)."""
     return rn.rmsnorm_norm(x, p["scale"], eps=eps, out_dtype=dt.compute,
                            residual=residual)
+
+
+def rmsnorm_fanout(p: Params, x: torch.Tensor, n: int = 1,
+                   eps: float = 1e-6, dt: DTypes = DEFAULT_DTYPES
+                   ) -> Tuple[torch.Tensor, ...]:
+    """A pre-norm: ``(y, ..., y, skip)``, :func:`rmsnorm`'s ``y`` for each
+    of ``n`` consumers (1 to 3) and ``x`` again as the residual's skip.  On
+    the card the cotangents autograd would sum -- the consumers' and the
+    skip's -- meet in the backward kernel; elsewhere the values are ``y``
+    and ``x`` themselves, and autograd sums them."""
+    return rn.rmsnorm_fanout(x, p["scale"], n, eps=eps,
+                             out_dtype=dt.compute)
 
 
 def init_embedding(generator, vocab: int, d: int, dtype=torch.float32, *,
@@ -240,12 +255,35 @@ def rope_table(seq_len: int, head_dim: int, theta: float = 10000.0,
                dtype=torch.float32, *, device=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (cos, sin) of shape (seq_len, head_dim // 2)."""
-    half = head_dim // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=dtype, device=device)
-                      / half)
-    angles = torch.arange(seq_len, dtype=dtype,
-                          device=device)[:, None] * freqs[None, :]
-    return torch.cos(angles), torch.sin(angles)
+    return rope_mod.rope_table_plain(seq_len, head_dim // 2, theta, device,
+                                     dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeAngles:
+    """The rotary angles of positions ``0 .. S - 1`` by ``theta``, for a
+    kernel that computes them itself (:func:`rope_angles`)."""
+    theta: float
+
+
+def rope_angles(seq_len: int, head_dim: int, theta: float = 10000.0, *,
+                like: torch.Tensor):
+    """What ``attention``'s ``rope`` takes for activations like ``like``:
+    on the card :class:`RopeAngles` (the rope kernel computes
+    :func:`rope_table`'s values itself, so no table is made), elsewhere
+    :func:`rope_table` on ``like``'s device."""
+    if build.on_card(like):
+        return RopeAngles(float(theta))
+    return rope_table(seq_len, head_dim, theta, device=like.device)
+
+
+def rotate_qk(q: torch.Tensor, k: torch.Tensor, rope
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``apply_rope`` of q and k by ``rope``: a ``(cos, sin)`` table or
+    :class:`RopeAngles`."""
+    if isinstance(rope, RopeAngles):
+        return rope_mod.rope_apply_theta(rope.theta, q, k)
+    return apply_rope_qk(q, k, *rope)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,

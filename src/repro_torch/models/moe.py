@@ -76,11 +76,15 @@ def init_mlp(generator, d_model: int, d_ff: int, *, dtype=torch.float32,
             "down": dn(d_ff, d_model)}
 
 
-def mlp(p: Params, x: torch.Tensor, *, act: str = "silu",
-        dt: DTypes = DEFAULT_DTYPES) -> torch.Tensor:
-    g, u = dense(p["gate"], x, dt), dense(p["up"], x, dt)
+def mlp(p: Params, x, *, act: str = "silu", dt: DTypes = DEFAULT_DTYPES,
+        residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The gated MLP; ``x`` the input, or a tuple of the gate's and the
+    up projection's (a fan-out norm's outputs); ``residual`` added to the
+    down projection (in its kernel on the card)."""
+    xg, xu = x if isinstance(x, tuple) else (x, x)
+    g, u = dense(p["gate"], xg, dt), dense(p["up"], xu, dt)
     h = swiglu(g, u) if act == "silu" else geglu(g, u)
-    return dense(p["down"], h, dt)
+    return dense(p["down"], h, dt, residual=residual)
 
 
 # ---------------------------------------------------------------------------
@@ -109,17 +113,15 @@ def init_moe(generator, d_model: int, d_ff: int, n_experts: int, *,
     return p
 
 
-def _route(p, xg, n_experts: int, top_k: int):
+def _route(p, xg, n_experts: int, top_k: int, aux_in=None):
     """Top-k softmax routing.  xg: (G, S, d) grouped tokens.  Returns
-    (weights (G,S,k), indices (G,S,k), aux_loss).  The routing kernel on
-    the card, ``kernels/moe.py::route_plain`` (a stable descending sort
-    puts the lower index first among equals) elsewhere."""
-    weights, idx, probs = moe_kernels.route(xg, p["router"]["w"], top_k)
-    # Switch-style load-balance loss: E * sum_e f_e * p_e
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(idx, n_experts).float().sum(2).mean(dim=(0, 1))
-    aux = n_experts * torch.sum(me * ce)
-    return weights, idx, aux
+    (weights (G,S,k), indices (G,S,k), aux_loss), the Switch-style
+    load-balance loss ``E sum_e f_e p_e`` added to ``aux_in`` (a running
+    total) where given.  The routing kernels on the card (the loss and the
+    sum computed in them), ``kernels/moe.py::route_plain`` (a stable
+    descending sort puts the lower index first among equals) and
+    ``aux_plain`` elsewhere."""
+    return moe_kernels.route(xg, p["router"]["w"], top_k, aux_in)
 
 
 def _capacity(group_tokens: int, n_experts: int, top_k: int,
@@ -128,17 +130,19 @@ def _capacity(group_tokens: int, n_experts: int, top_k: int,
     return max(8, -(-c // 8) * 8)  # round up to 8 for tiling
 
 
-def _expert_ffn(p, expert_in: torch.Tensor, act: str,
-                dt: DTypes) -> torch.Tensor:
-    """expert_in: (..., E, C, d) -> same, via the stacked expert weights.
-    On the card the three products are the batched GEMM (each expert's
-    rows one matrix, the weights' cast in its load); a leading axis is
-    moved behind E first."""
-    if build.on_card(expert_in):
-        *lead, E, C, d = expert_in.shape
-        xe = expert_in.movedim(-3, 0).reshape(E, -1, d)
-        g = dense_mod.project_experts(xe, p["w_gate"], dt.compute)
-        u = dense_mod.project_experts(xe, p["w_up"], dt.compute)
+def _expert_ffn(p, expert_in, act: str, dt: DTypes) -> torch.Tensor:
+    """expert_in: (..., E, C, d) -> same, via the stacked expert weights;
+    on the card it may be a tuple of the gate's and the up product's
+    inputs (the dispatch's two outputs).  On the card the three products
+    are the batched GEMM (each expert's rows one matrix, the weights' cast
+    in its load); a leading axis is moved behind E first."""
+    if isinstance(expert_in, tuple) or build.on_card(expert_in):
+        ins = expert_in if isinstance(expert_in, tuple) else (expert_in,)
+        *lead, E, C, d = ins[0].shape
+        xs = [t.movedim(-3, 0).reshape(E, -1, d) for t in ins]
+        xg, xu = xs[0], xs[-1]
+        g = dense_mod.project_experts(xg, p["w_gate"], dt.compute)
+        u = dense_mod.project_experts(xu, p["w_up"], dt.compute)
         h = swiglu(g, u) if act == "silu" else geglu(g, u)
         out = dense_mod.project_experts(h, p["w_down"], dt.compute)
         return out.reshape(E, *lead, C, d).movedim(0, -3)
@@ -172,37 +176,52 @@ def _einsum_slots(idx: torch.Tensor, n_experts: int, top_k: int, C: int):
 
 def _experts_major(p, x: torch.Tensor, weights: torch.Tensor,
                    idx: torch.Tensor, n_experts: int, C: int, act: str,
-                   dt: DTypes):
+                   dt: DTypes, residual: Optional[torch.Tensor] = None):
     """The values of :func:`moe_einsum`'s one-hot products by slot index:
     the einsum's slots (``kernels/moe.py::slots``), x's kept rows gathered
-    into expert-major buckets (E, G C, d), the experts' FFN on them, and
-    each token's weighted sum of its kept rows, in x's dtype.  Returns (y,
-    routed (G, E) int32).  Kernels on the card, their plain versions (PyTorch
+    into expert-major buckets (E, G C, d) (one output for each of the gate
+    and up products, whose cotangents the dispatch's backward kernel sums),
+    the experts' FFN on them, and each token's weighted sum of its kept
+    rows, in x's dtype, plus ``residual`` where given.  Returns (y, routed
+    (G, E) int32).  Kernels on the card, their plain versions (PyTorch
     gathers) elsewhere."""
     choice_slot, slot_src, routed = moe_kernels.slots(idx, n_experts, C)
-    expert_in = moe_kernels.dispatch(x.to(dt.compute), choice_slot, slot_src)
+    expert_in = moe_kernels.dispatch(x.to(dt.compute), choice_slot, slot_src,
+                                     n=2)
     expert_out = _expert_ffn(p, expert_in, act, dt)
     y = moe_kernels.combine(expert_out, weights, choice_slot, slot_src,
-                            x.dtype)
+                            x.dtype, residual)
     return y, routed
 
 
 def moe_einsum(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
                capacity_factor: float = 1.25, act: str = "silu",
-               dt: DTypes = DEFAULT_DTYPES, with_stats: bool = False):
+               dt: DTypes = DEFAULT_DTYPES, with_stats: bool = False,
+               x_route: Optional[torch.Tensor] = None,
+               residual: Optional[torch.Tensor] = None,
+               aux_in: Optional[torch.Tensor] = None):
     """GShard one-hot dispatch, *grouped*: each batch row is one expert
     group with its own capacity.  x: (B, S, d).  Returns (y, aux_loss), or
     (y, aux_loss, stats) with ``with_stats=True`` (per-expert routed/kept
     counts and the ``dropped_tokens`` overflow; see :func:`routing_stats`).
     On the card the products' values come from :func:`_experts_major`.
+    ``x_route``: the router's input where it is a tensor of its own (x's
+    values: a fan-out norm's second output); ``residual``: added to y (in
+    the combine kernel on the card); ``aux_in``: a running total the aux
+    loss is added to.
     """
     G, S, d = x.shape
-    weights, idx, aux = _route(p, x, n_experts, top_k)
+    weights, idx, aux = _route(p, x if x_route is None else x_route,
+                               n_experts, top_k, aux_in)
     C = _capacity(S, n_experts, top_k, capacity_factor)
     if build.on_card(x):
-        y, routed = _experts_major(p, x, weights, idx, n_experts, C, act, dt)
-        if "shared" in p:
-            y = y + mlp(p["shared"], x, act=act, dt=dt)
+        shared = "shared" in p
+        y, routed = _experts_major(p, x, weights, idx, n_experts, C, act, dt,
+                                   None if shared else residual)
+        if shared:
+            y = mlp(p["shared"], x, act=act, dt=dt, residual=y)
+            if residual is not None:
+                y = residual + y
         if with_stats:
             return y, aux, _stats(routed.sum(0),
                                   torch.clamp(routed, max=C).sum(0), C)
@@ -233,6 +252,8 @@ def moe_einsum(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     y = y.to(x.dtype)
     if "shared" in p:
         y = y + mlp(p["shared"], x, act=act, dt=dt)
+    if residual is not None:
+        y = residual + y
     if with_stats:
         return y, aux, _stats(routed_e, kept_e, C)
     return y, aux
@@ -267,16 +288,21 @@ def _sorted_buckets(idx: torch.Tensor, n_experts: int, top_k: int, C: int):
 
 def moe_sorted(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
                capacity_factor: float = 1.25, act: str = "silu",
-               dt: DTypes = DEFAULT_DTYPES, with_stats: bool = False):
+               dt: DTypes = DEFAULT_DTYPES, with_stats: bool = False,
+               x_route: Optional[torch.Tensor] = None,
+               residual: Optional[torch.Tensor] = None,
+               aux_in: Optional[torch.Tensor] = None):
     """Sort-based dispatch: the grouping and capacity of ``moe_einsum`` (up
     to drop order) without the O(S*E*C) one-hot tensors.  Dispatch and
     combine are gathers; the combine looks up each token's k expert-output
     slots through the inverse sort permutation.  Each expert keeps exactly
     ``min(count, C)`` entries (the first in token order).  ``with_stats``
     appends the stats of :func:`moe_einsum` (the per-expert counts are the
-    same; the drop order differs)."""
+    same; the drop order differs).  ``x_route``, ``residual`` and
+    ``aux_in`` as :func:`moe_einsum`'s."""
     G, S, d = x.shape
-    weights, idx, aux = _route(p, x, n_experts, top_k)
+    weights, idx, aux = _route(p, x if x_route is None else x_route,
+                               n_experts, top_k, aux_in)
     C = _capacity(S, n_experts, top_k, capacity_factor)
     bucket_tok, slot_bucket, counts = _sorted_buckets(idx, n_experts, top_k,
                                                       C)
@@ -296,6 +322,8 @@ def moe_sorted(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     y = torch.einsum("gskd,gsk->gsd", tok_out.float(), weights).to(x.dtype)
     if "shared" in p:
         y = y + mlp(p["shared"], x, act=act, dt=dt)
+    if residual is not None:
+        y = residual + y
     if with_stats:
         return y, aux, _stats(counts.sum(0),
                               torch.clamp(counts, max=C).sum(0), C)
@@ -305,14 +333,19 @@ def moe_sorted(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
 def moe_apply(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float = 1.25, act: str = "silu",
               impl: str = "einsum", dt: DTypes = DEFAULT_DTYPES,
-              with_stats: bool = False):
+              with_stats: bool = False,
+              x_route: Optional[torch.Tensor] = None,
+              residual: Optional[torch.Tensor] = None,
+              aux_in: Optional[torch.Tensor] = None):
     """Dispatch to the selected MoE impl.  Returns ``(y, aux_loss)``, or
     ``(y, aux_loss, stats)`` with ``with_stats=True`` (``dropped_tokens``
-    plus per-expert ``expert_counts``/``routed_counts``)."""
+    plus per-expert ``expert_counts``/``routed_counts``); ``x_route``,
+    ``residual`` and ``aux_in`` as :func:`moe_einsum`'s."""
     fn = {"einsum": moe_einsum, "sorted": moe_sorted}[impl]
     return fn(p, x, n_experts=n_experts, top_k=top_k,
               capacity_factor=capacity_factor, act=act, dt=dt,
-              with_stats=with_stats)
+              with_stats=with_stats, x_route=x_route, residual=residual,
+              aux_in=aux_in)
 
 
 def routing_stats(p: Params, x, *, n_experts: int, top_k: int,

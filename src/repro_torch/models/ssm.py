@@ -191,6 +191,80 @@ def init_mamba2(generator, d_model: int, *, d_state: int = 128,
     }
 
 
+def _proj_grad_buffer(zxbcdt: torch.Tensor) -> torch.Tensor:
+    """The cotangent buffer of ``zxbcdt`` that :class:`_Mixer`'s backward
+    kernels fill column range by column range (uninitialised: every
+    column is written once)."""
+    return torch.empty_like(zxbcdt)
+
+
+class _Mixer(torch.autograd.Function):
+    """mamba2's mixer between its projections on the card: ``zxbcdt`` (B,
+    T, d_proj) -> (the gated norm's output (B, T, d_inner), the final SSD
+    state).  Forward: the conv reads the xBC columns in place and writes x,
+    B and C apart, the step sizes read the dt columns in place, the SSD
+    takes x, B and C as they are, the gated norm reads the z columns in
+    place.  Backward: ``gated_norm_bwd`` writes dz, ``dt_softplus_bwd`` d
+    dt_raw and ``causal_conv_bwd`` dxBC (its cotangent read as the SSD's
+    dx, dB, dC with the gated norm's skip cotangent added to dx) into their
+    columns of one uninitialised buffer.  Saves ``zxbcdt``, x, B, C, the
+    step sizes, the SSD's output and the norm's ``rstd``."""
+
+    @staticmethod
+    def forward(ctx, zxbcdt, w, bias, dt_bias, A, D, scale, window, h0,
+                dims):
+        d_inner, ngroups, d_state, headdim, chunk, out_dtype = dims
+        Bsz, T, _ = zxbcdt.shape
+        gn = ngroups * d_state
+        z = zxbcdt[..., :d_inner]
+        xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * gn]
+        dt_raw = zxbcdt[..., 2 * d_inner + 2 * gn:]
+        xi, Bc, Cc = conv_kernel.causal_conv(xbc, w, bias, window,
+                                             splits=(d_inner, gn, gn))
+        dts = dt_kernel.dt_softplus(dt_raw, dt_bias)
+        xh = xi.view(Bsz, T, d_inner // headdim, headdim)
+        Bg = Bc.view(Bsz, T, ngroups, d_state)
+        Cg = Cc.view(Bsz, T, ngroups, d_state)
+        y, hf = ssd_kernel.ssd_scan(xh, dts, A, Bg, Cg, chunk=chunk, h0=h0)
+        out, rstd = gate_kernel.gated_norm(y, xh, D, z, scale,
+                                           out_dtype=out_dtype)
+        ctx.save_for_backward(zxbcdt, w, bias, dt_bias, A, D, scale, window,
+                              h0, xh, Bg, Cg, dts, y, rstd)
+        ctx.dims = dims
+        ctx.set_materialize_grads(False)
+        return out, hf
+
+    @staticmethod
+    def backward(ctx, g, dhf):
+        (zxbcdt, w, bias, dt_bias, A, D, scale, window, h0, xh, Bg, Cg, dts,
+         y, rstd) = ctx.saved_tensors
+        d_inner, ngroups, d_state, _, chunk, _ = ctx.dims
+        gn = ngroups * d_state
+        c0, c1 = d_inner, 2 * d_inner + 2 * gn
+        if g is None:
+            g = torch.zeros(y.shape[:2] + (d_inner,), dtype=ctx.dims[5],
+                            device=y.device)
+        g = build.cotangent(g)
+        dzx = _proj_grad_buffer(zxbcdt)
+        dy, dx_skip, dD, _, dscale = gate_kernel.gated_norm_bwd(
+            g, y, xh, D, zxbcdt[..., :c0], scale, rstd,
+            dz_out=dzx[..., :c0])
+        # the final state's cotangent (B, H, P, N): fp32 as the kernel
+        # takes it (None where the state is not read, as in training)
+        dhf = None if dhf is None else dhf.float().contiguous()
+        dx, ddt, dA, dB, dC, dh0 = ssd_kernel.ssd_scan_bwd(
+            xh, dts, A, Bg, Cg, h0, dy, dhf, chunk=chunk)
+        _, ddt_bias = dt_kernel.dt_softplus_bwd(
+            ddt, zxbcdt[..., c1:], dt_bias, draw_out=dzx[..., c1:])
+        Bsz, T = xh.shape[:2]
+        _, dw, dbias, dwin = conv_kernel.causal_conv_bwd(
+            (dx.view(Bsz, T, d_inner), dB.view(Bsz, T, gn),
+             dC.view(Bsz, T, gn)),
+            zxbcdt[..., c0:c1], w, bias, window,
+            g_add=dx_skip.view(Bsz, T, d_inner), dx_out=dzx[..., c0:c1])
+        return (dzx, dw, dbias, ddt_bias, dA, dD, dscale, dwin, dh0, None)
+
+
 def _split_proj(z, d_inner, ngroups, d_state, nheads):
     zs = [d_inner, d_inner, ngroups * d_state, ngroups * d_state, nheads]
     idx = [0]
@@ -203,15 +277,31 @@ def mamba2_block(p: Params, x: torch.Tensor, *, d_state: int = 128,
                  headdim: int = 64, expand: int = 2, ngroups: int = 1,
                  conv_k: int = 4, chunk: int = 64,
                  dt: DTypes = DEFAULT_DTYPES, state=None,
-                 return_state: bool = False):
+                 return_state: bool = False,
+                 residual: Optional[torch.Tensor] = None):
     """Full-sequence (training) Mamba-2 mixer.  x: (B, T, d).
 
     ``state`` / ``return_state``: optional (conv_state (B, K-1, conv_dim),
-    ssm_state (B, H, P, N)) carried between sequence pieces."""
+    ssm_state (B, H, P, N)) carried between sequence pieces.  ``residual``:
+    added to the output projection (in its kernel on the card)."""
     Bsz, T, d_model = x.shape
     d_inner = expand * d_model
     nheads = d_inner // headdim
     zxbcdt = dense(p["in_proj"], x, dt)
+    if build.on_card(zxbcdt):
+        gn = ngroups * d_state
+        win = None if state is None else state[0].to(dt.compute)
+        h0 = state[1].float() if state is not None else None
+        y, hf = _Mixer.apply(
+            zxbcdt, p["conv_w"].to(dt.compute), p["conv_b"].to(dt.compute),
+            p["dt_bias"], -torch.exp(p["A_log"].float()), p["D"],
+            p["norm_scale"], win, h0,
+            (d_inner, ngroups, d_state, headdim, chunk, dt.compute))
+        out = dense(p["out_proj"], y, dt, residual=residual)
+        if return_state:
+            xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * gn]
+            return out, (conv_kernel.window_of(xbc, win, conv_k).float(), hf)
+        return out
     z, xi, Bc, Cc, dt_raw = _split_proj(zxbcdt, d_inner, ngroups, d_state,
                                         nheads)
 
@@ -234,7 +324,7 @@ def mamba2_block(p: Params, x: torch.Tensor, *, d_state: int = 128,
     # the D skip and the gated norm, cast to the compute dtype
     y = gate_kernel.gated_norm_out(y, xh, p["D"], z, p["norm_scale"],
                                    out_dtype=dt.compute)
-    out = dense(p["out_proj"], y, dt)
+    out = dense(p["out_proj"], y, dt, residual=residual)
     if return_state:
         return out, (new_conv_state.float(), hf)
     return out

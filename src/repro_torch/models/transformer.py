@@ -30,7 +30,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (DTypes, chunked_ce_loss, embed,
                                        init_embedding, init_rmsnorm, rmsnorm,
-                                       rope_table)
+                                       rmsnorm_fanout, rope_angles)
 
 Params = Any
 KINDS = ("attn", "attn_local", "attn_moe", "mamba", "mamba_moe")
@@ -117,48 +117,62 @@ def unembed_weight(params: Params, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _residual(p, name, x, y, cfg, dt):
-    """``x + post_norm(y)`` (the norm and the add one kernel on the card),
-    or ``x + y`` without post-norms."""
+def _post(p, name, x, y, cfg, dt):
+    """``x + post_norm(y)`` (the norm and the add one kernel on the card)
+    with post-norms, else ``y``, whose producer added the skip ``x``."""
     if cfg.use_post_norm:
         return rmsnorm(p[name], y, dt=dt, residual=x)
-    return x + y
+    return y
 
 
-def _ffn(p, h, kind, cfg, dt):
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+def _ffn(p, h, kind, cfg, dt, aux=None):
+    """The feed-forward half of a layer: ``(h, aux)``, ``aux`` the running
+    total (None: none yet) plus a MoE layer's aux loss."""
     if "mlp" not in p and "moe" not in p:
-        return h, zero
-    y = rmsnorm(p["ln2"], h, dt=dt)
+        return h, aux
+    # the norm's output for two readers and h for the skip: their
+    # cotangents meet in the norm's backward kernel on the card
+    y_a, y_b, h = rmsnorm_fanout(p["ln2"], h, 2, dt=dt)
+    res = None if cfg.use_post_norm else h
     if "moe" in p:
         y, aux = moe_mod.moe_apply(
-            p["moe"], y, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+            p["moe"], y_b, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
             capacity_factor=cfg.moe.capacity_factor, act=cfg.mlp_act,
-            impl=cfg.moe_impl, dt=dt)
+            impl=cfg.moe_impl, dt=dt, x_route=y_a, residual=res,
+            aux_in=aux)
     else:
-        y, aux = moe_mod.mlp(p["mlp"], y, act=cfg.mlp_act, dt=dt), zero
-    return _residual(p, "ln2_post", h, y, cfg, dt), aux
+        y = moe_mod.mlp(p["mlp"], (y_a, y_b), act=cfg.mlp_act, dt=dt,
+                        residual=res)
+    return _post(p, "ln2_post", h, y, cfg, dt), aux
 
 
 def _apply_layer_seq(p, x, kind, cfg: ArchConfig, rope, dt,
-                     causal: bool = True):
-    """Full-sequence layer (training compute).  Returns (x, aux)."""
-    y = rmsnorm(p["ln1"], x, dt=dt)
+                     causal: bool = True, aux=None):
+    """Full-sequence layer (training compute).  Returns (x, aux): ``aux``
+    the running total given (None: none yet) plus a MoE layer's aux loss.
+    The pre-norms pass ``x`` on as the residual's skip, which the layer's
+    last kernel adds (the output projection, the MoE combine, or a
+    post-norm)."""
     if kind.startswith("attn"):
+        *ys, x = rmsnorm_fanout(p["ln1"], x, 3, dt=dt)   # q, k, v; skip
+        res = None if cfg.use_post_norm else x
         window = cfg.window if kind == "attn_local" else None
         y = attn_mod.attention(
-            p["attn"], y, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.hd, rope=rope, causal=causal, window=window,
-            softcap=cfg.attn_softcap, scale=cfg.query_scale,
-            chunk=cfg.attn_chunk, dt=dt)
+            p["attn"], tuple(ys), n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, rope=rope,
+            causal=causal, window=window, softcap=cfg.attn_softcap,
+            scale=cfg.query_scale, chunk=cfg.attn_chunk, dt=dt,
+            residual=res)
     else:
         s = cfg.ssm
+        y, x = rmsnorm_fanout(p["ln1"], x, 1, dt=dt)
+        res = None if cfg.use_post_norm else x
         y = ssm_mod.mamba2_block(
             p["mamba"], y, d_state=s.d_state, headdim=s.headdim,
             expand=s.expand, ngroups=s.ngroups, conv_k=s.conv_k,
-            chunk=s.chunk, dt=dt)
-    h = _residual(p, "ln1_post", x, y, cfg, dt)
-    return _ffn(p, h, kind, cfg, dt)
+            chunk=s.chunk, dt=dt, residual=res)
+    h = _post(p, "ln1_post", x, y, cfg, dt)
+    return _ffn(p, h, kind, cfg, dt, aux)
 
 
 def _aux_coef(cfg: ArchConfig) -> float:
@@ -189,11 +203,13 @@ def _scan_stack(params, h, cfg: ArchConfig, rope, dt):
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in _periods(params["layers"]):
         # the period's aux first, then the running total, as the JAX
-        # package's scan body adds them
+        # package's scan body adds them (a layer without one adds +0.0,
+        # left out: the totals start at +0.0)
         aux_p = torch.zeros((), dtype=torch.float32, device=h.device)
         for j, kind in enumerate(cfg.layer_pattern):
             h, a = _apply_layer_seq(lp[f"pos{j}"], h, kind, cfg, rope, dt)
-            aux_p = aux_p + a
+            if a is not None:
+                aux_p = aux_p + a
         aux = aux + aux_p
     return h, aux
 
@@ -212,7 +228,7 @@ def train_loss(params: Params, batch: Dict[str, torch.Tensor],
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     S = inp.shape[1]
     h = _embed_tokens(params, inp, cfg, dt)
-    rope = rope_table(S, cfg.hd, cfg.rope_theta, device=h.device)
+    rope = rope_angles(S, cfg.hd, cfg.rope_theta, like=h)
     h, aux = _scan_stack(params, h, cfg, rope, dt)
     h = rmsnorm(params["final_norm"], h, dt=dt)
     loss = chunked_ce_loss(h, unembed_weight(params, cfg), labels,
@@ -247,14 +263,16 @@ def train_chain(cfg: ArchConfig):
                 params["layers"])
 
     def layer_body(params, carry, lp, batch, j):
-        # one layer of the period (the rope table is rebuilt per layer; it
-        # is deterministic and tiny)
+        # one layer of the period (the rope table is rebuilt per layer, on
+        # the card inside the rope kernel); a MoE layer adds its aux loss
+        # to the carry's (in the routing kernel on the card), another
+        # passes the carry's on (the JAX package adds +0.0 to it)
         x, aux_t = carry
         S = batch["tokens"].shape[1] - 1
-        rope = rope_table(S, cfg.hd, cfg.rope_theta, device=x.device)
+        rope = rope_angles(S, cfg.hd, cfg.rope_theta, like=x)
         kind = cfg.layer_pattern[j]
-        x, aux = _apply_layer_seq(lp[f"pos{j}"], x, kind, cfg, rope, dt)
-        return x, aux_t + aux
+        return _apply_layer_seq(lp[f"pos{j}"], x, kind, cfg, rope, dt,
+                                aux=aux_t)
 
     def body(params, carry, lp, batch):
         for j in range(len(cfg.layer_pattern)):

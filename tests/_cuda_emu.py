@@ -16,6 +16,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.convert import init_lstm_numpy, params_from_numpy
 from repro_torch.kernels import build
@@ -233,3 +234,75 @@ def scaled_err(a, b) -> float:
     """max |a - b| over max |b| (1e-30 at least), in fp32."""
     a, b = a.detach().float(), b.detach().float()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def token_axis_ops(run, B: int, S: int):
+    """The ATen operators ``run()`` dispatches, other than allocations
+    (``empty*``) and views, whose output runs over the tokens (leading
+    ``(B, S)`` or ``B S`` rows): ``[(operator, shape), ...]``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    found = []
+
+    def token(shape):
+        return len(shape) >= 1 and (tuple(shape[:2]) == (B, S)
+                                    or shape[0] == B * S)
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            view = any(r.alias_info is not None and not r.alias_info.is_write
+                       for r in func._schema.returns)
+            if not view and not func.overloadpacket.__name__.startswith(
+                    "empty"):
+                for t in pytree.tree_leaves(out):
+                    if isinstance(t, torch.Tensor) and token(t.shape):
+                        found.append((str(func), tuple(t.shape)))
+            return out
+
+    with Count():
+        run()
+    return found
+
+
+def body_step_ops(arch: str, n_layers: int, B: int, S: int, monkeypatch):
+    """:func:`token_axis_ops` of one chain step of ``arch``'s SMOKE decoder
+    (``train_chain``'s body over its first period, in the model's own
+    compute dtype) and of the step's vjp, with the kernels' card paths on
+    the CPU (the caller holds ``kernels_on_card``); attention takes its
+    chunked (flash) path at this length, as it does on the card at
+    S=4096."""
+    import functools
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.configs.shapes import make_batch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model_factory import get_model
+
+    attention = attn_mod.attention
+
+    @functools.wraps(attention)
+    def chunked(*args, **kw):
+        return attention(*args, **{**kw, "use_chunked": True})
+
+    monkeypatch.setattr(attn_mod, "attention", chunked)
+    cfg = get_config(arch, smoke=True).replace(n_layers=n_layers)
+    params = get_model(cfg).init(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    batch = make_batch(cfg, ShapeSpec("t", S, B, "train"), 0, device="cpu")
+    spec = tf.train_chain(cfg)
+    with torch.no_grad():
+        carry, xs = spec.prelude(params, batch)
+    lp = pytree.tree_map(lambda t: t[0].detach().requires_grad_(True), xs)
+    carry = pytree.tree_map(lambda t: t.detach().requires_grad_(True), carry)
+    ins = pytree.tree_leaves(carry) + [t for t in pytree.tree_leaves(lp)
+                                       if t.is_floating_point()]
+    with torch.no_grad():
+        cots = [torch.ones_like(t) for t in pytree.tree_leaves(carry)]
+
+    def run():
+        out = pytree.tree_leaves(spec.body(params, carry, lp, batch))
+        torch.autograd.grad(out, ins, cots, allow_unused=True)
+
+    return token_axis_ops(run, B, S)

@@ -112,8 +112,10 @@ def _record_jax_routing(monkeypatch):
 def _force_port_routing(monkeypatch, choices):
     """The port's ``moe._route`` with its top-k choices taken from
     ``choices`` (by the layer's router weights): weights and aux from the
-    port's own probabilities at those experts."""
-    def forced(p, xg, n_experts, top_k):
+    port's own probabilities at those experts (and the aux added to the
+    running total ``aux_in`` where given, as the port's ``_route`` adds
+    it)."""
+    def forced(p, xg, n_experts, top_k, aux_in=None):
         logits = torch.einsum("gsd,de->gse", xg.float(),
                               p["router"]["w"].float())
         probs = torch.softmax(logits, dim=-1)
@@ -125,7 +127,8 @@ def _force_port_routing(monkeypatch, choices):
         me = probs.mean(dim=(0, 1))
         ce = torch.nn.functional.one_hot(idx, n_experts).float().sum(
             2).mean(dim=(0, 1))
-        return weights, idx, n_experts * torch.sum(me * ce)
+        aux = n_experts * torch.sum(me * ce)
+        return weights, idx, aux if aux_in is None else aux_in + aux
 
     monkeypatch.setattr(t_moe, "_route", forced)
 

@@ -21,6 +21,7 @@ from torch.utils import _pytree as pytree
 
 import repro.models.transformer as j_tf
 from _cuda_emu import emulated_libs, kernels_on_card  # noqa: F401
+from _cuda_emu import body_step_ops
 from _transformer_cases import _case
 from repro import api as j_api
 from repro.models.layers import DTypes as JDTypes
@@ -117,3 +118,20 @@ def test_mamba_fused_with_emulated_kernels_matches_jax_pallas(
         assert g.shape == jg.shape, i
         scale = max(float(np.abs(jg).max()), 1e-30)
         assert float(np.abs(g.numpy() - jg).max()) <= 1e-4 * scale, i
+
+
+# the batch and length of the token-axis count: neither is a width of the
+# SMOKE decoder, so a tensor that leads with them runs over the tokens
+OPS_B, OPS_S = 3, 40
+
+
+def test_mamba2_card_step_touches_no_token_axis(emulated_libs,
+                                              kernels_on_card, monkeypatch):
+    """One chain step of mamba2-370m's SMOKE body on the emulated card, and
+    its vjp, under a ``TorchDispatchMode``: no ATen compute operator (an
+    allocation or a view aside) has an output with a token axis -- every
+    residual add, cotangent sum, split, copy, fill and table of the body is
+    inside a hand-written kernel or gone."""
+    emulated_libs.prebuild(["ssd_scan", "ssd_scan_bwd", "causal_conv", "dt_softplus", "gated_norm", "rmsnorm", "dense"])
+    assert body_step_ops("mamba2-370m", 1, OPS_B, OPS_S,
+                         monkeypatch) == []

@@ -24,6 +24,7 @@ that overflow their capacity included), in fp32 and bf16:
 import numpy as np
 import pytest
 import torch
+from _cuda_emu import body_step_ops
 from _cuda_emu import (_np, bits_equal, emulated_libs,  # noqa: F401
                        kernels_on_card, scaled_err)
 from test_torch_moe import CASES, DROPS, _ids
@@ -46,12 +47,15 @@ def _t(rng, shape, dtype=F32, scale=1.0):
 
 
 def _routed(case, dtype, seed):
-    """x (G, S, d), the router weight and the plain routing of a case."""
+    """x (G, S, d), the router weight and the plain routing of a case (its
+    choices contiguous, as the routing kernel writes them: the kernels'
+    wrappers take no other layout)."""
     d, f, E, k, shared, shape, fold, cf = case
     rng = np.random.default_rng(seed)
     x = _t(rng, shape, dtype)
     w = _t(rng, (d, E), F32, d ** -0.5)
-    return rng, x, w, mk.route_plain(x, w, k)
+    weights, idx, probs = mk.route_plain(x, w, k)
+    return rng, x, w, (weights, idx.contiguous(), probs)
 
 
 # the router weight's position among the parameter leaves (sorted keys)
@@ -68,21 +72,28 @@ ALL = CASES + DROPS
 def _check_route(case, dtype, twice):
     d, f, E, k, shared, shape, fold, cf = case
     rng, x, w, (want_w, want_idx, want_p) = _routed(case, dtype, fold)
-    weights, idx, probs = mk.moe_route(x, w, k)
+    weights, idx, probs, aux, ce = mk.moe_route(x, w, k)
     assert torch.equal(idx, want_idx)
     tol = 1e-5 if dtype == F32 else 1e-2
     assert scaled_err(weights, want_w) <= tol
     assert scaled_err(probs, want_p) <= tol
+    # the aux loss computed in the routing kernel: its value, its ce, and
+    # a running total's sum (one fp32 add)
+    assert scaled_err(aux, mk.aux_plain(want_p, want_idx, E)) <= tol
+    assert torch.equal(ce, torch.nn.functional.one_hot(idx, E).float()
+                       .sum(2).mean(dim=(0, 1)))
+    aux_in = _t(rng, (), F32)
+    assert bits_equal(mk.moe_route(x, w, k, aux_in=aux_in)[3], aux_in + aux)
     dweights = _t(rng, weights.shape)
-    dprobs = _t(rng, probs.shape, F32, 0.1)
-    dx, dw = mk.moe_route_bwd(dweights, dprobs, x, w, probs, idx)
-    want_dx, want_dw = mk.route_bwd_plain(dweights, dprobs, x, w, k)
+    daux = _t(rng, (), F32, 10.0)
+    dx, dw = mk.moe_route_bwd(dweights, daux, x, w, probs, idx, ce)
+    want_dx, want_dw = mk.route_bwd_plain(dweights, daux, x, w, k)
     assert dx.dtype == dtype and dw.dtype == F32
     assert scaled_err(dx, want_dx) <= tol and scaled_err(dw, want_dw) <= 1e-5
     # the weights' cotangent alone (an unread aux; at top-1 the weight is
     # w / w, whose derivative is 0 and in the plain version a rounding
     # residue: held at the scale of the whole cotangent's gradient)
-    dx1, dw1 = mk.moe_route_bwd(dweights, None, x, w, probs, idx)
+    dx1, dw1 = mk.moe_route_bwd(dweights, None, x, w, probs, idx, ce)
     want1 = mk.route_bwd_plain(dweights, None, x, w, k)
     for got, ref, full, t in ((dx1, want1[0], want_dx, tol),
                               (dw1, want1[1], want_dw, 1e-5)):
@@ -90,10 +101,11 @@ def _check_route(case, dtype, twice):
         assert float((got.float() - ref.float()).abs().max()) <= t * scale
     if twice:
         again = mk.moe_route(x, w, k)
-        assert all(bits_equal(a, b) for a, b in zip(again, (weights, idx,
-                                                             probs)))
         assert all(bits_equal(a, b) for a, b in zip(
-            mk.moe_route_bwd(dweights, dprobs, x, w, probs, idx), (dx, dw)))
+            again, (weights, idx, probs, aux, ce)))
+        assert all(bits_equal(a, b) for a, b in zip(
+            mk.moe_route_bwd(dweights, daux, x, w, probs, idx, ce),
+            (dx, dw)))
 
 
 def _check_slots_dispatch(case, dtype, d_pad, twice):
@@ -304,3 +316,58 @@ def test_moe_kernels_refuse(kernels_on_card):
         mk.dispatch(x, torch.zeros((1, 4, 2)), torch.zeros((4, 8)))
     with pytest.raises(ValueError, match="w must be"):
         dn.expert_fwd(torch.zeros((2, 4, 8)), torch.zeros((3, 8, 5)))
+
+
+
+@pytest.mark.parametrize("dtype,d_pad", [(F32, 0), (BF16, 0), (BF16, 3)],
+                         ids=["fp32", "bf16", "bf16-ragged-d"])
+def test_combine_residual_and_dispatch_readers(kernels_on_card, dtype,
+                                               d_pad):
+    """The combine's residual epilogue and the dispatch backward's second
+    cotangent, bit for bit the plain adds they replace (``res + y``, and
+    the buckets' cotangents summed before the gather-sum), in the vector
+    and the element loops; through the autograd functions the residual's
+    cotangent is ``dy`` and the two readers' gradient the summed one's."""
+    case = DROPS[2]
+    d, f, E, k, shared, shape, fold, cf = case
+    G, S, _ = shape
+    d = d + d_pad
+    rng, _, _, (weights, idx, _) = _routed(case, F32, fold)
+    C = moe._capacity(S, E, k, cf)
+    choice_slot, slot_src, _ = mk.slots_plain(idx, E, C)
+    rows = _t(rng, (E, G * C, d), dtype)
+    res = _t(rng, (G, S, d), dtype)
+    y = mk.moe_combine(rows, weights, choice_slot, dtype, res)
+    assert bits_equal(y, res + mk.moe_combine(rows, weights, choice_slot,
+                                              dtype))
+    dexp, dexp2 = _t(rng, rows.shape, dtype), _t(rng, rows.shape, dtype)
+    assert bits_equal(mk.moe_dispatch_bwd(dexp, choice_slot, dexp2),
+                      mk.moe_dispatch_bwd(dexp + dexp2, choice_slot))
+
+    x = _t(rng, (G, S, d), dtype).requires_grad_(True)
+    a, b = mk.dispatch(x, choice_slot, slot_src, n=2)
+    assert bits_equal(a, b) and bits_equal(a, mk.moe_dispatch(x, slot_src,
+                                                              k))
+    (dx,) = torch.autograd.grad((a, b), x, (dexp, dexp2))
+    assert bits_equal(dx, mk.moe_dispatch_bwd(dexp + dexp2, choice_slot))
+    r = res.clone().requires_grad_(True)
+    dy = _t(rng, (G, S, d), dtype)
+    (dr,) = torch.autograd.grad(
+        mk.combine(rows, weights, choice_slot, slot_src, dtype, r), r, dy)
+    assert bits_equal(dr, dy)
+
+# the batch and length of the token-axis count: neither is a width of the
+# SMOKE decoder, so a tensor that leads with them runs over the tokens
+OPS_B, OPS_S = 3, 40
+
+
+def test_phi35_card_step_touches_no_token_axis(emulated_libs,
+                                               kernels_on_card, monkeypatch):
+    """One chain step of phi3.5-moe-42b's SMOKE body on the emulated card, and
+    its vjp, under a ``TorchDispatchMode``: no ATen compute operator (an
+    allocation or a view aside) has an output with a token axis -- every
+    residual add, cotangent sum, table and aux-loss reduction of the body
+    is inside a hand-written kernel or gone."""
+    emulated_libs.prebuild(["flash_attention", "flash_attention_bwd", "rmsnorm", "rope", "dense", "moe"])
+    assert body_step_ops("phi3.5-moe-42b", 1, OPS_B, OPS_S,
+                         monkeypatch) == []

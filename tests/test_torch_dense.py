@@ -79,3 +79,40 @@ def test_dense_routes_through_the_kernels(kernels_on_card, dtype):
     _against_jax(dtype, True, seed=12)
     assert (dn.dense_fwd.launches, dn.dense_bwd.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_residual_epilogue_bit_for_bit(kernels_on_card, dtype):
+    """The forward kernel's residual epilogue (a pre-norm layer's skip) is
+    the product rounded, then ``residual + y`` rounded again: bit for bit
+    the kernel's own product plus PyTorch's add, two calls alike; through
+    ``layers.dense(..., residual=)`` the residual's cotangent is ``dy`` and
+    x's and w's are those of the product without it."""
+    tdt = DTYPES[dtype][0]
+    x, p, cot = _case(5, False)
+    x, cot = torch.tensor(x).to(tdt), torch.tensor(cot).to(tdt)
+    w = torch.tensor(p["w"])
+    res = torch.tensor(np.random.default_rng(6).standard_normal(
+        (B, S, N)).astype(np.float32)).to(tdt)
+    got = dn.dense_fwd(x, w, res)
+    assert torch.equal(got.view(torch.int16) if tdt == torch.bfloat16
+                       else got, (res + dn.dense_fwd(x, w)).view(
+                           torch.int16) if tdt == torch.bfloat16
+                       else res + dn.dense_fwd(x, w))
+    assert torch.equal(got, dn.dense_fwd(x, w, res))
+    with pytest.raises(ValueError):
+        dn.dense_fwd(x, w, res.transpose(0, 1).contiguous().transpose(0, 1))
+
+    def grads(with_res):
+        xr = x.clone().requires_grad_(True)
+        wr = w.clone().requires_grad_(True)
+        rr = res.clone().requires_grad_(True)
+        dt = layers.DTypes(compute=tdt)
+        y = (layers.dense({"w": wr}, xr, dt, residual=rr) if with_res
+             else layers.dense({"w": wr}, xr, dt))
+        return torch.autograd.grad(y, (xr, wr, rr) if with_res else (xr, wr),
+                                   cot)
+
+    (dx, dw, dres), (dx0, dw0) = grads(True), grads(False)
+    assert torch.equal(dres, cot)
+    assert torch.equal(dx, dx0) and torch.equal(dw, dw0)

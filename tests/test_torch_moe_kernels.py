@@ -116,10 +116,12 @@ def test_route_plain_matches_jax(case):
         * (k > 1)
     daux = np.float32(0.7)
     jdx, jdw = vjp((jnp.asarray(dweights), jnp.asarray(daux)))
-    # the aux loss E sum_e mean(probs_e) ce_e: its cotangent on probs
-    ce = torch.nn.functional.one_hot(idx, E).float().sum(2).mean((0, 1))
-    dprobs = (float(daux) * E * ce / (G * S)).expand(G, S, E)
-    dx, dw = mk.route_bwd_plain(torch.tensor(dweights), dprobs, x, w, k)
+    # the aux loss E sum_e mean(probs_e) ce_e, and the vjp of the weights
+    # and of it
+    np.testing.assert_allclose(float(mk.aux_plain(probs, idx, E)),
+                               float(jaux), rtol=1e-5)
+    dx, dw = mk.route_bwd_plain(torch.tensor(dweights), torch.tensor(daux),
+                                x, w, k)
     for a, b in ((dx, jdx), (dw, jdw)):
         assert _scaled(a.numpy(), np.asarray(b)) <= 1e-5
 
