@@ -524,22 +524,29 @@ def phase_build(state) -> None:
                 "moe"):
         for kern, regs, spill in ptxas_usage(build.BUILD_LOG.get(lib, "")):
             log(f"[build] {lib}: {kern}: {regs} registers, {spill}")
-    # the bf16 kernels that must run on the tensor cores
-    for lib, kernels in (("flash_attention", ("flash_fwd_bf16_kernel",)),
-                         ("flash_attention_bwd", ("bwd_dq_bf16_kernel",
-                                                  "bwd_dkdv_bf16_kernel")),
-                         ("ssd_scan", ("ssd_state_bf16_kernel",
-                                       "ssd_out_bf16_kernel")),
-                         ("dense", ("dense_tc_kernel",))):
-        counts = hmma_counts(build.library_path(lib))
+    # the bf16 kernels that must run on the tensor cores: the Hopper forms
+    # on wgmma (HGMMA in SASS), the others on mma.sync (HMMA)
+    for lib, inst, kernels in (
+            ("flash_attention", "HMMA", ("flash_fwd_bf16_kernel",)),
+            ("flash_attention_bwd", "HGMMA", ("bwd_dq_wgmma_kernel",
+                                              "bwd_dkdv_wgmma_kernel")),
+            ("flash_attention_bwd", "HMMA", ("bwd_dq_bf16_kernel",
+                                             "bwd_dkdv_bf16_kernel")),
+            ("ssd_scan", "HMMA", ("ssd_state_bf16_kernel",
+                                  "ssd_out_bf16_kernel")),
+            ("dense", "HGMMA", ("dense_wgmma_kernel",)),
+            ("dense", "HMMA", ("dense_tc_kernel",))):
+        counts = mma_counts(build.library_path(lib), inst)
         if counts is None:
-            log(f"[build] {lib}: cuobjdump not found, HMMA not counted")
+            log(f"[build] {lib}: cuobjdump not found, {inst} not counted")
             continue
         for kern in kernels:
             n = sum(v for k, v in counts.items() if kern in k)
-            require(n > 0, f"{lib}: {kern} issues no HMMA instruction")
-            log(f"[build] {lib}: {kern} has {n} HMMA instructions "
+            require(n > 0, f"{lib}: {kern} issues no {inst} instruction")
+            log(f"[build] {lib}: {kern} has {n} {inst} instructions "
                 "(cuobjdump -sass)")
+    if state.get("parent"):
+        state["parent_libs"] = build_parent(state["parent"], out_dir)
 
 
 def ptxas_usage(text):
@@ -575,9 +582,11 @@ def ptxas_usage(text):
     return out
 
 
-def hmma_counts(lib_path):
-    """HMMA instructions per kernel in ``cuobjdump -sass`` of a built
-    library, keyed by the mangled name; None without cuobjdump."""
+def mma_counts(lib_path, inst="HMMA"):
+    """Tensor-core instructions ``inst`` (HMMA: mma.sync; HGMMA: wgmma) per
+    kernel in ``cuobjdump -sass`` of a built library, keyed by the mangled
+    name; None without cuobjdump."""
+    import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -586,14 +595,49 @@ def hmma_counts(lib_path):
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                          text=True, timeout=300)
     require(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    pat = re.compile(rf"\b{inst}\b")
     counts, name = {}, None
     for line in out.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             counts[name] = 0
-        elif name is not None and "HMMA" in line:
+        elif name is not None and pat.search(line):
             counts[name] += 1
     return counts
+
+
+# the parent's libraries phase timing holds the redesigned kernels against
+PARENT_LIBS = ("dense", "flash_attention_bwd")
+
+
+def build_parent(parent, out_dir):
+    """The parent tree's ``PARENT_LIBS`` (``--parent``: a ``git archive``
+    of another commit) built with this tree's ``nvcc`` flags into
+    ``<out-dir>/parent_build``, all started together, and loaded: name ->
+    ``ctypes.CDLL``."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    csrc = os.path.join(parent, "src", "repro_torch", "kernels", "csrc")
+    dest = os.path.join(out_dir, "parent_build")
+    os.makedirs(dest, exist_ok=True)
+    procs = {}
+    for name in PARENT_LIBS:
+        so = os.path.join(dest, f"lib{name}.so")
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", csrc, "-o", so,
+               os.path.join(csrc, build.SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        text, _ = proc.communicate()
+        require(proc.returncode == 0, f"the parent's {name} did not build:"
+                f"\n{text[-3000:]}")
+        libs[name] = ctypes.CDLL(so)
+    log(f"[build] the parent's {', '.join(PARENT_LIBS)} built from {csrc}")
+    return libs
 
 
 def _lstm_inputs(torch, dtype, B=256, Dx=64, Dh=256, seed=1):
@@ -962,7 +1006,19 @@ FLASH_BWD_CASES = tuple(
          {**GEMMA_KW, "window": 4096}),
         ("gemma2-2b attn", (2, 4096, 4096, 8, 4, 256), GEMMA_KW),
         ("phi3.5-moe layer", (2, 4096, 4096, 32, 8, 128), {}))
-    for dtype in ("bfloat16", "float32")) + FLASH_CASES[3:]
+    for dtype in ("bfloat16", "float32")) + FLASH_CASES[3:] + (
+    # the Hopper form at each head dim with and without the softcap and
+    # the window (the cases above hold D=256 with the softcap, D=128 with
+    # neither and with both, D=64 with the window and with neither)
+    ("bf16 D=64 window<S softcap ragged", (2, 700, 700, 4, 2, 64),
+     "bfloat16", {"window": 100, "softcap": 30.0}),
+    ("bf16 D=64 softcap Sq<Sk", (1, 300, 555, 4, 1, 64), "bfloat16",
+     {"softcap": 20.0}),
+    ("bf16 D=128 window ragged", (1, 900, 900, 8, 8, 128), "bfloat16",
+     {"window": 200}),
+    ("bf16 D=256 ragged", (1, 600, 600, 4, 2, 256), "bfloat16", {}),
+    ("bf16 D=256 window ragged", (1, 600, 600, 4, 2, 256), "bfloat16",
+     {"window": 150, "scale": 0.0625}))
 # the scaled error (max |a - b| over max |b|) each kernel's outputs and
 # cotangents may have against its plain version's: fp32 sums in another
 # order; bf16 one rounding of each output (and, in the attention backward,
@@ -1423,7 +1479,8 @@ def check_dense(torch) -> dict:
     """The projection GEMM (``dense_fwd``, and ``dense_bwd``'s dx and dw)
     against its plain version at every projection of gemma2-2b's and
     mamba2-370m's layers (``DENSE_CASES``; x and dy bf16, w the fp32
-    parameter, cast in the kernel's load) and at a small ragged fp32 shape
+    parameter rounded for the call), at a ragged bf16 shape of 1,000 rows
+    (the fp32 weight the register operand) and at a small ragged fp32 shape
     with w in fp32 and in bf16, per element at ``DENSE_TOL`` (bf16's where
     x or the output is bf16), each two calls bit for bit; a dw whose sum
     drops the last 32 rows (one stage of its walk over M) must fail the
@@ -1454,7 +1511,9 @@ def check_dense(torch) -> dict:
 
     cases = [(lbl, dims, torch.bfloat16, torch.float32)
              for lbl, dims in DENSE_CASES]
-    cases += [("ragged fp32, w fp32", (77, 72, 37), torch.float32,
+    cases += [("ragged bf16, w fp32 as the register operand",
+               (1000, 328, 264), torch.bfloat16, torch.float32),
+              ("ragged fp32, w fp32", (77, 72, 37), torch.float32,
                torch.float32),
               ("ragged fp32, w bf16", (77, 72, 37), torch.float32,
                torch.bfloat16)]
@@ -1476,7 +1535,8 @@ def check_dense(torch) -> dict:
                 f"{got[1].dtype}, w {w_dt}")
         gate("dense_bwd", label, x_dt, list(zip(got, want)), same)
         if i == 0:
-            # the negative check: the last stage of dw's walk over M left out
+            # the negative checks: the last stage of dw's walk over M left
+            # out, and the sum of dw's split without its last slice
             _, short = dn.dense_bwd(dy[:-32], x[:-32], w, need_dx=False)
             torch.cuda.synchronize()
             rtol, atol = DENSE_TOL["bfloat16"]
@@ -1485,10 +1545,55 @@ def check_dense(torch) -> dict:
                     f"rows passes the gate ({e:.3g} of it)")
             log(f"[kernels] dense_bwd {label}: a dw without the last 32 rows"
                 f" is {e:.3g} of the gate: rejected")
+            e, slices = dw_slice_dropped(torch, x, dy, w, want[1])
+            log(f"[kernels] dense_bwd {label}: dw's split over M in {slices}"
+                f" slices; their sum without the last slice is {e:.3g} of "
+                "the gate: rejected")
             del short
         del got, want, x, w, dy
         torch.cuda.empty_cache()
+    # the Ampere form, kept for operands TMA cannot read, ran for none of
+    # the projections' shapes
+    mma = {k: getattr(dn, k).mma_sync for k in ("dense_fwd", "dense_bwd")}
+    require(not any(mma.values()), f"the projections' shapes launched the "
+            f"mma.sync GEMM: {mma}")
+    log(f"[kernels] dense: mma.sync (unaligned-operand) launches over the "
+        f"shapes {mma}")
     return errs
+
+
+def dw_slice_dropped(torch, x, dy, w, want):
+    """dw of the projection (x, dy bf16, w fp32) through the Hopper form's
+    C entry with its split over M, then its partials summed without the
+    last slice (``dense_dw_reduce``): the excess of that sum over
+    ``DENSE_TOL`` against ``want``, which must be over 1, and the slice
+    count (which must be over 1 at this shape)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import dense as dn
+
+    M, K = x.shape
+    N = w.shape[1]
+    lib = dn._lib()
+    slices = lib.dense_dw_slices(M, K, N, 1)
+    require(slices > 1, f"dw at (M={M}, K={K}, N={N}) is not split")
+    part = torch.empty((1, slices, K, N), dtype=torch.float32, device="cuda")
+    dw = torch.empty((K, N), dtype=w.dtype, device="cuda")
+    stream = build.stream_ptr()
+    build.check(lib, lib.dense_dw(build.ptr(x), K, build.ptr(dy), N,
+                                  build.ptr(dw), M, K, N, 1, 0, *dn.ONE, 1,
+                                  slices, build.ptr(part), stream), "dw")
+    rtol, atol = DENSE_TOL["bfloat16"]
+    full = excess(dw, want, rtol) / atol
+    require(full <= 1.0, f"dw through the split entry: {full:.3g} of the "
+            "gate")
+    build.check(lib, lib.dense_dw_reduce(build.ptr(part), build.ptr(dw),
+                                         slices - 1, slices, K, N, 0, 1,
+                                         K * N, stream), "reduce")
+    torch.cuda.synchronize()
+    e = excess(dw, want, rtol) / atol
+    require(e > 1.0, f"dw without its last slice passes the gate ({e:.3g} "
+            "of it)")
+    return e, slices
 
 
 # phi3.5-moe's MoE layer at the moe phase's shape: G groups (the batch) of S
@@ -1664,6 +1769,10 @@ def check_moe(torch) -> dict:
             f"{DENSE_TOL['bfloat16']}; two calls bit for bit")
         del xe, we, dy, got, want
         torch.cuda.empty_cache()
+    mma = {k: getattr(dn, k).mma_sync for k in ("expert_fwd", "expert_bwd")}
+    require(not any(mma.values()), f"the experts' shapes launched the "
+            f"mma.sync GEMM: {mma}")
+    log(f"[kernels] experts: mma.sync (unaligned-operand) launches {mma}")
     return errs
 
 
@@ -1876,8 +1985,14 @@ def phase_kernels(state) -> None:
     torch.cuda.empty_cache()
     # the layer kernels of gemma2-2b's body (the error kept: the bf16 main
     # path's shapes)
+    from repro_torch.kernels import flash_attention as fa
+
+    fa.flash_attention_bwd.mma_sync = 0
     bwd = [check_flash_bwd(torch, *case, seed=80 + i)
            for i, case in enumerate(FLASH_BWD_CASES)]
+    require(fa.flash_attention_bwd.mma_sync == 0, "flash_attention_bwd: "
+            f"{fa.flash_attention_bwd.mma_sync} calls at D >= 64 took the "
+            "mma.sync form")
     check_flash_bwd_refused(torch)
     layer_errs = check_layer_kernels(torch)
     # mamba2-370m's body (the SSD backward, the conv, the step sizes, the
@@ -5471,7 +5586,7 @@ def _time_generic(torch):
              ms_p, b_ms, by, ms_l, 0.0)]
 
 
-def _time_flash_bwd(torch, cfg, B, S):
+def _time_flash_bwd(torch, cfg, B, S, state):
     """The attention backward at a decoder's layer shape (gemma2-2b's: its
     softcap, one layer kind's cost is the other's at S=4096; phi3.5-moe's),
     its plain version, and SDPA's backward (``torch.autograd.grad`` through
@@ -5493,8 +5608,20 @@ def _time_flash_bwd(torch, cfg, B, S):
     dout = _randn(torch, rng, (B, S, H, D), bf16)
     kw = {"softcap": cfg.attn_softcap, "scale": cfg.query_scale}
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    par = parent_flash_bwd(torch, state)
+    if par:   # parent, this tree, parent
+        ms_par = cuda_ms(lambda: par(q, k, v, out, lse, dout,
+                                     cfg.attn_softcap, cfg.query_scale), 5)
     ms_k = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
                                                   **kw), 5)
+    if par:
+        ms_par = min(ms_par, cuda_ms(lambda: par(
+            q, k, v, out, lse, dout, cfg.attn_softcap, cfg.query_scale), 5))
+        log(f"[timing] flash_attention_bwd at {cfg.name}'s layer: the "
+            f"parent's mma.sync form {ms_par:.4f} ms, this tree {ms_k:.4f} "
+            f"(x{ms_par / ms_k:.2f})")
+        require(ms_k < ms_par, f"flash_attention_bwd at {cfg.name}: the "
+                "Hopper form is not faster than the parent's")
     res = (q, k, v, out, lse)
     ms_p = cuda_ms(lambda: _chunked_bwd(True, None, cfg.attn_softcap, 1024,
                                         cfg.query_scale, res, dout), 2)
@@ -5576,12 +5703,13 @@ def _time_layer_kernels(torch, state):
     rep = "src/repro/kernels/segment_pallas.py:248"
     rows = []
     gemma = get_config("gemma2-2b")
-    fb = _time_flash_bwd(torch, gemma, 2, 4096)
+    fb = _time_flash_bwd(torch, gemma, 2, 4096, state)
     rows.append(("flash_attention_bwd", csrc + "flash_attention_bwd.cu",
                  rep, *fb))
-    if "moe" in state:
-        run = state["moe"]
-        _time_flash_bwd(torch, run["cfg"], run["B"], run["S"])
+    # phi3.5-moe's layer (the moe phase's shape, whether or not it ran)
+    run = state.get("moe", {"cfg": get_config("phi3.5-moe-42b"), "B": 2,
+                            "S": 4096})
+    _time_flash_bwd(torch, run["cfg"], run["B"], run["S"], state)
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(71)
@@ -5696,6 +5824,104 @@ def _time_layer_kernels(torch, state):
     return rows
 
 
+def w32_form_ms(torch, dn, fwd, dx, rows, iters=20):
+    """The forward and dx of an fp32 weight with ``dense.W32_ROWS`` set to
+    ``rows`` (past the call's rows: the register operand; 0: the per-call
+    bf16 copy), timed: ``(forward ms, dx ms)``."""
+    was = dn.W32_ROWS
+    dn.W32_ROWS = rows
+    try:
+        return cuda_ms(fwd, iters), cuda_ms(dx, iters)
+    finally:
+        dn.W32_ROWS = was
+
+
+def parent_dense(torch, state):
+    """The parent tree's GEMM (``--parent``; its ``mma.sync`` form, the C
+    entry points before the Hopper form's flag and scratch) as
+    ``(fwd(x, w), dx(dy, w, x), dw(x, dy, w))`` on contiguous bf16 x and dy
+    and fp32 w, 2D or batched over a leading expert axis; None without a
+    parent."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    lib = state.get("parent_libs", {}).get("dense")
+    if lib is None:
+        return None
+    P_, I_, L_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    tail = [I_] * 5 + [I_, L_, L_, L_, P_]
+    lib.dense_fwd.argtypes = [P_, L_, P_, P_, P_] + tail
+    lib.dense_dx.argtypes = [P_, L_, P_, P_] + tail
+    lib.dense_dw.argtypes = [P_, L_, P_, L_, P_] + tail
+    for fn in (lib.dense_fwd, lib.dense_dx, lib.dense_dw):
+        fn.restype = I_
+    bf16 = torch.bfloat16
+
+    def dims(x, w):
+        E = x.shape[0] if x.dim() == 3 else 1
+        return E, x.shape[-2], w.shape[-2], w.shape[-1]
+
+    def strides(E, a, b, c):
+        return (E, a, b, c) if E > 1 else (1, 0, 0, 0)
+
+    def fwd(x, w):
+        E, M, K, N = dims(x, w)
+        y = torch.empty((*x.shape[:-1], N), dtype=bf16, device="cuda")
+        build.check(lib, lib.dense_fwd(
+            build.ptr(x), K, build.ptr(w), build.ptr(y), None, M, K, N, 1, 0,
+            *strides(E, M * K, K * N, M * N), build.stream_ptr()), "fwd")
+        return y
+
+    def dx(dy, w, x):
+        E, M, K, N = dims(x, w)
+        out = torch.empty_like(x)
+        build.check(lib, lib.dense_dx(
+            build.ptr(dy), N, build.ptr(w), build.ptr(out), M, K, N, 1, 0,
+            *strides(E, M * N, K * N, M * K), build.stream_ptr()), "dx")
+        return out
+
+    def dw(x, dy, w):
+        E, M, K, N = dims(x, w)
+        out = torch.empty_like(w)
+        build.check(lib, lib.dense_dw(
+            build.ptr(x), K, build.ptr(dy), N, build.ptr(out), M, K, N, 1, 0,
+            *strides(E, M * K, M * N, K * N), build.stream_ptr()), "dw")
+        return out
+
+    return fwd, dx, dw
+
+
+def parent_flash_bwd(torch, state):
+    """The parent tree's bf16 attention backward (``--parent``; the same C
+    entry point) as ``fn(q, k, v, out, lse, dout, softcap, scale)``, causal
+    without a window; None without a parent."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    lib = state.get("parent_libs", {}).get("flash_attention_bwd")
+    if lib is None:
+        return None
+    P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.flash_attention_bwd_bf16
+    fn.restype = I_
+    fn.argtypes = [P_] * 10 + [I_] * 6 + [F_, I_, I_, F_, P_]
+
+    def run(q, k, v, out, lse, dout, softcap, scale):
+        B, Sq, H, D = q.shape
+        Sk, G = k.shape[1], k.shape[2]
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        dvec = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+        build.check(lib, fn(*(build.ptr(t) for t in (
+            q, k, v, out, dout, lse, dvec, dq, dk, dv)), B, Sq, Sk, H, G, D,
+            float(D ** -0.5 if scale is None else scale), 1, 0,
+            float(softcap or 0.0), build.stream_ptr()), "parent bwd")
+        return dq, dk, dv
+
+    return run
+
+
 def _time_dense(torch, state):
     """The projection GEMM at every projection of gemma2-2b's and
     mamba2-370m's layers (``DENSE_CASES``; x, dy bf16, w the fp32
@@ -5723,6 +5949,7 @@ def _time_dense(torch, state):
                                 "gate, up": 4, "down": 2}),
              "mamba2-370m": (2, {"in_proj": 1, "out_proj": 1})}
     rows, table = [], []
+    par = parent_dense(torch, state)
     for label, (M, K, N) in DENSE_CASES:
         arch, proj = label.split(" ", 1)
         x = _randn(torch, rng, (M, K), bf16)
@@ -5731,6 +5958,13 @@ def _time_dense(torch, state):
         wb = w.to(bf16)
         flops = 2.0 * M * K * N
         nbytes = 2.0 * M * K + 4.0 * K * N + 2.0 * M * N
+
+        def parent_ms():
+            return {"fwd": cuda_ms(lambda: par[0](x, w), 20),
+                    "dx": cuda_ms(lambda: par[1](dy, w, x), 20),
+                    "dw": cuda_ms(lambda: par[2](x, dy, w), 20)}
+
+        before = parent_ms() if par else None
         ms = {"fwd": cuda_ms(lambda: dn.dense_fwd(x, w), 20),
               "dx": cuda_ms(lambda: dn.dense_bwd(dy, x, w, need_dw=False),
                             20),
@@ -5743,6 +5977,20 @@ def _time_dense(torch, state):
               "lib_dw": cuda_ms(lambda: x.T @ dy, 20),
               "cast": cuda_ms(lambda: w.to(bf16), 20)}
         b_ms, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
+        pm = None
+        if par:   # parent, this tree, parent: the parent's faster turn
+            after = parent_ms()
+            pm = {k: min(before[k], after[k]) for k in before}
+            log(f"[timing] dense {label}: the parent's mma.sync form "
+                f"forward {pm['fwd']:.4f} ms, dx {pm['dx']:.4f}, dw "
+                f"{pm['dw']:.4f} (this tree {ms['fwd']:.4f}, {ms['dx']:.4f},"
+                f" {ms['dw']:.4f}: x{pm['fwd'] / ms['fwd']:.2f}, "
+                f"x{pm['dx'] / ms['dx']:.2f}, x{pm['dw'] / ms['dw']:.2f}); "
+                f"this tree over cuBLAS: forward "
+                f"{ms['fwd'] / ms['lib']:.2f}, dx {ms['dx'] / ms['lib_dx']:.2f}"
+                f", dw {ms['dw'] / ms['lib_dw']:.2f}")
+            require(all(ms[k] < pm[k] for k in pm), f"dense {label}: the "
+                    f"Hopper form {ms} is not faster than the parent's {pm}")
         key = "dense" if arch == "gemma2-2b" else "ssm"
         of, each = share[arch]
         n_fwd = pinned[key].get("dense_fwd", 0) * each[proj] // of
@@ -5756,7 +6004,7 @@ def _time_dense(torch, state):
             f"{ms['lib']:.4f}, dx {ms['lib_dx']:.4f}, dw {ms['lib_dw']:.4f},"
             f" the cast {ms['cast']:.4f}; launches in the pinned fused "
             f"gradient {n_fwd} forward, {n_bwd} backward")
-        table.append((label, ms, b_ms, n_fwd, n_bwd))
+        table.append((label, ms, b_ms, n_fwd, n_bwd, pm))
         if proj in ("wo", "out_proj"):
             # the main path's form here: the pre-norm's skip added in the
             # epilogue (the residual read once more)
@@ -5770,6 +6018,15 @@ def _time_dense(torch, state):
                 f"add it replaces) {cuda_ms(lambda: res + res, 20):.4f} ms")
             del res
         if proj == "gate, up":
+            # the fp32 weight's other form here: the register operand
+            # (dense.W32_ROWS rows and more take the bf16 copy)
+            alt = w32_form_ms(torch, dn, lambda: dn.dense_fwd(x, w),
+                              lambda: dn.dense_bwd(dy, x, w, need_dw=False),
+                              M + 1)
+            log(f"[timing] dense {label}: the fp32 weight as the register "
+                f"operand: forward {alt[0]:.4f} ms, dx {alt[1]:.4f} (the "
+                f"bf16 copy for the call, the form taken at {M} rows: "
+                f"{ms['fwd']:.4f}, {ms['dx']:.4f})")
             rows.append(("dense_fwd", src, rep + "248", ms["fwd"],
                          ms["plain"], b_ms, by, ms["lib"], flops))
             b2, by2 = bound_ms(2 * nbytes, 2 * flops, BF16_TC_FLOPS)
@@ -5898,6 +6155,11 @@ def _time_moe(torch, state):
                                 10),
               "bmm_dw": cuda_ms(lambda: torch.bmm(xe.transpose(1, 2), dye),
                                 10)}
+        par = parent_dense(torch, state)
+        if par:   # parent, this tree (the rows below), parent
+            before = [cuda_ms(lambda: par[0](xe, we), 5),
+                      cuda_ms(lambda: (par[1](dye, we, xe),
+                                       par[2](xe, dye, we)), 5)]
         fwd = timing_row(
             "expert_fwd", src + "dense.cu", rep_ + "248",
             lambda: dn.expert_fwd(xe, we), lambda: dn.expert_fwd_plain(xe, we),
@@ -5916,6 +6178,25 @@ def _time_moe(torch, state):
             f"({2 * flops / bwd[3] / 1e9:.1f}); cuBLAS bmm {ms['bmm']:.4f}, "
             f"dx {ms['bmm_dx']:.4f}, dw {ms['bmm_dw']:.4f}, the cast "
             f"{ms['cast']:.4f} ms; bound {fwd[5]:.4f} ms a product")
+        if par:
+            pf = min(before[0], cuda_ms(lambda: par[0](xe, we), 5))
+            pb = min(before[1], cuda_ms(lambda: (par[1](dye, we, xe),
+                                                 par[2](xe, dye, we)), 5))
+            log(f"[timing] experts {label}: the parent's mma.sync form "
+                f"forward {pf:.4f} ms, backward {pb:.4f} (this tree "
+                f"{fwd[3]:.4f}, {bwd[3]:.4f}: x{pf / fwd[3]:.2f}, "
+                f"x{pb / bwd[3]:.2f}); this tree over bmm plus the cast: "
+                f"forward {fwd[3] / (ms['bmm'] + ms['cast']):.2f}, backward "
+                f"{bwd[3] / (ms['bmm_dx'] + ms['bmm_dw'] + ms['cast']):.2f}")
+            require(fwd[3] < pf and bwd[3] < pb, f"experts {label}: the "
+                    "Hopper form is not faster than the parent's")
+        alt = w32_form_ms(torch, dn, lambda: dn.expert_fwd(xe, we),
+                          lambda: dn.expert_bwd(dye, xe, we, need_dw=False),
+                          0, iters=5)
+        log(f"[timing] experts {label}: the fp32 weights rounded into a "
+            f"bf16 copy for the call: forward {alt[0]:.4f} ms, dx "
+            f"{alt[1]:.4f} (as the register operand, the form taken at "
+            f"{M} rows: forward {fwd[3]:.4f})")
         if label == "gate/up":   # the rows: bmm with the bf16 weight and
             # the cast that makes it
             out.append(fwd[:7] + (fwd[7] + ms["cast"], fwd[8]))
@@ -6565,6 +6846,27 @@ def phase_profile(state) -> None:
                 sf._CAPTURED = True
 
 
+# the phases that drive the decoders' main path (their plain-version calls
+# run inside _PlainVersions, which launches no kernel)
+MAIN_PATH_DECODERS = ("dense", "ssm", "moe")
+
+
+def mma_sync_launches(reset=False) -> dict:
+    """The launches of the mma.sync forms the Hopper kernels' wrappers keep
+    (the GEMM's for operands TMA cannot read, the attention backward's for
+    D < 64), by wrapper; zeroed with ``reset``."""
+    from repro_torch.kernels import dense as dn
+    from repro_torch.kernels import flash_attention as fa
+
+    fns = {"dense_fwd": dn.dense_fwd, "dense_bwd": dn.dense_bwd,
+           "expert_fwd": dn.expert_fwd, "expert_bwd": dn.expert_bwd,
+           "flash_attention_bwd": fa.flash_attention_bwd}
+    if reset:
+        for fn in fns.values():
+            fn.mma_sync = 0
+    return {k: fn.mma_sync for k, fn in fns.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6613,7 +6915,16 @@ def main(argv=None) -> int:
     for name in PHASES + OPTIONAL:
         if name in phases:
             t0 = time.perf_counter()
+            if name in MAIN_PATH_DECODERS:
+                mma_sync_launches(reset=True)
             steps[name](state)
+            if name in MAIN_PATH_DECODERS:
+                n = mma_sync_launches()
+                require(not any(n.values()), f"[{name}] the main path "
+                        f"launched the mma.sync forms of the Hopper kernels:"
+                        f" {n}")
+                log(f"[{name}] mma.sync launches of the Hopper kernels' "
+                    f"wrappers (unaligned operands, D < 64): {n}")
             log(f"[{name}] done in {time.perf_counter() - t0:.1f}s")
     if "kernels_json" in state:
         print(json.dumps({"kernels": state["kernels_json"]}), flush=True)

@@ -1,5 +1,5 @@
-// The models' projections: y = x @ w with w cast to bf16 as it is loaded,
-// and the two products of its backward, dx = dy @ w^T and dw = x^T @ dy.
+// The models' projections: y = x @ w with w rounded to bf16, and the two
+// products of its backward, dx = dy @ w^T and dw = x^T @ dy.
 //
 // Replaces the arithmetic the TPU kernels src/repro/kernels/segment_pallas.py
 // ::fused_advance_segment / ::fused_reverse_segment run for a decoder body
@@ -7,7 +7,7 @@
 // the chunk vjp at :395-409): src/repro/models/layers.py::dense
 // (y = x @ dt.c(p["w"])) and its vjp, as the attention projections, the
 // gated MLP and the mamba in/out projections call it; and, batched over
-// the experts (blockIdx.z an expert, a batch stride for each operand),
+// the experts (a batch index for each operand, with its stride),
 // src/repro/models/moe.py::_expert_ffn's three einsums (:105-111) and their
 // vjps, each expert's rows one matrix of the expert-major buckets
 // (csrc/moe.cu), each expert's dw the sum over its own rows.  The port's
@@ -23,34 +23,68 @@
 // row-major; the outputs are contiguous.  M, K and N are any sizes: every
 // tile edge is masked and the reduction's tail is zero-filled.
 //
-// bf16 x (dense_tc_kernel): the products run on the tensor cores,
-// mma.sync m16n8k16 bf16 with fp32 accumulators.  A block of 8 warps owns a
-// 256 x 128 output tile (a warp 64 x 64: 32 accumulator fragments, 128 fp32
-// a thread, 8 ldmatrix.x4 a 16-deep step for 32 products) and walks the
-// reduction in stages of 64, double-buffered: each operand's next stage
-// comes by 16-byte cp.async into shared memory while this one computes.
-// An fp32 w lands as fp32, and each thread rounds the chunks it copied to
-// bf16 (round to nearest even, the value of .to(torch.bfloat16)) into one of
-// two bf16 tiles after its products of the stage before, so no bf16 copy
-// of w is written to device memory.  (Of the tile shapes timed with
-// tools/dense_variants.py this one was fastest for the fp32-w products.)
-// Tiles keep the operands' own layout in shared memory (bf16 rows padded
-// by 16 bytes so the 8 row addresses of an ldmatrix fall in distinct
-// banks), and the fragments are read with ldmatrix, .trans where an
-// operand is read across its rows: w in the forward, dy in dw, and x in
-// dw.  A row stride or a base that is not 16-byte aligned takes element
-// loads instead of the 16-byte copies (the same values in shared memory,
-// so the same bits out).  Blocks walk P fastest, so the blocks resident at
-// once read the same columns of B from L2.  Each output is one
-// fp32 sum over the reduction in a fixed order (stage by stage from 0, the
-// tensor core's order within a stage), rounded once to bf16; dw is rounded
-// to bf16 and then written in w's dtype: autograd's value for
-// x @ w.to(bf16) followed by the cast's backward.  The forward may add a
+// bf16 x, operands TMA can describe (dense_wgmma_kernel, the Hopper form):
+// a persistent grid of one block an SM walks the output tiles (128 x 256)
+// in groups of 16 rows of tiles, P fastest within a group, so the blocks
+// resident at once read the same rows of A and columns of B from L2.
+// Warpgroup 0 is the producer: one thread keeps a ring of 4 stages of
+// 64-deep slabs of A and B in flight by TMA (128-byte swizzle, zeros past
+// every edge), each stage's bytes completed on its `full` mbarrier.
+// Warpgroups 1 and 2 consume: each owns 64 rows of the tile and runs one
+// wgmma m64n256k16 per 16-deep step with both operands read from shared
+// memory through descriptors; an operand that lies MN-major in memory (w in
+// the forward, x and dy in dw) is read so through the transpose bit, so
+// nothing is transposed.  A stage is released (its `empty` mbarrier) once
+// the next stage's wgmmas are issued and its own have retired, so one
+// group of products is always in flight; the producer meanwhile fills the
+// ring for the next tile while the consumers run this tile's epilogue,
+// which goes out through shared memory by TMA (chunks of 64 rows x 128
+// bytes, two buffers a consumer in turn) where the output's layout allows,
+// else by each thread's own stores.  Registers: the producer gives its own
+// back (setmaxnreg 40) and the consumers take 232 for their 128 fp32
+// accumulators.
+//   The fp32 weight: wgmma reads a bf16 B only from shared memory, so an
+// fp32 w takes one of two forms, chosen by the product's rows (the
+// wrapper's dense.W32_ROWS, 4096; phase timing times both).  Few rows
+// (the experts' 1,280): dense_w32_kernel computes y^T = w^T x^T (dx^T = w
+// dy^T) with w the A operand, which wgmma reads from registers: each
+// stage's fp32 slab lands by TMA and each thread rounds its fragment to
+// bf16 in registers (round to nearest even, the value of
+// .to(torch.bfloat16)); an in-flight register-A wgmma still reads its
+// registers, so each stage's group retires before the next stage's
+// fragments are loaded; the output tile is stored transposed by TMA.  Many
+// rows (the decoders' 8,192 and 16,384): w is first rounded into a bf16
+// copy that the wrapper allocates for the call and frees after it
+// (dense_cast_kernel: 6 bytes a weight, ~0.04 ms at gemma2-2b's gate/up
+// weight), and the products run as above; the copy is cheap beside a
+// product of many rows, the register form's retired stages are not.  Of
+// the other options, a converter warpgroup rewriting each fp32 stage would
+// need a 64 KB fp32 slab beside the bf16 ring (it holds three stages at
+// most), and a cluster sharing one converted tile needs cluster launches.
+// No bf16 copy of w outlives the call or is saved for the backward.
+//   dw where the output tiles do not fill the card (gemma2-2b's wq, wk/wv,
+// wo, mamba2-370m's in_proj and out_proj) splits the reduction over M into
+// a fixed number of slices (dense_dw_slices: 1 to 4, from the tile count,
+// the SM count and a cost of the partials' bytes); each slice writes its
+// fp32 partial tile into a scratch the wrapper allocates, and
+// dense_reduce_kernel sums the slices in index order and rounds once.  No
+// atomics anywhere: two calls give the same bits.
+//   Each output is one fp32 sum over the reduction in a fixed order (stage by
+// stage, the tensor core's order within a stage), rounded once to bf16; dw
+// is rounded to bf16 and then written in w's dtype: autograd's value for x @
+// w.to(bf16) followed by the cast's backward.  The forward may add a
 // residual in its epilogue (y = round(res + round(x @ w)): a pre-norm
-// layer's skip, the plain version's residual + y with both roundings);
-// a batched call takes none.  No atomics: a dw tile
-// walks all M rows itself (gemma2-2b's and mamba2-370m's dw have 64 to 648
-// tiles of 256 x 128).
+// layer's skip, the plain version's residual + y with both roundings); a
+// batched call takes none.
+//
+// bf16 x whose base, row stride or batch stride TMA cannot take (not 16-byte
+// aligned; the wrapper decides by layout and counts these launches apart,
+// dense.py's `mma_sync` counters) keeps the Ampere form (dense_tc_kernel):
+// mma.sync m16n8k16 bf16 with fp32 accumulators, 8 warps on a 256 x 128
+// tile (a warp 64 x 64), two cp.async stages of 64, tiles in the operands'
+// own layout with rows padded by 16 bytes (ldmatrix, .trans across rows),
+// an fp32 w rounded to bf16 by the threads that copied it, element loads
+// where a 16-byte copy is not aligned.  Same sums, roundings and epilogue.
 //
 // fp32 x (dense_f32_kernel, an fp32-compute model): a tiled SIMT product
 // with fp32 FMAs (no TF32) over the same operands, 64 x 64 tiles of 64
@@ -62,10 +96,10 @@
 // 989 TFLOP/s.  At gemma2-2b's gate/up projection (M = 8192 tokens,
 // K = 2304, N = 9216) a call does 348 GFLOP against 0.23 GB: 0.35 ms at
 // 989 TFLOP/s against 0.07 ms for the bytes at 3.35 TB/s; every call of the
-// two decoders' bodies is above the card's ~295 FLOP a byte.  This is the
-// simple form: the Hopper form (TMA loads by a producer warp into a ring of
-// stages, wgmma consumer warpgroups, a persistent grid) is the next step.
-#include "common.cuh"
+// two decoders' bodies is above the card's ~295 FLOP a byte.
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -455,6 +489,500 @@ dense_f32_kernel(const float* __restrict__ a, long sap, long sar, long sa,
     }
 }
 
+// ------------------------------------------- bf16, the Hopper form (wgmma)
+
+constexpr int GP = 128;   // output tile rows: two consumer warpgroups of 64
+constexpr int GQ = 256;   // output tile columns: one m64n256 wgmma
+constexpr int GR = 64;    // reduction depth of a stage: one 128-byte row
+constexpr int GS = 4;     // stages in the ring
+constexpr int GNT = 384;  // warpgroup 0 the producer, 1 and 2 the consumers
+constexpr int GA = GP * GR * 2;   // an A stage: 16 KB
+constexpr int GB = GR * GQ * 2;   // a B stage: 32 KB
+constexpr int GSTAGE = GA + GB;
+constexpr int BOX = 64 * GR * 2;  // one 64 x 64 box of 128-byte rows: 8 KB
+// the epilogue's buffers: two of 64 rows x 128 bytes a consumer
+constexpr int OUT = 2 * 2 * 64 * 128;
+constexpr size_t GSMEM =
+    1024 + GS * GSTAGE + OUT + 2 * GS * sizeof(uint64_t);
+
+constexpr int GROUP = 16;   // P tiles a group of the walk
+
+// A work unit of the persistent walk: the output tile (pt, qt) of batch b,
+// reduction slice sl.  The tiles go in groups of GROUP rows of tiles, P
+// fastest within a group, so the units resident at once (one an SM) share
+// both their A rows and their B columns in L2.
+struct Unit {
+  int pt, qt, sl, b;
+};
+__device__ __forceinline__ Unit unit_of(long u, int np, int nq, int slices) {
+  Unit w;
+  const long tiles = static_cast<long>(np) * nq;
+  const int idx = static_cast<int>(u % tiles);
+  u /= tiles;
+  const int first = idx / (GROUP * nq) * GROUP;
+  const int gp = min(GROUP, np - first);
+  const int rem = idx - first * nq;
+  w.pt = first + rem % gp;
+  w.qt = rem / gp;
+  w.sl = static_cast<int>(u % slices);
+  w.b = static_cast<int>(u / slices);
+  return w;
+}
+
+// This consumer's 64 x GQ tile of `acc` stored by TMA through shared
+// memory: chunks of 64 rows x 128 bytes (E = 128 / sizeof(T) columns), the
+// threads' values written in the swizzle into one of the consumer's two
+// buffers in turn while the other's store may still be reading.  PART: the
+// fp32 sums as they are (a split's partial); else each rounded to bf16 and
+// written in T, plus the residual (rounded again).  The box at (q0, pr0,
+// bz) of `map`; the tensor's edges clip the stores.
+template <typename T, bool PART>
+__device__ __forceinline__ void epilogue_tma(const float (&acc)[GQ / 2],
+                                             const CUtensorMap* map,
+                                             char* ob, int cw, int q0,
+                                             int pr0, int bz, const T* res,
+                                             long ldc, int P, int Q) {
+  constexpr int E = 128 / static_cast<int>(sizeof(T));
+  const int lt = threadIdx.x % 128, warp = lt / 32;
+  const int g = (lt % 32) / 4, tq = lt % 4;
+#pragma unroll
+  for (int c = 0; c < GQ / E; ++c) {
+    char* buf = ob + (c & 1) * 64 * 128;
+    if (lt == 0) repro::tma_store_wait<1>();   // the buffer's last store read
+    repro::named_barrier(1 + cw, 128);
+#pragma unroll
+    for (int jj = 0; jj < E / 8; ++jj) {
+      const int j = c * (E / 8) + jj;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + g + 8 * h;
+        T v0, v1;
+        if constexpr (PART) {
+          v0 = acc[4 * j + 2 * h];
+          v1 = acc[4 * j + 2 * h + 1];
+        } else {
+          v0 = from_bf16<T>(__float2bfloat16(acc[4 * j + 2 * h]));
+          v1 = from_bf16<T>(__float2bfloat16(acc[4 * j + 2 * h + 1]));
+          const int p = pr0 + r, q = q0 + 8 * j + 2 * tq;
+          if (res && p < P) {
+            if (q < Q) v0 = add_rounded(res[p * ldc + q], v0);
+            if (q + 1 < Q) v1 = add_rounded(res[p * ldc + q + 1], v1);
+          }
+        }
+        store_pair(reinterpret_cast<T*>(
+                       buf + repro::swz128(static_cast<uint32_t>(
+                                 r * 128 + (jj * 8 + 2 * tq) *
+                                               static_cast<int>(sizeof(T))))),
+                   v0, v1);
+      }
+    }
+    repro::fence_proxy_async();
+    repro::named_barrier(1 + cw, 128);
+    if (lt == 0) {
+      repro::tma_store_3d(map, buf, q0 + c * E, pr0, bz);
+      repro::tma_store_commit();
+    }
+  }
+}
+
+// C (P x Q, row stride ldc, batch stride sc, type TC) = A . B over the
+// tensor maps `ta` (A: AL == ROW rows p of r, COL rows r of p) and `tb` (B:
+// BL == RQ rows r of q, QR rows q of r), each 3D (columns, rows, batch).
+// slices > 1: slice sl of the reduction writes its fp32 partial tile to
+// part + ((b slices + sl) P + p) Q + q instead (dense_reduce_kernel sums
+// them).  tma_c: the tiles go out through shared memory by TMA, `tc` C's
+// map (3D: columns, rows, batch) or the partials' (columns, rows, batch x
+// slices); else each thread stores its own values.
+template <int AL, int BL, typename TC>
+__global__ void __launch_bounds__(GNT, 1)
+dense_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                   const __grid_constant__ CUtensorMap tb,
+                   const __grid_constant__ CUtensorMap tc, int tma_c,
+                   TC* __restrict__ c, const TC* __restrict__ res, long ldc,
+                   long sc, int P, int Q, int R, int batch, int slices,
+                   float* __restrict__ part) {
+  extern __shared__ float smem[];
+  char* ring = repro::align1024(smem);
+  char* outbuf = ring + GS * GSTAGE;   // the epilogue's buffers
+  uint64_t* full = reinterpret_cast<uint64_t*>(outbuf + OUT);
+  uint64_t* empty = full + GS;
+  const int np = (P + GP - 1) / GP, nq = (Q + GQ - 1) / GQ;
+  const int steps = (R + GR - 1) / GR;
+  const int per = (steps + slices - 1) / slices;   // stages a slice
+  const long units = static_cast<long>(batch) * slices * nq * np;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GS; ++s) {
+      repro::mbar_init(&full[s], 1);
+      repro::mbar_init(&empty[s], 2 * 128);
+    }
+    repro::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    // the producer: one thread issues every copy
+    repro::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0, phase = 0;
+      for (long u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit w = unit_of(u, np, nq, slices);
+        const int p0 = w.pt * GP, q0 = w.qt * GQ;
+        const int t1 = min(steps, (w.sl + 1) * per);
+        for (int t = w.sl * per; t < t1; ++t) {
+          repro::mbar_wait(&empty[stage], phase ^ 1);
+          char* st = ring + stage * GSTAGE;
+          uint64_t* bar = &full[stage];
+          repro::mbar_arrive_expect_tx(bar, GSTAGE);
+          const int r0 = t * GR;
+          if (AL == ROW) {   // 128 rows of 64 r
+            repro::tma_load_3d(st, &ta, bar, r0, p0, w.b);
+          } else {           // 64 rows of r, 64 p a box
+#pragma unroll
+            for (int j = 0; j < GP / 64; ++j)
+              repro::tma_load_3d(st + j * BOX, &ta, bar, p0 + 64 * j, r0,
+                                 w.b);
+          }
+          char* bs = st + GA;
+          if (BL == RQ) {    // 64 rows of r, 64 q a box
+#pragma unroll
+            for (int j = 0; j < GQ / 64; ++j)
+              repro::tma_load_3d(bs + j * BOX, &tb, bar, q0 + 64 * j, r0,
+                                 w.b);
+          } else {           // 256 rows of 64 r
+            repro::tma_load_3d(bs, &tb, bar, r0, q0, w.b);
+          }
+          if (++stage == GS) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    repro::setmaxnreg_inc<232>();
+    const int cw = threadIdx.x / 128 - 1;   // rows 64 cw .. of the tile
+    const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
+    const int g = lane / 4, tq = lane % 4;
+    int stage = 0, phase = 0;
+    float acc[GQ / 2];
+    const bool pairs = ldc % 2 == 0 &&
+                       (reinterpret_cast<uintptr_t>(c) % (2 * sizeof(TC))) ==
+                           0;
+    const bool res_pairs =
+        pairs && (reinterpret_cast<uintptr_t>(res) % (2 * sizeof(TC))) == 0;
+    for (long u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit w = unit_of(u, np, nq, slices);
+      const int p0 = w.pt * GP, q0 = w.qt * GQ;
+      const int t1 = min(steps, (w.sl + 1) * per);
+#pragma unroll
+      for (int i = 0; i < GQ / 2; ++i) acc[i] = 0.0f;
+      int prev = -1;
+      for (int t = w.sl * per; t < t1; ++t) {
+        repro::mbar_wait(&full[stage], phase);
+        const char* st = ring + stage * GSTAGE;
+        const char* as = st + cw * (AL == ROW ? 64 * 128 : BOX);
+        const char* bs = st + GA;
+        repro::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < GR / 16; ++kk) {
+          const uint64_t da = AL == ROW
+                                  ? repro::desc128(as + 32 * kk, 16, 1024)
+                                  : repro::desc128(as + 2048 * kk, BOX, 1024);
+          const uint64_t db = BL == QR
+                                  ? repro::desc128(bs + 32 * kk, 16, 1024)
+                                  : repro::desc128(bs + 2048 * kk, BOX, 1024);
+          repro::wgmma_ss<GQ, AL == COL, BL == RQ>(acc, da, db);
+        }
+        repro::wgmma_commit();
+        repro::wgmma_wait<1>();   // the stage before this one is read
+        if (prev >= 0) repro::mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == GS) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      repro::wgmma_wait<0>();
+      repro::fence_regs(acc);
+      if (prev >= 0) repro::mbar_arrive(&empty[prev]);
+
+      if (tma_c) {
+        char* ob = outbuf + cw * 2 * 64 * 128;
+        if (slices > 1)
+          epilogue_tma<float, true>(acc, &tc, ob, cw, q0, p0 + 64 * cw,
+                                    w.b * slices + w.sl, nullptr, 0, P, Q);
+        else
+          epilogue_tma<TC, false>(acc, &tc, ob, cw, q0, p0 + 64 * cw, w.b,
+                                  res, ldc, P, Q);
+        continue;
+      }
+      // the epilogue: a thread's rows p0 + 64 cw + 16 warp + g (+ 8), its
+      // columns 8 j + 2 tq (+ 1)
+      const int pr = p0 + 64 * cw + 16 * warp + g;
+      if (slices > 1) {
+        float* pb = part + (static_cast<long>(w.b) * slices + w.sl) *
+                               static_cast<long>(P) * Q;
+        const bool fpairs = Q % 2 == 0;
+#pragma unroll
+        for (int j = 0; j < GQ / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = pr + 8 * h, q = q0 + 8 * j + 2 * tq;
+            if (p >= P) continue;
+            float* dst = pb + static_cast<long>(p) * Q + q;
+            if (fpairs && q + 1 < Q) {
+              store_pair(dst, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+            } else {
+              if (q < Q) dst[0] = acc[4 * j + 2 * h];
+              if (q + 1 < Q) dst[1] = acc[4 * j + 2 * h + 1];
+            }
+          }
+        continue;
+      }
+      TC* cb = c + w.b * sc;
+#pragma unroll
+      for (int j = 0; j < GQ / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = pr + 8 * h, q = q0 + 8 * j + 2 * tq;
+          if (p >= P) continue;
+          TC v0 = from_bf16<TC>(__float2bfloat16(acc[4 * j + 2 * h]));
+          TC v1 = from_bf16<TC>(__float2bfloat16(acc[4 * j + 2 * h + 1]));
+          if (res) {
+            const TC* rs = res + p * ldc + q;
+            if (res_pairs && q + 1 < Q) {
+              TC r0, r1;
+              load_pair(rs, &r0, &r1);
+              v0 = add_rounded(r0, v0);
+              v1 = add_rounded(r1, v1);
+            } else {
+              if (q < Q) v0 = add_rounded(rs[0], v0);
+              if (q + 1 < Q) v1 = add_rounded(rs[1], v1);
+            }
+          }
+          TC* dst = cb + p * ldc + q;
+          if (pairs && q + 1 < Q) {
+            store_pair(dst, v0, v1);
+          } else {
+            if (q < Q) dst[0] = v0;
+            if (q + 1 < Q) dst[1] = v1;
+          }
+        }
+    }
+    // the block's shared memory must outlive the stores reading it
+    if (tma_c && lt == 0) repro::tma_store_wait<0>();
+  }
+}
+
+// ------------------------- bf16 x, fp32 w: the weight as the register A
+//
+// The products whose B would be the fp32 weight (the forward and dx) run
+// transposed, so the weight is the A operand, which wgmma reads from
+// registers: forward y^T = w^T x^T, dx^T = w dy^T.  Each stage lands the
+// fp32 weight slab by TMA (boxes of 32 fp32, one 128-byte row); each
+// consumer thread loads its A fragment of a 16-deep step from it and rounds
+// it to bf16 (round to nearest even, .to(torch.bfloat16)) in registers; B
+// is x or dy (K-major, as they lie).  No bf16 copy of the weight exists at
+// any point.  The output tile (128 weight columns x 256 rows of x) is
+// stored transposed through shared memory by TMA.
+
+constexpr int WSTAGES = 3;
+constexpr int WA = 64 * GP * 4;       // the fp32 weight slab: 32 KB
+constexpr int WSTAGE = WA + GB;       // and 256 rows of x or dy: 32 KB
+constexpr size_t WSMEM =
+    1024 + WSTAGES * WSTAGE + OUT + 2 * WSTAGES * sizeof(uint64_t);
+
+// C^T tile: P' = the weight's output axis (N forward, K dx), the rows of C
+// (M) the wgmma N; R' the reduction (K forward, N dx).  DX 0: the weight
+// slab is rows r of 128 p (w (K, N) read MN-major: 4 boxes of 32 p x 64 r);
+// DX 1: rows p of 64 r (w read K-major: 2 boxes of 32 r x 128 p).  `tc`:
+// C's map (columns P', rows M, batch), boxes of 64 x 64.
+template <int DX>
+__global__ void __launch_bounds__(GNT, 1)
+dense_w32_kernel(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb,
+                 const __grid_constant__ CUtensorMap tc,
+                 const bf16* __restrict__ res, long ldc, int P, int M, int R,
+                 int batch) {
+  extern __shared__ float smem[];
+  char* ring = repro::align1024(smem);
+  char* outbuf = ring + WSTAGES * WSTAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(outbuf + OUT);
+  uint64_t* empty = full + WSTAGES;
+  const int np = (P + GP - 1) / GP, nm = (M + GQ - 1) / GQ;
+  const int steps = (R + GR - 1) / GR;
+  const long units = static_cast<long>(batch) * nm * np;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WSTAGES; ++s) {
+      repro::mbar_init(&full[s], 1);
+      repro::mbar_init(&empty[s], 2 * 128);
+    }
+    repro::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    repro::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0, phase = 0;
+      for (long u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit w = unit_of(u, np, nm, 1);
+        const int p0 = w.pt * GP, m0 = w.qt * GQ;
+        for (int t = 0; t < steps; ++t) {
+          repro::mbar_wait(&empty[stage], phase ^ 1);
+          char* st = ring + stage * WSTAGE;
+          uint64_t* bar = &full[stage];
+          repro::mbar_arrive_expect_tx(bar, WSTAGE);
+          const int r0 = t * GR;
+          if (DX == 0) {
+#pragma unroll
+            for (int j = 0; j < GP / 32; ++j)
+              repro::tma_load_3d(st + j * 64 * 128, &ta, bar, p0 + 32 * j,
+                                 r0, w.b);
+          } else {
+#pragma unroll
+            for (int j = 0; j < GR / 32; ++j)
+              repro::tma_load_3d(st + j * GP * 128, &ta, bar, r0 + 32 * j,
+                                 p0, w.b);
+          }
+          repro::tma_load_3d(st + WA, &tb, bar, r0, m0, w.b);
+          if (++stage == WSTAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    repro::setmaxnreg_inc<232>();
+    const int cw = threadIdx.x / 128 - 1;   // weight columns 64 cw ..
+    const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
+    const int g = lane / 4, tq = lane % 4;
+    const int pa = 64 * cw + 16 * warp + g;   // this thread's A rows (+ 8)
+    int stage = 0, phase = 0;
+    float acc[GQ / 2];
+    for (long u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit w = unit_of(u, np, nm, 1);
+      const int p0 = w.pt * GP, m0 = w.qt * GQ;
+#pragma unroll
+      for (int i = 0; i < GQ / 2; ++i) acc[i] = 0.0f;
+      for (int t = 0; t < steps; ++t) {
+        repro::mbar_wait(&full[stage], phase);
+        const char* st = ring + stage * WSTAGE;
+        // the A fragments of the stage's four 16-deep steps, rounded
+        uint32_t af[GR / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < GR / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int p = pa + 8 * (i & 1);
+            const int r = 16 * kk + 2 * tq + 8 * (i >> 1);
+            float2 v;
+            if (DX == 0) {   // (r, p) in box p / 32 of 64 rows r
+              const char* box = st + (p / 32) * 64 * 128;
+              v.x = *reinterpret_cast<const float*>(
+                  box + repro::swz128(r * 128 + (p % 32) * 4));
+              v.y = *reinterpret_cast<const float*>(
+                  box + repro::swz128((r + 1) * 128 + (p % 32) * 4));
+            } else {         // (p, r), (p, r + 1) in box r / 32 of 128 rows
+              const char* box = st + (r / 32) * GP * 128;
+              v = *reinterpret_cast<const float2*>(
+                  box + repro::swz128(p * 128 + (r % 32) * 4));
+            }
+            af[kk][i] = repro::pack_bf16x2(v.x, v.y);
+          }
+        repro::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < GR / 16; ++kk)
+          repro::wgmma_rs<GQ, 0>(
+              acc, af[kk], repro::desc128(st + WA + 32 * kk, 16, 1024));
+        repro::wgmma_commit();
+        // an in-flight wgmma still reads its A registers: the group retires
+        // before the next stage's fragments are written (two sets of
+        // fragments with one group in flight ran slower on the card)
+        repro::wgmma_wait<0>();
+        repro::keep_regs(af);
+        repro::mbar_arrive(&empty[stage]);
+        if (++stage == WSTAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      repro::fence_regs(acc);
+
+      // the epilogue: acc holds C^T (rows p, columns m); C's 64 x 64 boxes
+      // are rows m of 64 p, written through the swizzle one value at a time
+      char* ob = outbuf + cw * 2 * 64 * 128;
+#pragma unroll
+      for (int c = 0; c < GQ / 64; ++c) {
+        char* buf = ob + (c & 1) * 64 * 128;
+        if (lt == 0) repro::tma_store_wait<1>();
+        repro::named_barrier(1 + cw, 128);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = 8 * c + jj;
+            const int pl = 16 * warp + g + 8 * (e >> 1);   // within 64
+            const int ml = 8 * jj + 2 * tq + (e & 1);      // within 64
+            bf16 v = __float2bfloat16(acc[4 * j + e]);
+            const int p = p0 + 64 * cw + pl, m = m0 + 64 * c + ml;
+            if (res && p < P && m < M)
+              v = add_rounded(res[static_cast<long>(m) * ldc + p], v);
+            *reinterpret_cast<bf16*>(
+                buf + repro::swz128(static_cast<uint32_t>(ml * 128 +
+                                                          pl * 2))) = v;
+          }
+        repro::fence_proxy_async();
+        repro::named_barrier(1 + cw, 128);
+        if (lt == 0) {
+          repro::tma_store_3d(&tc, buf, p0 + 64 * cw, m0 + 64 * c, w.b);
+          repro::tma_store_commit();
+        }
+      }
+    }
+    if (lt == 0) repro::tma_store_wait<0>();
+  }
+}
+
+// c[b sc + e] = round(sum over s < slices, in order, of part[(b stride +
+// s) pq + e]), written in TC: the split reduction's second pass (stride:
+// the partials a batch holds)
+template <typename TC>
+__global__ void __launch_bounds__(256)
+dense_reduce_kernel(const float* __restrict__ part, TC* __restrict__ c,
+                    int slices, int stride, long pq, int batch, long sc) {
+  const long n = static_cast<long>(batch) * pq;
+  for (long i = blockIdx.x * 256L + threadIdx.x; i < n;
+       i += static_cast<long>(gridDim.x) * 256) {
+    const long b = i / pq, e = i % pq;
+    const float* src = part + b * stride * pq + e;
+    float s = 0.0f;
+    for (int k = 0; k < slices; ++k) s += src[k * pq];
+    c[b * sc + e] = from_bf16<TC>(__float2bfloat16(s));
+  }
+}
+
+// out[b kn + e] = bf16(w[b sw + e]) (round to nearest even), kn % 4 == 0:
+// the per-call bf16 copy of an fp32 weight the Hopper form reads
+__global__ void __launch_bounds__(256)
+dense_cast_kernel(const float* __restrict__ w, long sw, bf16* __restrict__ out,
+                  long kn, int batch) {
+  const long n4 = static_cast<long>(batch) * (kn / 4);
+  const bool vec = (reinterpret_cast<uintptr_t>(w) % 16) == 0 && sw % 4 == 0;
+  for (long i = blockIdx.x * 256L + threadIdx.x; i < n4;
+       i += static_cast<long>(gridDim.x) * 256) {
+    const long b = i / (kn / 4), e = (i % (kn / 4)) * 4;
+    const float* src = w + b * sw + e;
+    float4 f;
+    if (vec) {
+      f = *reinterpret_cast<const float4*>(src);
+    } else {
+      f = make_float4(src[0], src[1], src[2], src[3]);
+    }
+    *reinterpret_cast<uint2*>(out + b * kn + e) = make_uint2(
+        repro::pack_bf16x2(f.x, f.y), repro::pack_bf16x2(f.z, f.w));
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -500,6 +1028,105 @@ int launch_f32(const void* a, long sap, long sar, const void* b, long sbr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A 3D bf16 tensor map over `batch` matrices of rows x cols (row stride
+// ld, batch stride sb, in elements), boxes of box0 columns x box1 rows.
+int map3(CUtensorMap* m, const void* base, long cols, long rows, long ld,
+         int batch, long sb, uint32_t box0, uint32_t box1, int fp32 = 0) {
+  const uint64_t es = fp32 ? 4 : 2;
+  const uint64_t dims[3] = {static_cast<uint64_t>(cols),
+                            static_cast<uint64_t>(rows),
+                            static_cast<uint64_t>(batch)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(ld) * es,
+                               static_cast<uint64_t>(batch > 1 ? sb
+                                                               : rows * ld) *
+                                   es};
+  const uint32_t box[3] = {box0, box1, 1};
+  return repro::tensor_map(m, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                           base, 3, dims, strides, box);
+}
+
+// C's map for the TMA epilogue (0 where TMA cannot write C: a base not
+// 16-byte aligned, or a row or batch stride not a multiple of 16 bytes)
+int map_c(CUtensorMap* m, const void* c, long cols, long rows, long ld,
+          int batch, long sb, int fp32) {
+  const long per = fp32 ? 4 : 8;   // values a 16-byte step
+  if (!aligned16(c) || ld % per || (batch > 1 && sb % per)) return 0;
+  return map3(m, c, cols, rows, ld, batch, sb, fp32 ? 32 : 64, 64, fp32) == 0;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
+template <int AL, int BL, typename TC>
+int launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb, void* c,
+                 const void* res, long ldc, long sc, int P, int Q, int R,
+                 int batch, int slices, float* part, void* stream) {
+  // the epilogue by TMA where the output (C, or the partials) allows it
+  CUtensorMap tc;
+  const int tma_c =
+      slices > 1 ? map_c(&tc, part, Q, P, Q, batch * slices,
+                         static_cast<long>(P) * Q, 1)
+                 : map_c(&tc, c, Q, P, ldc, batch, sc, sizeof(TC) == 4);
+  auto kern = dense_wgmma_kernel<AL, BL, TC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kern),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(GSMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long units = static_cast<long>(batch) * slices *
+                     ((P + GP - 1) / GP) * ((Q + GQ - 1) / GQ);
+  const int grid = static_cast<int>(std::min<long>(units, sm_count()));
+  kern<<<grid, GNT, GSMEM, static_cast<cudaStream_t>(stream)>>>(
+      ta, tb, tma_c ? tc : ta, tma_c, static_cast<TC*>(c),
+      static_cast<const TC*>(res), ldc, sc, P, Q, R, batch, slices, part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The register-A form for an fp32 weight: DX 0 the forward (C = y, P' =
+// N, R' = K, B = x), DX 1 dx (C = dx, P' = K, R' = N, B = dy); C's map must
+// be valid (a 16-byte aligned base, rows of whole 16 bytes).
+template <int DX>
+int launch_w32(const void* w, long sw, const void* b, long ldb, long sb,
+               void* c, long ldc, long sc, const void* res, int M, int K,
+               int N, int batch, void* stream) {
+  CUtensorMap ta, tb, tc;
+  const int P = DX ? K : N, R = DX ? N : K;
+  int err = DX ? map3(&ta, w, N, K, N, batch, sw, 32, GP, 1)
+               : map3(&ta, w, N, K, N, batch, sw, 32, GR, 1);
+  if (err || (err = map3(&tb, b, R, M, ldb, batch, sb, 64, GQ)))
+    return err;
+  if (!map_c(&tc, c, P, M, ldc, batch, sc, 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = dense_w32_kernel<DX>;
+  cudaError_t e = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kern),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(WSMEM));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long units = static_cast<long>(batch) * ((P + GP - 1) / GP) *
+                     ((M + GQ - 1) / GQ);
+  const int grid = static_cast<int>(std::min<long>(units, sm_count()));
+  kern<<<grid, GNT, WSMEM, static_cast<cudaStream_t>(stream)>>>(
+      ta, tb, tc, static_cast<const bf16*>(res), ldc, P, M, R, batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// w (batch x K x N fp32, batch stride sw) rounded into wbuf (contiguous):
+// the bf16 B the Hopper form reads
+int cast_w(const void* w, long sw, void* wbuf, int K, int N, int batch,
+           void* stream) {
+  const long kn = static_cast<long>(K) * N;
+  const long n4 = batch * (kn / 4);
+  const int grid = static_cast<int>(std::min<long>((n4 + 255) / 256, 4096));
+  dense_cast_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w), batch > 1 ? sw : kn,
+      static_cast<bf16*>(wbuf), kn, batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the most output columns a launch takes (gridDim.y of 64-column tiles)
 constexpr long MAX_Q = 65535L * FT;
 
@@ -519,15 +1146,39 @@ bool empty_or_too_big(int P, int Q, int batch, int* err) {
 // contiguous in x's dtype or null: y = res + x @ w.  K and N at most
 // 65535 x 64 (cudaErrorInvalidValue otherwise).  `batch` products (at most
 // 65535), the i-th at x + i sx, w + i sw, y + i sy (strides in elements):
-// the experts' products, one an expert (no residual).
+// the experts' products, one an expert (no residual).  tma (bf16 x only):
+// the Hopper form, whose operands the caller has checked TMA can take (x's
+// base 16-byte aligned, ldx and sx multiples of 8, N a multiple of 8, a
+// bf16 w's base aligned); an fp32 w is then rounded into wbuf (batch x K x
+// N bf16) first, or, with wbuf null (its base aligned), read as the
+// register operand (dense_w32_kernel).  tma 0: the mma.sync form.
 extern "C" int dense_fwd(const void* x, long ldx, const void* w, void* y,
                          const void* res, int M, int K, int N, int x_bf16,
                          int w_bf16, int batch, long sx, long sw, long sy,
-                         void* stream) {
+                         int tma, void* wbuf, void* stream) {
   int err;
   if (empty_or_too_big(M, N, batch, &err)) return err;
   if (res && batch != 1) return static_cast<int>(cudaErrorInvalidValue);
   const Batch bt{batch, sx, sw, sy};
+  if (x_bf16 && tma) {
+    if (K <= 0 || N % 8) return static_cast<int>(cudaErrorInvalidValue);
+    if (!w_bf16 && !wbuf)
+      return launch_w32<0>(w, sw, x, ldx, sx, y, N, sy, res, M, K, N, batch,
+                           stream);
+    const void* wb = w;
+    long swb = sw;
+    if (!w_bf16) {
+      if ((err = cast_w(w, sw, wbuf, K, N, batch, stream))) return err;
+      wb = wbuf;
+      swb = static_cast<long>(K) * N;
+    }
+    CUtensorMap ta, tb;
+    if ((err = map3(&ta, x, K, M, ldx, batch, sx, 64, GP)) ||
+        (err = map3(&tb, wb, N, K, N, batch, swb, 64, GR)))
+      return err;
+    return launch_wgmma<ROW, RQ, bf16>(ta, tb, y, res, N, sy, M, N, K, batch,
+                                       1, nullptr, stream);
+  }
   if (x_bf16)
     return w_bf16 ? launch_tc<ROW, RQ, bf16, bf16>(x, ldx, w, N, y, N, M, N,
                                                    K, bt, stream, res)
@@ -540,14 +1191,35 @@ extern "C" int dense_fwd(const void* x, long ldx, const void* w, void* y,
 }
 
 // dy (M, N) with row stride lddy, in x's dtype; dx (M, K) contiguous.
-// Batched as dense_fwd: dy + i sdy, w + i sw, dx + i sdx.
+// Batched as dense_fwd: dy + i sdy, w + i sw, dx + i sdx; tma and wbuf as
+// there (dy's base, lddy and sdy in place of x's; the register operand
+// needs K a multiple of 8, dx's rows written by TMA).
 extern "C" int dense_dx(const void* dy, long lddy, const void* w, void* dx,
                         int M, int K, int N, int x_bf16, int w_bf16,
-                        int batch, long sdy, long sw, long sdx,
-                        void* stream) {
+                        int batch, long sdy, long sw, long sdx, int tma,
+                        void* wbuf, void* stream) {
   int err;
   if (empty_or_too_big(M, K, batch, &err)) return err;
   const Batch bt{batch, sdy, sw, sdx};
+  if (x_bf16 && tma) {
+    if (N <= 0 || N % 8) return static_cast<int>(cudaErrorInvalidValue);
+    if (!w_bf16 && !wbuf)
+      return launch_w32<1>(w, sw, dy, lddy, sdy, dx, K, sdx, nullptr, M, K, N,
+                           batch, stream);
+    const void* wb = w;
+    long swb = sw;
+    if (!w_bf16) {
+      if ((err = cast_w(w, sw, wbuf, K, N, batch, stream))) return err;
+      wb = wbuf;
+      swb = static_cast<long>(K) * N;
+    }
+    CUtensorMap ta, tb;
+    if ((err = map3(&ta, dy, N, M, lddy, batch, sdy, 64, GP)) ||
+        (err = map3(&tb, wb, N, K, N, batch, swb, 64, GQ)))
+      return err;
+    return launch_wgmma<ROW, QR, bf16>(ta, tb, dx, nullptr, K, sdx, M, K, N,
+                                       batch, 1, nullptr, stream);
+  }
   if (x_bf16)
     return w_bf16 ? launch_tc<ROW, QR, bf16, bf16>(dy, lddy, w, N, dx, K, M,
                                                    K, N, bt, stream)
@@ -559,16 +1231,91 @@ extern "C" int dense_dx(const void* dy, long lddy, const void* w, void* dx,
                                            N, bt, stream);
 }
 
+// The slices dw's reduction over M is split into on the Hopper form (1 to
+// 4): the count whose waves of (tile, slice) units over the SMs, plus the
+// partials' bytes (written once, read once) at 3.35 TB/s, cost least, a
+// full tile's walk over M taken at 5 TFLOP/s an SM; no split where the
+// tiles fill the card twice, and no slice under 512 rows.
+extern "C" int dense_dw_slices(int M, int K, int N, int batch) {
+  if (M <= 0 || K <= 0 || N <= 0 || batch <= 0) return 1;
+  const long tiles = static_cast<long>(batch) * ((K + GP - 1) / GP) *
+                     ((N + GQ - 1) / GQ);
+  const long sms = sm_count();
+  if (tiles >= 2 * sms) return 1;
+  const double t_tile = 2.0 * GP * GQ * M / 5e12;
+  const double kn = static_cast<double>(batch) * K * N;
+  int best = 1;
+  double best_cost = 0.0;
+  for (int s = 1; s <= 4; ++s) {
+    if (s > 1 && M / s < 512) break;
+    const double waves = static_cast<double>((tiles * s + sms - 1) / sms);
+    const double cost =
+        waves / s * t_tile + (s > 1 ? (8.0 * s + 2.0) * kn / 3.35e12 : 0.0);
+    if (s == 1 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// The split reduction's second pass: dw (batch x K x N in w's dtype,
+// batch stride sdw) = the sum of the first `slices` of the `stride`
+// partials a batch holds in part (batch x stride x K x N fp32), in index
+// order, rounded once to bf16.
+extern "C" int dense_dw_reduce(const void* part, void* dw, int slices,
+                               int stride, int K, int N, int w_bf16,
+                               int batch, long sdw, void* stream) {
+  const long pq = static_cast<long>(K) * N;
+  const long n = batch * pq;
+  if (n <= 0) return 0;
+  if (slices < 1 || slices > stride)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(std::min<long>((n + 255) / 256, 8192));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* pf = static_cast<const float*>(part);
+  if (w_bf16) {
+    bf16* out = static_cast<bf16*>(dw);
+    dense_reduce_kernel<bf16><<<grid, 256, 0, st>>>(pf, out, slices, stride,
+                                                    pq, batch, sdw);
+  } else {
+    float* out = static_cast<float*>(dw);
+    dense_reduce_kernel<float><<<grid, 256, 0, st>>>(pf, out, slices, stride,
+                                                     pq, batch, sdw);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // dw (K, N) contiguous in w's dtype: the sum over all M rows.  Batched as
 // dense_fwd: x + i sx, dy + i sdy, dw + i sdw (each expert's dw the sum
-// over its own rows).
+// over its own rows).  tma (bf16 x): the Hopper form (x's and dy's bases,
+// row and batch strides as dense_fwd's x), its reduction split into
+// `slices` (dense_dw_slices) whose fp32 partials go to part (batch x slices
+// x K x N) and are summed by dense_dw_reduce; slices 1 writes dw directly.
 extern "C" int dense_dw(const void* x, long ldx, const void* dy, long lddy,
                         void* dw, int M, int K, int N, int x_bf16, int w_bf16,
-                        int batch, long sx, long sdy, long sdw,
-                        void* stream) {
+                        int batch, long sx, long sdy, long sdw, int tma,
+                        int slices, void* part, void* stream) {
   int err;
   if (empty_or_too_big(K, N, batch, &err)) return err;
   const Batch bt{batch, sx, sdy, sdw};
+  if (x_bf16 && tma) {
+    if (M <= 0 || slices < 1 || (slices > 1 && part == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap ta, tb;
+    if ((err = map3(&ta, x, K, M, ldx, batch, sx, 64, GR)) ||
+        (err = map3(&tb, dy, N, M, lddy, batch, sdy, 64, GR)))
+      return err;
+    float* pf = static_cast<float*>(part);
+    err = w_bf16 ? launch_wgmma<COL, RQ, bf16>(ta, tb, dw, nullptr, N, sdw, K,
+                                              N, M, batch, slices, pf, stream)
+                 : launch_wgmma<COL, RQ, float>(ta, tb, dw, nullptr, N, sdw,
+                                               K, N, M, batch, slices, pf,
+                                               stream);
+    if (err || slices == 1) return err;
+    return dense_dw_reduce(pf, dw, slices, slices, K, N, w_bf16, batch, sdw,
+                           stream);
+  }
   if (x_bf16)
     return w_bf16 ? launch_tc<COL, RQ, bf16, bf16>(x, ldx, dy, lddy, dw, N,
                                                    K, N, M, bt, stream)

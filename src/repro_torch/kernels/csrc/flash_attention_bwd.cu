@@ -29,37 +29,59 @@
 // p, and writes Dv for the second launch), then a dK/dV launch (one block per
 // (batch, kv head, kv tile): it walks the query tiles of every head of its
 // group that can see its keys and keeps dK and dV on chip).  FlashAttention-2
-// instead accumulates dQ with float atomics from the dK/dV walk, which is
-// not deterministic; the split recomputes s and dP once more (seven products
-// of the tile where five are needed).  Tiles the causal mask or the window
-// rule out entirely are never visited.
+// and -3 instead accumulate dQ with float atomics from the dK/dV walk, which
+// is not deterministic; the split recomputes s and dP once more (seven
+// products of the tile where five are needed).  A single pass with a
+// fixed-order dQ sum behind a per-query-tile turn counter would need every
+// kv tile's block of a query tile resident in turn; the two launches need
+// no such order.  Tiles the causal mask or the window rule out entirely are
+// never visited.
 //
 // Bound: at gemma2-2b's layer (B=2, S=4096, 8 heads of 256, causal) the five
 // products of the backward are ~343 GFLOP against ~0.2 GB of bytes: bound by
 // the bf16 tensor cores (0.35 ms at 989 TFLOP/s).
 //
-// bf16 (D in {16, 32, 64, 128, 256}) runs on mma.sync m16n8k16 with fp32
-// accumulation, tiles bf16 in shared memory with rows padded by 16 bytes
-// (ldmatrix rows in distinct banks), 16-byte cp.async loads double-buffered.
+// bf16 at D in {64, 128, 256} (the Hopper form): both launches are
+// warp-specialised, warpgroup 0's first thread issuing TMA loads (4D tensor
+// maps over (B, S, heads, D): a head's rows at stride heads x D, 64-column
+// boxes in the 128-byte swizzle) into a ring of stages behind mbarriers,
+// warpgroups 1 and 2 consuming with wgmma (fp32 accumulators; every operand
+// that lies MN-major is read through the transpose bit).
+//   dQ (bwd_dq_wgmma_kernel): 128 query rows a block, 64 a consumer; Q and
+//   dO land once (each consumer rounds q * scale in place for its rows and
+//   computes its rows' Dv and lse), K and V tiles of 64 keys (32 at D =
+//   256) stream through the ring; S = Q K^T and dP = dO V^T from shared
+//   memory, p and dS on the accumulators, dQ += dS K with dS as the
+//   register A operand and K read MN-major.
+//   dK/dV (bwd_dkdv_wgmma_kernel): query tiles of 64 rows stream through the
+//   ring; warpgroup 0's warps 1-3 prepare each landed stage (q * scale
+//   rounded in place, the rows' lse and Dv into shared memory) so the
+//   consumers do neither.  D <= 128: 128 keys a block, a consumer owns 64
+//   keys with all D columns of dK and dV, computes S^T = K Q^T and dP^T = V
+//   dO^T for them and keeps p^T and dS^T in its registers as the A operand
+//   of dV += p^T dO and dK += dS^T Q.  D = 256 (dK and dV of 64 x 256 fp32
+//   would be 256 registers a thread): 64 keys a block, each consumer
+//   computes S^T, dP^T for half the rows, both write p^T and dS^T (bf16,
+//   swizzled, double-buffered) to shared memory, and each owns 128 columns
+//   of dK and dV.
+// bf16 at D in {16, 32} (the SMOKE configs' widths, under one 128-byte row)
+// keeps the Ampere form: mma.sync m16n8k16 with fp32 accumulation, tiles
+// bf16 in shared memory with rows padded by 16 bytes (ldmatrix rows in
+// distinct banks), 16-byte cp.async loads double-buffered.
 //   dQ launch: 4 warps, 64 query rows (16 a warp, as the forward); S = Q K^T
-//   and dP = dO V^T per kv tile, p and dS on the accumulator fragments in
-//   registers, dS (bf16) reused as the A fragment of dS . K (K through
-//   ldmatrix.trans), dQ in registers (16 x D fp32 a warp).  Kv tiles of 32
-//   keys at D = 256, else 64.
-//   dK/dV launch: kv tiles of 32 keys at D = 256, else 64; query tiles of
-//   64 rows.  Phase A: the warps share the (keys x rows) tile in 16 x 16
-//   pieces and compute S^T = K Q^T and dP^T = V dO^T, then p^T and dS^T,
-//   written bf16 to shared memory.  Phase B: each warp owns 16 keys and up
-//   to 64 columns of dK and dV (2 x 64 fp32 registers a thread, which is why
-//   the accumulators fit at D = 256: 8 warps of 256 threads share the
-//   32 x 256 dK and dV), dV += p^T dO and dK += dS^T Q with dO and Q through
-//   ldmatrix.trans.  The next query tile loads while this one computes.
+//   and dP = dO V^T per kv tile of 64 keys, p and dS on the accumulator
+//   fragments in registers, dS (bf16) reused as the A fragment of dS . K (K
+//   through ldmatrix.trans), dQ in registers (16 x D fp32 a warp).
+//   dK/dV launch: kv tiles of 64 keys, query tiles of 64 rows.  Phase A: the
+//   warps share the (keys x rows) tile in 16 x 16 pieces and compute S^T =
+//   K Q^T and dP^T = V dO^T, then p^T and dS^T, written bf16 to shared
+//   memory.  Phase B: each warp owns 16 keys and all D columns of dK and
+//   dV, dV += p^T dO and dK += dS^T Q with dO and Q through ldmatrix.trans.
+//   The next query tile loads while this one computes.
 // fp32 (any D <= 256) keeps to the CUDA cores (no TF32): the same two
 // launches with fp32 FMA from shared memory, lanes owning keys (dQ) or rows
 // (dK/dV) for the scores and columns for the accumulators.
-// The next step is the Hopper form (TMA, wgmma, one pass with a
-// deterministic dQ reduction).
-#include "common.cuh"
+#include "hopper.cuh"
 
 using repro::from_f32;
 using repro::to_f32;
@@ -482,7 +504,7 @@ constexpr int DQ_NT = 128;  // 4 warps
 
 template <int D>
 struct DqShape {
-  static constexpr int BK = D == 256 ? 32 : 64;  // keys per kv tile
+  static constexpr int BK = 64;                  // keys per kv tile
   static constexpr int LDS = D + 8;              // +16 bytes a row
   static constexpr size_t smem =
       sizeof(bf16) * static_cast<size_t>(2 * DQ_BQ + 4 * BK) * LDS +
@@ -662,9 +684,9 @@ __global__ void __launch_bounds__(DQ_NT) bwd_dq_bf16_kernel(Args a) {
 
 template <int D>
 struct KvShape {
-  static constexpr int BKV = D == 256 ? 32 : 64;  // keys per block
+  static constexpr int BKV = 64;                  // keys per block
   static constexpr int BQ = 64;                   // query rows per tile
-  static constexpr int DW = D < 64 ? D : 64;      // dK/dV columns a warp
+  static constexpr int DW = D;                    // dK/dV columns a warp
   static constexpr int NCB = D / DW;
   static constexpr int NW = (BKV / 16) * NCB;  // one 16 x DW block a warp
   static constexpr int NT = 32 * NW;
@@ -879,6 +901,581 @@ int launch_tc(const Args& a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------ bf16, the Hopper form (wgmma)
+//
+// D in {64, 128, 256}.  Both launches are warp-specialised: warpgroup 0's
+// first thread is the producer (TMA loads into a ring, 4D tensor maps over
+// (B, S, heads, D) so a head's rows are read at stride heads x D with no
+// transpose; 64-column boxes in the 128-byte swizzle), warpgroups 1 and 2
+// consume with wgmma.
+
+constexpr int H_NT = 384;
+
+// a 4D bf16 map over (B, S, heads, D), boxes of 64 columns x `rows` rows of
+// one head
+int map_heads(CUtensorMap* m, const void* base, int B, int S, int heads,
+              int D, int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D),
+                            static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(D) * 2,
+                               static_cast<uint64_t>(heads) * D * 2,
+                               static_cast<uint64_t>(S) * heads * D * 2};
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(rows), 1};
+  return repro::tensor_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims,
+                           strides, box);
+}
+
+// q * scale rounded to bf16 in place over `bytes` bytes of a swizzled tile
+// (the layout does not matter: every value is scaled), by 128 threads
+__device__ __forceinline__ void scale_rows(char* p, int bytes, float scale,
+                                           int lt) {
+  for (int o = 4 * lt; o < bytes; o += 4 * 128) {
+    uint32_t* w = reinterpret_cast<uint32_t*>(p + o);
+    const float lo = __bfloat162float(
+        __ushort_as_bfloat16(static_cast<unsigned short>(*w & 0xffffu)));
+    const float hi = __bfloat162float(
+        __ushort_as_bfloat16(static_cast<unsigned short>(*w >> 16)));
+    *w = repro::pack_bf16x2(lo * scale, hi * scale);
+  }
+}
+
+template <int D>
+struct HDq {
+  static constexpr int BQ = 128;                   // 64 rows a consumer
+  static constexpr int BK = D == 256 ? 32 : 64;    // keys a kv tile
+  static constexpr int NSTG = D == 256 ? 2 : D == 128 ? 3 : 4;
+  static constexpr int CH = D / 64;                // 64-column boxes
+  static constexpr int QB = BQ * D * 2;            // the Q or dO tile
+  static constexpr int KB = BK * D * 2;            // a K or V tile
+  static constexpr size_t smem = 1024 + 2 * QB + NSTG * 2 * KB +
+                                 (1 + 2 * NSTG) * 8 + 2 * BQ * 4;
+};
+
+// dQ for 128 query rows of one (batch, head): S = Q K^T and dP = dO V^T
+// (wgmma, both operands from shared memory, K-major), p and dS on the
+// accumulators in registers, dQ += dS K with dS as the register A operand
+// and K read MN-major; Dv written for the dK/dV launch.
+template <int D>
+__global__ void __launch_bounds__(H_NT, 1)
+bwd_dq_wgmma_kernel(Args a, const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv) {
+  using S = HDq<D>;
+  constexpr int BQ = S::BQ, BK = S::BK, NSTG = S::NSTG, CH = S::CH;
+  extern __shared__ float smem[];
+  char* qs = repro::align1024(smem);
+  char* dos = qs + S::QB;
+  char* kv = dos + S::QB;   // NSTG x (K tile, V tile)
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(kv + NSTG * 2 * S::KB);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + NSTG;
+  float* rl = reinterpret_cast<float*>(empty + NSTG);   // lse * log2 e
+  float* rd = rl + BQ;                                  // Dv
+
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int grp = h / (a.H / a.G);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest first
+  const int nq = min(BQ, a.Sq - q0);
+  int t_begin, t_end;
+  kv_range(a, q0, nq, BK, &t_begin, &t_end);
+  if (threadIdx.x == 0) {
+    repro::mbar_init(qfull, 1);
+    for (int s = 0; s < NSTG; ++s) {
+      repro::mbar_init(&full[s], 1);
+      repro::mbar_init(&empty[s], 256);
+    }
+    repro::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    repro::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      repro::mbar_arrive_expect_tx(qfull, 2 * S::QB);
+      for (int c = 0; c < CH; ++c) {
+        repro::tma_load_4d(qs + c * BQ * 128, &tq, qfull, 64 * c, h, q0, b);
+        repro::tma_load_4d(dos + c * BQ * 128, &tdo, qfull, 64 * c, h, q0,
+                           b);
+      }
+      int stage = 0, phase = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        repro::mbar_wait(&empty[stage], phase ^ 1);
+        char* ks = kv + stage * 2 * S::KB;
+        repro::mbar_arrive_expect_tx(&full[stage], 2 * S::KB);
+        for (int c = 0; c < CH; ++c) {
+          repro::tma_load_4d(ks + c * BK * 128, &tk, &full[stage], 64 * c,
+                             grp, t * BK, b);
+          repro::tma_load_4d(ks + S::KB + c * BK * 128, &tv, &full[stage],
+                             64 * c, grp, t * BK, b);
+        }
+        if (++stage == NSTG) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    repro::setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128 - 1;   // rows 64 cw .. of the tile
+    const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
+    const int g8 = lane >> 2, tq4 = lane & 3;
+    const int q_off = a.Sk - a.Sq;
+    const long qstride = static_cast<long>(a.H) * D;
+    const long qbase = (static_cast<long>(b) * a.Sq * a.H + h) * D;
+    const bf16* ob = static_cast<const bf16*>(a.o) + qbase;
+    const bf16* dob = static_cast<const bf16*>(a.dout) + qbase;
+    // Dv = rowsum(dO . O) and lse of this warpgroup's rows
+    for (int r = 0; r < 16; ++r) {
+      const int i = 64 * cw + 16 * warp + r;
+      float s = 0.0f;
+      if (i < nq)
+        for (int d = lane; d < D; d += 32)
+          s = fmaf(__bfloat162float(dob[(q0 + i) * qstride + d]),
+                   __bfloat162float(ob[(q0 + i) * qstride + d]), s);
+      s = repro::warp_sum(s);
+      if (lane == 0) {
+        rd[i] = s;
+        rl[i] = i < nq
+                    ? a.lse[static_cast<long>(bh) * a.Sq + q0 + i] * LOG2E
+                    : 0.0f;
+        if (i < nq) a.dvec[static_cast<long>(bh) * a.Sq + q0 + i] = s;
+      }
+    }
+    // q * scale in the input type, as the plain version's _layout: this
+    // warpgroup's 64 rows of each 64-column box
+    repro::mbar_wait(qfull, 0);
+    for (int c = 0; c < CH; ++c)
+      scale_rows(qs + c * BQ * 128 + cw * 64 * 128, 64 * 128, a.scale, lt);
+    repro::fence_proxy_async();
+    repro::named_barrier(1 + cw, 128);
+
+    const int row[2] = {64 * cw + 16 * warp + g8, 64 * cw + 16 * warp + g8 + 8};
+    const float lse2[2] = {rl[row[0]], rl[row[1]]};
+    const float dvr[2] = {rd[row[0]], rd[row[1]]};
+    const float inv_cap = a.cap > 0.0f ? 1.0f / a.cap : 0.0f;
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+    const char* qw = qs + cw * 64 * 128;
+    const char* dow = dos + cw * 64 * 128;
+    int stage = 0, phase = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+      repro::mbar_wait(&full[stage], phase);
+      const char* ks = kv + stage * 2 * S::KB;
+      const char* vs = ks + S::KB;
+      float s[BK / 2], dp[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.0f;
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int o = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+        const int ob2 = (kk / 4) * BK * 128 + (kk % 4) * 32;
+        repro::wgmma_ss<BK, 0, 0>(s, repro::desc128(qw + o, 16, 1024),
+                                  repro::desc128(ks + ob2, 16, 1024));
+        repro::wgmma_ss<BK, 0, 0>(dp, repro::desc128(dow + o, 16, 1024),
+                                  repro::desc128(vs + ob2, 16, 1024));
+      }
+      repro::wgmma_commit();
+      repro::wgmma_wait<0>();
+      repro::fence_regs(s);
+      repro::fence_regs(dp);
+      const int k0 = t * BK;
+      // p and dS on the accumulators (dS into s)
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int kp = k0 + 8 * j + 2 * tq4 + (e & 1);
+          const bool valid = row[r] < nq &&
+                             visible(q0 + row[r] + q_off, kp, a.Sk, a.causal,
+                                     a.window);
+          float p, ds;
+          p_ds(s[4 * j + e], dp[4 * j + e], lse2[r], dvr[r], a.cap, inv_cap,
+               valid, &p, &ds);
+          s[4 * j + e] = ds;
+        }
+      // dQ += dS K: dS (bf16) the register A operand, K read MN-major
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t af[4] = {
+            repro::pack_bf16x2(s[8 * kk], s[8 * kk + 1]),
+            repro::pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]),
+            repro::pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]),
+            repro::pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7])};
+        repro::wgmma_rs<D, 1>(
+            dq, af, repro::desc128(ks + kk * 16 * 128, BK * 128, 1024));
+      }
+      repro::wgmma_commit();
+      repro::wgmma_wait<0>();
+      repro::fence_regs(dq);
+      repro::mbar_arrive(&empty[stage]);
+      if (++stage == NSTG) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    bf16* dqb = static_cast<bf16*>(a.dq) + qbase;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row[r];
+      if (i >= nq) continue;
+      bf16* out = dqb + (q0 + i) * qstride;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * tq4) =
+            repro::pack_bf16x2(dq[4 * j + 2 * r] * a.scale,
+                               dq[4 * j + 2 * r + 1] * a.scale);
+    }
+  }
+}
+
+template <int D>
+struct HKv {
+  // D <= 128: each consumer warpgroup owns 64 keys and all D columns of dK
+  // and dV, p^T and dS^T stay in its registers as the A operand; D = 256:
+  // the two share 64 keys, each owning D / 2 columns (dK and dV of 64 x 256
+  // fp32 would be 256 registers a thread), and exchange p^T and dS^T
+  // through shared memory
+  static constexpr bool KS = D <= 128;
+  static constexpr int BKV = KS ? 128 : 64, BQ = 64;
+  static constexpr int DH = KS ? D : D / 2;   // dK, dV columns a consumer
+  static constexpr int NSTG = D == 256 ? 2 : 4;
+  static constexpr int CH = D / 64;
+  static constexpr int KB = BKV * D * 2;      // the K or V tile
+  static constexpr int QB = BQ * D * 2;       // a Q or dO tile
+  static constexpr int PB = KS ? 0 : 64 * BQ * 2;   // a p^T or dS^T tile
+  static constexpr int SB = 2 * BQ * 4;       // a stage's lse and Dv rows
+  static constexpr size_t smem = 1024 + 2 * KB + NSTG * (2 * QB + SB) +
+                                 4 * PB + (1 + 3 * NSTG) * 8;
+};
+
+// dK and dV for the keys of one (batch, kv head) tile: for each query tile
+// of every head of the group that sees them, S^T = K Q^T and dP^T = V dO^T,
+// p^T and dS^T rounded to bf16, dV += p^T dO and dK += dS^T (q * scale)
+// with dO and Q read MN-major.  Warpgroup 0: thread 0 issues the TMA loads;
+// warps 1-3 prepare each landed stage (q * scale rounded to bf16 in place,
+// the rows' lse * log2 e and Dv into shared memory) and release it to the
+// consumers, so neither sits on the consumers' path.
+template <int D>
+__global__ void __launch_bounds__(H_NT, 1)
+bwd_dkdv_wgmma_kernel(Args a, const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv) {
+  using S = HKv<D>;
+  constexpr int BKV = S::BKV, BQ = S::BQ, DH = S::DH, NSTG = S::NSTG,
+                CH = S::CH;
+  extern __shared__ float smem[];
+  char* ks = repro::align1024(smem);
+  char* vs = ks + S::KB;
+  char* ring = vs + S::KB;                   // NSTG x (Q tile, dO tile)
+  char* pbuf = ring + NSTG * 2 * S::QB;      // D = 256: 2 x (p^T, dS^T)
+  float* stats = reinterpret_cast<float*>(pbuf + 4 * S::PB);  // NSTG x 2 BQ
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(stats + NSTG * 2 * BQ);
+  uint64_t* full = kvfull + 1;               // TMA bytes landed
+  uint64_t* ready = full + NSTG;             // the stage prepared
+  uint64_t* empty = ready + NSTG;            // the stage consumed
+
+  const int bg = blockIdx.y, b = bg / a.G, grp = bg % a.G;
+  const int Hg = a.H / a.G;
+  const int k0 = blockIdx.x * BKV;
+  const int nk = min(BKV, a.Sk - k0);
+  int t_lo, t_hi;
+  q_range(a, k0, nk, BQ, &t_lo, &t_hi);
+  const int nt = t_hi - t_lo, n_it = Hg * nt;
+  if (threadIdx.x == 0) {
+    repro::mbar_init(kvfull, 1);
+    for (int s = 0; s < NSTG; ++s) {
+      repro::mbar_init(&full[s], 1);
+      repro::mbar_init(&ready[s], 96);
+      repro::mbar_init(&empty[s], 256);
+    }
+    repro::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    repro::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {   // the copies
+      repro::mbar_arrive_expect_tx(kvfull, 2 * S::KB);
+      for (int c = 0; c < CH; ++c) {
+        repro::tma_load_4d(ks + c * BKV * 128, &tk, kvfull, 64 * c, grp, k0,
+                           b);
+        repro::tma_load_4d(vs + c * BKV * 128, &tv, kvfull, 64 * c, grp, k0,
+                           b);
+      }
+      int stage = 0, phase = 0;
+      for (int it = 0; it < n_it; ++it) {
+        const int h = grp * Hg + it / nt;
+        const int q0 = (t_lo + it % nt) * BQ;
+        repro::mbar_wait(&empty[stage], phase ^ 1);
+        char* qs = ring + stage * 2 * S::QB;
+        repro::mbar_arrive_expect_tx(&full[stage], 2 * S::QB);
+        for (int c = 0; c < CH; ++c) {
+          repro::tma_load_4d(qs + c * BQ * 128, &tq, &full[stage], 64 * c, h,
+                             q0, b);
+          repro::tma_load_4d(qs + S::QB + c * BQ * 128, &tdo, &full[stage],
+                             64 * c, h, q0, b);
+        }
+        if (++stage == NSTG) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    } else if (threadIdx.x >= 32) {   // the preparation, 96 threads
+      const int pt = threadIdx.x - 32;
+      int stage = 0, phase = 0;
+      for (int it = 0; it < n_it; ++it) {
+        const int h = grp * Hg + it / nt;
+        const int q0 = (t_lo + it % nt) * BQ;
+        const int nq = min(BQ, a.Sq - q0);
+        const long bh = static_cast<long>(b) * a.H + h;
+        // the stage's last consumers are done once its copy has landed
+        repro::mbar_wait(&full[stage], phase);
+        float* st = stats + stage * 2 * BQ;
+        for (int i = pt; i < BQ; i += 96) {
+          st[i] = i < nq ? a.lse[bh * a.Sq + q0 + i] * LOG2E : 0.0f;
+          st[BQ + i] = i < nq ? a.dvec[bh * a.Sq + q0 + i] : 0.0f;
+        }
+        // q * scale in the input type, as the plain version's _layout
+        char* qs = ring + stage * 2 * S::QB;
+        for (int o = 4 * pt; o < S::QB; o += 4 * 96) {
+          uint32_t* w = reinterpret_cast<uint32_t*>(qs + o);
+          const float lo = __bfloat162float(
+              __ushort_as_bfloat16(static_cast<unsigned short>(*w & 0xffffu)));
+          const float hi = __bfloat162float(
+              __ushort_as_bfloat16(static_cast<unsigned short>(*w >> 16)));
+          *w = repro::pack_bf16x2(lo * a.scale, hi * a.scale);
+        }
+        repro::fence_proxy_async();
+        repro::mbar_arrive(&ready[stage]);
+        if (++stage == NSTG) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    repro::setmaxnreg_inc<232>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
+    const int g8 = lane >> 2, tq4 = lane & 3;
+    const int q_off = a.Sk - a.Sq;
+    const float inv_cap = a.cap > 0.0f ? 1.0f / a.cap : 0.0f;
+    // the keys of this warpgroup's rows of S^T (tile-relative), and its
+    // first column of dK and dV
+    const int key0 = (S::KS ? 64 * cw : 0) + 16 * warp + g8;
+    const int col0 = S::KS ? 0 : cw * DH;
+    float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.0f;
+    repro::mbar_wait(kvfull, 0);
+    int stage = 0, phase = 0;
+    for (int it = 0; it < n_it; ++it) {
+      const int q0 = (t_lo + it % nt) * BQ;
+      const int nq = min(BQ, a.Sq - q0);
+      repro::mbar_wait(&ready[stage], phase);
+      const char* qs = ring + stage * 2 * S::QB;
+      const char* dos = qs + S::QB;
+      const float* rl = stats + stage * 2 * BQ;
+      const float* rd = rl + BQ;
+      if constexpr (S::KS) {
+        // S^T and dP^T: this warpgroup's 64 keys x the tile's 64 rows
+        float s[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+        repro::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int ok = (kk / 4) * BKV * 128 + cw * 64 * 128 + (kk % 4) * 32;
+          const int oq = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+          repro::wgmma_ss<64, 0, 0>(s, repro::desc128(ks + ok, 16, 1024),
+                                    repro::desc128(qs + oq, 16, 1024));
+          repro::wgmma_ss<64, 0, 0>(dp, repro::desc128(vs + ok, 16, 1024),
+                                    repro::desc128(dos + oq, 16, 1024));
+        }
+        repro::wgmma_commit();
+        repro::wgmma_wait<0>();
+        repro::fence_regs(s);
+        repro::fence_regs(dp);
+        // p^T into s, dS^T into dp
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + 8 * (e >> 1);
+            const int i = 8 * j + 2 * tq4 + (e & 1);
+            const bool valid = i < nq && key < nk &&
+                               visible(q0 + i + q_off, k0 + key, a.Sk,
+                                       a.causal, a.window);
+            float p, ds;
+            p_ds(s[4 * j + e], dp[4 * j + e], rl[i], rd[i], a.cap, inv_cap,
+                 valid, &p, &ds);
+            s[4 * j + e] = p;
+            dp[4 * j + e] = ds;
+          }
+        // dV += p^T dO and dK += dS^T (q * scale): the A operands from
+        // registers, dO and Q read MN-major
+        repro::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          const uint32_t ap[4] = {
+              repro::pack_bf16x2(s[8 * kk], s[8 * kk + 1]),
+              repro::pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]),
+              repro::pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]),
+              repro::pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7])};
+          const uint32_t ad[4] = {
+              repro::pack_bf16x2(dp[8 * kk], dp[8 * kk + 1]),
+              repro::pack_bf16x2(dp[8 * kk + 2], dp[8 * kk + 3]),
+              repro::pack_bf16x2(dp[8 * kk + 4], dp[8 * kk + 5]),
+              repro::pack_bf16x2(dp[8 * kk + 6], dp[8 * kk + 7])};
+          repro::wgmma_rs<D, 1>(
+              dv, ap, repro::desc128(dos + kk * 16 * 128, BQ * 128, 1024));
+          repro::wgmma_rs<D, 1>(
+              dk, ad, repro::desc128(qs + kk * 16 * 128, BQ * 128, 1024));
+        }
+      } else {
+        // S^T and dP^T: the tile's 64 keys x this warpgroup's 32 rows
+        float s[16], dp[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.0f;
+        repro::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int ok = (kk / 4) * BKV * 128 + (kk % 4) * 32;
+          const int oq = (kk / 4) * BQ * 128 + cw * 32 * 128 + (kk % 4) * 32;
+          repro::wgmma_ss<32, 0, 0>(s, repro::desc128(ks + ok, 16, 1024),
+                                    repro::desc128(qs + oq, 16, 1024));
+          repro::wgmma_ss<32, 0, 0>(dp, repro::desc128(vs + ok, 16, 1024),
+                                    repro::desc128(dos + oq, 16, 1024));
+        }
+        repro::wgmma_commit();
+        repro::wgmma_wait<0>();
+        repro::fence_regs(s);
+        repro::fence_regs(dp);
+        // p^T and dS^T (bf16) into this iteration's buffers: key rows of
+        // 64 query columns, the 128-byte swizzle (a K-major A operand)
+        char* pT = pbuf + (it & 1) * 2 * S::PB;
+        char* dsT = pT + S::PB;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int key = key0 + 8 * r;
+            float pv[2], dsv[2];
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int i = 32 * cw + 8 * j + 2 * tq4 + x;
+              const bool valid = i < nq && key < nk &&
+                                 visible(q0 + i + q_off, k0 + key, a.Sk,
+                                         a.causal, a.window);
+              p_ds(s[4 * j + 2 * r + x], dp[4 * j + 2 * r + x], rl[i], rd[i],
+                   a.cap, inv_cap, valid, &pv[x], &dsv[x]);
+            }
+            const uint32_t off = repro::swz128(
+                key * 128 + (32 * cw + 8 * j + 2 * tq4) * 2);
+            *reinterpret_cast<uint32_t*>(pT + off) =
+                repro::pack_bf16x2(pv[0], pv[1]);
+            *reinterpret_cast<uint32_t*>(dsT + off) =
+                repro::pack_bf16x2(dsv[0], dsv[1]);
+          }
+        repro::fence_proxy_async();
+        repro::named_barrier(1, 256);   // both halves of p^T and dS^T
+        // dV += p^T dO and dK += dS^T (q * scale), this warpgroup's columns
+        const int cb = (col0 / 64) * BQ * 128 + (col0 % 64) * 2;
+        repro::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          repro::wgmma_ss<DH, 0, 1>(
+              dv, repro::desc128(pT + 32 * kk, 16, 1024),
+              repro::desc128(dos + cb + kk * 16 * 128, BQ * 128, 1024));
+          repro::wgmma_ss<DH, 0, 1>(
+              dk, repro::desc128(dsT + 32 * kk, 16, 1024),
+              repro::desc128(qs + cb + kk * 16 * 128, BQ * 128, 1024));
+        }
+      }
+      repro::wgmma_commit();
+      repro::wgmma_wait<0>();
+      repro::fence_regs(dk);
+      repro::fence_regs(dv);
+      repro::mbar_arrive(&empty[stage]);
+      if (++stage == NSTG) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const long kstride = static_cast<long>(a.G) * D;
+    const long kbase = (static_cast<long>(b) * a.Sk * a.G + grp) * D;
+    bf16* dkb = static_cast<bf16*>(a.dk) + kbase;
+    bf16* dvb = static_cast<bf16*>(a.dv) + kbase;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key >= nk) continue;
+      const long off = (k0 + key) * kstride + col0 + 2 * tq4;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkb + off + 8 * j) =
+            repro::pack_bf16x2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dvb + off + 8 * j) =
+            repro::pack_bf16x2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_wgmma(const Args& a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap tq, tdo, tk, tv;
+  int err;
+  {
+    using S = HDq<D>;
+    if ((err = map_heads(&tq, a.q, a.B, a.Sq, a.H, D, S::BQ)) ||
+        (err = map_heads(&tdo, a.dout, a.B, a.Sq, a.H, D, S::BQ)) ||
+        (err = map_heads(&tk, a.k, a.B, max(a.Sk, 1), a.G, D, S::BK)) ||
+        (err = map_heads(&tv, a.v, a.B, max(a.Sk, 1), a.G, D, S::BK)))
+      return err;
+    auto kern = bwd_dq_wgmma_kernel<D>;
+    cudaError_t e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(kern),
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(S::smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((a.Sq + S::BQ - 1) / S::BQ, a.B * a.H);
+    kern<<<grid, H_NT, S::smem, st>>>(a, tq, tdo, tk, tv);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (a.Sk > 0) {
+    using S = HKv<D>;
+    if ((err = map_heads(&tq, a.q, a.B, a.Sq, a.H, D, S::BQ)) ||
+        (err = map_heads(&tdo, a.dout, a.B, a.Sq, a.H, D, S::BQ)) ||
+        (err = map_heads(&tk, a.k, a.B, a.Sk, a.G, D, S::BKV)) ||
+        (err = map_heads(&tv, a.v, a.B, a.Sk, a.G, D, S::BKV)))
+      return err;
+    auto kern = bwd_dkdv_wgmma_kernel<D>;
+    cudaError_t e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(kern),
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(S::smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((a.Sk + S::BKV - 1) / S::BKV, a.B * a.G);
+    kern<<<grid, H_NT, S::smem, st>>>(a, tq, tdo, tk, tv);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D 64, 128 and 256 take the Hopper form; D 16 and 32 (the SMOKE configs'
+// widths, under one 128-byte row) the mma.sync form
 int launch_bf16(const Args& a, void* stream) {
   switch (a.D) {
     case 16:
@@ -886,11 +1483,11 @@ int launch_bf16(const Args& a, void* stream) {
     case 32:
       return launch_tc<32>(a, stream);
     case 64:
-      return launch_tc<64>(a, stream);
+      return launch_wgmma<64>(a, stream);
     case 128:
-      return launch_tc<128>(a, stream);
+      return launch_wgmma<128>(a, stream);
     case 256:
-      return launch_tc<256>(a, stream);
+      return launch_wgmma<256>(a, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,9 +13,17 @@ under autograd, the plain version :func:`dense_fwd_plain` (vjp
 ``w`` as it is stored (no bf16 copy); ``dw`` comes back in ``w``'s dtype,
 the bf16 product's value (autograd's for the cast's backward), and is
 skipped when ``w`` needs no gradient.  bf16 ``x`` runs on the tensor
-cores; fp32 ``x`` (an fp32-compute model) a SIMT fp32 product.  Launches
-count into ``dense_fwd.launches`` and ``dense_bwd.launches`` (the backward
-is one or two kernel launches a call, counted once).
+cores (the Hopper form, ``wgmma`` on TMA-fed tiles, where TMA can take the
+operands: bases 16-byte aligned, row strides and N multiples of 8; an fp32
+``w`` is the register operand, rounded in registers, for a product of
+fewer than ``W32_ROWS`` rows, and is rounded into a bf16 scratch for the
+call first for the others; a ``dw`` whose tiles do not fill the card is
+split over M into fp32 partials summed in a second pass; both scratches
+allocated here); fp32 ``x`` (an fp32-compute model) a SIMT fp32 product.  Launches count into ``dense_fwd.launches`` and
+``dense_bwd.launches`` (the backward is one or two products a call,
+counted once); the products of bf16 ``x`` whose operands TMA cannot take
+run the Ampere form (``mma.sync``) and count into ``dense_fwd.mma_sync``
+and ``dense_bwd.mma_sync`` too (one a product).
 
 The same kernels batched over a MoE layer's experts (one expert a
 ``blockIdx.z``): :func:`expert_fwd` and :func:`expert_bwd` on the
@@ -45,15 +53,69 @@ MAX_BATCH = 65535
 
 def _lib():
     lib = build.load("dense")
+    # ..., batch, the batch strides of the three operands, the Hopper
+    # form's flag and scratch, stream
+    shape = [_I] * 5 + [_I, _L, _L, _L, _I]
     lib.dense_fwd.restype = _I
-    # ..., batch, and the batch strides of the three operands, stream
-    tail = [_I] * 5 + [_I, _L, _L, _L, _P]
-    lib.dense_fwd.argtypes = [_P, _L, _P, _P, _P] + tail
+    lib.dense_fwd.argtypes = [_P, _L, _P, _P, _P] + shape + [_P, _P]
     lib.dense_dx.restype = _I
-    lib.dense_dx.argtypes = [_P, _L, _P, _P] + tail
+    lib.dense_dx.argtypes = [_P, _L, _P, _P] + shape + [_P, _P]
     lib.dense_dw.restype = _I
-    lib.dense_dw.argtypes = [_P, _L, _P, _L, _P] + tail
+    lib.dense_dw.argtypes = [_P, _L, _P, _L, _P] + shape + [_I, _P, _P]
+    lib.dense_dw_slices.restype = _I
+    lib.dense_dw_slices.argtypes = [_I] * 4
+    lib.dense_dw_reduce.restype = _I
+    lib.dense_dw_reduce.argtypes = [_P, _P] + [_I] * 6 + [_L, _P]
     return lib
+
+
+def _tma(*rows) -> bool:
+    """Whether TMA can read each bf16 operand ``(t, row stride, batch
+    stride)``: its base 16-byte aligned, its strides multiples of 8
+    elements (16 bytes)."""
+    return all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+               and ld % 8 == 0 and sb % 8 == 0 for t, ld, sb in rows)
+
+
+# an fp32 weight's products with fewer rows than this (per batch element)
+# read it as the register A operand, rounding in registers; the others
+# round it into a bf16 copy for the call first: the copy's bytes (6 a
+# weight) are a large share of a product with few rows, the register form
+# retires each stage before loading the next (phase timing times both)
+W32_ROWS = 4096
+
+
+def _w_scratch(w: torch.Tensor, tma: bool, rows: int,
+               out_cols: Optional[int] = None) -> Optional[torch.Tensor]:
+    """The bf16 copy of an fp32 ``w`` for one call of the Hopper form
+    (``rows`` rows of x a weight), or None where the call reads ``w`` itself:
+    a bf16 weight, and an fp32 one read as the register operand (fewer than
+    ``W32_ROWS`` rows, a 16-byte aligned base, and for dx ``out_cols``, dx's
+    row, a multiple of 8)."""
+    if not tma or w.dtype == torch.bfloat16:
+        return None
+    if rows < W32_ROWS and w.data_ptr() % 16 == 0 and (
+            out_cols is None or out_cols % 8 == 0):
+        return None
+    return torch.empty(w.shape, dtype=torch.bfloat16, device=w.device)
+
+
+def _w_ok(w: torch.Tensor, N: int) -> bool:
+    """w as the Hopper form reads it: N a multiple of 8, a bf16 w's base
+    aligned (an fp32 one's alignment picks its form, ``_w_scratch``)."""
+    return N % 8 == 0 and (w.dtype == torch.float32
+                           or w.data_ptr() % 16 == 0)
+
+
+def _dw_part(lib, M: int, K: int, N: int, batch: int, device
+             ) -> Tuple[int, Optional[torch.Tensor]]:
+    """dw's split over M on the Hopper form and its fp32 partials' scratch
+    (None for one slice)."""
+    slices = lib.dense_dw_slices(M, K, N, batch)
+    if slices <= 1:
+        return 1, None
+    return slices, torch.empty((batch, slices, K, N), dtype=torch.float32,
+                               device=device)
 
 
 ONE = (1, 0, 0, 0)   # one product: no batch strides
@@ -119,13 +181,17 @@ def dense_fwd(x: torch.Tensor, w: torch.Tensor,
                          f"{residual.dtype} must be contiguous "
                          f"{tuple(y.shape)} {y.dtype}")
     lib = _lib()
+    bf = x.dtype == torch.bfloat16
+    tma = bf and K > 0 and _w_ok(w, N) and _tma((x2, ldx, 0))
+    wbuf = _w_scratch(w, tma, x2.shape[0])
     err = lib.dense_fwd(build.ptr(x2), ldx, build.ptr(w), build.ptr(y),
-                        build.ptr(residual), x2.shape[0], K, N,
-                        int(x.dtype == torch.bfloat16),
-                        int(w.dtype == torch.bfloat16), *ONE,
-                        build.stream_ptr(x.device))
+                        build.ptr(residual), x2.shape[0], K, N, int(bf),
+                        int(w.dtype == torch.bfloat16), *ONE, int(tma),
+                        build.ptr(wbuf), build.stream_ptr(x.device))
     build.check(lib, err, "dense_fwd")
     dense_fwd.launches += 1
+    if bf and not tma:
+        dense_fwd.mma_sync += 1
     return y
 
 
@@ -149,16 +215,26 @@ def dense_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
     if need_dx:
         w = build.dense(w, "dense_bwd: w")
         dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        tma = x_bf16 and _w_ok(w, N) and _tma((dy2, lddy, 0))
+        wbuf = _w_scratch(w, tma, M, K)
         err = lib.dense_dx(build.ptr(dy2), lddy, build.ptr(w), build.ptr(dx),
-                           M, K, N, x_bf16, w_bf16, *ONE, stream)
+                           M, K, N, x_bf16, w_bf16, *ONE, int(tma),
+                           build.ptr(wbuf), stream)
         build.check(lib, err, "dense_bwd (dx)")
+        if x_bf16 and not tma:
+            dense_bwd.mma_sync += 1
     if need_dw:
         x2, ldx = build.rows(x, K, "dense_bwd: x")
         dw = torch.empty((K, N), dtype=w.dtype, device=x.device)
+        tma = x_bf16 and M > 0 and _tma((x2, ldx, 0), (dy2, lddy, 0))
+        slices, part = _dw_part(lib, M, K, N, 1, x.device) if tma \
+            else (1, None)
         err = lib.dense_dw(build.ptr(x2), ldx, build.ptr(dy2), lddy,
                            build.ptr(dw), M, K, N, x_bf16, w_bf16, *ONE,
-                           stream)
+                           int(tma), slices, build.ptr(part), stream)
         build.check(lib, err, "dense_bwd (dw)")
+        if x_bf16 and not tma:
+            dense_bwd.mma_sync += 1
     dense_bwd.launches += 1
     return dx, dw
 
@@ -239,13 +315,17 @@ def expert_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x, w = build.dense(x, "expert_fwd: x"), build.dense(w, "expert_fwd: w")
     y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
     lib = _lib()
+    bf = x.dtype == torch.bfloat16
+    tma = bf and K > 0 and _w_ok(w, N) and _tma((x, K, M * K))
+    wbuf = _w_scratch(w, tma, M)
     err = lib.dense_fwd(build.ptr(x), K, build.ptr(w), build.ptr(y), None,
-                        M, K, N,
-                        int(x.dtype == torch.bfloat16),
-                        int(w.dtype == torch.bfloat16), E, M * K, K * N,
-                        M * N, build.stream_ptr(x.device))
+                        M, K, N, int(bf), int(w.dtype == torch.bfloat16), E,
+                        M * K, K * N, M * N, int(tma), build.ptr(wbuf),
+                        build.stream_ptr(x.device))
     build.check(lib, err, "expert_fwd")
     expert_fwd.launches += 1
+    if bf and not tma:
+        expert_fwd.mma_sync += 1
     return y
 
 
@@ -269,17 +349,26 @@ def expert_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
     if need_dx:
         w = build.dense(w, "expert_bwd: w")
         dx = torch.empty((E, M, K), dtype=x.dtype, device=x.device)
+        tma = x_bf16 and _w_ok(w, N) and _tma((dy, N, M * N))
+        wbuf = _w_scratch(w, tma, M, K)
         err = lib.dense_dx(build.ptr(dy), N, build.ptr(w), build.ptr(dx), M,
                            K, N, x_bf16, w_bf16, E, M * N, K * N, M * K,
-                           stream)
+                           int(tma), build.ptr(wbuf), stream)
         build.check(lib, err, "expert_bwd (dx)")
+        if x_bf16 and not tma:
+            expert_bwd.mma_sync += 1
     if need_dw:
         x = build.dense(x, "expert_bwd: x")
         dw = torch.empty((E, K, N), dtype=w.dtype, device=x.device)
+        tma = x_bf16 and M > 0 and _tma((x, K, M * K), (dy, N, M * N))
+        slices, part = _dw_part(lib, M, K, N, E, x.device) if tma \
+            else (1, None)
         err = lib.dense_dw(build.ptr(x), K, build.ptr(dy), N, build.ptr(dw),
                            M, K, N, x_bf16, w_bf16, E, M * K, M * N, K * N,
-                           stream)
+                           int(tma), slices, build.ptr(part), stream)
         build.check(lib, err, "expert_bwd (dw)")
+        if x_bf16 and not tma:
+            expert_bwd.mma_sync += 1
     expert_bwd.launches += 1
     return dx, dw
 
@@ -314,7 +403,7 @@ def project_experts(x: torch.Tensor, w: torch.Tensor,
     return x @ w.to(compute)
 
 
-dense_fwd.launches = 0
-dense_bwd.launches = 0
-expert_fwd.launches = 0
-expert_bwd.launches = 0
+dense_fwd.launches = dense_fwd.mma_sync = 0
+dense_bwd.launches = dense_bwd.mma_sync = 0
+expert_fwd.launches = expert_fwd.mma_sync = 0
+expert_bwd.launches = expert_bwd.mma_sync = 0

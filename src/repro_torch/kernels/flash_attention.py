@@ -23,7 +23,10 @@ attention backward needs.  Launches count into ``flash_attention.launches``.
 CUDA only, the same dtypes and head dims): ``(dq, dk, dv)`` from the
 forward's ``out`` and ``lse`` and the output cotangent, as the plain
 ``models/attention.py::_chunked_bwd`` computes them; two kernel launches a
-call, counted once into ``flash_attention_bwd.launches``.
+call, counted once into ``flash_attention_bwd.launches``.  bf16 at head dims
+64, 128 and 256 runs the Hopper form (``wgmma`` on TMA-fed tiles); bf16 at
+16 and 32 keeps the ``mma.sync`` form and counts into
+``flash_attention_bwd.mma_sync`` too.
 """
 from __future__ import annotations
 
@@ -163,6 +166,8 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap, scale):
         build.stream_ptr(q.device))
     build.check(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    if q.dtype == torch.bfloat16 and D < 64:
+        flash_attention_bwd.mma_sync += 1
     return dq, dk, dv
 
 
@@ -218,4 +223,4 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention_bwd.launches = 0
+flash_attention_bwd.launches = flash_attention_bwd.mma_sync = 0

@@ -1307,6 +1307,8 @@ def test_generic_phi35_moe_fused_on_card_matches_compiled(cuda_device):
                                        ("bfloat16", 3e-2)])
 @pytest.mark.parametrize("D,kw", [(256, {"softcap": 50.0, "window": 100,
                                          "scale": 0.0625}),
+                                  (256, {"softcap": 50.0, "scale": 0.0625}),
+                                  (128, {"window": 70}),
                                   (64, {"causal": False})])
 def test_flash_attention_bwd_matches_plain(cuda_device, dtype, tol, D, kw):
     """The attention backward kernel against ``_chunked_bwd`` on the
@@ -1314,6 +1316,7 @@ def test_flash_attention_bwd_matches_plain(cuda_device, dtype, tol, D, kw):
     plain version's max |value|), two calls bit for bit."""
     from repro_torch.models.attention import _chunked_bwd
 
+    fa.flash_attention_bwd.mma_sync = 0
     rng = np.random.default_rng(D)
     dt = getattr(torch, dtype)
     q, k, v, dout = (torch.tensor(_np(rng, s), device="cuda").to(dt)
@@ -1329,6 +1332,8 @@ def test_flash_attention_bwd_matches_plain(cuda_device, dtype, tol, D, kw):
         assert float(err) <= tol
     again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # bf16 at these head dims runs the Hopper form only
+    assert fa.flash_attention_bwd.mma_sync == 0
 
 
 @pytest.mark.cuda
@@ -1516,12 +1521,16 @@ def test_mamba_layers_run_their_kernels_on_card(cuda_device, arch, n_layers,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(77, 64, 128),        # a smoke shape
-                                   (8192, 2304, 9216)])  # gemma2-2b's gate
+                                   (8192, 2304, 9216),   # gemma2-2b's gate
+                                   (8192, 2304, 2048),   # wq: dw split
+                                   (16384, 2048, 1024)])  # out_proj: split
 def test_dense_kernel_matches_plain(cuda_device, M, K, N):
     """``dense_fwd`` and ``dense_bwd`` (x, dy bf16; w the fp32 parameter,
-    cast in the load) against the plain version on the card (cuBLAS with
-    fp32 reductions), per element at (1e-2, 1e-3): both round one fp32 sum
-    to bf16; two calls bit for bit; dw in w's dtype."""
+    rounded for the call) against the plain version on the card (cuBLAS
+    with fp32 reductions), per element at (1e-2, 1e-3): both round one fp32
+    sum to bf16; two calls bit for bit; dw in w's dtype (split over M where
+    the tiles do not fill the card); all on the Hopper form."""
+    dn.dense_fwd.mma_sync = dn.dense_bwd.mma_sync = 0
     rng = np.random.default_rng(M + N)
     x = torch.tensor(_np(rng, (M, K)), device="cuda").to(torch.bfloat16)
     w = torch.tensor(_np(rng, (K, N), K ** -0.5), device="cuda")
@@ -1539,3 +1548,44 @@ def test_dense_kernel_matches_plain(cuda_device, M, K, N):
     for a, b in zip(got, want):
         _assert_close_to(a, b, 1e-2, 1e-3)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (dn.dense_fwd.mma_sync, dn.dense_bwd.mma_sync) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_dense_experts_and_unaligned_form(cuda_device):
+    """The experts' products batched (E=4, ragged M) on the Hopper form
+    against ``bmm`` with fp32 reductions, two calls bit for bit; a weight
+    of 100 rows (x's rows 200 bytes: TMA cannot step them) takes the
+    mma.sync form for the forward and dw, counted apart, at the same gate."""
+    rng = np.random.default_rng(17)
+    E, M, K, N = 4, 200, 256, 320
+    x = torch.tensor(_np(rng, (E, M, K)), device="cuda").to(torch.bfloat16)
+    w = torch.tensor(_np(rng, (E, K, N), K ** -0.5), device="cuda")
+    dy = torch.tensor(_np(rng, (E, M, N)), device="cuda").to(torch.bfloat16)
+    dn.expert_fwd.mma_sync = dn.expert_bwd.mma_sync = 0
+    got = (dn.expert_fwd(x, w), *dn.expert_bwd(dy, x, w))
+    again = (dn.expert_fwd(x, w), *dn.expert_bwd(dy, x, w))
+    mm = torch.backends.cuda.matmul
+    was = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        want = (dn.expert_fwd_plain(x, w), *dn.expert_bwd_plain(dy, x, w))
+        x2 = torch.tensor(_np(rng, (90, 100)), device="cuda").to(
+            torch.bfloat16)
+        w2 = torch.tensor(_np(rng, (100, 48), 0.1), device="cuda")
+        dy2 = torch.tensor(_np(rng, (90, 48)), device="cuda").to(
+            torch.bfloat16)
+        want2 = (dn.dense_fwd_plain(x2, w2), *dn.dense_bwd_plain(dy2, x2,
+                                                                 w2))
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = was
+    for a, b in zip(got, want):
+        _assert_close_to(a, b, 1e-2, 1e-3)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (dn.expert_fwd.mma_sync, dn.expert_bwd.mma_sync) == (0, 0)
+    before = (dn.dense_fwd.mma_sync, dn.dense_bwd.mma_sync)
+    got2 = (dn.dense_fwd(x2, w2), *dn.dense_bwd(dy2, x2, w2))
+    for a, b in zip(got2, want2):
+        _assert_close_to(a, b, 1e-2, 1e-3)
+    assert (dn.dense_fwd.mma_sync, dn.dense_bwd.mma_sync) == (
+        before[0] + 1, before[1] + 1)

@@ -4,18 +4,23 @@
     python3 tools/dense_variants.py [NAME=KEY:VALUE,... ...] [--source FILE]
 
 Each variant is ``csrc/dense.cu`` (or ``--source FILE`` for all of them)
-with some of its tile constants replaced (``TP``, ``TQ``, ``TR``, ``NS``,
-``WP``, ``WQ``; e.g. ``p256=TP:256,TR:64,NS:2``); ``base`` (the source as
-it is) always runs first.  Every variant is built with ``nvcc`` (the flags
-of ``kernels/build.py``, all at once, into ``build/dense_variants/``), its
-registers printed from the ptxas report, and its forward, dx and dw (x, dy
-bf16, w fp32; the forward also with a bf16 w) timed with CUDA events
-behind a busy wait (``chip_smoke.cuda_ms``) at gemma2-2b's ``wq`` and
-``gate`` and mamba2-370m's ``in_proj`` and ``out_proj`` shapes, beside
-cuBLAS's ``x @ w_bf16``, ``dy @ w_bf16.T`` and ``x.T @ dy``.  A variant
-whose outputs are not bit for bit ``base``'s is marked: the sum's order
-is fixed by the 16-deep steps, whatever the tiles.  Needs one CUDA card;
-imports no JAX.
+with some of the Hopper form's constants replaced: ``GQ`` (the output
+tile's columns, one wgmma's N: 64, 128 or 256), ``GS`` (stages in the
+ring; the ring of 128 x 64 and 64 x GQ bf16 slabs must fit the 227 KB of
+shared memory a block can use) and ``GROUP`` (rows of tiles a group of
+the persistent walk); e.g. ``q128s6=GQ:128,GS:6``.  ``base`` (the source
+as it is) always runs first.  Every variant is built with ``nvcc`` (the
+flags of ``kernels/build.py``, all at once, into
+``build/dense_variants/``), its registers printed from the ptxas report,
+and its forward, dx and dw (x, dy bf16, w fp32: the forward and dx with
+the weight's per-call bf16 copy, dw with its split over M where the tiles
+do not fill the card; the forward also with a bf16 w) timed through the
+``kernels/dense.py`` wrappers with CUDA events behind a busy wait
+(``chip_smoke.cuda_ms``) at gemma2-2b's ``wq`` and ``gate`` and
+mamba2-370m's ``in_proj`` and ``out_proj`` shapes, beside cuBLAS's ``x @
+w_bf16``, ``dy @ w_bf16.T`` and ``x.T @ dy``.  A variant whose outputs are
+not bit for bit ``base``'s is marked: the sum's order is fixed by the
+16-deep steps, whatever the tiles.  Needs one CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ SHAPES = (("gemma2-2b wq", (8192, 2304, 2048)),
           ("gemma2-2b gate", (8192, 2304, 9216)),
           ("mamba2-370m in_proj", (16384, 1024, 4384)),
           ("mamba2-370m out_proj", (16384, 2048, 1024)))
-KEYS = ("TP", "TQ", "TR", "NS", "WP", "WQ")
+KEYS = ("GQ", "GS", "GROUP")
 
 
 def variant_source(text: str, subs: dict) -> str:
@@ -62,13 +67,21 @@ def build_variant(name, text, out):
     if res.returncode != 0:
         raise SystemExit(f"nvcc failed for {name}:\n{log[-3000:]}")
     lib = ctypes.CDLL(so)
-    P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
-    for fn in ("dense_fwd", "dense_dx"):
-        getattr(lib, fn).restype = I
-        getattr(lib, fn).argtypes = [P, L, P, P] + [I] * 5 + [P]
-    lib.dense_dw.restype = I
-    lib.dense_dw.argtypes = [P, L, P, L, P] + [I] * 5 + [P]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    lib.repro_error_string.argtypes = [ctypes.c_int]
     return lib, re.findall(r"Used (\d+) registers", log)
+
+
+def through(lib, fn):
+    """``fn()`` with ``kernels/dense.py``'s wrappers launching ``lib``."""
+    from repro_torch.kernels import build
+
+    real = build.load
+    build.load = lambda name: lib if name == "dense" else real(name)
+    try:
+        return fn()
+    finally:
+        build.load = real
 
 
 def main(argv=None) -> int:
@@ -83,6 +96,7 @@ def main(argv=None) -> int:
         return 2
     import chip_smoke as cs
     from repro_torch.kernels import build
+    from repro_torch.kernels import dense as dn
 
     text = open(args.source or build.CSRC / "dense.cu").read()
     variants = {"base": {}}
@@ -109,15 +123,7 @@ def main(argv=None) -> int:
         w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
         dy = torch.randn((M, N), generator=gen, device="cuda").to(bf16)
         wb = w.to(bf16)
-        y = torch.empty((M, N), dtype=bf16, device="cuda")
-        dx = torch.empty((M, K), dtype=bf16, device="cuda")
-        dw = torch.empty((K, N), device="cuda")
         flops = 2.0 * M * K * N
-        s = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-        def ptr(t):
-            return ctypes.c_void_p(t.data_ptr())
-
         lib_ms = [cs.cuda_ms(fn, 20) for fn in (lambda: x @ wb,
                                                 lambda: dy @ wb.T,
                                                 lambda: x.T @ dy)]
@@ -126,22 +132,17 @@ def main(argv=None) -> int:
               flush=True)
         ref = None
         for name, (lib, _) in built.items():
-            calls = (
-                lambda: lib.dense_fwd(ptr(x), K, ptr(w), ptr(y), M, K, N, 1,
-                                      0, s),
-                lambda: lib.dense_dx(ptr(dy), N, ptr(w), ptr(dx), M, K, N, 1,
-                                     0, s),
-                lambda: lib.dense_dw(ptr(x), K, ptr(dy), N, ptr(dw), M, K, N,
-                                     1, 0, s),
-                lambda: lib.dense_fwd(ptr(x), K, ptr(wb), ptr(y), M, K, N, 1,
-                                      1, s))
-            for fn in calls[:3]:
-                cs.require(fn() == 0, f"{name}: launch failed")
+            calls = (lambda: dn.dense_fwd(x, w),
+                     lambda: dn.dense_bwd(dy, x, w, need_dw=False),
+                     lambda: dn.dense_bwd(dy, x, w, need_dx=False),
+                     lambda: dn.dense_fwd(x, wb))
+            got = through(lib, lambda: (calls[0](), *calls[1](),
+                                        *calls[2]()))
             torch.cuda.synchronize()
-            got = (y.clone(), dx.clone(), dw.clone())
+            got = tuple(t for t in got if t is not None)
             ref = ref or got
             same = all(torch.equal(a, b) for a, b in zip(got, ref))
-            ms = [cs.cuda_ms(fn, 20) for fn in calls]
+            ms = [through(lib, lambda: cs.cuda_ms(fn, 20)) for fn in calls]
             print(f"[dense_variants] {label} {name}: forward {ms[0]:.4f} ms, "
                   f"dx {ms[1]:.4f}, dw {ms[2]:.4f}, forward with a bf16 w "
                   f"{ms[3]:.4f} (TFLOP/s "
