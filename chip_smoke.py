@@ -520,13 +520,14 @@ def phase_build(state) -> None:
         f"{os.path.join(out_dir, 'chip_smoke_build.log')})")
     # registers and spills of the layer kernels (the attention backward's
     # accumulators are the ones that could spill)
-    for lib in ("flash_attention_bwd", "rmsnorm", "glu", "rope", "dense",
-                "moe"):
+    for lib in ("flash_attention", "flash_attention_bwd", "rmsnorm", "glu",
+                "rope", "dense", "moe"):
         for kern, regs, spill in ptxas_usage(build.BUILD_LOG.get(lib, "")):
             log(f"[build] {lib}: {kern}: {regs} registers, {spill}")
     # the bf16 kernels that must run on the tensor cores: the Hopper forms
     # on wgmma (HGMMA in SASS), the others on mma.sync (HMMA)
     for lib, inst, kernels in (
+            ("flash_attention", "HGMMA", ("flash_fwd_wgmma_kernel",)),
             ("flash_attention", "HMMA", ("flash_fwd_bf16_kernel",)),
             ("flash_attention_bwd", "HGMMA", ("bwd_dq_wgmma_kernel",
                                               "bwd_dkdv_wgmma_kernel")),
@@ -606,13 +607,15 @@ def mma_counts(lib_path, inst="HMMA"):
     return counts
 
 
-# the parent's libraries phase timing holds the redesigned kernels against
-PARENT_LIBS = ("dense", "flash_attention_bwd")
+# the parent's libraries phase timing holds this tree's redesigned kernels
+# against (parent_dense and parent_flash_bwd take "dense" and
+# "flash_attention_bwd", the kernels the tree before redesigned)
+PARENT_LIBS = ("flash_attention", "rmsnorm")
 
 
-def build_parent(parent, out_dir):
-    """The parent tree's ``PARENT_LIBS`` (``--parent``: a ``git archive``
-    of another commit) built with this tree's ``nvcc`` flags into
+def build_parent(parent, out_dir, names=PARENT_LIBS):
+    """The parent tree's libraries ``names`` (``--parent``: a ``git
+    archive`` of another commit) built with this tree's ``nvcc`` flags into
     ``<out-dir>/parent_build``, all started together, and loaded: name ->
     ``ctypes.CDLL``."""
     import ctypes
@@ -623,7 +626,7 @@ def build_parent(parent, out_dir):
     dest = os.path.join(out_dir, "parent_build")
     os.makedirs(dest, exist_ok=True)
     procs = {}
-    for name in PARENT_LIBS:
+    for name in names:
         so = os.path.join(dest, f"lib{name}.so")
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", csrc, "-o", so,
                os.path.join(csrc, build.SOURCES[name])]
@@ -636,7 +639,7 @@ def build_parent(parent, out_dir):
         require(proc.returncode == 0, f"the parent's {name} did not build:"
                 f"\n{text[-3000:]}")
         libs[name] = ctypes.CDLL(so)
-    log(f"[build] the parent's {', '.join(PARENT_LIBS)} built from {csrc}")
+    log(f"[build] the parent's {', '.join(names)} built from {csrc}")
     return libs
 
 
@@ -938,15 +941,13 @@ def check_flash(torch, label, dims, dtype, kw, seed):
             f"(rtol {rtol}; max abs err {err})")
     require(lse_err <= lse_tol, f"flash_attention {label}: lse err "
             f"{lse_err} over {lse_tol}")
+    out2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
+    require(_bits_equal(torch, out, out2) and _bits_equal(torch, lse, lse2),
+            f"flash_attention {label}: two calls differ")
     log(f"[kernels] flash_attention {label} {dims} {dtype}: max abs err "
         f"{err:.3g}, scaled excess {ex:.3g} (rtol {rtol}, atol {atol} x "
-        f"row RMS), lse err {lse_err:.3g}")
+        f"row RMS), lse err {lse_err:.3g}; two calls bit for bit")
     if label == "gemma2-2b layer":
-        out2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
-        require(torch.equal(out, out2) and torch.equal(lse, lse2),
-                f"flash_attention {label}: two calls differ")
-        log(f"[kernels] flash_attention {label}: two calls bit for bit "
-            "equal")
         # the check rejects a kernel that skips one kv tile: the plain
         # version with keys 0..31 masked (K/V cut, queries kept at the end)
         bad = fa.flash_attention_plain(q, k[:, 32:].contiguous(),
@@ -1975,9 +1976,15 @@ def phase_kernels(state) -> None:
     adv_pinned = check_advance_pinned(torch, cfg)
     loop = check_step_loop(torch, cfg)
     # the new kernels; the error kept is that of the main path's shapes
+    from repro_torch.kernels import flash_attention as fa
+
+    fa.flash_attention.mma_sync = 0
     flash = [check_flash(torch, *case, seed=20 + i)
              for i, case in enumerate(FLASH_CASES)]
     check_flash_unseen_rows(torch)
+    require(fa.flash_attention.mma_sync == 0, "flash_attention: "
+            f"{fa.flash_attention.mma_sync} calls at D >= 64 took the "
+            "mma.sync form")
     ssd = [check_ssd(torch, *case, seed=30 + i)
            for i, case in enumerate(SSD_CASES)]
     check_entry_store(torch)
@@ -1985,8 +1992,6 @@ def phase_kernels(state) -> None:
     torch.cuda.empty_cache()
     # the layer kernels of gemma2-2b's body (the error kept: the bf16 main
     # path's shapes)
-    from repro_torch.kernels import flash_attention as fa
-
     fa.flash_attention_bwd.mma_sync = 0
     bwd = [check_flash_bwd(torch, *case, seed=80 + i)
            for i, case in enumerate(FLASH_BWD_CASES)]
@@ -5396,10 +5401,11 @@ def _parts(torch, call, table):
     return parts or None
 
 
-def _time_flash(torch, run):
+def _time_flash(torch, run, state):
     """Kernel 4 at a decoder phase's attention shape (``run``: every
     gemma2-2b layer, whose local layers' window of 4096 spans the whole
-    sequence, or every phi3.5-moe layer), its plain version, and
+    sequence, or every phi3.5-moe layer), beside the parent's form in the
+    same call where ``--parent`` gave one, its plain version, and
     ``scaled_dot_product_attention`` on K/V repeated per group: the same
     function at phi3.5-moe's shape, gemma2-2b's without its softcap (no
     library call computes that)."""
@@ -5417,6 +5423,12 @@ def _time_flash(torch, run):
     v = _randn(torch, rng, (B, S, G, D), bf16)
     kw = {"softcap": cfg.attn_softcap, "scale": cfg.query_scale}
     same = cfg.attn_softcap is None
+    par = parent_flash_fwd(torch, state)
+    if par:
+        against_parent("flash_attention", f" at {cfg.name}'s layer",
+                       lambda: par(q, k, v, cfg.attn_softcap,
+                                   cfg.query_scale),
+                       lambda: fa.flash_attention_fwd(q, k, v, **kw), 5)
     ms_k = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), 5)
     ms_p = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 3)
     qt = q.transpose(1, 2).contiguous()
@@ -5435,6 +5447,10 @@ def _time_flash(torch, run):
         f"{flops / ms_l / 1e9:.1f} TFLOP/s: scaled_dot_product_attention on "
         "K/V repeated per group, "
         + ("the same function)" if same else "which lacks the softcap)"))
+    if same:
+        log(f"[timing] flash_attention at {cfg.name}'s layer against SDPA: "
+            + ("met" if ms_k <= ms_l else f"missed by x{ms_k / ms_l:.2f}")
+            + " (target: not above it)")
     return ("flash_attention", "src/repro_torch/kernels/csrc/"
             "flash_attention.cu", "src/repro/kernels/flash_attention.py:86",
             ms_k, ms_p, b_ms, by, ms_l, flops)
@@ -5680,38 +5696,22 @@ def timing_alt(name, k_fn, nbytes, what, iters=20):
     return ms
 
 
-def _time_layer_kernels(torch, state):
-    """The layer kernels of gemma2-2b's body at the dense phase's shapes
-    (B=2, S=4096), each beside its plain version and its bound (bytes at
-    3.35 TB/s: every input read once, every output written once), and
-    ``F.rms_norm`` on ``1 + scale`` for rmsnorm, its gradient through
-    autograd for rmsnorm's backward (no single PyTorch call computes the
-    others); the attention backward also at phi3.5-moe's
-    layer.  Returns the kernels line's rows."""
+def _time_rmsnorm(torch, state):
+    """rmsnorm's forms at gemma2-2b's rows (B=2, S=4096, d=2304, bf16):
+    the forward, with the residual, and the backward with one, two and
+    three consumers' cotangents (the latter two with the skip's), each
+    beside the parent's form in the same call where ``--parent`` gave one,
+    its plain version, its bound (bytes at 3.35 TB/s: every input read
+    once, every output written once), and ``F.rms_norm`` on ``1 + scale``
+    and its gradient through autograd.  Returns the kernels line's rows."""
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import glu as glu_mod
     from repro_torch.kernels import rmsnorm as rn
-    from repro_torch.kernels import rope as rope_mod
-    from repro_torch.models.layers import rope_table
 
     csrc = "src/repro_torch/kernels/csrc/"
-    # the TPU kernel whose traced body computed them (the segment kernels'
-    # chunk scans and chunk vjp)
     rep = "src/repro/kernels/segment_pallas.py:248"
     rows = []
-    gemma = get_config("gemma2-2b")
-    fb = _time_flash_bwd(torch, gemma, 2, 4096, state)
-    rows.append(("flash_attention_bwd", csrc + "flash_attention_bwd.cu",
-                 rep, *fb))
-    # phi3.5-moe's layer (the moe phase's shape, whether or not it ran)
-    run = state.get("moe", {"cfg": get_config("phi3.5-moe-42b"), "B": 2,
-                            "S": 4096})
-    _time_flash_bwd(torch, run["cfg"], run["B"], run["S"], state)
-    torch.cuda.empty_cache()
-
     rng = np.random.default_rng(71)
     bf16 = torch.bfloat16
     N, d = GEMMA_ROWS, GEMMA_D
@@ -5727,6 +5727,15 @@ def _time_layer_kernels(torch, state):
     el = 2.0
     w = (1.0 + scale).to(bf16)
     rms_lib = getattr(F, "rms_norm", None)
+    par = parent_rmsnorm(torch, state)
+    if par:   # the parent's forms beside this tree's in the same call
+        pfwd, pbwd = par
+        against_parent("rmsnorm", f" at ({N}, {d}) bf16",
+                       lambda: pfwd(x, scale),
+                       lambda: rn.rmsnorm(x, scale, out_dtype=bf16), 20)
+        against_parent("rmsnorm", " with the residual",
+                       lambda: pfwd(x, scale, res),
+                       lambda: rn.rmsnorm(x, scale, res, out_dtype=bf16), 20)
     rows.append(row(
         "rmsnorm", "rmsnorm.cu",
         lambda: rn.rmsnorm(x, scale, out_dtype=bf16),
@@ -5734,6 +5743,11 @@ def _time_layer_kernels(torch, state):
         2 * el * N * d + 4.0 * (N + d),
         None if rms_lib is None else (lambda: rms_lib(x, (d,), w, 1e-6)),
         f" at ({N}, {d}) bf16 (ln1, ln2)"))
+    if rows[-1][7] is not None:
+        log(f"[timing] rmsnorm {rows[-1][3]:.4f} ms against F.rms_norm "
+            f"{rows[-1][7]:.4f} ms: "
+            + ("met" if rows[-1][3] <= rows[-1][7] else "missed")
+            + " (target: not above it)")
     row("rmsnorm", "rmsnorm.cu",
         lambda: rn.rmsnorm(x, scale, res, out_dtype=bf16),
         lambda: rn.rmsnorm_fwd_plain(x, scale, res, 1e-6, bf16),
@@ -5755,6 +5769,18 @@ def _time_layer_kernels(torch, state):
     # the skip's added in the kernel); no one PyTorch call computes it
     g2, g3, dskip = (_randn(torch, rng, (2, 4096, d), bf16)
                      for _ in range(3))
+    if par:
+        for what, more, sk in (
+                (" with one cotangent", (), None),
+                (" with three consumers' cotangents and the skip's",
+                 (g2, g3), dskip),
+                (" with two consumers' cotangents and the skip's", (g2,),
+                 dskip)):
+            against_parent(
+                "rmsnorm_bwd", what,
+                lambda: pbwd(g, x, scale, rstd, more, sk),
+                lambda: rn.rmsnorm_bwd(g, x, scale, rstd, g_more=more,
+                                       dskip=sk), 20)
     rows.append(row(
         "rmsnorm_bwd", "rmsnorm.cu",
         lambda: rn.rmsnorm_bwd(g, x, scale, rstd, g_more=(g2, g3),
@@ -5771,12 +5797,81 @@ def _time_layer_kernels(torch, state):
         g, x, scale, rstd, g_more=(g2,), dskip=dskip),
         5 * el * N * d + 4.0 * (N + 2 * d),
         "with two consumers' cotangents and the skip's (gemma2-2b's ln2)")
+    one = cuda_ms(lambda: rn.rmsnorm_bwd(g, x, scale, rstd), 20)
     if lib_bwd is not None:
-        timing_alt("F.rms_norm's gradient", lib_bwd,
-                   3 * el * N * d + 4.0 * (N + 2 * d),
-                   "through autograd (one cotangent: the library yardstick "
-                   "of the row's form before)")
+        lib_ms = timing_alt("F.rms_norm's gradient", lib_bwd,
+                            3 * el * N * d + 4.0 * (N + 2 * d),
+                            "through autograd (one cotangent: the library "
+                            "yardstick of the form with one cotangent)")
+        log(f"[timing] rmsnorm_bwd with one cotangent {one:.4f} ms against "
+            f"F.rms_norm's gradient {lib_ms:.4f} ms: "
+            + ("met" if one <= lib_ms else "missed")
+            + " (target: not above it)")
     del x, res, g, rstd, lib_bwd, g2, g3, dskip
+    # phi3.5-moe's width (8192 x 4096), where the backward's rows are two
+    # warps' each
+    d4 = 4096
+    x, g, g2, g3, dskip = (_randn(torch, rng, (2, 4096, d4), bf16)
+                           for _ in range(5))
+    scale = _randn(torch, rng, (d4,), torch.float32, 0.3)
+    _, rstd = rn.rmsnorm(x, scale, out_dtype=bf16)
+    for name, what, k_fn, p_fn, nbytes in (
+            ("rmsnorm", f"at ({N}, {d4}) bf16 (phi3.5-moe's norms)",
+             lambda: rn.rmsnorm(x, scale, out_dtype=bf16),
+             par and (lambda: par[0](x, scale)),
+             2 * el * N * d4 + 4.0 * (N + d4)),
+            ("rmsnorm_bwd", f"at ({N}, {d4}) bf16, three consumers' "
+             "cotangents and the skip's (phi3.5-moe's ln1)",
+             lambda: rn.rmsnorm_bwd(g, x, scale, rstd, g_more=(g2, g3),
+                                    dskip=dskip),
+             par and (lambda: par[1](g, x, scale, rstd, (g2, g3), dskip)),
+             6 * el * N * d4 + 4.0 * (N + 2 * d4))):
+        if p_fn:
+            against_parent(name, " " + what, p_fn, k_fn, 20)
+        timing_alt(name, k_fn, nbytes, what)
+    del x, g, g2, g3, dskip, rstd
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _time_layer_kernels(torch, state):
+    """The layer kernels of gemma2-2b's body at the dense phase's shapes
+    (B=2, S=4096), each beside its plain version and its bound (bytes at
+    3.35 TB/s: every input read once, every output written once); rmsnorm's
+    forms by :func:`_time_rmsnorm` (no single PyTorch call computes the
+    others); the attention backward also at phi3.5-moe's layer.  Returns
+    the kernels line's rows."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import glu as glu_mod
+    from repro_torch.kernels import rope as rope_mod
+    from repro_torch.models.layers import rope_table
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    # the TPU kernel whose traced body computed them (the segment kernels'
+    # chunk scans and chunk vjp)
+    rep = "src/repro/kernels/segment_pallas.py:248"
+    rows = []
+    gemma = get_config("gemma2-2b")
+    fb = _time_flash_bwd(torch, gemma, 2, 4096, state)
+    rows.append(("flash_attention_bwd", csrc + "flash_attention_bwd.cu",
+                 rep, *fb))
+    # phi3.5-moe's layer (the moe phase's shape, whether or not it ran)
+    run = state.get("moe", {"cfg": get_config("phi3.5-moe-42b"), "B": 2,
+                            "S": 4096})
+    _time_flash_bwd(torch, run["cfg"], run["B"], run["S"], state)
+    torch.cuda.empty_cache()
+
+    rows += _time_rmsnorm(torch, state)
+    rng = np.random.default_rng(72)
+    bf16 = torch.bfloat16
+    el = 2.0
+
+    def row(name, src, k_fn, p_fn, nbytes, l_fn=None, what=""):
+        return timing_row(name, csrc + src, rep, k_fn, p_fn, nbytes,
+                          l_fn=l_fn, what=what, iters=(20, 5))
+
     n = 2 * 4096 * GEMMA_FF
     gate, up, gg = (_randn(torch, rng, (2, 4096, GEMMA_FF), bf16)
                     for _ in range(3))
@@ -5920,6 +6015,101 @@ def parent_flash_bwd(torch, state):
         return dq, dk, dv
 
     return run
+
+
+def parent_flash_fwd(torch, state):
+    """The parent tree's bf16 attention forward (``--parent``; the same C
+    entry point) as ``fn(q, k, v, softcap, scale)`` -> ``(out, lse)``,
+    causal without a window; None without a parent."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    lib = state.get("parent_libs", {}).get("flash_attention")
+    if lib is None:
+        return None
+    P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.flash_attention_fwd_bf16
+    fn.restype = I_
+    fn.argtypes = [P_] * 5 + [I_] * 6 + [F_, I_, I_, F_, P_]
+
+    def run(q, k, v, softcap, scale):
+        B, Sq, H, D = q.shape
+        Sk, G = k.shape[1], k.shape[2]
+        out = torch.empty_like(q)
+        lse = torch.empty((B, G, H // G, Sq), dtype=torch.float32,
+                          device="cuda")
+        build.check(lib, fn(*(build.ptr(t) for t in (q, k, v, out, lse)),
+                            B, Sq, Sk, H, G, D,
+                            float(D ** -0.5 if scale is None else scale), 1,
+                            0, float(softcap or 0.0), build.stream_ptr()),
+                    "parent fwd")
+        return out, lse
+
+    return run
+
+
+def parent_rmsnorm(torch, state):
+    """The parent tree's rmsnorm (``--parent``; the same C entry points) as
+    ``(fwd(x, scale, res), bwd(g, x, scale, rstd, g_more, dskip))`` on bf16
+    rows, ``scale`` fp32; None without a parent."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    lib = state.get("parent_libs", {}).get("rmsnorm")
+    if lib is None:
+        return None
+    P_, I_, F_, L_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_long
+    lib.rmsnorm_fwd.restype = I_
+    lib.rmsnorm_fwd.argtypes = [P_] * 5 + [L_, I_, F_, I_, I_, P_]
+    lib.rmsnorm_bwd.restype = I_
+    lib.rmsnorm_bwd.argtypes = [P_] * 10 + [L_, I_, I_, I_, P_]
+    lib.rmsnorm_bwd_blocks.restype = I_
+    lib.rmsnorm_bwd_blocks.argtypes = [L_]
+
+    def fwd(x, scale, res=None):
+        d = x.shape[-1]
+        rows = x.numel() // d
+        out = torch.empty_like(x)
+        rstd = torch.empty((rows,), dtype=torch.float32, device="cuda")
+        build.check(lib, lib.rmsnorm_fwd(
+            build.ptr(x), build.ptr(scale), build.ptr(res), build.ptr(out),
+            build.ptr(rstd), rows, d, 1e-6, 1, 1, build.stream_ptr()),
+            "parent rmsnorm")
+        return out, rstd
+
+    def bwd(g, x, scale, rstd, g_more=(), dskip=None):
+        d = x.shape[-1]
+        rows = x.numel() // d
+        part = torch.empty((lib.rmsnorm_bwd_blocks(rows), d),
+                           dtype=torch.float32, device="cuda")
+        dx = torch.empty_like(x)
+        dscale = torch.empty((d,), dtype=torch.float32, device="cuda")
+        gs = [g, *g_more] + [None] * (2 - len(g_more))
+        build.check(lib, lib.rmsnorm_bwd(
+            *(build.ptr(t) for t in gs), build.ptr(x), build.ptr(scale),
+            build.ptr(rstd), build.ptr(dskip), build.ptr(dx),
+            build.ptr(part), build.ptr(dscale), rows, d, 1, 1,
+            build.stream_ptr()), "parent rmsnorm_bwd")
+        return dx, dscale
+
+    return fwd, bwd
+
+
+def against_parent(name, what, par_fn, k_fn, iters):
+    """A redesigned kernel beside the parent's form in one call (parent,
+    this tree, parent; the parent's the better of its two), logged; fails
+    if this tree's form is not the faster.  Returns ``(parent ms, ms)``."""
+    ms_par = cuda_ms(par_fn, iters)
+    ms_k = cuda_ms(k_fn, iters)
+    ms_par = min(ms_par, cuda_ms(par_fn, iters))
+    log(f"[timing] {name}{what}: the parent's form {ms_par:.4f} ms, this "
+        f"tree {ms_k:.4f} (x{ms_par / ms_k:.2f})")
+    require(ms_k < ms_par, f"{name}{what}: the new form is not faster than "
+            "the parent's")
+    return ms_par, ms_k
 
 
 def _time_dense(torch, state):
@@ -6429,11 +6619,15 @@ def phase_timing(state) -> None:
         f"written to page-locked host memory {writes['host']:.4f} ms, to "
         f"device memory {writes['device']:.4f} ms")
 
-    flash = {k: _time_flash(torch, state[k]) for k in ("dense", "moe")
-             if k in state}
+    # both decoder layers (their phases' shapes, whether or not they ran);
     # the row at phi3.5-moe's shape, where the library call computes the
     # same function; launches: every decoder phase's offloaded first call
-    rows.append(flash["moe"] if "moe" in flash else flash["dense"])
+    from repro_torch.configs import get_config
+
+    flash = {k: _time_flash(torch, state.get(k, {
+        "cfg": get_config(arch), "B": 2, "S": 4096}), state)
+        for k, arch in (("dense", "gemma2-2b"), ("moe", "phi3.5-moe-42b"))}
+    rows.append(flash["moe"])
     by_phase = {k: v["flash_attention"]
                 for k, v in state["launches_by_phase"].items()
                 if "flash_attention" in v}
@@ -6847,19 +7041,22 @@ def phase_profile(state) -> None:
 
 
 # the phases that drive the decoders' main path (their plain-version calls
-# run inside _PlainVersions, which launches no kernel)
+# run inside _PlainVersions, which launches no kernel); phase families'
+# attention (head dim 64) must take the forward's Hopper form too
 MAIN_PATH_DECODERS = ("dense", "ssm", "moe")
+FLASH_HOPPER_PHASES = MAIN_PATH_DECODERS + ("families",)
 
 
 def mma_sync_launches(reset=False) -> dict:
     """The launches of the mma.sync forms the Hopper kernels' wrappers keep
-    (the GEMM's for operands TMA cannot read, the attention backward's for
-    D < 64), by wrapper; zeroed with ``reset``."""
+    (the GEMM's for operands TMA cannot read, the attention forward's and
+    backward's for D < 64), by wrapper; zeroed with ``reset``."""
     from repro_torch.kernels import dense as dn
     from repro_torch.kernels import flash_attention as fa
 
     fns = {"dense_fwd": dn.dense_fwd, "dense_bwd": dn.dense_bwd,
            "expert_fwd": dn.expert_fwd, "expert_bwd": dn.expert_bwd,
+           "flash_attention": fa.flash_attention,
            "flash_attention_bwd": fa.flash_attention_bwd}
     if reset:
         for fn in fns.values():
@@ -6915,11 +7112,13 @@ def main(argv=None) -> int:
     for name in PHASES + OPTIONAL:
         if name in phases:
             t0 = time.perf_counter()
-            if name in MAIN_PATH_DECODERS:
+            if name in FLASH_HOPPER_PHASES:
                 mma_sync_launches(reset=True)
             steps[name](state)
-            if name in MAIN_PATH_DECODERS:
+            if name in FLASH_HOPPER_PHASES:
                 n = mma_sync_launches()
+                if name not in MAIN_PATH_DECODERS:
+                    n = {"flash_attention": n["flash_attention"]}
                 require(not any(n.values()), f"[{name}] the main path "
                         f"launched the mma.sync forms of the Hopper kernels:"
                         f" {n}")

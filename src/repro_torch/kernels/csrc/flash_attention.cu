@@ -21,42 +21,66 @@
 // sums differs.  Keys a row may not see get p = 0; a row that sees no key
 // (only when Sq > Sk) gives 0, never NaN: l is clamped at 1e-30 and lse is
 // then about NEG_INF.  Ragged Sq and Sk edges are masked (the TPU kernel
-// asserts that its blocks divide them).
+// asserts that its blocks divide them).  Every sum runs in a fixed order and
+// nothing is atomic, so two calls give the same bits.
 //
-// Bound: at gemma2-2b's training shape (B*H = 16, S = 4096, D = 256,
-// causal) one call does ~137 GFLOP of products against ~0.1 GB of bytes, so
-// it is bound by the bf16 tensor cores (0.14 ms at 989 TFLOP/s).
+// Bound: the bf16 tensor cores.  At gemma2-2b's layer (B = 2, S = 4096,
+// H = 8, D = 256, causal) one call does ~137 GFLOP of products against
+// ~0.1 GB of bytes (0.14 ms at 989 TFLOP/s); at phi3.5-moe's (H = 32,
+// D = 128) ~275 GFLOP (0.28 ms).
 //
-// bf16 inputs (flash_fwd_bf16_kernel, D in {16, 32, 64, 128, 256}: the
-// head dims of the repo's configs and tests; the fragment loops take any
-// multiple of 16, each an instantiation of its own): the products
-// run on the tensor cores.  A block of 4 warps owns 64 query rows, a warp
-// 16 of them.  Q, K and V stay bf16 in shared memory, rows padded by 16
-// bytes so that the 8 row addresses of an ldmatrix fall in distinct banks.
-// S = Q.K^T and O += P.V are mma.sync m16n8k16 (bf16 in, fp32 accumulate);
-// K tiles are read with ldmatrix, V tiles with ldmatrix.trans.  The row max
-// and sum of a warp's rows live in the 4 lanes that share a row of the
-// accumulator fragment (reduced with two shuffles); softcap, the online
-// softmax and the causal/window/ragged masks run on those fragments in
-// registers, the masks only on tiles that cross the diagonal, the window
-// edge or the ragged edge.  P is rounded to bf16 in registers and is the A
-// operand of P.V as it stands (the S accumulator's layout is the A
-// fragment's), so it never goes through shared memory.  K/V tiles are
-// double-buffered with 16-byte cp.async: tile t+1 loads while tile t
-// computes.  The softcap divides by cap as a multiply by 1/cap (within an
-// ulp, and without an IEEE division per score).  Registers at D = 256: the
-// O accumulator is 16 x 256 fp32 per warp, 128 a thread, so the kv tile is
-// 32 keys there (S is 16 a thread) and 64 at D <= 128; shared memory is 101 KB at D = 256 (two blocks per
-// SM), 87 KB at D = 128.  Query tiles run heaviest first (the causal range
-// grows with the tile index), so the last wave is short.  The next step is
-// the Hopper form (TMA loads by a producer warp, wgmma consumer warpgroups).
+// bf16 at D in {64, 128, 256} (flash_fwd_wgmma_kernel, the Hopper form; it
+// replaces the mma.sync form below at these widths, which reached 149-189
+// TFLOP/s against SDPA's 527-597): a block of 384 threads owns 128 query
+// rows of one (batch, head).  Warpgroup 0 is the producer: its first thread
+// TMA-loads the Q tile once (4D tensor maps over (B, S, heads, D), 64-column
+// boxes in the 128-byte swizzle) and then K and V tiles into a ring of
+// stages behind full and empty mbarriers; it gives up its registers
+// (setmaxnreg) to warpgroups 1 and 2, the consumers, each owning 64 query
+// rows.  A consumer rounds q * scale in place for its rows, then per kv
+// tile: S = Q K^T on wgmma with both operands from shared memory (K-major);
+// softcap, the causal, window and ragged masks (only on tiles that cross an
+// edge, per warp) and the online softmax on the accumulator fragments in
+// registers (a row's max and sum live in the 4 lanes that share it); P
+// rounded to bf16 in registers is the register A operand of O += P V (wgmma
+// RS, V read MN-major through the transpose bit), so P never goes through
+// shared memory; the stage is released.  The consumers take turns to issue
+// their products (two named barriers), so one's exponentials run under the
+// other's products.  At D <= 128 a consumer also issues tile t's S product
+// together with tile t-1's P V and runs t's softmax while P V is in flight;
+// O is rescaled by t's correction only after that P V retires, so O sees the
+// same operations in the same order as without the overlap.  Epilogue: O
+// normalised into the consumer's rows of the Q tile (swizzled) and stored by
+// TMA (rows past Sq are not written), lse from registers.  Tiles: 128 keys
+// at D <= 128, 64 at D = 256, where the O accumulator is 64 x 256 fp32 a
+// warpgroup, 128 registers a thread, beside 32 of S (240 a consumer thread
+// after setmaxnreg); ring stages 4 (D = 64: 144 KB), 3 (D = 128: 225 KB), 2
+// (D = 256: 192 KB).  One block per SM.  Query tiles run heaviest first
+// across all heads (the grid's slow axis is the query tile), so the last
+// wave is short.
+//   Tried on the card (tools/time_attention_norm.py): the overlap at D =
+// 256 ran 1.1x slower than without it; the turns alone gained 1-5%, the
+// overlap with them and a third stage at D = 128 1.16x; 64-key tiles and 4
+// stages at D = 128 gained nothing over the turns alone; the overlap
+// written with the first P V under a branch in the loop made ptxas wait
+// after every wgmma.
+//
+// bf16 at D in {16, 32} (the SMOKE configs' widths, under one 128-byte
+// row; flash_fwd_bf16_kernel) keeps the Ampere form: a block of 4
+// warps owns 64 query rows, a warp 16; Q, K and V bf16 in shared memory,
+// rows padded by 16 bytes so the 8 row addresses of an ldmatrix fall in
+// distinct banks; S = Q.K^T and O += P.V are mma.sync m16n8k16 (K tiles
+// through ldmatrix, V through ldmatrix.trans), softmax on the fragments as
+// above, P the A operand as it stands; K/V tiles of 64 keys double-buffered
+// with 16-byte cp.async.  The softcap divides by cap as a multiply by 1/cap
+// in both forms (within an ulp, and without an IEEE division per score).
 //
 // fp32 inputs (flash_fwd_kernel, D <= 256) keep the first design: products
 // as fp32 FMA on the CUDA cores from shared memory (no TF32), one block per
 // (batch * head, 64 query rows), a warp owning 8 rows through scores,
 // online softmax and p.V; fp32 tiles need 137 KB of shared memory at
 // D = 256, one block of 8 warps per SM.
-#include "common.cuh"
+#include "hopper.cuh"
 
 using repro::from_f32;
 using repro::to_f32;
@@ -263,7 +287,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct TcShape {
-  static constexpr int BK = D == 256 ? 32 : 64;  // keys per kv tile
+  static constexpr int BK = 64;      // keys per kv tile
   static constexpr int LDS = D + 8;  // row stride (elements): +16 bytes
   static constexpr size_t smem =
       sizeof(bf16) * static_cast<size_t>(TC_BQ + 4 * BK) * LDS;
@@ -491,6 +515,366 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------ bf16, the Hopper form (wgmma)
+
+constexpr int H_NT = 384;   // the producer warpgroup and two consumers
+constexpr int PIPE_MAX_D = 128;   // up to this D, S a tile ahead of P V
+constexpr int FWD_BK = 128;       // keys a kv tile at D <= 128
+constexpr int FWD_BK_256 = 64;    // ... at D = 256
+constexpr int FWD_STAGES_128 = 3; // ring stages at D = 128
+
+template <int D>
+struct HFwd {
+  static constexpr int BQ = 128;                   // 64 rows a consumer
+  static constexpr int BK = D == 256 ? FWD_BK_256 : FWD_BK;
+  static constexpr int NSTG = D == 64 ? 4 : D == 128 ? FWD_STAGES_128 : 2;
+  static constexpr bool PIPELINE = D <= PIPE_MAX_D;
+  static constexpr int CH = D / 64;                // 64-column boxes
+  static constexpr int QB = BQ * D * 2;            // the Q tile
+  static constexpr int KB = BK * D * 2;            // a K or V tile
+  static constexpr size_t smem =
+      1024 + QB + NSTG * 2 * KB + (1 + 2 * NSTG) * 8;
+};
+
+// S = Q K^T of one kv tile (64 rows x BK keys a warpgroup; both operands
+// K-major from shared memory: q the warpgroup's rows of the Q tile, ks the
+// K tile), issued as one group
+template <int D, int BQ, int BK>
+__device__ __forceinline__ void issue_s(float (&s)[BK / 2], const char* q,
+                                        const char* ks) {
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.0f;
+  repro::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int oq = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+    const int ok = (kk / 4) * BK * 128 + (kk % 4) * 32;
+    repro::wgmma_ss<BK, 0, 0>(s, repro::desc128(q + oq, 16, 1024),
+                              repro::desc128(ks + ok, 16, 1024));
+  }
+  repro::wgmma_commit();
+}
+
+// O += P V of one kv tile: p (bf16) the register A operand, V (vs) read
+// MN-major through the transpose bit; issued as one group
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[BK / 16][4],
+                                         const char* vs) {
+  repro::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    repro::wgmma_rs<D, 1>(
+        o, pa[kk], repro::desc128(vs + kk * 16 * 128, BK * 128, 1024));
+  repro::wgmma_commit();
+}
+
+// Softcap, masks and the online softmax of the kv tile at key k0 on a
+// warp's fragments (rows qp[0], qp[1] of the 16 from w_first): s becomes
+// p, m and l move on, corr is O's correction.  The masks apply only where
+// the tile crosses the ragged edge, the diagonal or the window's edge.
+template <int BK>
+__device__ __forceinline__ void tile_softmax(
+    float (&s)[BK / 2], float (&m)[2], float (&l)[2], float (&corr)[2],
+    int k0, int Sk, int causal, int window, float cap, float inv_cap,
+    int w_first, const int (&qp)[2], int tq4) {
+  const bool need_mask = k0 + BK > Sk || (causal && k0 + BK - 1 > w_first) ||
+                         (window > 0 && w_first + 15 - k0 >= window);
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sv = s[4 * j + e];
+      if (cap > 0.0f) sv = cap * tanhf(sv * inv_cap);
+      if (need_mask) {
+        const int kp = k0 + 8 * j + 2 * tq4 + (e & 1);
+        const int qpos = qp[e >> 1];
+        bool valid = kp < Sk;
+        if (causal) valid = valid && kp <= qpos;
+        if (window > 0) valid = valid && qpos - kp < window;
+        if (!valid) sv = -INFINITY;
+      }
+      s[4 * j + e] = sv;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+    }
+  float ml2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    corr[r] = exp2f((m[r] - m_new) * LOG2E);
+    m[r] = m_new;
+    ml2[r] = m_new * LOG2E;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // masked scores are -inf: p = 0 (m stays finite)
+      const float p = exp2f(fmaf(s[4 * j + e], LOG2E, -ml2[e >> 1]));
+      s[4 * j + e] = p;
+      l[e >> 1] += p;
+    }
+}
+
+// O *= corr, and p rounded to bf16 into P V's A fragments
+template <int D, int BK>
+__device__ __forceinline__ void rescale_pack(float (&o)[D / 2],
+                                             const float (&corr)[2],
+                                             const float (&s)[BK / 2],
+                                             uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j] *= corr[0];
+    o[4 * j + 1] *= corr[0];
+    o[4 * j + 2] *= corr[1];
+    o[4 * j + 3] *= corr[1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pa[kk][0] = repro::pack_bf16x2(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = repro::pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = repro::pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = repro::pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(H_NT, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap to,
+                       float* __restrict__ lse, int Sq, int Sk, int H, int G,
+                       float scale, int causal, int window, float cap) {
+  using S = HFwd<D>;
+  constexpr int BQ = S::BQ, BK = S::BK, NSTG = S::NSTG, CH = S::CH;
+  extern __shared__ float smem[];
+  char* qs = repro::align1024(smem);
+  char* kv = qs + S::QB;   // NSTG x (K tile, V tile)
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(kv + NSTG * 2 * S::KB);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + NSTG;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int grp = h / (H / G);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
+  const int nq = min(BQ, Sq - q0);
+  const int q_off = Sk - Sq;   // queries sit at the end of the keys
+  const int k_end = causal ? min(Sk, q0 + nq + q_off) : Sk;
+  const int k_begin = window > 0 ? max(0, q0 + q_off - window + 1) : 0;
+  const int t_begin = k_begin / BK;
+  const int t_end = k_end > k_begin ? (k_end + BK - 1) / BK : t_begin;
+  if (threadIdx.x == 0) {
+    repro::mbar_init(qfull, 1);
+    for (int s = 0; s < NSTG; ++s) {
+      repro::mbar_init(&full[s], 1);
+      repro::mbar_init(&empty[s], 256);
+    }
+    repro::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    repro::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      repro::mbar_arrive_expect_tx(qfull, S::QB);
+      for (int c = 0; c < CH; ++c)
+        repro::tma_load_4d(qs + c * BQ * 128, &tq, qfull, 64 * c, h, q0, b);
+      int stage = 0, phase = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        repro::mbar_wait(&empty[stage], phase ^ 1);
+        char* ks = kv + stage * 2 * S::KB;
+        repro::mbar_arrive_expect_tx(&full[stage], 2 * S::KB);
+        for (int c = 0; c < CH; ++c) {
+          repro::tma_load_4d(ks + c * BK * 128, &tk, &full[stage], 64 * c,
+                             grp, t * BK, b);
+          repro::tma_load_4d(ks + S::KB + c * BK * 128, &tv, &full[stage],
+                             64 * c, grp, t * BK, b);
+        }
+        if (++stage == NSTG) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    repro::setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128 - 1;   // rows 64 cw .. of the tile
+    const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
+    const int g8 = lane >> 2, tq4 = lane & 3;
+    // q * scale in the input type, as the plain forward: this
+    // warpgroup's 64 rows of each 64-column box
+    repro::mbar_wait(qfull, 0);
+    for (int c = 0; c < CH; ++c)
+      repro::scale_rows(qs + c * BQ * 128 + cw * 64 * 128, 64 * 128, scale,
+                        lt);
+    repro::fence_proxy_async();
+    repro::named_barrier(1 + cw, 128);
+
+    const int wrow = 64 * cw + 16 * warp;     // the warp's rows of the tile
+    const int w_first = q0 + wrow + q_off;    // its first query position
+    const int qp[2] = {w_first + g8, w_first + g8 + 8};
+    // s / cap as s * (1 / cap): within an ulp, without a division per score
+    const float inv_cap = cap > 0.0f ? 1.0f / cap : 0.0f;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+    const char* qw = qs + cw * 64 * 128;
+    float s[BK / 2];          // S of the tile, then its p
+    uint32_t pa[BK / 16][4];  // p (bf16) as P V's A operand
+    float corr[2];
+    auto k_tile = [&](int stage) { return kv + stage * 2 * S::KB; };
+
+    // Turns: a warpgroup issues a tile's products only after the other
+    // has issued its own (named barriers 3 and 4), so that one's softmax
+    // runs under the other's products; warpgroup 1 lets warpgroup 0 go
+    // first, and skips its last hand-over, which no one waits for.
+    auto my_turn = [&]() { repro::named_barrier(3 + cw, 256); };
+    auto your_turn = [&](int t) {
+      if (cw == 0 || t + 1 < t_end) repro::named_barrier_arrive(4 - cw, 256);
+    };
+    if (cw == 1 && t_begin < t_end) repro::named_barrier_arrive(3, 256);
+    int stage = 0, phase = 0;
+    if constexpr (!S::PIPELINE) {
+      for (int t = t_begin; t < t_end; ++t) {
+        repro::mbar_wait(&full[stage], phase);
+        my_turn();
+        issue_s<D, BQ, BK>(s, qw, k_tile(stage));
+        your_turn(t);
+        repro::wgmma_wait<0>();
+        repro::fence_regs(s);
+        tile_softmax<BK>(s, m, l, corr, t * BK, Sk, causal, window, cap,
+                         inv_cap, w_first, qp, tq4);
+        rescale_pack<D, BK>(o, corr, s, pa);
+        issue_pv<D, BK>(o, pa, k_tile(stage) + S::KB);
+        repro::wgmma_wait<0>();
+        repro::fence_regs(o);
+        repro::keep_regs(pa);
+        repro::mbar_arrive(&empty[stage]);
+        if (++stage == NSTG) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    } else {
+      // A tile deep (S::PIPELINE): tile t's S product is issued together with
+      // tile t-1's P V, and t's softmax runs while P V is in flight.  O is
+      // rescaled by t's correction only after t-1's P V has retired, so O
+      // goes through the same operations, in the same order, as without
+      // the overlap.
+      int prev = 0;
+      if (t_begin < t_end) {
+        repro::mbar_wait(&full[stage], phase);
+        my_turn();
+        issue_s<D, BQ, BK>(s, qw, k_tile(stage));
+        your_turn(t_begin);
+        repro::wgmma_wait<0>();
+        repro::fence_regs(s);
+        tile_softmax<BK>(s, m, l, corr, t_begin * BK, Sk, causal, window,
+                         cap, inv_cap, w_first, qp, tq4);
+        rescale_pack<D, BK>(o, corr, s, pa);
+        prev = stage;
+        if (++stage == NSTG) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      for (int t = t_begin + 1; t < t_end; ++t) {
+        repro::mbar_wait(&full[stage], phase);
+        my_turn();
+        issue_s<D, BQ, BK>(s, qw, k_tile(stage));
+        issue_pv<D, BK>(o, pa, k_tile(prev) + S::KB);
+        your_turn(t);
+        repro::wgmma_wait<1>();   // S of tile t
+        repro::fence_regs(s);
+        tile_softmax<BK>(s, m, l, corr, t * BK, Sk, causal, window, cap,
+                         inv_cap, w_first, qp, tq4);
+        repro::wgmma_wait<0>();   // P V of tile t-1
+        repro::fence_regs(o);
+        repro::keep_regs(pa);
+        repro::mbar_arrive(&empty[prev]);
+        rescale_pack<D, BK>(o, corr, s, pa);
+        prev = stage;
+        if (++stage == NSTG) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (t_begin < t_end) {
+        issue_pv<D, BK>(o, pa, k_tile(prev) + S::KB);
+        repro::wgmma_wait<0>();
+        repro::fence_regs(o);
+        repro::keep_regs(pa);
+        repro::mbar_arrive(&empty[prev]);
+      }
+    }
+
+    // O / l into this warpgroup's rows of the Q tile (its last S product
+    // has retired; the other warpgroup reads only its own rows), then one
+    // TMA store a 64-column box
+    char* ow = qs + cw * 64 * 128;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const float lc = fmaxf(l[r], 1e-30f);
+      const int row = 16 * warp + g8 + 8 * r;   // of the warpgroup's 64
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * tq4;
+        *reinterpret_cast<uint32_t*>(
+            ow + (col / 64) * BQ * 128 +
+            repro::swz128(row * 128 + (col % 64) * 2)) =
+            repro::pack_bf16x2(o[4 * j + 2 * r] / lc,
+                               o[4 * j + 2 * r + 1] / lc);
+      }
+      const int i = wrow + g8 + 8 * r;
+      if (tq4 == 0 && i < nq)
+        lse[static_cast<long>(bh) * Sq + q0 + i] = m[r] + logf(lc);
+    }
+    repro::fence_proxy_async();
+    repro::named_barrier(1 + cw, 128);
+    if (lt == 0 && 64 * cw < nq) {
+      for (int c = 0; c < CH; ++c)
+        repro::tma_store_4d(&to, ow + c * BQ * 128, 64 * c, h, q0 + 64 * cw,
+                            b);
+      repro::tma_store_commit();
+      repro::tma_store_wait<0>();
+    }
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 float* lse, int B, int Sq, int Sk, int H, int G, float scale,
+                 int causal, int window, float cap, void* stream) {
+  using S = HFwd<D>;
+  CUtensorMap tq, tk, tv, to;
+  int err;
+  if ((err = repro::map_heads(&tq, q, B, Sq, H, D, S::BQ)) ||
+      (err = repro::map_heads(&tk, k, B, max(Sk, 1), G, D, S::BK)) ||
+      (err = repro::map_heads(&tv, v, B, max(Sk, 1), G, D, S::BK)) ||
+      (err = repro::map_heads(&to, out, B, Sq, H, D, 64)))
+    return err;
+  auto kern = flash_fwd_wgmma_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kern),
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(S::smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(B * H, (Sq + S::BQ - 1) / S::BQ);
+  kern<<<grid, H_NT, S::smem, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, to, lse, Sq, Sk, H, G, scale, causal, window, cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D 64, 128 and 256 take the Hopper form; D 16 and 32 (the SMOKE configs'
+// widths, under one 128-byte row) the mma.sync form
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 float* lse, int B, int Sq, int Sk, int H, int G, int D,
                 float scale, int causal, int window, float cap,
@@ -498,21 +882,23 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (G <= 0 || H % G != 0 || Sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 16)
-    return launch_tc<16>(q, k, v, out, lse, B, Sq, Sk, H, G, scale, causal,
-                         window, cap, stream);
-  if (D == 32)
-    return launch_tc<32>(q, k, v, out, lse, B, Sq, Sk, H, G, scale, causal,
-                         window, cap, stream);
-  if (D == 64)
-    return launch_tc<64>(q, k, v, out, lse, B, Sq, Sk, H, G, scale, causal,
-                         window, cap, stream);
-  if (D == 128)
-    return launch_tc<128>(q, k, v, out, lse, B, Sq, Sk, H, G, scale, causal,
-                          window, cap, stream);
-  if (D == 256)
-    return launch_tc<256>(q, k, v, out, lse, B, Sq, Sk, H, G, scale, causal,
-                          window, cap, stream);
+  switch (D) {
+    case 16:
+      return launch_tc<16>(q, k, v, out, lse, B, Sq, Sk, H, G, scale, causal,
+                           window, cap, stream);
+    case 32:
+      return launch_tc<32>(q, k, v, out, lse, B, Sq, Sk, H, G, scale, causal,
+                           window, cap, stream);
+    case 64:
+      return launch_wgmma<64>(q, k, v, out, lse, B, Sq, Sk, H, G, scale,
+                              causal, window, cap, stream);
+    case 128:
+      return launch_wgmma<128>(q, k, v, out, lse, B, Sq, Sk, H, G, scale,
+                               causal, window, cap, stream);
+    case 256:
+      return launch_wgmma<256>(q, k, v, out, lse, B, Sq, Sk, H, G, scale,
+                               causal, window, cap, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -22,7 +22,8 @@
 // does; sums are fp32 in another order.  Rows that see no key (only when
 // Sq > Sk, causal) get p = 0: the plain version's p there is exp(0) for the
 // masked keys (its lse is about NEG_INF), which adds their dO to dV; the
-// kernel does not (ROADMAP queue 2 records the difference).
+// kernel does not (ROADMAP queue 3's "Deliberate differences" records
+// the difference).
 //
 // Two launches, no atomics, so two calls give the same bits: a dQ launch (one
 // block per query tile: it walks the kv tiles its rows can see, recomputing
@@ -911,35 +912,8 @@ int launch_tc(const Args& a, void* stream) {
 
 constexpr int H_NT = 384;
 
-// a 4D bf16 map over (B, S, heads, D), boxes of 64 columns x `rows` rows of
-// one head
-int map_heads(CUtensorMap* m, const void* base, int B, int S, int heads,
-              int D, int rows) {
-  const uint64_t dims[4] = {static_cast<uint64_t>(D),
-                            static_cast<uint64_t>(heads),
-                            static_cast<uint64_t>(S),
-                            static_cast<uint64_t>(B)};
-  const uint64_t strides[3] = {static_cast<uint64_t>(D) * 2,
-                               static_cast<uint64_t>(heads) * D * 2,
-                               static_cast<uint64_t>(S) * heads * D * 2};
-  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(rows), 1};
-  return repro::tensor_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims,
-                           strides, box);
-}
-
-// q * scale rounded to bf16 in place over `bytes` bytes of a swizzled tile
-// (the layout does not matter: every value is scaled), by 128 threads
-__device__ __forceinline__ void scale_rows(char* p, int bytes, float scale,
-                                           int lt) {
-  for (int o = 4 * lt; o < bytes; o += 4 * 128) {
-    uint32_t* w = reinterpret_cast<uint32_t*>(p + o);
-    const float lo = __bfloat162float(
-        __ushort_as_bfloat16(static_cast<unsigned short>(*w & 0xffffu)));
-    const float hi = __bfloat162float(
-        __ushort_as_bfloat16(static_cast<unsigned short>(*w >> 16)));
-    *w = repro::pack_bf16x2(lo * scale, hi * scale);
-  }
-}
+using repro::map_heads;
+using repro::scale_rows;
 
 template <int D>
 struct HDq {

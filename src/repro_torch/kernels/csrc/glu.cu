@@ -15,10 +15,10 @@
 //   SiLU      act(x) = x s, s = sigmoid(x); act' = s (1 + x (1 - s))
 //
 // Computed in fp32 and rounded once to the input type (the plain forward,
-// PyTorch's gelu then a multiply, rounds twice in bf16: ROADMAP queue 2
-// records the difference).  Bound: bytes, 3 (forward) or 5 (backward)
-// tensors of gemma2-2b's (2, 4096, 9216) bf16: 453 and 755 MB, 0.14 and
-// 0.23 ms at 3.35 TB/s.  Design: a grid-stride loop, 16 bytes a load and a
+// PyTorch's gelu then a multiply, rounds twice in bf16: ROADMAP queue 3's
+// "Deliberate differences" records the difference).  Bound: bytes, 3
+// (forward) or 5 (backward) tensors of gemma2-2b's (2, 4096, 9216) bf16:
+// 453 and 755 MB, 0.14 and 0.23 ms at 3.35 TB/s.  Design: a grid-stride loop, 16 bytes a load and a
 // store where the tensors are 16-byte aligned (8 bf16 or 4 fp32 values),
 // one value at a time for the tail and a misaligned tensor.
 #include "common.cuh"

@@ -188,6 +188,21 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
 #endif
 }
 
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(map),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+#elif defined(REPRO_CUDA_EMU)
+  const int c[4] = {c0, c1, c2, c3};
+  emu_tma_store(map, src, c);
+#endif
+}
+
 __device__ __forceinline__ void tma_store_commit() {
 #if defined(__CUDA_ARCH__)
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -215,6 +230,16 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 #elif defined(REPRO_CUDA_EMU)
   emu_named_barrier(id, count);
+#endif
+}
+
+// bar.arrive on barrier `id` for `count` threads: counts this thread's
+// arrival and goes on (the others bar.sync there)
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+#elif defined(REPRO_CUDA_EMU)
+  emu_named_barrier_arrive(id, count);
 #endif
 }
 
@@ -615,6 +640,41 @@ inline int tensor_map(CUtensorMap* map, CUtensorMapDataType type,
       b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------- attention's tiles
+//
+// The attention kernels' shared pieces: a 4D bf16 map over the model's
+// (B, S, heads, D) layout, boxes of 64 columns x `rows` rows of one head
+// (a head's rows at stride heads x D, no transpose), and q * scale rounded
+// to bf16 in place.
+
+inline int map_heads(CUtensorMap* m, const void* base, int B, int S,
+                     int heads, int D, int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D),
+                            static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(D) * 2,
+                               static_cast<uint64_t>(heads) * D * 2,
+                               static_cast<uint64_t>(S) * heads * D * 2};
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(rows), 1};
+  return tensor_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims,
+                    strides, box);
+}
+
+// q * scale rounded to bf16 in place over `bytes` bytes of a swizzled tile
+// (the layout does not matter: every value is scaled), by 128 threads
+__device__ __forceinline__ void scale_rows(char* p, int bytes, float scale,
+                                           int lt) {
+  for (int o = 4 * lt; o < bytes; o += 4 * 128) {
+    uint32_t* w = reinterpret_cast<uint32_t*>(p + o);
+    const float lo = __bfloat162float(
+        __ushort_as_bfloat16(static_cast<unsigned short>(*w & 0xffffu)));
+    const float hi = __bfloat162float(
+        __ushort_as_bfloat16(static_cast<unsigned short>(*w >> 16)));
+    *w = pack_bf16x2(lo * scale, hi * scale);
+  }
 }
 
 }  // namespace repro

@@ -14,10 +14,13 @@ laid out is noted in the source.
 the plain version :func:`flash_attention_plain`
 (:func:`repro_torch.kernels.ref.flash_attention_ref` over the heads
 flattened as ``ops.py`` flattens them).  :func:`flash_attention_fwd`
-is the launch itself (CUDA only; bf16 takes the tensor-core kernel and
+is the launch itself (CUDA only; bf16 takes the tensor-core kernels and
 head dims 16, 32, 64, 128 and 256 only) and also returns ``lse`` (fp32,
 ``(B, G, H/G, Sq)``), which the TPU kernel does not produce and the
-attention backward needs.  Launches count into ``flash_attention.launches``.
+attention backward needs.  Launches count into ``flash_attention.launches``;
+bf16 at head dims 64, 128 and 256 runs the Hopper form (``wgmma`` on
+TMA-fed tiles), bf16 at 16 and 32 keeps the ``mma.sync`` form and counts
+into ``flash_attention.mma_sync`` too.
 
 :func:`flash_attention_bwd` is the backward (``csrc/flash_attention_bwd.cu``,
 CUDA only, the same dtypes and head dims): ``(dq, dk, dv)`` from the
@@ -187,6 +190,8 @@ def _launch(q, k, v, causal, window, softcap, scale):
         build.stream_ptr(q.device))
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
+    if q.dtype == torch.bfloat16 and D < 64:
+        flash_attention.mma_sync += 1
     return out, lse
 
 
@@ -222,5 +227,5 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return of.reshape(B, H, Sq, D).permute(0, 2, 1, 3)
 
 
-flash_attention.launches = 0
+flash_attention.launches = flash_attention.mma_sync = 0
 flash_attention_bwd.launches = flash_attention_bwd.mma_sync = 0

@@ -1337,6 +1337,64 @@ def test_flash_attention_bwd_matches_plain(cuda_device, dtype, tol, D, kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D,kw", [(256, {"softcap": 50.0, "scale": 0.0625}),
+                                  (256, {"window": 300}),
+                                  (128, {"softcap": 30.0}),
+                                  (128, {"causal": False}),
+                                  (64, {"window": 100, "softcap": 20.0})])
+def test_flash_attention_hopper_form_matches_plain(cuda_device, D, kw):
+    """The forward's Hopper form (bf16, D 64/128/256: wgmma on TMA-fed
+    tiles) against its plain version over ragged query and kv edges (Sq <
+    Sk, GQA), lse against the plain chunked forward's, two calls bit for
+    bit, and no launch of the mma.sync form."""
+    fa.flash_attention.mma_sync = 0
+    rng = np.random.default_rng(D + 1)
+    q, k, v = (torch.tensor(_np(rng, s)).to(torch.bfloat16).cuda()
+               for s in ((2, 777, 8, D), (2, 1000, 2, D), (2, 1000, 2, D)))
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    _, want_lse = _chunked_fwd(q, k, v, kw.get("causal", True),
+                               kw.get("window"), kw.get("softcap"), 128,
+                               kw.get("scale"))
+    _assert_close_to(out, want, *TOL["flash_attention"]["bfloat16"])
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    again = fa.flash_attention_fwd(q, k, v, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert fa.flash_attention.mma_sync == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2304, 1024, 4096, 264, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_forms_match_plain(cuda_device, d, dtype):
+    """rmsnorm's 16-byte forms (gemma2-2b's, mamba2-370m's and
+    phi3.5-moe's widths, a width with a remainder) and the general form (d
+    = 100) against the plain versions: the forward with the residual, the
+    backward with three consumers' cotangents and the skip's; two calls bit
+    for bit."""
+    from repro_torch.kernels import rmsnorm as rn
+
+    rng = np.random.default_rng(d)
+    dt = getattr(torch, dtype)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    x, res, g, g2, g3, dskip = (
+        torch.tensor(_np(rng, (3, 700, d))).to(dt).cuda() for _ in range(6))
+    g = (g.float() + x.float()).to(dt)   # a wrong row sum shows in dx
+    scale = torch.tensor(_np(rng, (d,)) * 0.3).cuda()
+    out, rstd = rn.rmsnorm(x, scale, res)
+    want, _ = rn.rmsnorm_fwd_plain(x, scale, res, 1e-6, dt)
+    dx, ds = rn.rmsnorm_bwd(g, x, scale, rstd, g_more=(g2, g3), dskip=dskip)
+    want_dx, want_ds = rn.rmsnorm_bwd_plain((g + g2) + g3, x, scale, 1e-6,
+                                            dt)
+    for a, b in ((out, want), (dx, want_dx + dskip), (ds, want_ds)):
+        err = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert float(err) <= tol
+    again = rn.rmsnorm_bwd(g, x, scale, rstd, g_more=(g2, g3), dskip=dskip)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], ds)
+    assert torch.equal(rn.rmsnorm(x, scale, res)[0], out)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 3e-2)])
 def test_layer_kernels_match_plain_under_autograd(cuda_device, dtype, tol):

@@ -2,7 +2,11 @@
 ``rope.cu``) run on the CPU under the emulation of ``tests/_cuda_emu.py``
 through their wrappers' card paths, against their plain versions: rmsnorm
 (with and without the fused residual add, fp32, bf16 and mixed types, rows
-that leave the backward's blocks several rows each) within 1e-5 (fp32) or
+that leave the backward's blocks several rows each; the 16-byte forms at
+widths with idle lanes, a remainder, gemma2-2b's 2,304 and the backward's
+two warps a row past 2,560, the general forms at widths that are not
+multiples of 8; the backward with three consumers' cotangents and the
+skip's) within 1e-5 (fp32) or
 3e-2 (bf16) of the plain version's max |value|; glu (GeGLU and SwiGLU,
 lengths with a tail after the 16-byte loads, a misaligned view) likewise;
 rope's forward bit for bit (the kernel rounds each product and sum as the
@@ -36,21 +40,50 @@ def _tol(*dtypes):
     (37, 300, BF16, BF16, True),   # a row wider than a block, residual
     (16, 64, F32, BF16, True),     # fp32 in, bf16 out (the final norm's)
     (9, 33, BF16, F32, False),
+    # the 16-byte forms: 33 chunks of 8 (a lane holds two, the rest one)
+    (40, 264, BF16, BF16, True),
+    # gemma2-2b's width: nine chunks a lane, fp32 (the backward reads the
+    # row again) and bf16 (kept in registers), three consumers' cotangents
+    # and the skip's ("fanout": the backward of a pre-norm)
+    (20, 2304, F32, F32, False),
+    (36, 2304, BF16, BF16, "fanout"),
+    # the general forms: a width that is not a multiple of 8, and the 16-byte
+    # forms with a remainder, each with the fan-out backward
+    (24, 100, BF16, BF16, "fanout"),
+    (40, 264, BF16, BF16, "fanout"),
+    # past 10 chunks a lane: two warps a row in the backward (2,696: 11
+    # chunks a lane; phi3.5-moe's 4,096 in fp32 in, bf16 out)
+    (24, 2696, BF16, BF16, "fanout"),
+    (20, 4096, F32, BF16, True),
 ])
 def test_rmsnorm_kernel_source(kernels_on_card, rows, d, x_dt, out_dt,
                                residual):
+    fanout = residual == "fanout"
     rng = np.random.default_rng(rows + d)
     x = _t(rng, (rows, d), x_dt)
     scale = _t(rng, (d,), F32, 0.3)
-    res = _t(rng, (rows, d), out_dt) if residual else None
-    g = _t(rng, (rows, d), out_dt)
+    res = _t(rng, (rows, d), out_dt) if residual is True else None
+    # g leans on x, so that the row's mean(g w xh) weighs in dx as much as
+    # g itself (a wrong row sum shows)
+    g = (_t(rng, (rows, d), F32) + x.float()).to(out_dt)
+    more = [_t(rng, (rows, d), out_dt) for _ in range(2 * fanout)]
+    dskip = _t(rng, (rows, d), x_dt) if fanout else None
     before = (rn.rmsnorm.launches, rn.rmsnorm_bwd.launches)
     out, rstd = rn.rmsnorm(x, scale, res, out_dtype=out_dt)
-    dx, dscale = rn.rmsnorm_bwd(g, x, scale, rstd)
+
+    def backward():
+        return rn.rmsnorm_bwd(g, x, scale, rstd, g_more=more, dskip=dskip)
+
+    dx, dscale = backward()
     assert (rn.rmsnorm.launches, rn.rmsnorm_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     want, want_rstd = rn.rmsnorm_fwd_plain(x, scale, res, 1e-6, out_dt)
-    want_dx, want_ds = rn.rmsnorm_bwd_plain(g, x, scale, 1e-6, out_dt)
+    g_sum = g
+    for t in more:   # each add rounded to the cotangents' type, in order
+        g_sum = g_sum + t
+    want_dx, want_ds = rn.rmsnorm_bwd_plain(g_sum, x, scale, 1e-6, out_dt)
+    if fanout:
+        want_dx = want_dx + dskip
     tol = _tol(x_dt, out_dt)
     assert out.dtype == out_dt and dx.dtype == x_dt and dscale.dtype == F32
     assert scaled_err(out, want) <= tol
@@ -59,8 +92,7 @@ def test_rmsnorm_kernel_source(kernels_on_card, rows, d, x_dt, out_dt,
     assert scaled_err(dscale, want_ds) <= tol
     again = rn.rmsnorm(x, scale, res, out_dtype=out_dt)
     assert bits_equal(out, again[0]) and bits_equal(rstd, again[1])
-    assert all(bits_equal(a, b) for a, b in zip(
-        (dx, dscale), rn.rmsnorm_bwd(g, x, scale, rstd)))
+    assert all(bits_equal(a, b) for a, b in zip((dx, dscale), backward()))
 
 
 def test_rmsnorm_refuses(kernels_on_card):
