@@ -58,9 +58,12 @@ Phases, each printing its own lines:
               bf16 3e-2 and fp32 1e-5, each two calls bit for bit.
               The kernels of mamba2-370m's body: ``ssd_scan_bwd`` (every
               leaf per element at ``TOL["ssd_scan"]``, at the layer shape in
-              bf16 and a small fp32 shape with groups and an entry state;
-              two calls bit for bit; a backward that drops the cotangent
-              carried from chunk 1 into chunk 0 fails that check),
+              bf16 and a small shape with groups and an entry state in fp32
+              and bf16; two calls bit for bit; a backward that drops the
+              cotangent carried from chunk 1 into chunk 0 fails that check;
+              the bf16 (Hopper) form's fp32 leaves within
+              ``SSD_BWD_LOW_TOL`` of the fp32 plain gradient, and none of
+              its calls on the CUDA-core passes),
               ``causal_conv``, ``dt_softplus`` and ``gated_norm``, forward
               and backward, at the layer shape in bf16 and a small fp32
               shape (``MAMBA_TOL``: elementwise per element against the
@@ -292,11 +295,13 @@ Phases, each printing its own lines:
               backward beside that call's gradient through autograd),
               ``glu`` and ``rope``, forward and backward, at gemma2-2b's
               shapes (bound: bytes); mamba2-370m's ``ssd_scan_bwd`` (bound:
-              its products at the bf16 peak), ``causal_conv`` (beside
-              ``F.conv1d(groups=C)``, without the SiLU), ``dt_softplus``
-              (beside ``F.softplus``) and ``gated_norm``, forward and
-              backward, at its layer (bound: bytes); the projections' GEMM
-              at each ``DENSE_CASES`` shape, forward, dx and dw, beside the
+              its products at the bf16 peak; by pass; beside the parent's
+              form with ``--parent``, as ``entry_store``), ``causal_conv``
+              (beside ``F.conv1d(groups=C)``, without the SiLU),
+              ``dt_softplus`` (beside ``F.softplus``) and ``gated_norm``,
+              forward and backward, at its layer (bound: bytes); the
+              projections' GEMM at each ``DENSE_CASES`` shape, forward, dx
+              and dw, beside the
               plain version, cuBLAS with the bf16 weight made beforehand
               and the cast alone (bound: operations at the bf16 peak; the
               kernels line's rows at gemma2-2b's gate/up shape); the MoE
@@ -521,7 +526,7 @@ def phase_build(state) -> None:
     # registers and spills of the layer kernels (the attention backward's
     # accumulators are the ones that could spill)
     for lib in ("flash_attention", "flash_attention_bwd", "rmsnorm", "glu",
-                "rope", "dense", "moe"):
+                "rope", "dense", "moe", "ssd_scan_bwd", "segment_generic"):
         for kern, regs, spill in ptxas_usage(build.BUILD_LOG.get(lib, "")):
             log(f"[build] {lib}: {kern}: {regs} registers, {spill}")
     # the bf16 kernels that must run on the tensor cores: the Hopper forms
@@ -536,6 +541,7 @@ def phase_build(state) -> None:
             ("ssd_scan", "HMMA", ("ssd_state_bf16_kernel",
                                   "ssd_out_bf16_kernel")),
             ("dense", "HGMMA", ("dense_wgmma_kernel",)),
+            ("ssd_scan_bwd", "HGMMA", ("hop_states", "hop_dx", "hop_dbc")),
             ("dense", "HMMA", ("dense_tc_kernel",))):
         counts = mma_counts(build.library_path(lib), inst)
         if counts is None:
@@ -608,9 +614,10 @@ def mma_counts(lib_path, inst="HMMA"):
 
 
 # the parent's libraries phase timing holds this tree's redesigned kernels
-# against (parent_dense and parent_flash_bwd take "dense" and
-# "flash_attention_bwd", the kernels the tree before redesigned)
-PARENT_LIBS = ("flash_attention", "rmsnorm")
+# against (parent_dense, parent_flash_bwd, parent_flash_fwd and
+# parent_rmsnorm take "dense", "flash_attention_bwd", "flash_attention"
+# and "rmsnorm", the kernels the trees before redesigned)
+PARENT_LIBS = ("ssd_scan_bwd", "segment_generic")
 
 
 def build_parent(parent, out_dir, names=PARENT_LIBS):
@@ -1247,7 +1254,15 @@ SSD_BWD_CASES = (
     ("mamba2-370m layer", MAMBA_SSD, "bfloat16", False),
     ("small, fp32, groups and h0", (2, 520, 8, 2, 32, 64, 64), "float32",
      True),
+    ("small, bf16, groups and h0", (2, 520, 8, 2, 32, 64, 64), "bfloat16",
+     True),
 )
+# the bf16 (Hopper) form's fp32 leaves (ddt, dA, dh0) against the fp32
+# plain gradient on the same bf16 values, as scaled errors: its split
+# products keep ~2^-16 of each derived operand, a bf16 operand alone ~2^-9
+# (tests/test_torch_cuda_emulated_ssd_bwd.py shows a copy without the low
+# parts missing this gate)
+SSD_BWD_LOW_TOL = 2e-4
 # each leaf of the SSD backward: the axes of the RMS its excess is over
 # (dx, db, dc per head or group over the sequence, ddt per head, dA over
 # the heads, dh0 per head over its state)
@@ -1300,8 +1315,11 @@ def check_ssd_bwd(torch, label, dims, dtype, with_h0, seed):
     chunk = dims[-1]
     args = _ssd_bwd_args(torch, np.random.default_rng(seed), dims, dtype,
                          with_h0)
+    cores = ssd.ssd_scan_bwd.cuda_cores
     got, same = _twice_equal(torch, lambda: tuple(
         t for t in ssd.ssd_scan_bwd(*args, chunk=chunk) if t is not None))
+    require(dtype != "bfloat16" or ssd.ssd_scan_bwd.cuda_cores == cores,
+            f"ssd_scan_bwd {label}: a bf16 call ran the CUDA-core passes")
     want = [t for t in ssd.ssd_scan_bwd_plain(*args, chunk=chunk)
             if t is not None]
     torch.cuda.synchronize()
@@ -1317,6 +1335,21 @@ def check_ssd_bwd(torch, label, dims, dtype, with_h0, seed):
         f"{err:.3g}, scaled excess " + ", ".join(
             f"{k} {v:.3g}" for k, v in ex.items())
         + f" (rtol {rtol}, atol {atol}); two calls bit for bit")
+    if dtype == "bfloat16":
+        # the tight referee: the fp32 leaves against the fp32 plain gradient
+        exact = [None if t is None else t.float() for t in args]
+        ref = ssd.ssd_scan_bwd_plain(*exact, chunk=chunk)
+        tight = {name: scaled_err(got[i], ref[i])
+                 for i, name in ((1, "ddt"), (2, "dA"), (5, "dh0"))
+                 if ref[i] is not None}
+        require(max(tight.values()) <= SSD_BWD_LOW_TOL,
+                f"ssd_scan_bwd {label}: fp32 leaves against the fp32 plain "
+                f"gradient {tight} (gate {SSD_BWD_LOW_TOL})")
+        log(f"[kernels] ssd_scan_bwd {label}: fp32 leaves against the fp32 "
+            "plain gradient on the bf16 values, scaled error "
+            + ", ".join(f"{k} {v:.3g}" for k, v in tight.items())
+            + f" (gate {SSD_BWD_LOW_TOL}: the split products' low parts)")
+        del exact, ref
     if label == "mamba2-370m layer":
         bad = _ssd_bwd_dropped(torch, args, chunk)
         ex_bad = max(excess(a, want[i], rtol, SSD_BWD_DIMS[i][1])
@@ -1805,10 +1838,11 @@ def _bits_equal(torch, a, b) -> bool:
 
 def check_entry_store(torch) -> None:
     """``entry_store`` bit for bit (``torch.equal`` of the bits) against its
-    plain version (``dst.copy_(src)``) at both decoders' carries, a 0-d
-    fp32 leaf, a bf16 leaf of odd length and a leaf 4 bytes into its
-    buffer (the byte path), each into page-locked slots from the pools the
-    runner takes them from."""
+    plain version (``dst.copy_(src)``) at both decoders' carries (many of
+    the bulk form's chunks a block), a 0-d fp32 leaf, a bf16 leaf of odd
+    length (a tail short of 16 bytes) and a leaf 4 bytes into its buffer
+    (misaligned: the SIMT path), each into page-locked slots from the pools
+    the runner takes them from."""
     from repro_torch.core.offload import _slot
     from repro_torch.kernels import segment_generic as sg
 
@@ -5477,25 +5511,13 @@ def _time_ssd(torch, run):
     c = _randn(torch, rng, (B, T, G, N), bf16, 0.5)
     ms_k = cuda_ms(lambda: ssd.ssd_scan(x, dt, A, b, c, chunk=L), 10)
     ms_p = cuda_ms(lambda: ssd.ssd_scan_plain(x, dt, A, b, c), 1)
-    from torch.profiler import ProfilerActivity, profile
-
     calls = 5
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            ssd.ssd_scan(x, dt, A, b, c, chunk=L)
-        torch.cuda.synchronize()
-    passes = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        key = next((k for k in ("ssd_decay", "ssd_state", "ssd_pass",
-                                "ssd_out") if k in e.key), None)
-        if key is not None and us:
-            passes[key] = passes.get(key, 0.0) + us / 1e3 / calls
+    passes = device_ms_by_kernel(
+        torch, lambda: ssd.ssd_scan(x, dt, A, b, c, chunk=L),
+        ("ssd_decay", "ssd_state", "ssd_pass", "ssd_out"), calls) or {}
     log("[timing] ssd_scan by pass (device ms per call, torch.profiler over "
-        f"{calls} calls): "
-        + (", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+        f"{calls} calls, launches recorded): "
+        + (", ".join(f"{k} {v:.4f} (x{n})" for k, (v, n) in passes.items())
            or "not measured (the profiler saw no device time)"))
     # per (batch*head, chunk of L): C B^T and M xbar over the causal
     # L (L + 1) / 2 pairs, C h^T and the state update over L x P x N
@@ -5511,12 +5533,28 @@ def _time_ssd(torch, run):
             flops)
 
 
-def _time_entry_store(torch, arch):
+@contextlib.contextmanager
+def _library(name, lib):
+    """The wrappers load ``lib`` (a ``ctypes.CDLL``: the parent's, or a
+    variant's) for library ``name`` inside the block."""
+    from repro_torch.kernels import build
+
+    load = build.load
+    build.load = lambda n: lib if n == name else load(n)
+    try:
+        yield
+    finally:
+        build.load = load
+
+
+def _time_entry_store(torch, arch, state=None):
     """``entry_store`` at a decoder's carry into page-locked slots (the
-    side stream, waited for on the timed stream), its plain version
-    (``copy_``, which waits for its copy) and the copy engine
-    (``copy_(non_blocking=True)`` into the same slots).  Bound: the bytes
-    over the host link, the slower of the two rates they cross."""
+    side stream, waited for on the timed stream), beside the parent's form
+    in turns where ``--parent`` gave one (parent, this tree, this tree,
+    parent), its plain version (``copy_``, which waits for its copy) and
+    the copy engine (``copy_(non_blocking=True)`` into the same slots).
+    Bound: the bytes over the host link, the slower of the two rates they
+    cross.  Returns ``(ms, plain ms, bound ms, copy engine ms)``."""
     from repro_torch.core.offload import _slot
     from repro_torch.kernels import segment_generic as sg
 
@@ -5524,7 +5562,22 @@ def _time_entry_store(torch, arch):
     dsts = [_slot(t, pin=True) for t in leaves]
     cur = torch.cuda.current_stream()
     n0 = sg.entry_store.launches
-    ms_k = cuda_ms(lambda: cur.wait_event(sg.entry_store(leaves, dsts)), 20)
+
+    def store():
+        cur.wait_event(sg.entry_store(leaves, dsts))
+
+    parent = (state or {}).get("parent_libs", {}).get("segment_generic")
+    if parent is not None:
+        with _library("segment_generic", parent):
+            par = [cuda_ms(store, 20)]
+        ms_k = min(cuda_ms(store, 20), cuda_ms(store, 20))
+        with _library("segment_generic", parent):
+            par.append(cuda_ms(store, 20))
+        log(f"[timing] entry_store at {arch}'s carry: the parent's form "
+            f"{min(par):.4f} ms ({par[0]:.4f}, {par[1]:.4f}), this tree "
+            f"{ms_k:.4f} (x{min(par) / ms_k:.2f})")
+    else:
+        ms_k = cuda_ms(store, 20)
     sg.entry_store.launches = n0   # timing launches are not the path's
     ms_p = cuda_ms(lambda: sg.entry_store_plain(leaves, dsts), 20)
 
@@ -5538,7 +5591,9 @@ def _time_entry_store(torch, arch):
     log(f"[timing] entry_store at {arch}'s carry ({nbytes:,} B): {ms_k:.4f} "
         f"ms ({nbytes / ms_k / 1e6:.2f} GB/s), plain {ms_p:.4f} ms, copy "
         f"engine {ms_l:.4f} ms ({nbytes / ms_l / 1e6:.2f} GB/s); bound "
-        f"{b_ms:.4f} ms at 64 GB/s")
+        f"{b_ms:.4f} ms at 64 GB/s; against the copy engine: "
+        + ("met" if ms_k <= ms_l else f"missed by x{ms_k / ms_l:.3f}")
+        + " (target: not above it)")
     return ms_k, ms_p, b_ms, ms_l
 
 
@@ -5581,12 +5636,13 @@ def _time_fold(torch, case, label):
     return ms_k, ms_p, b_ms, by, ms_l
 
 
-def _time_generic(torch):
+def _time_generic(torch, state=None):
     """The two kernels of the generic fused segments at the decoders'
     shapes: ``entry_store`` at gemma2-2b's and mamba2-370m's carries (the
     row: gemma2-2b's), ``fold`` at gemma2-2b's main-path chunk (the row:
     row copies only) and at the synthetic case with adds."""
-    stores = {arch: _time_entry_store(torch, arch) for arch in CARRIES}
+    stores = {arch: _time_entry_store(torch, arch, state)
+              for arch in CARRIES}
     fold_main = _time_fold(torch, generic_fold_chunk,
                            "gemma2-2b's main-path chunk")
     _time_fold(torch, generic_fold_case,
@@ -6408,7 +6464,104 @@ def ssd_bwd_flops(B, T, H, G, P, N, L) -> float:
     return B * nc * (H * head + G * L * L * N)
 
 
-def _time_mamba_kernels(torch):
+def device_ms_by_kernel(torch, fn, keys, calls=5):
+    """Device milliseconds a launch of each kernel of ``fn`` whose name
+    holds one of ``keys`` takes (``fn`` launching each once a call), from
+    ``torch.profiler`` over ``calls`` calls after one warm call, averaged
+    over the launches the profiler recorded (a process that profiled
+    before may lose some); ``{key: (ms, launches recorded)}``, None where
+    the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        key = next((k for k in keys if k in e.key), None)
+        if key is not None and us and e.count:
+            ms, n = out.get(key, (0.0, 0))
+            out[key] = (ms + us / 1e3, n + e.count)
+    return {k: (ms / n, n) for k, (ms, n) in out.items()} or None
+
+
+SSD_BWD_PASSES = ("hop_decay", "hop_states", "hop_pass", "hop_dx",
+                  "hop_dbc", "hop_ddt", "hop_da")
+SSD_BWD_TARGET_MS = 2.18   # an order of magnitude under the plain version
+
+
+def parent_ssd_bwd(torch, state):
+    """The parent tree's SSD backward (``--parent``; its C entry point, whose
+    scratch query has no dtype argument) as ``fn(x, dt, A, b, c, h0, dy,
+    dh_final, chunk=)``; None without a parent."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    lib = state.get("parent_libs", {}).get("ssd_scan_bwd")
+    if lib is None:
+        return None
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_bwd.restype = I_
+    lib.ssd_scan_bwd.argtypes = [P_] * 15 + [I_] * 8 + [P_]
+    lib.ssd_scan_bwd_scratch.restype = ctypes.c_long
+    lib.ssd_scan_bwd_scratch.argtypes = [I_] * 7
+
+    def run(x, dt, A, b, c, h0, dy, dhf, chunk):
+        B, T, H, P = x.shape
+        G, N = b.shape[2], b.shape[3]
+        scratch = torch.empty(
+            (max(1, lib.ssd_scan_bwd_scratch(B, T, H, G, P, N, chunk)),),
+            dtype=torch.float32, device="cuda")
+        dx, db, dc = (torch.empty_like(t) for t in (x, b, c))
+        ddt, dA = torch.empty_like(dt), torch.empty_like(A)
+        dh0 = torch.empty((B, H, P, N), dtype=torch.float32, device="cuda")
+        build.check(lib, lib.ssd_scan_bwd(
+            *(build.ptr(t) for t in (x, dt, A, b, c, h0, dy, dhf, dx, ddt,
+                                     dA, db, dc, dh0, scratch)),
+            B, T, H, G, P, N, chunk, 1, build.stream_ptr()), "parent bwd")
+        return dx, ddt, dA, db, dc, dh0
+
+    return run
+
+
+def time_ssd_bwd(torch, args, chunk, state):
+    """The SSD backward at mamba2-370m's layer beside the parent's form
+    (``--parent``: parent, this tree, parent), its device time by pass
+    (``torch.profiler``) and its target, logged; returns (ms, parent ms or
+    None)."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    run = lambda: ssd.ssd_scan_bwd(*args, chunk=chunk)   # noqa: E731
+    par = parent_ssd_bwd(torch, state)
+    ms_par = None
+    if par is not None:
+        ms_par, ms = against_parent(
+            "ssd_scan_bwd", f" at {MAMBA_SSD} bf16",
+            lambda: par(*args, chunk=chunk), run, 5)
+        log(f"[timing] ssd_scan_bwd against the parent's form: "
+            + ("met" if ms_par >= 4 * ms else "missed")
+            + f" (x{ms_par / ms:.2f}; target: at least x4)")
+    else:
+        ms = cuda_ms(run, 5)
+    passes = device_ms_by_kernel(torch, run, SSD_BWD_PASSES)
+    log("[timing] ssd_scan_bwd by pass (device ms a call, torch.profiler "
+        "over 5 calls, launches recorded): " + (", ".join(
+            f"{k} {v:.4f} (x{n})" for k, (v, n) in passes.items())
+            if passes else "not measured (the profiler saw no device "
+            "time)"))
+    log(f"[timing] ssd_scan_bwd {ms:.4f} ms against the {SSD_BWD_TARGET_MS} "
+        "ms target: " + ("met" if ms <= SSD_BWD_TARGET_MS else "missed"))
+    return ms, ms_par
+
+
+def _time_mamba_kernels(torch, state=None):
     """mamba2-370m's layer kernels at the ssm phase's shape (B=4, T=4096,
     bf16), each beside its plain version, its bound (bytes at 3.35 TB/s,
     every input read once and every output written once; the SSD backward's
@@ -6443,6 +6596,7 @@ def _time_mamba_kernels(torch):
     # state's cotangent a zero tensor
     args = list(_ssd_bwd_args(torch, rng, MAMBA_SSD, "bfloat16", False))
     args[7] = torch.zeros_like(args[7])
+    time_ssd_bwd(torch, args, L, state or {})
     x_b = B * T * H * P * 2.0
     bc_b = 2 * B * T * G * N * 2.0
     nbytes = (2 * x_b + bc_b + B * T * H * 4.0 + H * 4.0 + B * H * P * N * 4.0
@@ -6633,9 +6787,9 @@ def phase_timing(state) -> None:
                 if "flash_attention" in v}
     log(f"[timing] flash_attention launches by phase: {by_phase}")
     rows.append(_time_ssd(torch, state["ssm"]))
-    rows += _time_generic(torch)
+    rows += _time_generic(torch, state)
     rows += _time_layer_kernels(torch, state)
-    rows += _time_mamba_kernels(torch)
+    rows += _time_mamba_kernels(torch, state)
     rows += _time_dense(torch, state)
     rows += _time_moe(torch, state)
 
@@ -6994,7 +7148,7 @@ def profile_fused(state) -> None:
                  os.path.join(root, "src"), "--out", out, "--label", label]
                 + (["--layers", str(layers)] if layers else [])
                 + (["--readout-only", "--body-only"] if label == "tree"
-                   else []),
+                   else ["--body-only"]),
                 capture_output=True, text=True, timeout=900)
             require(res.returncode == 0, f"profile of {arch} ({label}) "
                     f"failed:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
@@ -7048,20 +7202,25 @@ FLASH_HOPPER_PHASES = MAIN_PATH_DECODERS + ("families",)
 
 
 def mma_sync_launches(reset=False) -> dict:
-    """The launches of the mma.sync forms the Hopper kernels' wrappers keep
-    (the GEMM's for operands TMA cannot read, the attention forward's and
-    backward's for D < 64), by wrapper; zeroed with ``reset``."""
+    """The launches of the pre-Hopper forms the Hopper kernels' wrappers
+    keep (the GEMM's mma.sync for operands TMA cannot read, the attention
+    forward's and backward's for D < 64; the SSD backward's bf16 calls on
+    the CUDA-core passes), by wrapper; zeroed with ``reset``."""
     from repro_torch.kernels import dense as dn
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
 
-    fns = {"dense_fwd": dn.dense_fwd, "dense_bwd": dn.dense_bwd,
-           "expert_fwd": dn.expert_fwd, "expert_bwd": dn.expert_bwd,
-           "flash_attention": fa.flash_attention,
-           "flash_attention_bwd": fa.flash_attention_bwd}
+    fns = {"dense_fwd": (dn.dense_fwd, "mma_sync"),
+           "dense_bwd": (dn.dense_bwd, "mma_sync"),
+           "expert_fwd": (dn.expert_fwd, "mma_sync"),
+           "expert_bwd": (dn.expert_bwd, "mma_sync"),
+           "flash_attention": (fa.flash_attention, "mma_sync"),
+           "flash_attention_bwd": (fa.flash_attention_bwd, "mma_sync"),
+           "ssd_scan_bwd": (ssd.ssd_scan_bwd, "cuda_cores")}
     if reset:
-        for fn in fns.values():
-            fn.mma_sync = 0
-    return {k: fn.mma_sync for k, fn in fns.items()}
+        for fn, attr in fns.values():
+            setattr(fn, attr, 0)
+    return {k: getattr(fn, attr) for k, (fn, attr) in fns.items()}
 
 
 def main(argv=None) -> int:
@@ -7120,10 +7279,11 @@ def main(argv=None) -> int:
                 if name not in MAIN_PATH_DECODERS:
                     n = {"flash_attention": n["flash_attention"]}
                 require(not any(n.values()), f"[{name}] the main path "
-                        f"launched the mma.sync forms of the Hopper kernels:"
-                        f" {n}")
-                log(f"[{name}] mma.sync launches of the Hopper kernels' "
-                    f"wrappers (unaligned operands, D < 64): {n}")
+                        f"launched the pre-Hopper forms of the Hopper "
+                        f"kernels: {n}")
+                log(f"[{name}] pre-Hopper launches of the Hopper kernels' "
+                    f"wrappers (mma.sync: unaligned operands, D < 64; the "
+                    f"SSD backward's bf16 calls on the CUDA cores): {n}")
             log(f"[{name}] done in {time.perf_counter() - t0:.1f}s")
     if "kernels_json" in state:
         print(json.dumps({"kernels": state["kernels_json"]}), flush=True)

@@ -1,6 +1,6 @@
 // Hopper's asynchronous machinery for the hand-written kernels: mbarriers,
 // TMA tile loads and stores (cp.async.bulk.tensor) described by a
-// CUtensorMap, the async-proxy fence, wgmma (m64nNk16 bf16 -> fp32, A from
+// CUtensorMap, 1D bulk copies (cp.async.bulk), the async-proxy fence, wgmma (m64nNk16 bf16 -> fp32, A from
 // shared memory or registers, B from shared memory) with its fence, commit
 // and wait, named barriers and setmaxnreg.  Written by hand as inline PTX
 // for sm_90a, no CuTe or CUTLASS device code.  An in-flight wgmma still
@@ -32,7 +32,7 @@
 // warpgroup-collective product that decodes the descriptors and the swizzle
 // as above, TMA copies the box in the swizzled layout (zeros outside the
 // tensor) and completes its bytes on the mbarrier only when a thread waits
-// there, a TMA store writes at once, mbarriers keep phases and parity, and
+// there, a 1D bulk load likewise, a TMA or bulk store writes at once, mbarriers keep phases and parity, and
 // the tensor map's encoder is a stand-in that records what the copy reads.  So the layouts the kernels
 // assume are checked on the CPU, and the card's phase `kernels` holds the
 // stand-in to the hardware.
@@ -213,6 +213,49 @@ template <int N>
 __device__ __forceinline__ void tma_store_wait() {
 #if defined(__CUDA_ARCH__)
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// ------------------------------------------------------- 1D bulk copies
+//
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// memory into shared memory at `dst`, completed on `bar` as transaction
+// bytes (the issuing thread's mbar_arrive_expect_tx announces them), and
+// from shared memory at `src` to global memory (device memory or the
+// device view of page-locked host memory) in the thread's current bulk
+// group (tma_store_commit closes it, tma_store_wait<N> waits for all but
+// the N most recent groups to have read their shared memory,
+// bulk_wait_all for every group's writes to be done).  Issued by one
+// thread.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+#elif defined(REPRO_CUDA_EMU)
+  emu_bulk_load(dst, src, bytes, bar);
+#endif
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+#elif defined(REPRO_CUDA_EMU)
+  emu_bulk_store(dst, src, bytes);
+#endif
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 #endif
 }
 

@@ -19,16 +19,25 @@
 // entry_store: one chunk-entry carry into page-locked host slots, every leaf
 //   at once (table: src, dst, bytes per leaf; dst is the device view of the
 //   slot).  It runs on a side stream after an event recorded on the compute
-//   stream at the chunk entry, in a few blocks (STORE_BLOCKS of the 132 SMs),
-//   so the chunk's steps run beside it.  Bound: the bytes over the host
-//   link (PCIe 5.0 x16, 64 GB/s each way): 0.59 ms for gemma2-2b's 37.7 MB
-//   carry.  Its design: 16-byte stores where both addresses are 16-byte
-//   aligned, byte stores for the tail and for a misaligned leaf (the
-//   decoders' carry holds a 0-d fp32 accumulator); writes to host memory are
-//   posted, so a few thousand threads keep the link busy without waiting on
-//   a round trip.  On the H100 it is slower than the copy engine's
-//   copy_(non_blocking=True) of the same bytes and holds its blocks' SMs
-//   while the body runs (PERF.md has the times): a redesign is queued.
+//   stream at the chunk entry, so the chunk's steps run beside it.  Bound:
+//   the bytes over the host link (PCIe 5.0 x16, 64 GB/s each way): 0.59 ms
+//   for gemma2-2b's 37.7 MB carry.  Its design: STORE_BLOCKS blocks, in
+//   each one elected thread moving the bytes with Hopper's 1D
+//   bulk copies through a ring of STAGES stages of STAGE_BYTES in shared
+//   memory: a leaf's 16-byte-aligned bulk is cut into stage-sized chunks,
+//   dealt round-robin to the blocks; each chunk goes global -> shared
+//   (cp.async.bulk, completed on the stage's mbarrier) and shared -> host
+//   (cp.async.bulk.global, a bulk group), AHEAD loads in flight and the
+//   stores of the other stages draining over the link, so a block holds
+//   one thread's issue slots and its shared memory, not its SM's warps.  A
+//   misaligned leaf and the last bytes of a leaf short of 16 (the
+//   decoders' carry holds a 0-d fp32 accumulator) go the SIMT way, by the
+//   block's other warps.  Every form measured on the H100 (this one at 1-8
+//   blocks and 16 or 32 KB stages; 16-byte SIMT stores with 8 loads in
+//   flight a thread at 2-8 blocks; the 16 blocks of one load a thread it
+//   replaced) writes host memory at ~52 GB/s, the copy engine's
+//   copy_(non_blocking=True) at ~55 (PERF.md has the times); this form holds
+//   the fewest SMs' warps while the chunk's steps run.
 //
 // fold: one reverse chunk's cotangents in one launch (table: dst, src,
 //   src2, count, op per entry): each parameter cotangent added into the
@@ -45,12 +54,17 @@
 //   is a fixed sequence of IEEE adds or a copy, so the result is bit for
 //   bit the plain version's.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int NT = 256;            // threads per block
-constexpr int STORE_BLOCKS = 16;   // entry_store's grid
 constexpr int FOLD_BLOCKS_PER_SM = 4;
+// entry_store's grid and its ring of bulk copies
+constexpr int STORE_BLOCKS = 4;
+constexpr int STAGE_BYTES = 16384;
+constexpr int STAGES = 4;
+constexpr int AHEAD = 2;   // loads in flight; stores STAGES - AHEAD
 
 // fold's op word: bit 0 an accumulator entry (else a copy of `count`
 // bytes), bit 1 fresh (the accumulator's value is not read: it starts from
@@ -78,15 +92,96 @@ __device__ __forceinline__ void copy_bytes(char* dst, const char* src,
   for (long long i = done + tid; i < nbytes; i += stride) dst[i] = src[i];
 }
 
-__global__ void __launch_bounds__(NT)
-entry_store_kernel(const long long* __restrict__ table, int leaves) {
-  const long long tid = static_cast<long long>(blockIdx.x) * NT + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * NT;
-  for (int l = 0; l < leaves; ++l)
-    copy_bytes(reinterpret_cast<char*>(table[3 * l + 1]),
-               reinterpret_cast<const char*>(table[3 * l]), table[3 * l + 2],
-               tid, stride);
+// the bytes of entry `e` of entry_store's table that the bulk copies move
+__device__ __forceinline__ long long bulk_bytes(const long long* e) {
+  return aligned16(reinterpret_cast<const void*>(e[0]),
+                   reinterpret_cast<const void*>(e[1]))
+             ? e[2] & ~15LL
+             : 0;
 }
+
+// The bulk chunk `target` (counted over the table's leaves in order) from
+// a cursor (leaf, the leaf's first chunk) that only moves forward; false
+// past the last chunk.
+__device__ __forceinline__ bool chunk_at(const long long* table, int leaves,
+                                         long long target, int* leaf,
+                                         long long* first, const char** src,
+                                         char** dst, unsigned* bytes) {
+  for (; *leaf < leaves; ++*leaf) {
+    const long long* e = table + 3 * *leaf;
+    const long long nb = bulk_bytes(e);
+    const long long n = (nb + STAGE_BYTES - 1) / STAGE_BYTES;
+    if (target < *first + n) {
+      const long long o = (target - *first) * STAGE_BYTES;
+      *src = reinterpret_cast<const char*>(e[0]) + o;
+      *dst = reinterpret_cast<char*>(e[1]) + o;
+      *bytes = static_cast<unsigned>(min(static_cast<long long>(STAGE_BYTES),
+                                         nb - o));
+      return true;
+    }
+    *first += n;
+  }
+  return false;
+}
+
+__global__ void __launch_bounds__(NT)
+entry_store_bulk(const long long* __restrict__ table, int leaves) {
+  extern __shared__ float smem[];
+  char* ring = repro::align1024(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
+  if (threadIdx.x >= 32) {
+    // what the bulk copies leave: misaligned leaves, and tails short of 16
+    const long long tid =
+        static_cast<long long>(blockIdx.x) * (NT - 32) + threadIdx.x - 32;
+    const long long stride = static_cast<long long>(gridDim.x) * (NT - 32);
+    for (int l = 0; l < leaves; ++l) {
+      const long long* e = table + 3 * l;
+      const long long nb = bulk_bytes(e);
+      copy_bytes(reinterpret_cast<char*>(e[1]) + nb,
+                 reinterpret_cast<const char*>(e[0]) + nb, e[2] - nb, tid,
+                 stride);
+    }
+    return;
+  }
+  if (threadIdx.x != 0) return;
+  for (int i = 0; i < STAGES; ++i) repro::mbar_init(&bars[i], 1);
+  repro::mbar_init_fence();
+  // this block's chunks j = 0, 1, ... are the table's blockIdx.x + j grid
+  const long long nb = gridDim.x;
+  int lleaf = 0, sleaf = 0;        // the loads' and the stores' cursors
+  long long lfirst = 0, sfirst = 0;
+  long long loaded = 0;
+  auto load = [&](long long j) -> bool {
+    const char* src;
+    char* dst;
+    unsigned bytes;
+    if (!chunk_at(table, leaves, blockIdx.x + nb * j, &lleaf, &lfirst, &src,
+                  &dst, &bytes))
+      return false;
+    const int stage = static_cast<int>(j % STAGES);
+    repro::mbar_arrive_expect_tx(&bars[stage], bytes);
+    repro::bulk_load(ring + stage * STAGE_BYTES, src, bytes, &bars[stage]);
+    return true;
+  };
+  while (loaded < AHEAD && load(loaded)) ++loaded;
+  for (long long j = 0; j < loaded; ++j) {
+    const int stage = static_cast<int>(j % STAGES);
+    repro::mbar_wait(&bars[stage], static_cast<int>((j / STAGES) & 1));
+    const char* src;
+    char* dst;
+    unsigned bytes;
+    chunk_at(table, leaves, blockIdx.x + nb * j, &sleaf, &sfirst, &src, &dst,
+             &bytes);
+    repro::bulk_store(dst, ring + stage * STAGE_BYTES, bytes);
+    repro::tma_store_commit();
+    // the next load's stage was last read by store loaded - STAGES
+    if (loaded >= STAGES) repro::tma_store_wait<STAGES - AHEAD>();
+    if (load(loaded)) ++loaded;
+  }
+  repro::bulk_wait_all();
+}
+
+size_t store_smem() { return STAGES * STAGE_BYTES + 8 * STAGES + 1024; }
 
 __device__ __forceinline__ float load(const void* p, long long i,
                                       bool bf16) {
@@ -165,8 +260,13 @@ int sm_count() {
 // memory, three words a leaf (src, the device view of dst, bytes).
 extern "C" int generic_entry_store(const long long* table, int leaves,
                                    void* stream) {
-  entry_store_kernel<<<STORE_BLOCKS, NT, 0,
-                       static_cast<cudaStream_t>(stream)>>>(table, leaves);
+  const cudaError_t e = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(entry_store_bulk),
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(store_smem()));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  entry_store_bulk<<<STORE_BLOCKS, NT, store_smem(),
+                     static_cast<cudaStream_t>(stream)>>>(table, leaves);
   return static_cast<int>(cudaGetLastError());
 }
 

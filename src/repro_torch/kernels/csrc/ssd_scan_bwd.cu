@@ -29,9 +29,59 @@
 //             dla = the reverse cumsum of dca within the chunk
 //             dx = dxbar dt, ddt = dxbar . x + dla a, dA = sum_{b,t} dla dt
 //
-// db and dc sum over the heads of a group, dA over (batch, time).  Nine
-// launches, each a parallel pass, with the per-chunk states, their
-// cotangents and the chunk matrices in a scratch buffer:
+// db and dc sum over the heads of a group, dA over (batch, time).
+//
+// bf16 inputs (the mamba2 path; L <= 128, P <= 64, N <= 128) run the Hopper
+// form, seven launches with every product on wgmma (csrc/hopper.cuh):
+//
+//   1. hop_decay: ca of every (batch, head, chunk), a warp scan in double
+//      (la in fp32), and cd.
+//   2. hop_states: S_k and U_k.  A block owns one chunk of one (batch,
+//      group) and a slice of the group's heads; b and c are loaded once,
+//      each head's x, dy, dt and ca are prefetched (cp.async) into the
+//      second of two buffers while the head before computes.  Warpgroup 0
+//      runs S_k = (x w dt)^T b, warpgroup 1 U_k = (dy exp(ca))^T c: the
+//      derived operand is the register A operand, scaled and split in
+//      registers; b and c are read MN-major.
+//   3. hop_pass: per (batch, head), each thread 8 elements of the (P, N)
+//      state over the chunks, four chunks' loads issued before their
+//      arithmetic: h_k forward, G_k backward, each written as two bf16
+//      planes (high part, remainder) in the 128-byte-swizzled layout the
+//      products read, so the next passes copy them as they are; G_k . h_k
+//      (a block sum in a fixed order) and dh0.
+//   4. hop_dx: blocks as pass 2.  C B^T once a block, kept in registers as
+//      (B C^T)[s][l]; per head dM^T = x dy^T, the decays' term of dca from
+//      dcb^T (.) (B C^T) by rows and columns, then dxbar = w (b G_k^T) + M^T
+//      dy with M^T decayed in registers from B C^T as the split register A
+//      operand; dx, and the rows' terms of dca and ddt.
+//   5. hop_dbc: a block a (batch, group, chunk) and output (dc: z = 0, db:
+//      z = 1), over the group's heads in order, the sum in registers: dc +=
+//      exp(ca) (dy h_k) + dcb b with dcb = (dy x^T) dt exp(ca_l - ca_s)
+//      recomputed as the split register A operand; db += w dt (x G_k) +
+//      dcb^T c likewise; dc's pass also gives dca's exp(ca_l) dy_l . h_k c_l.
+//   6. hop_ddt: a warp per (batch, head, chunk): the reverse cumsum of dca
+//      (a warp scan in double), ddt and the chunk's partial of dA.
+//   7. hop_da: dA, the partials summed over (batch, chunk) in order.
+//
+// Operand precision as the forward's (csrc/ssd_scan.cu): x, dy, b and c are
+// exact bf16 operands; what is derived in fp32 (x w dt, dy exp(ca), the
+// states h_k and cotangents G_k, the decayed M^T, dcb) is split where it
+// feeds a product into a bf16 high part and the bf16 remainder, one product
+// for each part (v = hi + lo to ~2^-16 of |v|); a product of a derived
+// operand with a scale of its output's rows (exp(ca) (dy h_k), w dt (x G_k),
+// w (b G_k^T)) folds the scale into the fp32 result, so dy and x stay exact.
+// LOW_PARTS = 0 drops the remainders' products (a test's mutation: the
+// fp32 outputs then miss the fp32 gradient by ~2^-9).  Operand tiles are
+// in the 128-byte swizzle, 64 columns a block (at()); the exact operands
+// are copied in by cp.async, 16 bytes a thread where the rows are aligned,
+// zeros past the chunk, P or N, so any P, N and a shorter last chunk read
+// as they are.  No float atomics; every sum runs in a fixed order, so two
+// calls give the same bits.
+//
+// fp32 inputs take nine passes of 64 x 64 fp32 tiles on the CUDA cores (no
+// TF32), 256 threads a block, 4 x 4 outputs a thread, 16-deep operand
+// slices in shared memory (bf16 outside the Hopper form's limits is
+// refused, cudaErrorInvalidValue):
 //
 //   1. bwd_decay: ca (la in fp32, summed in double, as the forward) and cd.
 //   2. bwd_states: every chunk's S_k and U_k (products of K = Lc).
@@ -49,27 +99,25 @@
 //      reverse cumsum of dca, ddt and a partial of dA.
 //   9. bwd_da: dA, the partials summed over the batch in order.
 //
-// Every product is a 64 x 64 output tile a block of 256 threads (4 x 4 a
-// thread) with 16-deep slices of its operands staged in shared memory,
-// fp32 on the CUDA cores (bf16 operands converted as they are staged, no
-// TF32).  Every sum runs in a fixed order and nothing uses atomics: two
-// calls give the same bits.
-//
-// Bound on the H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 off the tensor cores;
-// the products could run on the tensor cores at 989 TFLOP/s in bf16): at
-// mamba2-370m's layer (B = 4, T = 4096, H = 32, G = 1, P = 64, N = 128,
+// Bound on the H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 on the tensor cores):
+// at mamba2-370m's layer (B = 4, T = 4096, H = 32, G = 1, P = 64, N = 128,
 // chunk 128) the function reads x, b, c, dy (bf16), dt, h0, dh_final and
-// writes dx, db, dc, ddt, dh0: ~0.1 GB; its products are ~50 G
-// multiply-adds (db and dc's sums over 32 heads half of them).  The scratch
-// (the states and their cotangents, 2 x 134 MB; dcb, 268 MB) is written and
-// read once more.  This first kernel runs the products in fp32 on the CUDA
-// cores.
+// writes dx, db, dc, ddt, dh0: ~0.1 GB; its products are ~39 G
+// multiply-adds (chip_smoke.ssd_bwd_flops): 0.078 ms by operations.  The
+// Hopper form runs ~100 G multiply-adds (the split products, dM in both
+// blocks of pass 5, whole 64-row tiles of the causal products) and its
+// scratch moves ~1.3 GB (S_k and U_k written and read once, h_k and G_k
+// written once and read twice, 134 MB each at that shape).
 //
 // Layouts as the forward's: x, dx, dy (B, T, H, P), dt, ddt (B, T, H), b, c,
 // db, dc (B, T, G, N), h0, dh_final, dh0 (B, H, P, N) fp32; head h reads
 // group h / (H / G).  A chunk length that does not divide T leaves a shorter
 // last chunk, as in the forward.
+#include <algorithm>
+#include <utility>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 using repro::from_f32;
 using repro::to_f32;
@@ -607,19 +655,988 @@ bool shape_of(int B, int T, int H, int G, int P, int N, int L, Shape* s) {
   return true;
 }
 
+
+// ===================================================== bf16: the Hopper form
+
+namespace hop {
+
+using bf16 = __nv_bfloat16;
+constexpr int LOW_PARTS = 1;   // the remainders' products of split operands
+constexpr int PP = 64;         // P padded to one 64-wide column block
+constexpr int LMAX = 128, PMAX = 64, NMAX = 128;
+
+// bytes of a split state's image: two planes (high part, remainder) of
+// 64 x NP bf16
+__host__ __device__ constexpr int img_bytes(int np) { return 4 * PP * np; }
+
+// byte offset of element (r, c) of a tile of `rows` rows, 64 columns a
+// block, in the 128-byte swizzle (the tile 1024-byte aligned)
+__device__ __forceinline__ uint32_t at(int rows, int r, int c) {
+  return repro::swz128(
+      static_cast<uint32_t>(((c >> 6) * rows + r) * 128 + (c & 63) * 2));
+}
+
+__device__ __forceinline__ float ld(const char* tile, int rows, int r, int c) {
+  return __bfloat162float(
+      *reinterpret_cast<const bf16*>(tile + at(rows, r, c)));
+}
+
+// hi = bf16(v), lo = bf16(v - hi), two values packed per register
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t* hi,
+                                       uint32_t* lo) {
+  const bf16 h0 = __float2bfloat16(v0), h1 = __float2bfloat16(v1);
+  *hi = static_cast<uint32_t>(__bfloat16_as_ushort(h0)) |
+        (static_cast<uint32_t>(__bfloat16_as_ushort(h1)) << 16);
+  *lo = repro::pack_bf16x2(v0 - __bfloat162float(h0),
+                           v1 - __bfloat162float(h1));
+}
+
+__device__ __forceinline__ float unpack(uint32_t v, int half) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      static_cast<unsigned short>(half ? v >> 16 : v & 0xffffu)));
+}
+
+// the sum over the four threads of an accumulator row (lanes 4 g .. 4 g + 3)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// v0, v1 into columns n, n + 1 (n even) of a row of `cols` values at p
+// (p pointing at column n): one 8- or 4-byte store where both columns
+// exist and the row length keeps the pair aligned
+__device__ __forceinline__ void store2(float* p, int n, int cols, float v0,
+                                       float v1) {
+  if (n + 1 < cols && cols % 2 == 0) {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  } else if (n < cols) {
+    p[0] = v0;
+    if (n + 1 < cols) p[1] = v1;
+  }
+}
+
+__device__ __forceinline__ void store2(bf16* p, int n, int cols, float v0,
+                                       float v1) {
+  if (n + 1 < cols && cols % 2 == 0) {
+    *reinterpret_cast<uint32_t*>(p) = repro::pack_bf16x2(v0, v1);
+  } else if (n < cols) {
+    p[0] = __float2bfloat16(v0);
+    if (n + 1 < cols) p[1] = __float2bfloat16(v1);
+  }
+}
+
+// Rows [0, R) x columns [0, C) (C a multiple of 64) of a tile at `dst` from
+// global rows of `stride` elements; rows >= valid and columns >= cols are
+// zero.  vec (every row 16-byte aligned, cols % 8 == 0): 16-byte cp.async,
+// complete at the caller's cp_async_wait; otherwise stores by the threads.
+__device__ __forceinline__ void load_tile(char* dst, int R, int C,
+                                          const bf16* src, long stride,
+                                          int valid, int cols, bool vec,
+                                          int tid, int nth) {
+  const int cpr = C / 8;
+  for (int e = tid; e < R * cpr; e += nth) {
+    const int r = e / cpr, c = 8 * (e % cpr);
+    char* d = dst + at(R, r, c);
+    if (vec) {
+      const bool ok = r < valid && c < cols;
+      repro::cp_async16(d, ok ? src + r * stride + c : src, ok ? 16 : 0);
+    } else {
+      for (int i = 0; i < 8; ++i)
+        reinterpret_cast<bf16*>(d)[i] = r < valid && c + i < cols
+                                            ? src[r * stride + c + i]
+                                            : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+// `bytes` (a multiple of 16) from global memory to shared, by cp.async
+__device__ __forceinline__ void load_bytes(char* dst, const char* src,
+                                           int bytes, int tid, int nth) {
+  for (int o = 16 * tid; o < bytes; o += 16 * nth)
+    repro::cp_async16(dst + o, src + o, 16);
+}
+
+// One head's chunk rows for a block: its ca (LP doubles) and dt (zero past
+// the chunk), by cp.async.
+__device__ __forceinline__ void load_decay(double* cas, float* dts,
+                                           const double* cag,
+                                           const float* dt, const Shape& s,
+                                           long bh, int k, long row0, int h,
+                                           int Lc, int LP, int tid, int nth) {
+  load_bytes(reinterpret_cast<char*>(cas),
+             reinterpret_cast<const char*>(cag + (bh * s.nc + k) * LP),
+             8 * LP, tid, nth);
+  const float* src = dt + row0 * s.H + h;
+  for (int l = tid; l < LP; l += nth)
+    repro::cp_async4(dts + l, l < Lc ? src + static_cast<long>(l) * s.H : dt,
+                     l < Lc ? 4 : 0);
+}
+
+// The (batch, group, heads) of a block of passes 2 and 4: block x =
+// (b G + g) nhs + head slice, heads [h0, h0 + nh) of group g.
+struct Slice {
+  int b, g, h0, nh;
+};
+
+__device__ __forceinline__ Slice slice_of(const Shape& s, int hpb) {
+  const int nhs = (s.rep + hpb - 1) / hpb;
+  const int x = blockIdx.x, hs = x % nhs, bg = x / nhs;
+  const int first = hs * hpb;
+  return {bg / s.G, bg % s.G, (bg % s.G) * s.rep + first,
+          min(hpb, s.rep - first)};
+}
+
+// The scratch of the Hopper form (floats, parts 1024-byte aligned).
+struct Scratch {
+  double* ca;   // (B, H, nc, LP): ca, constant past the chunk's end
+  float* cd;    // (B, H, nc)
+  float* st;    // (B, H, nc, P, N): S_k
+  float* ut;    // (B, H, nc, P, N): U_k
+  char* himg;   // (B, H, nc): h_k split, img_bytes(NP) each
+  char* gimg;   // (B, H, nc): G_k split
+  float* hdot;  // (B, H, nc, NP / 32): G_k . h_k, a partial a block
+  float* qa;    // (B, H, T): the decays' term of dca
+  float* qa1;   // (B, H, T): exp(ca_l) dy_l . h_k c_l
+  float* qr;    // (B, H, T): w_l xbar_l . G_k b_l
+  float* qx;    // (B, H, T): dxbar_l . x_l
+  float* dap;   // (B, H, nc): partial sums of dA
+};
+
+inline long carve(float* base, const Shape& s, int LP, int NP, Scratch* w) {
+  const long BHc = static_cast<long>(s.B) * s.H * s.nc;
+  const long BT = static_cast<long>(s.B) * s.H * s.T;
+  const long PN = static_cast<long>(s.P) * s.N;
+  const long img = img_bytes(NP) / 4;
+  const long parts[] = {2 * BHc * LP, BHc, BHc * PN, BHc * PN, BHc * img,
+                        BHc * img,    BHc * 4, BT,   BT,       BT,
+                        BT,           BHc};
+  long off[12], n = 0;
+  for (int i = 0; i < 12; ++i) {
+    off[i] = n;
+    n += (parts[i] + 255) & ~255L;
+  }
+  if (w != nullptr) {
+    w->ca = reinterpret_cast<double*>(base + off[0]);
+    w->cd = base + off[1];
+    w->st = base + off[2];
+    w->ut = base + off[3];
+    w->himg = reinterpret_cast<char*>(base + off[4]);
+    w->gimg = reinterpret_cast<char*>(base + off[5]);
+    w->hdot = base + off[6];
+    w->qa = base + off[7];
+    w->qa1 = base + off[8];
+    w->qr = base + off[9];
+    w->qx = base + off[10];
+    w->dap = base + off[11];
+  }
+  return n;
+}
+
+// --------------------------------------------------------------- 1. decay
+// a warp per head, 8 heads a block; blockIdx.y the chunk, .z the batch
+__global__ void __launch_bounds__(256)
+hop_decay(const float* __restrict__ dt, const float* __restrict__ A,
+          double* __restrict__ cag, float* __restrict__ cd, Shape s, int LP) {
+  const int lane = threadIdx.x & 31;
+  const int h = blockIdx.x * 8 + threadIdx.x / 32;
+  if (h >= s.H) return;
+  const int bb = blockIdx.z, k = blockIdx.y, c0 = k * s.L;
+  const int Lc = min(s.L, s.T - c0);
+  const long bh = static_cast<long>(bb) * s.H + h;
+  const float* dtb = dt + (static_cast<long>(bb) * s.T + c0) * s.H + h;
+  const float a = A[h];
+  double* ca = cag + (bh * s.nc + k) * LP;
+  double carry = 0.0;
+  for (int l0 = 0; l0 < LP; l0 += 32) {
+    const int l = l0 + lane;
+    double v =
+        l < Lc ? static_cast<double>(dtb[static_cast<long>(l) * s.H] * a)
+               : 0.0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double u = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += u;
+    }
+    ca[l] = carry + v;
+    if (l == Lc - 1) cd[bh * s.nc + k] = ex(carry + v);
+    carry += __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+// -------------------------------------------------------------- 2. states
+// 256 threads: warpgroup 0 S_k = x'^T b (x' = x dt w), warpgroup 1 U_k =
+// dy'^T c (dy' = dy exp(ca)); the primed operand is the register A operand
+// (rows p, depth l), split; b and c MN-major.
+template <int LP, int NP>
+size_t states_smem() {
+  return 2 * LP * NP * 2 + 2 * (2 * LP * PP * 2) + 2 * LP * 12 + 2 * LP * 4 +
+         1024;
+}
+
+template <int LP, int NP>
+__global__ void __launch_bounds__(256)
+hop_states(const bf16* __restrict__ x, const float* __restrict__ dt,
+           const bf16* __restrict__ dy, const bf16* __restrict__ bm,
+           const bf16* __restrict__ cm, const double* __restrict__ cag,
+           float* __restrict__ st, float* __restrict__ ut, Shape s, int hpb,
+           int vec_x, int vec_b) {
+  extern __shared__ float smem[];
+  constexpr int TBN = LP * NP * 2, TX = LP * PP * 2;
+  char* bt = repro::align1024(smem);
+  char* ct = bt + TBN;
+  char* xs[2] = {ct + TBN, ct + TBN + 2 * TX};
+  char* ds[2] = {xs[0] + TX, xs[1] + TX};
+  double* cas = reinterpret_cast<double*>(xs[1] + 2 * TX);   // 2 x LP
+  float* dts = reinterpret_cast<float*>(cas + 2 * LP);        // 2 x LP
+  float* scs = dts + 2 * LP;   // the rows' scales: dt w (S_k), exp(ca) (U_k)
+  const int tid = threadIdx.x, wg = tid >> 7, lt = tid & 127;
+  const int warp = lt >> 5, g = (tid & 31) >> 2, q = tid & 3;
+  const Slice sl = slice_of(s, hpb);
+  const int k = blockIdx.y, c0 = k * s.L, Lc = min(s.L, s.T - c0);
+  const long row0 = static_cast<long>(sl.b) * s.T + c0;
+  const long xrow = static_cast<long>(s.H) * s.P;
+  auto stage = [&](int buf, int h) {
+    load_tile(xs[buf], LP, PP, x + (row0 * s.H + h) * s.P, xrow, Lc, s.P,
+              vec_x, tid, 256);
+    load_tile(ds[buf], LP, PP, dy + (row0 * s.H + h) * s.P, xrow, Lc, s.P,
+              vec_x, tid, 256);
+    load_decay(cas + buf * LP, dts + buf * LP, cag, dt, s,
+               static_cast<long>(sl.b) * s.H + h, k, row0, h, Lc, LP, tid,
+               256);
+    repro::cp_async_commit();
+  };
+  const long bc = (row0 * s.G + sl.g) * s.N;
+  load_tile(bt, LP, NP, bm + bc, static_cast<long>(s.G) * s.N, Lc, s.N, vec_b,
+            tid, 256);
+  load_tile(ct, LP, NP, cm + bc, static_cast<long>(s.G) * s.N, Lc, s.N, vec_b,
+            tid, 256);
+  stage(0, sl.h0);
+  for (int i = 0; i < sl.nh; ++i) {
+    const int cur = i & 1, h = sl.h0 + i;
+    if (i + 1 < sl.nh) {
+      stage(cur ^ 1, h + 1);
+      repro::cp_async_wait<1>();
+    } else {
+      repro::cp_async_wait<0>();
+    }
+    __syncthreads();
+    {
+      const double* ca = cas + cur * LP;
+      const float* dtv = dts + cur * LP;
+      const int l = lt;   // 128 threads a table, LP <= 128 rows
+      if (l < LP)
+        scs[wg * LP + l] = l >= Lc ? 0.0f
+                           : wg == 0 ? dtv[l] * ex(ca[Lc - 1] - ca[l])
+                                     : ex(ca[l]);
+    }
+    __syncthreads();
+    const char* src = wg == 0 ? xs[cur] : ds[cur];
+    const char* bop = wg == 0 ? bt : ct;
+    const float* sc = scs + wg * LP;
+    float acc[NP / 2];
+#pragma unroll
+    for (int j = 0; j < NP / 2; ++j) acc[j] = 0.0f;
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < LP / 16; ++kk) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int p = 16 * warp + g + 8 * (r & 1);
+        const int l = 16 * kk + 2 * q + 8 * (r >> 1);
+        split2(ld(src, LP, l, p) * sc[l], ld(src, LP, l + 1, p) * sc[l + 1],
+               &ah[r], &al[r]);
+      }
+      const uint64_t db = repro::desc128(bop + kk * 2048, LP * 128, 1024);
+      repro::wgmma_rs<NP, 1>(acc, ah, db);
+      if (LOW_PARTS) repro::wgmma_rs<NP, 1>(acc, al, db);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait<0>();
+    repro::fence_regs(acc);
+    float* out = (wg == 0 ? st : ut) +
+                 ((static_cast<long>(sl.b) * s.H + h) * s.nc + k) * s.P * s.N;
+#pragma unroll
+    for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = 16 * warp + g + 8 * r, n = 8 * j + 2 * q;
+        if (p < s.P)
+          store2(out + static_cast<long>(p) * s.N + n, n, s.N,
+                 acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------- 3. pass
+// NP / 32 blocks of 256 threads per (batch, head) (blockIdx.x, .y): thread
+// t = 256 y + x the image's row p = t / (NP / 8) and columns n0 .. n0 + 7,
+// n0 = 8 (t % (NP / 8)); G_k . h_k a partial a block.
+__device__ __forceinline__ void put_split(char* img, int plane, uint32_t off,
+                                          const float (&v)[8]) {
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split2(v[2 * i], v[2 * i + 1], &hi[i], &lo[i]);
+  uint4 a, b;
+  a.x = hi[0], a.y = hi[1], a.z = hi[2], a.w = hi[3];
+  b.x = lo[0], b.y = lo[1], b.z = lo[2], b.w = lo[3];
+  *reinterpret_cast<uint4*>(img + off) = a;
+  *reinterpret_cast<uint4*>(img + plane + off) = b;
+}
+
+template <int NP>
+__global__ void __launch_bounds__(256)
+hop_pass(const float* __restrict__ st, const float* __restrict__ ut,
+         const float* __restrict__ cd, const float* __restrict__ h0,
+         const float* __restrict__ dhf, char* __restrict__ himg,
+         char* __restrict__ gimg, float* __restrict__ hdot,
+         float* __restrict__ dh0, Shape s) {
+  constexpr int IMG = img_bytes(NP), PLANE = IMG / 2, NPB = NP / 32;
+  constexpr int U = 4;   // chunks whose loads are issued together
+  __shared__ float red[U][8];
+  const int t = 256 * blockIdx.y + threadIdx.x;
+  const int p = t / (NP / 8), n0 = 8 * (t % (NP / 8));
+  const long bh = blockIdx.x, PN = static_cast<long>(s.P) * s.N;
+  const long e0 = static_cast<long>(p) * s.N + n0;
+  const uint32_t off = at(PP, p, n0);
+  bool ok[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ok[i] = p < s.P && n0 + i < s.N;
+  float v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    v[i] = h0 != nullptr && ok[i] ? h0[bh * PN + e0 + i] : 0.0f;
+  for (int k0 = 0; k0 < s.nc; k0 += U) {   // h_k: the state entering k
+    float sv[U][8], cdv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + u;
+      cdv[u] = k < s.nc ? cd[bh * s.nc + k] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        sv[u][i] = k < s.nc && ok[i] ? st[(bh * s.nc + k) * PN + e0 + i]
+                                     : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + u;
+      if (k >= s.nc) break;
+      put_split(himg + (bh * s.nc + k) * IMG, PLANE, off, v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = v[i] * cdv[u] + sv[u][i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    v[i] = dhf != nullptr && ok[i] ? dhf[bh * PN + e0 + i] : 0.0f;
+  for (int k1 = s.nc - 1; k1 >= 0; k1 -= U) {   // G_k, from the last chunk
+    float uv[U][8], hk[U][8], cdv[U], pd[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k1 - u;
+      cdv[u] = k >= 0 ? cd[bh * s.nc + k] : 0.0f;
+      uint4 a, b;
+      a.x = a.y = a.z = a.w = b.x = b.y = b.z = b.w = 0u;
+      if (k >= 0) {
+        const char* hi = himg + (bh * s.nc + k) * IMG;
+        a = *reinterpret_cast<const uint4*>(hi + off);
+        b = *reinterpret_cast<const uint4*>(hi + PLANE + off);
+      }
+      const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
+      const uint32_t bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        hk[u][i] = unpack(aw[i / 2], i & 1) + unpack(bw[i / 2], i & 1);
+        uv[u][i] = k >= 0 && ok[i] ? ut[(bh * s.nc + k) * PN + e0 + i] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k1 - u;
+      pd[u] = 0.0f;
+      if (k < 0) continue;
+      float gk[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) gk[i] = v[i];   // G_k
+      put_split(gimg + (bh * s.nc + k) * IMG, PLANE, off, gk);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        pd[u] = fmaf(gk[i], hk[u][i], pd[u]);
+        v[i] = v[i] * cdv[u] + uv[u][i];
+      }
+    }
+    // G_k . h_k over the block, in a fixed order
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float r = repro::warp_sum(pd[u]);
+      if ((threadIdx.x & 31) == 0) red[u][threadIdx.x >> 5] = r;
+    }
+    __syncthreads();
+    const int u = threadIdx.x;
+    if (u < U && k1 - u >= 0) {
+      float sum = 0.0f;
+      for (int w = 0; w < 8; ++w) sum += red[u][w];
+      hdot[(bh * s.nc + k1 - u) * NPB + blockIdx.y] = sum;
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (ok[i]) dh0[bh * PN + e0 + i] = v[i];
+}
+
+// ------------------------------------------------------------------ 4. dx
+// 128 threads a 64-row tile of the chunk (2 LP threads); warpgroup w owns
+// rows s in [64 w, 64 w + 64).
+template <int LP, int NP>
+size_t dx_smem() {
+  return 2 * LP * NP * 2 + 2 * (2 * LP * PP * 2 + img_bytes(NP)) +
+         2 * LP * 12 + (LP / 16) * LP * 4 + 3 * LP * 4 + 1024;
+}
+
+template <int LP, int NP>
+__global__ void __launch_bounds__(2 * LP)
+hop_dx(const bf16* __restrict__ x, const float* __restrict__ dt,
+       const bf16* __restrict__ dy, const bf16* __restrict__ bm,
+       const bf16* __restrict__ cm, const double* __restrict__ cag,
+       const char* __restrict__ gimg, bf16* __restrict__ dx,
+       float* __restrict__ qa, float* __restrict__ qr, float* __restrict__ qx,
+       Shape s, int hpb, int vec_x, int vec_b) {
+  extern __shared__ float smem[];
+  constexpr int NTH = 2 * LP, NW = NTH / 32;
+  constexpr int TBN = LP * NP * 2, TX = LP * PP * 2, IMG = img_bytes(NP);
+  char* bt = repro::align1024(smem);
+  char* ct = bt + TBN;
+  char* xs[2] = {ct + TBN, ct + TBN + 2 * TX + IMG};
+  char* ds[2] = {xs[0] + TX, xs[1] + TX};
+  char* gs[2] = {ds[0] + TX, ds[1] + TX};
+  double* cas = reinterpret_cast<double*>(gs[1] + IMG);   // 2 x LP
+  float* dts = reinterpret_cast<float*>(cas + 2 * LP);     // 2 x LP
+  float* colp = dts + 2 * LP;                               // NW x LP
+  float* rowv = colp + NW * LP;                             // 3 x LP
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid & 127) >> 5, g = (tid & 31) >> 2, q = tid & 3;
+  const int s0 = 64 * wg;
+  const Slice sl = slice_of(s, hpb);
+  const int k = blockIdx.y, c0 = k * s.L, Lc = min(s.L, s.T - c0);
+  const long row0 = static_cast<long>(sl.b) * s.T + c0;
+  const long xrow = static_cast<long>(s.H) * s.P;
+  auto stage = [&](int buf, int h) {
+    const long bh = static_cast<long>(sl.b) * s.H + h;
+    load_tile(xs[buf], LP, PP, x + (row0 * s.H + h) * s.P, xrow, Lc, s.P,
+              vec_x, tid, NTH);
+    load_tile(ds[buf], LP, PP, dy + (row0 * s.H + h) * s.P, xrow, Lc, s.P,
+              vec_x, tid, NTH);
+    load_bytes(gs[buf], gimg + (bh * s.nc + k) * IMG, IMG, tid, NTH);
+    load_decay(cas + buf * LP, dts + buf * LP, cag, dt, s, bh, k, row0, h, Lc,
+               LP, tid, NTH);
+    repro::cp_async_commit();
+  };
+  const long bc = (row0 * s.G + sl.g) * s.N;
+  load_tile(bt, LP, NP, bm + bc, static_cast<long>(s.G) * s.N, Lc, s.N, vec_b,
+            tid, NTH);
+  load_tile(ct, LP, NP, cm + bc, static_cast<long>(s.G) * s.N, Lc, s.N, vec_b,
+            tid, NTH);
+  repro::cp_async_commit();
+  stage(0, sl.h0);
+  repro::cp_async_wait<1>();
+  __syncthreads();
+  // (B C^T)[s][l] = b_s . c_l, this warpgroup's rows
+  float cbt[LP / 2];
+#pragma unroll
+  for (int j = 0; j < LP / 2; ++j) cbt[j] = 0.0f;
+  repro::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NP / 16; ++kk)
+    repro::wgmma_ss<LP, 0, 0>(
+        cbt,
+        repro::desc128(bt + (kk >> 2) * LP * 128 + s0 * 128 + (kk & 3) * 32,
+                       16, 1024),
+        repro::desc128(ct + (kk >> 2) * LP * 128 + (kk & 3) * 32, 16, 1024));
+  repro::wgmma_commit();
+  repro::wgmma_wait<0>();
+  repro::fence_regs(cbt);
+  for (int i = 0; i < sl.nh; ++i) {
+    const int cur = i & 1, h = sl.h0 + i;
+    if (i + 1 < sl.nh) {
+      stage(cur ^ 1, h + 1);
+      repro::cp_async_wait<1>();
+    } else {
+      repro::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const double* ca = cas + cur * LP;
+    const float* dtv = dts + cur * LP;
+    const double last = ca[Lc - 1];
+    const char* xt = xs[cur];
+    const char* dyt = ds[cur];
+    const char* gi = gs[cur];
+    int sr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) sr[r] = s0 + 16 * warp + g + 8 * r;
+    // dM^T = x dy^T: (dy_l . x_s) at [s][l]; then M^T in its place
+    float t1[LP / 2];
+    {
+#pragma unroll
+      for (int j = 0; j < LP / 2; ++j) t1[j] = 0.0f;
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < PP / 16; ++kk)
+        repro::wgmma_ss<LP, 0, 0>(
+            t1, repro::desc128(xt + s0 * 128 + kk * 32, 16, 1024),
+            repro::desc128(dyt + kk * 32, 16, 1024));
+      repro::wgmma_commit();
+      repro::wgmma_wait<0>();
+      repro::fence_regs(t1);
+      // the decays' term: dcb^T (.) (B C^T) summed along its rows (the
+      // term of index s, subtracted) and its columns (index l, added)
+      float rs[2] = {0.0f, 0.0f}, cs[LP / 4];
+#pragma unroll
+      for (int j = 0; j < LP / 4; ++j) cs[j] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < LP / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, l = 8 * j + 2 * q + (e & 1);
+          float v = 0.0f, m = 0.0f;
+          if (l >= sr[r] && l < Lc) {
+            const float dec = ex(ca[l] - ca[sr[r]]);
+            m = cbt[4 * j + e] * dec;
+            v = t1[4 * j + e] * dtv[sr[r]] * m;
+          }
+          t1[4 * j + e] = m;
+          rs[r] += v;
+          cs[2 * j + (e & 1)] += v;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] = quad_sum(rs[r]);
+        if (q == 0) rowv[sr[r]] = rs[r];
+      }
+#pragma unroll
+      for (int j = 0; j < LP / 4; ++j) {
+        float v = cs[j];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) colp[(tid >> 5) * LP + 8 * (j >> 1) + 2 * q + (j & 1)] = v;
+      }
+    }
+    // t2 = b G_k^T (rows s, columns p)
+    float t2[PP / 2];
+#pragma unroll
+    for (int j = 0; j < PP / 2; ++j) t2[j] = 0.0f;
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NP / 16; ++kk) {
+      const uint64_t da = repro::desc128(
+          bt + (kk >> 2) * LP * 128 + s0 * 128 + (kk & 3) * 32, 16, 1024);
+      const int o = (kk >> 2) * PP * 128 + (kk & 3) * 32;
+      repro::wgmma_ss<PP, 0, 0>(t2, da, repro::desc128(gi + o, 16, 1024));
+      if (LOW_PARTS)
+        repro::wgmma_ss<PP, 0, 0>(t2, da,
+                                  repro::desc128(gi + IMG / 2 + o, 16, 1024));
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait<0>();
+    repro::fence_regs(t2);
+    // qr_s = w_s xbar_s . (G_k b_s); then t2 *= w_s
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool ok = sr[r] < Lc;
+      const float wl = ok ? ex(last - ca[sr[r]]) : 0.0f;
+      float dot = 0.0f;
+#pragma unroll
+      for (int j = 0; j < PP / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = t2[4 * j + 2 * r + e];
+          dot = fmaf(ld(xt, LP, sr[r], 8 * j + 2 * q + e), v, dot);
+          v *= wl;
+        }
+      dot = quad_sum(dot);
+      if (q == 0) rowv[LP + sr[r]] = ok ? wl * dtv[sr[r]] * dot : 0.0f;
+    }
+    // t2 += M^T dy, M^T[s][l] = (B C^T)[s][l] exp(ca_l - ca_s) for l >= s
+    // (in t1), split, the register A operand; dy read MN-major
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < LP / 16; ++kk) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int idx = 4 * (2 * kk + (rr >> 1)) + 2 * (rr & 1);
+        split2(t1[idx], t1[idx + 1], &ah[rr], &al[rr]);
+      }
+      const uint64_t db = repro::desc128(dyt + kk * 2048, LP * 128, 1024);
+      repro::wgmma_rs<PP, 1>(t2, ah, db);
+      if (LOW_PARTS) repro::wgmma_rs<PP, 1>(t2, al, db);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait<0>();
+    repro::fence_regs(t2);
+    // dxbar = t2: dx = dxbar dt, qx_s = dxbar_s . x_s
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool ok = sr[r] < Lc;
+      const float d = ok ? dtv[sr[r]] : 0.0f;
+      bf16* out = dx + ((row0 + sr[r]) * s.H + h) * s.P;
+      float dot = 0.0f;
+#pragma unroll
+      for (int j = 0; j < PP / 8; ++j) {
+        const int p = 8 * j + 2 * q, i = 4 * j + 2 * r;
+        dot = fmaf(t2[i], ld(xt, LP, sr[r], p), dot);
+        dot = fmaf(t2[i + 1], ld(xt, LP, sr[r], p + 1), dot);
+        if (ok) store2(out + p, p, s.P, t2[i] * d, t2[i + 1] * d);
+      }
+      dot = quad_sum(dot);
+      if (q == 0) rowv[2 * LP + sr[r]] = dot;
+    }
+    __syncthreads();
+    const long t0 = (static_cast<long>(sl.b) * s.H + h) * s.T + c0;
+    for (int l = tid; l < Lc; l += NTH) {
+      float v = 0.0f;
+      for (int w = 0; w < NW; ++w) v += colp[w * LP + l];
+      qa[t0 + l] = v - rowv[l];
+      qr[t0 + l] = rowv[LP + l];
+      qx[t0 + l] = rowv[2 * LP + l];
+    }
+    __syncthreads();
+  }
+}
+
+// ----------------------------------------------------------------- 5. dbc
+// blockIdx.x: b G + g; .y the chunk; .z 0 for dc (rows l), 1 for db (rows
+// s).  128 threads a 64-row tile; the group's heads in order.
+template <int LP, int NP>
+size_t dbc_smem() {
+  return 2 * LP * NP * 2 + 2 * (2 * LP * PP * 2 + img_bytes(NP)) +
+         2 * LP * 12 + LP * 4 + 1024;
+}
+
+template <int LP, int NP>
+__global__ void __launch_bounds__(2 * LP)
+hop_dbc(const bf16* __restrict__ x, const float* __restrict__ dt,
+        const bf16* __restrict__ dy, const bf16* __restrict__ bm,
+        const bf16* __restrict__ cm, const double* __restrict__ cag,
+        const char* __restrict__ himg, const char* __restrict__ gimg,
+        bf16* __restrict__ db, bf16* __restrict__ dc, float* __restrict__ qa1,
+        Shape s, int vec_x, int vec_b) {
+  extern __shared__ float smem[];
+  constexpr int NTH = 2 * LP;
+  constexpr int TBN = LP * NP * 2, TX = LP * PP * 2, IMG = img_bytes(NP);
+  char* bt = repro::align1024(smem);
+  char* ct = bt + TBN;
+  char* xs[2] = {ct + TBN, ct + TBN + 2 * TX + IMG};
+  char* ds[2] = {xs[0] + TX, xs[1] + TX};
+  char* ss[2] = {ds[0] + TX, ds[1] + TX};
+  double* cas = reinterpret_cast<double*>(ss[1] + IMG);   // 2 x LP
+  float* dts = reinterpret_cast<float*>(cas + 2 * LP);     // 2 x LP
+  float* rowv = dts + 2 * LP;                               // LP
+  const bool is_dc = blockIdx.z == 0;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid & 127) >> 5, g = (tid & 31) >> 2, q = tid & 3;
+  const int r0 = 64 * wg;
+  const int bb = blockIdx.x / s.G, gg = blockIdx.x % s.G;
+  const int k = blockIdx.y, c0 = k * s.L, Lc = min(s.L, s.T - c0);
+  const long row0 = static_cast<long>(bb) * s.T + c0;
+  const long xrow = static_cast<long>(s.H) * s.P;
+  const char* img = is_dc ? himg : gimg;
+  auto stage = [&](int buf, int h) {
+    const long bh = static_cast<long>(bb) * s.H + h;
+    load_tile(xs[buf], LP, PP, x + (row0 * s.H + h) * s.P, xrow, Lc, s.P,
+              vec_x, tid, NTH);
+    load_tile(ds[buf], LP, PP, dy + (row0 * s.H + h) * s.P, xrow, Lc, s.P,
+              vec_x, tid, NTH);
+    load_bytes(ss[buf], img + (bh * s.nc + k) * IMG, IMG, tid, NTH);
+    load_decay(cas + buf * LP, dts + buf * LP, cag, dt, s, bh, k, row0, h, Lc,
+               LP, tid, NTH);
+    repro::cp_async_commit();
+  };
+  const long bc = (row0 * s.G + gg) * s.N;
+  if (is_dc)
+    load_tile(bt, LP, NP, bm + bc, static_cast<long>(s.G) * s.N, Lc, s.N,
+              vec_b, tid, NTH);
+  load_tile(ct, LP, NP, cm + bc, static_cast<long>(s.G) * s.N, Lc, s.N, vec_b,
+            tid, NTH);
+  const int hfirst = gg * s.rep;
+  stage(0, hfirst);
+  int rw[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rw[r] = r0 + 16 * warp + g + 8 * r;
+  float acc[NP / 2];
+#pragma unroll
+  for (int j = 0; j < NP / 2; ++j) acc[j] = 0.0f;
+  for (int i = 0; i < s.rep; ++i) {
+    const int cur = i & 1, h = hfirst + i;
+    if (i + 1 < s.rep) {
+      stage(cur ^ 1, h + 1);
+      repro::cp_async_wait<1>();
+    } else {
+      repro::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const double* ca = cas + cur * LP;
+    const float* dtv = dts + cur * LP;
+    const double last = ca[Lc - 1];
+    // the output's rows' operand (dy for dc, x for db) and the other's
+    const char* ft = is_dc ? ds[cur] : xs[cur];
+    const char* ot = is_dc ? xs[cur] : ds[cur];
+    const char* si = ss[cur];
+    {
+      // dy h_k (dc) or x G_k (db), the state split, read MN-major
+      float t[NP / 2];
+#pragma unroll
+      for (int j = 0; j < NP / 2; ++j) t[j] = 0.0f;
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < PP / 16; ++kk) {
+        const uint64_t da =
+            repro::desc128(ft + r0 * 128 + kk * 32, 16, 1024);
+        repro::wgmma_ss<NP, 0, 1>(
+            t, da, repro::desc128(si + kk * 2048, PP * 128, 1024));
+        if (LOW_PARTS)
+          repro::wgmma_ss<NP, 0, 1>(
+              t, da, repro::desc128(si + IMG / 2 + kk * 2048, PP * 128, 1024));
+      }
+      repro::wgmma_commit();
+      repro::wgmma_wait<0>();
+      repro::fence_regs(t);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const bool ok = rw[r] < Lc;
+        const float sc = !ok ? 0.0f
+                         : is_dc ? ex(ca[rw[r]])
+                                 : ex(last - ca[rw[r]]) * dtv[rw[r]];
+        float dot = 0.0f;
+#pragma unroll
+        for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * j + 2 * r + e;
+            if (is_dc)
+              dot = fmaf(t[idx], ld(ct, LP, rw[r], 8 * j + 2 * q + e), dot);
+            acc[idx] = fmaf(sc, t[idx], acc[idx]);
+          }
+        if (is_dc) {
+          dot = quad_sum(dot);
+          if (q == 0) rowv[rw[r]] = sc * dot;
+        }
+      }
+    }
+    // D = F O^T: dM (dc, [l][s]) or dM^T (db, [s][l])
+    float d[LP / 2];
+#pragma unroll
+    for (int j = 0; j < LP / 2; ++j) d[j] = 0.0f;
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PP / 16; ++kk)
+      repro::wgmma_ss<LP, 0, 0>(
+          d, repro::desc128(ft + r0 * 128 + kk * 32, 16, 1024),
+          repro::desc128(ot + kk * 32, 16, 1024));
+    repro::wgmma_commit();
+    repro::wgmma_wait<0>();
+    repro::fence_regs(d);
+    // acc += dcb b (dc) or dcb^T c (db): dcb = dM dt_s exp(ca_l - ca_s),
+    // s <= l, split, the register A operand; b or c read MN-major
+    auto dcb = [&](int row, int col, float v) -> float {
+      if (is_dc)
+        return col <= row && row < Lc ? v * dtv[col] * ex(ca[row] - ca[col])
+                                      : 0.0f;
+      return col >= row && col < Lc ? v * dtv[row] * ex(ca[col] - ca[row])
+                                    : 0.0f;
+    };
+    const char* yt = is_dc ? bt : ct;
+    repro::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < LP / 16; ++kk) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int r = rr & 1, cb = rr >> 1;
+        const int idx = 4 * (2 * kk + cb) + 2 * r;
+        const int col = 16 * kk + 8 * cb + 2 * q;
+        split2(dcb(rw[r], col, d[idx]), dcb(rw[r], col + 1, d[idx + 1]),
+               &ah[rr], &al[rr]);
+      }
+      const uint64_t dbd = repro::desc128(yt + kk * 2048, LP * 128, 1024);
+      repro::wgmma_rs<NP, 1>(acc, ah, dbd);
+      if (LOW_PARTS) repro::wgmma_rs<NP, 1>(acc, al, dbd);
+    }
+    repro::wgmma_commit();
+    repro::wgmma_wait<0>();
+    repro::fence_regs(acc);
+    __syncthreads();
+    if (is_dc) {
+      const long t0 = (static_cast<long>(bb) * s.H + h) * s.T + c0;
+      for (int l = tid; l < Lc; l += NTH) qa1[t0 + l] = rowv[l];
+    }
+  }
+  bf16* out = is_dc ? dc : db;
+#pragma unroll
+  for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = 8 * j + 2 * q;
+      if (rw[r] < Lc)
+        store2(out + ((row0 + rw[r]) * s.G + gg) * s.N + n, n, s.N,
+               acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+}
+
+// ----------------------------------------------------------------- 6. ddt
+// a warp per (batch, head, chunk), 8 heads a block: the reverse cumsum of
+// dca over the chunk's rows (a warp scan in double, 32 rows a step from the
+// chunk's end), ddt, and the chunk's partial of dA
+__global__ void __launch_bounds__(256)
+hop_ddt(const float* __restrict__ dt, const float* __restrict__ A,
+        float* __restrict__ ddt, Scratch w, Shape s, int npb) {
+  const int lane = threadIdx.x & 31;
+  const int h = blockIdx.x * 8 + threadIdx.x / 32;
+  if (h >= s.H) return;
+  const int b = blockIdx.z, k = blockIdx.y, c0 = k * s.L;
+  const int Lc = min(s.L, s.T - c0);
+  const long bh = static_cast<long>(b) * s.H + h;
+  const long t0 = bh * s.T + c0;
+  float sr = 0.0f;
+  for (int l = lane; l < Lc; l += 32) sr += w.qr[t0 + l];
+  sr = repro::warp_sum(sr);
+  float dot = 0.0f;
+  for (int i = 0; i < npb; ++i) dot += w.hdot[(bh * s.nc + k) * npb + i];
+  const float tail = w.cd[bh * s.nc + k] * dot + sr;
+  const float a = A[h];
+  double carry = 0.0;
+  float dap = 0.0f;
+  for (int i0 = 0; i0 < Lc; i0 += 32) {
+    const int l = Lc - 1 - i0 - lane;
+    double v = 0.0;
+    if (l >= 0) {
+      float dca = w.qa[t0 + l] + w.qa1[t0 + l] - w.qr[t0 + l];
+      if (l == Lc - 1) dca += tail;
+      v = dca;
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double u = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += u;
+    }
+    if (l >= 0) {
+      const float acc = static_cast<float>(carry + v);
+      const long r = (static_cast<long>(b) * s.T + c0 + l) * s.H + h;
+      ddt[r] = w.qx[t0 + l] + acc * a;
+      dap = fmaf(acc, dt[r], dap);
+    }
+    carry += __shfl_sync(0xffffffffu, v, 31);
+  }
+  dap = repro::warp_sum(dap);
+  if (lane == 0) w.dap[bh * s.nc + k] = dap;
+}
+
+// ------------------------------------------------------------------ 7. dA
+__global__ void __launch_bounds__(256)
+hop_da(float* __restrict__ dA, const float* __restrict__ dap, Shape s) {
+  for (int h = threadIdx.x; h < s.H; h += 256) {
+    float v = 0.0f;
+    for (int b = 0; b < s.B; ++b)
+      for (int k = 0; k < s.nc; ++k)
+        v += dap[(static_cast<long>(b) * s.H + h) * s.nc + k];
+    dA[h] = v;
+  }
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms < 1)
+    return 1;
+  return sms;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int LP, int NP>
+int run(const bf16* x, const float* dt, const float* A, const bf16* bm,
+        const bf16* cm, const float* h0, const bf16* dy, const float* dhf,
+        bf16* dx, float* ddt, float* dA, bf16* db, bf16* dc, float* dh0,
+        float* scratch, const Shape& s, cudaStream_t st) {
+  Scratch w;
+  carve(scratch, s, LP, NP, &w);
+  const int vec_x = aligned16(x) && aligned16(dy) && s.P % 8 == 0;
+  const int vec_b = aligned16(bm) && aligned16(cm) && s.N % 8 == 0;
+  // heads split over enough blocks of passes 2 and 4 to fill the card twice
+  const long base = static_cast<long>(s.B) * s.G * s.nc;
+  const long fill = (2L * sm_count() + base - 1) / base;
+  const int slices =
+      static_cast<int>(std::max(1L, std::min(static_cast<long>(s.rep), fill)));
+  const int hpb = (s.rep + slices - 1) / slices;
+  const int nhs = (s.rep + hpb - 1) / hpb;
+  const size_t sm_s = states_smem<LP, NP>(), sm_x = dx_smem<LP, NP>(),
+               sm_c = dbc_smem<LP, NP>();
+  const std::pair<const void*, size_t> big[] = {
+      {reinterpret_cast<const void*>(hop_states<LP, NP>), sm_s},
+      {reinterpret_cast<const void*>(hop_dx<LP, NP>), sm_x},
+      {reinterpret_cast<const void*>(hop_dbc<LP, NP>), sm_c}};
+  for (const auto& k : big) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k.first, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(k.second));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 heads8((s.H + 7) / 8, s.nc, s.B);
+  const unsigned slabs = static_cast<unsigned>(base / s.nc * nhs);
+  hop_decay<<<heads8, 256, 0, st>>>(dt, A, w.ca, w.cd, s, LP);
+  hop_states<LP, NP><<<dim3(slabs, s.nc), 256, sm_s, st>>>(
+      x, dt, dy, bm, cm, w.ca, w.st, w.ut, s, hpb, vec_x, vec_b);
+  hop_pass<NP><<<dim3(static_cast<unsigned>(static_cast<long>(s.B) * s.H),
+                      NP / 32), 256, 0, st>>>(w.st, w.ut, w.cd, h0, dhf,
+                                              w.himg, w.gimg, w.hdot, dh0, s);
+  hop_dx<LP, NP><<<dim3(slabs, s.nc), 2 * LP, sm_x, st>>>(
+      x, dt, dy, bm, cm, w.ca, w.gimg, dx, w.qa, w.qr, w.qx, s, hpb, vec_x,
+      vec_b);
+  hop_dbc<LP, NP><<<dim3(s.B * s.G, s.nc, 2), 2 * LP, sm_c, st>>>(
+      x, dt, dy, bm, cm, w.ca, w.himg, w.gimg, db, dc, w.qa1, s, vec_x,
+      vec_b);
+  hop_ddt<<<heads8, 256, 0, st>>>(dt, A, ddt, w, s, NP / 32);
+  hop_da<<<1, 256, 0, st>>>(dA, w.dap, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hop
+
+// Whether a call takes the Hopper form: bf16 within its limits.
+bool hopper_form(const Shape& s, int bf16) {
+  return bf16 && s.L <= hop::LMAX && s.P <= hop::PMAX && s.N <= hop::NMAX;
+}
+
+int tile64(int v) { return v <= 64 ? 64 : 128; }
+
 }  // namespace
 
 // The scratch's floats for a call of ssd_scan_bwd at this shape.
 extern "C" long ssd_scan_bwd_scratch(int B, int T, int H, int G, int P, int N,
-                                     int L) {
+                                     int L, int bf16) {
   Shape s;
   if (!shape_of(B, T, H, G, P, N, L, &s)) return 0;
+  if (hopper_form(s, bf16))
+    return hop::carve(nullptr, s, tile64(s.L), tile64(s.N), nullptr);
   return carve(nullptr, s, nullptr);
+}
+
+// 1 where a call at this shape runs the Hopper form (bf16 on wgmma), 0 where
+// it runs the passes on the CUDA cores.
+extern "C" int ssd_scan_bwd_form(int B, int T, int H, int G, int P, int N,
+                                 int L, int bf16) {
+  Shape s;
+  return shape_of(B, T, H, G, P, N, L, &s) && hopper_form(s, bf16) ? 1 : 0;
 }
 
 // x, b, c, dy and dx, db, dc of type bf16 ? bf16 : fp32; dt, A, h0
 // (nullable), dh_final (nullable) and ddt, dA, dh0 fp32; scratch:
-// ssd_scan_bwd_scratch(...) floats, 16-byte aligned.
+// ssd_scan_bwd_scratch(..., bf16) floats, 16-byte aligned.
 extern "C" int ssd_scan_bwd(const void* x, const float* dt, const float* A,
                             const void* b, const void* c, const float* h0,
                             const void* dy, const float* dhf, void* dx,
@@ -632,9 +1649,22 @@ extern "C" int ssd_scan_bwd(const void* x, const float* dt, const float* A,
   if (!shape_of(B, T, H, G, P, N, L, &s))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return run<__nv_bfloat16>(x, dt, A, b, c, h0, dy, dhf, dx, ddt, dA, db,
-                              dc, dh0, scratch, s, st);
+  if (hopper_form(s, bf16)) {
+    using hop::bf16;
+    auto go = [&](auto fn) {
+      return fn(static_cast<const bf16*>(x), dt, A,
+                static_cast<const bf16*>(b), static_cast<const bf16*>(c), h0,
+                static_cast<const bf16*>(dy), dhf, static_cast<bf16*>(dx),
+                ddt, dA, static_cast<bf16*>(db), static_cast<bf16*>(dc), dh0,
+                scratch, s, st);
+    };
+    const int lp = tile64(s.L), np = tile64(s.N);
+    if (lp == 64 && np == 64) return go(hop::run<64, 64>);
+    if (lp == 64) return go(hop::run<64, 128>);
+    if (np == 64) return go(hop::run<128, 64>);
+    return go(hop::run<128, 128>);
+  }
+  if (bf16) return static_cast<int>(cudaErrorInvalidValue);
   return run<float>(x, dt, A, b, c, h0, dy, dhf, dx, ddt, dA, db, dc, dh0,
                     scratch, s, st);
 }

@@ -19,11 +19,14 @@ the heads flattened as ``ops.py`` flattens them); for CUDA tensors it
 launches the kernel or raises.  Launches count into ``ssd_scan.launches``,
 one a call (its four passes).
 
-:func:`ssd_scan_bwd` is its vjp (``csrc/ssd_scan_bwd.cu``, nine passes
-counted as one launch into ``ssd_scan_bwd.launches``): the arithmetic of
-``jax.vjp`` of ``repro/models/ssm.py::ssd_chunked`` that the TPU segment
-kernels trace (``segment_pallas.py:395-409``), on the card only; its plain
-version :func:`ssd_scan_bwd_plain` is autograd over
+:func:`ssd_scan_bwd` is its vjp (``csrc/ssd_scan_bwd.cu``, counted as one
+launch into ``ssd_scan_bwd.launches``): the arithmetic of ``jax.vjp`` of
+``repro/models/ssm.py::ssd_chunked`` that the TPU segment kernels trace
+(``segment_pallas.py:395-409``), on the card only.  bf16 inputs run its
+Hopper form (seven passes, every product on ``wgmma``); fp32 inputs nine
+passes on the CUDA cores, and a bf16 call that took those is counted into
+``ssd_scan_bwd.cuda_cores`` (0 on the main path).  Its plain version
+:func:`ssd_scan_bwd_plain` is autograd over
 ``repro_torch.models.ssm.ssd_chunked_plain``.
 """
 from __future__ import annotations
@@ -56,7 +59,9 @@ def _bwd_lib():
     lib.ssd_scan_bwd.restype = _I
     lib.ssd_scan_bwd.argtypes = [_P] * 15 + [_I] * 8 + [_P]
     lib.ssd_scan_bwd_scratch.restype = ctypes.c_long
-    lib.ssd_scan_bwd_scratch.argtypes = [_I] * 7
+    lib.ssd_scan_bwd_scratch.argtypes = [_I] * 8
+    lib.ssd_scan_bwd_form.restype = _I
+    lib.ssd_scan_bwd_form.argtypes = [_I] * 8
     return lib
 
 
@@ -226,8 +231,10 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 f"<= {lim[1]}, N <= {lim[2]}; got chunk {chunk}, P {P}, N "
                 f"{N}")
     lib = _bwd_lib()
+    bf16 = int(x.dtype == torch.bfloat16)
     scratch = torch.empty(
-        (max(1, lib.ssd_scan_bwd_scratch(B, T, H, G, P, N, int(chunk))),),
+        (max(1, lib.ssd_scan_bwd_scratch(B, T, H, G, P, N, int(chunk),
+                                         bf16)),),
         dtype=f32, device=x.device)
     dx, db, dc = (torch.empty_like(t) for t in (x, b, c))
     ddt = torch.empty_like(dt)
@@ -238,12 +245,14 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         build.ptr(c), build.ptr(h0), build.ptr(dy), build.ptr(dh_final),
         build.ptr(dx), build.ptr(ddt), build.ptr(dA), build.ptr(db),
         build.ptr(dc), build.ptr(dh0), build.ptr(scratch), B, T, H, G, P, N,
-        int(chunk), int(x.dtype == torch.bfloat16),
-        build.stream_ptr(x.device))
+        int(chunk), bf16, build.stream_ptr(x.device))
     build.check(lib, err, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
+    if bf16 and not lib.ssd_scan_bwd_form(B, T, H, G, P, N, int(chunk), 1):
+        ssd_scan_bwd.cuda_cores += 1
     return dx, ddt, dA, db, dc, (None if h0 is None else dh0)
 
 
 ssd_scan.launches = 0
 ssd_scan_bwd.launches = 0
+ssd_scan_bwd.cuda_cores = 0   # bf16 calls that ran the CUDA-core passes

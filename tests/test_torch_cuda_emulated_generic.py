@@ -2,19 +2,23 @@
 ``entry_store`` and ``fold``) compiled with g++ against the CPU stand-in
 headers (``tests/_cuda_emu.py``) and run through their wrappers' card paths
 on CPU tensors: bit for bit against their plain versions at odd lengths,
-misaligned leaves, 0-d leaves, fp32 and bf16; the generic advance, reverse
-and a whole ``runner="fused"`` gradient bit for bit against the same on
-the plain versions, with one ``entry_store`` launch a forward chunk and one
-``fold`` launch a reverse chunk."""
+misaligned leaves, 0-d leaves, fp32 and bf16; ``entry_store``'s bulk copies
+(the 1D ``cp.async.bulk`` stand-ins) over more chunks a block than its ring
+has stages, beside misaligned leaves and tails short of 16 bytes, and a
+copy of the source without the bulk stores rejected; the generic advance,
+reverse and a whole ``runner="fused"`` gradient bit for bit against the same
+on the plain versions, with one ``entry_store`` launch a forward chunk and
+one ``fold`` launch a reverse chunk."""
 import contextlib
 import ctypes
+import re
 import types
 
 import numpy as np
 import pytest
 import torch
 
-from _cuda_emu import _Event, emulated_libs  # noqa: F401  (fixture)
+from _cuda_emu import _compile, _Event, emulated_libs  # noqa: F401
 from repro_torch import api
 from repro_torch.api.chain import ChainSpec, is_broadcast_zero, zero_grads
 from repro_torch.kernels import build
@@ -91,6 +95,68 @@ def test_entry_store_bit_for_bit(emulated_libs):
     assert ready is not None and sg.entry_store.launches == n0 + 1
     assert all(_same_bits(d, p) for d, p in zip(dsts, plain))
     assert srcs[-1].data_ptr() % 16 == 4   # the byte path ran
+
+
+def _store_constant(name):
+    """A constant of ``entry_store``'s bulk form in its source."""
+    text = (build.CSRC / build.SOURCES["segment_generic"]).read_text()
+    return int(re.search(rf"constexpr int [^;]*\b{name} = (\d+)",
+                         text).group(1))
+
+
+def _bulk_leaves(rng, kind):
+    """Leaves for the bulk form: ``bulk``, aligned leaves of more chunks a
+    block than the ring has stages (a length that leaves a tail, a bf16
+    leaf of odd length, one short of a chunk); ``misaligned``, fp32 and bf16
+    views 4 and 2 bytes into their buffers; ``tails``, a 0-d leaf and
+    lengths that are not multiples of 16 bytes."""
+    stage = _store_constant("STAGE_BYTES")
+    big = _store_constant("STORE_BLOCKS") * (
+        _store_constant("STAGES") + 2) * stage
+    if kind == "bulk":
+        return [_rand(rng, (big // 4 + 5,)),
+                _rand(rng, (big // 2 + 3,), torch.bfloat16),
+                _rand(rng, (3 * stage // 16, 4))]
+    if kind == "misaligned":
+        return [_rand(rng, (stage + 9,))[1:],
+                _rand(rng, (stage + 7,), torch.bfloat16)[1:]]
+    return [_rand(rng, ()), _rand(rng, (7,), torch.bfloat16),
+            _rand(rng, (33,)), _rand(rng, (stage // 2 + 1,), torch.bfloat16)]
+
+
+def _store_twice(libs, srcs):
+    plain = [torch.empty_like(t) for t in srcs]
+    sg.entry_store_plain(srcs, plain)
+    dsts = [torch.full_like(t, 7.0) for t in srcs]
+    with _on_card(libs):
+        sg.entry_store(srcs, dsts)
+    return dsts, plain
+
+
+@pytest.mark.parametrize("kind", ["bulk", "misaligned", "tails"])
+def test_entry_store_bulk_form(emulated_libs, kind):
+    srcs = _bulk_leaves(np.random.default_rng(3), kind)
+    if kind == "misaligned":
+        assert [t.data_ptr() % 16 for t in srcs] == [4, 2]
+    dsts, plain = _store_twice(emulated_libs, srcs)
+    assert all(_same_bits(d, p) for d, p in zip(dsts, plain))
+
+
+BULK_STORE = "repro::bulk_store(dst, ring + stage * STAGE_BYTES, bytes);"
+
+
+def test_entry_store_without_bulk_stores_fails(emulated_libs, tmp_path):
+    """A copy of the source whose bulk stores are dropped leaves the
+    aligned leaves' bytes unwritten: the bulk copies, and not the SIMT
+    path, move them."""
+    source = (build.CSRC / build.SOURCES["segment_generic"]).read_text()
+    assert source.count(BULK_STORE) == 1
+    bad = _compile(source.replace(BULK_STORE, ""), tmp_path,
+                   "segment_generic_nobulk")
+    srcs = _bulk_leaves(np.random.default_rng(4), "bulk")
+    libs = {"segment_generic": bad}
+    dsts, plain = _store_twice(libs, srcs)
+    assert not any(_same_bits(d, p) for d, p in zip(dsts, plain))
 
 
 def _fold_case(rng):

@@ -5,9 +5,15 @@ card path, against its plain version (autograd over
 (fp32) or 3e-2 (bf16) of the plain version's max |value|, with and
 without an entry state, groups fewer than heads, a ragged last chunk,
 chunks of more than one 64-row tile and a head dim of more than one 64-wide
-tile; the same bits on two calls.  A copy of the source that drops the
+tile (the fp32 passes on the CUDA cores) or of no multiple of 16 with a
+state of more than one 64-wide block (bf16: the Hopper form, its wgmma and
+swizzled tiles under the stand-ins, no call counted on the CUDA-core
+passes); the same bits on two calls.  A copy of the source that drops the
 cotangent carried from one chunk into the chunk before fails the gate
-that the unchanged kernel passes.
+that the unchanged kernel passes, in either form.  On bf16-exact inputs
+the Hopper form's fp32 leaves (ddt, dA, dh0) are within 2e-4 of the fp32
+plain gradient, which a copy without the split operands' low parts
+(``LOW_PARTS = 0``: ~2^-9 off) misses.
 """
 import numpy as np
 import pytest
@@ -51,13 +57,17 @@ def _gate(got, want, tol):
     (2, 20, 4, 2, 16, 8, 8, F32, True),
     (1, 80, 2, 1, 8, 8, 80, F32, False),      # a chunk of two row tiles
     (1, 16, 1, 1, 72, 8, 8, F32, True),       # P over one 64-wide tile
+    (1, 24, 2, 1, 8, 8, 8, BF16, True),       # the Hopper form: h0,
+    (1, 80, 2, 1, 8, 8, 80, BF16, False),     # two row tiles,
+    (1, 16, 1, 1, 24, 72, 8, BF16, True),     # P and N off the tiles
 ])
 def test_ssd_scan_bwd_kernel_source(kernels_on_card, B, T, H, G, P, N,
                                     chunk, dtype, with_h0):
     args = _operands(B, T, H, G, P, N, dtype, with_h0, seed=T + P + H)
-    before = ssd.ssd_scan_bwd.launches
+    before = ssd.ssd_scan_bwd.launches, ssd.ssd_scan_bwd.cuda_cores
     got = ssd.ssd_scan_bwd(*args, chunk=chunk)
-    assert ssd.ssd_scan_bwd.launches == before + 1
+    assert (ssd.ssd_scan_bwd.launches, ssd.ssd_scan_bwd.cuda_cores) == (
+        before[0] + 1, before[1])
     want = ssd.ssd_scan_bwd_plain(*args, chunk=chunk)
     _gate(got, want, 3e-2 if dtype == BF16 else 1e-4)
     again = ssd.ssd_scan_bwd(*args, chunk=chunk)
@@ -75,25 +85,67 @@ def test_ssd_scan_bwd_refuses(kernels_on_card):
         ssd.ssd_scan_bwd(*args, chunk=4)
 
 
-# the reverse state pass of csrc/ssd_scan_bwd.cu, and the same with the
-# cotangent carried from chunk 1 into chunk 0 (G_0) dropped
-CARRY = "*p = g;"
-CARRY_DROPPED = "*p = k == 0 ? 0.0f : g;"
+# the reverse state passes of csrc/ssd_scan_bwd.cu (the Hopper form's and
+# the CUDA-core passes'), and the same with the cotangent carried from chunk
+# 1 into chunk 0 (G_0) dropped
+CARRY = {BF16: ("gk[i] = v[i];   // G_k", "gk[i] = k == 0 ? 0.0f : v[i];"),
+         F32: ("*p = g;", "*p = k == 0 ? 0.0f : g;")}
+
+
+def _rejects_a_dropped_carry(libs, tmp_path, monkeypatch, dtype):
+    source = (build.CSRC / build.SOURCES["ssd_scan_bwd"]).read_text()
+    carry, dropped = CARRY[dtype]
+    assert source.count(carry) == 1
+    bad = _compile(source.replace(carry, dropped), tmp_path,
+                   "ssd_scan_bwd_dropped")
+    args = _operands(1, 24, 2, 1, 8, 8, dtype, False, seed=9)
+    want = ssd.ssd_scan_bwd_plain(*args, chunk=8)
+    _gate(ssd.ssd_scan_bwd(*args, chunk=8), want, 3e-2)
+    monkeypatch.setattr(build, "load", lambda name: (
+        bad if name == "ssd_scan_bwd" else libs[name]))
+    got = ssd.ssd_scan_bwd(*args, chunk=8)
+    assert max(scaled_err(a, b) for a, b in zip(got[:5], want[:5])) > 3e-2
 
 
 def test_ssd_scan_bwd_check_rejects_a_dropped_carry(
         emulated_libs, kernels_on_card, tmp_path, monkeypatch):
+    _rejects_a_dropped_carry(emulated_libs, tmp_path, monkeypatch, BF16)
+
+
+def test_ssd_scan_bwd_fp32_check_rejects_a_dropped_carry(
+        emulated_libs, kernels_on_card, tmp_path, monkeypatch):
+    _rejects_a_dropped_carry(emulated_libs, tmp_path, monkeypatch, F32)
+
+
+# the fp32 leaves' gate against the fp32 plain gradient on bf16-exact
+# inputs: the split products keep ~2^-16 of each derived operand, a bf16
+# operand alone ~2^-9
+LOW_TOL = 2e-4
+LOW_PARTS = ("constexpr int LOW_PARTS = 1;", "constexpr int LOW_PARTS = 0;")
+
+
+def _fp32_leaves_err(args, chunk):
+    got = ssd.ssd_scan_bwd(*args, chunk=chunk)
+    exact = [None if t is None else t.float() for t in args]
+    want = ssd.ssd_scan_bwd_plain(*exact, chunk=chunk)
+    return max(scaled_err(got[i], want[i]) for i in (1, 2, 5)
+               if want[i] is not None)
+
+
+@pytest.mark.parametrize("B,T,H,G,P,N,chunk", [
+    (1, 24, 2, 1, 8, 8, 8),        # three chunks, h0
+    (1, 80, 2, 1, 8, 8, 80),       # two row tiles
+])
+def test_ssd_scan_bwd_low_parts(emulated_libs, kernels_on_card, tmp_path,
+                                monkeypatch, B, T, H, G, P, N, chunk):
+    args = _operands(B, T, H, G, P, N, BF16, True, seed=11 + T)
+    assert _fp32_leaves_err(args, chunk) <= LOW_TOL
     source = (build.CSRC / build.SOURCES["ssd_scan_bwd"]).read_text()
-    assert source.count(CARRY) == 1
-    bad = _compile(source.replace(CARRY, CARRY_DROPPED), tmp_path,
-                   "ssd_scan_bwd_dropped")
-    args = _operands(1, 24, 2, 1, 8, 8, BF16, False, seed=9)
-    want = ssd.ssd_scan_bwd_plain(*args, chunk=8)
-    _gate(ssd.ssd_scan_bwd(*args, chunk=8), want, 3e-2)
+    assert source.count(LOW_PARTS[0]) == 1
+    bad = _compile(source.replace(*LOW_PARTS), tmp_path, "ssd_scan_bwd_hi")
     monkeypatch.setattr(build, "load", lambda name: (
         bad if name == "ssd_scan_bwd" else emulated_libs[name]))
-    got = ssd.ssd_scan_bwd(*args, chunk=8)
-    assert max(scaled_err(a, b) for a, b in zip(got[:5], want[:5])) > 3e-2
+    assert _fp32_leaves_err(args, chunk) > LOW_TOL
 
 
 def test_ssd_chunked_follows_on_card(kernels_on_card, monkeypatch):

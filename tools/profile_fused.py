@@ -74,9 +74,11 @@ def hand_written(src: str) -> set:
 
 def kind(name: str, ours: set) -> str:
     """A profiled kernel's kind: one of ``ours`` (by its name, at the top
-    level or in an anonymous namespace, not a namesake in another namespace
-    such as ``at::native::reduce_kernel``), a cuBLAS product, or PyTorch's."""
-    if any(re.search(rf"(?:^|[^\w:]|\(anonymous namespace\)::){n}\b", name)
+    level, in an anonymous namespace or in a namespace inside one, as the
+    SSD backward's ``hop::``; not a namesake in another namespace such as
+    ``at::native::reduce_kernel``), a cuBLAS product, or PyTorch's."""
+    if any(re.search(rf"(?:^|[^\w:]|\(anonymous namespace\)::(?:\w+::)?)"
+                     rf"{n}\b", name)
            for n in ours):
         return "hand-written"
     if any(k in name.lower() for k in LIBRARY):
